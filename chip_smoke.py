@@ -1,0 +1,329 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (video_features_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with an NVIDIA H100, CUDA
+and nvcc. It imports only video_features_torch, torch, numpy and the
+standard library, and fails (non-zero exit, no result line) on any
+phase that fails, and at once when no CUDA device is present or the
+package is not beside it. Phases:
+
+1. device: the card's name and power limit (nvidia-smi);
+2. build: compile the CUDA kernels from ``video_features_torch/csrc``;
+3. kernels: each correlation-lookup kernel at the main path's shapes
+   (h8=32, w8=43; N from 16 and from 128 frame pairs) against its plain
+   version and against the other kernel (max abs err ≤ 1e-5), with its
+   time, its plain version's time, its memory bound, and the time of
+   ``F.grid_sample`` on the same samples as a yardstick;
+4. slice: ``ExtractI3D.extract_frames`` on 49 seeded 256×340 frames at
+   full width (both I3D towers at 224, stack 16, step 16, RAFT 20
+   iterations, batch 2: 3 windows, one padded tail) once per lookup
+   kernel (the default masked kernel, and ``VFT_RAFT_LOOKUP=pallas``),
+   each with the launch counts reset just before and read just after;
+   output (3, 2048) and finite;
+5. kernel vs plain on the slice: the fused step with the kernel and with
+   its plain version (3 RAFT iterations), rel L2 ≤ 1e-3 per stream.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+KERNEL_ATOL = 1e-5      # fp reassociation of a 4-term blend of O(1) values
+SLICE_REL_L2 = 1e-3     # the BASELINE feature bar, kernel vs plain end to end
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 rate
+FP32_FLOP_PER_S = 67e12     # H100 SXM published fp32 (non-tensor) rate
+H8, W8 = 32, 43             # RAFT's /8 grid at the 256×344 padded geometry
+STACK, FRAMES, FRAME_HW = 16, 49, (256, 340)
+SLICE_BATCH, SLICE_ITERS, CHECK_ITERS = 2, 20, 3
+
+
+def fail(msg: str) -> None:
+    print(f'chip_smoke: FAILED: {msg}', file=sys.stderr)
+    sys.exit(1)
+
+
+def phase(name: str) -> float:
+    print(f'== {name}', flush=True)
+    return time.perf_counter()
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def window_cells(torch, coords, shapes, pad_levels: bool) -> int:
+    """Level cells the lookup must read for these coords: the in-map
+    part of each pixel's 10×10 patch per level (the padded kernel reads
+    the whole patch of its padded level)."""
+    side = 10
+    total = 0
+    for i, (h, w) in enumerate(shapes):
+        if pad_levels:
+            total += coords.shape[0] * side * side
+            continue
+        c = coords / (2.0 ** i)
+        x0 = torch.floor(c[:, 0].clamp(-6.0, w + 5.0)) - 4
+        y0 = torch.floor(c[:, 1].clamp(-6.0, h + 5.0)) - 4
+        cols = ((x0 + side).clamp(max=w) - x0.clamp(min=0)).clamp(min=0)
+        rows = ((y0 + side).clamp(max=h) - y0.clamp(min=0)).clamp(min=0)
+        total += int((cols * rows).sum().item())
+    return total
+
+
+def bound_ms(n: int, cells: int) -> tuple:
+    """(ms, 'bytes' | 'operations'): coords read + patch cells read +
+    (N, 324) written, against 9 flops per output."""
+    nbytes = n * 2 * 4 + cells * 4 + n * 324 * 4
+    flops = n * 324 * 9
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def grid_sample_lookup(torch, F, levels, coords):
+    """The same samples through ``F.grid_sample(align_corners=True,
+    padding_mode='zeros')``: a yardstick, not used by the port."""
+    d = torch.arange(-4, 5, device=coords.device, dtype=torch.float32)
+    grids = []
+    for i, lvl in enumerate(levels):
+        h, w = lvl.shape[1:]
+        c = coords / (2.0 ** i)
+        x = c[:, 0, None, None] + d[None, :, None]        # [n, i(x), j]
+        y = c[:, 1, None, None] + d[None, None, :]        # [n, i, j(y)]
+        x, y = torch.broadcast_tensors(x, y)
+        grids.append(torch.stack([2 * x / (w - 1) - 1, 2 * y / (h - 1) - 1], -1))
+
+    def run():
+        return torch.cat([
+            F.grid_sample(lvl.unsqueeze(1), g, mode='bilinear',
+                          padding_mode='zeros', align_corners=True
+                          ).reshape(lvl.shape[0], 81)
+            for lvl, g in zip(levels, grids)], dim=-1)
+    return run
+
+
+def kernel_phase(torch, F, corr_lookup):
+    """Each kernel vs its plain version and vs the other kernel; times at
+    the 128-pair shape (the main path at batch 8)."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    shapes = [(H8 >> i, W8 >> i) for i in range(4)]
+    rec = {'masked': {'err': 0.0}, 'padded': {'err': 0.0}}
+    for pairs in (16, 128):
+        n = pairs * H8 * W8
+        levels = [torch.randn(n, h, w, device='cuda', generator=gen)
+                  for h, w in shapes]
+        # in-range, fractional and far out-of-range centroids, plus integers
+        xy = torch.rand(pairs, H8, W8, 2, device='cuda', generator=gen)
+        xy = xy * torch.tensor([W8 + 18.0, H8 + 18.0], device='cuda') - 9.0
+        far = torch.rand(pairs, H8, W8, 1, device='cuda', generator=gen) < 0.05
+        xy = torch.where(far, xy * 1000.0, xy)
+        ints = torch.rand(pairs, H8, W8, 1, device='cuda', generator=gen) < 0.05
+        coords = torch.where(ints, torch.round(xy), xy).contiguous()
+        padded = corr_lookup.pad_pyramid(levels)
+
+        masked = corr_lookup.lookup_corr_lanes(levels, coords)
+        unmasked = corr_lookup.lookup_corr(padded, coords)
+        torch.cuda.synchronize()
+        plain_m = corr_lookup.lookup_corr_lanes_plain(levels, coords)
+        plain_p = corr_lookup.lookup_corr_plain(padded, coords)
+        errs = {'masked': (masked - plain_m).abs().max().item(),
+                'padded': (unmasked - plain_p).abs().max().item()}
+        cross = (masked - unmasked).abs().max().item()
+        flat = coords.reshape(-1, 2)
+        lib = grid_sample_lookup(torch, F, levels, flat)
+        lib_err = (lib().reshape(masked.shape) - masked).abs().max().item()
+        print(f'pairs={pairs} N={n}: max abs err masked={errs["masked"]:.3e} '
+              f'padded={errs["padded"]:.3e} masked-vs-padded={cross:.3e} '
+              f'grid_sample-vs-masked={lib_err:.3e}', flush=True)
+        for key, err in errs.items():
+            rec[key]['err'] = max(rec[key]['err'], err)
+        if max(errs.values()) > KERNEL_ATOL or cross > KERNEL_ATOL:
+            fail(f'kernel disagrees with its plain version at N={n}')
+        if pairs != 128:
+            continue
+        reps = 20
+        rec['masked']['ms'] = cuda_ms(
+            torch, lambda: corr_lookup.lookup_corr_lanes(levels, coords), reps)
+        rec['padded']['ms'] = cuda_ms(
+            torch, lambda: corr_lookup.lookup_corr(padded, coords), reps)
+        rec['masked']['plain_ms'] = cuda_ms(
+            torch, lambda: corr_lookup.lookup_corr_lanes_plain(levels, coords), 3)
+        rec['padded']['plain_ms'] = cuda_ms(
+            torch, lambda: corr_lookup.lookup_corr_plain(padded, coords), 3)
+        lib_ms = cuda_ms(torch, lib, 5)
+        for key, pad_levels in (('masked', False), ('padded', True)):
+            cells = window_cells(torch, flat, shapes, pad_levels)
+            rec[key]['bound_ms'], rec[key]['bound_by'] = bound_ms(n, cells)
+            rec[key]['library_ms'] = lib_ms
+        for key in rec:
+            print(f'{key} kernel at N={n}: {rec[key]["ms"]:.4f} ms, plain '
+                  f'{rec[key]["plain_ms"]:.4f} ms, bound {rec[key]["bound_ms"]:.4f} '
+                  f'ms ({rec[key]["bound_by"]}), grid_sample {lib_ms:.4f} ms',
+                  flush=True)
+        del levels, padded, masked, unmasked, plain_m, plain_p
+    torch.cuda.empty_cache()
+    return rec
+
+
+def slice_frames(np):
+    """49 seeded uint8 frames, 256×340×3."""
+    rng = np.random.RandomState(0)
+    return rng.randint(0, 256, (FRAMES, *FRAME_HW, 3)).astype(np.uint8)
+
+
+def slice_phase(torch, np, ex, corr_lookup, lookup_env: str):
+    """Drive extract_frames once to warm up, then once with the counts
+    reset just before and read just after."""
+    os.environ['VFT_RAFT_LOOKUP'] = lookup_env
+    frames = slice_frames(np)
+    # the loader protocol: (frames, times, indices) batches
+    batches = [(list(frames[i:i + 16]), None, None) for i in range(0, FRAMES, 16)]
+    ex.extract_frames(batches)
+    torch.cuda.synchronize()
+    corr_lookup.lookup_corr_lanes.launches = 0
+    corr_lookup.lookup_corr.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feats = ex.extract_frames(batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {'masked': corr_lookup.lookup_corr_lanes.launches,
+              'padded': corr_lookup.lookup_corr.launches}
+    out = ex._maybe_concat_streams(feats)['rgb']
+    windows = (FRAMES - (STACK + 1)) // STACK + 1
+    print(f'VFT_RAFT_LOOKUP={lookup_env}: features {out.shape}, '
+          f'{wall / windows * 1e3:.1f} ms per window (wall, batch '
+          f'{SLICE_BATCH}), launches {counts}, peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+    if out.shape != (windows, 2048) or not np.isfinite(out).all():
+        fail(f'slice output {out.shape} (want ({windows}, 2048)) or not finite')
+    return counts
+
+
+def plain_phase(torch, np, ex, fused_two_stream_step, pad_amounts):
+    """The fused step with the kernel and with its plain version."""
+    frames = slice_frames(np)
+    stacks = np.stack([frames[:STACK + 1], frames[STACK:2 * STACK + 1]])
+    pads = pad_amounts(*FRAME_HW)
+    x = torch.from_numpy(stacks).cuda()
+    with torch.inference_mode():
+        outs = [fused_two_stream_step(ex.params, x, pads, ('rgb', 'flow'),
+                                      raft_iters=CHECK_ITERS, plain_lookup=plain)
+                for plain in (False, True)]
+    for s in ('rgb', 'flow'):
+        k, p = outs[0][s].double(), outs[1][s].double()
+        rel = ((k - p).norm() / p.norm()).item()
+        print(f'{os.environ["VFT_RAFT_LOOKUP"]}: {s} stream kernel vs plain '
+              f'rel L2 {rel:.3e} ({CHECK_ITERS} RAFT iterations)', flush=True)
+        if not rel <= SLICE_REL_L2:
+            fail(f'{s} stream: kernel vs plain rel L2 {rel} > {SLICE_REL_L2}')
+
+
+def main() -> int:
+    if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
+        fail(f'video_features_torch/ not found beside {__file__}: run from '
+             'a checkout of the repository')
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        fail('torch.cuda.is_available() is False: this smoke run needs a GPU')
+
+    t = phase('device')
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f'nvidia-smi failed: {smi.stderr.strip()}')
+    print(smi.stdout.strip().splitlines()[0])
+    kind = torch.cuda.get_device_name(0)
+    print(f'torch {torch.__version__} cuda {torch.version.cuda} device {kind}',
+          flush=True)
+
+    from video_features_torch.extract.i3d import ExtractI3D, fused_two_stream_step
+    from video_features_torch.models.raft import pad_amounts
+    from video_features_torch.ops import _kernels, corr_lookup
+    from video_features_torch.utils.device import set_precision
+    set_precision('highest')
+
+    t = phase('build')
+    path, log = _kernels.build('corr_lookup')
+    for line in log.splitlines():
+        if 'registers' in line or 'spill' in line:
+            print('  ptxas:', line.strip())
+    print(f'built {path.name} in {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('kernels')
+    rec = kernel_phase(torch, F, corr_lookup)
+    print(f'kernels phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('slice')
+    ex = ExtractI3D({
+        'feature_type': 'i3d', 'streams': None, 'flow_type': 'raft',
+        'stack_size': STACK, 'step_size': STACK, 'raft_iters': SLICE_ITERS,
+        'concat_rgb_flow': True, 'batch_size': SLICE_BATCH, 'device': 'cuda',
+        'precision': 'highest', 'allow_random_weights': True,
+        'on_extraction': 'save_numpy', 'output_path': str(ROOT / 'output'),
+    })
+    windows = (FRAMES - (STACK + 1)) // STACK + 1
+    steps = math.ceil(windows / SLICE_BATCH)
+    for key, env in (('masked', 'auto'), ('padded', 'pallas')):
+        counts = slice_phase(torch, np, ex, corr_lookup, env)
+        rec[key]['launches'] = counts[key]
+        if counts[key] != steps * SLICE_ITERS:
+            fail(f'{key} lookup kernel launched {counts[key]} times on the '
+                 f'path, want {steps * SLICE_ITERS} (every RAFT iteration)')
+    print(f'slice phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('kernel vs plain on the slice')
+    for env in ('auto', 'pallas'):
+        os.environ['VFT_RAFT_LOOKUP'] = env
+        plain_phase(torch, np, ex, fused_two_stream_step, pad_amounts)
+    print(f'plain phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    kernels = []
+    for key, name, replaces in (
+            ('masked', 'corr_lookup_masked',
+             'video_features_tpu/ops/pallas_corr.py:318'),
+            ('padded', 'corr_lookup_padded',
+             'video_features_tpu/ops/pallas_corr.py:162')):
+        r = rec[key]
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'video_features_torch/csrc/corr_lookup.cu',
+            'replaces': replaces, 'launches': r['launches'],
+            'max_abs_err': r['err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
+            'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
+            'library_ms': r['library_ms']})
+    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

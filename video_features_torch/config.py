@@ -1,0 +1,113 @@
+"""Configuration: YAML defaults ← dotlist CLI overrides, then
+``sanity_check`` (the i3d subset of ``video_features_tpu/config.py``).
+
+``yaml`` is imported inside the functions that parse, so the package
+imports on machines without it.
+"""
+from __future__ import annotations
+
+import os
+import random
+import warnings
+from pathlib import Path
+from typing import Any, Dict, Iterable, List, Optional, Union
+
+from video_features_torch.registry import EXTRACTORS
+
+CONFIG_DIR = Path(__file__).parent / 'configs'
+
+
+def _parse_value(raw: str) -> Any:
+    """One CLI value with YAML scalar/list semantics: ``null`` → None,
+    ``true`` → bool, ``3`` → int, ``[a,b]`` → list, else str."""
+    import yaml
+    try:
+        return yaml.safe_load(raw)
+    except yaml.YAMLError:
+        return raw
+
+
+def parse_dotlist(dotlist: Iterable[str]) -> Dict[str, Any]:
+    """``['key=value', ...]`` → a dict."""
+    cfg = {}
+    for item in dotlist:
+        if '=' not in item:
+            raise ValueError(f'Malformed CLI argument (expected key=value): {item!r}')
+        key, _, raw = item.partition('=')
+        cfg[key.strip()] = _parse_value(raw)
+    return cfg
+
+
+def load_config(feature_type: Optional[str] = None,
+                overrides: Optional[Dict[str, Any]] = None,
+                run_sanity_check: bool = True) -> Dict[str, Any]:
+    """YAML defaults ← overrides (overrides win), then :func:`sanity_check`."""
+    import yaml
+    overrides = dict(overrides or {})
+    feature_type = feature_type or overrides.get('feature_type')
+    if feature_type is None:
+        raise ValueError('feature_type must be given (CLI: feature_type=<name>)')
+    path = CONFIG_DIR / f'{feature_type}.yml'
+    if not path.exists():
+        raise NotImplementedError(
+            f'Extractor {feature_type!r} is not ported yet. '
+            f'Known: {", ".join(EXTRACTORS)}')
+    with open(path) as f:
+        args = dict(yaml.safe_load(f) or {})
+    args.update(overrides)
+    if run_sanity_check:
+        sanity_check(args)
+    return args
+
+
+def form_list_from_user_input(
+    video_paths: Union[str, List[str], None] = None,
+    file_with_video_paths: Optional[str] = None,
+    to_shuffle: bool = True,
+) -> List[str]:
+    """Paths from the config: a path or list, or a file with one path per
+    line. Shuffling spreads independent workers over the list."""
+    if file_with_video_paths is not None:
+        with open(file_with_video_paths) as f:
+            path_list = [line.strip() for line in f if line.strip()]
+    elif video_paths is None:
+        path_list = []
+    elif isinstance(video_paths, str):
+        path_list = [video_paths]
+    else:
+        path_list = [str(p) for p in video_paths]
+    for path in path_list:
+        if not Path(path).exists():
+            warnings.warn(f'path does not exist: {path}')
+    if to_shuffle:
+        random.shuffle(path_list)
+    return path_list
+
+
+def sanity_check(args: Dict[str, Any]) -> None:
+    """Validate the merged config and append ``<feature_type>`` to the
+    output path. The device is resolved here, so a run that asks for a
+    GPU on a machine without one fails before any work."""
+    from video_features_torch.utils.device import PRECISIONS, resolve_device
+    resolve_device(args.get('device', 'cuda'))
+    prec = args.get('precision', 'highest')
+    if prec not in PRECISIONS:
+        raise ValueError(f'precision must be one of {PRECISIONS}; got {prec!r}')
+    if not (args.get('file_with_video_paths') or args.get('video_paths')):
+        raise ValueError('`video_paths` or `file_with_video_paths` must be specified')
+    stems = [Path(p).stem for p in form_list_from_user_input(
+        args.get('video_paths'), args.get('file_with_video_paths'),
+        to_shuffle=False)]
+    if len(stems) != len(set(stems)):
+        raise ValueError('Non-unique video filenames (stems collide in the '
+                         'flat output dir)')
+    ft = args.get('feature_type')
+    if ft == 'i3d' and args.get('stack_size') is not None \
+            and args['stack_size'] < 10:
+        raise ValueError('I3D does not support inputs shorter than 10 '
+                         f'timestamps. You have: {args["stack_size"]}')
+    if args.get('flow_type', 'raft') != 'raft':
+        raise NotImplementedError('only flow_type=raft is supported')
+    if 'batch_size' in args and args['batch_size'] is None:
+        raise ValueError('Please specify `batch_size`')
+    args['output_path'] = os.path.join(str(args['output_path']), ft)

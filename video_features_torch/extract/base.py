@@ -1,0 +1,147 @@
+"""BaseExtractor: per-video orchestration, fault isolation, idempotent
+output (a slim port of ``video_features_tpu/extract/base.py``).
+
+  * ``_extract`` = skip-if-exists → ``extract()`` → optional rgb||flow
+    concat → ``action_on_extraction``; any exception is isolated per
+    video (KeyboardInterrupt re-raised), reported on stderr with
+    "Continuing...", so one bad file never kills the worklist;
+  * ``action_on_extraction`` prints (with max/mean/min) or saves
+    numpy/pickle atomically, and writes the run-fingerprint sidecar;
+  * ``is_already_exist`` requires every output file present *and
+    loadable*, and a recorded fingerprint equal to this run's.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+import traceback
+import warnings
+from pathlib import Path
+from typing import Any, Dict, Iterable, List, Union
+
+import numpy as np
+
+from video_features_torch.utils.device import resolve_device, set_precision
+from video_features_torch.utils.output import (
+    ACTION_TO_EXT, ACTION_TO_LOAD, ACTION_TO_SAVE, CorruptOutputError,
+    make_path, read_fingerprint, write_fingerprint,
+)
+
+ACTIONS = ('print',) + tuple(ACTION_TO_EXT)
+
+
+def run_fingerprint(args: Any, keys: Iterable[str]) -> str:
+    """sha256 of the config values that shape a run's features."""
+    blob = json.dumps({k: args.get(k) for k in sorted(keys)},
+                      sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode('utf-8')).hexdigest()
+
+
+class BaseExtractor:
+    """Common per-video orchestration inherited by every extractor."""
+
+    output_feat_keys: List[str] = []
+
+    def __init__(self, feature_type: str, on_extraction: str,
+                 output_path: str, device: str,
+                 concat_rgb_flow: bool = False,
+                 precision: str = 'highest') -> None:
+        if on_extraction not in ACTIONS:
+            raise ValueError(f'on_extraction must be one of {ACTIONS}; got '
+                             f'{on_extraction!r}')
+        self.feature_type = feature_type
+        self.on_extraction = on_extraction
+        self.output_path = output_path
+        self.device = resolve_device(device)
+        set_precision(precision)
+        self.concat_rgb_flow = concat_rgb_flow
+        self.run_fingerprint = None
+
+    def _extract(self, video_path: str) -> None:
+        """Fault-isolating wrapper around :meth:`extract` for the work loop."""
+        try:
+            if self.is_already_exist(video_path):
+                return
+            feats_dict = self._maybe_concat_streams(self.extract(video_path))
+            self.action_on_extraction(feats_dict, video_path)
+        except KeyboardInterrupt:
+            raise
+        except Exception:
+            traceback.print_exc()
+            print(f'An error occurred during extraction of {video_path}. '
+                  'Continuing...', file=sys.stderr)
+
+    def extract(self, video_path: str) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def _maybe_concat_streams(self, feats_dict: Dict[str, np.ndarray]
+                              ) -> Dict[str, np.ndarray]:
+        """rgb||flow → one (T, 2C) array under 'rgb' when configured."""
+        if self.concat_rgb_flow and 'rgb' in feats_dict and 'flow' in feats_dict:
+            feats_dict = dict(feats_dict)
+            flow = feats_dict.pop('flow')
+            feats_dict['rgb'] = np.concatenate((feats_dict['rgb'], flow), axis=1)
+        return feats_dict
+
+    def action_on_extraction(self, feats_dict: Dict[str, np.ndarray],
+                             video_path: str) -> None:
+        if self.on_extraction in ACTION_TO_EXT and \
+                self.is_already_exist(video_path):
+            # a concurrent worker finished this video while we extracted it
+            warnings.warn('extraction didnt find feature files on the 1st '
+                          f'try but did on the 2nd try: {video_path}')
+            return
+        for key, value in feats_dict.items():
+            if self.on_extraction == 'print':
+                print(key)
+                print(value)
+                print(f'max: {value.max():.8f}; mean: {value.mean():.8f}; '
+                      f'min: {value.min():.8f}')
+                print()
+                continue
+            os.makedirs(self.output_path, exist_ok=True)
+            fpath = make_path(self.output_path, video_path, key,
+                              ACTION_TO_EXT[self.on_extraction])
+            if len(value) == 0:
+                warnings.warn(f'the value is empty for {key} @ {fpath}')
+            ACTION_TO_SAVE[self.on_extraction](fpath, value)
+        if self.on_extraction in ACTION_TO_EXT \
+                and self.run_fingerprint is not None:
+            write_fingerprint(self.output_path, video_path,
+                              self.run_fingerprint)
+
+    def is_already_exist(self, video_path: Union[str, Path]) -> bool:
+        """True iff every output file exists and loads cleanly, and no
+        sidecar says a different config produced them."""
+        if self.on_extraction not in ACTION_TO_EXT:
+            return False
+        for key in self._saved_feat_keys():
+            fpath = make_path(self.output_path, video_path, key,
+                              ACTION_TO_EXT[self.on_extraction])
+            if not Path(fpath).exists():
+                return False
+            try:
+                ACTION_TO_LOAD[self.on_extraction](fpath)
+            except CorruptOutputError as e:
+                warnings.warn(f'existing output failed to load; '
+                              f're-extracting ({e})')
+                return False
+        recorded = read_fingerprint(self.output_path, video_path)
+        if recorded is not None and self.run_fingerprint is not None \
+                and recorded != self.run_fingerprint:
+            warnings.warn(f'Existing outputs for {video_path} were produced '
+                          'under a different config/checkpoint — '
+                          're-extracting instead of reusing them')
+            return False
+        print(f'Features for {video_path} already exist in '
+              f'{Path(self.output_path).absolute()}/ - skipping..')
+        return True
+
+    def _saved_feat_keys(self) -> List[str]:
+        """Keys that reach disk: the concat folds 'flow' into 'rgb'."""
+        keys = list(self.output_feat_keys)
+        if self.concat_rgb_flow and 'rgb' in keys and 'flow' in keys:
+            keys.remove('flow')
+        return keys

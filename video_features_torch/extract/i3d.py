@@ -1,0 +1,159 @@
+"""I3D two-stream extractor — the fused RAFT→I3D path (port of
+``video_features_tpu/extract/i3d.py``).
+
+  * frames are host-resized to short side 256 (PIL) and windowed into
+    stacks of ``stack_size + 1`` frames: S+1 frames give S flow pairs,
+    and the rgb stream takes the first S frames so both streams have the
+    same length;
+  * flow stream: RAFT on /8 edge-padded consecutive pairs; the center
+    crop is taken from the PADDED flow, as the reference does; then
+    clamp ±20 → uint8 levels → ±1;
+  * rgb stream: crop 224 → 2x/255 - 1;
+  * ``step_size`` < ``stack_size`` overlaps windows; a partial final
+    stack is dropped; ``batch_size`` windows run per step, the tail
+    batch padded and masked.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Dict, Iterable, List, Sequence
+
+import numpy as np
+import torch
+
+from video_features_torch.extract.base import BaseExtractor, run_fingerprint
+from video_features_torch.extract.streaming import (
+    iter_batched_windows, stream_windows,
+)
+from video_features_torch.models import i3d as i3d_model
+from video_features_torch.models import raft as raft_model
+from video_features_torch.ops.transforms import (
+    center_crop, flow_to_uint8_levels, scale_to_pm1,
+)
+from video_features_torch.transplant import to_device
+
+MIN_SIDE_SIZE = 256
+CROP_SIZE = 224
+
+# config values that shape the features (the resume fingerprint)
+FINGERPRINT_KEYS = ('feature_type', 'streams', 'flow_type', 'stack_size',
+                    'step_size', 'raft_iters', 'extraction_fps',
+                    'concat_rgb_flow', 'precision', 'i3d_rgb_checkpoint_path',
+                    'i3d_flow_checkpoint_path', 'raft_checkpoint_path')
+
+
+def rgb_stream_input(stacks: torch.Tensor, crop_size: int) -> torch.Tensor:
+    """(B, S+1, H, W, 3) frames → rgb I3D input: first S frames, center
+    crop, 2x/255 - 1."""
+    return scale_to_pm1(center_crop(stacks[:, :-1], crop_size))
+
+
+def flow_stream_input(raft_params, stacks: torch.Tensor, pads, crop_size: int,
+                      raft_iters: int = raft_model.ITERS,
+                      plain_lookup: bool = False) -> torch.Tensor:
+    """(B, S+1, H, W, 3) frames → quantized flow I3D input (B, S, c, c, 2)."""
+    padded = raft_model.edge_pad(stacks, pads, h_axis=2)
+    flow = raft_model.forward_stack_pairs(raft_params, padded,
+                                          iters=raft_iters,
+                                          plain_lookup=plain_lookup)
+    flow = center_crop(flow, crop_size)
+    return scale_to_pm1(flow_to_uint8_levels(flow, 20.0))
+
+
+def fused_two_stream_step(params, stacks: torch.Tensor, pads,
+                          streams: Sequence[str], crop_size: int = CROP_SIZE,
+                          raft_iters: int = raft_model.ITERS,
+                          plain_lookup: bool = False) -> Dict[str, torch.Tensor]:
+    """(B, stack+1, H, W, 3) frames → {stream: (B, 1024)}: RAFT flow,
+    quantization and both I3D towers. ``plain_lookup`` runs RAFT's lookup
+    through its plain version instead of the kernel (a test seam)."""
+    out = {}
+    if 'rgb' in streams:
+        out['rgb'] = i3d_model.forward(params['rgb'],
+                                       rgb_stream_input(stacks, crop_size))
+    if 'flow' in streams:
+        flow = flow_stream_input(params['raft'], stacks, pads, crop_size,
+                                 raft_iters=raft_iters,
+                                 plain_lookup=plain_lookup)
+        out['flow'] = i3d_model.forward(params['flow'], flow)
+    return out
+
+
+class ExtractI3D(BaseExtractor):
+
+    def __init__(self, args) -> None:
+        super().__init__(
+            feature_type=args['feature_type'],
+            on_extraction=args['on_extraction'],
+            output_path=args['output_path'],
+            device=args.get('device', 'cuda'),
+            concat_rgb_flow=args.get('concat_rgb_flow', False),
+            precision=args.get('precision', 'highest'),
+        )
+        streams = args.get('streams')
+        self.streams: List[str] = ['rgb', 'flow'] if streams is None else [streams]
+        for s in self.streams:
+            if s not in ('rgb', 'flow'):
+                raise ValueError(f"unknown stream {s!r}: use 'rgb' or 'flow'")
+        if args.get('flow_type', 'raft') != 'raft':
+            raise NotImplementedError('only flow_type=raft is supported')
+        stack, step = args.get('stack_size'), args.get('step_size')
+        self.stack_size = 64 if stack is None else int(stack)
+        self.step_size = 64 if step is None else int(step)
+        self.raft_iters = raft_model.resolve_iters(args.get('raft_iters'))
+        self.extraction_fps = args.get('extraction_fps')
+        self.batch_size = int(args.get('batch_size', 1))
+        self.output_feat_keys = list(self.streams)
+        self.params = to_device(self.load_params(args), self.device)
+        self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS)
+
+    def load_params(self, args):
+        """{'rgb': i3d params, 'flow': i3d params, 'raft': raft params}."""
+        from video_features_torch.extract.weights import load_or_init
+        params = {}
+        if 'rgb' in self.streams:
+            params['rgb'] = load_or_init(
+                args, 'i3d_rgb_checkpoint_path',
+                partial(i3d_model.init_state_dict, modality='rgb'),
+                feature_type='i3d', what='i3d rgb stream')
+        if 'flow' in self.streams:
+            params['flow'] = load_or_init(
+                args, 'i3d_flow_checkpoint_path',
+                partial(i3d_model.init_state_dict, modality='flow'),
+                feature_type='i3d', what='i3d flow stream')
+            params['raft'] = load_or_init(
+                args, 'raft_checkpoint_path', raft_model.init_state_dict,
+                feature_type='i3d', what='i3d flow stream (raft)')
+        return params
+
+    def extract(self, video_path: str) -> Dict[str, np.ndarray]:
+        """Decode (cv2), resize to short side 256 (PIL), then
+        :meth:`extract_frames`."""
+        from video_features_torch.io.video import VideoLoader
+        from video_features_torch.ops.host_transforms import resize_pil
+        loader = VideoLoader(video_path, batch_size=64, fps=self.extraction_fps,
+                             transform=lambda f: resize_pil(f, MIN_SIDE_SIZE))
+        return self.extract_frames(loader)
+
+    def extract_frames(self, batches: Iterable) -> Dict[str, np.ndarray]:
+        """Frame batches ``(frames, times, indices)`` (the loader protocol;
+        only ``frames``, a sequence of HWC uint8 frames, is read) →
+        ``{stream: (T, 1024)}``."""
+        feats: Dict[str, list] = {s: [] for s in self.streams}
+        windows = stream_windows(batches, self.stack_size + 1, self.step_size)
+        for stacks, valid, _ in iter_batched_windows(windows, self.batch_size):
+            out = self.step(stacks)
+            for s in self.streams:
+                feats[s].append(out[s][:valid])
+        return {s: (np.concatenate(v, axis=0) if v
+                    else np.zeros((0, i3d_model.FEAT_DIM), np.float32))
+                for s, v in feats.items()}
+
+    def step(self, stacks: np.ndarray) -> Dict[str, np.ndarray]:
+        """One (batch, S+1, H, W, 3) uint8 stack batch → {stream: (batch, 1024)}."""
+        pads = raft_model.pad_amounts(stacks.shape[2], stacks.shape[3])
+        x = torch.from_numpy(stacks).to(self.device)
+        with torch.inference_mode():
+            out = fused_two_stream_step(self.params, x, pads, self.streams,
+                                        raft_iters=self.raft_iters)
+        return {s: v.cpu().numpy() for s, v in out.items()}

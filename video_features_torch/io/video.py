@@ -1,0 +1,123 @@
+"""Video decode and batching (port of the cv2 path of
+``video_features_tpu/io/video.py``).
+
+Iteration yields ``(batch, times_ms, indices)`` tuples with
+``timestamp_ms = index / fps * 1000``; the last batch may be short.
+``fps`` retimes by index resampling (ffmpeg's ``fps=`` filter with
+'near' rounding). cv2 is imported inside the functions that use it, so
+the package imports on machines without it.
+"""
+from __future__ import annotations
+
+import os
+import sys
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
+
+import numpy as np
+
+
+def get_video_props(path: Union[str, os.PathLike]) -> Dict[str, float]:
+    """fps / num_frames via cv2."""
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    try:
+        return dict(fps=cap.get(cv2.CAP_PROP_FPS),
+                    num_frames=int(cap.get(cv2.CAP_PROP_FRAME_COUNT)))
+    finally:
+        cap.release()
+
+
+def resample_frame_indices(num_src_frames: int, src_fps: float,
+                           target_fps: float) -> np.ndarray:
+    """Source-frame index per output slot when retiming to ``target_fps``:
+    slot k sits at time k/target_fps and takes the nearest source frame."""
+    if num_src_frames <= 0:
+        return np.zeros((0,), dtype=np.int64)
+    duration = num_src_frames / src_fps
+    num_out = max(int(round(duration * target_fps)), 1)
+    k = np.arange(num_out)
+    src_idx = np.round(k * src_fps / target_fps).astype(np.int64)
+    return np.clip(src_idx, 0, num_src_frames - 1)
+
+
+def decode_rgb_frames(path: str) -> Iterator[np.ndarray]:
+    """HWC uint8 RGB frames via cv2.VideoCapture. When frame 0 fails to
+    decode (a cv2 quirk) decoding continues from the next readable
+    frame."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        ok, _ = cap.read()
+        if ok:                       # frame 0 decodes: restart from it
+            cap.release()
+            cap = cv2.VideoCapture(path)
+        else:
+            print(f'WARNING: first frame of {path} failed to decode; '
+                  'continuing from the next readable frame', file=sys.stderr)
+        while True:
+            ok, bgr = cap.read()
+            if not ok:
+                return
+            yield cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+    finally:
+        cap.release()
+
+
+class VideoLoader:
+    """Batched streaming frame iterator.
+
+    Args:
+        path: video file path.
+        batch_size: frames per yielded batch.
+        fps: retime to this frame rate (None keeps the source's).
+        transform: per-frame callable (HWC uint8 RGB → frame).
+    """
+
+    def __init__(self, path: Union[str, os.PathLike], batch_size: int = 1,
+                 fps: Optional[float] = None,
+                 transform: Optional[Callable] = None):
+        if batch_size < 1:
+            raise ValueError(f'batch_size must be >= 1; got {batch_size}')
+        self.path = str(path)
+        if not os.path.isfile(self.path):
+            raise FileNotFoundError(f'video does not exist: {self.path}')
+        props = get_video_props(self.path)
+        self.batch_size = batch_size
+        self.transform = transform
+        self._index_map: Optional[np.ndarray] = None
+        if fps is None:
+            self.fps = props['fps']
+        else:
+            self.fps = fps
+            self._index_map = resample_frame_indices(
+                props['num_frames'], props['fps'], fps)
+
+    def _retimed_frames(self) -> Iterator[np.ndarray]:
+        frames = decode_rgb_frames(self.path)
+        if self._index_map is None:
+            yield from frames
+            return
+        pos, n = 0, len(self._index_map)
+        for src_idx, frame in enumerate(frames):
+            while pos < n and self._index_map[pos] == src_idx:
+                yield frame
+                pos += 1
+            if pos >= n:
+                return
+
+    def __iter__(self) -> Iterator[Tuple[List[np.ndarray], List[float], List[int]]]:
+        batch: List[np.ndarray] = []
+        times: List[float] = []
+        indices: List[int] = []
+        for idx, frame in enumerate(self._retimed_frames()):
+            batch.append(frame if self.transform is None
+                         else self.transform(frame))
+            times.append(idx / self.fps * 1000)
+            indices.append(idx)
+            if len(batch) == self.batch_size:
+                yield batch, times, indices
+                batch, times, indices = [], [], []
+        if batch:
+            yield batch, times, indices

@@ -1,0 +1,19 @@
+"""Extractor registry with lazy imports (i3d only so far)."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Tuple
+
+EXTRACTORS: Dict[str, Tuple[str, str]] = {
+    'i3d': ('video_features_torch.extract.i3d', 'ExtractI3D'),
+}
+
+
+def create_extractor(args):
+    feature_type = args['feature_type']
+    try:
+        module_name, class_name = EXTRACTORS[feature_type]
+    except KeyError:
+        raise NotImplementedError(f'Extractor {feature_type!r} is not ported '
+                                  f'yet. Known: {", ".join(EXTRACTORS)}')
+    return getattr(importlib.import_module(module_name), class_name)(args)

@@ -1,0 +1,89 @@
+"""Weights into the port's parameter trees.
+
+The port's params are nested dicts of float32 torch tensors whose keys
+split the torch state_dict names on '.' and whose weights keep torch's
+layout: conv (O, I, *spatial), linear (O, I).
+
+* :func:`params_from_torch` takes a torch state_dict: it strips
+  DataParallel ``module.`` prefixes and drops ``num_batches_tracked``.
+* :func:`params_from_jax` takes the JAX package's nested numpy params
+  (conv ``(*spatial, I, O)``, linear ``(I, O)``) and transposes them
+  back, so both packages can compute with identical numbers.
+* :func:`load_checkpoint` reads a ``.pt``/``.pth`` state_dict, or a
+  ``.npz`` archive in the JAX package's transplanted layout.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+Params = Dict[str, Any]
+
+
+def nest(flat: Mapping[str, Any]) -> Params:
+    """{'a.b.c': x} → {'a': {'b': {'c': x}}}."""
+    tree: Params = {}
+    for key, value in flat.items():
+        node = tree
+        parts = key.split('.')
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def _tensor(value: Any) -> torch.Tensor:
+    t = value.detach().cpu() if isinstance(value, torch.Tensor) \
+        else torch.from_numpy(np.array(value))
+    return t.to(torch.float32) if t.is_floating_point() else t
+
+
+def params_from_torch(state_dict: Mapping[str, Any]) -> Params:
+    """torch state_dict (tensors or numpy arrays) → the port's params."""
+    flat = {}
+    for name, value in state_dict.items():
+        if name.endswith('num_batches_tracked'):
+            continue
+        if name.startswith('module.'):
+            name = name[len('module.'):]
+        flat[name] = _tensor(value)
+    return nest(flat)
+
+
+def _from_jax_leaf(name: str, arr: np.ndarray) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if name == 'weight':
+        if arr.ndim >= 3:            # (*spatial, I, O) → (O, I, *spatial)
+            axes = (arr.ndim - 1, arr.ndim - 2) + tuple(range(arr.ndim - 2))
+            arr = arr.transpose(axes)
+        elif arr.ndim == 2:          # (I, O) → (O, I)
+            arr = arr.T
+    return _tensor(np.ascontiguousarray(arr))
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> Params:
+    """The JAX package's nested params → the port's params."""
+    return {k: (params_from_jax(v) if isinstance(v, Mapping)
+                else _from_jax_leaf(k, v))
+            for k, v in tree.items()}
+
+
+def load_checkpoint(path: str) -> Params:
+    """``.npz`` (JAX transplanted layout, dot-joined keys) or a torch
+    ``.pt``/``.pth`` state_dict (optionally under a 'state_dict' key)."""
+    if str(path).endswith('.npz'):
+        with np.load(path) as data:
+            return params_from_jax(nest({k: data[k] for k in data.files}))
+    ckpt = torch.load(path, map_location='cpu')
+    if isinstance(ckpt, dict) and 'state_dict' in ckpt:
+        ckpt = ckpt['state_dict']
+    return params_from_torch(ckpt)
+
+
+def to_device(tree: Mapping[str, Any], device) -> Params:
+    """Move every tensor of a params tree to ``device``."""
+    return {k: (to_device(v, device) if isinstance(v, Mapping)
+                else v.to(device))
+            for k, v in tree.items()}
