@@ -10,22 +10,38 @@ phase that fails, and at once when no CUDA device is present or the
 package is not beside it. Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile the CUDA kernels from ``video_features_torch/csrc``;
+2. build: compile the CUDA kernels from ``video_features_torch/csrc``,
+   one nvcc per source, all started together, with ptxas's register and
+   spill lines;
 3. kernels: each correlation-lookup kernel at the main path's shapes
    (h8=32, w8=43; N from 16 and from 128 frame pairs) against its plain
    version and against the other kernel (max abs err ≤ 1e-5), with its
    time, its plain version's time, its memory bound, and the time of
-   ``F.grid_sample`` on the same samples as a yardstick;
-4. slice: ``ExtractI3D.extract_frames`` on 49 seeded 256×340 frames at
-   full width (both I3D towers at 224, stack 16, step 16, RAFT 20
-   iterations, batch 2: 3 windows, one padded tail) once per lookup
-   kernel (the default masked kernel, and ``VFT_RAFT_LOOKUP=pallas``),
-   each with the launch counts reset just before and read just after;
-   output (3, 2048) and finite;
-5. kernel vs plain on the slice: the fused step with the kernel and with
-   its plain version (3 RAFT iterations), rel L2 ≤ 1e-3 per stream.
+   ``F.grid_sample`` on the same samples as a yardstick; the GRU
+   direction kernel, both axes, at (128, 32, 43) (the fused I3D path at
+   batch 8), (8, 32, 43) (the RAFT family at batch 8) and a ragged
+   (3, 13, 9), against its plain version (max abs err ≤ 1e-5), with its
+   time, its plain version's time (two cuDNN convs, which is also the
+   library yardstick) and its operations bound at the two full shapes;
+4. slice (I3D): ``ExtractI3D.extract_frames`` on 49 seeded 256×340
+   frames at full width (both I3D towers at 224, stack 16, step 16,
+   RAFT 20 iterations, batch 2: 3 windows, one padded tail) once per
+   lookup kernel (the default masked kernel, and
+   ``VFT_RAFT_LOOKUP=pallas``), each with the launch counts reset just
+   before and read just after; output (3, 2048) and finite, a lookup
+   launch per RAFT iteration and two GRU launches;
+5. slice (RAFT family): ``ExtractRAFT.extract_frames`` on 33 seeded
+   250×333 frames fed through the overlap batching (batch 8: 4 steps of
+   8 pairs, padded to 256×336, RAFT 20 iterations), counts reset just
+   before and read just after; output (32, 2, 250, 333), finite, 33
+   timestamps, 80 lookup and 160 GRU launches;
+6. kernel vs plain on the slices: the fused I3D step and a RAFT-family
+   step with the kernels and with their plain versions (3 RAFT
+   iterations), rel L2 ≤ 1e-3 per I3D stream and on the flow; then the
+   fused step at batch 8 (20 iterations) timed both ways, in turns.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (``launches``: the
+sum over the path runs of phases 4 and 5); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -36,6 +52,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -46,6 +63,12 @@ FP32_FLOP_PER_S = 67e12     # H100 SXM published fp32 (non-tensor) rate
 H8, W8 = 32, 43             # RAFT's /8 grid at the 256×344 padded geometry
 STACK, FRAMES, FRAME_HW = 16, 49, (256, 340)
 SLICE_BATCH, SLICE_ITERS, CHECK_ITERS = 2, 20, 3
+# the GRU direction's pixel grids: the fused I3D path at batch 8 (128
+# pairs), the RAFT family at batch 8, and a ragged one
+GRU_SHAPES = ((128, H8, W8), (8, H8, W8), (3, 13, 9))
+# the RAFT family slice: 33 frames → 4 steps of 8 pairs, padded to 256×336
+RAFT_FRAMES, RAFT_HW, RAFT_BATCH, RAFT_FPS = 33, (250, 333), 8, 25.0
+KERNELS = ('corr_lookup', 'gru_direction')
 
 
 def fail(msg: str) -> None:
@@ -187,13 +210,87 @@ def kernel_phase(torch, F, corr_lookup):
     return rec
 
 
+def gru_bound_ms(m: int) -> tuple:
+    """(ms, 'bytes' | 'operations') for one GRU direction over m pixels:
+    h, motion, zr_term, q_term and the weights read once, the new h
+    written once, against 2·5·256·384 flops per pixel."""
+    nbytes = m * (128 + 128 + 256 + 128 + 128) * 4 + 5 * 256 * 384 * 4
+    flops = 2 * m * 5 * 256 * 384
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def gru_phase(torch, gru):
+    """The GRU direction kernel vs its plain version, both axes, at
+    GRU_SHAPES; times at the two full shapes. The plain version is two
+    cuDNN convs plus elementwise ops (TF32 off), the library yardstick."""
+    gen = torch.Generator(device='cuda').manual_seed(1)
+
+    def randn(*s):
+        return torch.randn(*s, device='cuda', generator=gen)
+    rec = {'err': 0.0, 'at': {}}
+    for shape in GRU_SHAPES:
+        x = (torch.tanh(randn(*shape, 128)), randn(*shape, 128),
+             0.05 * randn(5, 256, 256), 0.05 * randn(5, 256, 128),
+             0.1 * randn(*shape, 256), 0.1 * randn(*shape, 128))
+        for axis in gru.AXES:
+            got = gru.gru_direction(*x, axis)
+            torch.cuda.synchronize()
+            err = (got - gru.gru_direction_plain(*x, axis)).abs().max().item()
+            line = f'gru {shape} axis {axis}: max abs err {err:.3e}'
+            if shape == GRU_SHAPES[1]:
+                # who carries the error: both sides against a float64 plain
+                ref = gru.gru_direction_plain(*[t.double() for t in x], axis)
+                plain = gru.gru_direction_plain(*x, axis)
+                line += (f' (vs float64: kernel '
+                         f'{(got - ref).abs().max().item():.3e}, plain '
+                         f'{(plain - ref).abs().max().item():.3e})')
+            print(line, flush=True)
+            rec['err'] = max(rec['err'], err)
+            if err > KERNEL_ATOL:
+                fail(f'GRU kernel disagrees with its plain version at '
+                     f'{shape} axis {axis}: {err}')
+            if shape == GRU_SHAPES[2]:
+                continue
+            m = shape[0] * shape[1] * shape[2]
+            ms = cuda_ms(torch, lambda: gru.gru_direction(*x, axis), 10)
+            plain_ms = cuda_ms(torch, lambda: gru.gru_direction_plain(*x, axis), 5)
+            bound, by = gru_bound_ms(m)
+            rec['at'][(shape, axis)] = (ms, plain_ms, bound, by)
+            print(f'gru {shape} axis {axis} (M={m}): {ms:.4f} ms, plain (cuDNN) '
+                  f'{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), '
+                  f'{bound / ms:.1%} of the bound', flush=True)
+        del x
+    torch.cuda.empty_cache()
+    # the record: the fused I3D path's batch-8 shape, mean of the two axes
+    at = [rec['at'][(GRU_SHAPES[0], a)] for a in gru.AXES]
+    rec['ms'] = sum(a[0] for a in at) / len(at)
+    rec['plain_ms'] = sum(a[1] for a in at) / len(at)
+    rec['library_ms'] = rec['plain_ms']
+    rec['bound_ms'], rec['bound_by'] = at[0][2], at[0][3]
+    return rec
+
+
 def slice_frames(np):
     """49 seeded uint8 frames, 256×340×3."""
     rng = np.random.RandomState(0)
     return rng.randint(0, 256, (FRAMES, *FRAME_HW, 3)).astype(np.uint8)
 
 
-def slice_phase(torch, np, ex, corr_lookup, lookup_env: str):
+def reset_counts(corr_lookup, gru) -> None:
+    corr_lookup.lookup_corr_lanes.launches = 0
+    corr_lookup.lookup_corr.launches = 0
+    gru.gru_direction.launches = 0
+
+
+def read_counts(corr_lookup, gru) -> dict:
+    return {'masked': corr_lookup.lookup_corr_lanes.launches,
+            'padded': corr_lookup.lookup_corr.launches,
+            'gru': gru.gru_direction.launches}
+
+
+def slice_phase(torch, np, ex, corr_lookup, gru, lookup_env: str):
     """Drive extract_frames once to warm up, then once with the counts
     reset just before and read just after."""
     os.environ['VFT_RAFT_LOOKUP'] = lookup_env
@@ -202,15 +299,13 @@ def slice_phase(torch, np, ex, corr_lookup, lookup_env: str):
     batches = [(list(frames[i:i + 16]), None, None) for i in range(0, FRAMES, 16)]
     ex.extract_frames(batches)
     torch.cuda.synchronize()
-    corr_lookup.lookup_corr_lanes.launches = 0
-    corr_lookup.lookup_corr.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    reset_counts(corr_lookup, gru)
     t0 = time.perf_counter()
     feats = ex.extract_frames(batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {'masked': corr_lookup.lookup_corr_lanes.launches,
-              'padded': corr_lookup.lookup_corr.launches}
+    counts = read_counts(corr_lookup, gru)
     out = ex._maybe_concat_streams(feats)['rgb']
     windows = (FRAMES - (STACK + 1)) // STACK + 1
     print(f'VFT_RAFT_LOOKUP={lookup_env}: features {out.shape}, '
@@ -222,23 +317,106 @@ def slice_phase(torch, np, ex, corr_lookup, lookup_env: str):
     return counts
 
 
+def raft_frames(np):
+    """33 seeded uint8 frames, 250×333×3."""
+    rng = np.random.RandomState(1)
+    return rng.randint(0, 256, (RAFT_FRAMES, *RAFT_HW, 3)).astype(np.uint8)
+
+
+def raft_slice_phase(torch, np, ex, batch_frames, corr_lookup, gru):
+    """ExtractRAFT.extract_frames through the overlap batching: once to
+    warm up, then once with the counts reset just before and read just
+    after."""
+    frames = raft_frames(np)
+
+    def run():
+        batches = batch_frames(iter(frames), RAFT_BATCH + 1, RAFT_FPS, overlap=1)
+        return ex.extract_frames(batches, RAFT_FPS, frame_hw=RAFT_HW)
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(corr_lookup, gru)
+    t0 = time.perf_counter()
+    feats = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(corr_lookup, gru)
+    flow, stamps = feats['raft'], feats['timestamps_ms']
+    pairs = RAFT_FRAMES - 1
+    print(f'raft family: flow {flow.shape}, {len(stamps)} timestamps, '
+          f'{wall / pairs * 1e3:.2f} ms per frame pair (wall, batch '
+          f'{RAFT_BATCH}, {SLICE_ITERS} iterations), launches {counts}, peak '
+          f'device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB',
+          flush=True)
+    if flow.shape != (pairs, 2, *RAFT_HW) or not np.isfinite(flow).all():
+        fail(f'raft family output {flow.shape} (want ({pairs}, 2, '
+             f'{RAFT_HW[0]}, {RAFT_HW[1]})) or not finite')
+    if len(stamps) != RAFT_FRAMES or float(feats['fps']) != RAFT_FPS:
+        fail(f'raft family: {len(stamps)} timestamps (want {RAFT_FRAMES}), '
+             f'fps {feats["fps"]}')
+    return counts
+
+
+def rel_l2(k, p) -> float:
+    k, p = k.double(), p.double()
+    return ((k - p).norm() / p.norm()).item()
+
+
 def plain_phase(torch, np, ex, fused_two_stream_step, pad_amounts):
-    """The fused step with the kernel and with its plain version."""
+    """The fused step with the kernels and with their plain versions."""
     frames = slice_frames(np)
     stacks = np.stack([frames[:STACK + 1], frames[STACK:2 * STACK + 1]])
     pads = pad_amounts(*FRAME_HW)
     x = torch.from_numpy(stacks).cuda()
     with torch.inference_mode():
         outs = [fused_two_stream_step(ex.params, x, pads, ('rgb', 'flow'),
-                                      raft_iters=CHECK_ITERS, plain_lookup=plain)
+                                      raft_iters=CHECK_ITERS, plain_kernels=plain)
                 for plain in (False, True)]
     for s in ('rgb', 'flow'):
-        k, p = outs[0][s].double(), outs[1][s].double()
-        rel = ((k - p).norm() / p.norm()).item()
-        print(f'{os.environ["VFT_RAFT_LOOKUP"]}: {s} stream kernel vs plain '
+        rel = rel_l2(outs[0][s], outs[1][s])
+        print(f'{os.environ["VFT_RAFT_LOOKUP"]}: {s} stream kernels vs plain '
               f'rel L2 {rel:.3e} ({CHECK_ITERS} RAFT iterations)', flush=True)
         if not rel <= SLICE_REL_L2:
-            fail(f'{s} stream: kernel vs plain rel L2 {rel} > {SLICE_REL_L2}')
+            fail(f'{s} stream: kernels vs plain rel L2 {rel} > {SLICE_REL_L2}')
+
+
+def raft_plain_phase(torch, np, ex, raft_model):
+    """One RAFT-family step (8 pairs) with the kernels and with their
+    plain versions."""
+    x = torch.from_numpy(raft_frames(np)[:RAFT_BATCH + 1]).cuda()
+    padded, _ = raft_model.pad_to_multiple(x)
+    with torch.inference_mode():
+        outs = [raft_model.forward_consecutive(ex.params, padded,
+                                               iters=CHECK_ITERS,
+                                               plain_kernels=plain)
+                for plain in (False, True)]
+    rel = rel_l2(*outs)
+    print(f'raft family: flow kernels vs plain rel L2 {rel:.3e} '
+          f'({CHECK_ITERS} RAFT iterations)', flush=True)
+    if not rel <= SLICE_REL_L2:
+        fail(f'raft family flow: kernels vs plain rel L2 {rel} > {SLICE_REL_L2}')
+
+
+def step_timing(torch, np, ex, fused_two_stream_step, pad_amounts):
+    """The fused step at batch 8 (RAFT 20 iterations), kernels vs plain
+    versions, in turns (plain, kernels, kernels, plain): ms per window."""
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randint(0, 256, (8, STACK + 1, *FRAME_HW, 3)
+                                     ).astype(np.uint8)).cuda()
+    pads = pad_amounts(*FRAME_HW)
+
+    def ms_per_window(plain):
+        with torch.inference_mode():
+            return cuda_ms(torch, lambda: fused_two_stream_step(
+                ex.params, x, pads, ('rgb', 'flow'), raft_iters=SLICE_ITERS,
+                plain_kernels=plain), reps=1, warmup=1) / 8
+    times = {False: [], True: []}
+    for plain in (True, False, False, True):
+        times[plain].append(ms_per_window(plain))
+    print(f'fused step at batch 8, {SLICE_ITERS} iterations: kernels '
+          f'{times[False][0]:.2f} / {times[False][1]:.2f} ms per window, plain '
+          f'versions {times[True][0]:.2f} / {times[True][1]:.2f} ms per window',
+          flush=True)
 
 
 def main() -> int:
@@ -265,23 +443,30 @@ def main() -> int:
           flush=True)
 
     from video_features_torch.extract.i3d import ExtractI3D, fused_two_stream_step
+    from video_features_torch.extract.raft import ExtractRAFT
+    from video_features_torch.io.video import batch_frames
+    from video_features_torch.models import raft as raft_model
     from video_features_torch.models.raft import pad_amounts
-    from video_features_torch.ops import _kernels, corr_lookup
+    from video_features_torch.ops import _kernels, corr_lookup, gru
     from video_features_torch.utils.device import set_precision
     set_precision('highest')
 
     t = phase('build')
-    path, log = _kernels.build('corr_lookup')
-    for line in log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            print('  ptxas:', line.strip())
-    print(f'built {path.name} in {time.perf_counter() - t:.1f} s', flush=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(_kernels.build, KERNELS))
+    for name, (path, log) in zip(KERNELS, built):
+        for line in log.splitlines():
+            if 'registers' in line or 'spill' in line or 'entry function' in line:
+                print(f'  ptxas {name}:', line.strip())
+        print(f'built {path.name}', flush=True)
+    print(f'build phase {time.perf_counter() - t:.1f} s', flush=True)
 
     t = phase('kernels')
     rec = kernel_phase(torch, F, corr_lookup)
+    rec['gru'] = gru_phase(torch, gru)
     print(f'kernels phase {time.perf_counter() - t:.1f} s', flush=True)
 
-    t = phase('slice')
+    t = phase('slice (I3D)')
     ex = ExtractI3D({
         'feature_type': 'i3d', 'streams': None, 'flow_type': 'raft',
         'stack_size': STACK, 'step_size': STACK, 'raft_iters': SLICE_ITERS,
@@ -291,30 +476,58 @@ def main() -> int:
     })
     windows = (FRAMES - (STACK + 1)) // STACK + 1
     steps = math.ceil(windows / SLICE_BATCH)
+    launches = {'masked': 0, 'padded': 0, 'gru': 0}
+
+    def check_counts(counts, lookup_key, steps, where):
+        want = {lookup_key: steps * SLICE_ITERS, 'gru': 2 * steps * SLICE_ITERS}
+        for key, n in want.items():
+            if counts[key] != n:
+                fail(f'{where}: kernel {key} launched {counts[key]} times on '
+                     f'the path, want {n} (lookup once and GRU twice per '
+                     f'RAFT iteration)')
+        for key in launches:
+            launches[key] += counts[key]
+
     for key, env in (('masked', 'auto'), ('padded', 'pallas')):
-        counts = slice_phase(torch, np, ex, corr_lookup, env)
-        rec[key]['launches'] = counts[key]
-        if counts[key] != steps * SLICE_ITERS:
-            fail(f'{key} lookup kernel launched {counts[key]} times on the '
-                 f'path, want {steps * SLICE_ITERS} (every RAFT iteration)')
+        counts = slice_phase(torch, np, ex, corr_lookup, gru, env)
+        check_counts(counts, key, steps, f'I3D slice, VFT_RAFT_LOOKUP={env}')
     print(f'slice phase {time.perf_counter() - t:.1f} s', flush=True)
 
-    t = phase('kernel vs plain on the slice')
+    t = phase('slice (RAFT family)')
+    os.environ['VFT_RAFT_LOOKUP'] = 'auto'
+    rex = ExtractRAFT({
+        'feature_type': 'raft', 'batch_size': RAFT_BATCH,
+        'raft_iters': SLICE_ITERS, 'finetuned_on': 'sintel', 'device': 'cuda',
+        'precision': 'highest', 'allow_random_weights': True,
+        'on_extraction': 'save_numpy', 'output_path': str(ROOT / 'output')})
+    counts = raft_slice_phase(torch, np, rex, batch_frames, corr_lookup, gru)
+    check_counts(counts, 'masked', math.ceil((RAFT_FRAMES - 1) / RAFT_BATCH),
+                 'RAFT family slice')
+    for key in launches:
+        rec[key]['launches'] = launches[key]
+    print(f'raft family phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('kernels vs plain on the slices')
     for env in ('auto', 'pallas'):
         os.environ['VFT_RAFT_LOOKUP'] = env
         plain_phase(torch, np, ex, fused_two_stream_step, pad_amounts)
+    os.environ['VFT_RAFT_LOOKUP'] = 'auto'
+    raft_plain_phase(torch, np, rex, raft_model)
+    step_timing(torch, np, ex, fused_two_stream_step, pad_amounts)
     print(f'plain phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
-    for key, name, replaces in (
-            ('masked', 'corr_lookup_masked',
+    for key, name, source, replaces in (
+            ('masked', 'corr_lookup_masked', 'corr_lookup.cu',
              'video_features_tpu/ops/pallas_corr.py:318'),
-            ('padded', 'corr_lookup_padded',
-             'video_features_tpu/ops/pallas_corr.py:162')):
+            ('padded', 'corr_lookup_padded', 'corr_lookup.cu',
+             'video_features_tpu/ops/pallas_corr.py:162'),
+            ('gru', 'gru_direction', 'gru_direction.cu',
+             'tools/gru_kernel_experiment.py:154')):
         r = rec[key]
         kernels.append({
             'name': name, 'route': 'cuda',
-            'source': 'video_features_torch/csrc/corr_lookup.cu',
+            'source': f'video_features_torch/csrc/{source}',
             'replaces': replaces, 'launches': r['launches'],
             'max_abs_err': r['err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],

@@ -1,6 +1,6 @@
-"""The CUDA lookup kernels' wrappers (video_features_torch/ops/
-corr_lookup.py). This file imports no JAX, so its ``cuda``-marked tests
-run on a machine with the card and without JAX:
+"""The CUDA kernels' wrappers (video_features_torch/ops/corr_lookup.py,
+ops/gru.py). This file imports no JAX, so its ``cuda``-marked tests run
+on a machine with the card and without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -9,9 +9,13 @@ import pytest
 import torch
 
 from video_features_torch.models import raft
-from video_features_torch.ops import corr_lookup
+from video_features_torch.ops import corr_lookup, gru
+from video_features_torch.utils.device import set_precision
 
 ATOL = 1e-5   # fp reassociation of a 4-term blend of O(1) values
+# fp32 reassociation of 1,280-term sums with O(1) pre-activations behind a
+# sigmoid or tanh, outputs in (-1, 1)
+GRU_ATOL = 1e-5
 
 
 def _pyramid(rng, n, h, w, device='cpu'):
@@ -28,6 +32,9 @@ def _coords(rng, b, h, w, device='cpu'):
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    # the extractors' float32 policy: without it the plain versions' cuDNN
+    # convolutions run in TF32 and drift ~1e-3 from the fp32 kernels
+    set_precision('highest')
     return torch.device('cuda')
 
 
@@ -79,21 +86,67 @@ def test_kernels_match_plain_on_the_card(b, h, w):
     torch.testing.assert_close(masked, unmasked, rtol=0, atol=ATOL)
 
 
+def _gru_inputs(rng, b, h, w, device='cpu'):
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).to(device)
+    return (torch.tanh(t(b, h, w, 128)), t(b, h, w, 128),
+            t(5, 256, 256, scale=0.05), t(5, 256, 128, scale=0.05),
+            t(b, h, w, 256, scale=0.1), t(b, h, w, 128, scale=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,h,w', [(2, 32, 43), (3, 13, 9)])
+@pytest.mark.parametrize('axis', ['w', 'h'])
+def test_gru_kernel_matches_plain_on_the_card(b, h, w, axis):
+    dev = _cuda()
+    x = _gru_inputs(np.random.RandomState(8), b, h, w, dev)
+    before = gru.gru_direction.launches
+    got = gru.gru_direction(*x, axis)
+    torch.cuda.synchronize()
+    assert gru.gru_direction.launches == before + 1
+    torch.testing.assert_close(got, gru.gru_direction_plain(*x, axis),
+                               rtol=0, atol=GRU_ATOL)
+
+
+def _params(dev):
+    from video_features_torch.transplant import params_from_torch, to_device
+    return to_device(params_from_torch(raft.init_state_dict(seed=0)), dev)
+
+
 @pytest.mark.cuda
 def test_raft_runs_the_kernel_every_iteration():
     dev = _cuda()
-    sd = raft.init_state_dict(seed=0)
-    from video_features_torch.transplant import params_from_torch, to_device
-    params = to_device(params_from_torch(sd), dev)
+    params = _params(dev)
     rng = np.random.RandomState(7)
     frames = torch.from_numpy(rng.randint(0, 256, (1, 3, 64, 80, 3)).astype(
         np.uint8)).to(dev)
-    before = corr_lookup.lookup_corr_lanes.launches
+    before = (corr_lookup.lookup_corr_lanes.launches, gru.gru_direction.launches)
     with torch.inference_mode():
         flow = raft.forward_stack_pairs(params, frames, iters=4)
         plain = raft.forward_stack_pairs(params, frames, iters=4,
-                                         plain_lookup=True)
-    assert corr_lookup.lookup_corr_lanes.launches == before + 4
+                                         plain_kernels=True)
+    assert (corr_lookup.lookup_corr_lanes.launches,
+            gru.gru_direction.launches) == (before[0] + 4, before[1] + 8)
     assert flow.shape == (1, 2, 64, 80, 2)
+    rel = ((flow - plain).norm() / plain.norm()).item()
+    assert rel <= 1e-3
+
+
+@pytest.mark.cuda
+def test_forward_consecutive_runs_the_kernels_every_iteration():
+    dev = _cuda()
+    params = _params(dev)
+    rng = np.random.RandomState(9)
+    frames = torch.from_numpy(rng.randint(0, 256, (3, 64, 88, 3)).astype(
+        np.uint8)).to(dev)
+    before = (corr_lookup.lookup_corr_lanes.launches, gru.gru_direction.launches)
+    with torch.inference_mode():
+        flow = raft.forward_consecutive(params, frames, iters=3)
+        plain = raft.forward_consecutive(params, frames, iters=3,
+                                         plain_kernels=True)
+    assert (corr_lookup.lookup_corr_lanes.launches,
+            gru.gru_direction.launches) == (before[0] + 3, before[1] + 6)
+    assert flow.shape == (2, 64, 88, 2)
     rel = ((flow - plain).norm() / plain.norm()).item()
     assert rel <= 1e-3

@@ -9,7 +9,8 @@ frames with random weights. After one warm-up step it times ``--steps``
 steps with CUDA events, times each part of the step (rgb tower, RAFT +
 quantization, flow tower) the same way, then traces one step with
 ``torch.profiler`` and prints the device time per kernel group (the
-correlation lookup kernels, matrix products, convolutions, the rest),
+correlation lookup kernels, the GRU direction kernel, matrix products,
+convolutions, the rest),
 the top kernels, and the share of the step's wall time in which the
 device was busy (the union of kernel intervals). The last line is
 one JSON object with the same numbers.
@@ -27,6 +28,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 GROUPS = (('corr_lookup', ('masked_kernel', 'padded_kernel')),
+          ('gru_direction', ('gru_gemm',)),
           ('gemm', ('gemm', 'cutlass', 'sm90_xmma', 'cublas')),
           ('conv', ('conv', 'cudnn', 'implicit', 'winograd', 'fft')),
           ('pool', ('pool',)))

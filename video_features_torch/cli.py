@@ -1,4 +1,4 @@
-"""CLI entry point: ``python -m video_features_torch feature_type=i3d key=val ...``
+"""CLI entry point: ``python -m video_features_torch feature_type=i3d|raft key=val ...``
 
 Load the family's YAML, merge the dotlist (CLI wins), sanity-check,
 build the extractor, shuffle the video list and run ``_extract`` per
@@ -12,7 +12,7 @@ from typing import List, Optional
 from video_features_torch.config import (
     form_list_from_user_input, load_config, parse_dotlist,
 )
-from video_features_torch.registry import create_extractor
+from video_features_torch.registry import EXTRACTORS, create_extractor
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -20,8 +20,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     cli_args = parse_dotlist(argv)
     if 'feature_type' not in cli_args:
-        print('Usage: python -m video_features_torch feature_type=i3d '
-              '[key=value ...]')
+        print('Usage: python -m video_features_torch '
+              f'feature_type={"|".join(EXTRACTORS)} [key=value ...]')
         return 2
     args = load_config(cli_args['feature_type'], overrides=cli_args)
     print(yaml.safe_dump(dict(args), sort_keys=False, default_flow_style=False))

@@ -1,5 +1,6 @@
 """Configuration: YAML defaults ← dotlist CLI overrides, then
-``sanity_check`` (the i3d subset of ``video_features_tpu/config.py``).
+``sanity_check`` (the i3d and raft subset of ``video_features_tpu/
+config.py``).
 
 ``yaml`` is imported inside the functions that parse, so the package
 imports on machines without it.
@@ -84,6 +85,36 @@ def form_list_from_user_input(
     return path_list
 
 
+RAFT_FINETUNED_ON = ('sintel', 'kitti')
+
+
+def check_raft_args(args: Dict[str, Any]) -> None:
+    """The raft family's rules; keys the port does not implement yet
+    raise ``NotImplementedError`` naming the key."""
+    if args.get('data_parallel'):
+        raise NotImplementedError(
+            'data_parallel=true is not ported yet: run with data_parallel=false')
+    backend = args.get('decode_backend') or 'auto'
+    if backend == 'native':
+        raise NotImplementedError(
+            'decode_backend=native is not ported yet: use decode_backend=cv2')
+    if backend not in ('auto', 'cv2'):
+        raise ValueError(f"decode_backend must be 'auto' or 'cv2'; got {backend!r}")
+    if int(args.get('decode_workers') or 1) > 1:
+        raise NotImplementedError(
+            'decode_workers > 1 is not ported yet: run with decode_workers=1')
+    if args.get('finetuned_on', 'sintel') not in RAFT_FINETUNED_ON:
+        raise ValueError(f'finetuned_on must be one of {RAFT_FINETUNED_ON}; '
+                         f'got {args.get("finetuned_on")!r}')
+    bucket = args.get('bucket_multiple', 8)
+    if not isinstance(bucket, int) or bucket <= 0 or bucket % 8:
+        raise ValueError('bucket_multiple must be a positive multiple of 8; '
+                         f'got {bucket!r}')
+    if args.get('batch_size') is None or int(args['batch_size']) < 1:
+        raise ValueError('Please specify `batch_size` (>= 1); got '
+                         f'{args.get("batch_size")!r}')
+
+
 def sanity_check(args: Dict[str, Any]) -> None:
     """Validate the merged config and append ``<feature_type>`` to the
     output path. The device is resolved here, so a run that asks for a
@@ -108,6 +139,14 @@ def sanity_check(args: Dict[str, Any]) -> None:
                          f'timestamps. You have: {args["stack_size"]}')
     if args.get('flow_type', 'raft') != 'raft':
         raise NotImplementedError('only flow_type=raft is supported')
+    if ft == 'raft':
+        check_raft_args(args)
     if 'batch_size' in args and args['batch_size'] is None:
         raise ValueError('Please specify `batch_size`')
+    if args.get('raft_iters') is not None and int(args['raft_iters']) < 1:
+        raise ValueError(f'raft_iters must be >= 1 (got {args["raft_iters"]})')
+    if args.get('extraction_fps') is not None \
+            and args.get('extraction_total') is not None:
+        raise ValueError('`extraction_fps` and `extraction_total` are '
+                         'mutually exclusive')
     args['output_path'] = os.path.join(str(args['output_path']), ft)

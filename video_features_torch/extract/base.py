@@ -31,6 +31,18 @@ from video_features_torch.utils.output import (
 
 ACTIONS = ('print',) + tuple(ACTION_TO_EXT)
 
+# per family, the config values that shape its features (the resume
+# fingerprint)
+FINGERPRINT_KEYS = {
+    'i3d': ('feature_type', 'streams', 'flow_type', 'stack_size', 'step_size',
+            'raft_iters', 'extraction_fps', 'concat_rgb_flow', 'precision',
+            'i3d_rgb_checkpoint_path', 'i3d_flow_checkpoint_path',
+            'raft_checkpoint_path'),
+    'raft': ('feature_type', 'extraction_fps', 'extraction_total',
+             'side_size', 'resize_to_smaller_edge', 'finetuned_on',
+             'bucket_multiple', 'raft_iters', 'precision', 'checkpoint_path'),
+}
+
 
 def run_fingerprint(args: Any, keys: Iterable[str]) -> str:
     """sha256 of the config values that shape a run's features."""
@@ -104,7 +116,7 @@ class BaseExtractor:
             os.makedirs(self.output_path, exist_ok=True)
             fpath = make_path(self.output_path, video_path, key,
                               ACTION_TO_EXT[self.on_extraction])
-            if len(value) == 0:
+            if np.ndim(value) and len(value) == 0:    # 'fps' is 0-d
                 warnings.warn(f'the value is empty for {key} @ {fpath}')
             ACTION_TO_SAVE[self.on_extraction](fpath, value)
         if self.on_extraction in ACTION_TO_EXT \

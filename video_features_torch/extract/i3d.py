@@ -21,7 +21,9 @@ from typing import Dict, Iterable, List, Sequence
 import numpy as np
 import torch
 
-from video_features_torch.extract.base import BaseExtractor, run_fingerprint
+from video_features_torch.extract.base import (
+    FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
+)
 from video_features_torch.extract.streaming import (
     iter_batched_windows, stream_windows,
 )
@@ -35,12 +37,6 @@ from video_features_torch.transplant import to_device
 MIN_SIDE_SIZE = 256
 CROP_SIZE = 224
 
-# config values that shape the features (the resume fingerprint)
-FINGERPRINT_KEYS = ('feature_type', 'streams', 'flow_type', 'stack_size',
-                    'step_size', 'raft_iters', 'extraction_fps',
-                    'concat_rgb_flow', 'precision', 'i3d_rgb_checkpoint_path',
-                    'i3d_flow_checkpoint_path', 'raft_checkpoint_path')
-
 
 def rgb_stream_input(stacks: torch.Tensor, crop_size: int) -> torch.Tensor:
     """(B, S+1, H, W, 3) frames → rgb I3D input: first S frames, center
@@ -50,12 +46,12 @@ def rgb_stream_input(stacks: torch.Tensor, crop_size: int) -> torch.Tensor:
 
 def flow_stream_input(raft_params, stacks: torch.Tensor, pads, crop_size: int,
                       raft_iters: int = raft_model.ITERS,
-                      plain_lookup: bool = False) -> torch.Tensor:
+                      plain_kernels: bool = False) -> torch.Tensor:
     """(B, S+1, H, W, 3) frames → quantized flow I3D input (B, S, c, c, 2)."""
     padded = raft_model.edge_pad(stacks, pads, h_axis=2)
     flow = raft_model.forward_stack_pairs(raft_params, padded,
                                           iters=raft_iters,
-                                          plain_lookup=plain_lookup)
+                                          plain_kernels=plain_kernels)
     flow = center_crop(flow, crop_size)
     return scale_to_pm1(flow_to_uint8_levels(flow, 20.0))
 
@@ -63,10 +59,11 @@ def flow_stream_input(raft_params, stacks: torch.Tensor, pads, crop_size: int,
 def fused_two_stream_step(params, stacks: torch.Tensor, pads,
                           streams: Sequence[str], crop_size: int = CROP_SIZE,
                           raft_iters: int = raft_model.ITERS,
-                          plain_lookup: bool = False) -> Dict[str, torch.Tensor]:
+                          plain_kernels: bool = False) -> Dict[str, torch.Tensor]:
     """(B, stack+1, H, W, 3) frames → {stream: (B, 1024)}: RAFT flow,
-    quantization and both I3D towers. ``plain_lookup`` runs RAFT's lookup
-    through its plain version instead of the kernel (a test seam)."""
+    quantization and both I3D towers. ``plain_kernels`` runs RAFT's
+    lookup and GRU direction through their plain versions instead of the
+    kernels (a test seam)."""
     out = {}
     if 'rgb' in streams:
         out['rgb'] = i3d_model.forward(params['rgb'],
@@ -74,7 +71,7 @@ def fused_two_stream_step(params, stacks: torch.Tensor, pads,
     if 'flow' in streams:
         flow = flow_stream_input(params['raft'], stacks, pads, crop_size,
                                  raft_iters=raft_iters,
-                                 plain_lookup=plain_lookup)
+                                 plain_kernels=plain_kernels)
         out['flow'] = i3d_model.forward(params['flow'], flow)
     return out
 
@@ -105,7 +102,7 @@ class ExtractI3D(BaseExtractor):
         self.batch_size = int(args.get('batch_size', 1))
         self.output_feat_keys = list(self.streams)
         self.params = to_device(self.load_params(args), self.device)
-        self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS)
+        self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['i3d'])
 
     def load_params(self, args):
         """{'rgb': i3d params, 'flow': i3d params, 'raft': raft params}."""

@@ -1,0 +1,148 @@
+"""RAFT flow extractor (port of ``video_features_tpu/extract/raft.py``).
+
+  * consecutive-pair batching: the loader yields ``batch_size + 1``
+    frames with overlap 1, so each step computes ``batch_size`` flows;
+    a short tail is padded by repeating its last frame and only its
+    ``valid`` flows are kept;
+  * optional host-side PIL edge resize (``side_size`` /
+    ``resize_to_smaller_edge``);
+  * replicate pad to ``bucket_multiple`` (``finetuned_on``: 'sintel'
+    centers the pad, 'kitti' pads the bottom), flow on the padded frames
+    with :func:`models.raft.forward_consecutive`, then unpadded;
+  * outputs ``{'raft': (T-1, 2, H, W), 'fps', 'timestamps_ms'}``: the
+    flow channels-first, as the reference stores it; the timestamps keep
+    every decoded frame (the first batch whole, each later batch minus
+    its overlapped head).
+
+Not ported: ``data_parallel``, ``decode_workers > 1`` and
+``decode_backend=native`` raise (``config.check_raft_args``).
+"""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from video_features_torch.config import check_raft_args
+from video_features_torch.extract.base import (
+    FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
+)
+from video_features_torch.models import raft as raft_model
+from video_features_torch.transplant import to_device
+
+
+class ExtractRAFT(BaseExtractor):
+
+    def __init__(self, args) -> None:
+        super().__init__(
+            feature_type=args['feature_type'],
+            on_extraction=args['on_extraction'],
+            output_path=args['output_path'],
+            device=args.get('device', 'cuda'),
+            precision=args.get('precision', 'highest'),
+        )
+        check_raft_args(args)
+        self.batch_size = int(args['batch_size'])
+        self.side_size = args.get('side_size')
+        self.resize_to_smaller_edge = args.get('resize_to_smaller_edge', True)
+        self.extraction_fps = args.get('extraction_fps')
+        self.extraction_total = args.get('extraction_total')
+        self.finetuned_on = args.get('finetuned_on', 'sintel')
+        self.bucket_multiple = int(args.get('bucket_multiple', 8))
+        self.show_pred = bool(args.get('show_pred', False))
+        self.raft_iters = raft_model.resolve_iters(args.get('raft_iters'))
+        self.output_feat_keys = [self.feature_type, 'fps', 'timestamps_ms']
+        self.params = to_device(self.load_params(args), self.device)
+        self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['raft'])
+        self._viz_stem, self._viz_count = 'frames', 0
+
+    def load_params(self, args):
+        """RAFT params; DataParallel ``module.`` prefixes are stripped by
+        the transplant layer."""
+        from video_features_torch.extract.weights import load_or_init
+        return load_or_init(args, 'checkpoint_path', raft_model.init_state_dict,
+                            feature_type='raft')
+
+    def host_transform(self, frame: np.ndarray) -> np.ndarray:
+        """uint8 in, uint8 out: RAFT normalizes on the device."""
+        if self.side_size is not None:
+            from video_features_torch.ops.host_transforms import resize_pil
+            frame = resize_pil(frame, self.side_size, self.resize_to_smaller_edge)
+        return frame
+
+    def extract(self, video_path: str) -> Dict[str, np.ndarray]:
+        """Decode (cv2) in ``batch_size + 1`` frame batches with overlap 1,
+        then :meth:`extract_frames`."""
+        from video_features_torch.io.video import VideoLoader
+        self._viz_stem, self._viz_count = Path(video_path).stem, 0
+        loader = VideoLoader(video_path, batch_size=self.batch_size + 1,
+                             fps=self.extraction_fps,
+                             total=self.extraction_total,
+                             transform=self.host_transform, overlap=1)
+        return self.extract_frames(loader, loader.fps,
+                                   frame_hw=(loader.height, loader.width))
+
+    def extract_frames(self, batches: Iterable, fps: float,
+                       frame_hw: Optional[Tuple[int, int]] = None
+                       ) -> Dict[str, np.ndarray]:
+        """Overlap-1 frame batches ``(frames, times, indices)`` of at most
+        ``batch_size + 1`` HWC uint8 frames (``io/video.py::batch_frames``)
+        → ``{'raft', 'fps', 'timestamps_ms'}``. ``frame_hw`` is the source
+        frame size, for the geometry of an empty video's output."""
+        flows, timestamps = [], []
+        for k, (frames, times, _) in enumerate(batches):
+            timestamps.extend(times if k == 0 else times[1:])
+            batch = np.stack(frames)
+            if batch.shape[0] < 2:
+                continue                     # timestamps only, no pairs
+            valid = batch.shape[0] - 1
+            if valid < self.batch_size:
+                pad = np.repeat(batch[-1:], self.batch_size - valid, axis=0)
+                batch = np.concatenate([batch, pad], axis=0)
+            flow = self.step(batch)[:valid]
+            flows.append(flow)
+            if self.show_pred:
+                self.maybe_show_pred(flow)
+        if flows:
+            features = np.concatenate(flows, axis=0).transpose(0, 3, 1, 2)
+        else:
+            # the geometry normal outputs would have: after the host resize
+            h, w = frame_hw or (0, 0)
+            h, w = self.host_transform(np.zeros((h, w, 3), np.uint8)).shape[:2]
+            features = np.zeros((0, 2, h, w), np.float32)
+        return {self.feature_type: features, 'fps': np.array(fps),
+                'timestamps_ms': np.array(timestamps)}
+
+    def step(self, frames: np.ndarray) -> np.ndarray:
+        """(B+1, H, W, 3) uint8 consecutive frames → (B, H, W, 2) flows."""
+        x = torch.from_numpy(frames).to(self.device)
+        padded, pads = raft_model.pad_to_multiple(
+            x, mode=self.finetuned_on, multiple=self.bucket_multiple)
+        with torch.inference_mode():
+            flow = raft_model.forward_consecutive(self.params, padded,
+                                                  iters=self.raft_iters)
+            flow = raft_model.unpad(flow, pads)
+        return flow.cpu().numpy()
+
+    def maybe_show_pred(self, flows: np.ndarray) -> None:
+        """Render the step's first flow with the Middlebury wheel and write
+        it as a PNG under ``<output_path>/flow_debug/`` (the reference
+        opens a cv2 window instead). A debug surface: a failed write is
+        reported, never raised."""
+        from video_features_torch.utils.flow_viz import flow_to_image
+        img = flow_to_image(flows[0])
+        print(f'[flow viz] frame rendered: shape={img.shape}, '
+              f'mean_mag={np.linalg.norm(flows[0], axis=-1).mean():.3f}')
+        try:
+            import cv2
+            out_dir = Path(self.output_path) / 'flow_debug'
+            out_dir.mkdir(parents=True, exist_ok=True)
+            path = out_dir / f'{self._viz_stem}_{self._viz_count:06d}.png'
+            if not cv2.imwrite(str(path), img[..., ::-1]):   # RGB → BGR
+                raise OSError(f'cv2.imwrite failed for {path}')
+            self._viz_count += 1
+        except (ImportError, OSError) as e:
+            print(f'WARNING: flow viz PNG not written ({e})', file=sys.stderr)

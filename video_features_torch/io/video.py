@@ -3,27 +3,33 @@
 
 Iteration yields ``(batch, times_ms, indices)`` tuples with
 ``timestamp_ms = index / fps * 1000``; the last batch may be short.
-``fps`` retimes by index resampling (ffmpeg's ``fps=`` filter with
-'near' rounding). cv2 is imported inside the functions that use it, so
-the package imports on machines without it.
+``overlap`` frames are shared between consecutive batches (the flow
+families' frame pairing, :func:`batch_frames`). ``fps`` or ``total``
+retimes by index resampling (ffmpeg's ``fps=`` filter with 'near'
+rounding). cv2 is imported inside the functions that use it, so the
+package imports on machines without it.
 """
 from __future__ import annotations
 
 import os
 import sys
-from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
+from typing import (
+    Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union,
+)
 
 import numpy as np
 
 
 def get_video_props(path: Union[str, os.PathLike]) -> Dict[str, float]:
-    """fps / num_frames via cv2."""
+    """fps / num_frames / height / width via cv2."""
     import cv2
 
     cap = cv2.VideoCapture(str(path))
     try:
         return dict(fps=cap.get(cv2.CAP_PROP_FPS),
-                    num_frames=int(cap.get(cv2.CAP_PROP_FRAME_COUNT)))
+                    num_frames=int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+                    height=int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+                    width=int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)))
     finally:
         cap.release()
 
@@ -65,6 +71,43 @@ def decode_rgb_frames(path: str) -> Iterator[np.ndarray]:
         cap.release()
 
 
+Batch = Tuple[List[np.ndarray], List[float], List[int]]
+
+
+def batch_frames(frames: Iterable[np.ndarray], batch_size: int, fps: float,
+                 overlap: int = 0,
+                 transform: Optional[Callable] = None) -> Iterator[Batch]:
+    """``(frames, times_ms, indices)`` batches of ``batch_size`` frames
+    from a frame iterator; frame k is at ``k / fps * 1000`` ms.
+
+    Each batch begins with the last ``overlap`` frames of the one before
+    (already transformed), so a batch of ``batch_size`` frames with
+    overlap 1 holds ``batch_size - 1`` new frames after the first. A
+    batch that would hold only those cached frames is not yielded; the
+    last batch may be short. ``transform`` runs once per new frame.
+    """
+    if batch_size < 1:
+        raise ValueError(f'batch_size must be >= 1; got {batch_size}')
+    if not 0 <= overlap < batch_size:
+        raise ValueError(f'overlap must be in [0, batch_size); got {overlap}')
+    batch: List[np.ndarray] = []
+    times: List[float] = []
+    indices: List[int] = []
+    new = 0
+    for idx, frame in enumerate(frames):
+        batch.append(frame if transform is None else transform(frame))
+        times.append(idx / fps * 1000)
+        indices.append(idx)
+        new += 1
+        if len(batch) == batch_size:
+            yield batch, times, indices
+            keep = len(batch) - overlap
+            batch, times, indices = batch[keep:], times[keep:], indices[keep:]
+            new = 0
+    if new:
+        yield batch, times, indices
+
+
 class VideoLoader:
     """Batched streaming frame iterator.
 
@@ -72,21 +115,32 @@ class VideoLoader:
         path: video file path.
         batch_size: frames per yielded batch.
         fps: retime to this frame rate (None keeps the source's).
+        total: retime so the whole video yields about ``total`` frames
+            (mutually exclusive with ``fps``).
         transform: per-frame callable (HWC uint8 RGB → frame).
+        overlap: frames shared between consecutive batches.
     """
 
     def __init__(self, path: Union[str, os.PathLike], batch_size: int = 1,
-                 fps: Optional[float] = None,
-                 transform: Optional[Callable] = None):
+                 fps: Optional[float] = None, total: Optional[int] = None,
+                 transform: Optional[Callable] = None, overlap: int = 0):
         if batch_size < 1:
             raise ValueError(f'batch_size must be >= 1; got {batch_size}')
+        if not 0 <= overlap < batch_size:
+            raise ValueError(f'overlap must be in [0, batch_size); got {overlap}')
+        if fps is not None and total is not None:
+            raise ValueError("'fps' and 'total' are mutually exclusive")
         self.path = str(path)
         if not os.path.isfile(self.path):
             raise FileNotFoundError(f'video does not exist: {self.path}')
         props = get_video_props(self.path)
+        self.height, self.width = props['height'], props['width']
         self.batch_size = batch_size
         self.transform = transform
+        self.overlap = overlap
         self._index_map: Optional[np.ndarray] = None
+        if total is not None:
+            fps = total * props['fps'] / max(props['num_frames'], 1)
         if fps is None:
             self.fps = props['fps']
         else:
@@ -107,17 +161,6 @@ class VideoLoader:
             if pos >= n:
                 return
 
-    def __iter__(self) -> Iterator[Tuple[List[np.ndarray], List[float], List[int]]]:
-        batch: List[np.ndarray] = []
-        times: List[float] = []
-        indices: List[int] = []
-        for idx, frame in enumerate(self._retimed_frames()):
-            batch.append(frame if self.transform is None
-                         else self.transform(frame))
-            times.append(idx / self.fps * 1000)
-            indices.append(idx)
-            if len(batch) == self.batch_size:
-                yield batch, times, indices
-                batch, times, indices = [], [], []
-        if batch:
-            yield batch, times, indices
+    def __iter__(self) -> Iterator[Batch]:
+        return batch_frames(self._retimed_frames(), self.batch_size, self.fps,
+                            self.overlap, self.transform)

@@ -9,10 +9,14 @@ H and W must divide by 8 (:func:`pad_to_multiple`).
 
 As in the JAX package: the loop-invariant context contribution to every
 GRU conv is computed once before the refinement loop
-(:func:`fuse_gru_params`, :func:`gru_inp_terms`), the convex-upsample
-mask head runs once after it, and the correlation lookup is dispatched
-by ``VFT_RAFT_LOOKUP`` (ops/corr_lookup.py) — the hand-written CUDA
-kernels on the card, their plain versions on the CPU.
+(:func:`fuse_gru_params`, :func:`gru_inp_terms`) and the convex-upsample
+mask head runs once after it.
+
+On the card every refinement iteration launches two hand-written CUDA
+kernels: the correlation-window lookup selected by ``VFT_RAFT_LOOKUP``
+(ops/corr_lookup.py, once) and the SepConvGRU direction
+(ops/gru.py, twice: the 1×5 pass, then the 5×1 pass). On the CPU both
+run their plain versions.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_features_torch.ops import corr_lookup
+from video_features_torch.ops import corr_lookup, gru as gru_op
 from video_features_torch.ops.corr_lookup import (
     CORR_LEVELS, CORR_RADIUS, build_corr_pyramid,
 )
@@ -97,7 +101,9 @@ def motion_encoder(p: Params, flow: torch.Tensor,
     return torch.cat([out, flow], -1)
 
 
-GRU_PADS = (('1', ((0, 0), (2, 2))), ('2', ((2, 2), (0, 0))))
+# the SepConvGRU's passes by weight-name suffix: 1×5 (taps along W), then
+# 5×1 (taps along H)
+GRU_AXES = (('1', 'w'), ('2', 'h'))
 
 
 def fuse_gru_params(p: Params, hidden: int = HIDDEN_DIM,
@@ -109,24 +115,25 @@ def fuse_gru_params(p: Params, hidden: int = HIDDEN_DIM,
     conv's input channels split as (h | inp | motion); the ``inp`` block
     is loop-invariant over the refinement iterations, so its term is
     computed once (:func:`gru_inp_terms`) and the per-iteration convs
-    contract 256 channels instead of 384.
+    contract 256 channels instead of 384. The (h | motion) weights of a
+    direction are repacked into the GRU kernel's tap layout
+    (``ops/gru.py::pack_direction``) under ``'taps'``: (w_zr, w_q).
     """
     out = {}
     sl_h = slice(0, hidden)
     sl_i = slice(hidden, hidden + context)
     sl_m = slice(hidden + context, None)
-    for suffix, _ in GRU_PADS:
+    for suffix, _ in GRU_AXES:
         zw, rw = p[f'convz{suffix}'], p[f'convr{suffix}']
         w = torch.cat([zw['weight'], rw['weight']], dim=0)
         b = torch.cat([zw['bias'], rw['bias']])
         qw = p[f'convq{suffix}']['weight']
-        out[f'zr{suffix}'] = {
-            'hm': torch.cat([w[:, sl_h], w[:, sl_m]], dim=1),
-            'inp': w[:, sl_i].contiguous(), 'bias': b}
-        out[f'q{suffix}'] = {
-            'hm': torch.cat([qw[:, sl_h], qw[:, sl_m]], dim=1),
-            'inp': qw[:, sl_i].contiguous(),
-            'bias': p[f'convq{suffix}']['bias']}
+        out[f'zr{suffix}'] = {'inp': w[:, sl_i].contiguous(), 'bias': b}
+        out[f'q{suffix}'] = {'inp': qw[:, sl_i].contiguous(),
+                             'bias': p[f'convq{suffix}']['bias']}
+        out[f'taps{suffix}'] = gru_op.pack_direction(
+            torch.cat([w[:, sl_h], w[:, sl_m]], dim=1),
+            torch.cat([qw[:, sl_h], qw[:, sl_m]], dim=1))
     return out
 
 
@@ -134,27 +141,25 @@ def gru_inp_terms(fused: Params, inp: torch.Tensor) -> Params:
     """The loop-invariant context contribution to all four GRU convs
     (plus their biases), computed once before the refinement loop."""
     terms = {}
-    for suffix, pad in GRU_PADS:
+    for suffix, axis in GRU_AXES:
         for gate in ('zr', 'q'):
             pp = fused[f'{gate}{suffix}']
-            terms[f'{gate}{suffix}'] = conv(inp, pp['inp'], padding=list(pad),
-                                            bias=pp['bias'])
+            terms[f'{gate}{suffix}'] = conv(inp, pp['inp'],
+                                            padding=gru_op.PADS[axis],
+                                            bias=pp['bias']).contiguous()
     return terms
 
 
 def sep_conv_gru(fused: Params, terms: Params, h: torch.Tensor,
-                 motion: torch.Tensor) -> torch.Tensor:
+                 motion: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """SepConvGRU: a 1×5 then a 5×1 pass over :func:`fuse_gru_params`
-    weights plus the precomputed context terms."""
-    for suffix, pad in GRU_PADS:
-        hm = torch.cat([h, motion], -1)
-        zr = torch.sigmoid(conv(hm, fused[f'zr{suffix}']['hm'],
-                                padding=list(pad)) + terms[f'zr{suffix}'])
-        z, r = torch.chunk(zr, 2, dim=-1)
-        q = torch.tanh(conv(torch.cat([r * h, motion], -1),
-                            fused[f'q{suffix}']['hm'], padding=list(pad))
-                       + terms[f'q{suffix}'])
-        h = (1 - z) * h + z * q
+    weights plus the precomputed context terms, each pass one
+    ``ops/gru.py::gru_direction`` (its plain version when ``plain``)."""
+    direction = gru_op.gru_direction_plain if plain else gru_op.gru_direction
+    for suffix, axis in GRU_AXES:
+        w_zr, w_q = fused[f'taps{suffix}']
+        h = direction(h, motion, w_zr, w_q, terms[f'zr{suffix}'],
+                      terms[f'q{suffix}'], axis)
     return h
 
 
@@ -187,19 +192,29 @@ def _normalize_frames(img: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, image1: torch.Tensor, image2: torch.Tensor,
-            iters: int = ITERS, plain_lookup: bool = False) -> torch.Tensor:
+            iters: int = ITERS, plain_kernels: bool = False) -> torch.Tensor:
     """Two (B, H, W, 3) frames (values 0..255) → (B, H, W, 2) flow."""
     image1 = _normalize_frames(image1)
     image2 = _normalize_frames(image2)
     fmap1 = basic_encoder(params['fnet'], image1, 'instance')
     fmap2 = basic_encoder(params['fnet'], image2, 'instance')
     cnet = basic_encoder(params['cnet'], image1, 'batch')
-    return _refine(params, fmap1, fmap2, cnet, iters, plain_lookup)
+    return _refine(params, fmap1, fmap2, cnet, iters, plain_kernels)
+
+
+def forward_consecutive(params: Params, frames: torch.Tensor,
+                        iters: int = ITERS,
+                        plain_kernels: bool = False) -> torch.Tensor:
+    """(N, H, W, 3) consecutive frames → (N-1, H, W, 2) pairwise flows:
+    :func:`forward` on ``(frames[:-1], frames[1:])``, with every frame
+    fnet-encoded once."""
+    return forward_stack_pairs(params, frames[None], iters,
+                               plain_kernels=plain_kernels)[0]
 
 
 def forward_stack_pairs(params: Params, stacks: torch.Tensor,
                         iters: int = ITERS,
-                        plain_lookup: bool = False) -> torch.Tensor:
+                        plain_kernels: bool = False) -> torch.Tensor:
     """(B, S+1, H, W, 3) frame stacks → (B, S, H, W, 2) within-stack
     flows; fnet runs once on each of the B·(S+1) unique frames."""
     B, S1, H, W, C = stacks.shape
@@ -212,18 +227,19 @@ def forward_stack_pairs(params: Params, stacks: torch.Tensor,
     fmap2 = fmaps[:, 1:].reshape(B * S, h8, w8, c)
     first = flat.reshape(B, S1, H, W, C)[:, :-1].reshape(B * S, H, W, C)
     cnet = basic_encoder(params['cnet'], first, 'batch')
-    flow = _refine(params, fmap1, fmap2, cnet, iters, plain_lookup)
+    flow = _refine(params, fmap1, fmap2, cnet, iters, plain_kernels)
     return flow.reshape(B, S, flow.shape[1], flow.shape[2], 2)
 
 
 def _refine(params: Params, fmap1: torch.Tensor, fmap2: torch.Tensor,
             cnet: torch.Tensor, iters: int,
-            plain_lookup: bool = False) -> torch.Tensor:
+            plain_kernels: bool = False) -> torch.Tensor:
     """Correlation pyramid + GRU refinement + 8× upsample.
 
-    ``plain_lookup=True`` runs the plain version of the selected lookup
-    kernel instead of the kernel (a test seam: it lets a run on the card
-    hold the kernel against its plain version end to end).
+    ``plain_kernels=True`` runs the plain versions of the selected lookup
+    kernel and of the GRU direction kernel instead of the kernels (a test
+    seam: it lets a run on the card hold the kernels against their plain
+    versions end to end).
     """
     net, inp = torch.split(cnet, [HIDDEN_DIM, cnet.shape[-1] - HIDDEN_DIM],
                            dim=-1)
@@ -235,7 +251,7 @@ def _refine(params: Params, fmap1: torch.Tensor, fmap2: torch.Tensor,
     up = params['update_block']
 
     prep, lookup = corr_lookup.select_lookup(
-        corr_lookup.lookup_impl_from_env(), fmap1.device, plain=plain_lookup)
+        corr_lookup.lookup_impl_from_env(), fmap1.device, plain=plain_kernels)
     levels = prep(build_corr_pyramid(fmap1, fmap2, CORR_LEVELS))
     fh, mk = up['flow_head'], up['mask']
     gru = fuse_gru_params(up['gru'])
@@ -246,7 +262,7 @@ def _refine(params: Params, fmap1: torch.Tensor, fmap2: torch.Tensor,
         corr = lookup(levels, coords1)
         flow = coords1 - coords0
         motion = motion_encoder(up['encoder'], flow, corr)
-        net = sep_conv_gru(gru, gru_terms, net, motion)
+        net = sep_conv_gru(gru, gru_terms, net, motion, plain=plain_kernels)
         t = relu(_conv_b(fh['conv1'], net, padding=1))
         delta = _conv_b(fh['conv2'], t, padding=1)
         coords1 = (coords1 + delta).contiguous()
@@ -274,6 +290,13 @@ def pad_amounts(H: int, W: int, mode: str = 'sintel',
     if mode == 'sintel':
         return (pad_h // 2, pad_h - pad_h // 2, pad_w // 2, pad_w - pad_w // 2)
     return (0, pad_h, pad_w // 2, pad_w - pad_w // 2)
+
+
+def unpad(x: torch.Tensor, pads: Tuple[int, int, int, int]) -> torch.Tensor:
+    """Undo :func:`pad_to_multiple` on (B, H, W, C)."""
+    t, b, l, r = pads
+    H, W = x.shape[1], x.shape[2]
+    return x[:, t:H - b, l:W - r, :]
 
 
 def edge_pad(x: torch.Tensor, pads: Tuple[int, int, int, int],

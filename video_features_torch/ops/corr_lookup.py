@@ -2,9 +2,12 @@
 their plain PyTorch versions, and the dispatch between them.
 
 The lookup runs once per GRU iteration (20 per RAFT forward) at every
-pyramid level. It samples, for each of the N = B·H8·W8 pixels and each
-level i (coords scaled by 2⁻ⁱ), the (2r+1)² = 81 bilinear samples of the
-pixel's own correlation map around (x, y), zeros outside the map
+pyramid level; on the card each iteration launches one lookup kernel
+and, in ``ops/gru.py``, the GRU direction kernel twice: those are all
+the hand-written kernels RAFT runs. It samples, for each of the
+N = B·H8·W8 pixels and each level i (coords scaled by 2⁻ⁱ), the
+(2r+1)² = 81 bilinear samples of the pixel's own correlation map around
+(x, y), zeros outside the map
 (``grid_sample(align_corners=True, padding_mode='zeros')``). Output
 element ``i·(2r+1)+j`` of a level samples ``(x + d[i], y + d[j])``, the
 reference's dy-major order; the levels concatenate to (B, H8, W8, 324).

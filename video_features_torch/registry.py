@@ -1,4 +1,4 @@
-"""Extractor registry with lazy imports (i3d only so far)."""
+"""Extractor registry with lazy imports (i3d and raft so far)."""
 from __future__ import annotations
 
 import importlib
@@ -6,6 +6,7 @@ from typing import Dict, Tuple
 
 EXTRACTORS: Dict[str, Tuple[str, str]] = {
     'i3d': ('video_features_torch.extract.i3d', 'ExtractI3D'),
+    'raft': ('video_features_torch.extract.raft', 'ExtractRAFT'),
 }
 
 
