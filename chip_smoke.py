@@ -14,10 +14,21 @@ package is not beside it. Phases:
    one nvcc per source, all started together, with ptxas's register and
    spill lines;
 3. kernels: each correlation-lookup kernel at the main path's shapes
-   (h8=32, w8=43; N from 16 and from 128 frame pairs) against its plain
-   version and against the other kernel (max abs err ≤ 1e-5), with its
-   time, its plain version's time, its memory bound, and the time of
-   ``F.grid_sample`` on the same samples as a yardstick; the GRU
+   (h8=32, w8=43; N from 16, 128 and 8 frame pairs) and on an edge-case
+   set (ragged N, a 13×9 grid whose top level is 1×1, windows all
+   outside the map, which must be exact zeros, integer and edge
+   coordinates) against its plain version and against the other kernel
+   (max abs err ≤ 1e-5); at 128 pairs (the fused I3D path at batch 8,
+   the record) and 8 pairs (the RAFT family at batch 8) its device time
+   (from a CUDA graph of back-to-back calls, so the host's launch cost
+   stays out, taking in turn enough seeded input sets that each call
+   finds L2 cold), its plain version's time, its memory bound and share
+   of it, a model of the 32-byte sectors its patch rows touch and the
+   rate that makes at the measured time, and the time of
+   ``F.grid_sample`` on the same samples as a
+   yardstick, sampling prebuilt grids (``library_ms``) and, on a line of
+   its own, building the grids from the coordinates inside the timed
+   call; the GRU
    direction kernel, both axes, at (128, 32, 43) (the fused I3D path at
    batch 8), (8, 32, 43) (the RAFT family at batch 8) and a ragged
    (3, 13, 9), against its plain version (max abs err ≤ 1e-5), with its
@@ -46,6 +57,7 @@ sum over the path runs of phases 4 and 5); the last line is
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -68,6 +80,12 @@ SLICE_BATCH, SLICE_ITERS, CHECK_ITERS = 2, 20, 3
 GRU_SHAPES = ((128, H8, W8), (8, H8, W8), (3, 13, 9))
 # the RAFT family slice: 33 frames → 4 steps of 8 pairs, padded to 256×336
 RAFT_FRAMES, RAFT_HW, RAFT_BATCH, RAFT_FPS = 33, (250, 333), 8, 25.0
+# the lookup kernels' pair counts on the (H8, W8) grid: a check-only size,
+# the fused I3D path at batch 8 (the record) and the RAFT family at batch 8
+LOOKUP_PAIRS = (16, 128, 8)
+LOOKUP_EDGE_CASES = ((3, 13, 9, 'mixed'), (1, 31, 41, 'mixed'),
+                     (2, H8, W8, 'far'), (2, H8, W8, 'edges'),
+                     (3, 13, 9, 'edges'))
 KERNELS = ('corr_lookup', 'gru_direction')
 
 
@@ -94,6 +112,76 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fns, reps: int, replays: int = 5) -> float:
+    """Mean device time of one call from a CUDA graph of ``reps``
+    back-to-back calls, replayed ``replays`` times: the host's launch cost,
+    which at the RAFT family's sizes exceeds a lookup kernel's own time,
+    stays out. ``fns`` holds one callable per input set; the calls take
+    them in turn, and each call's output lives until its set comes round
+    again, so that sets which together exceed L2 (``lookup_sets``) leave
+    every call its inputs and output cold, as on the path, where the
+    update block's convolutions run between two lookups."""
+    reps = -(-reps // len(fns)) * len(fns)
+    for fn in fns:                # warm-up, and the kernels' one-time set-up
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    keep = [None] * len(fns)
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            keep[i % len(fns)] = fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph, keep
+    return ms
+
+
+def lookup_sets(torch, n: int) -> int:
+    """Input sets for ``graph_ms`` at N pixels: enough that their outputs
+    alone (N·324·4 bytes each) fill the card's L2 four times over."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return max(1, math.ceil(4 * l2 / (n * 324 * 4)))
+
+
+def window_sectors(torch, coords, shapes, pad_levels: bool) -> int:
+    """32-byte sectors that the patch rows touch, levels based at 256-byte
+    aligned addresses: the in-map part of each pixel's 10 rows per level
+    (the padded kernel: all 10 rows of its padded level). A model, not a
+    measurement, of what the reads cost at the memory's granularity,
+    beside the cells of the bound."""
+    n = coords.shape[0]
+    pixel = torch.arange(n, device=coords.device)[:, None]
+    r = torch.arange(10, device=coords.device)[None, :]
+    total = 0
+    for i, (h, w) in enumerate(shapes):
+        c = coords / (2.0 ** i)
+        x0 = torch.floor(c[:, 0].clamp(-6.0, w + 5.0)).long() - 4
+        y0 = torch.floor(c[:, 1].clamp(-6.0, h + 5.0)).long() - 4
+        if pad_levels:
+            stride, plane = w + 22, (h + 22) * (w + 22)
+            lo, hi = x0 + 11, x0 + 21
+            rows = y0[:, None] + 11 + r
+            keep = torch.ones_like(rows, dtype=torch.bool)
+        else:
+            stride, plane = w, h * w
+            lo, hi = x0.clamp(min=0), (x0 + 10).clamp(max=w)
+            rows = y0[:, None] + r
+            keep = (rows >= 0) & (rows < h) & (hi > lo)[:, None]
+        row0 = pixel * plane + rows * stride
+        first = (row0 + lo[:, None]) * 4 // 32
+        last = ((row0 + hi[:, None]) * 4 - 1) // 32
+        total += int((last - first + 1)[keep].sum().item())
+    return total
 
 
 def window_cells(torch, coords, shapes, pad_levels: bool) -> int:
@@ -125,9 +213,9 @@ def bound_ms(n: int, cells: int) -> tuple:
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def grid_sample_lookup(torch, F, levels, coords):
-    """The same samples through ``F.grid_sample(align_corners=True,
-    padding_mode='zeros')``: a yardstick, not used by the port."""
+def grid_sample_grids(torch, levels, coords):
+    """The (N, 9, 9, 2) sampling grid per level, normalised for
+    ``grid_sample(align_corners=True)``, output order [n, i(x), j(y)]."""
     d = torch.arange(-4, 5, device=coords.device, dtype=torch.float32)
     grids = []
     for i, lvl in enumerate(levels):
@@ -137,75 +225,181 @@ def grid_sample_lookup(torch, F, levels, coords):
         y = c[:, 1, None, None] + d[None, None, :]        # [n, i, j(y)]
         x, y = torch.broadcast_tensors(x, y)
         grids.append(torch.stack([2 * x / (w - 1) - 1, 2 * y / (h - 1) - 1], -1))
+    return grids
 
-    def run():
+
+def grid_sample_lookup(torch, F, levels, coords):
+    """The same samples through ``F.grid_sample(align_corners=True,
+    padding_mode='zeros')``, a yardstick the port never calls: ``(sample,
+    full)``, where ``sample`` samples prebuilt grids (``library_ms``) and
+    ``full`` also builds the grids from the coordinates, as a caller
+    whose coordinates change every iteration must."""
+    def sample(grids):
         return torch.cat([
             F.grid_sample(lvl.unsqueeze(1), g, mode='bilinear',
                           padding_mode='zeros', align_corners=True
                           ).reshape(lvl.shape[0], 81)
             for lvl, g in zip(levels, grids)], dim=-1)
-    return run
+    grids = grid_sample_grids(torch, levels, coords)
+    return (lambda: sample(grids),
+            lambda: sample(grid_sample_grids(torch, levels, coords)))
+
+
+def lookup_inputs(torch, gen, pairs: int, h: int, w: int, kind: str = 'mixed'):
+    """Seeded levels (N, h/2ⁱ, w/2ⁱ) and (pairs, h, w, 2) coordinates of
+    one kind: 'mixed' in-range, fractional and far out-of-range centroids
+    plus integers; 'far' ones at least 1000 px outside every level;
+    'edges' integers, with each level's first and last row and column and
+    the ones just outside them."""
+    n = pairs * h * w
+    levels = [torch.randn(n, max(h >> i, 1), max(w >> i, 1), device='cuda',
+                          generator=gen) for i in range(4)]
+
+    def rand(*s):
+        return torch.rand(*s, device='cuda', generator=gen)
+    if kind == 'mixed':
+        xy = rand(pairs, h, w, 2) * torch.tensor([w + 18.0, h + 18.0],
+                                                 device='cuda') - 9.0
+        far = rand(pairs, h, w, 1) < 0.05
+        xy = torch.where(far, xy * 1000.0, xy)
+        ints = rand(pairs, h, w, 1) < 0.05
+        xy = torch.where(ints, torch.round(xy), xy)
+    elif kind == 'far':
+        sign = torch.where(rand(pairs, h, w, 2) < 0.5, -1.0, 1.0)
+        xy = sign * (1e3 + rand(pairs, h, w, 2) * 1e6)
+    else:
+        axes = []
+        for extent in (w, h):
+            picks = list(range(-6, extent + 6))
+            for level in range(4):
+                last = max(extent >> level, 1)
+                picks += [s << level for s in (-1, 0, last - 1, last)]
+            picks = torch.tensor(picks, device='cuda', dtype=torch.float32)
+            axes.append(picks[torch.randint(len(picks), (pairs, h, w),
+                                            device='cuda', generator=gen)])
+        xy = torch.stack(axes, -1)
+    return levels, xy.contiguous()
+
+
+def check_lookups(torch, corr_lookup, levels, coords, where: str) -> dict:
+    """Both kernels against their plain versions and each other; fails
+    past KERNEL_ATOL. Returns the max abs errors."""
+    padded = corr_lookup.pad_pyramid(levels)
+    masked = corr_lookup.lookup_corr_lanes(levels, coords)
+    unmasked = corr_lookup.lookup_corr(padded, coords)
+    torch.cuda.synchronize()
+    errs = {'masked': (masked - corr_lookup.lookup_corr_lanes_plain(
+                levels, coords)).abs().max().item(),
+            'padded': (unmasked - corr_lookup.lookup_corr_plain(
+                padded, coords)).abs().max().item()}
+    cross = (masked - unmasked).abs().max().item()
+    print(f'{where}: max abs err masked={errs["masked"]:.3e} '
+          f'padded={errs["padded"]:.3e} masked-vs-padded={cross:.3e}', flush=True)
+    if max(errs.values()) > KERNEL_ATOL or cross > KERNEL_ATOL:
+        fail(f'lookup kernel disagrees with its plain version at {where}')
+    return errs
 
 
 def kernel_phase(torch, F, corr_lookup):
-    """Each kernel vs its plain version and vs the other kernel; times at
-    the 128-pair shape (the main path at batch 8)."""
+    """Each kernel vs its plain version and vs the other kernel at the
+    main path's shapes and on the edge cases; times at the fused I3D
+    path's batch 8 (128 pairs, the record) and the RAFT family's batch 8
+    (8 pairs), each beside its bound and ``F.grid_sample``."""
     gen = torch.Generator(device='cuda').manual_seed(0)
-    shapes = [(H8 >> i, W8 >> i) for i in range(4)]
     rec = {'masked': {'err': 0.0}, 'padded': {'err': 0.0}}
-    for pairs in (16, 128):
-        n = pairs * H8 * W8
-        levels = [torch.randn(n, h, w, device='cuda', generator=gen)
-                  for h, w in shapes]
-        # in-range, fractional and far out-of-range centroids, plus integers
-        xy = torch.rand(pairs, H8, W8, 2, device='cuda', generator=gen)
-        xy = xy * torch.tensor([W8 + 18.0, H8 + 18.0], device='cuda') - 9.0
-        far = torch.rand(pairs, H8, W8, 1, device='cuda', generator=gen) < 0.05
-        xy = torch.where(far, xy * 1000.0, xy)
-        ints = torch.rand(pairs, H8, W8, 1, device='cuda', generator=gen) < 0.05
-        coords = torch.where(ints, torch.round(xy), xy).contiguous()
-        padded = corr_lookup.pad_pyramid(levels)
 
-        masked = corr_lookup.lookup_corr_lanes(levels, coords)
-        unmasked = corr_lookup.lookup_corr(padded, coords)
-        torch.cuda.synchronize()
-        plain_m = corr_lookup.lookup_corr_lanes_plain(levels, coords)
-        plain_p = corr_lookup.lookup_corr_plain(padded, coords)
-        errs = {'masked': (masked - plain_m).abs().max().item(),
-                'padded': (unmasked - plain_p).abs().max().item()}
-        cross = (masked - unmasked).abs().max().item()
-        flat = coords.reshape(-1, 2)
-        lib = grid_sample_lookup(torch, F, levels, flat)
-        lib_err = (lib().reshape(masked.shape) - masked).abs().max().item()
-        print(f'pairs={pairs} N={n}: max abs err masked={errs["masked"]:.3e} '
-              f'padded={errs["padded"]:.3e} masked-vs-padded={cross:.3e} '
-              f'grid_sample-vs-masked={lib_err:.3e}', flush=True)
+    def note(errs):
         for key, err in errs.items():
             rec[key]['err'] = max(rec[key]['err'], err)
-        if max(errs.values()) > KERNEL_ATOL or cross > KERNEL_ATOL:
-            fail(f'kernel disagrees with its plain version at N={n}')
-        if pairs != 128:
+    # edge cases: ragged N against the kernels' 8-pixel groups (351, 1271),
+    # a 13×9 grid whose top level is 1×1, windows all outside the map,
+    # integer and edge coordinates
+    for pairs, h, w, kind in LOOKUP_EDGE_CASES:
+        levels, coords = lookup_inputs(torch, gen, pairs, h, w, kind)
+        note(check_lookups(torch, corr_lookup, levels, coords,
+                           f'edge case {pairs}x{h}x{w} {kind}'))
+        if kind == 'far':
+            got = (corr_lookup.lookup_corr_lanes(levels, coords).abs().max().item(),
+                   corr_lookup.lookup_corr(corr_lookup.pad_pyramid(levels),
+                                           coords).abs().max().item())
+            if got != (0.0, 0.0):
+                fail(f'windows outside the map are not exact zeros: {got}')
+    for pairs in LOOKUP_PAIRS:
+        n = pairs * H8 * W8
+        if pairs == LOOKUP_PAIRS[0]:
+            levels, coords = lookup_inputs(torch, gen, pairs, H8, W8)
+            note(check_lookups(torch, corr_lookup, levels, coords,
+                               f'pairs={pairs} N={n}'))
             continue
-        reps = 20
-        rec['masked']['ms'] = cuda_ms(
-            torch, lambda: corr_lookup.lookup_corr_lanes(levels, coords), reps)
-        rec['padded']['ms'] = cuda_ms(
-            torch, lambda: corr_lookup.lookup_corr(padded, coords), reps)
-        rec['masked']['plain_ms'] = cuda_ms(
-            torch, lambda: corr_lookup.lookup_corr_lanes_plain(levels, coords), 3)
-        rec['padded']['plain_ms'] = cuda_ms(
-            torch, lambda: corr_lookup.lookup_corr_plain(padded, coords), 3)
-        lib_ms = cuda_ms(torch, lib, 5)
+        # seeded input sets, timed in turn so that each call finds L2 cold;
+        # set 0 is checked against the plain versions
+        sets = []
+        for _ in range(lookup_sets(torch, n)):
+            levels, coords = lookup_inputs(torch, gen, pairs, H8, W8)
+            flat = coords.reshape(-1, 2)
+            sample, full = grid_sample_lookup(torch, F, levels, flat)
+            sets.append({'levels': levels, 'coords': coords, 'flat': flat,
+                         'padded': corr_lookup.pad_pyramid(levels),
+                         'sample': sample, 'full': full})
+        s0 = sets[0]
+        note(check_lookups(torch, corr_lookup, s0['levels'], s0['coords'],
+                           f'pairs={pairs} N={n}'))
+        lib_err = (s0['sample']().reshape(s0['coords'].shape[:3] + (324,))
+                   - corr_lookup.lookup_corr_lanes(s0['levels'], s0['coords'])
+                   ).abs().max().item()
+
+        def calls(make):
+            return [functools.partial(make, st) for st in sets]
+        # device time from CUDA graphs (graph_ms), the same way for all
+        at = {'masked': {'ms': graph_ms(torch, calls(
+                  lambda st: corr_lookup.lookup_corr_lanes(st['levels'],
+                                                           st['coords'])), 50)},
+              'padded': {'ms': graph_ms(torch, calls(
+                  lambda st: corr_lookup.lookup_corr(st['padded'],
+                                                     st['coords'])), 50)}}
+        at['masked']['plain_ms'] = graph_ms(torch, calls(
+            lambda st: corr_lookup.lookup_corr_lanes_plain(st['levels'],
+                                                           st['coords'])), 3, 2)
+        at['padded']['plain_ms'] = graph_ms(torch, calls(
+            lambda st: corr_lookup.lookup_corr_plain(st['padded'],
+                                                     st['coords'])), 3, 2)
+        lib_ms = graph_ms(torch, calls(lambda st: st['sample']()), 10)
+        lib_full_ms = graph_ms(torch, calls(lambda st: st['full']()), 10)
+        print(f'lookups at N={n}: timed over {len(sets)} input set(s) in '
+              f'turn ({len(sets) * n * 324 * 4 / 1e6:.1f} MB of outputs against '
+              f'{torch.cuda.get_device_properties(0).L2_cache_size / 1e6:.1f} MB '
+              f'of L2)', flush=True)
+        print(f'grid_sample at N={n}: {lib_ms:.4f} ms sampling prebuilt grids, '
+              f'{lib_full_ms:.4f} ms with the grids built from the coordinates '
+              f'in the call; max abs diff vs masked kernel {lib_err:.3e}',
+              flush=True)
+        shapes = [lvl.shape[1:] for lvl in s0['levels']]
         for key, pad_levels in (('masked', False), ('padded', True)):
-            cells = window_cells(torch, flat, shapes, pad_levels)
-            rec[key]['bound_ms'], rec[key]['bound_by'] = bound_ms(n, cells)
-            rec[key]['library_ms'] = lib_ms
-        for key in rec:
-            print(f'{key} kernel at N={n}: {rec[key]["ms"]:.4f} ms, plain '
-                  f'{rec[key]["plain_ms"]:.4f} ms, bound {rec[key]["bound_ms"]:.4f} '
-                  f'ms ({rec[key]["bound_by"]}), grid_sample {lib_ms:.4f} ms',
-                  flush=True)
-        del levels, padded, masked, unmasked, plain_m, plain_p
+            r = at[key]
+            # this run's inputs, per call: the mean over the sets
+            cells = sum(window_cells(torch, st['flat'], shapes, pad_levels)
+                        for st in sets) / len(sets)
+            r['bound_ms'], r['bound_by'] = bound_ms(n, cells)
+            r['library_ms'] = lib_ms
+            print(f'{key} kernel at N={n}: {r["ms"]:.4f} ms, plain '
+                  f'{r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
+                  f'({r["bound_by"]}), {r["bound_ms"] / r["ms"]:.1%} of the '
+                  f'bound, grid_sample {lib_ms:.4f} ms ({lib_ms / r["ms"]:.2f}x '
+                  f'the kernel)', flush=True)
+            sectors = sum(window_sectors(torch, st['flat'], shapes, pad_levels)
+                          for st in sets) / len(sets)
+            moved = sectors * 32 + n * (2 + 324) * 4
+            print(f'{key} kernel at N={n} (model, not a measurement): patch '
+                  f'rows touch {sectors:.0f} sectors '
+                  f'({sectors * 32 / 1e6:.1f} MB, {sectors * 32 / (cells * 4):.2f}x '
+                  f'the cells\' bytes); with coords and output '
+                  f'{moved / 1e6:.1f} MB, which at the measured time is '
+                  f'{moved / r["ms"] / 1e9:.2f} TB/s '
+                  f'({moved / r["ms"] / 1e9 / (HBM_BYTES_PER_S / 1e12):.1%} of '
+                  f'{HBM_BYTES_PER_S / 1e12:.2f} TB/s)', flush=True)
+            if pairs == LOOKUP_PAIRS[1]:
+                rec[key].update(r)
+        del sets, s0
     torch.cuda.empty_cache()
     return rec
 

@@ -23,10 +23,33 @@ def _pyramid(rng, n, h, w, device='cpu'):
                              ).to(device) for i in range(4)]
 
 
-def _coords(rng, b, h, w, device='cpu'):
-    # in-range, fractional, and far out-of-range centroids
-    xy = rng.uniform(-9, max(h, w) + 9, size=(b, h, w, 2)).astype(np.float32)
-    return torch.from_numpy(xy).to(device)
+def _coords(rng, b, h, w, device='cpu', kind='mixed'):
+    """(b, h, w, 2) coordinates of one kind: 'mixed' in-range, fractional
+    and out-of-range centroids; 'far' ones at least 1000 px outside every
+    level (every window all zeros); 'edges' integers, with each level's
+    first and last row and column and the ones just outside them."""
+    if kind == 'mixed':
+        xy = rng.uniform(-9, max(h, w) + 9, size=(b, h, w, 2))
+    elif kind == 'far':
+        xy = (rng.uniform(1e3, 1e6, size=(b, h, w, 2))
+              * rng.choice([-1, 1], (b, h, w, 2)))
+    else:
+        axes = []
+        for extent in (w, h):
+            picks = list(range(-6, extent + 6))
+            for level in range(4):
+                last = max(extent >> level, 1)
+                picks += [s << level for s in (-1, 0, last - 1, last)]
+            axes.append(rng.choice(picks, size=(b, h, w)))
+        xy = np.stack(axes, -1)
+    return torch.from_numpy(xy.astype(np.float32)).to(device)
+
+
+# the kernels' edge cases: pixel counts that are not a multiple of the
+# kernels' 8-pixel group (3·13·9 = 351, 31·41 = 1271), a 13×9 grid whose top
+# level is 1×1, windows all outside the map, integer and edge coordinates
+EDGE_CASES = [(3, 13, 9, 'mixed'), (1, 31, 41, 'mixed'), (2, 32, 43, 'far'),
+              (2, 32, 43, 'edges'), (3, 13, 9, 'edges')]
 
 
 def _cuda():
@@ -62,13 +85,38 @@ def test_wrapper_rejects_bad_inputs():
         corr_lookup.lookup_corr(pyr, coords)      # not padded
 
 
+@pytest.mark.parametrize('b,h,w,kind', EDGE_CASES)
+def test_plain_versions_on_edge_cases_cpu(b, h, w, kind):
+    """Each edge case exercises what it names, and the two plain versions,
+    which the card test holds the kernels to, agree on it; windows all
+    outside the map are exact zeros."""
+    rng = np.random.RandomState(10)
+    pyr = _pyramid(rng, b * h * w, h, w)
+    coords = _coords(rng, b, h, w, kind=kind)
+    if kind == 'mixed':
+        assert (b * h * w) % 8                # ragged against 8-pixel groups
+    if kind == 'edges':
+        assert torch.equal(coords, coords.round())
+        for level in range(4):
+            last = max(w >> level, 1) - 1
+            assert (coords[..., 0] == last << level).any()
+    masked = corr_lookup.lookup_corr_lanes(pyr, coords)
+    padded = corr_lookup.lookup_corr(corr_lookup.pad_pyramid(pyr), coords)
+    assert masked.shape == (b, h, w, 324)
+    torch.testing.assert_close(masked, padded, rtol=0, atol=ATOL)
+    if kind == 'far':
+        assert coords.abs().min() >= 1e3
+        assert not masked.any() and not padded.any()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('b,h,w', [(2, 32, 43), (1, 13, 9)])
-def test_kernels_match_plain_on_the_card(b, h, w):
+@pytest.mark.parametrize('b,h,w,kind', [(2, 32, 43, 'mixed'), (1, 13, 9, 'mixed')]
+                         + EDGE_CASES)
+def test_kernels_match_plain_on_the_card(b, h, w, kind):
     dev = _cuda()
     rng = np.random.RandomState(6)
     pyr = _pyramid(rng, b * h * w, h, w, dev)
-    coords = _coords(rng, b, h, w, dev)
+    coords = _coords(rng, b, h, w, dev, kind=kind)
     padded = corr_lookup.pad_pyramid(pyr)
     before = (corr_lookup.lookup_corr_lanes.launches,
               corr_lookup.lookup_corr.launches)
@@ -84,6 +132,8 @@ def test_kernels_match_plain_on_the_card(b, h, w):
         unmasked, corr_lookup.lookup_corr_plain(padded, coords),
         rtol=0, atol=ATOL)
     torch.testing.assert_close(masked, unmasked, rtol=0, atol=ATOL)
+    if kind == 'far':
+        assert not masked.any() and not unmasked.any()
 
 
 def _gru_inputs(rng, b, h, w, device='cpu'):

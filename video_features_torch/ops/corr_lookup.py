@@ -23,12 +23,20 @@ Kernels (``csrc/corr_lookup.cu``, CUDA C++ for sm_90a):
   levels zero-padded once per forward by ``2r+3`` (:func:`pad_pyramid`)
   with clamped coordinates, and has no bounds predicates.
 
-Both are bound by memory on the H100: each call writes N·324·4 bytes
-and reads at most the 10×10 patch of every level per pixel. One thread
-per output element keeps the store coalesced; the corner reads of
-neighbouring outputs share a patch and hit L1. The TPU's (h, w, N') lane
-transpose, its 128-lane and 32-row padding, and the one-hot-matmul
-"slice" are artifacts of the TPU's tiling and are not carried over.
+Both are bound by bytes on the H100: each call writes N·324·4 bytes and
+reads at most the 10×10 patch of every level per pixel, whose 40-byte
+rows cost 2–3 32-byte sectors each. Both share one design (see the
+source's note): a block loops over groups of 8 pixels; per (pixel,
+level) a warp computes the scale, clamp, floors and weights once and
+copies the patch into shared memory with ``cp.async`` (the masked kernel
+zero-fills cells outside the map through cp.async's source size, so it
+needs no padded copy), two groups' copies in flight while a third
+blends; each thread blends 9 outputs from shared memory, and the group's
+output rows leave as one run of 16-byte streaming stores. The TPU's
+(h, w, N') lane transpose, its 128-lane and 32-row padding, and the
+one-hot-matmul "slice" are artifacts of the TPU's tiling and are not
+carried over; TMA cannot address the levels' rows (strides not multiples
+of 16 bytes), and tensor cores have nothing to do at 9 flops per output.
 
 Each kernel's wrapper launches it on a CUDA tensor (or raises) and
 takes its plain version only for a CPU tensor; ``launches`` on the
