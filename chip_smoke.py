@@ -12,7 +12,8 @@ package is not beside it. Phases:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from ``video_features_torch/csrc``,
    one nvcc per source, all started together, with ptxas's register and
-   spill lines;
+   spill lines, and the count of tensor-core (HGMMA) instructions in the
+   GRU kernel's SASS (``cuobjdump -sass``), which must not be 0;
 3. kernels: each correlation-lookup kernel at the main path's shapes
    (h8=32, w8=43; N from 16, 128 and 8 frame pairs) and on an edge-case
    set (ragged N, a 13×9 grid whose top level is 1×1, windows all
@@ -30,10 +31,13 @@ package is not beside it. Phases:
    its own, building the grids from the coordinates inside the timed
    call; the GRU
    direction kernel, both axes, at (128, 32, 43) (the fused I3D path at
-   batch 8), (8, 32, 43) (the RAFT family at batch 8) and a ragged
-   (3, 13, 9), against its plain version (max abs err ≤ 1e-5), with its
-   time, its plain version's time (two cuDNN convs, which is also the
-   library yardstick) and its operations bound at the two full shapes;
+   batch 8), (8, 32, 43) (the RAFT family at batch 8), a ragged
+   (3, 13, 9), a (2, 3, 4) smaller than the taps' halo and a (1, 6, 100)
+   too wide for 128-pixel tiles on axis 'h', against its
+   plain version (max abs err ≤ 1e-5), at the two full shapes both sides
+   against a float64 plain version, with its time, its plain version's
+   time, the two cuDNN convs' time (``library_ms``), its 3xTF32
+   operations bound (``bound_ms``) and its fp32 FMA bound;
 4. slice (I3D): ``ExtractI3D.extract_frames`` on 49 seeded 256×340
    frames at full width (both I3D towers at 224, stack 16, step 16,
    RAFT 20 iterations, batch 2: 3 windows, one padded tail) once per
@@ -61,6 +65,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -72,12 +77,17 @@ KERNEL_ATOL = 1e-5      # fp reassociation of a 4-term blend of O(1) values
 SLICE_REL_L2 = 1e-3     # the BASELINE feature bar, kernel vs plain end to end
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 rate
 FP32_FLOP_PER_S = 67e12     # H100 SXM published fp32 (non-tensor) rate
+TF32_FLOP_PER_S = 495e12    # H100 SXM published dense TF32 tensor-core rate
 H8, W8 = 32, 43             # RAFT's /8 grid at the 256×344 padded geometry
 STACK, FRAMES, FRAME_HW = 16, 49, (256, 340)
 SLICE_BATCH, SLICE_ITERS, CHECK_ITERS = 2, 20, 3
 # the GRU direction's pixel grids: the fused I3D path at batch 8 (128
-# pairs), the RAFT family at batch 8, and a ragged one
-GRU_SHAPES = ((128, H8, W8), (8, H8, W8), (3, 13, 9))
+# pairs), the RAFT family at batch 8, a ragged one, one smaller than the
+# taps' halo (taps leave both edges of every row and column), and one too
+# wide for 128-pixel tiles on axis 'h' (64-pixel tiles, tap windows staged
+# apart)
+GRU_SHAPES = ((128, H8, W8), (8, H8, W8), (3, 13, 9), (2, 3, 4),
+              (1, 6, 100))
 # the RAFT family slice: 33 frames → 4 steps of 8 pairs, padded to 256×336
 RAFT_FRAMES, RAFT_HW, RAFT_BATCH, RAFT_FPS = 33, (250, 333), 8, 25.0
 # the lookup kernels' pair counts on the (H8, W8) grid: a check-only size,
@@ -404,21 +414,25 @@ def kernel_phase(torch, F, corr_lookup):
     return rec
 
 
-def gru_bound_ms(m: int) -> tuple:
-    """(ms, 'bytes' | 'operations') for one GRU direction over m pixels:
-    h, motion, zr_term, q_term and the weights read once, the new h
-    written once, against 2·5·256·384 flops per pixel."""
+def gru_bound_ms(m: int) -> dict:
+    """Least times in ms for one GRU direction over m pixels: 'bytes' (h,
+    motion, zr_term, q_term and the weights read once, the new h written
+    once), 'tf32x3' (the kernel's 3 TF32 tensor-core products per fp32
+    product of 2·5·256·384 flops a pixel) and 'fp32' (the same flops at
+    the fp32 FMA rate)."""
     nbytes = m * (128 + 128 + 256 + 128 + 128) * 4 + 5 * 256 * 384 * 4
     flops = 2 * m * 5 * 256 * 384
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+    return {'bytes': nbytes / HBM_BYTES_PER_S * 1e3,
+            'tf32x3': 3 * flops / TF32_FLOP_PER_S * 1e3,
+            'fp32': flops / FP32_FLOP_PER_S * 1e3}
 
 
 def gru_phase(torch, gru):
     """The GRU direction kernel vs its plain version, both axes, at
-    GRU_SHAPES; times at the two full shapes. The plain version is two
-    cuDNN convs plus elementwise ops (TF32 off), the library yardstick."""
+    GRU_SHAPES; at the two full shapes both sides against a float64 plain
+    version, and times: the kernel, its plain version (weights unpacked,
+    two cuDNN convs, TF32 off), and the two convs alone from prebuilt conv
+    weights (the library yardstick), beside the bounds."""
     gen = torch.Generator(device='cuda').manual_seed(1)
 
     def randn(*s):
@@ -426,44 +440,69 @@ def gru_phase(torch, gru):
     rec = {'err': 0.0, 'at': {}}
     for shape in GRU_SHAPES:
         x = (torch.tanh(randn(*shape, 128)), randn(*shape, 128),
-             0.05 * randn(5, 256, 256), 0.05 * randn(5, 256, 128),
+             *gru.pack_direction(0.05 * randn(256, 256, 1, 5),
+                                 0.05 * randn(128, 256, 1, 5)),
              0.1 * randn(*shape, 256), 0.1 * randn(*shape, 128))
+        full = shape in GRU_SHAPES[:2]
         for axis in gru.AXES:
             got = gru.gru_direction(*x, axis)
             torch.cuda.synchronize()
-            err = (got - gru.gru_direction_plain(*x, axis)).abs().max().item()
+            plain = gru.gru_direction_plain(*x, axis)
+            err = (got - plain).abs().max().item()
             line = f'gru {shape} axis {axis}: max abs err {err:.3e}'
-            if shape == GRU_SHAPES[1]:
+            if full:
                 # who carries the error: both sides against a float64 plain
                 ref = gru.gru_direction_plain(*[t.double() for t in x], axis)
-                plain = gru.gru_direction_plain(*x, axis)
                 line += (f' (vs float64: kernel '
                          f'{(got - ref).abs().max().item():.3e}, plain '
                          f'{(plain - ref).abs().max().item():.3e})')
+                del ref
             print(line, flush=True)
             rec['err'] = max(rec['err'], err)
             if err > KERNEL_ATOL:
                 fail(f'GRU kernel disagrees with its plain version at '
                      f'{shape} axis {axis}: {err}')
-            if shape == GRU_SHAPES[2]:
+            if not full:
                 continue
             m = shape[0] * shape[1] * shape[2]
+            convs = [gru._conv_weight(gru.unpack_direction(w), axis)
+                     for w in x[2:4]]
             ms = cuda_ms(torch, lambda: gru.gru_direction(*x, axis), 10)
             plain_ms = cuda_ms(torch, lambda: gru.gru_direction_plain(*x, axis), 5)
-            bound, by = gru_bound_ms(m)
-            rec['at'][(shape, axis)] = (ms, plain_ms, bound, by)
-            print(f'gru {shape} axis {axis} (M={m}): {ms:.4f} ms, plain (cuDNN) '
-                  f'{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), '
-                  f'{bound / ms:.1%} of the bound', flush=True)
+            lib_ms = cuda_ms(torch, lambda: gru.gru_direction_convs(
+                x[0], x[1], *convs, x[4], x[5], axis), 5)
+            b = gru_bound_ms(m)
+            rec['at'][(shape, axis)] = (ms, plain_ms, lib_ms, b)
+            print(f'gru {shape} axis {axis} (M={m}): {ms:.4f} ms, plain '
+                  f'{plain_ms:.4f} ms, cuDNN convs {lib_ms:.4f} ms; bound '
+                  f'{b["tf32x3"]:.4f} ms (operations, 3xTF32 at '
+                  f'{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s), {b["tf32x3"] / ms:.1%} '
+                  f'of it; fp32 FMA bound {b["fp32"]:.4f} ms '
+                  f'({b["fp32"] / ms:.1%}); bytes bound {b["bytes"]:.4f} ms',
+                  flush=True)
         del x
     torch.cuda.empty_cache()
     # the record: the fused I3D path's batch-8 shape, mean of the two axes
     at = [rec['at'][(GRU_SHAPES[0], a)] for a in gru.AXES]
     rec['ms'] = sum(a[0] for a in at) / len(at)
     rec['plain_ms'] = sum(a[1] for a in at) / len(at)
-    rec['library_ms'] = rec['plain_ms']
-    rec['bound_ms'], rec['bound_by'] = at[0][2], at[0][3]
+    rec['library_ms'] = sum(a[2] for a in at) / len(at)
+    rec['bound_ms'], rec['bound_by'] = at[0][3]['tf32x3'], 'operations'
+    rec['fp32_bound_ms'] = at[0][3]['fp32']
     return rec
+
+
+def sass_count(path: Path, opcode: str) -> int:
+    """Instructions whose opcode starts with ``opcode`` in the built
+    library's SASS (``cuobjdump -sass``)."""
+    tool = shutil.which('cuobjdump') or str(
+        Path(os.environ.get('CUDA_HOME', '/usr/local/cuda')) / 'bin' / 'cuobjdump')
+    out = subprocess.run([tool, '-sass', str(path)], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f'cuobjdump -sass {path.name} failed: {out.stderr.strip()}')
+    return sum(1 for line in out.stdout.splitlines()
+               if f' {opcode}' in line and '/*' in line)
 
 
 def slice_frames(np):
@@ -653,6 +692,10 @@ def main() -> int:
             if 'registers' in line or 'spill' in line or 'entry function' in line:
                 print(f'  ptxas {name}:', line.strip())
         print(f'built {path.name}', flush=True)
+    hgmma = sass_count(built[KERNELS.index('gru_direction')][0], 'HGMMA')
+    print(f'gru_direction SASS: {hgmma} HGMMA instructions', flush=True)
+    if not hgmma:
+        fail('the GRU kernel was built without tensor-core (HGMMA) instructions')
     print(f'build phase {time.perf_counter() - t:.1f} s', flush=True)
 
     t = phase('kernels')
@@ -726,6 +769,8 @@ def main() -> int:
             'max_abs_err': r['err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
             'library_ms': r['library_ms']})
+    # the GRU row's bound is 3xTF32's; the fp32 FMA bound beside it
+    kernels[-1]['fp32_bound_ms'] = rec['gru']['fp32_bound_ms']
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

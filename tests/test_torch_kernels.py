@@ -140,13 +140,19 @@ def _gru_inputs(rng, b, h, w, device='cpu'):
     def t(*shape, scale=1.0):
         return torch.from_numpy((rng.randn(*shape) * scale).astype(
             np.float32)).to(device)
-    return (torch.tanh(t(b, h, w, 128)), t(b, h, w, 128),
-            t(5, 256, 256, scale=0.05), t(5, 256, 128, scale=0.05),
+    w_zr, w_q = gru.pack_direction(t(256, 256, 1, 5, scale=0.05),
+                                   t(128, 256, 1, 5, scale=0.05))
+    return (torch.tanh(t(b, h, w, 128)), t(b, h, w, 128), w_zr, w_q,
             t(b, h, w, 256, scale=0.1), t(b, h, w, 128, scale=0.1))
 
 
+# a full grid, a ragged one, one smaller than the taps' halo, so that taps
+# leave both edges of every row and column, and one too wide for the
+# kernel's 128-pixel tiles on axis 'h' (64-pixel tiles, tap windows staged
+# apart)
 @pytest.mark.cuda
-@pytest.mark.parametrize('b,h,w', [(2, 32, 43), (3, 13, 9)])
+@pytest.mark.parametrize('b,h,w', [(2, 32, 43), (3, 13, 9), (2, 3, 4),
+                                   (1, 6, 100)])
 @pytest.mark.parametrize('axis', ['w', 'h'])
 def test_gru_kernel_matches_plain_on_the_card(b, h, w, axis):
     dev = _cuda()

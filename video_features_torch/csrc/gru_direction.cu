@@ -2,10 +2,10 @@
 //
 // Replaces the Pallas TPU kernel tools/gru_kernel_experiment.py::
 // pallas_direction (body _kernel). With h and motion (M pixels, 128 channels
-// each, channels-last), the direction's weights in tap layout
-// w_zr (5, 256 in, 256 out) and w_q (5, 256 in, 128 out) -- the in axis is
-// [h | motion], zr's out axis is [z | r] -- and the precomputed context terms
-// zr_term (M, 256) and q_term (M, 128):
+// each, channels-last), the direction's weights w_zr (256 out x 256 in per
+// tap) and w_q (128 out x 256 in per tap) -- the in axis is [h | motion],
+// zr's out axis is [z | r] -- and the precomputed context terms zr_term
+// (M, 256) and q_term (M, 128):
 //
 //   zr  = sigmoid(sum_t [h, motion](p + t - 2) . w_zr[t] + zr_term)
 //   q   = tanh(sum_t [r*h, motion](p + t - 2) . w_q[t] + q_term)
@@ -16,39 +16,78 @@
 // the next row or the next image of the batch.
 //
 // What bounds it on the H100: operations. Per pixel it does 2 * 1280 * 384 =
-// 983,040 flops against 3 KB of input and output; at the main path's batch-8
-// shape (M = 128 pairs x 32 x 43 = 176,128) that is 1.73e11 flops, 2.58 ms at
-// the 67 TFLOP/s fp32 rate, against 0.16 ms for the 541 MB of h, motion,
-// terms and output at 3.35 TB/s. No tensor cores: the port is true fp32
-// under precision=highest, and TF32 would change the numbers.
+// 983,040 flops against 3 KB of input and output. The products run on the
+// tensor cores in 3xTF32, which gives fp32-class results (the Hopper form of
+// the Pallas kernel's bf16_3x split): each operand x splits into
+// hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest
+// (cvt.rna.tf32.f32), and every K step accumulates lo*hi + hi*lo + hi*hi in
+// fp32; the dropped lo*lo term is below fp32's rounding. That is three TF32
+// products for each fp32 one, so the least time at the main path's batch-8
+// shape (M = 128 pairs x 32 x 43 = 176,128; 1.73e11 flops) is
+// 3 x 1.73e11 / 495 TFLOP/s = 1.05 ms, against 2.58 ms at the 67 TFLOP/s
+// fp32 FMA rate and 0.16 ms for the 541 MB of h, motion, terms and output at
+// 3.35 TB/s. cuDNN and cuBLAS keep TF32 off under precision=highest; this
+// kernel's emulation is what makes the tensor cores usable there.
 //
-// Design: two implicit GEMMs in fp32 FMA, M = pixels, N = output channels,
-// K = 5 taps x 256 input channels, each a classic register-blocked SGEMM.
-// A block computes BM pixels x 128 output channels; 256 threads each hold
-// (BM/16) x 8 accumulators. The K loop walks 16 input channels of one tap at
-// a time: the A tile (the tap-shifted, edge-masked input rows, read straight
-// from the two 128-channel tensors, so no concatenation is ever stored) and
-// the B tile (weights) go through registers into a double-buffered shared
-// memory stage, so the next tile's global loads overlap this tile's FMAs.
+// Design: two implicit GEMMs, M = pixels, N = output channels, K = 5 taps x
+// 256 input channels.
 //
-//   1. gru_gemm<TM, true>: the 256-wide zr GEMM with the sigmoid epilogue.
-//      The z half (blockIdx.y == 0) writes z; the r half writes r*h, which
-//      is the q GEMM's input. Writing and reading both back is
-//      4 x M x 512 bytes, ~0.1 ms at the batch-8 shape.
-//   2. gru_gemm<TM, false>: the 128-wide q GEMM over [r*h, motion] with
+//   1. gru_tf32x3<WGS, true>: the 256-wide zr GEMM (two blocks along N) with
+//      the sigmoid epilogue. The z half (blockIdx.y == 0) writes z; the r
+//      half writes r*h, which is the q GEMM's input. Writing and reading both
+//      back is 4 x M x 512 bytes, ~0.1 ms at the batch-8 shape.
+//   2. gru_tf32x3<WGS, false>: the 128-wide q GEMM over [r*h, motion] with
 //      the tanh and blend epilogue.
 //
 // Two launches instead of one because the q GEMM needs r at the neighbouring
 // pixels; one launch would have to recompute the zr GEMM over a +-2 halo.
-// BM is 128 when the pixel count gives at least two waves of 128-pixel
-// blocks, else 64, so that the RAFT family's batch of 11,008 pixels still
-// fills the 132 SMs. No atomics: every output is written once by one
-// thread, so results are deterministic. The TPU kernel's (W, M, C)
-// transposed VMEM buffer and its bf16 hi/lo split (3 MXU dots per tap) are
-// artifacts of the TPU and are not carried over.
+//
+// A block computes BM = 64 * WGS pixels x 128 output channels with WGS
+// warpgroups of 64 rows; each issues wgmma.mma_async.m64n128k8.f32.tf32.tf32
+// with A from registers and B from shared memory. No producer warp: every
+// thread stages activations, thread 0 issues the weight copies, and the
+// warpgroups meet only on mbarriers, never on a block-wide barrier, so one
+// can queue products while the other sums or loads.
+//
+//   * Activations (A): the K loop walks 8 slices of 32 input channels (h's
+//     or r*h's four, then motion's four). For each slice the block stages
+//     its pixel rows with their halo once, by 16-byte cp.async (source size
+//     0 where the halo leaves the tensor), and runs all five taps from them:
+//     20 K steps of 8 channels. The halo is +-2 pixels for axis 'w' and
+//     +-2 rows of W pixels for axis 'h'; when W exceeds BM the five tap
+//     windows are staged apart (5 x BM rows) instead of as one run. Rows are
+//     36 floats apart so that a fragment's rows hit distinct banks. Two
+//     slice buffers: the next slice's copies overlap this one's products;
+//     an mbarrier per buffer counts the copies in (cp.async.mbarrier.arrive)
+//     and another the warpgroups out. Each thread loads its fragments
+//     (8 channels of each of its 2 rows per tap: two 16-byte loads a row,
+//     which the packed weights' K order allows), zeroes the rows whose tap
+//     leaves the image, and splits hi and lo in registers; the next tap's
+//     fragments load while the tensor cores run this tap's 12 products.
+//   * Weights (B): wgmma's tf32 form reads only K-major B, so the weights
+//     are packed once per RAFT forward (ops/gru.py::pack_direction) as
+//     (hi | lo, 5 taps, 8 slices, out, 32 channels), already hi/lo split and
+//     laid out in the 128-byte swizzle that the wgmma descriptor names. Each
+//     (tap, slice) tile of 128 outputs is a contiguous 16 KB per part, so one
+//     bulk TMA copy (cp.async.bulk) per part fills a stage and completes on
+//     a "full" mbarrier; a ring of 3 stages runs two taps ahead, each stage
+//     refilled once both warpgroups have arrived on its "empty" mbarrier.
+//   * Accumulation: each tap's 12 products (4 K steps x 3) go into a fresh
+//     accumulator, which is then added to the running sum in fp32. The
+//     tensor cores' accumulator truncates: summing all 480 products of a
+//     pixel in it measured ~2e-5 off against float64 at the main path's
+//     shapes, against ~1e-6 this way (the dropped fourth product, lo*lo,
+//     moved nothing).
+//   * Tiles: BM = 128 (two warpgroups) wherever a slice's staged rows fit
+//     in shared memory (W <= 83 for axis 'h'), else 64.
+//
+// No split-K and no atomics: every output is written once by one thread, so
+// results are deterministic. The TPU kernel's (W, M, C) transposed VMEM
+// buffer is an artifact of the TPU and is not carried over.
 //
 // The entry point launches on the given stream, does not synchronize, and
-// returns cudaGetLastError() so the caller can raise on a refused launch.
+// returns a CUDA error code (0 on success) so the caller can raise on a
+// refused launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,180 +97,380 @@ namespace {
 constexpr int kC = 128;                  // hidden and motion channels
 constexpr int kIn = 2 * kC;              // input channels per tap
 constexpr int kTaps = 5;
+constexpr int kSlice = 32;               // input channels per staged slice
+constexpr int kSlices = kIn / kSlice;    // 8
+constexpr int kSteps = kSlices * kTaps;  // 40 (slice, tap) steps
 constexpr int kBN = 128;                 // output channels per block
-constexpr int kBK = 16;                  // input channels per K step
-constexpr int kSteps = kTaps * kIn / kBK;     // 80
-constexpr int kStepsPerTap = kIn / kBK;       // 16
-constexpr int kThreads = 256;
+constexpr int kStages = 3;               // weight ring
+constexpr int kLda = kSlice + 4;         // floats per staged activation row
+constexpr int kTileBytes = kBN * kSlice * 4;        // 16 KB: one part of a tile
+constexpr int kStageBytes = 2 * kTileBytes;         // hi and lo
 
 struct Args {
   const float* src0;     // conv input channels 0..127: h (zr) or r*h (q)
   const float* src1;     // conv input channels 128..255: motion
-  const float* w;        // (5, 256, n_out)
+  const float* w;        // packed (2, 5, 8, n_out, 32)
   const float* term;     // (M, n_out)
   const float* h;        // (M, 128)
   const float* z;        // (M, 128), read by the q epilogue
   float* out0;           // zr: z; q: the new h
   float* out1;           // zr: r*h
   int m, height, width, axis_h, n_out;
+  int stride;            // pixels between taps: 1 (axis 'w') or W (axis 'h')
+  int gap;               // staged rows between tap windows: min(stride, BM)
 };
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// TM: accumulator rows per thread (BM = 16 * TM pixels per block).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// TF32 rounding to nearest, ties away from zero: cvt.rna.tf32.f32 for
+// finite x, in two integer operations.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One bulk TMA copy per part (hi, lo) of a weight tile, completing on bar.
+__device__ __forceinline__ void load_weights(uint32_t dst, const float* hi,
+                                             const float* lo, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(kStageBytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(hi), "r"(kTileBytes), "r"(bar) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst + kTileBytes), "l"(lo), "r"(kTileBytes), "r"(bar) : "memory");
+}
+
+// K-major B in the 128-byte swizzle: rows of 128 bytes (32 tf32 along K),
+// 8-row groups 1024 bytes apart (SBO); a K step of 8 advances 32 bytes.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+       | ((uint64_t)1 << 16)                       // LBO (unused when swizzled)
+       | ((uint64_t)(1024 >> 4) << 32)             // SBO
+       | ((uint64_t)1 << 62);                      // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// Staged activation rows a block needs for one slice.
+__host__ __device__ __forceinline__ int staged_rows(int bm, int gap) {
+  return bm + 4 * gap;
+}
+
+size_t smem_bytes(int bm, int gap) {
+  return 1024 + (size_t)kStages * kStageBytes
+       + 2 * (size_t)staged_rows(bm, gap) * kLda * 4 + (2 * kStages + 4) * 8;
+}
+
+// WGS: warpgroups (BM = 64 * WGS pixels per block).
 // ZR: the zr GEMM and its epilogue, else the q GEMM and its epilogue.
-template <int TM, bool ZR>
-__global__ void __launch_bounds__(kThreads, 2)
-gru_gemm(Args a) {
-  constexpr int BM = 16 * TM;
-  constexpr int LDA = BM + 4;                         // keeps float4 rows aligned
-  constexpr int kALoads = BM * kBK / 4 / kThreads;    // float4 per thread
-  constexpr int kBLoads = kBK * kBN / 4 / kThreads;
-  __shared__ __align__(16) float As[2][kBK][LDA];     // [k][pixel]
-  __shared__ __align__(16) float Bs[2][kBK][kBN];     // [k][out channel]
+template <int WGS, bool ZR>
+__global__ void __launch_bounds__(WGS * 128, 1)
+gru_tf32x3(Args a) {
+  constexpr int BM = 64 * WGS;
+  constexpr int kThreads = WGS * 128;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzled weight tiles want 1024-byte alignment
+  const uint32_t raw = smem_addr(smem_raw);
+  uint8_t* base = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  uint8_t* bstage = base;                                   // kStages x 32 KB
+  const int rows = staged_rows(BM, a.gap);
+  float* astage = reinterpret_cast<float*>(base + kStages * kStageBytes);
+  // full[s]: stage s's weights arrived; empty[s]: both warpgroups are done
+  // with them
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(astage) + 2 * (size_t)rows * kLda * 4);
+  uint64_t* empty = full + kStages;
+  // afull[b]: activation buffer b's rows arrived (every thread's copies);
+  // aempty[b]: both warpgroups have read their fragments from it
+  uint64_t* afull = empty + kStages;
+  uint64_t* aempty = afull + 2;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int lane = tid % 32;
+  const int wg = tid / 128;
+  const int warp = (tid / 32) % 4;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * kBN;
 
-  // The pixels this thread loads (fixed over the K loop) and their position
-  // along the tap axis, for the edge mask.
-  const int quad = tid % 4;                           // 4 channels of kBK
-  const int extent = a.axis_h ? a.height : a.width;
-  const int stride = a.axis_h ? a.width : 1;
-  int a_pix[kALoads], a_pos[kALoads];
-#pragma unroll
-  for (int i = 0; i < kALoads; ++i) {
-    const int p = m0 + tid / 4 + i * (kThreads / 4);
-    a_pix[i] = p;
-    // a pixel past the end gets a position that fails every tap's mask
-    a_pos[i] = p >= a.m ? -(1 << 20)
-             : (a.axis_h ? (p / a.width) % a.height : p % a.width);
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(smem_addr(&full[i]), 1);
+      mbar_init(smem_addr(&empty[i]), WGS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(smem_addr(&afull[i]), kThreads);
+      mbar_init(smem_addr(&aempty[i]), WGS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  float4 ra[kALoads], rb[kBLoads];
-  auto load = [&](int step) {
-    const int tap = step / kStepsPerTap;
-    const int c0 = (step % kStepsPerTap) * kBK;
-    const float* src = c0 < kC ? a.src0 : a.src1;
-    const int c = (c0 & (kC - 1)) + quad * 4;
-    const int d = tap - kTaps / 2;
-#pragma unroll
-    for (int i = 0; i < kALoads; ++i) {
-      const int pos = a_pos[i] + d;
-      ra[i] = (pos >= 0 && pos < extent)
-          ? __ldg(reinterpret_cast<const float4*>(
-                src + (int64_t)(a_pix[i] + d * stride) * kC + c))
-          : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int i = 0; i < kBLoads; ++i) {
-      const int k = step * kBK + tid / 32 + i * (kThreads / 32);
-      rb[i] = __ldg(reinterpret_cast<const float4*>(
-          a.w + (int64_t)k * a.n_out + n0 + (tid % 32) * 4));
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kALoads; ++i) {
-      const int row = tid / 4 + i * (kThreads / 4);
-      As[buf][quad * 4 + 0][row] = ra[i].x;
-      As[buf][quad * 4 + 1][row] = ra[i].y;
-      As[buf][quad * 4 + 2][row] = ra[i].z;
-      As[buf][quad * 4 + 3][row] = ra[i].w;
-    }
-#pragma unroll
-    for (int i = 0; i < kBLoads; ++i) {
-      *reinterpret_cast<float4*>(
-          &Bs[buf][tid / 32 + i * (kThreads / 32)][(tid % 32) * 4]) = rb[i];
-    }
-  };
-
-  float acc[TM][8];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  load(0);
-  store(0);
   __syncthreads();
-  for (int step = 0; step < kSteps; ++step) {
-    const int cur = step & 1;
-    if (step + 1 < kSteps) load(step + 1);
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float av[TM], bv[8];
-#pragma unroll
-      for (int g = 0; g < TM / 4; ++g) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&As[cur][k][g * 64 + ty * 4]);
-        av[g * 4 + 0] = v.x; av[g * 4 + 1] = v.y;
-        av[g * 4 + 2] = v.z; av[g * 4 + 3] = v.w;
-      }
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+
+  // weight tile of step (slice, tap) for this block's 128 outputs
+  const int64_t part_size = (int64_t)kTaps * kSlices * a.n_out * kSlice;
+  auto issue_weights = [&](int step) {
+    const int slice = step / kTaps, tap = step % kTaps;
+    const float* src = a.w + ((int64_t)(tap * kSlices + slice) * a.n_out + n0)
+                               * kSlice;
+    const int s = step % kStages;
+    // the stage's previous use, step - kStages, released by both warpgroups
+    if (step >= kStages) mbar_wait(smem_addr(&empty[s]), (step / kStages - 1) & 1);
+    load_weights(smem_addr(bstage + s * kStageBytes), src, src + part_size,
+                 smem_addr(&full[s]));
+  };
+  // the block's pixel rows of one slice, with their halo
+  auto issue_activations = [&](int slice, int buf) {
+    const float* src = slice < kSlices / 2 ? a.src0 : a.src1;
+    const int c0 = (slice % (kSlices / 2)) * kSlice;
+    float* dst = astage + (size_t)buf * rows * kLda;
+    for (int i = tid; i < rows * (kSlice / 4); i += kThreads) {
+      const int row = i / (kSlice / 4), chunk = i % (kSlice / 4);
+      const int p = a.gap == a.stride
+          ? m0 - 2 * a.stride + row
+          : m0 + (row / BM - 2) * a.stride + row % BM;
+      const bool valid = p >= 0 && p < a.m;
+      const float* g = src + (valid ? (int64_t)p * kC + c0 + chunk * 4 : 0);
+      cp_async16(smem_addr(dst + row * kLda + chunk * 4), g, valid);
     }
-    if (step + 1 < kSteps) store(cur ^ 1);
-    __syncthreads();
+    // arrives on afull[buf] once this thread's copies have landed
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 :: "r"(smem_addr(&afull[buf])) : "memory");
+  };
+
+  // this thread's two pixels (fragment rows g and g + 8 of its warp) and
+  // their positions along the tap axis
+  const int r0 = wg * 64 + warp * 16 + lane / 4;
+  const int extent = a.axis_h ? a.height : a.width;
+  int pos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = m0 + r0 + 8 * i;
+    // a pixel past the end gets a position that fails every tap's mask
+    pos[i] = p >= a.m ? -(1 << 20)
+           : (a.axis_h ? (p / a.width) % a.height : p % a.width);
   }
 
-  // Epilogue: thread row i is pixel m0 + (i/4)*64 + ty*4 + i%4; its columns
-  // are tx*4 + 0..3 and 64 + tx*4 + 0..3 of this block's 128.
+  // A fragments of one tap step: 4 K steps of 8 channels, each split into
+  // TF32 hi and lo; rows whose tap leaves the image are zeros. The packed
+  // weights order each slice's 32 channels so that K step k's fragment
+  // columns t and t + 4 are channels 8t + 2k and 8t + 2k + 1: a thread's
+  // 8 channels of a row are contiguous, two 16-byte loads.
+  auto load_fragments = [&](const float* as, int tap, uint32_t (&hi)[4][4],
+                            uint32_t (&lo)[4][4]) {
+    const int d = tap - kTaps / 2;
+    const bool ok0 = pos[0] + d >= 0 && pos[0] + d < extent;
+    const bool ok1 = pos[1] + d >= 0 && pos[1] + d < extent;
+    const float* row0 = as + (tap * a.gap + r0) * kLda + 8 * (lane % 4);
+    const float* row1 = row0 + 8 * kLda;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 x[4] = {
+        ok0 ? *reinterpret_cast<const float4*>(row0) : zero,
+        ok0 ? *reinterpret_cast<const float4*>(row0 + 4) : zero,
+        ok1 ? *reinterpret_cast<const float4*>(row1) : zero,
+        ok1 ? *reinterpret_cast<const float4*>(row1 + 4) : zero};
+    // fragment order: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+    const float v[4][4] = {{x[0].x, x[2].x, x[0].y, x[2].y},
+                           {x[0].z, x[2].z, x[0].w, x[2].w},
+                           {x[1].x, x[3].x, x[1].y, x[3].y},
+                           {x[1].z, x[3].z, x[1].w, x[3].w}};
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int p = m0 + (i / 4) * 64 + ty * 4 + (i % 4);
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        hi[k][j] = tf32_rna(v[k][j]);
+        lo[k][j] = tf32_rna(v[k][j] - __uint_as_float(hi[k][j]));
+      }
+  };
+
+  // acc: the running sum; part: one tap's 12 products (see the note)
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  issue_activations(0, 0);
+  if (tid == 0)
+    for (int s = 0; s < kStages - 1; ++s) issue_weights(s);
+
+  // two fragment sets by tap parity: the next tap's loads go into the
+  // set the tensor cores are not reading
+  uint32_t frag[2][2][4][4];                    // [set][hi, lo][k][4]
+#pragma unroll 1
+  for (int slice = 0; slice < kSlices; ++slice) {
+    const int buf = slice & 1;
+    if (slice + 1 < kSlices) {
+      // the other buffer, once both warpgroups have read slice - 1 from it
+      if (slice > 0) mbar_wait(smem_addr(&aempty[buf ^ 1]), ((slice - 1) / 2) & 1);
+      issue_activations(slice + 1, buf ^ 1);
+    }
+    mbar_wait(smem_addr(&afull[buf]), (slice / 2) & 1);
+    const float* as = astage + (size_t)buf * rows * kLda;
+    load_fragments(as, 0, frag[0][0], frag[0][1]);
+#pragma unroll
+    for (int tap = 0; tap < kTaps; ++tap) {
+      const int step = slice * kTaps + tap;
+      const int s = step % kStages;
+      const int cur = tap & 1;
+      mbar_wait(smem_addr(&full[s]), (step / kStages) & 1);
+      const uint32_t bhi = smem_addr(bstage + s * kStageBytes);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint64_t dhi = b_desc(bhi + k * 32);
+        const uint64_t dlo = b_desc(bhi + kTileBytes + k * 32);
+        const uint32_t (&hi)[4] = frag[cur][0][k];
+        const uint32_t (&lo)[4] = frag[cur][1][k];
+        wgmma_m64n128k8(part, lo, dhi, k > 0);        // k = 0 starts afresh
+        wgmma_m64n128k8(part, hi, dlo, 1);
+        wgmma_m64n128k8(part, hi, dhi, 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // thread 0 keeps the weight ring two steps ahead, after its own
+      // warpgroup's products are queued
+      if (tid == 0 && step + kStages - 1 < kSteps)
+        issue_weights(step + kStages - 1);
+      __syncwarp();
+      // the next tap's fragments load while the tensor cores run this one's
+      if (tap + 1 < kTaps)
+        load_fragments(as, tap + 1, frag[cur ^ 1][0], frag[cur ^ 1][1]);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      // this warpgroup is done with the weight stage and, after the last
+      // tap's fragments, with the slice's rows; no block-wide barrier
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      if (tid % 128 == 0) {
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                     :: "r"(smem_addr(&empty[s])) : "memory");
+        if (tap + 2 == kTaps)
+          asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                       :: "r"(smem_addr(&aempty[buf])) : "memory");
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
+  }
+
+  // Epilogue: acc[4j + 2i + e] is pixel m0 + r0 + 8i, channel 8j + 2t + e of
+  // this block's 128 (t = lane % 4).
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = m0 + r0 + 8 * i;
     if (p >= a.m) continue;
 #pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      const int n = g * 64 + tx * 4;                  // channel in [0, 128)
-      const float4 t = __ldg(reinterpret_cast<const float4*>(
+    for (int j = 0; j < 16; ++j) {
+      const int n = 8 * j + 2 * (lane % 4);               // channel in [0, 128)
+      const float2 t = __ldg(reinterpret_cast<const float2*>(
           a.term + (int64_t)p * a.n_out + n0 + n));
-      const float s0 = acc[i][g * 4 + 0] + t.x, s1 = acc[i][g * 4 + 1] + t.y;
-      const float s2 = acc[i][g * 4 + 2] + t.z, s3 = acc[i][g * 4 + 3] + t.w;
+      const float s0 = acc[4 * j + 2 * i] + t.x;
+      const float s1 = acc[4 * j + 2 * i + 1] + t.y;
       const int64_t o = (int64_t)p * kC + n;
       if constexpr (ZR) {
-        const float4 v = make_float4(sigmoid(s0), sigmoid(s1), sigmoid(s2),
-                                     sigmoid(s3));
+        const float v0 = sigmoid(s0), v1 = sigmoid(s1);
         if (blockIdx.y == 0) {
-          *reinterpret_cast<float4*>(a.out0 + o) = v;                 // z
+          *reinterpret_cast<float2*>(a.out0 + o) = make_float2(v0, v1);   // z
         } else {
-          const float4 h = __ldg(reinterpret_cast<const float4*>(a.h + o));
-          *reinterpret_cast<float4*>(a.out1 + o) =                     // r*h
-              make_float4(v.x * h.x, v.y * h.y, v.z * h.z, v.w * h.w);
+          const float2 h = __ldg(reinterpret_cast<const float2*>(a.h + o));
+          *reinterpret_cast<float2*>(a.out1 + o) =                         // r*h
+              make_float2(v0 * h.x, v1 * h.y);
         }
       } else {
-        const float4 h = __ldg(reinterpret_cast<const float4*>(a.h + o));
-        const float4 z = __ldg(reinterpret_cast<const float4*>(a.z + o));
-        const float q0 = tanhf(s0), q1 = tanhf(s1);
-        const float q2 = tanhf(s2), q3 = tanhf(s3);
-        *reinterpret_cast<float4*>(a.out0 + o) = make_float4(
-            (1.0f - z.x) * h.x + z.x * q0, (1.0f - z.y) * h.y + z.y * q1,
-            (1.0f - z.z) * h.z + z.z * q2, (1.0f - z.w) * h.w + z.w * q3);
+        const float2 h = __ldg(reinterpret_cast<const float2*>(a.h + o));
+        const float2 z = __ldg(reinterpret_cast<const float2*>(a.z + o));
+        *reinterpret_cast<float2*>(a.out0 + o) = make_float2(
+            (1.0f - z.x) * h.x + z.x * tanhf(s0),
+            (1.0f - z.y) * h.y + z.y * tanhf(s1));
       }
     }
   }
 }
 
-template <int TM>
-int launch(const Args& zr, const Args& q, cudaStream_t stream) {
-  constexpr int BM = 16 * TM;
-  const unsigned mblocks = (unsigned)((zr.m + BM - 1) / BM);
-  gru_gemm<TM, true><<<dim3(mblocks, 2 * kC / kBN), kThreads, 0, stream>>>(zr);
-  cudaError_t err = cudaGetLastError();
+// Raise each instantiation's dynamic shared memory limit to the device's
+// opt-in maximum, once per process.
+template <int WGS, bool ZR>
+cudaError_t allow_smem(int limit) {
+  static int set = 0;
+  if (set == limit) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_tf32x3<WGS, ZR>, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (err == cudaSuccess) set = limit;
+  return err;
+}
+
+template <int WGS>
+int launch(Args zr, Args q, int limit, cudaStream_t stream) {
+  constexpr int BM = 64 * WGS;
+  const int gap = zr.stride < BM ? zr.stride : BM;
+  zr.gap = q.gap = gap;
+  const size_t smem = smem_bytes(BM, gap);
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<WGS, true>(limit);
+  if (err == cudaSuccess) err = allow_smem<WGS, false>(limit);
   if (err != cudaSuccess) return (int)err;
-  gru_gemm<TM, false><<<dim3(mblocks, kC / kBN), kThreads, 0, stream>>>(q);
+  const unsigned mblocks = (unsigned)((zr.m + BM - 1) / BM);
+  gru_tf32x3<WGS, true><<<dim3(mblocks, 2 * kC / kBN), WGS * 128, smem,
+                          stream>>>(zr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gru_tf32x3<WGS, false><<<dim3(mblocks, kC / kBN), WGS * 128, smem,
+                           stream>>>(q);
   return (int)cudaGetLastError();
 }
 
@@ -240,9 +479,10 @@ int launch(const Args& zr, const Args& q, cudaStream_t stream) {
 extern "C" {
 
 // h, motion, q_term, z, rh, out: (B, H, W, 128); zr_term: (B, H, W, 256);
-// w_zr: (5, 256, 256); w_q: (5, 256, 128); all contiguous float32.
-// axis_h: 0 for the 1x5 pass (taps along W), 1 for the 5x1 pass (along H).
-// z and rh are scratch the caller allocates.
+// w_zr: (2, 5, 8, 256, 32); w_q: (2, 5, 8, 128, 32) (ops/gru.py::
+// pack_direction); all contiguous float32. axis_h: 0 for the 1x5 pass (taps
+// along W), 1 for the 5x1 pass (along H). z and rh are scratch the caller
+// allocates.
 int vft_gru_direction(const void* h, const void* motion, const void* w_zr,
                       const void* w_q, const void* zr_term, const void* q_term,
                       void* z, void* rh, void* out, int batch, int height,
@@ -250,22 +490,27 @@ int vft_gru_direction(const void* h, const void* motion, const void* w_zr,
   const long long m = (long long)batch * height * width;
   if (m <= 0) return (int)cudaSuccess;
   if (m * kIn >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int stride = axis_h ? width : 1;
   Args zr{static_cast<const float*>(h), static_cast<const float*>(motion),
           static_cast<const float*>(w_zr), static_cast<const float*>(zr_term),
           static_cast<const float*>(h), nullptr, static_cast<float*>(z),
-          static_cast<float*>(rh), (int)m, height, width, axis_h, 2 * kC};
+          static_cast<float*>(rh), (int)m, height, width, axis_h, 2 * kC,
+          stride, 0};
   Args q{static_cast<const float*>(rh), static_cast<const float*>(motion),
          static_cast<const float*>(w_q), static_cast<const float*>(q_term),
          static_cast<const float*>(h), static_cast<const float*>(z),
-         static_cast<float*>(out), nullptr, (int)m, height, width, axis_h, kC};
-  int device = 0, sms = 0;
+         static_cast<float*>(out), nullptr, (int)m, height, width, axis_h, kC,
+         stride, 0};
+  int device = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    err = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 128-pixel blocks once the q GEMM alone gives two waves of them
-  return (m + 127) / 128 >= 2LL * sms ? launch<8>(zr, q, s) : launch<4>(zr, q, s);
+  // 128-pixel blocks where a slice's staged rows fit, else 64
+  const bool wide = smem_bytes(128, stride < 128 ? stride : 128) <= (size_t)limit;
+  return wide ? launch<2>(zr, q, limit, s) : launch<1>(zr, q, limit, s);
 }
 
 }  // extern "C"

@@ -16,18 +16,26 @@ the image (the convs' ``padding``).
 
 Kernel (``csrc/gru_direction.cu``, CUDA C++ for sm_90a):
 :func:`gru_direction` replaces ``tools/gru_kernel_experiment.py::
-pallas_direction`` (``_kernel``). It is two register-blocked fp32
-implicit GEMMs (zr with a sigmoid epilogue that writes z and r·h; q with
-the tanh and blend epilogue), bound by operations: 2.58 ms per direction
-at the main path's batch-8 shape on the H100's fp32 rate. The source's
+pallas_direction`` (``_kernel``). It is two implicit GEMMs (zr with a
+sigmoid epilogue that writes z and r·h; q with the tanh and blend
+epilogue) on the tensor cores (``wgmma``) in 3xTF32: each operand splits
+into a TF32 hi and lo part and three TF32 products (lo·hi, hi·lo, hi·hi)
+accumulate in fp32, which keeps fp32-class results under
+``precision=highest`` (the Hopper form of the Pallas kernel's bf16_3x).
+Bound by operations: 1.05 ms per direction at the main path's batch-8
+shape at 3 × the TF32 rate (2.58 ms at the fp32 FMA rate). The source's
 note gives the design.
 
 Weights: :func:`pack_direction` turns the conv weights (O, I, kh, kw),
-I = [h | motion], into the kernel's tap layout (5, I, O), once per RAFT
-forward; :func:`gru_direction_plain` reads them back into conv weights.
-The wrapper launches the kernel on a CUDA tensor (or raises) and takes
-the plain version only for a CPU tensor; ``gru_direction.launches``
-counts one per direction (two CUDA launches).
+I = [h | motion], into the kernel's layout, once per RAFT forward:
+(hi | lo, 5 taps, 8 slices of 32 input channels, O, 32), K-major, split
+into TF32 hi and lo parts, each slice's channels in the kernel's K order
+(``K_ORDER``) and stored in the 128-byte swizzle the kernel's ``wgmma``
+descriptors read. :func:`unpack_direction` reads it back into
+tap weights (hi + lo) for :func:`gru_direction_plain`. The wrapper
+launches the kernel on a CUDA tensor (or raises) and takes the plain
+version only for a CPU tensor; ``gru_direction.launches`` counts one per
+direction (two CUDA launches).
 """
 from __future__ import annotations
 
@@ -45,35 +53,104 @@ AXES = ('w', 'h')
 PADS = {'w': [(0, 0), (2, 2)], 'h': [(2, 2), (0, 0)]}   # the convs' padding
 
 
+SLICE = 32          # input channels per 128-byte row of a packed tile
+SWIZZLE = 8         # 16-byte chunks per row, permuted by out channel % 8
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: the kernel's ``cvt.rna.tf32.f32``, by bit arithmetic."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi): 3xTF32's split."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+# K order of a packed 32-channel row: position 8k + c holds channel
+# 8·(c % 4) + 2k + c // 4, so that the kernel's thread t finds the fragment
+# columns t and t + 4 of all four 8-channel K steps in its own 8
+# contiguous channels 8t … 8t + 7
+K_ORDER = tuple(8 * (c % 4) + 2 * k + c // 4 for k in range(4) for c in range(8))
+
+
+def _swizzle(t: torch.Tensor) -> torch.Tensor:
+    """(..., O, 32) ↔ the 128-byte swizzle: 16-byte chunk j of row n is
+    stored at chunk j ^ (n % 8). The permutation is its own inverse."""
+    n = t.shape[-2]
+    rows = torch.arange(n, device=t.device)[:, None]
+    chunks = torch.arange(SWIZZLE, device=t.device)[None, :] ^ (rows % SWIZZLE)
+    u = t.reshape(*t.shape[:-1], SWIZZLE, SLICE // SWIZZLE)
+    return u[..., rows, chunks, :].reshape(t.shape)
+
+
+def _pack(w: torch.Tensor) -> torch.Tensor:
+    O, I = w.shape[:2]
+    taps = w.reshape(O, I, TAPS).permute(2, 0, 1).float()     # (5, O, I)
+    parts = torch.stack(tf32_split(taps.contiguous()))       # (2, 5, O, I)
+    parts = parts.reshape(2, TAPS, O, I // SLICE, SLICE).permute(0, 1, 3, 2, 4)
+    return _swizzle(parts[..., list(K_ORDER)]).contiguous()
+
+
 def pack_direction(zr_weight: torch.Tensor, q_weight: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Conv weights (O, I, 1, 5) or (O, I, 5, 1) → tap layout (5, I, O),
-    contiguous: ``(w_zr (5, 256, 256), w_q (5, 256, 128))``."""
-    return tuple(w.reshape(w.shape[0], w.shape[1], TAPS).permute(2, 1, 0)
-                 .contiguous() for w in (zr_weight, q_weight))
+    """Conv weights (O, I, 1, 5) or (O, I, 5, 1) → the kernel's layout
+    (2, 5, I/32, O, 32) (see the module's note), contiguous:
+    ``(w_zr (2, 5, 8, 256, 32), w_q (2, 5, 8, 128, 32))``."""
+    return _pack(zr_weight), _pack(q_weight)
+
+
+def unpack_parts(packed: torch.Tensor) -> torch.Tensor:
+    """A :func:`pack_direction` tensor → its TF32 parts (2, 5, O, I):
+    hi, lo."""
+    _, taps, slices, O, _ = packed.shape
+    inverse = sorted(range(SLICE), key=K_ORDER.__getitem__)
+    return _swizzle(packed)[..., inverse].permute(0, 1, 3, 2, 4).reshape(
+        2, taps, O, slices * SLICE)
+
+
+def unpack_direction(packed: torch.Tensor) -> torch.Tensor:
+    """A :func:`pack_direction` tensor → tap weights (5, O, I), hi + lo."""
+    hi, lo = unpack_parts(packed)
+    return hi + lo
 
 
 def _conv_weight(taps: torch.Tensor, axis: str) -> torch.Tensor:
-    """Tap layout (5, I, O) → conv weight (O, I, 1, 5) ('w') or
+    """Tap weights (5, O, I) → conv weight (O, I, 1, 5) ('w') or
     (O, I, 5, 1) ('h')."""
-    w = taps.permute(2, 1, 0)
+    w = taps.permute(1, 2, 0)
     return (w.unsqueeze(2) if axis == 'w' else w.unsqueeze(3)).contiguous()
+
+
+def gru_direction_convs(h: torch.Tensor, motion: torch.Tensor,
+                        conv_zr: torch.Tensor, conv_q: torch.Tensor,
+                        zr_term: torch.Tensor, q_term: torch.Tensor,
+                        axis: str) -> torch.Tensor:
+    """The direction through ``ops.nn.conv`` from conv weights (O, I, kh,
+    kw): the JAX package's ``sep_conv_gru`` direction body
+    (``video_features_tpu/models/raft.py::sep_conv_gru``)."""
+    pad = PADS[axis]
+    zr = torch.sigmoid(conv(torch.cat([h, motion], -1), conv_zr, padding=pad)
+                       + zr_term)
+    z, r = torch.chunk(zr, 2, dim=-1)
+    q = torch.tanh(conv(torch.cat([r * h, motion], -1), conv_q, padding=pad)
+                   + q_term)
+    return (1 - z) * h + z * q
 
 
 def gru_direction_plain(h: torch.Tensor, motion: torch.Tensor,
                         w_zr: torch.Tensor, w_q: torch.Tensor,
                         zr_term: torch.Tensor, q_term: torch.Tensor,
                         axis: str) -> torch.Tensor:
-    """Plain version of :func:`gru_direction`: the JAX package's
-    ``sep_conv_gru`` direction body (``video_features_tpu/models/
-    raft.py::sep_conv_gru``) through ``ops.nn.conv``."""
-    pad = PADS[axis]
-    zr = torch.sigmoid(conv(torch.cat([h, motion], -1),
-                            _conv_weight(w_zr, axis), padding=pad) + zr_term)
-    z, r = torch.chunk(zr, 2, dim=-1)
-    q = torch.tanh(conv(torch.cat([r * h, motion], -1),
-                        _conv_weight(w_q, axis), padding=pad) + q_term)
-    return (1 - z) * h + z * q
+    """Plain version of :func:`gru_direction`: the packed weights read back
+    (:func:`unpack_direction`) through :func:`gru_direction_convs`."""
+    return gru_direction_convs(
+        h, motion, _conv_weight(unpack_direction(w_zr).to(h.dtype), axis),
+        _conv_weight(unpack_direction(w_q).to(h.dtype), axis), zr_term,
+        q_term, axis)
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,8 +171,8 @@ def _check(h, motion, w_zr, w_q, zr_term, q_term, axis) -> None:
         raise ValueError(f'h must be (B, H, W, {HIDDEN}); got {tuple(h.shape)}')
     pix = tuple(h.shape[:3])
     want = {'h': pix + (HIDDEN,), 'motion': pix + (HIDDEN,),
-            'w_zr': (TAPS, 2 * HIDDEN, 2 * HIDDEN),
-            'w_q': (TAPS, 2 * HIDDEN, HIDDEN),
+            'w_zr': (2, TAPS, 2 * HIDDEN // SLICE, 2 * HIDDEN, SLICE),
+            'w_q': (2, TAPS, 2 * HIDDEN // SLICE, HIDDEN, SLICE),
             'zr_term': pix + (2 * HIDDEN,), 'q_term': pix + (HIDDEN,)}
     got = {'h': h, 'motion': motion, 'w_zr': w_zr, 'w_q': w_q,
            'zr_term': zr_term, 'q_term': q_term}
