@@ -53,10 +53,35 @@ package is not beside it. Phases:
 6. kernel vs plain on the slices: the fused I3D step and a RAFT-family
    step with the kernels and with their plain versions (3 RAFT
    iterations), rel L2 ≤ 1e-3 per I3D stream and on the flow; then the
-   fused step at batch 8 (20 iterations) timed both ways, in turns.
+   fused step at batch 8 (20 iterations) timed both ways, in turns;
+7. device resize: ``pil_resize_bilinear_device`` on the card byte-equal
+   to the same function on the CPU, on seeded uint8 frames at six
+   geometries (up, down, mixed, identity, 1080×1920 → 256×455), and its
+   time for an (8, 17, 480, 640, 3) batch to 256×341 beside its bytes
+   bound;
+8. slice (R(2+1)D): ``ExtractR21D.extract_frames`` on 80 seeded 240×320
+   frames (r2plus1d_18_16_kinetics, stack 16, batch 4: 5 windows, two
+   steps, one padded tail), counts reset just before and read just
+   after (no kernel lies on this path); output (5, 512) and finite; then
+   one batch-4 step of r2plus1d_34_32_ig65m_ft_kinetics (stack 32);
+9. slice (S3D): ``ExtractS3D.extract_frames`` on 128 seeded 256×340
+   frames (2 stacks of 64 at batch 1; the long axis's given-scale grid
+   differs from out/in there), counts as in 8; output (2, 1024), finite;
+10. I3D with ``device_resize=true``: the I3D slice of phase 4 on 49
+   seeded raw 480×640 frames, counts reset just before and read just
+   after, against the same extractor with ``device_resize=false`` fed
+   the frames resized by ``pil_resize_bilinear_device`` on the CPU: rel
+   L2 ≤ 1e-6 per stream (the pixels are identical);
+11. card vs CPU: the r21d and s3d steps (one stack-16 window each) on the
+   card against the same function on the CPU, same seeded input and
+   weights, rel L2 ≤ 1e-4 (cuDNN's TF32 default would give ~1e-3);
+12. timing (CUDA events, warm-up excluded): ms per window of the r21d-18
+   and r21d-34-32 steps at batch 4 and of the s3d step at batch 1 (one
+   64-frame stack), each beside its fp32 FMA bound (the convolutions'
+   2·out_elems·C_in·k, counted by ``FlopCounterMode``, over 67 TFLOP/s).
 
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4 and 5); the last line is
+sum over the path runs of phases 4, 5 and 10); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -97,6 +122,17 @@ LOOKUP_EDGE_CASES = ((3, 13, 9, 'mixed'), (1, 31, 41, 'mixed'),
                      (2, H8, W8, 'far'), (2, H8, W8, 'edges'),
                      (3, 13, 9, 'edges'))
 KERNELS = ('corr_lookup', 'gru_direction')
+# device resize: the JAX package's test geometries plus a 1080p frame,
+# and the timed batch (raw 480×640 frames of 8 windows of 17)
+RESIZE_GEOMETRIES = ((240, 320, 256, 341), (360, 480, 256, 341),
+                     (123, 77, 45, 200), (256, 344, 256, 344),
+                     (100, 100, 256, 256), (1080, 1920, 256, 455))
+RESIZE_TIMED = ((8, STACK + 1, 480, 640, 3), (256, 341))
+RAW_HW = (480, 640)
+DEVICE_RESIZE_REL_L2 = 1e-6
+CARD_CPU_REL_L2 = 1e-4      # cuDNN's TF32 default gives ~1e-3
+R21D_HW, R21D_WINDOWS, R21D_BATCH = (240, 320), 5, 4
+S3D_HW, S3D_STACK, S3D_STACKS = (256, 340), 64, 2
 
 
 def fail(msg: str) -> None:
@@ -652,6 +688,185 @@ def step_timing(torch, np, ex, fused_two_stream_step, pad_amounts):
           flush=True)
 
 
+def rand_frames(np, seed: int, shape):
+    return np.random.RandomState(seed).randint(0, 256, shape).astype(np.uint8)
+
+
+def frame_batches(frames, size: int = 16):
+    """The loader protocol: (frames, times, indices) batches."""
+    return [(list(frames[i:i + size]), None, None)
+            for i in range(0, len(frames), size)]
+
+
+def resize_phase(torch, np, transforms) -> None:
+    """``pil_resize_bilinear_device`` on the card byte-equal to the CPU
+    at RESIZE_GEOMETRIES; its time on RESIZE_TIMED."""
+    for i, (h, w, oh, ow) in enumerate(RESIZE_GEOMETRIES):
+        x = torch.from_numpy(rand_frames(np, 10 + i, (2, 3, h, w, 3)))
+        cpu = transforms.pil_resize_bilinear_device(x, (oh, ow))
+        card = transforms.pil_resize_bilinear_device(x.cuda(), (oh, ow)).cpu()
+        same = cpu.shape == (2, 3, oh, ow, 3) and torch.equal(cpu, card)
+        print(f'device resize {h}x{w} -> {oh}x{ow}: card '
+              f'{"byte-equal to" if same else "DIFFERS from"} the CPU', flush=True)
+        if not same:
+            fail(f'pil_resize_bilinear_device on the card differs from the CPU '
+                 f'at {h}x{w} -> {oh}x{ow}')
+    shape, size = RESIZE_TIMED
+    x = torch.from_numpy(rand_frames(np, 16, shape)).cuda()
+    ms = cuda_ms(torch, lambda: transforms.pil_resize_bilinear_device(x, size), 10)
+    nbytes = x.numel() + x.numel() // (shape[2] * shape[3]) * size[0] * size[1]
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f'device resize {shape} -> {size}: {ms:.4f} ms, bytes bound '
+          f'{bound:.4f} ms ({bound / ms:.1%} of it)', flush=True)
+
+
+def check_no_launches(counts, where: str) -> None:
+    if any(counts.values()):
+        fail(f'{where}: kernels launched on a path that has none: {counts}')
+
+
+def r21d_phase(torch, np, ExtractR21D, corr_lookup, gru):
+    """ExtractR21D.extract_frames at full width, counts reset just before
+    and read just after; then one r2plus1d_34_32 step."""
+    def extractor(model_name):
+        return ExtractR21D({
+            'feature_type': 'r21d', 'model_name': model_name,
+            'batch_size': R21D_BATCH, 'device': 'cuda', 'precision': 'highest',
+            'allow_random_weights': True, 'on_extraction': 'save_numpy',
+            'output_path': str(ROOT / 'output')})
+    ex = extractor('r2plus1d_18_16_kinetics')
+    batches = frame_batches(rand_frames(np, 4, (R21D_WINDOWS * 16, *R21D_HW, 3)))
+    ex.extract_frames(batches)
+    torch.cuda.synchronize()
+    reset_counts(corr_lookup, gru)
+    t0 = time.perf_counter()
+    feats = ex.extract_frames(batches)['r21d']
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(corr_lookup, gru)
+    print(f'r21d (r2plus1d_18_16_kinetics): features {feats.shape}, '
+          f'{wall / R21D_WINDOWS * 1e3:.1f} ms per window (wall, batch '
+          f'{R21D_BATCH}), launches {counts}', flush=True)
+    check_no_launches(counts, 'r21d slice')
+    if feats.shape != (R21D_WINDOWS, 512) or not np.isfinite(feats).all():
+        fail(f'r21d output {feats.shape} (want ({R21D_WINDOWS}, 512)) or not finite')
+    ex34 = extractor('r2plus1d_34_32_ig65m_ft_kinetics')
+    out = ex34.step(rand_frames(np, 5, (R21D_BATCH, 32, *R21D_HW, 3)))
+    print(f'r21d (r2plus1d_34_32_ig65m_ft_kinetics): one batch-{R21D_BATCH} '
+          f'step, features {out.shape}', flush=True)
+    if out.shape != (R21D_BATCH, 512) or not np.isfinite(out).all():
+        fail(f'r21d-34 output {out.shape} (want ({R21D_BATCH}, 512)) or not finite')
+    return ex, ex34
+
+
+def s3d_phase(torch, np, ExtractS3D, corr_lookup, gru):
+    """ExtractS3D.extract_frames on S3D_STACKS 64-frame stacks at batch 1,
+    counts reset just before and read just after."""
+    ex = ExtractS3D({
+        'feature_type': 's3d', 'stack_size': S3D_STACK, 'step_size': S3D_STACK,
+        'batch_size': 1, 'device': 'cuda', 'precision': 'highest',
+        'allow_random_weights': True, 'on_extraction': 'save_numpy',
+        'output_path': str(ROOT / 'output')})
+    batches = frame_batches(rand_frames(np, 6, (S3D_STACKS * S3D_STACK, *S3D_HW, 3)))
+    ex.extract_frames(batches)
+    torch.cuda.synchronize()
+    reset_counts(corr_lookup, gru)
+    t0 = time.perf_counter()
+    feats = ex.extract_frames(batches)['s3d']
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(corr_lookup, gru)
+    print(f's3d: features {feats.shape}, {wall / S3D_STACKS * 1e3:.1f} ms per '
+          f'64-frame stack (wall, batch 1), launches {counts}', flush=True)
+    check_no_launches(counts, 's3d slice')
+    if feats.shape != (S3D_STACKS, 1024) or not np.isfinite(feats).all():
+        fail(f's3d output {feats.shape} (want ({S3D_STACKS}, 1024)) or not finite')
+    return ex
+
+
+def device_resize_phase(torch, np, ex, transforms, corr_lookup, gru):
+    """The I3D slice on raw frames with device_resize=true (counts reset
+    just before and read just after) against device_resize=false on the
+    frames resized on the CPU."""
+    from video_features_torch.ops.host_transforms import pil_edge_resize_geometry
+    raw = rand_frames(np, 7, (FRAMES, *RAW_HW, 3))
+    resized = transforms.pil_resize_bilinear_device(
+        torch.from_numpy(raw), pil_edge_resize_geometry(*RAW_HW, 256)).numpy()
+
+    def run(frames, device_resize):
+        ex.device_resize = device_resize
+        return ex._maybe_concat_streams(ex.extract_frames(frame_batches(frames)))['rgb']
+    torch.cuda.synchronize()
+    reset_counts(corr_lookup, gru)
+    got = run(raw, True)
+    torch.cuda.synchronize()
+    counts = read_counts(corr_lookup, gru)
+    ref = run(resized, False)
+    windows = (FRAMES - (STACK + 1)) // STACK + 1
+    if got.shape != (windows, 2048) or not np.isfinite(got).all():
+        fail(f'device_resize output {got.shape} (want ({windows}, 2048)) or not finite')
+    for name, cols in (('rgb', slice(0, 1024)), ('flow', slice(1024, 2048))):
+        rel = rel_l2(torch.from_numpy(got[:, cols]), torch.from_numpy(ref[:, cols]))
+        print(f'device_resize=true on raw {RAW_HW[0]}x{RAW_HW[1]} frames: {name} '
+              f'stream vs host-resized frames rel L2 {rel:.3e}', flush=True)
+        if not rel <= DEVICE_RESIZE_REL_L2:
+            fail(f'device_resize {name} stream rel L2 {rel} > {DEVICE_RESIZE_REL_L2}')
+    print(f'device_resize=true: launches {counts}', flush=True)
+    return counts
+
+
+def card_vs_cpu_phase(torch, np, r21d_ex, s3d_ex):
+    """The r21d and s3d steps on the card against the CPU, one stack-16
+    window each, same input and weights."""
+    from video_features_torch.extract.r21d import r21d_step
+    from video_features_torch.extract.s3d import s3d_step
+    from video_features_torch.transplant import to_device
+    for name, step, params, hw in (
+            ('r21d', functools.partial(r21d_step, arch='r2plus1d_18'),
+             r21d_ex.params, R21D_HW),
+            ('s3d', s3d_step, s3d_ex.params, S3D_HW)):
+        x = torch.from_numpy(rand_frames(np, 8, (1, 16, *hw, 3)))
+        with torch.inference_mode():
+            card = step(params, x.cuda()).cpu()
+            host = step(to_device(params, 'cpu'), x)
+        rel = rel_l2(card, host)
+        print(f'{name} step, card vs CPU: rel L2 {rel:.3e}', flush=True)
+        if not rel <= CARD_CPU_REL_L2:
+            fail(f'{name}: card vs CPU rel L2 {rel} > {CARD_CPU_REL_L2} (TF32 on?)')
+
+
+def conv_flops(torch, fn) -> int:
+    """The convolutions' flops (2·out_elems·C_in·k each) of one call."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return sum(n for op, n in counter.get_flop_counts()['Global'].items()
+               if 'convolution' in str(op))
+
+
+def family_timing(torch, np, r21d_ex, r21d34_ex, s3d_ex) -> None:
+    """ms per window of the r21d and s3d steps on device-resident uint8
+    stacks, beside the fp32 FMA bound of their convolutions."""
+    from video_features_torch.extract.r21d import r21d_step
+    from video_features_torch.extract.s3d import s3d_step
+    cases = (
+        ('r21d r2plus1d_18 (stack 16)', R21D_BATCH, functools.partial(
+            r21d_step, r21d_ex.params, arch='r2plus1d_18'), (16, *R21D_HW)),
+        ('r21d r2plus1d_34 (stack 32)', R21D_BATCH, functools.partial(
+            r21d_step, r21d34_ex.params, arch='r2plus1d_34'), (32, *R21D_HW)),
+        ('s3d (stack 64)', 1, functools.partial(s3d_step, s3d_ex.params),
+         (S3D_STACK, *S3D_HW)))
+    for i, (name, batch, step, shape) in enumerate(cases):
+        x = torch.from_numpy(rand_frames(np, 20 + i, (batch, *shape, 3))).cuda()
+        with torch.inference_mode():
+            ms = cuda_ms(torch, lambda: step(x), reps=5) / batch
+            flops = conv_flops(torch, lambda: step(x)) / batch
+        bound = flops / FP32_FLOP_PER_S * 1e3
+        print(f'{name} step at batch {batch}: {ms:.3f} ms per window; fp32 FMA '
+              f'bound {bound:.3f} ms ({flops / 1e9:.1f} GFLOP of convolutions '
+              f'per window), {bound / ms:.1%} of it', flush=True)
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -676,11 +891,13 @@ def main() -> int:
           flush=True)
 
     from video_features_torch.extract.i3d import ExtractI3D, fused_two_stream_step
+    from video_features_torch.extract.r21d import ExtractR21D
     from video_features_torch.extract.raft import ExtractRAFT
+    from video_features_torch.extract.s3d import ExtractS3D
     from video_features_torch.io.video import batch_frames
     from video_features_torch.models import raft as raft_model
     from video_features_torch.models.raft import pad_amounts
-    from video_features_torch.ops import _kernels, corr_lookup, gru
+    from video_features_torch.ops import _kernels, corr_lookup, gru, transforms
     from video_features_torch.utils.device import set_precision
     set_precision('highest')
 
@@ -740,8 +957,6 @@ def main() -> int:
     counts = raft_slice_phase(torch, np, rex, batch_frames, corr_lookup, gru)
     check_counts(counts, 'masked', math.ceil((RAFT_FRAMES - 1) / RAFT_BATCH),
                  'RAFT family slice')
-    for key in launches:
-        rec[key]['launches'] = launches[key]
     print(f'raft family phase {time.perf_counter() - t:.1f} s', flush=True)
 
     t = phase('kernels vs plain on the slices')
@@ -752,6 +967,33 @@ def main() -> int:
     raft_plain_phase(torch, np, rex, raft_model)
     step_timing(torch, np, ex, fused_two_stream_step, pad_amounts)
     print(f'plain phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('device resize')
+    resize_phase(torch, np, transforms)
+    print(f'device resize phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('slice (R(2+1)D)')
+    r21d_ex, r21d34_ex = r21d_phase(torch, np, ExtractR21D, corr_lookup, gru)
+    print(f'r21d phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('slice (S3D)')
+    s3d_ex = s3d_phase(torch, np, ExtractS3D, corr_lookup, gru)
+    print(f's3d phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('I3D with device_resize=true')
+    counts = device_resize_phase(torch, np, ex, transforms, corr_lookup, gru)
+    check_counts(counts, 'masked', steps, 'I3D slice, device_resize=true')
+    for key in launches:
+        rec[key]['launches'] = launches[key]
+    print(f'device_resize phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('card vs CPU')
+    card_vs_cpu_phase(torch, np, r21d_ex, s3d_ex)
+    print(f'card vs CPU phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('timing (R(2+1)D, S3D)')
+    family_timing(torch, np, r21d_ex, r21d34_ex, s3d_ex)
+    print(f'timing phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

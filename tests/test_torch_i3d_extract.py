@@ -165,7 +165,7 @@ def test_config_defaults_and_checks(tmp_path):
         load_config('i3d', overrides={'video_paths': video, 'device': 'cpu',
                                       'stack_size': 8})
     with pytest.raises(NotImplementedError, match='Known: i3d'):
-        load_config('r21d', overrides={'video_paths': video, 'device': 'cpu'})
+        load_config('vggish', overrides={'video_paths': video, 'device': 'cpu'})
 
 
 def test_cli_usage_without_feature_type(capsys):

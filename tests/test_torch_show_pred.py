@@ -1,0 +1,119 @@
+"""``show_pred`` of the port's r21d, s3d and i3d extractors: the stdout
+table (``At frames (a, b)`` / ``At stack k (stream)``, then the Kinetics
+top-5) against the JAX package's where it prints the same thing, on the
+CPU."""
+import numpy as np
+import torch
+
+from video_features_tpu.config import load_config as jax_load_config
+from video_features_tpu.registry import create_extractor as jax_create
+from video_features_torch.extract import i3d, r21d, s3d
+from video_features_torch.models import i3d as i3d_model
+from video_features_torch.utils.preds import load_label_map
+
+LOGIT_ATOL = 1e-3   # the table prints three decimals
+
+
+def table(text):
+    """(headers, [(logit, prob, label), ...]) of show_pred's stdout."""
+    heads, rows = [], []
+    for line in text.splitlines():
+        if line.startswith('At '):
+            heads.append(line)
+        elif line.count('|') == 2 and 'Logits' not in line:
+            logit, prob, label = (part.strip() for part in line.split('|'))
+            rows.append((float(logit), float(prob), label))
+    return heads, rows
+
+
+def assert_same_table(got, ref):
+    (got_heads, got_rows), (ref_heads, ref_rows) = table(got), table(ref)
+    assert got_heads == ref_heads
+    assert [r[2] for r in got_rows] == [r[2] for r in ref_rows]
+    np.testing.assert_allclose([r[:2] for r in got_rows],
+                               [r[:2] for r in ref_rows], atol=LOGIT_ATOL)
+
+
+def _args(tmp_path, feature_type, **overrides):
+    args = {'feature_type': feature_type, 'device': 'cpu',
+            'allow_random_weights': True, 'show_pred': True,
+            'on_extraction': 'save_numpy', 'output_path': str(tmp_path / 'torch')}
+    args.update(overrides)
+    return args
+
+
+def _jax_extractor(tmp_path, feature_type, **overrides):
+    return jax_create(jax_load_config(feature_type, overrides={
+        'video_paths': str(tmp_path / 'v.mp4'), 'device': 'cpu',
+        'allow_random_weights': True, 'show_pred': True,
+        'output_path': str(tmp_path / 'jax'), 'tmp_path': str(tmp_path / 'tmp'),
+        **overrides}))
+
+
+def test_kinetics_label_map_ships_with_the_package(monkeypatch):
+    monkeypatch.delenv('VFT_LABEL_MAP_DIR', raising=False)
+    classes = load_label_map('kinetics')
+    assert len(classes) == 400 and classes[0] == 'abseiling'
+
+
+def test_r21d_table_matches_jax(tmp_path, capsys, monkeypatch):
+    """``fc`` on a window's features (both packages start from the same
+    seeded weights); extract_frames narrates each window's frame range."""
+    ex = r21d.ExtractR21D(_args(tmp_path, 'r21d'))
+    jex = _jax_extractor(tmp_path, 'r21d')
+    feats = np.random.RandomState(0).randn(1, 512).astype(np.float32) * 0.1
+    ex.maybe_show_pred(feats, 16, 32)
+    got = capsys.readouterr().out
+    jex.maybe_show_pred(feats, 16, 32)
+    assert_same_table(got, capsys.readouterr().out)
+    assert table(got)[0] == ['At frames (16, 32)'] and len(table(got)[1]) == 5
+
+    monkeypatch.setattr(ex, 'step', lambda stacks: np.tile(feats, (len(stacks), 1)))
+    frames = np.zeros((33, 8, 8, 3), np.uint8)
+    ex.extract_frames([(list(frames), None, None)])
+    heads, rows = table(capsys.readouterr().out)
+    assert heads == ['At frames (0, 16)', 'At frames (16, 32)'] and len(rows) == 10
+
+
+def test_s3d_table_matches_jax(tmp_path, capsys):
+    """The window recomputed through the classifier head."""
+    ex = s3d.ExtractS3D(_args(tmp_path, 's3d', stack_size=16, step_size=16))
+    jex = _jax_extractor(tmp_path, 's3d', stack_size=16, step_size=16)
+    stacks = np.random.RandomState(1).randint(0, 256, (1, 16, 48, 64, 3)).astype(np.uint8)
+    ex.maybe_show_pred(stacks, 0, 16)
+    got = capsys.readouterr().out
+    size, scale = s3d.resize_geometry(48, 64)
+    jex.maybe_show_pred(stacks, 0, 16, size, scale)
+    assert_same_table(got, capsys.readouterr().out)
+    assert table(got)[0] == ['At frames (0, 16)'] and len(table(got)[1]) == 5
+
+
+def test_i3d_table_per_stream_and_flow_png(tmp_path, capsys, monkeypatch):
+    """Each stream's top-5 from its tower's classifier head on the window
+    batch, and the first pair's flow PNG; a failed PNG write is reported
+    on stderr, not raised."""
+    ex = i3d.ExtractI3D(_args(tmp_path, 'i3d', stack_size=10, step_size=10,
+                              raft_iters=1, batch_size=2))
+    stacks = np.random.RandomState(2).randint(0, 256, (2, 11, 64, 88, 3)).astype(np.uint8)
+    ex.maybe_show_pred(stacks, 4)
+    heads, rows = table(capsys.readouterr().out)
+    assert heads == ['At stack 4 (rgb stream)', 'At stack 4 (flow stream)']
+    x = torch.from_numpy(stacks)
+    pads = ex.geometry(64, 88)[1]
+    with torch.inference_mode():
+        inputs = {'rgb': i3d.rgb_stream_input(x, 64),
+                  'flow': i3d.flow_stream_input(ex.params['raft'], x, pads, 64,
+                                                raft_iters=1)}
+        logits = {s: i3d_model.forward(ex.params[s], inputs[s], features=False)[1]
+                  for s in ('rgb', 'flow')}
+    classes = load_label_map('kinetics')
+    want = [classes[k] for s in ('rgb', 'flow') for row in logits[s].numpy()
+            for k in np.argsort(-row)[:5]]
+    assert [r[2] for r in rows] == want
+    png = tmp_path / 'torch' / 'flow_debug' / 'frames_stack_000004.png'
+    assert png.stat().st_size > 0
+
+    import cv2
+    monkeypatch.setattr(cv2, 'imwrite', lambda *a: False)
+    ex.maybe_show_pred(stacks[:1], 5)
+    assert 'flow viz PNG not written' in capsys.readouterr().err

@@ -6,8 +6,12 @@ compared tensor for tensor. It imports ``torch`` and never ``jax``, and
 nothing of ``video_features_tpu``: what it needs from that package's
 jax-free modules is copied here.
 
-Ported so far: the fused I3D two-stream path (RAFT flow + both I3D
-towers) behind ``python -m video_features_torch feature_type=i3d``, with
-RAFT's correlation-window lookup in hand-written CUDA kernels
-(``csrc/corr_lookup.cu``).
+Ported so far, behind ``python -m video_features_torch
+feature_type=<family>``: the fused I3D two-stream path (RAFT flow + both
+I3D towers, ``i3d``, with the on-device bit-exact Pillow resize of
+``device_resize=true``), the RAFT flow family (``raft``), and the two
+3-D CNN families R(2+1)D (``r21d``) and S3D (``s3d``). Every RAFT
+iteration on the card runs hand-written CUDA kernels: the
+correlation-window lookup (``csrc/corr_lookup.cu``) and the SepConvGRU
+direction (``csrc/gru_direction.cu``).
 """

@@ -1,6 +1,6 @@
 """Configuration: YAML defaults ← dotlist CLI overrides, then
-``sanity_check`` (the i3d and raft subset of ``video_features_tpu/
-config.py``).
+``sanity_check`` (the i3d, r21d, s3d and raft subset of
+``video_features_tpu/config.py``).
 
 ``yaml`` is imported inside the functions that parse, so the package
 imports on machines without it.
@@ -88,12 +88,16 @@ def form_list_from_user_input(
 RAFT_FINETUNED_ON = ('sintel', 'kitti')
 
 
-def check_raft_args(args: Dict[str, Any]) -> None:
-    """The raft family's rules; keys the port does not implement yet
-    raise ``NotImplementedError`` naming the key."""
+def check_unported_keys(args: Dict[str, Any]) -> None:
+    """Keys of the JAX package's configs that the port does not implement
+    yet raise ``NotImplementedError`` naming the key."""
     if args.get('data_parallel'):
         raise NotImplementedError(
             'data_parallel=true is not ported yet: run with data_parallel=false')
+    if args.get('pack_across_videos'):
+        raise NotImplementedError(
+            'pack_across_videos=true is not ported yet: run with '
+            'pack_across_videos=false')
     backend = args.get('decode_backend') or 'auto'
     if backend == 'native':
         raise NotImplementedError(
@@ -103,6 +107,11 @@ def check_raft_args(args: Dict[str, Any]) -> None:
     if int(args.get('decode_workers') or 1) > 1:
         raise NotImplementedError(
             'decode_workers > 1 is not ported yet: run with decode_workers=1')
+
+
+def check_raft_args(args: Dict[str, Any]) -> None:
+    """The raft family's rules."""
+    check_unported_keys(args)
     if args.get('finetuned_on', 'sintel') not in RAFT_FINETUNED_ON:
         raise ValueError(f'finetuned_on must be one of {RAFT_FINETUNED_ON}; '
                          f'got {args.get("finetuned_on")!r}')
@@ -116,9 +125,9 @@ def check_raft_args(args: Dict[str, Any]) -> None:
 
 
 def sanity_check(args: Dict[str, Any]) -> None:
-    """Validate the merged config and append ``<feature_type>`` to the
-    output path. The device is resolved here, so a run that asks for a
-    GPU on a machine without one fails before any work."""
+    """Validate the merged config and append ``<feature_type>[/<model_name>]``
+    ('/' → '_') to the output path. The device is resolved here, so a run
+    that asks for a GPU on a machine without one fails before any work."""
     from video_features_torch.utils.device import PRECISIONS, resolve_device
     resolve_device(args.get('device', 'cuda'))
     prec = args.get('precision', 'highest')
@@ -133,14 +142,19 @@ def sanity_check(args: Dict[str, Any]) -> None:
         raise ValueError('Non-unique video filenames (stems collide in the '
                          'flat output dir)')
     ft = args.get('feature_type')
+    if ft == 'raft':
+        check_raft_args(args)
+    else:
+        check_unported_keys(args)
+    if ft == 'r21d':
+        from video_features_torch.extract.r21d import model_def
+        model_def(args.get('model_name'))
     if ft == 'i3d' and args.get('stack_size') is not None \
             and args['stack_size'] < 10:
         raise ValueError('I3D does not support inputs shorter than 10 '
                          f'timestamps. You have: {args["stack_size"]}')
     if args.get('flow_type', 'raft') != 'raft':
         raise NotImplementedError('only flow_type=raft is supported')
-    if ft == 'raft':
-        check_raft_args(args)
     if 'batch_size' in args and args['batch_size'] is None:
         raise ValueError('Please specify `batch_size`')
     if args.get('raft_iters') is not None and int(args['raft_iters']) < 1:
@@ -149,4 +163,6 @@ def sanity_check(args: Dict[str, Any]) -> None:
             and args.get('extraction_total') is not None:
         raise ValueError('`extraction_fps` and `extraction_total` are '
                          'mutually exclusive')
-    args['output_path'] = os.path.join(str(args['output_path']), ft)
+    subs = [ft] if args.get('model_name') is None else [ft, str(args['model_name'])]
+    args['output_path'] = os.path.join(str(args['output_path']),
+                                       *(p.replace('/', '_') for p in subs))

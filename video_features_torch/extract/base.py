@@ -37,7 +37,11 @@ FINGERPRINT_KEYS = {
     'i3d': ('feature_type', 'streams', 'flow_type', 'stack_size', 'step_size',
             'raft_iters', 'extraction_fps', 'concat_rgb_flow', 'precision',
             'i3d_rgb_checkpoint_path', 'i3d_flow_checkpoint_path',
-            'raft_checkpoint_path'),
+            'raft_checkpoint_path', 'device_resize'),
+    'r21d': ('feature_type', 'model_name', 'stack_size', 'step_size',
+             'extraction_fps', 'precision', 'checkpoint_path'),
+    's3d': ('feature_type', 'stack_size', 'step_size', 'extraction_fps',
+            'precision', 'checkpoint_path'),
     'raft': ('feature_type', 'extraction_fps', 'extraction_total',
              'side_size', 'resize_to_smaller_edge', 'finetuned_on',
              'bucket_multiple', 'raft_iters', 'precision', 'checkpoint_path'),

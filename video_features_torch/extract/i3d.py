@@ -1,26 +1,35 @@
 """I3D two-stream extractor — the fused RAFT→I3D path (port of
 ``video_features_tpu/extract/i3d.py``).
 
-  * frames are host-resized to short side 256 (PIL) and windowed into
-    stacks of ``stack_size + 1`` frames: S+1 frames give S flow pairs,
-    and the rgb stream takes the first S frames so both streams have the
-    same length;
+  * frames are resized to short side 256 and windowed into stacks of
+    ``stack_size + 1`` frames: S+1 frames give S flow pairs, and the rgb
+    stream takes the first S frames so both streams have the same
+    length. The resize runs on the host (PIL), or with
+    ``device_resize=true`` on the device inside the step, bit-exact with
+    PIL (``ops/transforms.py::pil_resize_bilinear_device``), so the
+    decode-geometry frames ship as they are;
   * flow stream: RAFT on /8 edge-padded consecutive pairs; the center
     crop is taken from the PADDED flow, as the reference does; then
     clamp ±20 → uint8 levels → ±1;
   * rgb stream: crop 224 → 2x/255 - 1;
   * ``step_size`` < ``stack_size`` overlaps windows; a partial final
     stack is dropped; ``batch_size`` windows run per step, the tail
-    batch padded and masked.
+    batch padded and masked;
+  * ``show_pred`` prints each stream's Kinetics top-5 per window batch
+    and writes the first pair's flow as a PNG under
+    ``<output_path>/flow_debug/``.
 """
 from __future__ import annotations
 
+import sys
 from functools import partial
-from typing import Dict, Iterable, List, Sequence
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from video_features_torch.config import check_unported_keys
 from video_features_torch.extract.base import (
     FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
 )
@@ -29,8 +38,10 @@ from video_features_torch.extract.streaming import (
 )
 from video_features_torch.models import i3d as i3d_model
 from video_features_torch.models import raft as raft_model
+from video_features_torch.ops.host_transforms import pil_edge_resize_geometry
 from video_features_torch.ops.transforms import (
-    center_crop, flow_to_uint8_levels, scale_to_pm1,
+    center_crop, flow_to_uint8_levels, pil_resize_bilinear_device,
+    scale_to_pm1,
 )
 from video_features_torch.transplant import to_device
 
@@ -59,11 +70,17 @@ def flow_stream_input(raft_params, stacks: torch.Tensor, pads, crop_size: int,
 def fused_two_stream_step(params, stacks: torch.Tensor, pads,
                           streams: Sequence[str], crop_size: int = CROP_SIZE,
                           raft_iters: int = raft_model.ITERS,
-                          plain_kernels: bool = False) -> Dict[str, torch.Tensor]:
+                          plain_kernels: bool = False,
+                          resize_to: Optional[Tuple[int, int]] = None
+                          ) -> Dict[str, torch.Tensor]:
     """(B, stack+1, H, W, 3) frames → {stream: (B, 1024)}: RAFT flow,
-    quantization and both I3D towers. ``plain_kernels`` runs RAFT's
-    lookup and GRU direction through their plain versions instead of the
-    kernels (a test seam)."""
+    quantization and both I3D towers. ``resize_to=(H', W')`` first
+    resizes the uint8 frames on the device (``device_resize``; ``pads``
+    are then those of H'×W'). ``plain_kernels`` runs RAFT's lookup and
+    GRU direction through their plain versions instead of the kernels (a
+    test seam)."""
+    if resize_to is not None:
+        stacks = pil_resize_bilinear_device(stacks, resize_to)
     out = {}
     if 'rgb' in streams:
         out['rgb'] = i3d_model.forward(params['rgb'],
@@ -94,15 +111,19 @@ class ExtractI3D(BaseExtractor):
                 raise ValueError(f"unknown stream {s!r}: use 'rgb' or 'flow'")
         if args.get('flow_type', 'raft') != 'raft':
             raise NotImplementedError('only flow_type=raft is supported')
+        check_unported_keys(args)
         stack, step = args.get('stack_size'), args.get('step_size')
         self.stack_size = 64 if stack is None else int(stack)
         self.step_size = 64 if step is None else int(step)
         self.raft_iters = raft_model.resolve_iters(args.get('raft_iters'))
         self.extraction_fps = args.get('extraction_fps')
         self.batch_size = int(args.get('batch_size', 1))
+        self.device_resize = bool(args.get('device_resize', False))
+        self.show_pred = bool(args.get('show_pred', False))
         self.output_feat_keys = list(self.streams)
         self.params = to_device(self.load_params(args), self.device)
         self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['i3d'])
+        self._viz_stem = 'frames'
 
     def load_params(self, args):
         """{'rgb': i3d params, 'flow': i3d params, 'raft': raft params}."""
@@ -124,12 +145,15 @@ class ExtractI3D(BaseExtractor):
         return params
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
-        """Decode (cv2), resize to short side 256 (PIL), then
-        :meth:`extract_frames`."""
+        """Decode (cv2), resize to short side 256 on the host (PIL) unless
+        ``device_resize``, then :meth:`extract_frames`."""
         from video_features_torch.io.video import VideoLoader
         from video_features_torch.ops.host_transforms import resize_pil
-        loader = VideoLoader(video_path, batch_size=64, fps=self.extraction_fps,
-                             transform=lambda f: resize_pil(f, MIN_SIDE_SIZE))
+        self._viz_stem = Path(video_path).stem
+        loader = VideoLoader(
+            video_path, batch_size=64, fps=self.extraction_fps,
+            transform=(None if self.device_resize
+                       else lambda f: resize_pil(f, MIN_SIDE_SIZE)))
         return self.extract_frames(loader)
 
     def extract_frames(self, batches: Iterable) -> Dict[str, np.ndarray]:
@@ -138,19 +162,73 @@ class ExtractI3D(BaseExtractor):
         ``{stream: (T, 1024)}``."""
         feats: Dict[str, list] = {s: [] for s in self.streams}
         windows = stream_windows(batches, self.stack_size + 1, self.step_size)
-        for stacks, valid, _ in iter_batched_windows(windows, self.batch_size):
+        for stacks, valid, window_idx in iter_batched_windows(windows,
+                                                              self.batch_size):
             out = self.step(stacks)
             for s in self.streams:
                 feats[s].append(out[s][:valid])
+            if self.show_pred:
+                self.maybe_show_pred(stacks[:valid], window_idx)
         return {s: (np.concatenate(v, axis=0) if v
                     else np.zeros((0, i3d_model.FEAT_DIM), np.float32))
                 for s, v in feats.items()}
 
+    def geometry(self, h: int, w: int):
+        """(resize_to, pads) of (h, w) frames: the device resize's target
+        (None when the host resized them, or when PIL's resize is a
+        no-op) and RAFT's /8 pads of the frames it then sees."""
+        resize_to = (pil_edge_resize_geometry(h, w, MIN_SIDE_SIZE)
+                     if self.device_resize else None)
+        return resize_to, raft_model.pad_amounts(*(resize_to or (h, w)))
+
     def step(self, stacks: np.ndarray) -> Dict[str, np.ndarray]:
         """One (batch, S+1, H, W, 3) uint8 stack batch → {stream: (batch, 1024)}."""
-        pads = raft_model.pad_amounts(stacks.shape[2], stacks.shape[3])
+        resize_to, pads = self.geometry(*stacks.shape[2:4])
         x = torch.from_numpy(stacks).to(self.device)
         with torch.inference_mode():
             out = fused_two_stream_step(self.params, x, pads, self.streams,
-                                        raft_iters=self.raft_iters)
+                                        raft_iters=self.raft_iters,
+                                        resize_to=resize_to)
         return {s: v.cpu().numpy() for s, v in out.items()}
+
+    def maybe_show_pred(self, stacks: np.ndarray, stack_counter: int) -> None:
+        """Kinetics top-5 per stream for a batch of windows, recomputed
+        through each tower's classifier head (RAFT at this run's
+        ``raft_iters``), and, with the flow stream, the first pair's
+        cropped flow rendered with the Middlebury wheel as
+        ``<output_path>/flow_debug/<stem>_stack_<k>.png``. A debug
+        surface: a failed PNG write is reported, never raised."""
+        from video_features_torch.utils.flow_viz import flow_to_image
+        from video_features_torch.utils.preds import show_predictions_on_dataset
+        resize_to, pads = self.geometry(*stacks.shape[2:4])
+        x = torch.from_numpy(stacks).to(self.device)
+        with torch.inference_mode():
+            if resize_to is not None:
+                x = pil_resize_bilinear_device(x, resize_to)
+            crop = min(CROP_SIZE, x.shape[2], x.shape[3])
+            for stream in self.streams:
+                if stream == 'rgb':
+                    inp = rgb_stream_input(x, crop)
+                else:
+                    inp = flow_stream_input(self.params['raft'], x, pads, crop,
+                                            raft_iters=self.raft_iters)
+                _, logits = i3d_model.forward(self.params[stream], inp,
+                                              features=False)
+                print(f'At stack {stack_counter} ({stream} stream)')
+                show_predictions_on_dataset(logits.cpu().numpy(), 'kinetics')
+            if 'flow' not in self.streams:
+                return
+            pair = raft_model.edge_pad(x[:1, :2], pads, h_axis=2)
+            flow = raft_model.forward_stack_pairs(self.params['raft'], pair,
+                                                  iters=self.raft_iters)
+            flow = center_crop(flow, crop)[0, 0].cpu().numpy()
+        img = flow_to_image(flow)
+        try:
+            import cv2
+            out_dir = Path(self.output_path) / 'flow_debug'
+            out_dir.mkdir(parents=True, exist_ok=True)
+            path = out_dir / f'{self._viz_stem}_stack_{stack_counter:06d}.png'
+            if not cv2.imwrite(str(path), img[..., ::-1]):   # RGB → BGR
+                raise OSError(f'cv2.imwrite failed for {path}')
+        except (ImportError, OSError) as e:
+            print(f'WARNING: flow viz PNG not written ({e})', file=sys.stderr)

@@ -1,0 +1,133 @@
+"""R(2+1)D extractor (port of ``video_features_tpu/extract/r21d.py``).
+
+  * frames stream off the decoder into windows of ``stack_size`` frames
+    every ``step_size`` (the model's own by default); a partial final
+    stack is dropped;
+  * ``batch_size`` windows run per step, the tail batch padded and
+    masked;
+  * the step ships uint8 stacks and transforms them on the device: [0,
+    1] → bilinear resize to 128×171 → normalize → center crop 112 →
+    R(2+1)D features (B, 512);
+  * ``show_pred`` prints each window's Kinetics top-5 from ``fc`` on its
+    features.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Dict, Iterable
+
+import numpy as np
+import torch
+
+from video_features_torch.config import check_unported_keys
+from video_features_torch.extract.base import (
+    FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
+)
+from video_features_torch.extract.streaming import (
+    iter_batched_windows, stream_windows,
+)
+from video_features_torch.models import r21d as r21d_model
+from video_features_torch.ops.nn import linear
+from video_features_torch.ops.transforms import (
+    center_crop, normalize, resize_bilinear, to_float_zero_one,
+)
+from video_features_torch.transplant import to_device
+
+# model_name -> (arch, native stack, native step, pred dataset)
+MODEL_CFGS = {
+    'r2plus1d_18_16_kinetics': dict(arch='r2plus1d_18', stack_size=16,
+                                    step_size=16, dataset='kinetics'),
+    'r2plus1d_34_32_ig65m_ft_kinetics': dict(arch='r2plus1d_34', stack_size=32,
+                                             step_size=32, dataset='kinetics'),
+    'r2plus1d_34_8_ig65m_ft_kinetics': dict(arch='r2plus1d_34', stack_size=8,
+                                            step_size=8, dataset='kinetics'),
+}
+STACK_BATCH = 4
+
+
+def model_def(model_name: str) -> dict:
+    """``MODEL_CFGS[model_name]``; an unknown name raises, listing the
+    valid ones."""
+    try:
+        return MODEL_CFGS[model_name]
+    except KeyError:
+        raise ValueError(f'model_name must be one of {", ".join(MODEL_CFGS)}; '
+                         f'got {model_name!r}') from None
+
+
+def r21d_step(params, stacks: torch.Tensor, arch: str) -> torch.Tensor:
+    """(B, stack, H, W, 3) uint8 → (B, 512) features: [0, 1] → resize to
+    128×171 → normalize → crop 112 → R(2+1)D."""
+    x = resize_bilinear(to_float_zero_one(stacks), (128, 171))
+    x = center_crop(normalize(x, r21d_model.MEAN, r21d_model.STD), 112)
+    return r21d_model.forward(params, x, arch=arch, features=True)
+
+
+class ExtractR21D(BaseExtractor):
+
+    def __init__(self, args) -> None:
+        super().__init__(
+            feature_type=args['feature_type'],
+            on_extraction=args['on_extraction'],
+            output_path=args['output_path'],
+            device=args.get('device', 'cuda'),
+            precision=args.get('precision', 'highest'),
+        )
+        check_unported_keys(args)
+        self.model_def = model_def(args.get('model_name',
+                                            'r2plus1d_18_16_kinetics'))
+        self.stack_size = args.get('stack_size') or self.model_def['stack_size']
+        self.step_size = args.get('step_size') or self.model_def['step_size']
+        self.extraction_fps = args.get('extraction_fps')
+        self.batch_size = int(args.get('batch_size') or STACK_BATCH)
+        self.show_pred = bool(args.get('show_pred', False))
+        self.output_feat_keys = [self.feature_type]
+        self.params = to_device(self.load_params(args), self.device)
+        self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['r21d'])
+
+    def load_params(self, args):
+        from video_features_torch.extract.weights import load_or_init
+        return load_or_init(
+            args, 'checkpoint_path',
+            partial(r21d_model.init_state_dict, arch=self.model_def['arch']),
+            feature_type='r21d')
+
+    def extract(self, video_path: str) -> Dict[str, np.ndarray]:
+        """Decode (cv2), then :meth:`extract_frames`."""
+        from video_features_torch.io.video import VideoLoader
+        return self.extract_frames(VideoLoader(video_path, batch_size=64,
+                                               fps=self.extraction_fps))
+
+    def extract_frames(self, batches: Iterable) -> Dict[str, np.ndarray]:
+        """Frame batches ``(frames, times, indices)`` (the loader protocol;
+        only ``frames``, a sequence of HWC uint8 frames, is read) →
+        ``{'r21d': (T, 512)}``."""
+        feats = []
+        windows = stream_windows(batches, self.stack_size, self.step_size)
+        for stacks, valid, window_idx in iter_batched_windows(windows,
+                                                              self.batch_size):
+            out = self.step(stacks)[:valid]
+            feats.append(out)
+            if self.show_pred:
+                for k in range(valid):
+                    start = (window_idx + k) * self.step_size
+                    self.maybe_show_pred(out[k:k + 1], start,
+                                         start + self.stack_size)
+        return {self.feature_type: (
+            np.concatenate(feats, axis=0) if feats
+            else np.zeros((0, r21d_model.FEAT_DIM), np.float32))}
+
+    def step(self, stacks: np.ndarray) -> np.ndarray:
+        """One (batch, stack, H, W, 3) uint8 batch → (batch, 512)."""
+        x = torch.from_numpy(stacks).to(self.device)
+        with torch.inference_mode():
+            return r21d_step(self.params, x, self.model_def['arch']).cpu().numpy()
+
+    def maybe_show_pred(self, feats: np.ndarray, start: int, end: int) -> None:
+        """The window's top-5 from ``fc`` on its features."""
+        from video_features_torch.utils.preds import show_predictions_on_dataset
+        with torch.inference_mode():
+            logits = linear(torch.from_numpy(feats).to(self.device),
+                            self.params['fc']).cpu().numpy()
+        print(f'At frames ({start}, {end})')
+        show_predictions_on_dataset(logits, self.model_def['dataset'])

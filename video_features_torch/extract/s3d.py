@@ -1,0 +1,117 @@
+"""S3D extractor (port of ``video_features_tpu/extract/s3d.py``).
+
+  * windows of ``stack_size`` frames every ``step_size`` (64 and 64 at
+    25 fps by default), ``batch_size`` (1) windows per step, the tail
+    batch padded and masked; a partial final stack is dropped;
+  * the step ships uint8 stacks and transforms them on the device, with
+    no normalization (the kylemin/S3D convention): [0, 1] → short-side
+    224 bilinear resize at the GIVEN scale 224/min(h, w) → center crop
+    224 → S3D features (B, 1024);
+  * ``show_pred`` recomputes each window with the classifier head and
+    prints its Kinetics top-5.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterable, Tuple
+
+import numpy as np
+import torch
+
+from video_features_torch.config import check_unported_keys
+from video_features_torch.extract.base import (
+    FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
+)
+from video_features_torch.extract.streaming import (
+    iter_batched_windows, stream_windows,
+)
+from video_features_torch.models import s3d as s3d_model
+from video_features_torch.ops.transforms import (
+    center_crop, resize_bilinear_scale, to_float_zero_one,
+)
+from video_features_torch.transplant import to_device
+
+SIZE = 224
+STACK_BATCH = 1
+
+
+def resize_geometry(h: int, w: int) -> Tuple[Tuple[int, int], float]:
+    """((oh, ow), scale) of the short-side resize: ``scale = 224/min(h,
+    w)`` and ``floor(dim·scale)`` per side, as torch's ``F.interpolate(
+    scale_factor=scale, recompute_scale_factor=False)`` sizes it (a
+    107-px short side floors to 223)."""
+    scale = SIZE / min(h, w)
+    return (math.floor(h * scale), math.floor(w * scale)), scale
+
+
+def s3d_step(params, stacks: torch.Tensor, features: bool = True) -> torch.Tensor:
+    """(B, stack, H, W, 3) uint8 → (B, 1024) features (or (B, 400)
+    logits): [0, 1] → resize at the given scale → crop 224 → S3D."""
+    size, scale = resize_geometry(*stacks.shape[2:4])
+    x = resize_bilinear_scale(to_float_zero_one(stacks), size, scale)
+    return s3d_model.forward(params, center_crop(x, SIZE), features=features)
+
+
+class ExtractS3D(BaseExtractor):
+
+    def __init__(self, args) -> None:
+        super().__init__(
+            feature_type=args['feature_type'],
+            on_extraction=args['on_extraction'],
+            output_path=args['output_path'],
+            device=args.get('device', 'cuda'),
+            precision=args.get('precision', 'highest'),
+        )
+        check_unported_keys(args)
+        self.stack_size = int(args.get('stack_size') or 64)
+        self.step_size = int(args.get('step_size') or 64)
+        self.extraction_fps = args.get('extraction_fps')
+        self.batch_size = int(args.get('batch_size') or STACK_BATCH)
+        self.show_pred = bool(args.get('show_pred', False))
+        self.output_feat_keys = [self.feature_type]
+        self.params = to_device(self.load_params(args), self.device)
+        self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['s3d'])
+
+    def load_params(self, args):
+        from video_features_torch.extract.weights import load_or_init
+        return load_or_init(args, 'checkpoint_path', s3d_model.init_state_dict,
+                            feature_type='s3d')
+
+    def extract(self, video_path: str) -> Dict[str, np.ndarray]:
+        """Decode (cv2, retimed to ``extraction_fps``), then
+        :meth:`extract_frames`."""
+        from video_features_torch.io.video import VideoLoader
+        return self.extract_frames(VideoLoader(video_path, batch_size=64,
+                                               fps=self.extraction_fps))
+
+    def extract_frames(self, batches: Iterable) -> Dict[str, np.ndarray]:
+        """Frame batches ``(frames, times, indices)`` (the loader protocol;
+        only ``frames``, a sequence of HWC uint8 frames, is read) →
+        ``{'s3d': (T, 1024)}``."""
+        feats = []
+        windows = stream_windows(batches, self.stack_size, self.step_size)
+        for stacks, valid, window_idx in iter_batched_windows(windows,
+                                                              self.batch_size):
+            feats.append(self.step(stacks)[:valid])
+            if self.show_pred:
+                for k in range(valid):
+                    start = (window_idx + k) * self.step_size
+                    self.maybe_show_pred(stacks[k:k + 1], start,
+                                         start + self.stack_size)
+        return {self.feature_type: (
+            np.concatenate(feats, axis=0) if feats
+            else np.zeros((0, s3d_model.FEAT_DIM), np.float32))}
+
+    def step(self, stacks: np.ndarray, features: bool = True) -> np.ndarray:
+        """One (batch, stack, H, W, 3) uint8 batch → (batch, 1024), or
+        (batch, 400) logits."""
+        x = torch.from_numpy(stacks).to(self.device)
+        with torch.inference_mode():
+            return s3d_step(self.params, x, features=features).cpu().numpy()
+
+    def maybe_show_pred(self, stacks: np.ndarray, start: int, end: int) -> None:
+        """The window's top-5, recomputed through the classifier head."""
+        from video_features_torch.utils.preds import show_predictions_on_dataset
+        logits = self.step(stacks, features=False)
+        print(f'At frames ({start}, {end})')
+        show_predictions_on_dataset(logits, 'kinetics')

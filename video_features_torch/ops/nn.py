@@ -13,7 +13,9 @@ Numerics follow the JAX functions:
   * batch norm is inference-only with running statistics, computed as
     ``(x - mean) * rsqrt(var + eps) * weight + bias``;
   * max pool pads with ``-inf`` (ceil mode and TF-SAME become explicit
-    high-side pads); avg pool is valid (no padding).
+    high-side pads); avg pool is valid (no padding);
+  * linear keeps torch's (O, I) weight; adaptive average pooling is the
+    global mean over the spatial dims.
 """
 from __future__ import annotations
 
@@ -101,6 +103,11 @@ def instance_norm(x: torch.Tensor, p: Dict[str, torch.Tensor],
     return out
 
 
+def linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Dense layer over the trailing axis; ``p['weight']`` is (O, I)."""
+    return F.linear(x, p['weight'], p.get('bias'))
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
 
@@ -123,6 +130,11 @@ def avg_pool(x: torch.Tensor, window: IntOrTuple,
     window = _tuple(window, n)
     stride = window if stride is None else _tuple(stride, n)
     return _AVG_POOL[n](x.movedim(-1, 1), window, stride).movedim(1, -1)
+
+
+def adaptive_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool to 1 in every spatial dim: (B, *spatial, C) → (B, C)."""
+    return x.mean(dim=tuple(range(1, x.ndim - 1)))
 
 
 def ceil_mode_padding(in_size: int, kernel: int, stride: int) -> Tuple[int, int]:

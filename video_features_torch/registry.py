@@ -1,4 +1,4 @@
-"""Extractor registry with lazy imports (i3d and raft so far)."""
+"""Extractor registry with lazy imports."""
 from __future__ import annotations
 
 import importlib
@@ -6,6 +6,8 @@ from typing import Dict, Tuple
 
 EXTRACTORS: Dict[str, Tuple[str, str]] = {
     'i3d': ('video_features_torch.extract.i3d', 'ExtractI3D'),
+    'r21d': ('video_features_torch.extract.r21d', 'ExtractR21D'),
+    's3d': ('video_features_torch.extract.s3d', 'ExtractS3D'),
     'raft': ('video_features_torch.extract.raft', 'ExtractRAFT'),
 }
 
