@@ -78,7 +78,22 @@ package is not beside it. Phases:
 12. timing (CUDA events, warm-up excluded): ms per window of the r21d-18
    and r21d-34-32 steps at batch 4 and of the s3d step at batch 1 (one
    64-frame stack), each beside its fp32 FMA bound (the convolutions'
-   2·out_elems·C_in·k, counted by ``FlopCounterMode``, over 67 TFLOP/s).
+   2·out_elems·C_in·k, counted by ``FlopCounterMode``, over 67 TFLOP/s);
+13. frame-wise (ResNet, CLIP): ``ExtractResNet.extract_frames`` (resnet50)
+   and ``ExtractCLIP.extract_frames`` (ViT-B/32 at full width, 12 × 768,
+   random weights) on 32 seeded host-transformed 224×224 frames, each at
+   the config's batch 1 and at batch 32, counts reset just before and
+   read just after every run (no kernel lies on these paths); outputs
+   (32, 2048) and (32, 512), finite, 32 timestamps; CLIP's
+   ``encode_text`` on 8 seeded token rows of the random init's reduced
+   vocabulary (the BPE vocab is not on the card's host); each run's rows
+   and the text tower on the card against the same functions on the CPU
+   at the same batch, rel L2 ≤ 1e-4 (TF32 off); ms per frame at batch 1
+   and 32 (CUDA events, 2 warm-ups, then steps covering 320 frames, at
+   least 5) beside the fp32 FMA bound of all its convolutions and
+   matmuls (``FlopCounterMode``, over 67 TFLOP/s), and the device's busy
+   time per frame (the union of its activity intervals over 20 steps
+   traced by ``torch.profiler``) as a share of that step time.
 
 The line before the last is the kernels' JSON record (``launches``: the
 sum over the path runs of phases 4, 5 and 10); the last line is
@@ -133,6 +148,11 @@ DEVICE_RESIZE_REL_L2 = 1e-6
 CARD_CPU_REL_L2 = 1e-4      # cuDNN's TF32 default gives ~1e-3
 R21D_HW, R21D_WINDOWS, R21D_BATCH = (240, 320), 5, 4
 S3D_HW, S3D_STACK, S3D_STACKS = (256, 340), 64, 2
+# the frame-wise families: 32 host-transformed frames at the config's
+# batch 1 and at batch 32, on the card and on the CPU; each step time
+# covers TIMED_FRAMES frames, the device's busy share BUSY_STEPS steps
+FRAMEWISE_FRAMES, FRAMEWISE_HW, FRAMEWISE_BATCHES = 32, 224, (1, 32)
+FRAMEWISE_FPS, TEXT_ROWS, TIMED_FRAMES, BUSY_STEPS = 25.0, 8, 320, 20
 
 
 def fail(msg: str) -> None:
@@ -835,13 +855,44 @@ def card_vs_cpu_phase(torch, np, r21d_ex, s3d_ex):
             fail(f'{name}: card vs CPU rel L2 {rel} > {CARD_CPU_REL_L2} (TF32 on?)')
 
 
-def conv_flops(torch, fn) -> int:
-    """The convolutions' flops (2·out_elems·C_in·k each) of one call."""
+def counted_flops(torch, fn, op_filter: str = '') -> int:
+    """The flops ``FlopCounterMode`` counts in one call (convolutions at
+    2·out_elems·C_in·k, matmuls at 2·M·N·K) of the ops whose name holds
+    ``op_filter``; '' keeps every counted op."""
     from torch.utils.flop_counter import FlopCounterMode
     with FlopCounterMode(display=False) as counter:
         fn()
     return sum(n for op, n in counter.get_flop_counts()['Global'].items()
-               if 'convolution' in str(op))
+               if op_filter in str(op))
+
+
+def union_ms(spans) -> float:
+    """Length of the union of (start_us, end_us) intervals, in ms."""
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
+
+
+def busy_ms(torch, fn, steps: int):
+    """The device's busy time per call of ``fn`` over ``steps`` traced
+    calls: the union of its kernel and copy intervals (``torch.profiler``),
+    or None when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if str(getattr(ev, 'device_type', '')).endswith('CUDA')]
+    return union_ms(spans) / steps if spans else None
 
 
 def family_timing(torch, np, r21d_ex, r21d34_ex, s3d_ex) -> None:
@@ -860,11 +911,106 @@ def family_timing(torch, np, r21d_ex, r21d34_ex, s3d_ex) -> None:
         x = torch.from_numpy(rand_frames(np, 20 + i, (batch, *shape, 3))).cuda()
         with torch.inference_mode():
             ms = cuda_ms(torch, lambda: step(x), reps=5) / batch
-            flops = conv_flops(torch, lambda: step(x)) / batch
+            flops = counted_flops(torch, lambda: step(x), 'convolution') / batch
         bound = flops / FP32_FLOP_PER_S * 1e3
         print(f'{name} step at batch {batch}: {ms:.3f} ms per window; fp32 FMA '
               f'bound {bound:.3f} ms ({flops / 1e9:.1f} GFLOP of convolutions '
               f'per window), {bound / ms:.1%} of it', flush=True)
+
+
+def framewise_phase(torch, np, corr_lookup, gru) -> None:
+    """resnet50 and CLIP ViT-B/32 through extract_frames at batch 1 and
+    32 (counts reset just before and read just after each run), CLIP's
+    text tower, card vs CPU, and ms per frame beside the fp32 FMA bound."""
+    from video_features_torch.extract.clip import ExtractCLIP, clip_step
+    from video_features_torch.extract.resnet import ExtractResNet, resnet_step
+    from video_features_torch.models import clip as clip_model
+    from video_features_torch.transplant import to_device
+    frames = rand_frames(np, 30, (FRAMEWISE_FRAMES, FRAMEWISE_HW, FRAMEWISE_HW, 3))
+    times = [i / FRAMEWISE_FPS * 1000 for i in range(FRAMEWISE_FRAMES)]
+    common = {'device': 'cuda', 'precision': 'highest', 'batch_size': 1,
+              'allow_random_weights': True, 'on_extraction': 'save_numpy',
+              'output_path': str(ROOT / 'output')}
+    families = (
+        ('resnet50', ExtractResNet({'feature_type': 'resnet',
+                                    'model_name': 'resnet50', **common}),
+         lambda ex: functools.partial(resnet_step, arch='resnet50'), 2048),
+        ('CLIP ViT-B/32', ExtractCLIP({'feature_type': 'clip',
+                                       'model_name': 'ViT-B/32', **common}),
+         lambda ex: functools.partial(clip_step, arch=ex.arch), 512))
+    for name, ex, step_of, dim in families:
+        feats = {}
+        for batch in FRAMEWISE_BATCHES:
+            batches = [(list(frames[i:i + batch]), times[i:i + batch], None)
+                       for i in range(0, FRAMEWISE_FRAMES, batch)]
+            ex.extract_frames(batches[:1], FRAMEWISE_FPS)       # warm-up
+            torch.cuda.synchronize()
+            reset_counts(corr_lookup, gru)
+            t0 = time.perf_counter()
+            out = ex.extract_frames(batches, FRAMEWISE_FPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(corr_lookup, gru)
+            rows = out[ex.feature_type]
+            print(f'{name}: extract_frames at batch {batch}: features '
+                  f'{rows.shape}, {wall / FRAMEWISE_FRAMES * 1e3:.2f} ms per frame '
+                  f'(wall), launches {counts}', flush=True)
+            check_no_launches(counts, f'{name} at batch {batch}')
+            if rows.shape != (FRAMEWISE_FRAMES, dim) or not np.isfinite(rows).all() \
+                    or len(out['timestamps_ms']) != FRAMEWISE_FRAMES:
+                fail(f'{name} output {rows.shape} (want ({FRAMEWISE_FRAMES}, {dim})), '
+                     f'{len(out["timestamps_ms"])} timestamps, or not finite')
+            feats[batch] = rows
+        step = step_of(ex)
+        host_params = to_device(ex.params, 'cpu')
+        for batch in FRAMEWISE_BATCHES:
+            with torch.inference_mode():
+                host = torch.cat([step(host_params, torch.from_numpy(frames[i:i + batch]))
+                                  for i in range(0, FRAMEWISE_FRAMES, batch)])
+            rel = rel_l2(torch.from_numpy(feats[batch]), host)
+            print(f'{name} at batch {batch}, card vs CPU ({FRAMEWISE_FRAMES} frames): '
+                  f'rel L2 {rel:.3e}', flush=True)
+            if not rel <= CARD_CPU_REL_L2:
+                fail(f'{name} at batch {batch}: card vs CPU rel L2 {rel} > '
+                     f'{CARD_CPU_REL_L2} (TF32 on?)')
+        for batch in FRAMEWISE_BATCHES:
+            xb = torch.from_numpy(frames[:batch]).cuda()
+            reps = max(5, TIMED_FRAMES // batch)
+            with torch.inference_mode():
+                ms = cuda_ms(torch, lambda: step(ex.params, xb), reps=reps) / batch
+                flops = counted_flops(torch, lambda: step(ex.params, xb)) / batch
+                busy = busy_ms(torch, lambda: step(ex.params, xb), BUSY_STEPS)
+            bound = flops / FP32_FLOP_PER_S * 1e3
+            print(f'{name} step at batch {batch}: {ms:.4f} ms per frame over {reps} '
+                  f'steps; fp32 FMA bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP of '
+                  f'convolutions and matmuls per frame), {bound / ms:.1%} of it',
+                  flush=True)
+            if busy is None:
+                print(f'{name} at batch {batch}: device busy share not measured '
+                      '(the profiler recorded no device activity)', flush=True)
+            else:
+                print(f'{name} at batch {batch}: device busy {busy / batch:.4f} ms '
+                      f'per frame over {BUSY_STEPS} traced steps, '
+                      f'{busy / batch / ms:.1%} of the untraced step time',
+                      flush=True)
+        if name.startswith('CLIP'):
+            rng = np.random.RandomState(31)
+            tokens = np.zeros((TEXT_ROWS, 77), np.int64)
+            for r in range(TEXT_ROWS):
+                n = rng.randint(1, 30)
+                tokens[r, :n] = rng.randint(1, 510, n)
+                tokens[r, n] = 511          # end of text: the row's largest id
+            tokens = torch.from_numpy(tokens)
+            with torch.inference_mode():
+                txt = clip_model.encode_text(ex.params, tokens.cuda()).cpu()
+                ref = clip_model.encode_text(to_device(ex.params, 'cpu'), tokens)
+            rel = rel_l2(txt, ref)
+            print(f'CLIP ViT-B/32 encode_text on {TEXT_ROWS} seeded token rows: '
+                  f'{tuple(txt.shape)}, card vs CPU rel L2 {rel:.3e}', flush=True)
+            if txt.shape != (TEXT_ROWS, 512) or not torch.isfinite(txt).all() \
+                    or not rel <= CARD_CPU_REL_L2:
+                fail(f'CLIP encode_text: {tuple(txt.shape)}, rel L2 {rel}')
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -994,6 +1140,11 @@ def main() -> int:
     t = phase('timing (R(2+1)D, S3D)')
     family_timing(torch, np, r21d_ex, r21d34_ex, s3d_ex)
     print(f'timing phase {time.perf_counter() - t:.1f} s', flush=True)
+    del r21d_ex, r21d34_ex, s3d_ex
+
+    t = phase('frame-wise (ResNet, CLIP)')
+    framewise_phase(torch, np, corr_lookup, gru)
+    print(f'frame-wise phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

@@ -1,14 +1,22 @@
-"""The port's config rules for the r21d, s3d and i3d families
-(video_features_torch/config.py, configs/*.yml) and the resume
-fingerprint keys, on the CPU."""
+"""The port's config rules for the r21d, s3d, i3d, resnet and clip
+families (video_features_torch/config.py, configs/*.yml) and the resume
+fingerprint (its keys, and checkpoints entering by their content), on
+the CPU."""
+import shutil
+
+import numpy as np
 import pytest
 import torch
 
 from tools.make_sample_video import write_noise_clip
 from video_features_torch.config import load_config
 from video_features_torch.extract.base import FINGERPRINT_KEYS, run_fingerprint
+from video_features_torch.extract.clip import ExtractCLIP
 from video_features_torch.extract.r21d import MODEL_CFGS, ExtractR21D
+from video_features_torch.extract.resnet import ExtractResNet
 from video_features_torch.extract.s3d import ExtractS3D
+from video_features_torch.models import clip as clip_model
+from video_features_torch.models import resnet as resnet_model
 from video_features_torch.registry import EXTRACTORS
 
 
@@ -28,8 +36,14 @@ def test_defaults(clip, tmp_path):
             s['batch_size'], s['on_extraction']) == (64, 64, 25, 1, 'print')
     i = load_config('i3d', overrides=base)
     assert (i['device_resize'], i['show_pred']) == (False, False)
-    assert list(EXTRACTORS) == ['i3d', 'r21d', 's3d', 'raft']
-    for ft in ('i3d', 'r21d', 's3d', 'raft'):
+    rn = load_config('resnet', overrides=base)
+    assert (rn['model_name'], rn['batch_size'], rn['extraction_fps'],
+            rn['on_extraction']) == ('resnet50', 1, None, 'print')
+    c = load_config('clip', overrides=base)
+    assert (c['model_name'], c['batch_size'], c['pred_texts']) == (
+        'ViT-B/32', 1, None)
+    assert list(EXTRACTORS) == ['i3d', 'r21d', 's3d', 'raft', 'resnet', 'clip']
+    for ft in EXTRACTORS:
         args = load_config(ft, overrides=dict(base, device='cuda'),
                            run_sanity_check=False)
         assert args['device'] == 'cuda'
@@ -41,13 +55,22 @@ def test_defaults(clip, tmp_path):
      ('r21d', 'r2plus1d_34_8_ig65m_ft_kinetics')),
     ('s3d', None, ('s3d',)),
     ('s3d', 'a/b', ('s3d', 'a_b')),          # '/' → '_'
+    ('resnet', None, ('resnet', 'resnet50')),
+    ('resnet', 'resnext101_64x4d', ('resnet', 'resnext101_64x4d')),
+    ('clip', None, ('clip', 'ViT-B_32')),
+    ('clip', 'ViT-L/14@336px', ('clip', 'ViT-L_14@336px')),
+    ('clip', 'custom', ('clip', 'custom')),
 ])
 def test_output_subdirectory(clip, tmp_path, ft, model_name, sub):
-    overrides = {'video_paths': clip, 'device': 'cpu', 'output_path': str(tmp_path)}
+    """``<out>/<feature_type>[/<model_name>]`` with '/' → '_', and the
+    same under ``tmp_path``."""
+    overrides = {'video_paths': clip, 'device': 'cpu', 'output_path': str(tmp_path),
+                 'tmp_path': str(tmp_path / 'tmp')}
     if model_name is not None:
         overrides['model_name'] = model_name
-    assert load_config(ft, overrides=overrides)['output_path'] == \
-        str(tmp_path.joinpath(*sub))
+    args = load_config(ft, overrides=overrides)
+    assert args['output_path'] == str(tmp_path.joinpath(*sub))
+    assert args['tmp_path'] == str(tmp_path.joinpath('tmp', *sub))
 
 
 def test_bad_model_name_lists_the_valid_ones(clip):
@@ -57,7 +80,32 @@ def test_bad_model_name_lists_the_valid_ones(clip):
     assert all(name in str(e.value) for name in MODEL_CFGS)
 
 
-@pytest.mark.parametrize('ft', ['i3d', 'r21d', 's3d'])
+@pytest.mark.parametrize('ft,bad,valid', [
+    ('resnet', 'resnet200', resnet_model.ARCHS),
+    ('clip', 'ViT-H/14', clip_model.VISUAL_CFGS),
+])
+def test_bad_frame_wise_model_name_lists_the_valid_ones(clip, ft, bad, valid):
+    with pytest.raises(ValueError, match='model_name must be one of') as e:
+        load_config(ft, overrides={'video_paths': clip, 'device': 'cpu',
+                                   'model_name': bad})
+    assert all(name in str(e.value) for name in valid)
+
+
+@pytest.mark.parametrize('ft', ['resnet', 'clip'])
+def test_extraction_fps_and_total_are_exclusive(clip, ft):
+    with pytest.raises(ValueError, match='mutually exclusive'):
+        load_config(ft, overrides={'video_paths': clip, 'device': 'cpu',
+                                   'extraction_fps': 5, 'extraction_total': 10})
+
+
+def test_output_and_tmp_paths_must_differ(clip, tmp_path):
+    with pytest.raises(ValueError, match='tmp_path'):
+        load_config('resnet', overrides={'video_paths': clip, 'device': 'cpu',
+                                         'output_path': str(tmp_path),
+                                         'tmp_path': str(tmp_path)})
+
+
+@pytest.mark.parametrize('ft', ['i3d', 'r21d', 's3d', 'resnet', 'clip'])
 @pytest.mark.parametrize('key,value', [('data_parallel', True),
                                        ('decode_backend', 'native'),
                                        ('decode_workers', 2),
@@ -68,7 +116,8 @@ def test_unported_keys_raise_naming_themselves(clip, ft, key, value):
                                    key: value})
 
 
-@pytest.mark.parametrize('ft,cls', [('r21d', ExtractR21D), ('s3d', ExtractS3D)])
+@pytest.mark.parametrize('ft,cls', [('r21d', ExtractR21D), ('s3d', ExtractS3D),
+                                    ('resnet', ExtractResNet), ('clip', ExtractCLIP)])
 def test_no_gpu_without_device_cpu_is_an_error(clip, tmp_path, ft, cls):
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
@@ -86,10 +135,96 @@ def test_no_gpu_without_device_cpu_is_an_error(clip, tmp_path, ft, cls):
     ('r21d', 'stack_size', None, 8),
     ('s3d', 'extraction_fps', 25, None),
     ('s3d', 'checkpoint_path', None, 's3d.pt'),
+    ('resnet', 'model_name', 'resnet50', 'resnext50_32x4d'),
+    ('clip', 'extraction_total', None, 100),
 ])
-def test_fingerprint_keys(ft, key, a, b):
+def test_fingerprint_keys(tmp_path, ft, key, a, b):
     """The config values that shape a family's features (or, for
-    device_resize, its pipeline's inputs) change its resume fingerprint."""
+    device_resize, its pipeline's inputs) change its resume fingerprint;
+    a checkpoint path enters by its file's content (a file written here)
+    against a null path's ``random``."""
     assert key in FINGERPRINT_KEYS[ft]
     keys = FINGERPRINT_KEYS[ft]
+    if key.endswith('checkpoint_path'):
+        b = tmp_path / b
+        b.write_bytes(b'weights')
     assert run_fingerprint({key: a}, keys) != run_fingerprint({key: b}, keys)
+
+
+def test_batch_size_is_not_in_the_fingerprint():
+    for ft in ('resnet', 'clip'):
+        keys = FINGERPRINT_KEYS[ft]
+        assert run_fingerprint({'feature_type': ft, 'batch_size': 1}, keys) == \
+            run_fingerprint({'feature_type': ft, 'batch_size': 32}, keys)
+
+
+def test_checkpoint_path_string_is_not_in_the_fingerprint(tmp_path):
+    """Only the file's content counts: the same bytes under two names
+    give one fingerprint, a rewrite under one name changes it."""
+    keys = FINGERPRINT_KEYS['resnet']
+    one, two = tmp_path / 'a.pt', tmp_path / 'b.pt'
+    one.write_bytes(b'v1')
+    two.write_bytes(b'v1')
+    fp = run_fingerprint({'checkpoint_path': str(one)}, keys)
+    assert run_fingerprint({'checkpoint_path': str(two)}, keys) == fp
+    one.write_bytes(b'v2')
+    assert run_fingerprint({'checkpoint_path': str(one)}, keys) != fp
+
+
+def test_clip_custom_keys_on_the_implicit_checkpoint(tmp_path, monkeypatch):
+    """model_name=custom with no path loads ./checkpoints/CLIP-custom.pth,
+    so its content is the weights' identity, not ``random``."""
+    monkeypatch.chdir(tmp_path)
+    keys = FINGERPRINT_KEYS['clip']
+    args = {'feature_type': 'clip', 'model_name': 'custom', 'checkpoint_path': None}
+    missing = run_fingerprint(args, keys)
+    (tmp_path / 'checkpoints').mkdir()
+    implicit = tmp_path / 'checkpoints' / 'CLIP-custom.pth'
+    implicit.write_bytes(b'v1')
+    v1 = run_fingerprint(args, keys)
+    implicit.write_bytes(b'v2')
+    assert len({missing, v1, run_fingerprint(args, keys)}) == 3
+
+
+def _resnet18(tmp_path, ckpt):
+    return ExtractResNet({
+        'feature_type': 'resnet', 'model_name': 'resnet18', 'batch_size': 4,
+        'checkpoint_path': str(ckpt), 'device': 'cpu',
+        'on_extraction': 'save_numpy', 'output_path': str(tmp_path / 'out'),
+        'tmp_path': str(tmp_path / 'tmp')})
+
+
+def _save_resnet18(path, seed):
+    torch.save({k: torch.from_numpy(v) for k, v in
+                resnet_model.init_state_dict(seed=seed, arch='resnet18').items()},
+               path)
+
+
+def test_checkpoint_rewritten_in_place_re_extracts(clip, tmp_path):
+    """A resnet18 run's outputs, then its checkpoint overwritten at the
+    same path: the next run does not skip them, and writes new features."""
+    ckpt = tmp_path / 'resnet18.pt'
+    _save_resnet18(ckpt, seed=0)
+    first = _resnet18(tmp_path, ckpt)
+    first._extract(clip)
+    assert first.is_already_exist(clip)
+    saved = tmp_path / 'out' / 'v_resnet.npy'
+    old = np.load(saved)
+    _save_resnet18(ckpt, seed=1)
+    second = _resnet18(tmp_path, ckpt)
+    with pytest.warns(UserWarning, match='different config/checkpoint'):
+        assert not second.is_already_exist(clip)
+    second._extract(clip)
+    assert not np.array_equal(np.load(saved), old)
+    assert second.is_already_exist(clip)
+
+
+def test_same_checkpoint_bytes_at_a_new_path_skip(clip, tmp_path, capsys):
+    ckpt = tmp_path / 'resnet18.pt'
+    _save_resnet18(ckpt, seed=0)
+    _resnet18(tmp_path, ckpt)._extract(clip)
+    moved = tmp_path / 'elsewhere.pt'
+    shutil.copyfile(ckpt, moved)
+    capsys.readouterr()
+    assert _resnet18(tmp_path, moved).is_already_exist(clip)
+    assert 'already exist' in capsys.readouterr().out

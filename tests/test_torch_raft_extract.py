@@ -125,12 +125,16 @@ def test_cli_matches_jax_cli(tmp_path):
 @pytest.mark.parametrize('n_frames,total', [(9, None), (10, None), (10, 5)])
 def test_overlap_batching_matches_jax_loader(tmp_path, n_frames, total):
     """batch 5, overlap 1: 9 frames give two batches (the cached frame
-    alone is not a batch), 10 frames a short third; ``total`` retimes."""
+    alone is not a batch), 10 frames a short third; ``total`` retimes,
+    through the same backend on both sides (the JAX loader's default
+    order)."""
     clip = write_noise_clip(tmp_path / 'v.mp4', n_frames, seed=1)
-    ref = list(jax_video.VideoLoader(clip, batch_size=5, total=total,
-                                     overlap=1, backend='cv2',
-                                     use_ffmpeg=False))
-    got = list(video.VideoLoader(clip, batch_size=5, total=total, overlap=1))
+    with jax_video.VideoLoader(clip, batch_size=5, total=total, overlap=1,
+                               backend='cv2', tmp_path=tmp_path / 'jax') as loader:
+        ref = list(loader)
+    with video.VideoLoader(clip, batch_size=5, total=total, overlap=1,
+                           tmp_path=tmp_path / 'torch') as loader:
+        got = list(loader)
     assert len(got) == len(ref)
     for (gf, gt, gi), (rf, rt, ri) in zip(got, ref):
         np.testing.assert_array_equal(np.stack(gf), rf)

@@ -110,20 +110,19 @@ def test_extract_frames_without_a_full_window(tmp_path):
 
 def test_cli_matches_jax_cli(tmp_path):
     """Both CLIs on one 17-frame clip with stack_size=16 write
-    s3d/<stem>_s3d.npy (1, 1024) within the bar. extraction_fps is null on
-    both: the JAX package retimes a clip through a re-encode, which
-    changes its pixels, where the port resamples frame indices."""
+    s3d/<stem>_s3d.npy (1, 1024) within the bar, both retiming the clip
+    to the default extraction_fps 25 by the same re-encode."""
     from video_features_tpu.cli import main as jax_main
     from video_features_torch.cli import main as torch_main
     clip = write_noise_clip(tmp_path / 'clip.mp4', 17, seed=6)
     common = [f'video_paths={clip}', 'device=cpu', 'allow_random_weights=true',
-              'stack_size=16', 'step_size=16', 'extraction_fps=null',
-              'on_extraction=save_numpy']
+              'stack_size=16', 'step_size=16', 'on_extraction=save_numpy']
     assert jax_main(['feature_type=s3d', *common, 'decode_backend=cv2',
                      f'output_path={tmp_path / "jax"}',
                      f'tmp_path={tmp_path / "tmp"}']) == 0
     assert torch_main(['feature_type=s3d', *common,
-                       f'output_path={tmp_path / "torch"}']) == 0
+                       f'output_path={tmp_path / "torch"}',
+                       f'tmp_path={tmp_path / "torch_tmp"}']) == 0
     ref = np.load(tmp_path / 'jax' / 's3d' / 'clip_s3d.npy')
     got = np.load(tmp_path / 'torch' / 's3d' / 'clip_s3d.npy')
     assert got.shape == ref.shape == (1, 1024)

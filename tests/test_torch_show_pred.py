@@ -1,14 +1,17 @@
-"""``show_pred`` of the port's r21d, s3d and i3d extractors: the stdout
-table (``At frames (a, b)`` / ``At stack k (stream)``, then the Kinetics
-top-5) against the JAX package's where it prints the same thing, on the
-CPU."""
+"""``show_pred`` of the port's r21d, s3d, i3d, resnet and clip
+extractors: the stdout table (``At frames (a, b)`` / ``At stack k
+(stream)``, then the Kinetics, ImageNet-1k or zero-shot top-5) against
+the JAX package's where it prints the same thing, on the CPU; and the
+i3d surface's two deliberate divergences from it."""
 import numpy as np
+import pytest
 import torch
 
 from video_features_tpu.config import load_config as jax_load_config
 from video_features_tpu.registry import create_extractor as jax_create
-from video_features_torch.extract import i3d, r21d, s3d
+from video_features_torch.extract import clip, i3d, r21d, resnet, s3d
 from video_features_torch.models import i3d as i3d_model
+from video_features_torch.models import raft as raft_model
 from video_features_torch.utils.preds import load_label_map
 
 LOGIT_ATOL = 1e-3   # the table prints three decimals
@@ -54,6 +57,13 @@ def test_kinetics_label_map_ships_with_the_package(monkeypatch):
     monkeypatch.delenv('VFT_LABEL_MAP_DIR', raising=False)
     classes = load_label_map('kinetics')
     assert len(classes) == 400 and classes[0] == 'abseiling'
+
+
+def test_imagenet1k_label_map_ships_with_the_package(monkeypatch):
+    from video_features_tpu.utils.preds import load_label_map as jax_load_label_map
+    monkeypatch.delenv('VFT_LABEL_MAP_DIR', raising=False)
+    classes = load_label_map('imagenet1k')
+    assert len(classes) == 1000 and classes == jax_load_label_map('imagenet1k')
 
 
 def test_r21d_table_matches_jax(tmp_path, capsys, monkeypatch):
@@ -117,3 +127,93 @@ def test_i3d_table_per_stream_and_flow_png(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(cv2, 'imwrite', lambda *a: False)
     ex.maybe_show_pred(stacks[:1], 5)
     assert 'flow viz PNG not written' in capsys.readouterr().err
+
+
+def test_i3d_divergences_from_the_reference_are_pinned(tmp_path, capsys, monkeypatch):
+    """Two deliberate divergences of the i3d debug surface from the JAX
+    package (README, port section): RAFT runs at the run's raft_iters
+    (the JAX package runs its default 20), and the PNG is
+    ``flow_debug/<stem>_stack_<k>.png`` (the JAX package writes
+    ``stack_<k>.png``, which collides across videos)."""
+    ex = i3d.ExtractI3D(_args(tmp_path, 'i3d', stack_size=10, step_size=10,
+                              raft_iters=2, streams='flow'))
+    ex._viz_stem = 'clip'
+    iters = []
+    forward = raft_model.forward_stack_pairs
+
+    def spy(*a, iters=raft_model.ITERS, **kw):
+        spy.calls.append(iters)
+        return forward(*a, iters=iters, **kw)
+    spy.calls = iters
+    monkeypatch.setattr(raft_model, 'forward_stack_pairs', spy)
+    stacks = np.random.RandomState(3).randint(0, 256, (1, 11, 64, 64, 3)).astype(np.uint8)
+    ex.maybe_show_pred(stacks, 7)
+    capsys.readouterr()
+    assert iters and set(iters) == {2}
+    debug = tmp_path / 'torch' / 'flow_debug'
+    assert sorted(p.name for p in debug.iterdir()) == ['clip_stack_000007.png']
+
+
+def test_resnet_table_matches_jax(tmp_path, capsys):
+    """Each frame's ImageNet-1k top-5 from ``fc`` on its features (both
+    packages start from the same seeded weights)."""
+    ex = resnet.ExtractResNet(_args(tmp_path, 'resnet', model_name='resnet18'))
+    jex = _jax_extractor(tmp_path, 'resnet', model_name='resnet18')
+    feats = np.random.RandomState(4).rand(2, 512).astype(np.float32)
+    ex.maybe_show_pred(feats)
+    got = capsys.readouterr().out
+    jex.maybe_show_pred(feats)
+    assert_same_table(got, capsys.readouterr().out)
+    rows = table(got)[1]
+    assert len(rows) == 10 and rows[0][2] in load_label_map('imagenet1k')
+
+
+def _reduced_vocab_tokenize(texts, *args, **kwargs):
+    """A stand-in for the BPE tokenizer (its vocab is not in the
+    repository): each text's characters as ids in [1, 510), then the
+    end-of-text id 511 of the reduced test vocabulary."""
+    out = np.zeros((len(texts), 77), np.int32)
+    for r, text in enumerate(texts):
+        ids = [ord(c) % 509 + 1 for c in text][:75]
+        out[r, :len(ids)] = ids
+        out[r, len(ids)] = 511
+    return out
+
+
+@pytest.fixture(scope='module')
+def clip_pair(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp('clip_pred')
+    texts = ['a photo of archery', 'a photo of bowling', 'a photo of surfing',
+             'a photo of juggling', 'a photo of dancing', 'a photo of cooking']
+    return (clip.ExtractCLIP(_args(tmp, 'clip', pred_texts=texts)),
+            _jax_extractor(tmp, 'clip', pred_texts=texts))
+
+
+def test_clip_zero_shot_table_matches_jax(clip_pair, capsys, monkeypatch):
+    """Zero-shot top-5 against ``pred_texts``: the text features computed
+    once, cosine logits at the learned temperature."""
+    from video_features_torch.utils import clip_tokenizer
+    from video_features_tpu.utils import clip_tokenizer as jax_clip_tokenizer
+    ex, jex = clip_pair
+    monkeypatch.setattr(clip_tokenizer, 'tokenize', _reduced_vocab_tokenize)
+    monkeypatch.setattr(jax_clip_tokenizer, 'tokenize', _reduced_vocab_tokenize)
+    feats = np.random.RandomState(5).randn(2, 512).astype(np.float32)
+    ex.maybe_show_pred(feats)
+    got = capsys.readouterr().out
+    jex.maybe_show_pred(feats)
+    assert_same_table(got, capsys.readouterr().out)
+    assert len(table(got)[1]) == 10
+    cached = ex.text_features()[0]
+    assert ex.text_features()[0] is cached
+
+
+def test_clip_without_the_bpe_vocab_degrades(clip_pair, capsys, monkeypatch, tmp_path):
+    """No vocab: ``show_pred unavailable: …`` as the JAX package prints
+    it, and extraction goes on."""
+    from video_features_torch.utils import clip_tokenizer
+    monkeypatch.setenv('VFT_CLIP_BPE', str(tmp_path / 'missing.txt.gz'))
+    assert clip_tokenizer.find_bpe_vocab() is None
+    ex = clip.ExtractCLIP(_args(tmp_path, 'clip'))
+    ex.maybe_show_pred(np.ones((1, 512), np.float32))
+    out = capsys.readouterr().out
+    assert out.startswith('show_pred unavailable: CLIP BPE vocab not found')

@@ -9,8 +9,9 @@ jax-free modules is copied here.
 Ported so far, behind ``python -m video_features_torch
 feature_type=<family>``: the fused I3D two-stream path (RAFT flow + both
 I3D towers, ``i3d``, with the on-device bit-exact Pillow resize of
-``device_resize=true``), the RAFT flow family (``raft``), and the two
-3-D CNN families R(2+1)D (``r21d``) and S3D (``s3d``). Every RAFT
+``device_resize=true``), the RAFT flow family (``raft``), the two
+3-D CNN families R(2+1)D (``r21d``) and S3D (``s3d``), and the frame-wise
+image families ResNet (``resnet``) and CLIP (``clip``). Every RAFT
 iteration on the card runs hand-written CUDA kernels: the
 correlation-window lookup (``csrc/corr_lookup.cu``) and the SepConvGRU
 direction (``csrc/gru_direction.cu``).

@@ -1,5 +1,5 @@
 """Configuration: YAML defaults ← dotlist CLI overrides, then
-``sanity_check`` (the i3d, r21d, s3d and raft subset of
+``sanity_check`` (the i3d, r21d, s3d, raft, resnet and clip subset of
 ``video_features_tpu/config.py``).
 
 ``yaml`` is imported inside the functions that parse, so the package
@@ -126,7 +126,7 @@ def check_raft_args(args: Dict[str, Any]) -> None:
 
 def sanity_check(args: Dict[str, Any]) -> None:
     """Validate the merged config and append ``<feature_type>[/<model_name>]``
-    ('/' → '_') to the output path. The device is resolved here, so a run
+    ('/' → '_') to the output and tmp paths. The device is resolved here, so a run
     that asks for a GPU on a machine without one fails before any work."""
     from video_features_torch.utils.device import PRECISIONS, resolve_device
     resolve_device(args.get('device', 'cuda'))
@@ -149,6 +149,12 @@ def sanity_check(args: Dict[str, Any]) -> None:
     if ft == 'r21d':
         from video_features_torch.extract.r21d import model_def
         model_def(args.get('model_name'))
+    if ft == 'resnet':
+        from video_features_torch.models.resnet import arch_def
+        arch_def(args.get('model_name'))
+    if ft == 'clip' and args.get('model_name') != 'custom':
+        from video_features_torch.models.clip import model_def
+        model_def(args.get('model_name'))
     if ft == 'i3d' and args.get('stack_size') is not None \
             and args['stack_size'] < 10:
         raise ValueError('I3D does not support inputs shorter than 10 '
@@ -163,6 +169,11 @@ def sanity_check(args: Dict[str, Any]) -> None:
             and args.get('extraction_total') is not None:
         raise ValueError('`extraction_fps` and `extraction_total` are '
                          'mutually exclusive')
+    if 'tmp_path' in args and os.path.relpath(str(args['output_path'])) \
+            == os.path.relpath(str(args['tmp_path'])):
+        raise ValueError('output_path and tmp_path must differ')
     subs = [ft] if args.get('model_name') is None else [ft, str(args['model_name'])]
-    args['output_path'] = os.path.join(str(args['output_path']),
-                                       *(p.replace('/', '_') for p in subs))
+    subs = [p.replace('/', '_') for p in subs]
+    for key in ('output_path', 'tmp_path'):
+        if key in args:
+            args[key] = os.path.join(str(args[key]), *subs)

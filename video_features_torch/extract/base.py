@@ -8,7 +8,9 @@ output (a slim port of ``video_features_tpu/extract/base.py``).
   * ``action_on_extraction`` prints (with max/mean/min) or saves
     numpy/pickle atomically, and writes the run-fingerprint sidecar;
   * ``is_already_exist`` requires every output file present *and
-    loadable*, and a recorded fingerprint equal to this run's.
+    loadable*, and a recorded fingerprint equal to this run's: the
+    family's feature-shaping config values and its checkpoints' content
+    (:func:`run_fingerprint`).
 """
 from __future__ import annotations
 
@@ -19,11 +21,12 @@ import sys
 import traceback
 import warnings
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Union
+from typing import Any, Dict, Iterable, List, Mapping, Union
 
 import numpy as np
 
 from video_features_torch.utils.device import resolve_device, set_precision
+from video_features_torch.utils.fingerprint import weights_fingerprint
 from video_features_torch.utils.output import (
     ACTION_TO_EXT, ACTION_TO_LOAD, ACTION_TO_SAVE, CorruptOutputError,
     make_path, read_fingerprint, write_fingerprint,
@@ -32,7 +35,7 @@ from video_features_torch.utils.output import (
 ACTIONS = ('print',) + tuple(ACTION_TO_EXT)
 
 # per family, the config values that shape its features (the resume
-# fingerprint)
+# fingerprint); a *checkpoint_path key enters by its file's content
 FINGERPRINT_KEYS = {
     'i3d': ('feature_type', 'streams', 'flow_type', 'stack_size', 'step_size',
             'raft_iters', 'extraction_fps', 'concat_rgb_flow', 'precision',
@@ -45,14 +48,24 @@ FINGERPRINT_KEYS = {
     'raft': ('feature_type', 'extraction_fps', 'extraction_total',
              'side_size', 'resize_to_smaller_edge', 'finetuned_on',
              'bucket_multiple', 'raft_iters', 'precision', 'checkpoint_path'),
+    'resnet': ('feature_type', 'model_name', 'extraction_fps',
+               'extraction_total', 'precision', 'checkpoint_path'),
+    'clip': ('feature_type', 'model_name', 'extraction_fps',
+             'extraction_total', 'precision', 'checkpoint_path'),
 }
 
 
 def run_fingerprint(args: Any, keys: Iterable[str]) -> str:
-    """sha256 of the config values that shape a run's features."""
-    blob = json.dumps({k: args.get(k) for k in sorted(keys)},
+    """sha256 of the config values among ``keys`` that shape a run's
+    features, checkpoint path strings left out, and of the checkpoints'
+    content (:func:`~video_features_torch.utils.fingerprint.weights_fingerprint`)."""
+    keys = sorted(keys)
+    blob = json.dumps({k: args.get(k) for k in keys
+                       if 'checkpoint_path' not in k},
                       sort_keys=True, default=str)
-    return hashlib.sha256(blob.encode('utf-8')).hexdigest()
+    cfg = hashlib.sha256(blob.encode('utf-8')).hexdigest()
+    return hashlib.sha256(
+        f'cfg:{cfg}|w:{weights_fingerprint(args, keys)}'.encode()).hexdigest()
 
 
 class BaseExtractor:
@@ -60,20 +73,30 @@ class BaseExtractor:
 
     output_feat_keys: List[str] = []
 
-    def __init__(self, feature_type: str, on_extraction: str,
-                 output_path: str, device: str,
-                 concat_rgb_flow: bool = False,
-                 precision: str = 'highest') -> None:
+    def __init__(self, args: Mapping[str, Any]) -> None:
+        """The settings every family shares, read from the run's config
+        ``args`` with their defaults here."""
+        on_extraction = args.get('on_extraction', 'print')
         if on_extraction not in ACTIONS:
             raise ValueError(f'on_extraction must be one of {ACTIONS}; got '
                              f'{on_extraction!r}')
-        self.feature_type = feature_type
+        self.feature_type = args['feature_type']
         self.on_extraction = on_extraction
-        self.output_path = output_path
-        self.device = resolve_device(device)
-        set_precision(precision)
-        self.concat_rgb_flow = concat_rgb_flow
+        self.output_path = args['output_path']
+        self.device = resolve_device(args.get('device', 'cuda'))
+        set_precision(args.get('precision', 'highest'))
+        self.concat_rgb_flow = bool(args.get('concat_rgb_flow', False))
+        self.tmp_path = str(args.get('tmp_path', './tmp'))
+        self.keep_tmp_files = bool(args.get('keep_tmp_files', False))
         self.run_fingerprint = None
+
+    def video_loader(self, video_path: str, **kwargs):
+        """A :class:`~video_features_torch.io.video.VideoLoader` that
+        re-encodes into this run's ``tmp_path`` (kept with
+        ``keep_tmp_files``); use it as a context manager."""
+        from video_features_torch.io.video import VideoLoader
+        return VideoLoader(video_path, tmp_path=self.tmp_path,
+                           keep_tmp=self.keep_tmp_files, **kwargs)
 
     def _extract(self, video_path: str) -> None:
         """Fault-isolating wrapper around :meth:`extract` for the work loop."""

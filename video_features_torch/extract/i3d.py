@@ -96,14 +96,7 @@ def fused_two_stream_step(params, stacks: torch.Tensor, pads,
 class ExtractI3D(BaseExtractor):
 
     def __init__(self, args) -> None:
-        super().__init__(
-            feature_type=args['feature_type'],
-            on_extraction=args['on_extraction'],
-            output_path=args['output_path'],
-            device=args.get('device', 'cuda'),
-            concat_rgb_flow=args.get('concat_rgb_flow', False),
-            precision=args.get('precision', 'highest'),
-        )
+        super().__init__(args)
         streams = args.get('streams')
         self.streams: List[str] = ['rgb', 'flow'] if streams is None else [streams]
         for s in self.streams:
@@ -147,14 +140,13 @@ class ExtractI3D(BaseExtractor):
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         """Decode (cv2), resize to short side 256 on the host (PIL) unless
         ``device_resize``, then :meth:`extract_frames`."""
-        from video_features_torch.io.video import VideoLoader
         from video_features_torch.ops.host_transforms import resize_pil
         self._viz_stem = Path(video_path).stem
-        loader = VideoLoader(
-            video_path, batch_size=64, fps=self.extraction_fps,
-            transform=(None if self.device_resize
-                       else lambda f: resize_pil(f, MIN_SIDE_SIZE)))
-        return self.extract_frames(loader)
+        with self.video_loader(
+                video_path, batch_size=64, fps=self.extraction_fps,
+                transform=(None if self.device_resize
+                           else lambda f: resize_pil(f, MIN_SIDE_SIZE))) as loader:
+            return self.extract_frames(loader)
 
     def extract_frames(self, batches: Iterable) -> Dict[str, np.ndarray]:
         """Frame batches ``(frames, times, indices)`` (the loader protocol;

@@ -66,13 +66,7 @@ def r21d_step(params, stacks: torch.Tensor, arch: str) -> torch.Tensor:
 class ExtractR21D(BaseExtractor):
 
     def __init__(self, args) -> None:
-        super().__init__(
-            feature_type=args['feature_type'],
-            on_extraction=args['on_extraction'],
-            output_path=args['output_path'],
-            device=args.get('device', 'cuda'),
-            precision=args.get('precision', 'highest'),
-        )
+        super().__init__(args)
         check_unported_keys(args)
         self.model_def = model_def(args.get('model_name',
                                             'r2plus1d_18_16_kinetics'))
@@ -93,10 +87,11 @@ class ExtractR21D(BaseExtractor):
             feature_type='r21d')
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
-        """Decode (cv2), then :meth:`extract_frames`."""
-        from video_features_torch.io.video import VideoLoader
-        return self.extract_frames(VideoLoader(video_path, batch_size=64,
-                                               fps=self.extraction_fps))
+        """Decode (cv2, retimed to ``extraction_fps``), then
+        :meth:`extract_frames`."""
+        with self.video_loader(video_path, batch_size=64,
+                               fps=self.extraction_fps) as loader:
+            return self.extract_frames(loader)
 
     def extract_frames(self, batches: Iterable) -> Dict[str, np.ndarray]:
         """Frame batches ``(frames, times, indices)`` (the loader protocol;

@@ -37,13 +37,7 @@ from video_features_torch.transplant import to_device
 class ExtractRAFT(BaseExtractor):
 
     def __init__(self, args) -> None:
-        super().__init__(
-            feature_type=args['feature_type'],
-            on_extraction=args['on_extraction'],
-            output_path=args['output_path'],
-            device=args.get('device', 'cuda'),
-            precision=args.get('precision', 'highest'),
-        )
+        super().__init__(args)
         check_raft_args(args)
         self.batch_size = int(args['batch_size'])
         self.side_size = args.get('side_size')
@@ -76,14 +70,14 @@ class ExtractRAFT(BaseExtractor):
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         """Decode (cv2) in ``batch_size + 1`` frame batches with overlap 1,
         then :meth:`extract_frames`."""
-        from video_features_torch.io.video import VideoLoader
         self._viz_stem, self._viz_count = Path(video_path).stem, 0
-        loader = VideoLoader(video_path, batch_size=self.batch_size + 1,
-                             fps=self.extraction_fps,
-                             total=self.extraction_total,
-                             transform=self.host_transform, overlap=1)
-        return self.extract_frames(loader, loader.fps,
-                                   frame_hw=(loader.height, loader.width))
+        with self.video_loader(video_path, batch_size=self.batch_size + 1,
+                               fps=self.extraction_fps,
+                               total=self.extraction_total,
+                               transform=self.host_transform,
+                               overlap=1) as loader:
+            return self.extract_frames(loader, loader.fps,
+                                       frame_hw=(loader.height, loader.width))
 
     def extract_frames(self, batches: Iterable, fps: float,
                        frame_hw: Optional[Tuple[int, int]] = None

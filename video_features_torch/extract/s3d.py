@@ -55,13 +55,7 @@ def s3d_step(params, stacks: torch.Tensor, features: bool = True) -> torch.Tenso
 class ExtractS3D(BaseExtractor):
 
     def __init__(self, args) -> None:
-        super().__init__(
-            feature_type=args['feature_type'],
-            on_extraction=args['on_extraction'],
-            output_path=args['output_path'],
-            device=args.get('device', 'cuda'),
-            precision=args.get('precision', 'highest'),
-        )
+        super().__init__(args)
         check_unported_keys(args)
         self.stack_size = int(args.get('stack_size') or 64)
         self.step_size = int(args.get('step_size') or 64)
@@ -80,9 +74,9 @@ class ExtractS3D(BaseExtractor):
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         """Decode (cv2, retimed to ``extraction_fps``), then
         :meth:`extract_frames`."""
-        from video_features_torch.io.video import VideoLoader
-        return self.extract_frames(VideoLoader(video_path, batch_size=64,
-                                               fps=self.extraction_fps))
+        with self.video_loader(video_path, batch_size=64,
+                               fps=self.extraction_fps) as loader:
+            return self.extract_frames(loader)
 
     def extract_frames(self, batches: Iterable) -> Dict[str, np.ndarray]:
         """Frame batches ``(frames, times, indices)`` (the loader protocol;

@@ -5,19 +5,74 @@ Iteration yields ``(batch, times_ms, indices)`` tuples with
 ``timestamp_ms = index / fps * 1000``; the last batch may be short.
 ``overlap`` frames are shared between consecutive batches (the flow
 families' frame pairing, :func:`batch_frames`). ``fps`` or ``total``
-retimes by index resampling (ffmpeg's ``fps=`` filter with 'near'
-rounding). cv2 is imported inside the functions that use it, so the
-package imports on machines without it.
+retimes the video as the reference does, by the first of these that
+works:
+
+1. the ``ffmpeg`` binary, a constant-frame-rate re-encode
+   (:func:`reencode_video_with_diff_fps`);
+2. the native libav re-encoder in a short-lived subprocess
+   (``io/native.py``), the same fps filter and libx264 defaults;
+3. index resampling (ffmpeg's ``fps=`` filter with 'near' rounding).
+
+A failed re-encode falls back to index resampling with a warning on
+stderr. The re-encoded temp file is deleted by :meth:`VideoLoader.close`
+unless ``keep_tmp``. cv2 is imported inside the functions that use it,
+so the package imports on machines without it.
 """
 from __future__ import annotations
 
+import hashlib
+import itertools
 import os
+import shutil
+import subprocess
 import sys
+from pathlib import Path
 from typing import (
     Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union,
 )
 
 import numpy as np
+
+_REENCODE_SEQ = itertools.count()
+
+
+def reencode_out_path(video_path: Union[str, os.PathLike],
+                      tmp_path: Union[str, os.PathLike]) -> str:
+    """A collision-free re-encode target in ``tmp_path``: the stem, a
+    digest of the absolute source path (same-stem sources), and the pid
+    and a per-process counter (concurrent opens of one source)."""
+    digest = hashlib.sha1(
+        os.path.abspath(os.fspath(video_path)).encode()).hexdigest()[:8]
+    return os.path.join(
+        os.fspath(tmp_path),
+        f'{Path(video_path).stem}_{digest}_{os.getpid()}'
+        f'_{next(_REENCODE_SEQ)}_new_fps.mp4')
+
+
+def which_ffmpeg() -> str:
+    """Path to an ffmpeg binary, or ''."""
+    return shutil.which('ffmpeg') or ''
+
+
+def reencode_video_with_diff_fps(video_path: str, tmp_path: str,
+                                 extraction_fps: float) -> str:
+    """Constant-frame-rate re-encode to ``extraction_fps`` with the ffmpeg
+    binary. Raises ``RuntimeError`` when ffmpeg exits non-zero or writes
+    no output."""
+    ffmpeg = which_ffmpeg()
+    if not ffmpeg:
+        raise RuntimeError('ffmpeg is not installed')
+    os.makedirs(tmp_path, exist_ok=True)
+    new_path = reencode_out_path(video_path, tmp_path)
+    cmd = [ffmpeg, '-hide_banner', '-loglevel', 'panic', '-y', '-i',
+           str(video_path), '-filter:v', f'fps=fps={extraction_fps}', new_path]
+    rc = subprocess.call(cmd)
+    if rc != 0 or not os.path.isfile(new_path):
+        raise RuntimeError(
+            f'ffmpeg re-encode of {video_path} exited {rc} '
+            f'({new_path if os.path.isfile(new_path) else "no output written"})')
+    return new_path
 
 
 def get_video_props(path: Union[str, os.PathLike]) -> Dict[str, float]:
@@ -117,12 +172,19 @@ class VideoLoader:
         fps: retime to this frame rate (None keeps the source's).
         total: retime so the whole video yields about ``total`` frames
             (mutually exclusive with ``fps``).
+        tmp_path: where a re-encode is written.
+        keep_tmp: keep the re-encoded file after :meth:`close`.
         transform: per-frame callable (HWC uint8 RGB → frame).
         overlap: frames shared between consecutive batches.
+
+    Use it as a context manager, or call :meth:`close`, to delete the
+    re-encoded file.
     """
 
     def __init__(self, path: Union[str, os.PathLike], batch_size: int = 1,
                  fps: Optional[float] = None, total: Optional[int] = None,
+                 tmp_path: Union[str, os.PathLike] = 'tmp',
+                 keep_tmp: bool = False,
                  transform: Optional[Callable] = None, overlap: int = 0):
         if batch_size < 1:
             raise ValueError(f'batch_size must be >= 1; got {batch_size}')
@@ -133,20 +195,47 @@ class VideoLoader:
         self.path = str(path)
         if not os.path.isfile(self.path):
             raise FileNotFoundError(f'video does not exist: {self.path}')
-        props = get_video_props(self.path)
-        self.height, self.width = props['height'], props['width']
         self.batch_size = batch_size
         self.transform = transform
         self.overlap = overlap
+        self.keep_tmp = keep_tmp
+        self._tmp_file: Optional[str] = None
         self._index_map: Optional[np.ndarray] = None
+        props = get_video_props(self.path)
+        self.height, self.width = props['height'], props['width']
+        self.fps = props['fps']
         if total is not None:
             fps = total * props['fps'] / max(props['num_frames'], 1)
         if fps is None:
-            self.fps = props['fps']
-        else:
+            return
+        reencoded = self._reencode(fps, str(tmp_path))
+        if reencoded is None:
             self.fps = fps
             self._index_map = resample_frame_indices(
                 props['num_frames'], props['fps'], fps)
+            return
+        self.path = self._tmp_file = reencoded
+        props = get_video_props(self.path)
+        self.fps = props['fps']
+        self.height, self.width = props['height'], props['width']
+
+    def _reencode(self, fps: float, tmp_path: str) -> Optional[str]:
+        """The re-encoded file's path from the first backend there is
+        (the ffmpeg binary, else the native re-encoder), or None when
+        neither is there or the one tried fails."""
+        from video_features_torch.io import native
+        if which_ffmpeg():
+            name, reencode = 'ffmpeg', reencode_video_with_diff_fps
+        elif native.available():
+            name, reencode = 'native', native.reencode_fps_native
+        else:
+            return None
+        try:
+            return reencode(self.path, tmp_path, fps)
+        except (RuntimeError, OSError) as e:
+            print(f'WARNING: {name} fps re-encode of {self.path} failed ({e}); '
+                  'falling back to index resampling', file=sys.stderr)
+            return None
 
     def _retimed_frames(self) -> Iterator[np.ndarray]:
         frames = decode_rgb_frames(self.path)
@@ -164,3 +253,18 @@ class VideoLoader:
     def __iter__(self) -> Iterator[Batch]:
         return batch_frames(self._retimed_frames(), self.batch_size, self.fps,
                             self.overlap, self.transform)
+
+    def close(self) -> None:
+        """Delete the re-encoded file unless ``keep_tmp``; idempotent."""
+        if self._tmp_file and not self.keep_tmp:
+            try:
+                os.remove(self._tmp_file)
+            except OSError:
+                pass
+        self._tmp_file = None
+
+    def __enter__(self) -> 'VideoLoader':
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -1,5 +1,6 @@
-"""Host-side PIL frame resize (copy of ``video_features_tpu/ops/
-host_transforms.py``: ``pil_edge_resize_geometry``, ``resize_pil``).
+"""Host-side PIL frame resize and center crop (copy of
+``video_features_tpu/ops/host_transforms.py``: ``pil_edge_resize_geometry``,
+``resize_pil``, ``short_side_resize_pil``, ``center_crop_host``).
 
 uint8 in, uint8 out. PIL is imported inside :func:`resize_pil` only, so
 the package imports on machines without it.
@@ -35,3 +36,17 @@ def resize_pil(frame: np.ndarray, size: int,
     oh, ow = geom
     return np.asarray(Image.fromarray(frame).resize((ow, oh),
                                                     modes[interpolation]))
+
+
+def short_side_resize_pil(frame: np.ndarray, size: int) -> np.ndarray:
+    """min(H, W) → ``size`` via PIL bilinear (see :func:`resize_pil`)."""
+    return resize_pil(frame, size, to_smaller_edge=True)
+
+
+def center_crop_host(frame: np.ndarray, size: int) -> np.ndarray:
+    """HWC center crop with torchvision's offsets: ``int(round(...))``,
+    which rounds half to even."""
+    h, w = frame.shape[:2]
+    i = int(round((h - size) / 2.0))
+    j = int(round((w - size) / 2.0))
+    return frame[i:i + size, j:j + size]

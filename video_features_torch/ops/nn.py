@@ -62,16 +62,18 @@ def pad_spatial(x: torch.Tensor, pairs, value: float = 0.0) -> torch.Tensor:
 
 
 def conv(x: torch.Tensor, weight: torch.Tensor, stride: IntOrTuple = 1,
-         padding: Padding = 0,
-         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """N-D convolution, channels-last. weight: (O, I, *spatial)."""
+         padding: Padding = 0, bias: Optional[torch.Tensor] = None,
+         groups: int = 1) -> torch.Tensor:
+    """N-D convolution, channels-last. weight: (O, I // groups, *spatial);
+    ``groups`` > 1 is a grouped convolution (ResNeXt's 3×3)."""
     n = weight.ndim - 2
     pairs = _pad_pairs(padding, n)
     if all(lo == hi for lo, hi in pairs):
         pad = tuple(lo for lo, _ in pairs)
     else:
         x, pad = pad_spatial(x, pairs), 0
-    out = _CONV[n](x.movedim(-1, 1), weight, bias, _tuple(stride, n), pad)
+    out = _CONV[n](x.movedim(-1, 1), weight, bias, _tuple(stride, n), pad,
+                   1, groups)
     return out.movedim(1, -1)
 
 

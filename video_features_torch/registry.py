@@ -9,6 +9,8 @@ EXTRACTORS: Dict[str, Tuple[str, str]] = {
     'r21d': ('video_features_torch.extract.r21d', 'ExtractR21D'),
     's3d': ('video_features_torch.extract.s3d', 'ExtractS3D'),
     'raft': ('video_features_torch.extract.raft', 'ExtractRAFT'),
+    'resnet': ('video_features_torch.extract.resnet', 'ExtractResNet'),
+    'clip': ('video_features_torch.extract.clip', 'ExtractCLIP'),
 }
 
 

@@ -8,13 +8,15 @@ layout: conv (O, I, *spatial), linear (O, I).
   DataParallel ``module.`` prefixes and drops ``num_batches_tracked``.
 * :func:`params_from_jax` takes the JAX package's nested numpy params
   (conv ``(*spatial, I, O)``, linear ``(I, O)``) and transposes them
-  back, so both packages can compute with identical numbers.
-* :func:`load_checkpoint` reads a ``.pt``/``.pth`` state_dict, or a
-  ``.npz`` archive in the JAX package's transplanted layout.
+  back, so both packages can compute with identical numbers; leaves the
+  JAX transplant kept in torch layout are named in ``no_transpose``.
+* :func:`load_checkpoint` reads a ``.pt``/``.pth`` state_dict (or a
+  pickled model), or a ``.npz`` archive in the JAX package's
+  transplanted layout.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -52,31 +54,47 @@ def params_from_torch(state_dict: Mapping[str, Any]) -> Params:
     return nest(flat)
 
 
-def _from_jax_leaf(name: str, arr: np.ndarray) -> torch.Tensor:
+def _from_jax_leaf(name: str, arr: np.ndarray,
+                   keep: bool = False) -> torch.Tensor:
     arr = np.asarray(arr)
-    if name == 'weight':
+    if name == 'weight' and not keep:
         if arr.ndim >= 3:            # (*spatial, I, O) → (O, I, *spatial)
             axes = (arr.ndim - 1, arr.ndim - 2) + tuple(range(arr.ndim - 2))
             arr = arr.transpose(axes)
         elif arr.ndim == 2:          # (I, O) → (O, I)
             arr = arr.T
-    return _tensor(np.ascontiguousarray(arr))
+    # ascontiguousarray makes a 0-d leaf (CLIP's logit_scale) 1-d: reshape back
+    return _tensor(np.ascontiguousarray(arr).reshape(arr.shape))
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> Params:
-    """The JAX package's nested params → the port's params."""
-    return {k: (params_from_jax(v) if isinstance(v, Mapping)
-                else _from_jax_leaf(k, v))
+def params_from_jax(tree: Mapping[str, Any],
+                    no_transpose: Iterable[str] = (),
+                    prefix: str = '') -> Params:
+    """The JAX package's nested params → the port's params.
+    ``no_transpose`` names the dot-joined leaves that the JAX transplant
+    left in torch layout (CLIP's ``token_embedding.weight``, a gather
+    table), which stay as they are."""
+    no_transpose = frozenset(no_transpose)
+    return {k: (params_from_jax(v, no_transpose, f'{prefix}{k}.')
+                if isinstance(v, Mapping)
+                else _from_jax_leaf(k, v, f'{prefix}{k}' in no_transpose))
             for k, v in tree.items()}
 
 
-def load_checkpoint(path: str) -> Params:
-    """``.npz`` (JAX transplanted layout, dot-joined keys) or a torch
-    ``.pt``/``.pth`` state_dict (optionally under a 'state_dict' key)."""
+def load_checkpoint(path: str, no_transpose: Iterable[str] = (),
+                    weights_only: bool = True) -> Params:
+    """``.npz`` (JAX transplanted layout, dot-joined keys; see
+    :func:`params_from_jax` for ``no_transpose``) or a torch
+    ``.pt``/``.pth`` state_dict (optionally under a 'state_dict' key).
+    ``weights_only=False`` also unpickles whole models (OpenAI's CLIP
+    archives) and takes their ``state_dict()``."""
     if str(path).endswith('.npz'):
         with np.load(path) as data:
-            return params_from_jax(nest({k: data[k] for k in data.files}))
-    ckpt = torch.load(path, map_location='cpu')
+            return params_from_jax(nest({k: data[k] for k in data.files}),
+                                   no_transpose)
+    ckpt = torch.load(path, map_location='cpu', weights_only=weights_only)
+    if hasattr(ckpt, 'state_dict'):
+        ckpt = ckpt.state_dict()
     if isinstance(ckpt, dict) and 'state_dict' in ckpt:
         ckpt = ckpt['state_dict']
     return params_from_torch(ckpt)

@@ -1,7 +1,8 @@
 """Top-k prediction printing for ``show_pred`` (a copy of
-``video_features_tpu/utils/preds.py``, Kinetics-400 only so far).
+``video_features_tpu/utils/preds.py``: Kinetics-400 and ImageNet-1k;
+ImageNet-21k comes with the timm family, its only user).
 
-The label map ships as package data in ``utils/label_maps/``, so class
+The label maps ship as package data in ``utils/label_maps/``, so class
 names resolve on hosts with no network; ``$VFT_LABEL_MAP_DIR`` takes
 precedence for user-refreshed maps, and when nothing resolves, indices
 are printed instead of failing.
@@ -16,6 +17,7 @@ import numpy as np
 
 _DATASET_TO_FILE = {
     'kinetics': 'K400_label_map.txt',
+    'imagenet1k': 'IN1K_label_map.txt',
 }
 
 
