@@ -93,7 +93,25 @@ package is not beside it. Phases:
    least 5) beside the fp32 FMA bound of all its convolutions and
    matmuls (``FlopCounterMode``, over 67 TFLOP/s), and the device's busy
    time per frame (the union of its activity intervals over 20 steps
-   traced by ``torch.profiler``) as a share of that step time.
+   traced by ``torch.profiler``) as a share of that step time;
+14. timm: ``ExtractTIMM.extract_frames`` with ViT-B/16 at full width
+   (``vit_base_patch16_224``, 12 × 768, 197 tokens, random weights) on
+   the same 32 frames at batch 1 and 32, then one full-width arch of
+   every other family (distilled DeiT-B, ConvNeXt-T, Swin-T,
+   EfficientNet-B0, RegNetY-800MF, MobileNetV3-L, BEiT-B, Mixer-B/16,
+   and ResNet-50 under timm's recipe) at batch 8 on 8 of them, each as
+   in 13: counts reset just before and read just after every run (no
+   kernel lies on these paths), card vs CPU ≤ 1e-4, ms per frame beside
+   the fp32 FMA bound, busy share;
+15. timm long tokens: ViT-B/16 at ``image_size=768`` (48² + 1 = 2305
+   tokens, past the 2048 at which attention runs blockwise) through
+   ``extract_frames`` at batch 1 on 2 seeded 768×768 frames, counts
+   reset just before and read just after, and each block's attention
+   call counted by name (12 blockwise per frame, no dense); rows
+   against the CPU ≤ 1e-4; ms per frame beside its bound; blockwise
+   against dense attention on the card for the same seeded q, k, v
+   (rel L2 ≤ 1e-5); the ms of both at 197 and 2305 tokens, beside
+   ``F.scaled_dot_product_attention``'s, a reading the port never calls.
 
 The line before the last is the kernels' JSON record (``launches``: the
 sum over the path runs of phases 4, 5 and 10); the last line is
@@ -153,6 +171,17 @@ S3D_HW, S3D_STACK, S3D_STACKS = (256, 340), 64, 2
 # covers TIMED_FRAMES frames, the device's busy share BUSY_STEPS steps
 FRAMEWISE_FRAMES, FRAMEWISE_HW, FRAMEWISE_BATCHES = 32, 224, (1, 32)
 FRAMEWISE_FPS, TEXT_ROWS, TIMED_FRAMES, BUSY_STEPS = 25.0, 8, 320, 20
+# the timm slice: ViT-B/16 at full width on those frames at batch 1 and
+# 32; one full-width arch of every other family at batch 8 on 8 of them;
+# ViT-B/16 at image_size 768 (48² + 1 = 2305 tokens: blockwise attention)
+# at batch 1 on 2 seeded 768×768 frames
+TIMM_VIT = 'vit_base_patch16_224'
+TIMM_FAMILIES = ('deit_base_distilled_patch16_224', 'convnext_tiny',
+                 'swin_tiny_patch4_window7_224', 'efficientnet_b0',
+                 'regnety_008', 'mobilenetv3_large_100',
+                 'beit_base_patch16_224', 'mixer_b16_224', 'resnet50')
+TIMM_FAMILY_BATCH, TIMM_LONG_SIZE, TIMM_LONG_FRAMES = 8, 768, 2
+BLOCKWISE_REL_L2 = 1e-5     # the online softmax's reassociation
 
 
 def fail(msg: str) -> None:
@@ -918,6 +947,80 @@ def family_timing(torch, np, r21d_ex, r21d34_ex, s3d_ex) -> None:
               f'per window), {bound / ms:.1%} of it', flush=True)
 
 
+def framewise_runs(torch, np, name, ex, step, dim, frames, batches_of,
+                   corr_lookup, gru) -> None:
+    """One frame-wise extractor: ``extract_frames`` over ``frames`` at
+    each batch of ``batches_of`` (counts reset just before and read just
+    after each run, none allowed), each run's rows against ``step`` on
+    the CPU at the same batch, and per batch ms per frame (CUDA events
+    over TIMED_FRAMES frames, at least 5 steps) beside the fp32 FMA bound
+    of all its convolutions and matmuls, and the device's busy share over
+    BUSY_STEPS traced steps."""
+    from video_features_torch.transplant import to_device
+    n = len(frames)
+    times = [i / FRAMEWISE_FPS * 1000 for i in range(n)]
+    feats = {}
+    for batch in batches_of:
+        batches = [(list(frames[i:i + batch]), times[i:i + batch], None)
+                   for i in range(0, n, batch)]
+        ex.extract_frames(batches[:1], FRAMEWISE_FPS)       # warm-up
+        torch.cuda.synchronize()
+        reset_counts(corr_lookup, gru)
+        t0 = time.perf_counter()
+        out = ex.extract_frames(batches, FRAMEWISE_FPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(corr_lookup, gru)
+        rows = out[ex.feature_type]
+        print(f'{name}: extract_frames at batch {batch}: features '
+              f'{rows.shape}, {wall / n * 1e3:.2f} ms per frame (wall), '
+              f'launches {counts}', flush=True)
+        check_no_launches(counts, f'{name} at batch {batch}')
+        if rows.shape != (n, dim) or not np.isfinite(rows).all() \
+                or len(out['timestamps_ms']) != n:
+            fail(f'{name} output {rows.shape} (want ({n}, {dim})), '
+                 f'{len(out["timestamps_ms"])} timestamps, or not finite')
+        feats[batch] = rows
+    host_params = to_device(ex.params, 'cpu')
+    for batch in batches_of:
+        with torch.inference_mode():
+            host = torch.cat([step(host_params, torch.from_numpy(frames[i:i + batch]))
+                              for i in range(0, n, batch)])
+        rel = rel_l2(torch.from_numpy(feats[batch]), host)
+        print(f'{name} at batch {batch}, card vs CPU ({n} frames): '
+              f'rel L2 {rel:.3e}', flush=True)
+        if not rel <= CARD_CPU_REL_L2:
+            fail(f'{name} at batch {batch}: card vs CPU rel L2 {rel} > '
+                 f'{CARD_CPU_REL_L2} (TF32 on?)')
+    del host_params
+    for batch in batches_of:
+        xb = torch.from_numpy(frames[:batch]).cuda()
+        reps = max(5, TIMED_FRAMES // batch)
+        with torch.inference_mode():
+            ms = cuda_ms(torch, lambda: step(ex.params, xb), reps=reps) / batch
+            flops = counted_flops(torch, lambda: step(ex.params, xb)) / batch
+            busy = busy_ms(torch, lambda: step(ex.params, xb), BUSY_STEPS)
+        bound = flops / FP32_FLOP_PER_S * 1e3
+        print(f'{name} step at batch {batch}: {ms:.4f} ms per frame over {reps} '
+              f'steps; fp32 FMA bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP of '
+              f'convolutions and matmuls per frame), {bound / ms:.1%} of it',
+              flush=True)
+        if busy is None:
+            print(f'{name} at batch {batch}: device busy share not measured '
+                  '(the profiler recorded no device activity)', flush=True)
+        else:
+            print(f'{name} at batch {batch}: device busy {busy / batch:.4f} ms '
+                  f'per frame over {BUSY_STEPS} traced steps, '
+                  f'{busy / batch / ms:.1%} of the untraced step time',
+                  flush=True)
+
+
+def framewise_common() -> dict:
+    return {'device': 'cuda', 'precision': 'highest', 'batch_size': 1,
+            'allow_random_weights': True, 'on_extraction': 'save_numpy',
+            'output_path': str(ROOT / 'output')}
+
+
 def framewise_phase(torch, np, corr_lookup, gru) -> None:
     """resnet50 and CLIP ViT-B/32 through extract_frames at batch 1 and
     32 (counts reset just before and read just after each run), CLIP's
@@ -927,89 +1030,168 @@ def framewise_phase(torch, np, corr_lookup, gru) -> None:
     from video_features_torch.models import clip as clip_model
     from video_features_torch.transplant import to_device
     frames = rand_frames(np, 30, (FRAMEWISE_FRAMES, FRAMEWISE_HW, FRAMEWISE_HW, 3))
-    times = [i / FRAMEWISE_FPS * 1000 for i in range(FRAMEWISE_FRAMES)]
-    common = {'device': 'cuda', 'precision': 'highest', 'batch_size': 1,
-              'allow_random_weights': True, 'on_extraction': 'save_numpy',
-              'output_path': str(ROOT / 'output')}
-    families = (
-        ('resnet50', ExtractResNet({'feature_type': 'resnet',
-                                    'model_name': 'resnet50', **common}),
-         lambda ex: functools.partial(resnet_step, arch='resnet50'), 2048),
-        ('CLIP ViT-B/32', ExtractCLIP({'feature_type': 'clip',
-                                       'model_name': 'ViT-B/32', **common}),
-         lambda ex: functools.partial(clip_step, arch=ex.arch), 512))
-    for name, ex, step_of, dim in families:
-        feats = {}
-        for batch in FRAMEWISE_BATCHES:
-            batches = [(list(frames[i:i + batch]), times[i:i + batch], None)
-                       for i in range(0, FRAMEWISE_FRAMES, batch)]
-            ex.extract_frames(batches[:1], FRAMEWISE_FPS)       # warm-up
-            torch.cuda.synchronize()
-            reset_counts(corr_lookup, gru)
-            t0 = time.perf_counter()
-            out = ex.extract_frames(batches, FRAMEWISE_FPS)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = read_counts(corr_lookup, gru)
-            rows = out[ex.feature_type]
-            print(f'{name}: extract_frames at batch {batch}: features '
-                  f'{rows.shape}, {wall / FRAMEWISE_FRAMES * 1e3:.2f} ms per frame '
-                  f'(wall), launches {counts}', flush=True)
-            check_no_launches(counts, f'{name} at batch {batch}')
-            if rows.shape != (FRAMEWISE_FRAMES, dim) or not np.isfinite(rows).all() \
-                    or len(out['timestamps_ms']) != FRAMEWISE_FRAMES:
-                fail(f'{name} output {rows.shape} (want ({FRAMEWISE_FRAMES}, {dim})), '
-                     f'{len(out["timestamps_ms"])} timestamps, or not finite')
-            feats[batch] = rows
-        step = step_of(ex)
-        host_params = to_device(ex.params, 'cpu')
-        for batch in FRAMEWISE_BATCHES:
-            with torch.inference_mode():
-                host = torch.cat([step(host_params, torch.from_numpy(frames[i:i + batch]))
-                                  for i in range(0, FRAMEWISE_FRAMES, batch)])
-            rel = rel_l2(torch.from_numpy(feats[batch]), host)
-            print(f'{name} at batch {batch}, card vs CPU ({FRAMEWISE_FRAMES} frames): '
-                  f'rel L2 {rel:.3e}', flush=True)
-            if not rel <= CARD_CPU_REL_L2:
-                fail(f'{name} at batch {batch}: card vs CPU rel L2 {rel} > '
-                     f'{CARD_CPU_REL_L2} (TF32 on?)')
-        for batch in FRAMEWISE_BATCHES:
-            xb = torch.from_numpy(frames[:batch]).cuda()
-            reps = max(5, TIMED_FRAMES // batch)
-            with torch.inference_mode():
-                ms = cuda_ms(torch, lambda: step(ex.params, xb), reps=reps) / batch
-                flops = counted_flops(torch, lambda: step(ex.params, xb)) / batch
-                busy = busy_ms(torch, lambda: step(ex.params, xb), BUSY_STEPS)
-            bound = flops / FP32_FLOP_PER_S * 1e3
-            print(f'{name} step at batch {batch}: {ms:.4f} ms per frame over {reps} '
-                  f'steps; fp32 FMA bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP of '
-                  f'convolutions and matmuls per frame), {bound / ms:.1%} of it',
+    common = framewise_common()
+    ex = ExtractResNet({'feature_type': 'resnet', 'model_name': 'resnet50', **common})
+    framewise_runs(torch, np, 'resnet50', ex,
+                   functools.partial(resnet_step, arch='resnet50'), 2048, frames,
+                   FRAMEWISE_BATCHES, corr_lookup, gru)
+    ex = ExtractCLIP({'feature_type': 'clip', 'model_name': 'ViT-B/32', **common})
+    framewise_runs(torch, np, 'CLIP ViT-B/32', ex,
+                   functools.partial(clip_step, arch=ex.arch), 512, frames,
+                   FRAMEWISE_BATCHES, corr_lookup, gru)
+    rng = np.random.RandomState(31)
+    tokens = np.zeros((TEXT_ROWS, 77), np.int64)
+    for r in range(TEXT_ROWS):
+        n = rng.randint(1, 30)
+        tokens[r, :n] = rng.randint(1, 510, n)
+        tokens[r, n] = 511          # end of text: the row's largest id
+    tokens = torch.from_numpy(tokens)
+    with torch.inference_mode():
+        txt = clip_model.encode_text(ex.params, tokens.cuda()).cpu()
+        ref = clip_model.encode_text(to_device(ex.params, 'cpu'), tokens)
+    rel = rel_l2(txt, ref)
+    print(f'CLIP ViT-B/32 encode_text on {TEXT_ROWS} seeded token rows: '
+          f'{tuple(txt.shape)}, card vs CPU rel L2 {rel:.3e}', flush=True)
+    if txt.shape != (TEXT_ROWS, 512) or not torch.isfinite(txt).all() \
+            or not rel <= CARD_CPU_REL_L2:
+        fail(f'CLIP encode_text: {tuple(txt.shape)}, rel L2 {rel}')
+    torch.cuda.empty_cache()
+
+
+def timm_extractor(model_name: str, **overrides):
+    from video_features_torch.extract.timm import ExtractTIMM
+    return ExtractTIMM({'feature_type': 'timm', 'model_name': model_name,
+                        **framewise_common(), **overrides})
+
+
+def timm_step_of(ex):
+    from video_features_torch.extract.timm import timm_step
+    return functools.partial(timm_step, family=ex.family, arch=ex.arch,
+                             mean=ex.data_cfg['mean'], std=ex.data_cfg['std'])
+
+
+def timm_phase(torch, np, corr_lookup, gru) -> None:
+    """ViT-B/16 at full width on the frame-wise phase's 32 frames at batch
+    1 and 32, then one full-width arch of every other timm family at
+    batch TIMM_FAMILY_BATCH on the first 8 of them (``framewise_runs``)."""
+    frames = rand_frames(np, 30, (FRAMEWISE_FRAMES, FRAMEWISE_HW, FRAMEWISE_HW, 3))
+    ex = timm_extractor(TIMM_VIT)
+    framewise_runs(torch, np, f'timm {TIMM_VIT}', ex, timm_step_of(ex), ex.feat_dim,
+                   frames, FRAMEWISE_BATCHES, corr_lookup, gru)
+    del ex
+    for name in TIMM_FAMILIES:
+        ex = timm_extractor(name)
+        framewise_runs(torch, np, f'timm {name} ({ex.family})', ex,
+                       timm_step_of(ex), ex.feat_dim,
+                       frames[:TIMM_FAMILY_BATCH], (TIMM_FAMILY_BATCH,),
+                       corr_lookup, gru)
+        del ex
+        torch.cuda.empty_cache()
+
+
+def attention_qkv(torch, tokens: int, seed: int):
+    """Seeded (1, tokens, 12, 64) q, k, v on the card: ViT-B/16's heads."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    return [torch.randn(1, tokens, 12, 64, device='cuda', generator=gen)
+            for _ in range(3)]
+
+
+def timm_long_phase(torch, np, F, corr_lookup, gru) -> None:
+    """ViT-B/16 at image_size TIMM_LONG_SIZE (2305 tokens: blockwise
+    attention in every block) through extract_frames at batch 1, counts
+    reset just before and read just after, the attention calls counted
+    by name; its rows against the CPU; blockwise against dense attention
+    on the card; and the attention's ms at 197 and 2305 tokens, beside
+    ``F.scaled_dot_product_attention``'s (a reading; the port never calls
+    it)."""
+    from video_features_torch.ops import attention
+    from video_features_torch.models import vit as vit_model
+    ex = timm_extractor(TIMM_VIT, image_size=TIMM_LONG_SIZE)
+    step = timm_step_of(ex)
+    tokens = (TIMM_LONG_SIZE // 16) ** 2 + 1
+    frames = rand_frames(np, 40, (TIMM_LONG_FRAMES, TIMM_LONG_SIZE, TIMM_LONG_SIZE, 3))
+    times = [i / FRAMEWISE_FPS * 1000 for i in range(TIMM_LONG_FRAMES)]
+    batches = [([f], [t], None) for f, t in zip(frames, times)]
+    ex.extract_frames(batches[:1], FRAMEWISE_FPS)            # warm-up
+    calls = {'dense_attention': 0, 'blockwise_attention': 0}
+    originals = {key: getattr(attention, key) for key in calls}
+
+    def counted(key):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return originals[key](*args, **kwargs)
+        return call
+    torch.cuda.synchronize()
+    reset_counts(corr_lookup, gru)
+    try:
+        for key in calls:
+            setattr(attention, key, counted(key))
+        t0 = time.perf_counter()
+        out = ex.extract_frames(batches, FRAMEWISE_FPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for key, fn in originals.items():
+            setattr(attention, key, fn)
+    counts = read_counts(corr_lookup, gru)
+    rows = out['timm']
+    layers = vit_model.ARCHS[TIMM_VIT]['layers']
+    print(f'timm {TIMM_VIT} at image_size {TIMM_LONG_SIZE} ({tokens} tokens): '
+          f'features {rows.shape}, {wall / TIMM_LONG_FRAMES * 1e3:.2f} ms per '
+          f'frame (wall, batch 1), attention calls {calls}, launches {counts}',
+          flush=True)
+    check_no_launches(counts, f'timm {TIMM_VIT} at image_size {TIMM_LONG_SIZE}')
+    if rows.shape != (TIMM_LONG_FRAMES, ex.feat_dim) or not np.isfinite(rows).all():
+        fail(f'timm long-token output {rows.shape} or not finite')
+    if calls != {'dense_attention': 0,
+                 'blockwise_attention': layers * TIMM_LONG_FRAMES}:
+        fail(f'timm at {tokens} tokens did not attend blockwise in every '
+             f'block: {calls}')
+    from video_features_torch.transplant import to_device
+    with torch.inference_mode():
+        host = torch.cat([step(to_device(ex.params, 'cpu'), torch.from_numpy(f[None]))
+                          for f in frames])
+    rel = rel_l2(torch.from_numpy(rows), host)
+    print(f'timm {TIMM_VIT} at {tokens} tokens, card vs CPU: rel L2 {rel:.3e}',
+          flush=True)
+    if not rel <= CARD_CPU_REL_L2:
+        fail(f'timm long-token card vs CPU rel L2 {rel} > {CARD_CPU_REL_L2}')
+    xb = torch.from_numpy(frames[:1]).cuda()
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: step(ex.params, xb), reps=10)
+        flops = counted_flops(torch, lambda: step(ex.params, xb))
+    bound = flops / FP32_FLOP_PER_S * 1e3
+    print(f'timm {TIMM_VIT} step at {tokens} tokens, batch 1: {ms:.4f} ms per '
+          f'frame; fp32 FMA bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP), '
+          f'{bound / ms:.1%} of it', flush=True)
+    del ex, xb
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        q, k, v = attention_qkv(torch, tokens, 43)
+        dense = attention.dense_attention(q, k, v)
+        blocked = attention.blockwise_attention(q, k, v, block_size=vit_model._BLOCK)
+        rel = rel_l2(blocked, dense)
+        print(f'blockwise vs dense attention on the card at {tokens} tokens: '
+              f'rel L2 {rel:.3e}, max abs {(blocked - dense).abs().max().item():.3e}',
+              flush=True)
+        if not rel <= BLOCKWISE_REL_L2:
+            fail(f'blockwise attention vs dense rel L2 {rel} > {BLOCKWISE_REL_L2}')
+        for n in (197, tokens):
+            q, k, v = attention_qkv(torch, n, n)
+            path = 'blockwise' if n >= vit_model.BLOCKWISE_THRESHOLD else 'dense'
+            dense_ms = cuda_ms(torch, lambda: attention.dense_attention(q, k, v), 20)
+            block_ms = cuda_ms(torch, lambda: attention.blockwise_attention(
+                q, k, v, block_size=vit_model._BLOCK), 20)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh), 20)
+            sdpa_rel = rel_l2(F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2),
+                              attention.dense_attention(q, k, v))
+            print(f'attention (1, {n}, 12, 64) on the card: dense {dense_ms:.4f} ms, '
+                  f'blockwise {block_ms:.4f} ms (the path runs {path}); '
+                  f'F.scaled_dot_product_attention {sdpa_ms:.4f} ms, rel L2 '
+                  f'{sdpa_rel:.3e} vs dense (a reading; not on the path)',
                   flush=True)
-            if busy is None:
-                print(f'{name} at batch {batch}: device busy share not measured '
-                      '(the profiler recorded no device activity)', flush=True)
-            else:
-                print(f'{name} at batch {batch}: device busy {busy / batch:.4f} ms '
-                      f'per frame over {BUSY_STEPS} traced steps, '
-                      f'{busy / batch / ms:.1%} of the untraced step time',
-                      flush=True)
-        if name.startswith('CLIP'):
-            rng = np.random.RandomState(31)
-            tokens = np.zeros((TEXT_ROWS, 77), np.int64)
-            for r in range(TEXT_ROWS):
-                n = rng.randint(1, 30)
-                tokens[r, :n] = rng.randint(1, 510, n)
-                tokens[r, n] = 511          # end of text: the row's largest id
-            tokens = torch.from_numpy(tokens)
-            with torch.inference_mode():
-                txt = clip_model.encode_text(ex.params, tokens.cuda()).cpu()
-                ref = clip_model.encode_text(to_device(ex.params, 'cpu'), tokens)
-            rel = rel_l2(txt, ref)
-            print(f'CLIP ViT-B/32 encode_text on {TEXT_ROWS} seeded token rows: '
-                  f'{tuple(txt.shape)}, card vs CPU rel L2 {rel:.3e}', flush=True)
-            if txt.shape != (TEXT_ROWS, 512) or not torch.isfinite(txt).all() \
-                    or not rel <= CARD_CPU_REL_L2:
-                fail(f'CLIP encode_text: {tuple(txt.shape)}, rel L2 {rel}')
     torch.cuda.empty_cache()
 
 
@@ -1145,6 +1327,14 @@ def main() -> int:
     t = phase('frame-wise (ResNet, CLIP)')
     framewise_phase(torch, np, corr_lookup, gru)
     print(f'frame-wise phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('timm (ViT-B/16 and one arch of every family)')
+    timm_phase(torch, np, corr_lookup, gru)
+    print(f'timm phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase(f'timm long tokens (ViT-B/16 at image_size {TIMM_LONG_SIZE})')
+    timm_long_phase(torch, np, F, corr_lookup, gru)
+    print(f'timm long-token phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

@@ -1,5 +1,5 @@
-"""The port's config rules for the r21d, s3d, i3d, resnet and clip
-families (video_features_torch/config.py, configs/*.yml) and the resume
+"""The port's config rules for the r21d, s3d, i3d, raft, resnet, clip
+and timm families (video_features_torch/config.py, configs/*.yml) and the resume
 fingerprint (its keys, and checkpoints entering by their content), on
 the CPU."""
 import shutil
@@ -15,6 +15,7 @@ from video_features_torch.extract.clip import ExtractCLIP
 from video_features_torch.extract.r21d import MODEL_CFGS, ExtractR21D
 from video_features_torch.extract.resnet import ExtractResNet
 from video_features_torch.extract.s3d import ExtractS3D
+from video_features_torch.extract.timm import ExtractTIMM
 from video_features_torch.models import clip as clip_model
 from video_features_torch.models import resnet as resnet_model
 from video_features_torch.registry import EXTRACTORS
@@ -42,7 +43,11 @@ def test_defaults(clip, tmp_path):
     c = load_config('clip', overrides=base)
     assert (c['model_name'], c['batch_size'], c['pred_texts']) == (
         'ViT-B/32', 1, None)
-    assert list(EXTRACTORS) == ['i3d', 'r21d', 's3d', 'raft', 'resnet', 'clip']
+    t = load_config('timm', overrides=dict(base, model_name='vit_base_patch16_224'))
+    assert (t['batch_size'], t['pretrained'], t['image_size'],
+            t['sequence_parallel'], t['on_extraction']) == (1, True, None, False, 'print')
+    assert list(EXTRACTORS) == ['i3d', 'r21d', 's3d', 'raft', 'resnet', 'clip',
+                                'timm']
     for ft in EXTRACTORS:
         args = load_config(ft, overrides=dict(base, device='cuda'),
                            run_sanity_check=False)
@@ -60,6 +65,10 @@ def test_defaults(clip, tmp_path):
     ('clip', None, ('clip', 'ViT-B_32')),
     ('clip', 'ViT-L/14@336px', ('clip', 'ViT-L_14@336px')),
     ('clip', 'custom', ('clip', 'custom')),
+    ('timm', 'vit_base_patch16_224', ('timm', 'vit_base_patch16_224')),
+    # an hf-hub id keeps its ':'
+    ('timm', 'hf_hub:timm/vit_base_patch16_224.augreg_in21k',
+     ('timm', 'hf_hub:timm_vit_base_patch16_224.augreg_in21k')),
 ])
 def test_output_subdirectory(clip, tmp_path, ft, model_name, sub):
     """``<out>/<feature_type>[/<model_name>]`` with '/' → '_', and the
@@ -137,6 +146,8 @@ def test_no_gpu_without_device_cpu_is_an_error(clip, tmp_path, ft, cls):
     ('s3d', 'checkpoint_path', None, 's3d.pt'),
     ('resnet', 'model_name', 'resnet50', 'resnext50_32x4d'),
     ('clip', 'extraction_total', None, 100),
+    ('timm', 'image_size', None, 768),
+    ('timm', 'model_name', 'vit_base_patch16_224', 'deit_base_patch16_224'),
 ])
 def test_fingerprint_keys(tmp_path, ft, key, a, b):
     """The config values that shape a family's features (or, for
@@ -149,6 +160,72 @@ def test_fingerprint_keys(tmp_path, ft, key, a, b):
         b = tmp_path / b
         b.write_bytes(b'weights')
     assert run_fingerprint({key: a}, keys) != run_fingerprint({key: b}, keys)
+
+
+PORTED = ('i3d', 'r21d', 's3d', 'raft', 'resnet', 'clip', 'timm')
+
+
+def _family_overrides(clip, ft, **extra):
+    overrides = {'video_paths': clip, 'device': 'cpu', **extra}
+    if ft == 'timm':
+        overrides['model_name'] = 'vit_tiny_patch16_224'
+    return overrides
+
+
+@pytest.mark.parametrize('ft', PORTED)
+@pytest.mark.parametrize('dtype', ['bfloat16', 'int8'])
+def test_compute_dtype_fast_lanes_are_refused(clip, ft, dtype):
+    """The JAX package's bf16 and int8 lanes are not ported: refused
+    naming the key, never run in float32 behind the user's back."""
+    with pytest.raises(NotImplementedError, match=f'compute_dtype={dtype}'):
+        load_config(ft, overrides=_family_overrides(clip, ft, compute_dtype=dtype))
+
+
+@pytest.mark.parametrize('ft', PORTED)
+@pytest.mark.parametrize('dtype', ['float32', None])
+def test_compute_dtype_float32_is_accepted(clip, ft, dtype):
+    args = load_config(ft, overrides=_family_overrides(clip, ft, compute_dtype=dtype))
+    assert args['compute_dtype'] == dtype
+
+
+@pytest.mark.parametrize('dtype', ['float16', 'fp8'])
+def test_unknown_compute_dtype_is_a_value_error(clip, dtype):
+    with pytest.raises(ValueError, match='compute_dtype must be one of'):
+        load_config('resnet', overrides=_family_overrides(clip, 'resnet',
+                                                          compute_dtype=dtype))
+
+
+def test_frame_wise_extractors_refuse_compute_dtype_without_load_config(tmp_path):
+    """The extractors check the key themselves too, as they do the other
+    unported keys."""
+    for cls, extra in ((ExtractResNet, {'model_name': 'resnet18'}),
+                       (ExtractTIMM, {'model_name': 'vit_tiny_patch16_224'})):
+        with pytest.raises(NotImplementedError, match='compute_dtype'):
+            cls({'feature_type': cls.__name__[7:].lower(), 'device': 'cpu',
+                 'compute_dtype': 'bfloat16', 'allow_random_weights': True,
+                 'output_path': str(tmp_path), **extra})
+
+
+@pytest.mark.parametrize('key,value', [('data_parallel', True),
+                                       ('decode_backend', 'native'),
+                                       ('decode_workers', 2),
+                                       ('pack_across_videos', True),
+                                       ('sequence_parallel', True)])
+def test_timm_unported_keys_raise_naming_themselves(clip, key, value):
+    with pytest.raises(NotImplementedError, match=key):
+        load_config('timm', overrides=_family_overrides(clip, 'timm', **{key: value}))
+
+
+def test_timm_without_a_gpu_is_an_error(clip, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    with pytest.raises(RuntimeError, match='device=cpu'):
+        load_config('timm', overrides={'video_paths': clip,
+                                       'model_name': 'vit_tiny_patch16_224'})
+    with pytest.raises(RuntimeError, match='device=cpu'):
+        ExtractTIMM({'feature_type': 'timm', 'model_name': 'vit_tiny_patch16_224',
+                     'device': 'cuda', 'output_path': str(tmp_path),
+                     'allow_random_weights': True})
 
 
 def test_batch_size_is_not_in_the_fingerprint():

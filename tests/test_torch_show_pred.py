@@ -1,4 +1,4 @@
-"""``show_pred`` of the port's r21d, s3d, i3d, resnet and clip
+"""``show_pred`` of the port's r21d, s3d, i3d, resnet, clip and timm
 extractors: the stdout table (``At frames (a, b)`` / ``At stack k
 (stream)``, then the Kinetics, ImageNet-1k or zero-shot top-5) against
 the JAX package's where it prints the same thing, on the CPU; and the
@@ -9,7 +9,7 @@ import torch
 
 from video_features_tpu.config import load_config as jax_load_config
 from video_features_tpu.registry import create_extractor as jax_create
-from video_features_torch.extract import clip, i3d, r21d, resnet, s3d
+from video_features_torch.extract import clip, i3d, r21d, resnet, s3d, timm
 from video_features_torch.models import i3d as i3d_model
 from video_features_torch.models import raft as raft_model
 from video_features_torch.utils.preds import load_label_map
@@ -217,3 +217,39 @@ def test_clip_without_the_bpe_vocab_degrades(clip_pair, capsys, monkeypatch, tmp
     ex.maybe_show_pred(np.ones((1, 512), np.float32))
     out = capsys.readouterr().out
     assert out.startswith('show_pred unavailable: CLIP BPE vocab not found')
+
+
+def test_imagenet21k_label_map_ships_with_the_package(monkeypatch):
+    monkeypatch.delenv('VFT_LABEL_MAP_DIR', raising=False)
+    from video_features_tpu.utils.preds import load_label_map as jax_load_label_map
+    classes = load_label_map('imagenet21k')
+    assert len(classes) > 20000 and classes == jax_load_label_map('imagenet21k')
+
+
+def test_timm_table_matches_jax(tmp_path, capsys):
+    """timm's ImageNet-1k top-5 through the family's head (ConvNeXt:
+    ``head.fc``), both packages from the same seeded weights."""
+    ex = timm.ExtractTIMM(_args(tmp_path, 'timm', model_name='convnext_tiny'))
+    jex = _jax_extractor(tmp_path, 'timm', model_name='convnext_tiny',
+                         pretrained=False)
+    feats = np.random.RandomState(6).randn(2, 768).astype(np.float32)
+    ex.maybe_show_pred(feats)
+    got = capsys.readouterr().out
+    jex.maybe_show_pred(feats)
+    assert_same_table(got, capsys.readouterr().out)
+    rows = table(got)[1]
+    assert len(rows) == 10 and rows[0][2] in load_label_map('imagenet1k')
+
+
+def test_timm_distilled_deit_prints_why_it_skips(tmp_path, capsys):
+    """Distilled DeiT's logits need the separate cls and dist tokens: both
+    packages print the same reason and no table."""
+    name = 'deit_tiny_distilled_patch16_224'
+    ex = timm.ExtractTIMM(_args(tmp_path, 'timm', model_name=name))
+    jex = _jax_extractor(tmp_path, 'timm', model_name=name, pretrained=False)
+    feats = np.ones((1, 192), np.float32)
+    ex.maybe_show_pred(feats)
+    got = capsys.readouterr().out
+    jex.maybe_show_pred(feats)
+    assert got == capsys.readouterr().out
+    assert got.startswith('show_pred: distilled DeiT logits') and not table(got)[1]

@@ -1,6 +1,6 @@
 """Configuration: YAML defaults ← dotlist CLI overrides, then
-``sanity_check`` (the i3d, r21d, s3d, raft, resnet and clip subset of
-``video_features_tpu/config.py``).
+``sanity_check`` (the i3d, r21d, s3d, raft, resnet, clip and timm subset
+of ``video_features_tpu/config.py``).
 
 ``yaml`` is imported inside the functions that parse, so the package
 imports on machines without it.
@@ -86,6 +86,8 @@ def form_list_from_user_input(
 
 
 RAFT_FINETUNED_ON = ('sintel', 'kitti')
+# the JAX package's compute_dtype values; the port computes in float32 only
+COMPUTE_DTYPES = ('float32', 'bfloat16', 'int8')
 
 
 def check_unported_keys(args: Dict[str, Any]) -> None:
@@ -107,6 +109,21 @@ def check_unported_keys(args: Dict[str, Any]) -> None:
     if int(args.get('decode_workers') or 1) > 1:
         raise NotImplementedError(
             'decode_workers > 1 is not ported yet: run with decode_workers=1')
+    if args.get('sequence_parallel'):
+        raise NotImplementedError(
+            'sequence_parallel=true is not ported yet (ROADMAP Queue A 4: '
+            'ring attention over several GPUs): run with '
+            'sequence_parallel=false; one GPU attends long token sequences '
+            'blockwise')
+    dtype = args.get('compute_dtype')
+    if dtype is not None and dtype != 'float32':
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f'compute_dtype must be one of {COMPUTE_DTYPES}; '
+                             f'got {dtype!r}')
+        raise NotImplementedError(
+            f'compute_dtype={dtype} is not ported yet (ROADMAP Queue A 5, '
+            f'precision lanes): the port computes in float32 only; run with '
+            f'compute_dtype=float32')
 
 
 def check_raft_args(args: Dict[str, Any]) -> None:
@@ -155,6 +172,12 @@ def sanity_check(args: Dict[str, Any]) -> None:
     if ft == 'clip' and args.get('model_name') != 'custom':
         from video_features_torch.models.clip import model_def
         model_def(args.get('model_name'))
+    if ft == 'timm':
+        if args.get('model_name') is None:
+            raise ValueError('Please specify `model_name` for timm-style '
+                             'models; e.g. `vit_base_patch16_224`')
+        from video_features_torch.extract.timm import resolve_model_name
+        resolve_model_name(args['model_name'])
     if ft == 'i3d' and args.get('stack_size') is not None \
             and args['stack_size'] < 10:
         raise ValueError('I3D does not support inputs shorter than 10 '

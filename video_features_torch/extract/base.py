@@ -52,6 +52,8 @@ FINGERPRINT_KEYS = {
                'extraction_total', 'precision', 'checkpoint_path'),
     'clip': ('feature_type', 'model_name', 'extraction_fps',
              'extraction_total', 'precision', 'checkpoint_path'),
+    'timm': ('feature_type', 'model_name', 'extraction_fps',
+             'extraction_total', 'image_size', 'precision', 'checkpoint_path'),
 }
 
 

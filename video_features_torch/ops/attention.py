@@ -1,0 +1,96 @@
+"""Attention over (B, S, H, D) tensors: dense and blockwise (port of
+``video_features_tpu/ops/attention.py``'s single-device functions).
+
+  * :func:`dense_attention`: softmax(QKᵀ·scale)V, the softmax in fp32;
+  * :func:`blockwise_attention`: an online softmax over KV blocks (512
+    by default), O(S·block) score memory instead of O(S²); a ragged S
+    pads the keys to a block multiple and masks the padded ones out.
+
+Both are plain batched matmuls and ``torch.softmax``/``torch.exp`` left
+to cuBLAS and torch's elementwise kernels. The JAX package's
+``ring_attention`` (sequence parallel over several devices) is not
+ported.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return scale if scale is not None else q.shape[-1] ** -0.5
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(QKᵀ·scale)V over (B, S, H, D) tensors."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))     # (B, H, S, D)
+    s = (qh @ kh.transpose(-1, -2)) * _scale(q, scale)
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return (p @ vh).transpose(1, 2)
+
+
+def _online_block(q: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                  o: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
+                  scale: float, valid: Optional[torch.Tensor] = None) -> Carry:
+    """One online-softmax step against the KV block (kb, vb).
+
+    The carry is (m, l, o) in (B, H, Sq, 1), (B, H, Sq, 1), (B, H, Sq,
+    D), fp32; ``q`` is (B, H, Sq, D) and ``kb``, ``vb`` are (B, H, block,
+    D). ``valid`` (block,) bool masks padded keys out (scores → -inf, so
+    p → 0); a block with no valid key leaves the carry as it was.
+    """
+    s = (q @ kb.transpose(-1, -2)).float() * scale
+    if valid is not None:
+        s = s.masked_fill(~valid, float('-inf'))
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    # m_new stays -inf until the first unmasked key; exponentiate against
+    # a finite stand-in so exp(-inf - -inf) never makes a NaN: p and alpha
+    # are then exactly 0 and the carry passes through unchanged
+    m_safe = torch.where(torch.isneginf(m_new), torch.zeros_like(m_new), m_new)
+    p = torch.exp(s - m_safe)
+    alpha = torch.exp(m - m_safe)
+    l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+    o_new = o * alpha + p @ vb.float()
+    return m_new, l_new, o_new
+
+
+def _online_init(q: torch.Tensor) -> Carry:
+    """The empty carry for (B, H, Sq, D) queries."""
+    b, h, sq, d = q.shape
+    m = torch.full((b, h, sq, 1), float('-inf'), dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    return m, l, o
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        block_size: int = 512,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Memory-efficient attention over (B, S, H, D) tensors: a loop over
+    KV blocks with a running (max, denominator, output).
+
+    A ragged S (a ViT's grid² + 1 tokens) zero-pads the keys and values
+    to a block multiple and masks the padded keys out of the softmax.
+    """
+    sk = k.shape[1]
+    block_size = min(block_size, sk)
+    pad = (-sk) % block_size
+    sc = _scale(q, scale)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))     # (B, H, S, D)
+    if pad:
+        kh = torch.nn.functional.pad(kh, (0, 0, 0, pad))
+        vh = torch.nn.functional.pad(vh, (0, 0, 0, pad))
+    valid = torch.arange(sk + pad, device=q.device) < sk
+    carry = _online_init(qh)
+    for start in range(0, sk + pad, block_size):
+        blk = slice(start, start + block_size)
+        mask = valid[blk] if start + block_size > sk else None
+        carry = _online_block(qh, *carry, kh[:, :, blk], vh[:, :, blk], sc,
+                              valid=mask)
+    _, l, o = carry
+    return (o / l).to(q.dtype).transpose(1, 2)

@@ -11,6 +11,7 @@ EXTRACTORS: Dict[str, Tuple[str, str]] = {
     'raft': ('video_features_torch.extract.raft', 'ExtractRAFT'),
     'resnet': ('video_features_torch.extract.resnet', 'ExtractResNet'),
     'clip': ('video_features_torch.extract.clip', 'ExtractCLIP'),
+    'timm': ('video_features_torch.extract.timm', 'ExtractTIMM'),
 }
 
 

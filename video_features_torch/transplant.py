@@ -37,9 +37,13 @@ def nest(flat: Mapping[str, Any]) -> Params:
 
 
 def _tensor(value: Any) -> torch.Tensor:
+    """float32 for floating leaves; integer leaves (BEiT's
+    ``relative_position_index``, a gather index) become ``torch.long``,
+    whatever width the source stored (the JAX package's device arrays
+    hold int32)."""
     t = value.detach().cpu() if isinstance(value, torch.Tensor) \
         else torch.from_numpy(np.array(value))
-    return t.to(torch.float32) if t.is_floating_point() else t
+    return t.to(torch.float32) if t.is_floating_point() else t.to(torch.long)
 
 
 def params_from_torch(state_dict: Mapping[str, Any]) -> Params:

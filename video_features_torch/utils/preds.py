@@ -1,6 +1,6 @@
 """Top-k prediction printing for ``show_pred`` (a copy of
-``video_features_tpu/utils/preds.py``: Kinetics-400 and ImageNet-1k;
-ImageNet-21k comes with the timm family, its only user).
+``video_features_tpu/utils/preds.py``: Kinetics-400, ImageNet-1k and
+ImageNet-21k).
 
 The label maps ship as package data in ``utils/label_maps/``, so class
 names resolve on hosts with no network; ``$VFT_LABEL_MAP_DIR`` takes
@@ -18,6 +18,7 @@ import numpy as np
 _DATASET_TO_FILE = {
     'kinetics': 'K400_label_map.txt',
     'imagenet1k': 'IN1K_label_map.txt',
+    'imagenet21k': 'IN21K_label_map.txt',
 }
 
 
