@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100, CUDA
-and nvcc. It imports only video_features_torch, torch, numpy and the
-standard library, and fails (non-zero exit, no result line) on any
+and nvcc. It imports only video_features_torch, torch, numpy, the
+standard library, and what the vggish phase's entry points import
+(PyYAML in ``load_config``, scipy's Kaiser window for the 48 kHz
+resample), and fails (non-zero exit, no result line) on any
 phase that fails, and at once when no CUDA device is present or the
 package is not beside it. Phases:
 
@@ -111,7 +113,18 @@ package is not beside it. Phases:
    against the CPU ≤ 1e-4; ms per frame beside its bound; blockwise
    against dense attention on the card for the same seeded q, k, v
    (rel L2 ≤ 1e-5); the ms of both at 197 and 2305 tokens, beside
-   ``F.scaled_dot_product_attention``'s, a reading the port never calls.
+   ``F.scaled_dot_product_attention``'s, a reading the port never calls;
+16. vggish: ``create_extractor(load_config('vggish', ...))`` and
+   ``extract`` on a seeded 31 s 16 kHz wav (32 examples, one batch-32
+   step; the stdlib ``wave`` reads it, so no decoder is needed), counts
+   reset just before and read just after (none allowed); output (32,
+   128) float32 against the same extractor on the CPU (rel L2 ≤ 1e-4),
+   and with ``post_process`` and a seeded PCA file uint8 within 1 level
+   of the CPU's (the share that differs printed); the VGG step's ms per
+   example at batch 32 and 1 beside its fp32 FMA bound and busy share;
+   the host DSP per clip at 16 and 48 kHz; ``extract``'s wall time. The
+   native decoders need libav, which the card's host lacks: not
+   exercised here, and said so.
 
 The line before the last is the kernels' JSON record (``launches``: the
 sum over the path runs of phases 4, 5 and 10); the last line is
@@ -126,6 +139,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -182,6 +196,11 @@ TIMM_FAMILIES = ('deit_base_distilled_patch16_224', 'convnext_tiny',
                  'beit_base_patch16_224', 'mixer_b16_224', 'resnet50')
 TIMM_FAMILY_BATCH, TIMM_LONG_SIZE, TIMM_LONG_FRAMES = 8, 768, 2
 BLOCKWISE_REL_L2 = 1e-5     # the online softmax's reassociation
+# vggish: a seeded 31 s 16 kHz wav is exactly 32 examples of 0.96 s, one
+# step at the config's batch 32; the host DSP is also timed at 48 kHz
+# (resampy's kaiser_best resample to 16 kHz)
+VGGISH_SECONDS, VGGISH_SR, VGGISH_RESAMPLED_SR = 31.0, 16000, 48000
+VGGISH_EXAMPLES, VGGISH_BATCHES = 32, (32, 1)
 
 
 def fail(msg: str) -> None:
@@ -1195,6 +1214,131 @@ def timm_long_phase(torch, np, F, corr_lookup, gru) -> None:
     torch.cuda.empty_cache()
 
 
+def write_seeded_wav(np, path: Path, seconds: float, sr: int, seed: int) -> str:
+    """Mono int16 noise plus two tones, written with the stdlib's wave."""
+    import wave
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    x = 0.3 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 1234 * t) \
+        + 0.1 * rng.randn(len(t))
+    with wave.open(str(path), 'wb') as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes((np.clip(x, -1, 1) * 32767).astype('<i2').tobytes())
+    return str(path)
+
+
+def vggish_phase(torch, np, corr_lookup, gru) -> None:
+    """The vggish family through its entry points (``load_config``,
+    ``create_extractor``, ``extract``) on a seeded 31 s wav: on the card,
+    counts reset just before and read just after (none allowed), against
+    the same extractor on the CPU, plain and with ``post_process``; then
+    the VGG step's ms per example at batch 32 and 1 beside its fp32 FMA
+    bound and busy share, the host DSP at 16 and 48 kHz, and the whole
+    ``extract``."""
+    from video_features_torch.config import load_config
+    from video_features_torch.io import native
+    from video_features_torch.ops.audio import waveform_to_examples
+    from video_features_torch.registry import create_extractor
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wav = write_seeded_wav(np, tmp / 'clip.wav', VGGISH_SECONDS, VGGISH_SR, 50)
+        rng = np.random.RandomState(51)
+        pca = tmp / 'pca.npz'
+        np.savez(pca, pca_eigen_vectors=rng.randn(128, 128) * 0.3,
+                 pca_means=rng.rand(128, 1) * 0.5)
+
+        def extractor(device, **extra):
+            return create_extractor(load_config('vggish', {
+                'video_paths': wav, 'device': device, 'allow_random_weights': True,
+                'on_extraction': 'save_numpy', 'output_path': str(tmp / 'out'),
+                'tmp_path': str(tmp / 'tmp'), **extra}))
+        outs, walls = {}, {}
+        for name, extra in (('plain', {}),
+                            ('post_process', {'post_process': True,
+                                              'pca_params_path': str(pca)})):
+            ex = extractor('cuda', **extra)
+            ex.extract(wav)                                   # warm-up
+            torch.cuda.synchronize()
+            reset_counts(corr_lookup, gru)
+            t0 = time.perf_counter()
+            out = ex.extract(wav)['vggish']
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            counts = read_counts(corr_lookup, gru)
+            print(f'vggish ({name}): extract() of the {VGGISH_SECONDS:g} s wav: '
+                  f'{out.shape} {out.dtype}, {walls[name] * 1e3:.2f} ms (wall), '
+                  f'launches {counts}', flush=True)
+            check_no_launches(counts, f'vggish ({name})')
+            want = np.uint8 if extra else np.float32
+            if out.shape != (VGGISH_EXAMPLES, 128) or out.dtype != want \
+                    or not np.isfinite(out).all():
+                fail(f'vggish ({name}) output {out.shape} {out.dtype} (want '
+                     f'({VGGISH_EXAMPLES}, 128) {want.__name__}) or not finite')
+            ref = extractor('cpu', **extra).extract(wav)['vggish']
+            outs[name] = (out, ref)
+            if name == 'plain':
+                model = ex.model
+            else:
+                del ex
+        got, ref = outs['plain']
+        rel = rel_l2(torch.from_numpy(got), torch.from_numpy(ref))
+        print(f'vggish card vs CPU ({VGGISH_EXAMPLES} examples): rel L2 {rel:.3e}',
+              flush=True)
+        if not rel <= CARD_CPU_REL_L2:
+            fail(f'vggish card vs CPU rel L2 {rel} > {CARD_CPU_REL_L2} (TF32 on?)')
+        got, ref = (a.astype(np.int16) for a in outs['post_process'])
+        diff = np.abs(got - ref)
+        print(f'vggish post_process card vs CPU: max {int(diff.max())} level(s) '
+              f'apart, {(diff > 0).mean():.4%} of {diff.size} entries differ',
+              flush=True)
+        if diff.max() > 1:
+            fail(f'vggish post_process: card and CPU {int(diff.max())} levels apart')
+        for batch in VGGISH_BATCHES:
+            x = torch.from_numpy((np.random.RandomState(52 + batch).rand(
+                batch, 1, 96, 64) * 7 - 4.6).astype(np.float32)).cuda()
+            reps = max(5, 320 // batch)
+            with torch.inference_mode():
+                ms = cuda_ms(torch, lambda: model(x), reps=reps) / batch
+                flops = counted_flops(torch, lambda: model(x)) / batch
+                busy = busy_ms(torch, lambda: model(x), BUSY_STEPS)
+            bound = flops / FP32_FLOP_PER_S * 1e3
+            print(f'vggish VGG step at batch {batch}: {ms:.4f} ms per example over '
+                  f'{reps} steps; fp32 FMA bound {bound:.4f} ms ({flops / 1e9:.3f} '
+                  f'GFLOP of convolutions and matmuls per example), '
+                  f'{bound / ms:.1%} of it', flush=True)
+            if busy is None:
+                print(f'vggish at batch {batch}: device busy share not measured '
+                      '(the profiler recorded no device activity)', flush=True)
+            else:
+                print(f'vggish at batch {batch}: device busy {busy / batch:.4f} ms '
+                      f'per example over {BUSY_STEPS} traced steps, '
+                      f'{busy / batch / ms:.1%} of the untraced step time',
+                      flush=True)
+        from video_features_torch.io.audio import read_wav
+        data, sr = read_wav(wav)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            waveform_to_examples(data, sr)
+        dsp16 = (time.perf_counter() - t0) / 5
+        data48 = read_wav(write_seeded_wav(np, tmp / 'clip48.wav', VGGISH_SECONDS,
+                                           VGGISH_RESAMPLED_SR, 53))[0]
+        t0 = time.perf_counter()
+        n48 = len(waveform_to_examples(data48, VGGISH_RESAMPLED_SR))
+        dsp48 = time.perf_counter() - t0
+        print(f'vggish host DSP per {VGGISH_SECONDS:g} s clip (the card\'s host, '
+              f'{os.cpu_count()} cores): {dsp16 * 1e3:.2f} ms at {sr} Hz '
+              f'(mean of 5), {dsp48 * 1e3:.1f} ms at {VGGISH_RESAMPLED_SR} Hz '
+              f'(kaiser_best resample; {n48} examples)', flush=True)
+        print('vggish: decode_backend=native and audio_backend=native not '
+              'exercised on this host (the native library '
+              f'{"loads" if native.available() else "does not build"} here); '
+              'the wav path needs neither', flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -1335,6 +1479,10 @@ def main() -> int:
     t = phase(f'timm long tokens (ViT-B/16 at image_size {TIMM_LONG_SIZE})')
     timm_long_phase(torch, np, F, corr_lookup, gru)
     print(f'timm long-token phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('vggish (audio, through load_config and create_extractor)')
+    vggish_phase(torch, np, corr_lookup, gru)
+    print(f'vggish phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

@@ -1,5 +1,5 @@
-"""The port's config rules for the r21d, s3d, i3d, raft, resnet, clip
-and timm families (video_features_torch/config.py, configs/*.yml) and the resume
+"""The port's config rules for the r21d, s3d, i3d, raft, resnet, clip,
+timm and vggish families (video_features_torch/config.py, configs/*.yml) and the resume
 fingerprint (its keys, and checkpoints entering by their content), on
 the CPU."""
 import shutil
@@ -16,6 +16,7 @@ from video_features_torch.extract.r21d import MODEL_CFGS, ExtractR21D
 from video_features_torch.extract.resnet import ExtractResNet
 from video_features_torch.extract.s3d import ExtractS3D
 from video_features_torch.extract.timm import ExtractTIMM
+from video_features_torch.extract.vggish import ExtractVGGish
 from video_features_torch.models import clip as clip_model
 from video_features_torch.models import resnet as resnet_model
 from video_features_torch.registry import EXTRACTORS
@@ -46,8 +47,13 @@ def test_defaults(clip, tmp_path):
     t = load_config('timm', overrides=dict(base, model_name='vit_base_patch16_224'))
     assert (t['batch_size'], t['pretrained'], t['image_size'],
             t['sequence_parallel'], t['on_extraction']) == (1, True, None, False, 'print')
+    v = load_config('vggish', overrides=base)
+    assert (v['batch_size'], v['precision'], v['audio_backend'], v['post_process'],
+            v['pca_params_path'], v['keep_tmp_files'], v['on_extraction']) == (
+        32, 'highest', 'auto', False, None, False, 'print')
+    assert 'compilation_cache_dir' not in v
     assert list(EXTRACTORS) == ['i3d', 'r21d', 's3d', 'raft', 'resnet', 'clip',
-                                'timm']
+                                'timm', 'vggish']
     for ft in EXTRACTORS:
         args = load_config(ft, overrides=dict(base, device='cuda'),
                            run_sanity_check=False)
@@ -66,6 +72,7 @@ def test_defaults(clip, tmp_path):
     ('clip', 'ViT-L/14@336px', ('clip', 'ViT-L_14@336px')),
     ('clip', 'custom', ('clip', 'custom')),
     ('timm', 'vit_base_patch16_224', ('timm', 'vit_base_patch16_224')),
+    ('vggish', None, ('vggish',)),
     # an hf-hub id keeps its ':'
     ('timm', 'hf_hub:timm/vit_base_patch16_224.augreg_in21k',
      ('timm', 'hf_hub:timm_vit_base_patch16_224.augreg_in21k')),
@@ -116,7 +123,6 @@ def test_output_and_tmp_paths_must_differ(clip, tmp_path):
 
 @pytest.mark.parametrize('ft', ['i3d', 'r21d', 's3d', 'resnet', 'clip'])
 @pytest.mark.parametrize('key,value', [('data_parallel', True),
-                                       ('decode_backend', 'native'),
                                        ('decode_workers', 2),
                                        ('pack_across_videos', True)])
 def test_unported_keys_raise_naming_themselves(clip, ft, key, value):
@@ -125,8 +131,24 @@ def test_unported_keys_raise_naming_themselves(clip, ft, key, value):
                                    key: value})
 
 
+VIDEO_FAMILIES = ('i3d', 'r21d', 's3d', 'raft', 'resnet', 'clip', 'timm')
+
+
+@pytest.mark.parametrize('ft', VIDEO_FAMILIES)
+def test_decode_backend_native_is_accepted(clip, ft):
+    """Every video family accepts the native decoder (io/native.py) and
+    hands its decode_backend to the loader; an unknown one is a
+    ValueError naming the key."""
+    args = load_config(ft, overrides=_family_overrides(clip, ft,
+                                                       decode_backend='native'))
+    assert args['decode_backend'] == 'native'
+    with pytest.raises(ValueError, match='decode_backend must be one of'):
+        load_config(ft, overrides=_family_overrides(clip, ft, decode_backend='pyav'))
+
+
 @pytest.mark.parametrize('ft,cls', [('r21d', ExtractR21D), ('s3d', ExtractS3D),
-                                    ('resnet', ExtractResNet), ('clip', ExtractCLIP)])
+                                    ('resnet', ExtractResNet), ('clip', ExtractCLIP),
+                                    ('vggish', ExtractVGGish)])
 def test_no_gpu_without_device_cpu_is_an_error(clip, tmp_path, ft, cls):
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
@@ -148,21 +170,25 @@ def test_no_gpu_without_device_cpu_is_an_error(clip, tmp_path, ft, cls):
     ('clip', 'extraction_total', None, 100),
     ('timm', 'image_size', None, 768),
     ('timm', 'model_name', 'vit_base_patch16_224', 'deit_base_patch16_224'),
+    ('vggish', 'audio_backend', 'ffmpeg', 'native'),
+    ('vggish', 'post_process', False, True),
+    ('vggish', 'pca_params_path', None, 'pca.npz'),
+    ('vggish', 'checkpoint_path', None, 'vggish.pth'),
 ])
 def test_fingerprint_keys(tmp_path, ft, key, a, b):
     """The config values that shape a family's features (or, for
     device_resize, its pipeline's inputs) change its resume fingerprint;
-    a checkpoint path enters by its file's content (a file written here)
-    against a null path's ``random``."""
+    a checkpoint or PCA path enters by its file's content (a file written
+    here) against a null path's ``random`` or ``none``."""
     assert key in FINGERPRINT_KEYS[ft]
     keys = FINGERPRINT_KEYS[ft]
-    if key.endswith('checkpoint_path'):
+    if key.endswith(('checkpoint_path', 'pca_params_path')):
         b = tmp_path / b
         b.write_bytes(b'weights')
     assert run_fingerprint({key: a}, keys) != run_fingerprint({key: b}, keys)
 
 
-PORTED = ('i3d', 'r21d', 's3d', 'raft', 'resnet', 'clip', 'timm')
+PORTED = ('i3d', 'r21d', 's3d', 'raft', 'resnet', 'clip', 'timm', 'vggish')
 
 
 def _family_overrides(clip, ft, **extra):
@@ -207,7 +233,6 @@ def test_frame_wise_extractors_refuse_compute_dtype_without_load_config(tmp_path
 
 
 @pytest.mark.parametrize('key,value', [('data_parallel', True),
-                                       ('decode_backend', 'native'),
                                        ('decode_workers', 2),
                                        ('pack_across_videos', True),
                                        ('sequence_parallel', True)])

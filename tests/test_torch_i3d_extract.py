@@ -164,8 +164,8 @@ def test_config_defaults_and_checks(tmp_path):
     with pytest.raises(ValueError, match='shorter than 10'):
         load_config('i3d', overrides={'video_paths': video, 'device': 'cpu',
                                       'stack_size': 8})
-    with pytest.raises(NotImplementedError, match='Known: i3d'):
-        load_config('vggish', overrides={'video_paths': video, 'device': 'cpu'})
+    with pytest.raises(NotImplementedError, match='Known: i3d.*vggish'):
+        load_config('vggish2', overrides={'video_paths': video, 'device': 'cpu'})
 
 
 def test_cli_usage_without_feature_type(capsys):

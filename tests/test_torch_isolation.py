@@ -8,6 +8,9 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((REPO / 'video_features_torch').rglob('*.py')) + [
     REPO / 'chip_smoke.py']
 FORBIDDEN = ('jax', 'jaxlib', 'video_features_tpu', 'timm')
+# the vggish slice's modules and the decoders' binding, by name
+REQUIRED = tuple(f'video_features_torch.{m}' for m in (
+    'io.native', 'io.audio', 'ops.audio', 'models.vggish', 'extract.vggish'))
 
 IMPORT_ALL = r'''
 import importlib, pkgutil, sys
@@ -17,16 +20,18 @@ for mod in pkgutil.walk_packages(video_features_torch.__path__,
     importlib.import_module(mod.name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)
+missing = [m for m in %r if m not in sys.modules]
 print(len([m for m in sys.modules if m.startswith('video_features_torch')]))
 assert not bad, bad
-''' % (FORBIDDEN,)
+assert not missing, missing
+''' % (FORBIDDEN, REQUIRED)
 
 
 def test_importing_every_port_module_pulls_no_jax():
     proc = subprocess.run([sys.executable, '-c', IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 53     # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 57     # every module was imported
 
 
 def test_port_sources_import_no_jax():

@@ -203,7 +203,7 @@ def test_config_defaults_and_checks(tmp_path):
                             ('raft_iters', 0, ValueError),
                             ('extraction_total', 5, None),
                             ('data_parallel', True, NotImplementedError),
-                            ('decode_backend', 'native', NotImplementedError),
+                            ('decode_backend', 'gpu', ValueError),
                             ('decode_workers', 4, NotImplementedError)):
         overrides = dict(base, **{key: value})
         if err is None:          # with extraction_fps: mutually exclusive

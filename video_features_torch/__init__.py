@@ -11,7 +11,10 @@ feature_type=<family>``: the fused I3D two-stream path (RAFT flow + both
 I3D towers, ``i3d``, with the on-device bit-exact Pillow resize of
 ``device_resize=true``), the RAFT flow family (``raft``), the two
 3-D CNN families R(2+1)D (``r21d``) and S3D (``s3d``), and the frame-wise
-image families ResNet (``resnet``) and CLIP (``clip``). Every RAFT
+image families ResNet (``resnet``), CLIP (``clip``) and timm (``timm``),
+and the VGGish audio family (``vggish``). Video decodes through the
+in-process libav decoder where its library builds, else cv2
+(``decode_backend``). Every RAFT
 iteration on the card runs hand-written CUDA kernels: the
 correlation-window lookup (``csrc/corr_lookup.cu``) and the SepConvGRU
 direction (``csrc/gru_direction.cu``).

@@ -1,5 +1,6 @@
 """CLI entry point: ``python -m video_features_torch feature_type=<family>
-key=val ...`` (families: i3d, r21d, s3d, raft, resnet, clip).
+key=val ...`` (families: i3d, r21d, s3d, raft, resnet, clip, timm,
+vggish).
 
 Load the family's YAML, merge the dotlist (CLI wins), sanity-check,
 build the extractor, shuffle the video list and run ``_extract`` per

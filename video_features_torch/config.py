@@ -1,6 +1,6 @@
 """Configuration: YAML defaults ← dotlist CLI overrides, then
-``sanity_check`` (the i3d, r21d, s3d, raft, resnet, clip and timm subset
-of ``video_features_tpu/config.py``).
+``sanity_check`` (the i3d, r21d, s3d, raft, resnet, clip, timm and
+vggish subset of ``video_features_tpu/config.py``).
 
 ``yaml`` is imported inside the functions that parse, so the package
 imports on machines without it.
@@ -13,6 +13,7 @@ import warnings
 from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Union
 
+from video_features_torch.io.video import DECODE_BACKENDS
 from video_features_torch.registry import EXTRACTORS
 
 CONFIG_DIR = Path(__file__).parent / 'configs'
@@ -51,7 +52,7 @@ def load_config(feature_type: Optional[str] = None,
     path = CONFIG_DIR / f'{feature_type}.yml'
     if not path.exists():
         raise NotImplementedError(
-            f'Extractor {feature_type!r} is not ported yet. '
+            f'Unknown feature_type {feature_type!r}. '
             f'Known: {", ".join(EXTRACTORS)}')
     with open(path) as f:
         args = dict(yaml.safe_load(f) or {})
@@ -88,6 +89,7 @@ def form_list_from_user_input(
 RAFT_FINETUNED_ON = ('sintel', 'kitti')
 # the JAX package's compute_dtype values; the port computes in float32 only
 COMPUTE_DTYPES = ('float32', 'bfloat16', 'int8')
+AUDIO_BACKENDS = ('auto', 'ffmpeg', 'native')
 
 
 def check_unported_keys(args: Dict[str, Any]) -> None:
@@ -101,11 +103,9 @@ def check_unported_keys(args: Dict[str, Any]) -> None:
             'pack_across_videos=true is not ported yet: run with '
             'pack_across_videos=false')
     backend = args.get('decode_backend') or 'auto'
-    if backend == 'native':
-        raise NotImplementedError(
-            'decode_backend=native is not ported yet: use decode_backend=cv2')
-    if backend not in ('auto', 'cv2'):
-        raise ValueError(f"decode_backend must be 'auto' or 'cv2'; got {backend!r}")
+    if backend not in DECODE_BACKENDS:
+        raise ValueError(f'decode_backend must be one of {DECODE_BACKENDS}; '
+                         f'got {backend!r}')
     if int(args.get('decode_workers') or 1) > 1:
         raise NotImplementedError(
             'decode_workers > 1 is not ported yet: run with decode_workers=1')
@@ -141,6 +141,20 @@ def check_raft_args(args: Dict[str, Any]) -> None:
                          f'{args.get("batch_size")!r}')
 
 
+def check_vggish_args(args: Dict[str, Any]) -> None:
+    """The vggish family's rules, checked before any weights load.
+    ``show_pred`` is refused by the extractor (:mod:`~video_features_torch.
+    extract.vggish`), after :func:`sanity_check` has warned."""
+    check_unported_keys(args)
+    backend = args.get('audio_backend') or 'auto'
+    if backend not in AUDIO_BACKENDS:
+        raise ValueError(f'audio_backend must be one of {AUDIO_BACKENDS}; '
+                         f'got {backend!r}')
+    if args.get('post_process') and not args.get('pca_params_path'):
+        raise ValueError('post_process=true needs '
+                         'pca_params_path=<vggish_pca_params.npz>')
+
+
 def sanity_check(args: Dict[str, Any]) -> None:
     """Validate the merged config and append ``<feature_type>[/<model_name>]``
     ('/' → '_') to the output and tmp paths. The device is resolved here, so a run
@@ -161,6 +175,11 @@ def sanity_check(args: Dict[str, Any]) -> None:
     ft = args.get('feature_type')
     if ft == 'raft':
         check_raft_args(args)
+    elif ft == 'vggish':
+        check_vggish_args(args)
+        if args.get('show_pred'):
+            warnings.warn('Showing class predictions is not implemented '
+                          'for VGGish')
     else:
         check_unported_keys(args)
     if ft == 'r21d':

@@ -26,7 +26,9 @@ from typing import Any, Dict, Iterable, List, Mapping, Union
 import numpy as np
 
 from video_features_torch.utils.device import resolve_device, set_precision
-from video_features_torch.utils.fingerprint import weights_fingerprint
+from video_features_torch.utils.fingerprint import (
+    is_file_key, weights_fingerprint,
+)
 from video_features_torch.utils.output import (
     ACTION_TO_EXT, ACTION_TO_LOAD, ACTION_TO_SAVE, CorruptOutputError,
     make_path, read_fingerprint, write_fingerprint,
@@ -35,7 +37,8 @@ from video_features_torch.utils.output import (
 ACTIONS = ('print',) + tuple(ACTION_TO_EXT)
 
 # per family, the config values that shape its features (the resume
-# fingerprint); a *checkpoint_path key enters by its file's content
+# fingerprint); a *checkpoint_path key and pca_params_path enter by their
+# file's content
 FINGERPRINT_KEYS = {
     'i3d': ('feature_type', 'streams', 'flow_type', 'stack_size', 'step_size',
             'raft_iters', 'extraction_fps', 'concat_rgb_flow', 'precision',
@@ -54,16 +57,17 @@ FINGERPRINT_KEYS = {
              'extraction_total', 'precision', 'checkpoint_path'),
     'timm': ('feature_type', 'model_name', 'extraction_fps',
              'extraction_total', 'image_size', 'precision', 'checkpoint_path'),
+    'vggish': ('feature_type', 'precision', 'checkpoint_path', 'audio_backend',
+               'post_process', 'pca_params_path'),
 }
 
 
 def run_fingerprint(args: Any, keys: Iterable[str]) -> str:
     """sha256 of the config values among ``keys`` that shape a run's
-    features, checkpoint path strings left out, and of the checkpoints'
-    content (:func:`~video_features_torch.utils.fingerprint.weights_fingerprint`)."""
+    features, file path strings left out, and of those files' content
+    (:func:`~video_features_torch.utils.fingerprint.weights_fingerprint`)."""
     keys = sorted(keys)
-    blob = json.dumps({k: args.get(k) for k in keys
-                       if 'checkpoint_path' not in k},
+    blob = json.dumps({k: args.get(k) for k in keys if not is_file_key(k)},
                       sort_keys=True, default=str)
     cfg = hashlib.sha256(blob.encode('utf-8')).hexdigest()
     return hashlib.sha256(
@@ -90,15 +94,18 @@ class BaseExtractor:
         self.concat_rgb_flow = bool(args.get('concat_rgb_flow', False))
         self.tmp_path = str(args.get('tmp_path', './tmp'))
         self.keep_tmp_files = bool(args.get('keep_tmp_files', False))
+        self.decode_backend = args.get('decode_backend') or 'auto'
         self.run_fingerprint = None
 
     def video_loader(self, video_path: str, **kwargs):
         """A :class:`~video_features_torch.io.video.VideoLoader` that
-        re-encodes into this run's ``tmp_path`` (kept with
-        ``keep_tmp_files``); use it as a context manager."""
+        decodes with this run's ``decode_backend`` and re-encodes into its
+        ``tmp_path`` (kept with ``keep_tmp_files``); use it as a context
+        manager."""
         from video_features_torch.io.video import VideoLoader
         return VideoLoader(video_path, tmp_path=self.tmp_path,
-                           keep_tmp=self.keep_tmp_files, **kwargs)
+                           keep_tmp=self.keep_tmp_files,
+                           backend=self.decode_backend, **kwargs)
 
     def _extract(self, video_path: str) -> None:
         """Fault-isolating wrapper around :meth:`extract` for the work loop."""

@@ -1,12 +1,18 @@
-"""Video decode and batching (port of the cv2 path of
-``video_features_tpu/io/video.py``).
+"""Video decode and batching (port of ``video_features_tpu/io/video.py``).
 
 Iteration yields ``(batch, times_ms, indices)`` tuples with
 ``timestamp_ms = index / fps * 1000``; the last batch may be short.
 ``overlap`` frames are shared between consecutive batches (the flow
-families' frame pairing, :func:`batch_frames`). ``fps`` or ``total``
-retimes the video as the reference does, by the first of these that
-works:
+families' frame pairing, :func:`batch_frames`).
+
+Frames come from the decoder that ``backend`` names, with the JAX
+package's rules: ``native`` is the in-process libav decoder
+(``io/native.py``) and raises when its library is unavailable; ``cv2``
+is ``cv2.VideoCapture``; ``auto`` takes the native decoder when the
+library loads and falls back to cv2 for a file libav cannot open.
+
+``fps`` or ``total`` retimes the video as the reference does, by the
+first of these that works:
 
 1. the ``ffmpeg`` binary, a constant-frame-rate re-encode
    (:func:`reencode_video_with_diff_fps`);
@@ -35,6 +41,11 @@ from typing import (
 import numpy as np
 
 _REENCODE_SEQ = itertools.count()
+DECODE_BACKENDS = ('auto', 'native', 'cv2')
+NATIVE_UNAVAILABLE = ('native decode backend unavailable: decode_backend='
+                      'native needs native/libvfdecode.so, which did not '
+                      'build or load (g++ and the libav development '
+                      'packages); use decode_backend=cv2 or auto')
 
 
 def reencode_out_path(video_path: Union[str, os.PathLike],
@@ -126,6 +137,28 @@ def decode_rgb_frames(path: str) -> Iterator[np.ndarray]:
         cap.release()
 
 
+class Cv2FrameDecoder:
+    """Sequential RGB frame decoder over ``cv2.VideoCapture``: iterating
+    yields ``(source_index, HWC uint8 RGB frame)``, as
+    :class:`~video_features_torch.io.native.NativeFrameDecoder` does."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._frames: Optional[Iterator[np.ndarray]] = None
+
+    def __iter__(self) -> Iterator[Tuple[int, np.ndarray]]:
+        self._frames = decode_rgb_frames(self.path)
+        try:
+            yield from enumerate(self._frames)
+        finally:
+            self.release()
+
+    def release(self) -> None:
+        if self._frames is not None:
+            self._frames.close()         # releases the capture
+            self._frames = None
+
+
 Batch = Tuple[List[np.ndarray], List[float], List[int]]
 
 
@@ -176,6 +209,8 @@ class VideoLoader:
         keep_tmp: keep the re-encoded file after :meth:`close`.
         transform: per-frame callable (HWC uint8 RGB → frame).
         overlap: frames shared between consecutive batches.
+        backend: the frame decoder, one of :data:`DECODE_BACKENDS`
+            (the module docstring has the rules).
 
     Use it as a context manager, or call :meth:`close`, to delete the
     re-encoded file.
@@ -185,7 +220,11 @@ class VideoLoader:
                  fps: Optional[float] = None, total: Optional[int] = None,
                  tmp_path: Union[str, os.PathLike] = 'tmp',
                  keep_tmp: bool = False,
-                 transform: Optional[Callable] = None, overlap: int = 0):
+                 transform: Optional[Callable] = None, overlap: int = 0,
+                 backend: str = 'auto'):
+        if backend not in DECODE_BACKENDS:
+            raise ValueError(f'decode_backend must be one of {DECODE_BACKENDS}; '
+                             f'got {backend!r}')
         if batch_size < 1:
             raise ValueError(f'batch_size must be >= 1; got {batch_size}')
         if not 0 <= overlap < batch_size:
@@ -199,9 +238,10 @@ class VideoLoader:
         self.transform = transform
         self.overlap = overlap
         self.keep_tmp = keep_tmp
+        self.backend = backend
         self._tmp_file: Optional[str] = None
         self._index_map: Optional[np.ndarray] = None
-        props = get_video_props(self.path)
+        props = self._probe_props(self.path)
         self.height, self.width = props['height'], props['width']
         self.fps = props['fps']
         if total is not None:
@@ -218,6 +258,37 @@ class VideoLoader:
         props = get_video_props(self.path)
         self.fps = props['fps']
         self.height, self.width = props['height'], props['width']
+
+    def _probe_props(self, path: str) -> Dict[str, float]:
+        """Stream properties from the native service first (unless the
+        backend is cv2), else from cv2: each may demux containers the
+        other's build lacks."""
+        if self.backend != 'cv2':
+            from video_features_torch.io import native
+            props = native.get_video_props_native(path)
+            if props is not None and props['num_frames'] > 0:
+                return props
+            if self.backend == 'native' and props is None \
+                    and not native.available():
+                raise RuntimeError(NATIVE_UNAVAILABLE)
+        return get_video_props(path)
+
+    def _make_decoder(self):
+        """The frame decoder ``backend`` selects; ``auto`` falls back to
+        cv2 for a file the native decoder cannot open."""
+        if self.backend != 'cv2':
+            from video_features_torch.io import native
+            if native.available():
+                decoder = native.NativeFrameDecoder(self.path)
+                if self.backend == 'native':
+                    return decoder
+                try:
+                    return decoder.open()
+                except IOError:
+                    pass
+            elif self.backend == 'native':
+                raise RuntimeError(NATIVE_UNAVAILABLE)
+        return Cv2FrameDecoder(self.path)
 
     def _reencode(self, fps: float, tmp_path: str) -> Optional[str]:
         """The re-encoded file's path from the first backend there is
@@ -238,17 +309,23 @@ class VideoLoader:
             return None
 
     def _retimed_frames(self) -> Iterator[np.ndarray]:
-        frames = decode_rgb_frames(self.path)
-        if self._index_map is None:
-            yield from frames
-            return
-        pos, n = 0, len(self._index_map)
-        for src_idx, frame in enumerate(frames):
-            while pos < n and self._index_map[pos] == src_idx:
-                yield frame
-                pos += 1
-            if pos >= n:
+        """Decoded frames in output order, duplicated or dropped by the
+        index map; the decoder is released however iteration ends."""
+        decoder = self._make_decoder()
+        try:
+            if self._index_map is None:
+                for _, frame in decoder:
+                    yield frame
                 return
+            pos, n = 0, len(self._index_map)
+            for src_idx, frame in decoder:
+                while pos < n and self._index_map[pos] == src_idx:
+                    yield frame
+                    pos += 1
+                if pos >= n:
+                    return
+        finally:
+            decoder.release()
 
     def __iter__(self) -> Iterator[Batch]:
         return batch_frames(self._retimed_frames(), self.batch_size, self.fps,

@@ -12,6 +12,7 @@ EXTRACTORS: Dict[str, Tuple[str, str]] = {
     'resnet': ('video_features_torch.extract.resnet', 'ExtractResNet'),
     'clip': ('video_features_torch.extract.clip', 'ExtractCLIP'),
     'timm': ('video_features_torch.extract.timm', 'ExtractTIMM'),
+    'vggish': ('video_features_torch.extract.vggish', 'ExtractVGGish'),
 }
 
 
@@ -20,6 +21,6 @@ def create_extractor(args):
     try:
         module_name, class_name = EXTRACTORS[feature_type]
     except KeyError:
-        raise NotImplementedError(f'Extractor {feature_type!r} is not ported '
-                                  f'yet. Known: {", ".join(EXTRACTORS)}')
+        raise NotImplementedError(f'Unknown feature_type {feature_type!r}. '
+                                  f'Known: {", ".join(EXTRACTORS)}')
     return getattr(importlib.import_module(module_name), class_name)(args)

@@ -36,6 +36,18 @@ def nest(flat: Mapping[str, Any]) -> Params:
     return tree
 
 
+def flatten(tree: Mapping[str, Any], prefix: str = '') -> Dict[str, Any]:
+    """{'a': {'b': {'c': x}}} → {'a.b.c': x}, the inverse of :func:`nest`:
+    a params tree as a ``state_dict`` for an ``nn.Module``."""
+    flat: Dict[str, Any] = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            flat.update(flatten(value, f'{prefix}{key}.'))
+        else:
+            flat[f'{prefix}{key}'] = value
+    return flat
+
+
 def _tensor(value: Any) -> torch.Tensor:
     """float32 for floating leaves; integer leaves (BEiT's
     ``relative_position_index``, a gather index) become ``torch.long``,
