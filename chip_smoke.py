@@ -5,9 +5,10 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100, CUDA
 and nvcc. It imports only video_features_torch, torch, numpy, the
-standard library, and what the vggish phase's entry points import
+standard library, what the vggish phase's entry points import
 (PyYAML in ``load_config``, scipy's Kaiser window for the 48 kHz
-resample), and fails (non-zero exit, no result line) on any
+resample), and cv2 and PIL (phase 17 writes its clips with cv2, and
+the loaders decode and resize with them), and fails (non-zero exit, no result line) on any
 phase that fails, and at once when no CUDA device is present or the
 package is not beside it. Phases:
 
@@ -124,10 +125,26 @@ package is not beside it. Phases:
    example at batch 32 and 1 beside its fp32 FMA bound and busy share;
    the host DSP per clip at 16 and 48 kHz; ``extract``'s wall time. The
    native decoders need libav, which the card's host lacks: not
-   exercised here, and said so.
+   exercised here, and said so;
+17. streaming and packed loops: four seeded MJPG clips written with
+   cv2 (256×340 of 49 and 33 frames, 240×320 of 81 and 17: 3, 2, 5 and
+   1 windows), one I3D extractor from ``create_extractor(load_config(
+   'i3d', ...))`` at full width (both towers, stack 16, step 16, RAFT 20
+   iterations, batch 8, ``save_numpy``), after one warm-up run: (a) the
+   per-video loop (``_extract`` per clip, ``decode_workers`` 2,
+   ``inflight`` 2), (b) ``extract_packed`` at ``inflight`` 1 and (c) at
+   2, each with its own output tree, the counts reset just before and
+   read just after; fused steps counted (4, 2, 2) and the launches held
+   to them (a lookup and two GRU launches per RAFT iteration); wall,
+   windows/s and peak device memory; the device's busy share from a
+   second, traced run of each; outputs (T, 2048), finite, T = 3, 2, 5,
+   1; (b) and (c) byte-equal, (a) and (c) byte-equal or within rel L2
+   1e-6 (the difference printed); then resnet50 at batch 32 on four
+   240×320 clips per video at 1 and 4 decode threads (frames/s) and
+   packed, 0 launches, the outputs equal the same way.
 
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5 and 10); the last line is
+sum over the path runs of phases 4, 5, 10 and 17); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -201,6 +218,17 @@ BLOCKWISE_REL_L2 = 1e-5     # the online softmax's reassociation
 # (resampy's kaiser_best resample to 16 kHz)
 VGGISH_SECONDS, VGGISH_SR, VGGISH_RESAMPLED_SR = 31.0, 16000, 48000
 VGGISH_EXAMPLES, VGGISH_BATCHES = 32, (32, 1)
+# the streaming loop and the packed loop: four seeded MJPG clips (frames,
+# height, width) written with cv2, giving 3, 2, 5 and 1 windows of 17 at
+# step 16; the two geometries pool apart (5 and 6 windows), so the packed
+# loop runs 2 steps at batch 8 where the per-video loop runs 4
+PACK_CLIPS = ((49, 256, 340), (33, 256, 340), (81, 240, 320), (17, 240, 320))
+PACK_WINDOWS, PACK_BATCH, PACK_FPS = (3, 2, 5, 1), 8, 25.0
+PACK_REL_L2 = 1e-6
+# resnet50 through both loops at batch 32 on four short 240×320 clips
+PACK_RESNET_CLIPS = ((40, 240, 320), (25, 240, 320), (50, 240, 320),
+                     (17, 240, 320))
+PACK_RESNET_BATCH, PACK_RESNET_WORKERS = 32, (1, 4)
 
 
 def fail(msg: str) -> None:
@@ -1339,6 +1367,218 @@ def vggish_phase(torch, np, corr_lookup, gru) -> None:
     torch.cuda.empty_cache()
 
 
+def write_clips(np, root: Path, specs, seed: int) -> list:
+    """Seeded noise clips written with cv2's MJPG writer; the phase fails
+    when cv2 cannot write them."""
+    import cv2
+    rng = np.random.RandomState(seed)
+    paths = []
+    for i, (n, h, w) in enumerate(specs):
+        path = root / f'clip{seed}_{i}.avi'
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*'MJPG'),
+                                 PACK_FPS, (w, h))
+        if not writer.isOpened():
+            fail(f'cv2 cannot write {path.name} (MJPG, {w}×{h})')
+        for _ in range(n):
+            writer.write(rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        writer.release()
+        paths.append(str(path))
+    return paths
+
+
+def busy_share(torch, run) -> float:
+    """The share of ``run``'s wall time in which the card was busy: the
+    union of the kernel and copy intervals ``torch.profiler`` records,
+    over the traced run's wall; None when it records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the raw records: prof.events() builds a Python tree over every op
+    spans = [(ev.start_ns() / 1e3, (ev.start_ns() + ev.duration_ns()) / 1e3)
+             for ev in prof.profiler.kineto_results.events()
+             if str(ev.device_type()).endswith('CUDA')]
+    return union_ms(spans) / 1e3 / wall if spans else None
+
+
+def tree_arrays(np, root: str) -> dict:
+    return {f.name: np.load(f) for f in sorted(Path(root).rglob('*.npy'))}
+
+
+def compare_trees(np, a: dict, b: dict, where: str) -> float:
+    """The largest rel L2 between two output trees; 0.0 when every file
+    is byte-equal. Fails on a missing file, a shape, or more than
+    PACK_REL_L2."""
+    if a.keys() != b.keys() or not a:
+        fail(f'{where}: output files differ: {sorted(a)} vs {sorted(b)}')
+    worst = 0.0
+    for key in a:
+        x, y = a[key], b[key]
+        if x.shape != y.shape:
+            fail(f'{where}: {key} shapes {x.shape} vs {y.shape}')
+        if x.tobytes() != y.tobytes():
+            diff = float(np.linalg.norm((x - y).astype(np.float64))
+                         / max(np.linalg.norm(y.astype(np.float64)), 1e-30))
+            print(f'{where}: {key} differs, rel L2 {diff:.3e}', flush=True)
+            worst = max(worst, diff)
+    if not worst <= PACK_REL_L2:
+        fail(f'{where}: rel L2 {worst} > {PACK_REL_L2}')
+    return worst
+
+
+def packing_phase(torch, np, corr_lookup, gru, check_counts) -> None:
+    """The fused I3D path at full width through the per-video loop and
+    the packed loop, from clips on disk, through the entry points."""
+    from video_features_torch.config import load_config
+    from video_features_torch.parallel.packing import VideoTask
+    from video_features_torch.registry import create_extractor
+    os.environ['VFT_RAFT_LOOKUP'] = 'auto'
+    root = ROOT / 'output' / 'packing'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    paths = write_clips(np, root, PACK_CLIPS, seed=40)
+    ex = create_extractor(load_config('i3d', overrides={
+        'video_paths': paths, 'device': 'cuda', 'streams': None,
+        'stack_size': STACK, 'step_size': STACK, 'raft_iters': SLICE_ITERS,
+        'batch_size': PACK_BATCH, 'allow_random_weights': True,
+        'on_extraction': 'save_numpy', 'output_path': str(root / 'a'),
+        'tmp_path': str(root / 'tmp'), 'decode_workers': 2, 'inflight': 2}))
+    steps = [0]
+    packed_step = ex.packed_step
+
+    def counted_step(x):
+        steps[0] += 1
+        return packed_step(x)
+    ex.packed_step = counted_step
+
+    def packed(tree: str, inflight: int):
+        return lambda: ex.extract_packed(
+            [VideoTask(p, out_root=str(root / tree)) for p in paths],
+            inflight=inflight)
+
+    def per_video(tree: str):
+        def run():
+            ex.output_path = str(root / tree)
+            for p in paths:
+                ex._extract(p)
+        return run
+
+    runs = (('a: per-video loop, decode_workers 2, inflight 2', 'a', 2,
+             per_video('a'), 4),
+            ('b: packed loop, decode_workers 1, inflight 1', 'b', 1,
+             packed('b', 1), 2),
+            ('c: packed loop, decode_workers 1, inflight 2', 'c', 1,
+             packed('c', 2), 2))
+    ex.decode_workers = 1
+    t1 = time.perf_counter()
+    packed('warm', 2)()                    # cuDNN's choices, the allocator
+    print(f'phase 17: clips written and extractor built in {t1 - t0:.1f} s, '
+          f'warm-up run {time.perf_counter() - t1:.1f} s', flush=True)
+    windows = sum(PACK_WINDOWS)
+    for name, tree, workers, run, want_steps in runs:
+        ex.decode_workers = workers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(corr_lookup, gru)
+        steps[0] = 0
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(corr_lookup, gru)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f'phase 17 {name}: {wall:.3f} s wall, {windows / wall:.2f} '
+              f'windows/s, {steps[0]} fused steps at batch {PACK_BATCH}, '
+              f'launches {counts}, peak device memory {peak:.2f} GiB',
+              flush=True)
+        if steps[0] != want_steps:
+            fail(f'phase 17 {name}: {steps[0]} fused steps, want {want_steps}')
+        check_counts(counts, 'masked', want_steps, f'phase 17 {name}')
+        t1 = time.perf_counter()
+        busy = busy_share(torch, per_video(tree + '_traced') if tree == 'a'
+                          else packed(tree + '_traced', 1 if tree == 'b' else 2))
+        print(f'phase 17 {name}: device busy '
+              + ('not measured (the profiler recorded no device activity)'
+                 if busy is None else f'{busy:.1%} of a traced run\'s wall')
+              + f' (traced run and its read {time.perf_counter() - t1:.1f} s)',
+              flush=True)
+    trees = {t: tree_arrays(np, str(root / t)) for t in 'abc'}
+    width = 1024 * len(ex.streams)          # rgb || flow
+    for p, n in zip(paths, PACK_WINDOWS):
+        out = trees['c'].get(Path(p).stem + '.npy')
+        if out is None or out.shape != (n, width) or not np.isfinite(out).all():
+            fail(f'phase 17: {Path(p).name} gave '
+                 f'{None if out is None else out.shape}, want ({n}, {width}), finite')
+    worst = compare_trees(np, trees['b'], trees['c'], 'phase 17 (b) vs (c)')
+    if worst:
+        fail(f'phase 17: inflight 1 and 2 differ (rel L2 {worst})')
+    worst = compare_trees(np, trees['a'], trees['c'], 'phase 17 (a) vs (c)')
+    print(f'phase 17: (b) and (c) byte-equal; (a) against (c) '
+          + ('byte-equal' if not worst else f'rel L2 {worst:.3e}'), flush=True)
+    del ex
+    torch.cuda.empty_cache()
+    resnet_packing(torch, np, root, corr_lookup, gru)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def resnet_packing(torch, np, root: Path, corr_lookup, gru) -> None:
+    """resnet50 at batch 32 per video (decode_workers 1 and 4) and
+    packed, on four short clips: no kernel launch, the same outputs."""
+    from video_features_torch.config import load_config
+    from video_features_torch.parallel.packing import VideoTask
+    from video_features_torch.registry import create_extractor
+    paths = write_clips(np, root, PACK_RESNET_CLIPS, seed=41)
+    frames = sum(n for n, _, _ in PACK_RESNET_CLIPS)
+    ex = create_extractor(load_config('resnet', overrides={
+        'video_paths': paths, 'device': 'cuda', 'model_name': 'resnet50',
+        'batch_size': PACK_RESNET_BATCH, 'allow_random_weights': True,
+        'on_extraction': 'save_numpy', 'output_path': str(root / 'r'),
+        'tmp_path': str(root / 'tmp')}))
+    ex.extract_packed([VideoTask(p, out_root=str(root / 'rwarm')) for p in paths])
+    for workers in PACK_RESNET_WORKERS:
+        ex.decode_workers = workers
+        ex.output_path = str(root / f'rv{workers}')
+        reset_counts(corr_lookup, gru)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in paths:
+            ex._extract(p)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(corr_lookup, gru)
+        print(f'phase 17 resnet50 per-video loop, decode_workers {workers}: '
+              f'{frames / wall:.1f} frames/s ({wall:.3f} s for {frames} frames '
+              f'at batch {PACK_RESNET_BATCH}), launches {counts}', flush=True)
+        check_no_launches(counts, 'phase 17 resnet50 per-video loop')
+    ex.decode_workers = 1
+    reset_counts(corr_lookup, gru)
+    t0 = time.perf_counter()
+    ex.extract_packed([VideoTask(p, out_root=str(root / 'rp')) for p in paths])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(corr_lookup, gru)
+    print(f'phase 17 resnet50 packed loop: {frames / wall:.1f} frames/s '
+          f'({wall:.3f} s), launches {counts}', flush=True)
+    check_no_launches(counts, 'phase 17 resnet50 packed loop')
+    packed_tree = tree_arrays(np, str(root / 'rp'))
+    for p, (n, _, _) in zip(paths, PACK_RESNET_CLIPS):
+        out = packed_tree.get(Path(p).stem + '_resnet.npy')
+        if out is None or out.shape != (n, ex.feat_dim) or not np.isfinite(out).all():
+            fail(f'phase 17 resnet50: {Path(p).name} gave '
+                 f'{None if out is None else out.shape}, want ({n}, {ex.feat_dim})')
+    worst = max(compare_trees(np, tree_arrays(np, str(root / f'rv{w}')),
+                              packed_tree, f'phase 17 resnet50 (workers {w})')
+                for w in PACK_RESNET_WORKERS)
+    print('phase 17 resnet50: per-video and packed outputs '
+          + ('byte-equal' if not worst else f'within rel L2 {worst:.3e}'),
+          flush=True)
+    del ex
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -1483,6 +1723,12 @@ def main() -> int:
     t = phase('vggish (audio, through load_config and create_extractor)')
     vggish_phase(torch, np, corr_lookup, gru)
     print(f'vggish phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('streaming and packed loops (I3D at batch 8, resnet50 at batch 32)')
+    packing_phase(torch, np, corr_lookup, gru, check_counts)
+    for key in launches:
+        rec[key]['launches'] = launches[key]
+    print(f'packing phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

@@ -122,9 +122,7 @@ def test_output_and_tmp_paths_must_differ(clip, tmp_path):
 
 
 @pytest.mark.parametrize('ft', ['i3d', 'r21d', 's3d', 'resnet', 'clip'])
-@pytest.mark.parametrize('key,value', [('data_parallel', True),
-                                       ('decode_workers', 2),
-                                       ('pack_across_videos', True)])
+@pytest.mark.parametrize('key,value', [('data_parallel', True)])
 def test_unported_keys_raise_naming_themselves(clip, ft, key, value):
     with pytest.raises(NotImplementedError, match=key):
         load_config(ft, overrides={'video_paths': clip, 'device': 'cpu',
@@ -233,8 +231,6 @@ def test_frame_wise_extractors_refuse_compute_dtype_without_load_config(tmp_path
 
 
 @pytest.mark.parametrize('key,value', [('data_parallel', True),
-                                       ('decode_workers', 2),
-                                       ('pack_across_videos', True),
                                        ('sequence_parallel', True)])
 def test_timm_unported_keys_raise_naming_themselves(clip, key, value):
     with pytest.raises(NotImplementedError, match=key):
@@ -330,3 +326,116 @@ def test_same_checkpoint_bytes_at_a_new_path_skip(clip, tmp_path, capsys):
     capsys.readouterr()
     assert _resnet18(tmp_path, moved).is_already_exist(clip)
     assert 'already exist' in capsys.readouterr().out
+
+
+# -- the JAX package's knobs: ported, or refused by name ---------------------
+
+def _jax_knobs():
+    """Every knob the JAX package injects into a merged config or
+    classifies, with its default (None where it injects none)."""
+    from video_features_tpu import config as jax_config
+    knobs = {}
+    for table in (jax_config.CACHE_DEFAULTS, jax_config.AOT_DEFAULTS,
+                  jax_config.INDEX_DEFAULTS, jax_config.OBS_DEFAULTS,
+                  jax_config.PIPELINE_DEFAULTS, jax_config.FARM_DEFAULTS):
+        knobs.update(table)
+    for key in jax_config.KNOB_CLASSIFICATION:
+        knobs.setdefault(key, None)
+    return knobs
+
+
+# what the port implements of them (compilation_cache_dir: its default or
+# null, the port keeping no XLA cache)
+PORT_IMPLEMENTS = {'video_paths', 'file_with_video_paths', 'output_path',
+                   'tmp_path', 'keep_tmp_files', 'device', 'show_pred',
+                   'allow_random_weights', 'compute_dtype', 'inflight',
+                   'decode_workers', 'pack_across_videos', 'pack_decode_ahead',
+                   'profile', 'compilation_cache_dir'}
+
+
+def test_every_jax_knob_is_ported_or_refused_at_the_jax_default():
+    """The port's table of refused knobs is the JAX package's knobs less
+    what the port implements, each at the JAX package's default; a knob
+    the JAX package adds fails this test until the port takes a side."""
+    from video_features_torch.config import UNPORTED_DEFAULTS
+    knobs = _jax_knobs()
+    # sequence_parallel is a key of the JAX timm YAML, not a classified knob
+    assert set(knobs) - PORT_IMPLEMENTS == set(UNPORTED_DEFAULTS) - {'sequence_parallel'}
+    for key, default in UNPORTED_DEFAULTS.items():
+        # a knob the JAX package injects no default for is off when absent
+        assert knobs.get(key) in ((default, None) if not default else (default,)), key
+
+
+def _other_value(default):
+    if isinstance(default, bool):
+        return not default
+    if default is None:
+        return 'x'
+    if isinstance(default, (int, float)):
+        return default + 1
+    return default + '_elsewhere'
+
+
+def _refused():
+    from video_features_torch.config import UNPORTED_DEFAULTS
+    return [(k, _other_value(v)) for k, v in sorted(UNPORTED_DEFAULTS.items())] + [
+        ('compilation_cache_dir', '/tmp/xla')]
+
+
+@pytest.mark.parametrize('key,value', _refused())
+def test_every_unported_jax_key_raises_naming_itself(clip, key, value):
+    with pytest.raises(NotImplementedError, match=key):
+        load_config('resnet', overrides=_family_overrides(clip, 'resnet', **{key: value}))
+
+
+@pytest.mark.parametrize('ft', PORTED)
+def test_a_jax_yaml_of_defaults_loads(clip, tmp_path, ft):
+    """The JAX package's YAML for the family, with every knob it injects
+    at its default, loads in the port (its device set to the CPU)."""
+    import yaml
+    from video_features_tpu.config import CONFIG_DIR
+    overrides = {k: v for k, v in _jax_knobs().items() if v is not None}
+    overrides.update(yaml.safe_load((CONFIG_DIR / f'{ft}.yml').read_text()))
+    overrides.update(_family_overrides(clip, ft, output_path=str(tmp_path),
+                                       tmp_path=str(tmp_path / 'tmp')))
+    args = load_config(ft, overrides=overrides)
+    assert args['inflight'] == 2 and args['pack_across_videos'] is False
+
+
+@pytest.mark.parametrize('key', ['inflight', 'decode_workers', 'pack_decode_ahead'])
+@pytest.mark.parametrize('value', [0, -1])
+def test_pipeline_depths_must_be_positive(clip, key, value):
+    with pytest.raises(ValueError, match=f'{key} must be >= 1'):
+        load_config('resnet', overrides=_family_overrides(clip, 'resnet', **{key: value}))
+
+
+def test_pipeline_defaults_are_injected(clip):
+    """inflight 2, decode_workers 1 (2 for i3d, as its JAX YAML ships),
+    packing off, lookahead 2, profile off, in every family's config."""
+    from video_features_torch.extract.resnet import ExtractResNet
+    for ft in PORTED:
+        args = load_config(ft, overrides=_family_overrides(clip, ft))
+        assert (args['inflight'], args['decode_workers'], args['pack_across_videos'],
+                args['pack_decode_ahead'], args['profile']) == (
+            2, 2 if ft == 'i3d' else 1, False, 2, False), ft
+    ex = ExtractResNet({'feature_type': 'resnet', 'model_name': 'resnet18',
+                        'device': 'cpu', 'allow_random_weights': True,
+                        'output_path': 'unused', 'inflight': 3})
+    assert (ex.inflight, ex.decode_workers, ex.tracer.enabled) == (3, 1, False)
+
+
+@pytest.mark.parametrize('ft', ['i3d', 'r21d', 's3d', 'resnet', 'clip', 'timm'])
+def test_decode_farm_with_packing_is_refused_naming_decode_workers(clip, ft):
+    """decode_workers > 1 with pack_across_videos is the JAX package's
+    decode farm: refused by name; alone it runs the per-video threads."""
+    with pytest.raises(NotImplementedError, match='decode_workers'):
+        load_config(ft, overrides=_family_overrides(
+            clip, ft, pack_across_videos=True, decode_workers=2))
+    args = load_config(ft, overrides=_family_overrides(clip, ft, decode_workers=3))
+    assert args['decode_workers'] == 3
+
+
+def test_fused_features_on_the_cli_are_refused_by_name(clip):
+    from video_features_torch.cli import main
+    with pytest.raises(NotImplementedError, match='features'):
+        main(['features=[resnet,clip]', f'video_paths={clip}', 'device=cpu'])

@@ -84,11 +84,11 @@ def test_extract_frames_windows_and_padded_tail(tmp_path, monkeypatch):
     seen = []
 
     def step(stacks):
-        seen.append(stacks.shape)
-        first = stacks[:, 0, 0, 0, 0].astype(np.float32)
-        return {'rgb': np.repeat(first[:, None], 1024, axis=1)}
+        seen.append(tuple(stacks.shape))
+        first = stacks[:, 0, 0, 0, 0].float()
+        return {'rgb': first[:, None].repeat(1, 1024)}
 
-    monkeypatch.setattr(ex, 'step', step)
+    monkeypatch.setattr(ex, 'packed_step', step)
     frames = np.arange(49, dtype=np.uint8)[:, None, None, None] * np.ones(
         (1, 4, 5, 3), np.uint8)
     batches = [(list(frames[i:i + 16]), None, None) for i in range(0, 49, 16)]

@@ -108,10 +108,10 @@ def test_extract_frames_windows_and_empty_video(tmp_path, monkeypatch):
     seen = []
 
     def step(stacks):
-        seen.append(stacks.shape)
-        return np.repeat(stacks[:, 0, 0, 0, :1].astype(np.float32), 512, axis=1)
+        seen.append(tuple(stacks.shape))
+        return {'r21d': stacks[:, 0, 0, 0, :1].float().repeat(1, 512)}
 
-    monkeypatch.setattr(ex, 'step', step)
+    monkeypatch.setattr(ex, 'packed_step', step)
     frames = np.arange(34, dtype=np.uint8)[:, None, None, None] * np.ones(
         (1, 4, 5, 3), np.uint8)
     feats = ex.extract_frames([(list(frames), None, None)])['r21d']

@@ -204,7 +204,7 @@ def test_config_defaults_and_checks(tmp_path):
                             ('extraction_total', 5, None),
                             ('data_parallel', True, NotImplementedError),
                             ('decode_backend', 'gpu', ValueError),
-                            ('decode_workers', 4, NotImplementedError)):
+                            ('decode_workers', 0, ValueError)):
         overrides = dict(base, **{key: value})
         if err is None:          # with extraction_fps: mutually exclusive
             overrides['extraction_fps'] = 10

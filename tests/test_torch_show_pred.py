@@ -78,7 +78,8 @@ def test_r21d_table_matches_jax(tmp_path, capsys, monkeypatch):
     assert_same_table(got, capsys.readouterr().out)
     assert table(got)[0] == ['At frames (16, 32)'] and len(table(got)[1]) == 5
 
-    monkeypatch.setattr(ex, 'step', lambda stacks: np.tile(feats, (len(stacks), 1)))
+    monkeypatch.setattr(ex, 'packed_step', lambda stacks: {
+        'r21d': torch.from_numpy(np.tile(feats, (len(stacks), 1)))})
     frames = np.zeros((33, 8, 8, 3), np.uint8)
     ex.extract_frames([(list(frames), None, None)])
     heads, rows = table(capsys.readouterr().out)

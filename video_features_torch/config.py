@@ -1,6 +1,11 @@
-"""Configuration: YAML defaults ← dotlist CLI overrides, then
-``sanity_check`` (the i3d, r21d, s3d, raft, resnet, clip, timm and
-vggish subset of ``video_features_tpu/config.py``).
+"""Configuration: YAML defaults ← injected pipeline defaults ← dotlist
+CLI overrides, then ``sanity_check`` (the i3d, r21d, s3d, raft, resnet,
+clip, timm and vggish subset of ``video_features_tpu/config.py``).
+
+Every knob of the JAX package that the port does not implement is
+refused by name when it is set away from the JAX package's default
+(:func:`check_unported_keys`), so a JAX YAML of defaults loads and a
+request for a cache, a trace or a second GPU never passes silently.
 
 ``yaml`` is imported inside the functions that parse, so the package
 imports on machines without it.
@@ -11,10 +16,10 @@ import os
 import random
 import warnings
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple, Union
 
 from video_features_torch.io.video import DECODE_BACKENDS
-from video_features_torch.registry import EXTRACTORS
+from video_features_torch.registry import EXTRACTORS, PACKED_FEATURES
 
 CONFIG_DIR = Path(__file__).parent / 'configs'
 
@@ -56,6 +61,8 @@ def load_config(feature_type: Optional[str] = None,
             f'Known: {", ".join(EXTRACTORS)}')
     with open(path) as f:
         args = dict(yaml.safe_load(f) or {})
+    for key, value in PIPELINE_DEFAULTS.items():
+        args.setdefault(key, value)
     args.update(overrides)
     if run_sanity_check:
         sanity_check(args)
@@ -86,35 +93,85 @@ def form_list_from_user_input(
     return path_list
 
 
+# injected into every merged config, as the JAX package does; a family's
+# YAML may carry its own value (i3d ships decode_workers: 2)
+PIPELINE_DEFAULTS: Dict[str, Any] = {
+    'inflight': 2,               # dispatched steps whose readback is deferred; 1 = synchronous
+    'decode_workers': 1,         # per-video loop: threads of the per-frame host transform
+    'pack_across_videos': False,  # the batch-major corpus loop (parallel/packing.py)
+    'pack_decode_ahead': 2,      # packed decode lookahead, in device batches of windows
+    'profile': False,            # stage table on stderr after each video or packed run
+}
+
+# the JAX package's knobs the port does not implement, with the JAX
+# package's default: any other value raises NotImplementedError naming
+# the key (its cache, executable store, feature index, flight recorder,
+# SLOs, meshes, several hosts, serving, decode farm and fused worklists)
+UNPORTED_DEFAULTS: Dict[str, Any] = {
+    'cache_enabled': False, 'cache_dir': '~/.cache/video_features_tpu/features',
+    'cache_max_bytes': None, 'cache_l2_dir': None,
+    'aot_enabled': False, 'aot_dir': '~/.cache/video_features_tpu/executables',
+    'aot_max_bytes': None, 'aot_l2_dir': None,
+    'index_enabled': False, 'index_dir': None, 'index_shard_rows': 1024,
+    'index_poll_s': 0.5, 'index_query_block': 8, 'index_k_max': 10,
+    'trace_out': None, 'trace_capacity': 200_000, 'manifest_out': None,
+    'postmortem_dir': None, 'postmortem_max_bytes': 64 * (1 << 20),
+    'watchdog_stall_s': None, 'slo_latency_p99_s': None,
+    'slo_availability': None, 'profile_dir': None,
+    'mesh_devices': 1, 'device_ids': None, 'multihost': False,
+    'coordinator_address': None, 'num_processes': None, 'process_id': None,
+    'data_parallel': False, 'sequence_parallel': False,
+    'decode_farm_ring_mb': 64, 'features': None, 'timeout_s': None,
+    'config': None,
+}
+# the JAX default, and null (off), which is what the port does: it keeps
+# no compilation cache
+COMPILATION_CACHE_DIRS = ('~/.cache/video_features_tpu/xla', None)
+
 RAFT_FINETUNED_ON = ('sintel', 'kitti')
 # the JAX package's compute_dtype values; the port computes in float32 only
 COMPUTE_DTYPES = ('float32', 'bfloat16', 'int8')
 AUDIO_BACKENDS = ('auto', 'ffmpeg', 'native')
 
 
-def check_unported_keys(args: Dict[str, Any]) -> None:
+def check_pipeline_keys(args: Mapping[str, Any]) -> Tuple[int, int]:
+    """``(inflight, decode_workers)``, each an int >= 1, as the JAX
+    package requires; ``pack_decode_ahead`` must be >= 1 too."""
+    values = []
+    for key in ('inflight', 'decode_workers', 'pack_decode_ahead'):
+        value = args.get(key)
+        value = PIPELINE_DEFAULTS[key] if value is None else int(value)
+        if value < 1:
+            raise ValueError(f'{key} must be >= 1; got {value}')
+        values.append(value)
+    return values[0], values[1]
+
+
+def check_unported_keys(args: Mapping[str, Any]) -> None:
     """Keys of the JAX package's configs that the port does not implement
-    yet raise ``NotImplementedError`` naming the key."""
-    if args.get('data_parallel'):
+    raise ``NotImplementedError`` naming the key when set away from the
+    JAX package's default."""
+    for key, default in UNPORTED_DEFAULTS.items():
+        if args.get(key, default) != default:
+            raise NotImplementedError(
+                f'{key}={args[key]!r} is not ported yet (the JAX package\'s '
+                f'default is {default!r}); see the README\'s port section')
+    if args.get('compilation_cache_dir') not in COMPILATION_CACHE_DIRS:
         raise NotImplementedError(
-            'data_parallel=true is not ported yet: run with data_parallel=false')
-    if args.get('pack_across_videos'):
-        raise NotImplementedError(
-            'pack_across_videos=true is not ported yet: run with '
-            'pack_across_videos=false')
+            f'compilation_cache_dir={args["compilation_cache_dir"]!r} is not '
+            'ported yet: the port keeps no compilation cache; run with '
+            'compilation_cache_dir=null')
     backend = args.get('decode_backend') or 'auto'
     if backend not in DECODE_BACKENDS:
         raise ValueError(f'decode_backend must be one of {DECODE_BACKENDS}; '
                          f'got {backend!r}')
-    if int(args.get('decode_workers') or 1) > 1:
+    _, workers = check_pipeline_keys(args)
+    if args.get('pack_across_videos') and workers > 1:
         raise NotImplementedError(
-            'decode_workers > 1 is not ported yet: run with decode_workers=1')
-    if args.get('sequence_parallel'):
-        raise NotImplementedError(
-            'sequence_parallel=true is not ported yet (ROADMAP Queue A 4: '
-            'ring attention over several GPUs): run with '
-            'sequence_parallel=false; one GPU attends long token sequences '
-            'blockwise')
+            f'decode_workers={workers} with pack_across_videos=true is the '
+            'multi-process decode farm, which is not ported yet: run with '
+            'decode_workers=1 (the per-video loop runs decode_workers '
+            'transform threads)')
     dtype = args.get('compute_dtype')
     if dtype is not None and dtype != 'float32':
         if dtype not in COMPUTE_DTYPES:
@@ -124,6 +181,23 @@ def check_unported_keys(args: Dict[str, Any]) -> None:
             f'compute_dtype={dtype} is not ported yet (ROADMAP Queue A 5, '
             f'precision lanes): the port computes in float32 only; run with '
             f'compute_dtype=float32')
+
+
+def gate_packing(args: Dict[str, Any]) -> None:
+    """``pack_across_videos`` on a family without a packed loop, or with
+    the per-video ``show_pred`` surface, warns and runs the per-video
+    loop, as the JAX package does."""
+    if not args.get('pack_across_videos'):
+        return
+    ft = args.get('feature_type')
+    if ft not in PACKED_FEATURES:
+        warnings.warn(f'pack_across_videos is not implemented for {ft} — '
+                      'running the per-video loop')
+        args['pack_across_videos'] = False
+    elif args.get('show_pred'):
+        warnings.warn('show_pred is incompatible with pack_across_videos — '
+                      'running the per-video loop')
+        args['pack_across_videos'] = False
 
 
 def check_raft_args(args: Dict[str, Any]) -> None:
@@ -173,6 +247,7 @@ def sanity_check(args: Dict[str, Any]) -> None:
         raise ValueError('Non-unique video filenames (stems collide in the '
                          'flat output dir)')
     ft = args.get('feature_type')
+    gate_packing(args)
     if ft == 'raft':
         check_raft_args(args)
     elif ft == 'vggish':

@@ -10,7 +10,28 @@ output (a slim port of ``video_features_tpu/extract/base.py``).
   * ``is_already_exist`` requires every output file present *and
     loadable*, and a recorded fingerprint equal to this run's: the
     family's feature-shaping config values and its checkpoints' content
-    (:func:`run_fingerprint`).
+    (:func:`run_fingerprint`);
+  * the device loop's two ends: :meth:`~BaseExtractor.put_input` (the
+    copy to the card, on the producer thread) and
+    :meth:`~BaseExtractor.dispatch` / :meth:`~BaseExtractor.fetch_outputs`
+    (the launch and the deferred readback, on the consumer thread), and
+    :meth:`~BaseExtractor.run_batches`, the per-video loop over them;
+  * the packed corpus mode (``pack_across_videos``): the hooks a family
+    implements and :meth:`~BaseExtractor.extract_packed`, which runs
+    ``parallel.packing.run_packed``.
+
+On the card, ``put_input`` copies from pinned host memory on a copy
+stream of its own and records an event; the consumer's stream waits on
+that event before the step and the caching allocator is told the tensor
+is used there (``record_stream``). ``dispatch`` records an event after
+the step and starts the outputs' copy into pinned host memory on a
+second copy stream that waits on it, so ``fetch_outputs`` waits for
+that one step, never for the steps launched after it. Each object keeps
+the tensors its copies read or write referenced until they are done.
+
+A CUDA error is not a per-video fault: after an illegal address or a
+failed launch every later batch fails too, so :func:`is_device_fault`
+errors end the run instead of "Continuing...".
 """
 from __future__ import annotations
 
@@ -21,10 +42,15 @@ import sys
 import traceback
 import warnings
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Mapping, Union
+from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Union
 
 import numpy as np
+import torch
 
+from video_features_torch.config import check_pipeline_keys
+from video_features_torch.extract.streaming import (
+    overlap_fetch, stream_windows, transfer_batches,
+)
 from video_features_torch.utils.device import resolve_device, set_precision
 from video_features_torch.utils.fingerprint import (
     is_file_key, weights_fingerprint,
@@ -33,6 +59,7 @@ from video_features_torch.utils.output import (
     ACTION_TO_EXT, ACTION_TO_LOAD, ACTION_TO_SAVE, CorruptOutputError,
     make_path, read_fingerprint, write_fingerprint,
 )
+from video_features_torch.utils.tracing import NULL_TRACER, Tracer
 
 ACTIONS = ('print',) + tuple(ACTION_TO_EXT)
 
@@ -74,6 +101,63 @@ def run_fingerprint(args: Any, keys: Iterable[str]) -> str:
         f'cfg:{cfg}|w:{weights_fingerprint(args, keys)}'.encode()).hexdigest()
 
 
+def is_device_fault(e: BaseException) -> bool:
+    """True for an error of the CUDA runtime, cuDNN or cuBLAS, or of a
+    kernel's launch: the card's context may be lost, so the run ends
+    instead of going on to the next video."""
+    accelerator_error = getattr(torch, 'AcceleratorError', None)
+    if accelerator_error is not None and isinstance(e, accelerator_error):
+        return True
+    msg = str(e)
+    return isinstance(e, RuntimeError) and any(
+        key in msg for key in ('CUDA', 'cuDNN', 'CUBLAS', 'failed to launch'))
+
+
+def log_extraction_error(video_path) -> None:
+    """The per-video fault report: the traceback and "Continuing..." on
+    stderr."""
+    traceback.print_exc()
+    print(f'An error occurred during extraction of {video_path}. '
+          'Continuing...', file=sys.stderr)
+
+
+class DeviceBatch:
+    """One input batch that ``put_input`` placed on the device. On the
+    card it holds the copy's event and the pinned host tensor the copy
+    reads, which stays referenced as long as the batch is."""
+
+    __slots__ = ('tensor', 'copied', 'pinned')
+
+    def __init__(self, tensor: torch.Tensor, copied=None, pinned=None):
+        self.tensor, self.copied, self.pinned = tensor, copied, pinned
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.tensor.shape
+
+    def take(self) -> torch.Tensor:
+        """The tensor, for the consumer's current stream: that stream
+        waits for the copy, and the caching allocator learns the tensor
+        is used there, so its memory is not reused before the step ends."""
+        if self.copied is not None:
+            stream = torch.cuda.current_stream(self.tensor.device)
+            stream.wait_event(self.copied)
+            self.tensor.record_stream(stream)
+        return self.tensor
+
+
+class Readback:
+    """A dispatched step's outputs on their way to the host: the device
+    outputs and the input batch stay referenced until ``done`` (the
+    copy into ``host``) has completed."""
+
+    __slots__ = ('out', 'host', 'done', 'inputs')
+
+    def __init__(self, out: Dict[str, torch.Tensor], host=None, done=None,
+                 inputs: Optional[DeviceBatch] = None):
+        self.out, self.host, self.done, self.inputs = out, host, done, inputs
+
+
 class BaseExtractor:
     """Common per-video orchestration inherited by every extractor."""
 
@@ -96,6 +180,97 @@ class BaseExtractor:
         self.keep_tmp_files = bool(args.get('keep_tmp_files', False))
         self.decode_backend = args.get('decode_backend') or 'auto'
         self.run_fingerprint = None
+        # inflight: dispatched steps whose readback is deferred (1 =
+        # synchronous); decode_workers: threads of the per-frame host
+        # transform in the per-video loop
+        self.inflight, self.decode_workers = check_pipeline_keys(args)
+        self.profile = bool(args.get('profile', False))
+        self.tracer = Tracer() if self.profile else NULL_TRACER
+        if self.device.type == 'cuda':
+            self._h2d_stream = torch.cuda.Stream(self.device)
+            self._d2h_stream = torch.cuda.Stream(self.device)
+
+    # -- the device loop ----------------------------------------------------
+
+    def put_input(self, batch: np.ndarray) -> DeviceBatch:
+        """Place one host batch on the device; safe on the producer
+        thread. On the card the batch is pinned and copied without
+        blocking on the extractor's copy stream."""
+        host = torch.from_numpy(np.ascontiguousarray(batch))
+        if self.device.type != 'cuda':
+            return DeviceBatch(host)
+        pinned = host.pin_memory()
+        with torch.cuda.stream(self._h2d_stream):
+            tensor = pinned.to(self.device, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self._h2d_stream)
+        return DeviceBatch(tensor, copied, pinned)
+
+    def dispatch(self, batch: DeviceBatch) -> Readback:
+        """Launch :meth:`packed_step` on a batch from :meth:`put_input`
+        and start its outputs' readback; returns without waiting for the
+        device. Call it in ``torch.inference_mode`` on the consumer
+        thread."""
+        out = self.packed_step(batch.take())
+        if self.device.type != 'cuda':
+            return Readback(out, inputs=batch)
+        step_done = torch.cuda.Event()
+        step_done.record(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._d2h_stream):
+            self._d2h_stream.wait_event(step_done)
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    for k, v in out.items()}
+            for k, v in out.items():
+                host[k].copy_(v, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._d2h_stream)
+        return Readback(out, host, done, batch)
+
+    def fetch_outputs(self, readback: Readback) -> Dict[str, np.ndarray]:
+        """A dispatched step's outputs as numpy arrays: waits for that
+        step's readback only. An error the step raised on the device
+        surfaces here."""
+        if readback.done is None:
+            return {k: v.numpy() for k, v in readback.out.items()}
+        readback.done.synchronize()
+        return {k: v.numpy().copy() for k, v in readback.host.items()}
+
+    def run_step(self, batch: np.ndarray) -> Dict[str, np.ndarray]:
+        """One synchronous step: put, dispatch, fetch."""
+        with torch.inference_mode():
+            return self.fetch_outputs(self.dispatch(self.put_input(batch)))
+
+    def run_batches(self, batches: Iterable[tuple], keep_host: bool = False,
+                    depth: Optional[int] = None) -> Iterator[tuple]:
+        """The per-video device loop. ``batches`` yields ``(host_batch,
+        *meta)``; a producer thread runs it and copies each batch to the
+        device, this thread dispatches each step, and the outputs come
+        back as ``(outputs, host_batch | None, *meta)``, in order,
+        ``depth`` dispatches later (default ``inflight``). A ``None``
+        batch comes back as ``None`` outputs, its meta in its place."""
+        def dispatched():
+            for dev, host, *meta in transfer_batches(
+                    batches, self.put_input, keep_host=keep_host,
+                    tracer=self.tracer):
+                readback = None
+                if dev is not None:
+                    with self.tracer.stage('model'), torch.inference_mode():
+                        readback = self.dispatch(dev)
+                yield (readback, host, *meta)
+
+        def fetch(readback):
+            return None if readback is None else self.fetch_outputs(readback)
+
+        return overlap_fetch(dispatched(), fetch,
+                             self.inflight if depth is None else depth,
+                             self.tracer)
+
+    def print_profile(self, title: str) -> None:
+        """With ``profile``, the stage table on stderr, then reset."""
+        if self.tracer.enabled and self.tracer.report():
+            print(f'--- stage timing: {title}', file=sys.stderr)
+            print(self.tracer.summary(), file=sys.stderr)
+            self.tracer.reset()
 
     def video_loader(self, video_path: str, **kwargs):
         """A :class:`~video_features_torch.io.video.VideoLoader` that
@@ -108,21 +283,71 @@ class BaseExtractor:
                            backend=self.decode_backend, **kwargs)
 
     def _extract(self, video_path: str) -> None:
-        """Fault-isolating wrapper around :meth:`extract` for the work loop."""
+        """Fault-isolating wrapper around :meth:`extract` for the work
+        loop; a device fault (:func:`is_device_fault`) ends the run."""
         try:
             if self.is_already_exist(video_path):
                 return
             feats_dict = self._maybe_concat_streams(self.extract(video_path))
-            self.action_on_extraction(feats_dict, video_path)
-        except KeyboardInterrupt:
-            raise
-        except Exception:
-            traceback.print_exc()
-            print(f'An error occurred during extraction of {video_path}. '
-                  'Continuing...', file=sys.stderr)
+            with self.tracer.stage('save'):
+                self.action_on_extraction(feats_dict, video_path)
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            log_extraction_error(video_path)
+        finally:
+            self.print_profile(str(video_path))
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         raise NotImplementedError
+
+    # -- packed corpus mode (pack_across_videos=true) -----------------------
+    #
+    # parallel.packing.run_packed fills every device batch across video
+    # boundaries and scatters the rows back per video. A family opts in
+    # with ``supports_packing = True`` and the hooks below.
+
+    supports_packing = False
+
+    def packed_batch_size(self) -> int:
+        """Window slots per packed device batch."""
+        return int(self.batch_size)
+
+    def packed_windows(self, task):
+        """Yield ``(window, meta)`` for one video in window order: the
+        host array one batch slot carries, and per-window metadata
+        scattered back beside the features (or None). Video-level
+        metadata goes in ``task.info``."""
+        raise NotImplementedError
+
+    def packed_step(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One step on a ``(B, ...)`` device batch → ``{key: (B, D)}``
+        device tensors; launches and returns without waiting."""
+        raise NotImplementedError
+
+    def packed_result(self, task) -> Dict[str, np.ndarray]:
+        """One video's feats_dict from its scattered rows (``task.rows``,
+        ``task.meta_rows``, ``task.info``): what :meth:`extract` returns
+        for it."""
+        raise NotImplementedError
+
+    def extract_packed(self, video_paths: Iterable, decode_ahead: int = 2,
+                       batch_size: Optional[int] = None,
+                       inflight: Optional[int] = None) -> None:
+        """Run the whole worklist batch-major (``parallel.packing``):
+        ``video_paths`` yields paths or ``VideoTask`` objects;
+        ``inflight`` overrides the extractor's readback depth."""
+        if not self.supports_packing:
+            raise NotImplementedError(
+                f'{type(self).__name__} does not support pack_across_videos')
+        if self.decode_workers > 1:
+            raise NotImplementedError(
+                f'decode_workers={self.decode_workers} with '
+                'pack_across_videos=true is the multi-process decode farm, '
+                'which is not ported yet: run with decode_workers=1')
+        from video_features_torch.parallel.packing import run_packed
+        run_packed(self, video_paths, batch_size=batch_size,
+                   decode_ahead=decode_ahead, inflight=inflight)
 
     def _maybe_concat_streams(self, feats_dict: Dict[str, np.ndarray]
                               ) -> Dict[str, np.ndarray]:
@@ -134,9 +359,13 @@ class BaseExtractor:
         return feats_dict
 
     def action_on_extraction(self, feats_dict: Dict[str, np.ndarray],
-                             video_path: str) -> None:
+                             video_path: str,
+                             output_path: Optional[str] = None) -> None:
+        """Print or save one video's features; ``output_path`` (default:
+        the run's) routes this video's files elsewhere."""
+        out_root = output_path or self.output_path
         if self.on_extraction in ACTION_TO_EXT and \
-                self.is_already_exist(video_path):
+                self.is_already_exist(video_path, output_path=out_root):
             # a concurrent worker finished this video while we extracted it
             warnings.warn('extraction didnt find feature files on the 1st '
                           f'try but did on the 2nd try: {video_path}')
@@ -149,24 +378,26 @@ class BaseExtractor:
                       f'min: {value.min():.8f}')
                 print()
                 continue
-            os.makedirs(self.output_path, exist_ok=True)
-            fpath = make_path(self.output_path, video_path, key,
+            os.makedirs(out_root, exist_ok=True)
+            fpath = make_path(out_root, video_path, key,
                               ACTION_TO_EXT[self.on_extraction])
             if np.ndim(value) and len(value) == 0:    # 'fps' is 0-d
                 warnings.warn(f'the value is empty for {key} @ {fpath}')
             ACTION_TO_SAVE[self.on_extraction](fpath, value)
         if self.on_extraction in ACTION_TO_EXT \
                 and self.run_fingerprint is not None:
-            write_fingerprint(self.output_path, video_path,
-                              self.run_fingerprint)
+            write_fingerprint(out_root, video_path, self.run_fingerprint)
 
-    def is_already_exist(self, video_path: Union[str, Path]) -> bool:
-        """True iff every output file exists and loads cleanly, and no
-        sidecar says a different config produced them."""
+    def is_already_exist(self, video_path: Union[str, Path],
+                         output_path: Optional[str] = None) -> bool:
+        """True iff every output file under ``output_path`` (default: the
+        run's) exists and loads cleanly, and no sidecar says a different
+        config produced them."""
         if self.on_extraction not in ACTION_TO_EXT:
             return False
+        out_root = output_path or self.output_path
         for key in self._saved_feat_keys():
-            fpath = make_path(self.output_path, video_path, key,
+            fpath = make_path(out_root, video_path, key,
                               ACTION_TO_EXT[self.on_extraction])
             if not Path(fpath).exists():
                 return False
@@ -176,7 +407,7 @@ class BaseExtractor:
                 warnings.warn(f'existing output failed to load; '
                               f're-extracting ({e})')
                 return False
-        recorded = read_fingerprint(self.output_path, video_path)
+        recorded = read_fingerprint(out_root, video_path)
         if recorded is not None and self.run_fingerprint is not None \
                 and recorded != self.run_fingerprint:
             warnings.warn(f'Existing outputs for {video_path} were produced '
@@ -184,7 +415,7 @@ class BaseExtractor:
                           're-extracting instead of reusing them')
             return False
         print(f'Features for {video_path} already exist in '
-              f'{Path(self.output_path).absolute()}/ - skipping..')
+              f'{Path(out_root).absolute()}/ - skipping..')
         return True
 
     def _saved_feat_keys(self) -> List[str]:
@@ -193,3 +424,26 @@ class BaseExtractor:
         if self.concat_rgb_flow and 'rgb' in keys and 'flow' in keys:
             keys.remove('flow')
         return keys
+
+
+class StackPackingMixin:
+    """The packed hooks of the stack families that window raw decoded
+    frames (r21d, s3d): one window is a ``(stack_size, H, W, 3)`` frame
+    stack; the class sets ``packed_feat_dim`` and provides
+    ``packed_step``."""
+
+    supports_packing = True
+    packed_feat_dim = 0
+
+    def packed_windows(self, task):
+        with self.video_loader(task.path, batch_size=64,
+                               fps=self.extraction_fps) as loader:
+            for window in stream_windows(loader, self.stack_size,
+                                         self.step_size):
+                yield window, None
+
+    def packed_result(self, task) -> Dict[str, np.ndarray]:
+        rows = task.rows.get(self.feature_type, [])
+        return {self.feature_type: (
+            np.stack(rows) if rows
+            else np.zeros((0, self.packed_feat_dim), np.float32))}

@@ -8,8 +8,15 @@ of ``video_features_tpu/extract/framewise.py``.
     backbone) → one row per frame;
   * outputs ``{feature_type: (T, D) float32, 'fps', 'timestamps_ms'}``,
     with ``(0, D)`` for a video with no frames;
-  * the tail batch runs at its own size: nothing is compiled for a
-    batch shape, and each row depends on its own frame only.
+  * the tail batch is padded to ``batch_size`` by repeating its last
+    frame, as in the JAX package, so the per-video and the packed loop
+    run the same step shapes and give the same bytes;
+  * the per-video loop decodes and transforms (over ``decode_workers``
+    threads) and copies batch k+1 on a producer thread while the card
+    runs batch k, and reads each step back ``inflight`` steps later;
+  * the packed loop (``pack_across_videos``) packs single frames across
+    videos: a window's meta is its timestamp, ``fps`` rides in
+    ``task.info``.
 """
 from __future__ import annotations
 
@@ -22,9 +29,12 @@ from video_features_torch.config import check_unported_keys
 from video_features_torch.extract.base import (
     FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
 )
+from video_features_torch.extract.streaming import framewise_windows
 
 
 class BaseFrameWiseExtractor(BaseExtractor):
+
+    supports_packing = True
 
     def __init__(self, args, feat_dim: int) -> None:
         super().__init__(args)
@@ -50,29 +60,42 @@ class BaseFrameWiseExtractor(BaseExtractor):
     def maybe_show_pred(self, feats: np.ndarray) -> None:
         pass
 
-    def step(self, frames: np.ndarray) -> np.ndarray:
-        """(B, H, W, 3) host-transformed uint8 frames → (B, D) features."""
-        x = torch.from_numpy(frames).to(self.device)
-        with torch.inference_mode():
-            return self.device_step(x).cpu().numpy()
+    def packed_step(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {self.feature_type: self.device_step(frames)}
+
+    def _loader(self, video_path: str):
+        return self.video_loader(video_path, batch_size=self.batch_size,
+                                 fps=self.extraction_fps,
+                                 total=self.extraction_total,
+                                 transform=self.host_transform,
+                                 transform_workers=self.decode_workers)
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         """Decode in ``batch_size`` batches through :meth:`host_transform`,
         then :meth:`extract_frames`."""
-        with self.video_loader(video_path, batch_size=self.batch_size,
-                               fps=self.extraction_fps,
-                               total=self.extraction_total,
-                               transform=self.host_transform) as loader:
+        with self._loader(video_path) as loader:
             return self.extract_frames(loader, loader.fps)
 
     def extract_frames(self, batches: Iterable, fps: float
                        ) -> Dict[str, np.ndarray]:
         """Batches ``(frames, times_ms, indices)`` of host-transformed
         uint8 frames (the loader protocol) → ``{feature_type: (T, D),
-        'fps', 'timestamps_ms'}``; each batch is one step."""
+        'fps', 'timestamps_ms'}``; each batch is one step, a short one
+        padded to ``batch_size``."""
+        def assembled():
+            for frames, times, _ in self.tracer.wrap_iter('decode+preprocess',
+                                                          batches):
+                batch = np.stack(frames)
+                valid = len(batch)
+                if valid < self.batch_size:
+                    pad = np.repeat(batch[-1:], self.batch_size - valid, axis=0)
+                    batch = np.concatenate([batch, pad], axis=0)
+                yield batch, valid, times
+
         feats, timestamps = [], []
-        for frames, times, _ in batches:
-            out = self.step(np.stack(frames))
+        for out, _, valid, times in self.run_batches(
+                assembled(), depth=1 if self.show_pred else None):
+            out = out[self.feature_type][:valid]
             feats.append(out)
             timestamps.extend(times)
             if self.show_pred:
@@ -81,3 +104,15 @@ class BaseFrameWiseExtractor(BaseExtractor):
                     else np.zeros((0, self.feat_dim), np.float32))
         return {self.feature_type: features, 'fps': np.array(fps),
                 'timestamps_ms': np.array(timestamps)}
+
+    def packed_windows(self, task):
+        with self._loader(task.path) as loader:
+            task.info['fps'] = loader.fps
+            yield from framewise_windows(loader)
+
+    def packed_result(self, task) -> Dict[str, np.ndarray]:
+        rows = task.rows.get(self.feature_type, [])
+        return {self.feature_type: (np.stack(rows) if rows
+                                    else np.zeros((0, self.feat_dim), np.float32)),
+                'fps': np.array(task.info.get('fps', 0.0)),
+                'timestamps_ms': np.array(task.meta_rows)}

@@ -15,6 +15,11 @@
   * ``step_size`` < ``stack_size`` overlaps windows; a partial final
     stack is dropped; ``batch_size`` windows run per step, the tail
     batch padded and masked;
+  * the per-video loop decodes (``decode_workers`` resize threads) and
+    copies batch k+1 on a producer thread while the card runs batch k,
+    and reads each step back ``inflight`` steps later (1 under
+    ``show_pred``); the packed loop (``pack_across_videos``) runs the
+    same step on batches filled across videos, grouped by geometry;
   * ``show_pred`` prints each stream's Kinetics top-5 per window batch
     and writes the first pair's flow as a PNG under
     ``<output_path>/flow_debug/``.
@@ -38,7 +43,9 @@ from video_features_torch.extract.streaming import (
 )
 from video_features_torch.models import i3d as i3d_model
 from video_features_torch.models import raft as raft_model
-from video_features_torch.ops.host_transforms import pil_edge_resize_geometry
+from video_features_torch.ops.host_transforms import (
+    pil_edge_resize_geometry, resize_pil,
+)
 from video_features_torch.ops.transforms import (
     center_crop, flow_to_uint8_levels, pil_resize_bilinear_device,
     scale_to_pm1,
@@ -95,6 +102,8 @@ def fused_two_stream_step(params, stacks: torch.Tensor, pads,
 
 class ExtractI3D(BaseExtractor):
 
+    supports_packing = True
+
     def __init__(self, args) -> None:
         super().__init__(args)
         streams = args.get('streams')
@@ -117,6 +126,7 @@ class ExtractI3D(BaseExtractor):
         self.params = to_device(self.load_params(args), self.device)
         self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['i3d'])
         self._viz_stem = 'frames'
+        self._geometries: Dict[Tuple[int, int], tuple] = {}
 
     def load_params(self, args):
         """{'rgb': i3d params, 'flow': i3d params, 'raft': raft params}."""
@@ -137,26 +147,35 @@ class ExtractI3D(BaseExtractor):
                 feature_type='i3d', what='i3d flow stream (raft)')
         return params
 
+    def _loader(self, video_path: str):
+        """The video's loader: frames resized to short side 256 on the
+        host (PIL, over ``decode_workers`` threads) unless
+        ``device_resize``."""
+        return self.video_loader(
+            video_path, batch_size=64, fps=self.extraction_fps,
+            transform=(None if self.device_resize
+                       else lambda f: resize_pil(f, MIN_SIDE_SIZE)),
+            transform_workers=self.decode_workers)
+
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         """Decode (cv2), resize to short side 256 on the host (PIL) unless
         ``device_resize``, then :meth:`extract_frames`."""
-        from video_features_torch.ops.host_transforms import resize_pil
         self._viz_stem = Path(video_path).stem
-        with self.video_loader(
-                video_path, batch_size=64, fps=self.extraction_fps,
-                transform=(None if self.device_resize
-                           else lambda f: resize_pil(f, MIN_SIDE_SIZE))) as loader:
+        with self._loader(video_path) as loader:
             return self.extract_frames(loader)
 
     def extract_frames(self, batches: Iterable) -> Dict[str, np.ndarray]:
         """Frame batches ``(frames, times, indices)`` (the loader protocol;
         only ``frames``, a sequence of HWC uint8 frames, is read) →
-        ``{stream: (T, 1024)}``."""
+        ``{stream: (T, 1024)}``, through the asynchronous loop
+        (:meth:`~video_features_torch.extract.base.BaseExtractor.run_batches`)."""
         feats: Dict[str, list] = {s: [] for s in self.streams}
-        windows = stream_windows(batches, self.stack_size + 1, self.step_size)
-        for stacks, valid, window_idx in iter_batched_windows(windows,
-                                                              self.batch_size):
-            out = self.step(stacks)
+        windows = stream_windows(self.tracer.wrap_iter('decode+preprocess', batches),
+                                 self.stack_size + 1, self.step_size)
+        for out, stacks, valid, window_idx in self.run_batches(
+                iter_batched_windows(windows, self.batch_size),
+                keep_host=self.show_pred,
+                depth=1 if self.show_pred else None):
             for s in self.streams:
                 feats[s].append(out[s][:valid])
             if self.show_pred:
@@ -166,22 +185,41 @@ class ExtractI3D(BaseExtractor):
                 for s, v in feats.items()}
 
     def geometry(self, h: int, w: int):
-        """(resize_to, pads) of (h, w) frames: the device resize's target
-        (None when the host resized them, or when PIL's resize is a
-        no-op) and RAFT's /8 pads of the frames it then sees."""
-        resize_to = (pil_edge_resize_geometry(h, w, MIN_SIDE_SIZE)
-                     if self.device_resize else None)
-        return resize_to, raft_model.pad_amounts(*(resize_to or (h, w)))
+        """(resize_to, pads) of (h, w) frames, cached per geometry for
+        both loops: the device resize's target (None when the host
+        resized them, or when PIL's resize is a no-op) and RAFT's /8 pads
+        of the frames it then sees."""
+        geom = self._geometries.get((h, w))
+        if geom is None:
+            resize_to = (pil_edge_resize_geometry(h, w, MIN_SIDE_SIZE)
+                         if self.device_resize else None)
+            geom = self._geometries[(h, w)] = (
+                resize_to, raft_model.pad_amounts(*(resize_to or (h, w))))
+        return geom
+
+    def packed_step(self, stacks: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One (batch, S+1, H, W, 3) uint8 device batch → {stream:
+        (batch, 1024)} device tensors."""
+        resize_to, pads = self.geometry(*stacks.shape[2:4])
+        return fused_two_stream_step(self.params, stacks, pads, self.streams,
+                                     raft_iters=self.raft_iters,
+                                     resize_to=resize_to)
 
     def step(self, stacks: np.ndarray) -> Dict[str, np.ndarray]:
-        """One (batch, S+1, H, W, 3) uint8 stack batch → {stream: (batch, 1024)}."""
-        resize_to, pads = self.geometry(*stacks.shape[2:4])
-        x = torch.from_numpy(stacks).to(self.device)
-        with torch.inference_mode():
-            out = fused_two_stream_step(self.params, x, pads, self.streams,
-                                        raft_iters=self.raft_iters,
-                                        resize_to=resize_to)
-        return {s: v.cpu().numpy() for s, v in out.items()}
+        """One (batch, S+1, H, W, 3) uint8 stack batch → {stream: (batch,
+        1024)}, synchronously (``tools/profile_torch_i3d.py``)."""
+        return self.run_step(stacks)
+
+    def packed_windows(self, task):
+        with self._loader(task.path) as loader:
+            for window in stream_windows(loader, self.stack_size + 1,
+                                         self.step_size):
+                yield window, None
+
+    def packed_result(self, task) -> Dict[str, np.ndarray]:
+        return {s: (np.stack(task.rows[s]) if task.rows.get(s)
+                    else np.zeros((0, i3d_model.FEAT_DIM), np.float32))
+                for s in self.streams}
 
     def maybe_show_pred(self, stacks: np.ndarray, stack_counter: int) -> None:
         """Kinetics top-5 per stream for a batch of windows, recomputed

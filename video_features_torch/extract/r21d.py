@@ -4,7 +4,10 @@
     every ``step_size`` (the model's own by default); a partial final
     stack is dropped;
   * ``batch_size`` windows run per step, the tail batch padded and
-    masked;
+    masked; decode and the copy of batch k+1 run on a producer thread
+    while the card runs batch k, and each step is read back ``inflight``
+    steps later; ``pack_across_videos`` fills the batches across videos
+    (``StackPackingMixin``);
   * the step ships uint8 stacks and transforms them on the device: [0,
     1] → bilinear resize to 128×171 → normalize → center crop 112 →
     R(2+1)D features (B, 512);
@@ -21,7 +24,7 @@ import torch
 
 from video_features_torch.config import check_unported_keys
 from video_features_torch.extract.base import (
-    FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
+    FINGERPRINT_KEYS, BaseExtractor, StackPackingMixin, run_fingerprint,
 )
 from video_features_torch.extract.streaming import (
     iter_batched_windows, stream_windows,
@@ -63,7 +66,9 @@ def r21d_step(params, stacks: torch.Tensor, arch: str) -> torch.Tensor:
     return r21d_model.forward(params, x, arch=arch, features=True)
 
 
-class ExtractR21D(BaseExtractor):
+class ExtractR21D(StackPackingMixin, BaseExtractor):
+
+    packed_feat_dim = r21d_model.FEAT_DIM
 
     def __init__(self, args) -> None:
         super().__init__(args)
@@ -96,12 +101,14 @@ class ExtractR21D(BaseExtractor):
     def extract_frames(self, batches: Iterable) -> Dict[str, np.ndarray]:
         """Frame batches ``(frames, times, indices)`` (the loader protocol;
         only ``frames``, a sequence of HWC uint8 frames, is read) →
-        ``{'r21d': (T, 512)}``."""
+        ``{'r21d': (T, 512)}``, through the asynchronous loop."""
         feats = []
-        windows = stream_windows(batches, self.stack_size, self.step_size)
-        for stacks, valid, window_idx in iter_batched_windows(windows,
-                                                              self.batch_size):
-            out = self.step(stacks)[:valid]
+        windows = stream_windows(self.tracer.wrap_iter('decode', batches),
+                                 self.stack_size, self.step_size)
+        for out, _, valid, window_idx in self.run_batches(
+                iter_batched_windows(windows, self.batch_size),
+                depth=1 if self.show_pred else None):
+            out = out[self.feature_type][:valid]
             feats.append(out)
             if self.show_pred:
                 for k in range(valid):
@@ -112,11 +119,15 @@ class ExtractR21D(BaseExtractor):
             np.concatenate(feats, axis=0) if feats
             else np.zeros((0, r21d_model.FEAT_DIM), np.float32))}
 
+    def packed_step(self, stacks: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One (batch, stack, H, W, 3) uint8 device batch → {'r21d':
+        (batch, 512)}."""
+        return {self.feature_type: r21d_step(self.params, stacks,
+                                             self.model_def['arch'])}
+
     def step(self, stacks: np.ndarray) -> np.ndarray:
         """One (batch, stack, H, W, 3) uint8 batch → (batch, 512)."""
-        x = torch.from_numpy(stacks).to(self.device)
-        with torch.inference_mode():
-            return r21d_step(self.params, x, self.model_def['arch']).cpu().numpy()
+        return self.run_step(stacks)[self.feature_type]
 
     def maybe_show_pred(self, feats: np.ndarray, start: int, end: int) -> None:
         """The window's top-5 from ``fc`` on its features."""

@@ -14,8 +14,11 @@
     every decoded frame (the first batch whole, each later batch minus
     its overlapped head).
 
-Not ported: ``data_parallel``, ``decode_workers > 1`` and
-``decode_backend=native`` raise (``config.check_raft_args``).
+The loop decodes (``decode_workers`` resize threads), pads the tail and
+copies batch k+1 on a producer thread while the card runs batch k, and
+reads each step back ``inflight`` steps later. RAFT has no packed loop,
+in the JAX package either: ``pack_across_videos`` warns and runs this
+one.
 """
 from __future__ import annotations
 
@@ -75,6 +78,7 @@ class ExtractRAFT(BaseExtractor):
                                fps=self.extraction_fps,
                                total=self.extraction_total,
                                transform=self.host_transform,
+                               transform_workers=self.decode_workers,
                                overlap=1) as loader:
             return self.extract_frames(loader, loader.fps,
                                        frame_hw=(loader.height, loader.width))
@@ -86,17 +90,26 @@ class ExtractRAFT(BaseExtractor):
         ``batch_size + 1`` HWC uint8 frames (``io/video.py::batch_frames``)
         → ``{'raft', 'fps', 'timestamps_ms'}``. ``frame_hw`` is the source
         frame size, for the geometry of an empty video's output."""
+        def assembled():
+            for k, (frames, times, _) in enumerate(
+                    self.tracer.wrap_iter('decode+preprocess', batches)):
+                ts = times if k == 0 else times[1:]
+                batch = np.stack(frames)
+                if batch.shape[0] < 2:
+                    yield None, 0, ts        # timestamps only, no pairs
+                    continue
+                valid = batch.shape[0] - 1
+                if valid < self.batch_size:
+                    pad = np.repeat(batch[-1:], self.batch_size - valid, axis=0)
+                    batch = np.concatenate([batch, pad], axis=0)
+                yield batch, valid, ts
+
         flows, timestamps = [], []
-        for k, (frames, times, _) in enumerate(batches):
-            timestamps.extend(times if k == 0 else times[1:])
-            batch = np.stack(frames)
-            if batch.shape[0] < 2:
-                continue                     # timestamps only, no pairs
-            valid = batch.shape[0] - 1
-            if valid < self.batch_size:
-                pad = np.repeat(batch[-1:], self.batch_size - valid, axis=0)
-                batch = np.concatenate([batch, pad], axis=0)
-            flow = self.step(batch)[:valid]
+        for out, _, valid, ts in self.run_batches(assembled()):
+            timestamps.extend(ts)
+            if out is None:
+                continue
+            flow = out[self.feature_type][:valid]
             flows.append(flow)
             if self.show_pred:
                 self.maybe_show_pred(flow)
@@ -110,16 +123,15 @@ class ExtractRAFT(BaseExtractor):
         return {self.feature_type: features, 'fps': np.array(fps),
                 'timestamps_ms': np.array(timestamps)}
 
-    def step(self, frames: np.ndarray) -> np.ndarray:
-        """(B+1, H, W, 3) uint8 consecutive frames → (B, H, W, 2) flows."""
-        x = torch.from_numpy(frames).to(self.device)
+    def packed_step(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(B+1, H, W, 3) uint8 consecutive frames on the device → {'raft':
+        (B, H, W, 2)} flows: padded to ``bucket_multiple``, then unpadded.
+        The step ``dispatch`` runs (RAFT has no packed loop)."""
         padded, pads = raft_model.pad_to_multiple(
-            x, mode=self.finetuned_on, multiple=self.bucket_multiple)
-        with torch.inference_mode():
-            flow = raft_model.forward_consecutive(self.params, padded,
-                                                  iters=self.raft_iters)
-            flow = raft_model.unpad(flow, pads)
-        return flow.cpu().numpy()
+            frames, mode=self.finetuned_on, multiple=self.bucket_multiple)
+        flow = raft_model.forward_consecutive(self.params, padded,
+                                              iters=self.raft_iters)
+        return {self.feature_type: raft_model.unpad(flow, pads)}
 
     def maybe_show_pred(self, flows: np.ndarray) -> None:
         """Render the step's first flow with the Middlebury wheel and write

@@ -2,7 +2,8 @@
 
   * windows of ``stack_size`` frames every ``step_size`` (64 and 64 at
     25 fps by default), ``batch_size`` (1) windows per step, the tail
-    batch padded and masked; a partial final stack is dropped;
+    batch padded and masked; a partial final stack is dropped; the loop
+    is asynchronous and packs across videos as r21d's does;
   * the step ships uint8 stacks and transforms them on the device, with
     no normalization (the kylemin/S3D convention): [0, 1] → short-side
     224 bilinear resize at the GIVEN scale 224/min(h, w) → center crop
@@ -20,7 +21,7 @@ import torch
 
 from video_features_torch.config import check_unported_keys
 from video_features_torch.extract.base import (
-    FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
+    FINGERPRINT_KEYS, BaseExtractor, StackPackingMixin, run_fingerprint,
 )
 from video_features_torch.extract.streaming import (
     iter_batched_windows, stream_windows,
@@ -52,7 +53,9 @@ def s3d_step(params, stacks: torch.Tensor, features: bool = True) -> torch.Tenso
     return s3d_model.forward(params, center_crop(x, SIZE), features=features)
 
 
-class ExtractS3D(BaseExtractor):
+class ExtractS3D(StackPackingMixin, BaseExtractor):
+
+    packed_feat_dim = s3d_model.FEAT_DIM
 
     def __init__(self, args) -> None:
         super().__init__(args)
@@ -81,12 +84,15 @@ class ExtractS3D(BaseExtractor):
     def extract_frames(self, batches: Iterable) -> Dict[str, np.ndarray]:
         """Frame batches ``(frames, times, indices)`` (the loader protocol;
         only ``frames``, a sequence of HWC uint8 frames, is read) →
-        ``{'s3d': (T, 1024)}``."""
+        ``{'s3d': (T, 1024)}``, through the asynchronous loop."""
         feats = []
-        windows = stream_windows(batches, self.stack_size, self.step_size)
-        for stacks, valid, window_idx in iter_batched_windows(windows,
-                                                              self.batch_size):
-            feats.append(self.step(stacks)[:valid])
+        windows = stream_windows(self.tracer.wrap_iter('decode', batches),
+                                 self.stack_size, self.step_size)
+        for out, stacks, valid, window_idx in self.run_batches(
+                iter_batched_windows(windows, self.batch_size),
+                keep_host=self.show_pred,
+                depth=1 if self.show_pred else None):
+            feats.append(out[self.feature_type][:valid])
             if self.show_pred:
                 for k in range(valid):
                     start = (window_idx + k) * self.step_size
@@ -96,12 +102,19 @@ class ExtractS3D(BaseExtractor):
             np.concatenate(feats, axis=0) if feats
             else np.zeros((0, s3d_model.FEAT_DIM), np.float32))}
 
+    def packed_step(self, stacks: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One (batch, stack, H, W, 3) uint8 device batch → {'s3d':
+        (batch, 1024)}."""
+        return {self.feature_type: s3d_step(self.params, stacks)}
+
     def step(self, stacks: np.ndarray, features: bool = True) -> np.ndarray:
         """One (batch, stack, H, W, 3) uint8 batch → (batch, 1024), or
         (batch, 400) logits."""
+        if features:
+            return self.run_step(stacks)[self.feature_type]
         x = torch.from_numpy(stacks).to(self.device)
         with torch.inference_mode():
-            return s3d_step(self.params, x, features=features).cpu().numpy()
+            return s3d_step(self.params, x, features=False).cpu().numpy()
 
     def maybe_show_pred(self, stacks: np.ndarray, start: int, end: int) -> None:
         """The window's top-5, recomputed through the classifier head."""

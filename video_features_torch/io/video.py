@@ -3,7 +3,12 @@
 Iteration yields ``(batch, times_ms, indices)`` tuples with
 ``timestamp_ms = index / fps * 1000``; the last batch may be short.
 ``overlap`` frames are shared between consecutive batches (the flow
-families' frame pairing, :func:`batch_frames`).
+families' frame pairing, :func:`batch_frames`). ``transform_workers`` >
+1 runs the per-frame transform over a thread pool, in order and ahead
+of the consumer (:func:`_parallel_map`; PIL and cv2 release the GIL in
+their inner loops): the frames are byte-equal at any worker count.
+:func:`prefetch` runs an iterator on a producer thread, which is how
+the extractors decode and copy batch k+1 while the card runs batch k.
 
 Frames come from the decoder that ``backend`` names, with the JAX
 package's rules: ``native`` is the in-process libav decoder
@@ -209,6 +214,7 @@ class VideoLoader:
         keep_tmp: keep the re-encoded file after :meth:`close`.
         transform: per-frame callable (HWC uint8 RGB → frame).
         overlap: frames shared between consecutive batches.
+        transform_workers: threads running ``transform`` (1 = inline).
         backend: the frame decoder, one of :data:`DECODE_BACKENDS`
             (the module docstring has the rules).
 
@@ -221,7 +227,7 @@ class VideoLoader:
                  tmp_path: Union[str, os.PathLike] = 'tmp',
                  keep_tmp: bool = False,
                  transform: Optional[Callable] = None, overlap: int = 0,
-                 backend: str = 'auto'):
+                 backend: str = 'auto', transform_workers: int = 1):
         if backend not in DECODE_BACKENDS:
             raise ValueError(f'decode_backend must be one of {DECODE_BACKENDS}; '
                              f'got {backend!r}')
@@ -231,11 +237,15 @@ class VideoLoader:
             raise ValueError(f'overlap must be in [0, batch_size); got {overlap}')
         if fps is not None and total is not None:
             raise ValueError("'fps' and 'total' are mutually exclusive")
+        if transform_workers < 1:
+            raise ValueError(f'transform_workers must be >= 1; got '
+                             f'{transform_workers}')
         self.path = str(path)
         if not os.path.isfile(self.path):
             raise FileNotFoundError(f'video does not exist: {self.path}')
         self.batch_size = batch_size
         self.transform = transform
+        self.transform_workers = transform_workers
         self.overlap = overlap
         self.keep_tmp = keep_tmp
         self.backend = backend
@@ -328,8 +338,12 @@ class VideoLoader:
             decoder.release()
 
     def __iter__(self) -> Iterator[Batch]:
-        return batch_frames(self._retimed_frames(), self.batch_size, self.fps,
-                            self.overlap, self.transform)
+        frames, transform = self._retimed_frames(), self.transform
+        if transform is not None and self.transform_workers > 1:
+            frames = _parallel_map(transform, frames, self.transform_workers)
+            transform = None
+        return batch_frames(frames, self.batch_size, self.fps, self.overlap,
+                            transform)
 
     def close(self) -> None:
         """Delete the re-encoded file unless ``keep_tmp``; idempotent."""
@@ -345,3 +359,69 @@ class VideoLoader:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def _parallel_map(fn: Callable, iterable: Iterable, workers: int) -> Iterator:
+    """``map(fn, iterable)`` in order over a pool of ``workers`` threads,
+    with at most ``2·workers`` calls in flight ahead of the consumer."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        pending: deque = deque()
+        for item in iterable:
+            pending.append(pool.submit(fn, item))
+            if len(pending) > 2 * workers:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+
+
+def prefetch(iterable: Iterable, depth: int = 2) -> Iterator:
+    """Run ``iterable`` on a producer thread, ``depth`` items ahead of
+    the consumer. An exception of the producer is raised again at the
+    consumer's ``next()``; the producer stops at its next item once the
+    consumer is gone (the generator closed or collected)."""
+    import queue
+    import threading
+
+    q: queue.Queue = queue.Queue(maxsize=max(int(depth), 1))
+    end = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer() -> None:
+        try:
+            for item in iterable:
+                if not put(item):
+                    return
+            put(end)
+        except BaseException as e:      # shipped to the consumer, raised there
+            put(e)
+
+    threading.Thread(target=producer, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def prefetch_across_videos(window_stream: Iterable, max_windows: int) -> Iterator:
+    """Decode ahead across video boundaries for the packed loop: the
+    cross-video window stream runs on a producer thread with at most
+    ``max_windows`` windows buffered, however many videos they span."""
+    return prefetch(window_stream, depth=max(int(max_windows), 1))

@@ -15,6 +15,9 @@ EXTRACTORS: Dict[str, Tuple[str, str]] = {
     'vggish': ('video_features_torch.extract.vggish', 'ExtractVGGish'),
 }
 
+# the families with a packed loop (pack_across_videos), as in the JAX package
+PACKED_FEATURES = ('i3d', 'r21d', 's3d', 'resnet', 'clip', 'timm')
+
 
 def create_extractor(args):
     feature_type = args['feature_type']
