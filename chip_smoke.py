@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100, CUDA
 and nvcc. It imports only video_features_torch, torch, numpy, the
 standard library, what the vggish phase's entry points import
 (PyYAML in ``load_config``, scipy's Kaiser window for the 48 kHz
-resample), and cv2 and PIL (phase 17 writes its clips with cv2, and
-the loaders decode and resize with them), and fails (non-zero exit, no result line) on any
+resample), and cv2 and PIL (phases 17 and 18 write their clips with
+cv2, and the loaders and the decode farm's worker processes decode and
+resize with them), and fails (non-zero exit, no result line) on any
 phase that fails, and at once when no CUDA device is present or the
 package is not beside it. Phases:
 
@@ -141,18 +142,46 @@ package is not beside it. Phases:
    1; (b) and (c) byte-equal, (a) and (c) byte-equal or within rel L2
    1e-6 (the difference printed); then resnet50 at batch 32 on four
    240×320 clips per video at 1 and 4 decode threads (frames/s) and
-   packed, 0 launches, the outputs equal the same way.
+   packed, 0 launches, the outputs equal the same way;
+18. decode farm and fused worklists: the free space of ``/dev/shm`` and
+   ``os.cpu_count()``, and a ``decode_farm_ring_mb`` that fits (the
+   phase fails, naming the space found, when 4 rings of 10 MiB do not);
+   a spawned process's boot as a farm worker pays it, stage by stage
+   (the interpreter, the farm's imports, cv2 and PIL, the native
+   decoder's build or load), failing if it imports torch or jax;
+   (a) the I3D path of 17 from ``create_extractor(load_config('i3d',
+   ...))`` with ``pack_across_videos=true`` at the YAML's
+   ``decode_workers`` 2, then at 4, against 1, through
+   ``extract_packed`` on 17's four clips (11 windows, 2 steps) and on one
+   240×320 clip of 337 frames (21 windows, 3 steps), after a warm-up:
+   counts reset just before and read just after each run (a lookup and
+   two GRU launches per RAFT iteration), the farm's stats (started, every
+   window shipped through the rings, 0 queue fallbacks, 0 respawns, the
+   seconds of ``start()``), wall, windows/s, peak device memory; on the
+   four clips a second run of each traced by ``torch.profiler`` (the
+   busy share) and the stage tracer (the workers' decode and resize
+   time, the copy out of shared memory, the rings' fill); outputs
+   byte-equal across worker counts; (b) resnet50 and (c) CLIP ViT-B/32
+   and ViT-B/16, all at batch 32, built by ``load_fused_configs`` and
+   ``create_extractor``, on eight 240×320 clips of 96–103 frames, each
+   packed alone and the three through ``run_packed_fused``, at
+   ``decode_workers`` 1 and 4: frames/s, 0 launches, decode passes (8
+   fused against 24 alone), the fused wall against the sum of the solo
+   walls, every family's files byte-equal across all four runs; then no
+   ring left in ``/dev/shm`` and no worker process alive.
 
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10 and 17); the last line is
+sum over the path runs of phases 4, 5, 10, 17 and 18); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import os
+import queue
 import shutil
 import subprocess
 import sys
@@ -229,6 +258,22 @@ PACK_REL_L2 = 1e-6
 PACK_RESNET_CLIPS = ((40, 240, 320), (25, 240, 320), (50, 240, 320),
                      (17, 240, 320))
 PACK_RESNET_BATCH, PACK_RESNET_WORKERS = 32, (1, 4)
+# the decode farm: the fused I3D path packed at the i3d YAML's
+# decode_workers (2) and at 4, against 1, on phase 17's four clips and on
+# one 240×320 clip of 337 frames (21 windows, 3 steps at batch 8); then
+# resnet50, CLIP ViT-B/32 and ViT-B/16 at batch 32 on eight 240×320 clips
+# of ~100 frames, each packed alone and the three fused, at 1 and 4
+FARM_WORKERS = (1, 2, 4)
+FARM_SHORT_STEPS = 2
+FARM_LONG_CLIP = ((337, 240, 320),)
+FARM_LONG_WINDOWS, FARM_LONG_STEPS = 21, 3
+FARM_FRAME_CLIPS = tuple((96 + i, 240, 320) for i in range(8))
+FARM_FRAME_WORKERS = (1, 4)
+FARM_FAMILIES = {'resnet': 'resnet50', 'clip': 'ViT-B/32',
+                 'timm': 'vit_base_patch16_224'}
+# an i3d window (17 × 256 × 341 × 3 uint8, 4.45 MB) must take the ring,
+# which ships windows of up to half its size
+FARM_MIN_RING_MB = 10
 
 
 def fail(msg: str) -> None:
@@ -1579,6 +1624,324 @@ def resnet_packing(torch, np, root: Path, corr_lookup, gru) -> None:
     torch.cuda.empty_cache()
 
 
+def rel_arrays(np, root: Path) -> dict:
+    """{path under ``root``: array} of every .npy (the families' fps and
+    timestamp files share their names)."""
+    return {str(f.relative_to(root)): np.load(f)
+            for f in sorted(root.rglob('*.npy'))}
+
+
+def _worker_boot(t_spawn: float, out) -> None:
+    """Run in a spawned process: its boot, stage by stage, as a decode
+    farm worker pays it (perf_counter is one clock across processes)."""
+    marks = [time.perf_counter()]
+    import video_features_torch.farm.worker  # noqa: F401
+    marks.append(time.perf_counter())
+    import cv2  # noqa: F401
+    from PIL import Image  # noqa: F401
+    marks.append(time.perf_counter())
+    from video_features_torch.io import native
+    native.load_library()
+    marks.append(time.perf_counter())
+    out.put([marks[0] - t_spawn] + [b - a for a, b in zip(marks, marks[1:])]
+            + [sorted(m for m in ('torch', 'jax') if m in sys.modules)])
+
+
+def worker_boot() -> None:
+    """A spawned process's boot on this host, as a farm worker's; fails
+    if it imports torch or jax."""
+    import multiprocessing
+    ctx = multiprocessing.get_context('spawn')
+    out = ctx.Queue()
+    proc = ctx.Process(target=_worker_boot, args=(time.perf_counter(), out))
+    proc.start()
+    try:
+        interp, farm, libs, native, heavy = out.get(timeout=120)
+    except queue.Empty:
+        proc.kill()
+        fail(f'phase 18: a spawned process gave no boot report (exit code '
+             f'{proc.exitcode})')
+    proc.join(10)
+    print(f'phase 18: a spawned worker boots in '
+          f'{interp + farm + libs + native:.3f} s: interpreter {interp:.3f}, '
+          f'video_features_torch.farm {farm:.3f}, cv2 and PIL {libs:.3f}, the '
+          f'native decoder\'s build or load {native:.3f}', flush=True)
+    if heavy:
+        fail(f'phase 18: a spawned farm worker imported {heavy}')
+
+
+def farm_ring_mb() -> int:
+    """A ring size that lets the most workers of phase 18 fit in the free
+    space of ``/dev/shm``; fails, naming what it found, when it cannot."""
+    if not os.path.isdir('/dev/shm'):
+        fail('phase 18: there is no /dev/shm for the decode farm\'s rings')
+    usage = shutil.disk_usage('/dev/shm')
+    free_mb = usage.free >> 20
+    ring_mb = min(64, free_mb * 3 // 4 // max(FARM_WORKERS))
+    print(f'phase 18: /dev/shm {usage.total >> 20} MiB, {free_mb} MiB free; '
+          f'os.cpu_count() {os.cpu_count()}; decode_farm_ring_mb {ring_mb} '
+          f'for up to {max(FARM_WORKERS)} workers', flush=True)
+    if ring_mb < FARM_MIN_RING_MB:
+        fail(f'phase 18: /dev/shm has {free_mb} MiB free, too little for '
+             f'{max(FARM_WORKERS)} rings of {FARM_MIN_RING_MB} MiB')
+    return ring_mb
+
+
+def check_farm(ex, workers: int, videos: int, windows: int, where: str) -> dict:
+    """The run's farm stats; fails unless, at ``workers`` > 1, the farm
+    started and shipped every window through its rings, or, at 1, no
+    farm ran."""
+    if workers == 1:
+        if ex._farm is not None:
+            fail(f'{where}: a decode farm ran at decode_workers=1')
+        return {}
+    st = ex._farm.stats() if ex._farm is not None else None
+    if st is None or not st['ran']:
+        fail(f'{where}: the decode farm did not start '
+             f'({None if st is None else st["fallback"]})')
+    got = (st['decode_workers'], st['videos_assigned'], st['windows'],
+           st['queue_fallback'], st['respawns'], st['videos_failed'])
+    if got != (workers, videos, windows, 0, 0, 0):
+        fail(f'{where}: the farm shipped (workers, videos, windows, queue '
+             f'fallbacks, respawns, failed videos) {got}, want '
+             f'{(workers, videos, windows, 0, 0, 0)}')
+    return st
+
+
+def farm_i3d_phase(torch, np, root: Path, ring_mb: int, corr_lookup, gru,
+                   check_counts) -> None:
+    """(a) The fused I3D path at full width, packed, from
+    ``create_extractor(load_config('i3d', ...))`` at the YAML's
+    decode_workers, then at 4, against 1, on phase 17's clips and on one
+    long clip: the same bytes, every window through the farm, the launch
+    counts, wall, the device's busy share and the workers' decode."""
+    from video_features_torch.config import load_config
+    from video_features_torch.parallel.packing import VideoTask
+    from video_features_torch.registry import create_extractor
+    from video_features_torch.utils.tracing import Tracer
+    os.environ['VFT_RAFT_LOOKUP'] = 'auto'
+    corpora = (('short', write_clips(np, root, PACK_CLIPS, seed=40),
+                sum(PACK_WINDOWS), FARM_SHORT_STEPS),
+               ('long', write_clips(np, root, FARM_LONG_CLIP, seed=42),
+                FARM_LONG_WINDOWS, FARM_LONG_STEPS))
+    ex = create_extractor(load_config('i3d', overrides={
+        'video_paths': corpora[0][1], 'device': 'cuda', 'streams': None,
+        'stack_size': STACK, 'step_size': STACK, 'raft_iters': SLICE_ITERS,
+        'batch_size': PACK_BATCH, 'allow_random_weights': True,
+        'on_extraction': 'save_numpy', 'output_path': str(root / 'i3d'),
+        'tmp_path': str(root / 'tmp'), 'pack_across_videos': True,
+        'decode_farm_ring_mb': ring_mb}))
+    if ex.decode_workers != 2:
+        fail(f'phase 18: the i3d YAML gave decode_workers {ex.decode_workers}, '
+             'want 2')
+    steps = [0]
+    packed_step = ex.packed_step
+
+    def counted_step(x):
+        steps[0] += 1
+        return packed_step(x)
+    ex.packed_step = counted_step
+
+    def run(paths, tree):
+        ex._farm = None
+        ex.extract_packed([VideoTask(p, out_root=str(root / tree)) for p in paths])
+
+    ex.decode_workers = 1
+    run(corpora[0][1], 'i3d_warm')                  # cuDNN, the allocator
+    for corpus, paths, windows, want_steps in corpora:
+        trees = {}
+        for workers in FARM_WORKERS:
+            where = f'phase 18 (a) {corpus}, decode_workers {workers}'
+            ex.decode_workers = workers
+            tree = f'i3d_{corpus}_{workers}'
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(corr_lookup, gru)
+            steps[0] = 0
+            t0 = time.perf_counter()
+            run(paths, tree)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(corr_lookup, gru)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            st = check_farm(ex, workers, len(paths), windows, where)
+            if steps[0] != want_steps:
+                fail(f'{where}: {steps[0]} fused steps, want {want_steps}')
+            check_counts(counts, 'masked', want_steps, where)
+            print(f'{where}: {wall:.3f} s wall, {windows / wall:.2f} windows/s, '
+                  f'{steps[0]} fused steps, launches {counts}, peak device '
+                  f'memory {peak:.2f} GiB'
+                  + (f', farm start() {st["start_s"]:.3f} s, first window '
+                     f'{st["first_window_s"]:.3f} s after it, ring '
+                     f'{st["ring_bytes_capacity"] >> 20} MiB in all'
+                     if st else ''), flush=True)
+            trees[workers] = tree_arrays(np, str(root / tree))
+            if corpus != 'short':
+                continue
+            # a second run, traced by torch.profiler and the stage tracer
+            ex.tracer, report = Tracer(), {}
+            ex.print_profile = lambda title: report.update(ex.tracer.report())
+            t1 = time.perf_counter()
+            busy = busy_share(torch, lambda: run(paths, tree + '_traced'))
+            traced_wall = time.perf_counter() - t1
+            del ex.print_profile
+            ex.tracer = Tracer(enabled=False)
+            decode = report.get('decode', report.get('decode+preprocess', {}))
+            print(f'{where}: device busy '
+                  + ('not measured (the profiler recorded no device activity)'
+                     if busy is None else f'{busy:.1%} of a traced run\'s wall')
+                  + f'; host decode and resize {decode.get("total_s", 0.0):.3f} s '
+                  f'over {decode.get("count", 0)} windows '
+                  f'({decode.get("total_s", 0.0) / traced_wall:.2f} of the '
+                  f'traced wall {traced_wall:.3f} s)'
+                  + (f'; shm_copy {report["shm_copy"]["total_s"]:.4f} s, ring '
+                     f'fill {report["shm_copy"]["occupancy"]:.1%}'
+                     if 'shm_copy' in report else ''), flush=True)
+        for workers in FARM_WORKERS[1:]:
+            worst = compare_trees(np, trees[1], trees[workers],
+                                  f'phase 18 (a) {corpus}, 1 vs {workers}')
+            if worst:
+                fail(f'phase 18 (a) {corpus}: decode_workers {workers} changed '
+                     f'the outputs (rel L2 {worst})')
+        width = 1024 * len(ex.streams)
+        if any(a.shape[1] != width or not np.isfinite(a).all()
+               for a in trees[1].values()):
+            fail(f'phase 18 (a) {corpus}: outputs not (T, {width}) and finite')
+        print(f'phase 18 (a) {corpus}: decode_workers '
+              f'{", ".join(map(str, FARM_WORKERS))} byte-equal', flush=True)
+    del ex
+    torch.cuda.empty_cache()
+
+
+def farm_framewise_phase(torch, np, root: Path, ring_mb: int, corr_lookup,
+                         gru) -> None:
+    """(b) resnet50, and (c) resnet50, CLIP ViT-B/32 and ViT-B/16 fused
+    (``features=[resnet,clip,timm]`` through ``load_fused_configs`` and
+    ``run_packed_fused``), at batch 32 on eight clips, at decode_workers 1
+    and 4: each family's fused files are the bytes of its solo packed
+    run, one decode per video against three, and no kernel launch."""
+    from video_features_torch.config import load_fused_configs
+    from video_features_torch.parallel.packing import run_packed_fused
+    from video_features_torch.registry import create_extractor
+    paths = write_clips(np, root, FARM_FRAME_CLIPS, seed=43)
+    frames = sum(n for n, _, _ in FARM_FRAME_CLIPS)
+    overrides = {'video_paths': paths, 'device': 'cuda',
+                 'allow_random_weights': True, 'on_extraction': 'save_numpy',
+                 'output_path': str(root / 'cfg'), 'tmp_path': str(root / 'tmp'),
+                 'batch_size': PACK_RESNET_BATCH, 'pack_across_videos': True,
+                 'decode_farm_ring_mb': ring_mb}
+    overrides.update({f'{fam}.model_name': m for fam, m in FARM_FAMILIES.items()})
+    configs = load_fused_configs(list(FARM_FAMILIES), overrides)
+    exs = {fam: create_extractor(args) for fam, args in configs.items()}
+    subs = {fam: Path(args['output_path']).relative_to(root / 'cfg')
+            for fam, args in configs.items()}
+    opened = [0]
+    for ex in exs.values():
+        packed_windows = ex.packed_windows
+
+        def counting(task, packed_windows=packed_windows):
+            opened[0] += 1
+            return packed_windows(task)
+        ex.packed_windows = counting
+
+    def place(tree, workers):
+        for fam, ex in exs.items():
+            ex.output_path = str(root / tree / subs[fam])
+            ex.decode_workers = workers
+            ex._farm = None
+
+    def timed(fn):
+        reset_counts(corr_lookup, gru)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, read_counts(corr_lookup, gru)
+
+    place('warm', 1)
+    for ex in exs.values():                   # cuDNN, cuBLAS, the allocator
+        ex.extract_packed(paths[:1])
+    trees = {}
+    for workers in FARM_FRAME_WORKERS:
+        solo_wall, passes = 0.0, 0
+        place(f'solo{workers}', workers)
+        for fam, ex in exs.items():
+            where = f'phase 18 ({"b" if fam == "resnet" else "c"}) {fam} solo, ' \
+                    f'decode_workers {workers}'
+            opened[0] = 0
+            _, wall, counts = timed(lambda: ex.extract_packed(list(paths)))
+            check_no_launches(counts, where)
+            st = check_farm(ex, workers, len(paths), frames, where)
+            passes += st['videos_assigned'] if st else opened[0]
+            solo_wall += wall
+            print(f'{where}: {frames / wall:.1f} frames/s ({wall:.3f} s for '
+                  f'{frames} frames at batch {ex.batch_size})'
+                  + (f', farm start() {st["start_s"]:.3f} s, first window '
+                     f'{st["first_window_s"]:.3f} s after it' if st else ''),
+                  flush=True)
+        place(f'fused{workers}', workers)
+        opened[0] = 0
+        stats, wall, counts = timed(lambda: run_packed_fused(exs, list(paths)))
+        where = f'phase 18 (c) fused, decode_workers {workers}'
+        check_no_launches(counts, where)
+        st = check_farm(exs['resnet'], workers, len(paths),
+                        frames * len(exs), where)
+        fused_passes = st['videos_assigned'] if st else stats['decode_passes']
+        if opened[0] or stats != {'videos': len(paths),
+                                  'decode_passes': len(paths)} \
+                or fused_passes != len(paths) or passes != len(exs) * len(paths):
+            fail(f'{where}: decode passes {fused_passes} fused ({stats}) and '
+                 f'{passes} solo, want {len(paths)} and '
+                 f'{len(exs) * len(paths)}')
+        print(f'{where}: {wall:.3f} s wall ({frames * len(exs) / wall:.1f} '
+              f'frames/s over the three families) against {solo_wall:.3f} s '
+              f'for the three solo runs; {fused_passes} decode passes against '
+              f'{passes}', flush=True)
+        trees[workers] = {k: rel_arrays(np, root / f'{k}{workers}')
+                          for k in ('solo', 'fused')}
+    for workers in FARM_FRAME_WORKERS:
+        for kind in ('solo', 'fused'):
+            worst = compare_trees(np, trees[1]['solo'], trees[workers][kind],
+                                  f'phase 18 (b, c) {kind} at {workers}')
+            if worst:
+                fail(f'phase 18 (b, c): {kind} at decode_workers {workers} '
+                     f'differs from solo at 1 (rel L2 {worst})')
+    for fam, ex in exs.items():
+        for p, (n, _, _) in zip(paths, FARM_FRAME_CLIPS):
+            out = trees[1]['solo'].get(f'{subs[fam]}/{Path(p).stem}_{fam}.npy')
+            if out is None or out.shape != (n, ex.feat_dim) \
+                    or not np.isfinite(out).all():
+                fail(f'phase 18 (c) {fam}: {Path(p).name} gave '
+                     f'{None if out is None else out.shape}, want '
+                     f'({n}, {ex.feat_dim}), finite')
+    print('phase 18 (b, c): solo and fused outputs at decode_workers '
+          f'{" and ".join(map(str, FARM_FRAME_WORKERS))} byte-equal', flush=True)
+    del exs
+    torch.cuda.empty_cache()
+
+
+def farm_phase(torch, np, corr_lookup, gru, check_counts) -> None:
+    """Phase 18: the decode farm and fused worklists; no ring is left in
+    /dev/shm and no worker process is left running."""
+    import multiprocessing
+    root = ROOT / 'output' / 'farm'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ring_mb = farm_ring_mb()
+    shm_before = set(os.listdir('/dev/shm'))
+    worker_boot()
+    farm_i3d_phase(torch, np, root, ring_mb, corr_lookup, gru, check_counts)
+    farm_framewise_phase(torch, np, root, ring_mb, corr_lookup, gru)
+    gc.collect()
+    left = sorted(set(os.listdir('/dev/shm')) - shm_before)
+    children = multiprocessing.active_children()
+    if left or children:
+        fail(f'phase 18: left behind: /dev/shm {left}, processes {children}')
+    print('phase 18: no ring left in /dev/shm, no worker process running',
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -1726,9 +2089,14 @@ def main() -> int:
 
     t = phase('streaming and packed loops (I3D at batch 8, resnet50 at batch 32)')
     packing_phase(torch, np, corr_lookup, gru, check_counts)
+    print(f'packing phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('decode farm and fused worklists (I3D at batch 8; resnet50, '
+              'CLIP and ViT-B/16 at batch 32)')
+    farm_phase(torch, np, corr_lookup, gru, check_counts)
     for key in launches:
         rec[key]['launches'] = launches[key]
-    print(f'packing phase {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'farm phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

@@ -350,7 +350,8 @@ PORT_IMPLEMENTS = {'video_paths', 'file_with_video_paths', 'output_path',
                    'tmp_path', 'keep_tmp_files', 'device', 'show_pred',
                    'allow_random_weights', 'compute_dtype', 'inflight',
                    'decode_workers', 'pack_across_videos', 'pack_decode_ahead',
-                   'profile', 'compilation_cache_dir'}
+                   'profile', 'compilation_cache_dir', 'decode_farm_ring_mb',
+                   'features'}
 
 
 def test_every_jax_knob_is_ported_or_refused_at_the_jax_default():
@@ -402,7 +403,8 @@ def test_a_jax_yaml_of_defaults_loads(clip, tmp_path, ft):
     assert args['inflight'] == 2 and args['pack_across_videos'] is False
 
 
-@pytest.mark.parametrize('key', ['inflight', 'decode_workers', 'pack_decode_ahead'])
+@pytest.mark.parametrize('key', ['inflight', 'decode_workers', 'pack_decode_ahead',
+                                 'decode_farm_ring_mb'])
 @pytest.mark.parametrize('value', [0, -1])
 def test_pipeline_depths_must_be_positive(clip, key, value):
     with pytest.raises(ValueError, match=f'{key} must be >= 1'):
@@ -411,31 +413,28 @@ def test_pipeline_depths_must_be_positive(clip, key, value):
 
 def test_pipeline_defaults_are_injected(clip):
     """inflight 2, decode_workers 1 (2 for i3d, as its JAX YAML ships),
-    packing off, lookahead 2, profile off, in every family's config."""
+    packing off, lookahead 2, profile off, farm rings of 64 MiB, in every
+    family's config."""
     from video_features_torch.extract.resnet import ExtractResNet
     for ft in PORTED:
         args = load_config(ft, overrides=_family_overrides(clip, ft))
         assert (args['inflight'], args['decode_workers'], args['pack_across_videos'],
-                args['pack_decode_ahead'], args['profile']) == (
-            2, 2 if ft == 'i3d' else 1, False, 2, False), ft
+                args['pack_decode_ahead'], args['profile'],
+                args['decode_farm_ring_mb']) == (
+            2, 2 if ft == 'i3d' else 1, False, 2, False, 64), ft
     ex = ExtractResNet({'feature_type': 'resnet', 'model_name': 'resnet18',
                         'device': 'cpu', 'allow_random_weights': True,
                         'output_path': 'unused', 'inflight': 3})
-    assert (ex.inflight, ex.decode_workers, ex.tracer.enabled) == (3, 1, False)
+    assert (ex.inflight, ex.decode_workers, ex.decode_farm_ring_mb,
+            ex.tracer.enabled) == (3, 1, 64, False)
 
 
 @pytest.mark.parametrize('ft', ['i3d', 'r21d', 's3d', 'resnet', 'clip', 'timm'])
-def test_decode_farm_with_packing_is_refused_naming_decode_workers(clip, ft):
-    """decode_workers > 1 with pack_across_videos is the JAX package's
-    decode farm: refused by name; alone it runs the per-video threads."""
-    with pytest.raises(NotImplementedError, match='decode_workers'):
-        load_config(ft, overrides=_family_overrides(
-            clip, ft, pack_across_videos=True, decode_workers=2))
-    args = load_config(ft, overrides=_family_overrides(clip, ft, decode_workers=3))
-    assert args['decode_workers'] == 3
-
-
-def test_fused_features_on_the_cli_are_refused_by_name(clip):
-    from video_features_torch.cli import main
-    with pytest.raises(NotImplementedError, match='features'):
-        main(['features=[resnet,clip]', f'video_paths={clip}', 'device=cpu'])
+def test_decode_farm_with_packing_is_accepted(clip, ft):
+    """decode_workers > 1 with pack_across_videos is the decode farm, as
+    in the JAX package: the merged config keeps both farm knobs."""
+    args = load_config(ft, overrides=_family_overrides(
+        clip, ft, pack_across_videos=True, decode_workers=3,
+        decode_farm_ring_mb=16))
+    assert (args['decode_workers'], args['decode_farm_ring_mb'],
+            args['pack_across_videos']) == (3, 16, True)

@@ -399,19 +399,6 @@ def test_sanity_check_gates_packing(worklists, tmp_path, ft, extra):
     assert set(PACKED_FEATURES) == {'i3d', 'r21d', 's3d', 'resnet', 'clip', 'timm'}
 
 
-def test_decode_farm_is_refused_by_name(runs, worklists):
-    """decode_workers > 1 with the packed loop is the JAX package's
-    multi-process decode farm: refused naming the key, never run
-    in-process behind the user's back."""
-    ex = runs['resnet'][0]
-    ex.decode_workers = 2
-    try:
-        with pytest.raises(NotImplementedError, match='decode_workers'):
-            ex.extract_packed(worklists['resnet'])
-    finally:
-        ex.decode_workers = 1
-
-
 def test_cli_routes_packed(worklists, tmp_path, capsys):
     """pack_across_videos=true on the CLI runs the packed loop and writes
     the per-video loop's files."""

@@ -1,11 +1,16 @@
 """CLI entry point: ``python -m video_features_torch feature_type=<family>
 key=val ...`` (families: i3d, r21d, s3d, raft, resnet, clip, timm,
-vggish).
+vggish), or ``features=[f1,f2,...] key=val ...`` for a fused worklist.
 
 Load the family's YAML, merge the dotlist (CLI wins), sanity-check,
 build the extractor, shuffle the video list and run ``_extract`` per
 video with fault isolation, or with ``pack_across_videos=true`` the
-packed loop over the whole list (``extract_packed``).
+packed loop over the whole list (``extract_packed``). A fused worklist
+gives each family its config (``config.load_fused_configs``; a
+``<family>.<knob>=`` key reaches that family only): the frame-wise
+families with equal decode signatures share one decode per video
+(``parallel.packing.run_packed_fused``), and every other family runs
+its own pass over the same list, packed where the family packs.
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ import sys
 from typing import List, Optional
 
 from video_features_torch.config import (
-    form_list_from_user_input, load_config, parse_dotlist,
+    form_list_from_user_input, load_config, load_fused_configs, parse_dotlist,
 )
 from video_features_torch.registry import EXTRACTORS, create_extractor
 
@@ -23,12 +28,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     cli_args = parse_dotlist(argv)
     if 'features' in cli_args:
-        raise NotImplementedError(
-            'features=[...] (a fused worklist: one decode, several families) '
-            'is not ported yet: run each family with feature_type=<family>')
+        return _fused_main(cli_args)
     if 'feature_type' not in cli_args:
         print('Usage: python -m video_features_torch '
-              f'feature_type={"|".join(EXTRACTORS)} [key=value ...]')
+              f'feature_type={"|".join(EXTRACTORS)} [key=value ...]\n'
+              '       python -m video_features_torch features=[f1,f2,...] '
+              '[<family>.key=value ...] [key=value ...]')
         return 2
     args = load_config(cli_args['feature_type'], overrides=cli_args)
     print(yaml.safe_dump(dict(args), sort_keys=False, default_flow_style=False))
@@ -48,4 +53,58 @@ def main(argv: Optional[List[str]] = None) -> int:
     for i, video_path in enumerate(video_paths):
         print(f'[{i + 1}/{len(video_paths)}] {video_path}')
         extractor._extract(video_path)
+    return 0
+
+
+def _fused_main(cli_args: dict) -> int:
+    """``features=[...]``: one config and extractor per family; families
+    whose ``fused_decode_signature()`` match share one decode pass, the
+    others run their own pass. Each family's files, resume and fault
+    isolation are those of its sequential run."""
+    from video_features_torch.farm import merge_farm_stats
+    from video_features_torch.parallel.packing import run_packed_fused
+    configs = load_fused_configs(cli_args['features'], overrides=cli_args)
+    print(f'Fused worklist ({len(configs)} families): ' + ', '.join(configs))
+    for fam, args in configs.items():
+        line = f'  {fam}: device={args["device"]} on_extraction={args["on_extraction"]}'
+        if args['on_extraction'] in ('save_numpy', 'save_pickle'):
+            line += f' -> {args["output_path"]}'
+        print(line)
+    exs = {fam: create_extractor(args) for fam, args in configs.items()}
+    # the worklist keys are shared overrides: every family has the same
+    shared = next(iter(configs.values()))
+    video_paths = form_list_from_user_input(
+        shared.get('video_paths'), shared.get('file_with_video_paths'))
+    print(f'The number of specified videos: {len(video_paths)}')
+
+    groups: dict = {}
+    singles: List[str] = []
+    for fam, ex in exs.items():
+        sig = ex.fused_decode_signature()
+        if sig is None:
+            singles.append(fam)
+        else:
+            groups.setdefault(sig, {})[fam] = ex
+    singles += [fam for g in groups.values() if len(g) == 1 for fam in g]
+    decode_ahead = int(shared['pack_decode_ahead'])
+    for group in (g for g in groups.values() if len(g) > 1):
+        print(f'Fusing decode for [{", ".join(group)}]: one pass over '
+              f'{len(video_paths)} videos')
+        run_packed_fused(group, list(video_paths), decode_ahead=decode_ahead)
+    for fam in singles:
+        ex = exs[fam]
+        print(f'[{fam}] cannot share a decode pass: running its own')
+        if ex.supports_packing:
+            ex.extract_packed(list(video_paths), decode_ahead=decode_ahead)
+            continue
+        for i, video_path in enumerate(video_paths):
+            print(f'[{fam}] [{i + 1}/{len(video_paths)}] {video_path}')
+            ex._extract(video_path)
+    farms = [ex._farm.stats() for ex in exs.values() if ex._farm is not None]
+    if farms:
+        s = merge_farm_stats(farms)
+        print(f'decode farm: {s["videos_assigned"]} video decodes, '
+              f'{s["windows"]} windows, {s["queue_fallback"]} queue '
+              f'fallbacks, {s["respawns"]} respawns over {len(farms)} '
+              'pass(es)', file=sys.stderr)
     return 0

@@ -6,6 +6,8 @@ Every knob of the JAX package that the port does not implement is
 refused by name when it is set away from the JAX package's default
 (:func:`check_unported_keys`), so a JAX YAML of defaults loads and a
 request for a cache, a trace or a second GPU never passes silently.
+A fused worklist (``features=[...]``) gets one config per family
+(:func:`load_fused_configs`), ``<family>.<knob>=`` scoping a knob to one.
 
 ``yaml`` is imported inside the functions that parse, so the package
 imports on machines without it.
@@ -69,6 +71,69 @@ def load_config(feature_type: Optional[str] = None,
     return args
 
 
+def resolve_fused_features(value: Union[str, Iterable[str]]) -> List[str]:
+    """A fused worklist's ``features`` value (a list, as the CLI's
+    ``features=[resnet,clip]`` parses, or a comma-separated string) as
+    the family list in the user's order, duplicates dropped. An unknown
+    family, an empty list or another type is a ``ValueError``; one family
+    is legal (it runs the single-family path)."""
+    if isinstance(value, str):
+        items = [s.strip() for s in value.split(',') if s.strip()]
+    elif isinstance(value, (list, tuple)):
+        items = [str(s).strip() for s in value if str(s).strip()]
+    else:
+        raise ValueError(
+            f'features must be a list of family names or a comma-separated '
+            f'string (e.g. features=[resnet,clip,timm]); got {value!r}')
+    if not items:
+        raise ValueError('features must name at least one feature family')
+    families: List[str] = []
+    for fam in items:
+        if fam not in EXTRACTORS:
+            raise ValueError(f'features names unknown family {fam!r} '
+                             f'(known: {", ".join(EXTRACTORS)})')
+        if fam not in families:
+            families.append(fam)
+    return families
+
+
+def split_fused_overrides(overrides: Mapping[str, Any],
+                          families: Iterable[str]
+                          ) -> Tuple[Dict[str, Any], Dict[str, Dict[str, Any]]]:
+    """A fused run's overrides as ``(shared, {family: scoped})``: a
+    ``<family>.<knob>=value`` key reaches only that family's config
+    (``timm.model_name=vit_base_patch16_224`` while resnet keeps its
+    YAML's); ``features`` and ``feature_type`` are dropped, each family
+    resolving with its own ``feature_type``."""
+    shared: Dict[str, Any] = {}
+    scoped: Dict[str, Dict[str, Any]] = {f: {} for f in families}
+    for key, value in dict(overrides or {}).items():
+        if key in ('features', 'feature_type'):
+            continue
+        head, dot, rest = key.partition('.')
+        if dot and head in scoped and rest:
+            scoped[head][rest] = value
+        else:
+            shared[key] = value
+    return shared, scoped
+
+
+def load_fused_configs(features: Union[str, Iterable[str]],
+                       overrides: Optional[Mapping[str, Any]] = None,
+                       run_sanity_check: bool = True
+                       ) -> Dict[str, Dict[str, Any]]:
+    """One merged config per family of ``features``, in the user's order,
+    each what ``load_config(family, shared + scoped overrides)`` gives,
+    so the output paths, resume fingerprints and files are those of the
+    sequential runs. Any invalid family config rejects the whole run
+    before work starts."""
+    families = resolve_fused_features(features)
+    shared, scoped = split_fused_overrides(overrides or {}, families)
+    return {fam: load_config(fam, overrides={**shared, **scoped[fam]},
+                             run_sanity_check=run_sanity_check)
+            for fam in families}
+
+
 def form_list_from_user_input(
     video_paths: Union[str, List[str], None] = None,
     file_with_video_paths: Optional[str] = None,
@@ -97,16 +162,17 @@ def form_list_from_user_input(
 # YAML may carry its own value (i3d ships decode_workers: 2)
 PIPELINE_DEFAULTS: Dict[str, Any] = {
     'inflight': 2,               # dispatched steps whose readback is deferred; 1 = synchronous
-    'decode_workers': 1,         # per-video loop: threads of the per-frame host transform
+    'decode_workers': 1,         # per-video loop: transform threads; packed loop: > 1 = the decode farm's processes
     'pack_across_videos': False,  # the batch-major corpus loop (parallel/packing.py)
     'pack_decode_ahead': 2,      # packed decode lookahead, in device batches of windows
     'profile': False,            # stage table on stderr after each video or packed run
+    'decode_farm_ring_mb': 64,   # shared-memory ring of each decode farm worker, MiB
 }
 
 # the JAX package's knobs the port does not implement, with the JAX
 # package's default: any other value raises NotImplementedError naming
 # the key (its cache, executable store, feature index, flight recorder,
-# SLOs, meshes, several hosts, serving, decode farm and fused worklists)
+# SLOs, meshes, several hosts and serving)
 UNPORTED_DEFAULTS: Dict[str, Any] = {
     'cache_enabled': False, 'cache_dir': '~/.cache/video_features_tpu/features',
     'cache_max_bytes': None, 'cache_l2_dir': None,
@@ -120,8 +186,7 @@ UNPORTED_DEFAULTS: Dict[str, Any] = {
     'slo_availability': None, 'profile_dir': None,
     'mesh_devices': 1, 'device_ids': None, 'multihost': False,
     'coordinator_address': None, 'num_processes': None, 'process_id': None,
-    'data_parallel': False, 'sequence_parallel': False,
-    'decode_farm_ring_mb': 64, 'features': None, 'timeout_s': None,
+    'data_parallel': False, 'sequence_parallel': False, 'timeout_s': None,
     'config': None,
 }
 # the JAX default, and null (off), which is what the port does: it keeps
@@ -134,17 +199,20 @@ COMPUTE_DTYPES = ('float32', 'bfloat16', 'int8')
 AUDIO_BACKENDS = ('auto', 'ffmpeg', 'native')
 
 
-def check_pipeline_keys(args: Mapping[str, Any]) -> Tuple[int, int]:
-    """``(inflight, decode_workers)``, each an int >= 1, as the JAX
-    package requires; ``pack_decode_ahead`` must be >= 1 too."""
-    values = []
-    for key in ('inflight', 'decode_workers', 'pack_decode_ahead'):
+def check_pipeline_keys(args: Mapping[str, Any]) -> Tuple[int, int, int]:
+    """``(inflight, decode_workers, decode_farm_ring_mb)``, each an int
+    >= 1, as the JAX package requires; ``pack_decode_ahead`` must be >= 1
+    too."""
+    values = {}
+    for key in ('inflight', 'decode_workers', 'decode_farm_ring_mb',
+                'pack_decode_ahead'):
         value = args.get(key)
         value = PIPELINE_DEFAULTS[key] if value is None else int(value)
         if value < 1:
             raise ValueError(f'{key} must be >= 1; got {value}')
-        values.append(value)
-    return values[0], values[1]
+        values[key] = value
+    return (values['inflight'], values['decode_workers'],
+            values['decode_farm_ring_mb'])
 
 
 def check_unported_keys(args: Mapping[str, Any]) -> None:
@@ -165,13 +233,7 @@ def check_unported_keys(args: Mapping[str, Any]) -> None:
     if backend not in DECODE_BACKENDS:
         raise ValueError(f'decode_backend must be one of {DECODE_BACKENDS}; '
                          f'got {backend!r}')
-    _, workers = check_pipeline_keys(args)
-    if args.get('pack_across_videos') and workers > 1:
-        raise NotImplementedError(
-            f'decode_workers={workers} with pack_across_videos=true is the '
-            'multi-process decode farm, which is not ported yet: run with '
-            'decode_workers=1 (the per-video loop runs decode_workers '
-            'transform threads)')
+    check_pipeline_keys(args)
     dtype = args.get('compute_dtype')
     if dtype is not None and dtype != 'float32':
         if dtype not in COMPUTE_DTYPES:

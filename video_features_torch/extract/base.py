@@ -18,7 +18,8 @@ output (a slim port of ``video_features_tpu/extract/base.py``).
     :meth:`~BaseExtractor.run_batches`, the per-video loop over them;
   * the packed corpus mode (``pack_across_videos``): the hooks a family
     implements and :meth:`~BaseExtractor.extract_packed`, which runs
-    ``parallel.packing.run_packed``.
+    ``parallel.packing.run_packed``; ``farm_recipe`` (the decode farm's
+    worker-side decode) and ``fused_decode_signature`` (fused worklists).
 
 On the card, ``put_input`` copies from pinned host memory on a copy
 stream of its own and records an event; the consumer's stream waits on
@@ -182,8 +183,12 @@ class BaseExtractor:
         self.run_fingerprint = None
         # inflight: dispatched steps whose readback is deferred (1 =
         # synchronous); decode_workers: threads of the per-frame host
-        # transform in the per-video loop
-        self.inflight, self.decode_workers = check_pipeline_keys(args)
+        # transform in the per-video loop, and the decode farm's worker
+        # processes in the packed loop when > 1, each with a
+        # decode_farm_ring_mb shared-memory ring
+        self.inflight, self.decode_workers, self.decode_farm_ring_mb = \
+            check_pipeline_keys(args)
+        self._farm = None           # the last packed run's decode farm
         self.profile = bool(args.get('profile', False))
         self.tracer = Tracer() if self.profile else NULL_TRACER
         if self.device.type == 'cuda':
@@ -331,20 +336,31 @@ class BaseExtractor:
         for it."""
         raise NotImplementedError
 
+    def farm_recipe(self):
+        """The picklable recipe (``farm/recipes.py``) that replays this
+        family's decode and host transform in a decode farm worker, byte
+        for byte, or None: the packed loop then decodes in-process, with
+        a warning."""
+        return None
+
+    def fused_decode_signature(self):
+        """Families whose signatures are equal, and not None, decode one
+        raw frame stream per video in a fused worklist
+        (``parallel.packing.run_packed_fused``): the signature covers
+        everything before the per-frame host transform. None keeps the
+        family out of any fused group."""
+        return None
+
     def extract_packed(self, video_paths: Iterable, decode_ahead: int = 2,
                        batch_size: Optional[int] = None,
                        inflight: Optional[int] = None) -> None:
         """Run the whole worklist batch-major (``parallel.packing``):
         ``video_paths`` yields paths or ``VideoTask`` objects;
-        ``inflight`` overrides the extractor's readback depth."""
+        ``inflight`` overrides the extractor's readback depth. With
+        ``decode_workers > 1`` the decode farm's worker processes decode."""
         if not self.supports_packing:
             raise NotImplementedError(
                 f'{type(self).__name__} does not support pack_across_videos')
-        if self.decode_workers > 1:
-            raise NotImplementedError(
-                f'decode_workers={self.decode_workers} with '
-                'pack_across_videos=true is the multi-process decode farm, '
-                'which is not ported yet: run with decode_workers=1')
         from video_features_torch.parallel.packing import run_packed
         run_packed(self, video_paths, batch_size=batch_size,
                    decode_ahead=decode_ahead, inflight=inflight)
@@ -447,3 +463,12 @@ class StackPackingMixin:
         return {self.feature_type: (
             np.stack(rows) if rows
             else np.zeros((0, self.packed_feat_dim), np.float32))}
+
+    def farm_recipe(self):
+        """Raw frame stacks: the window geometry and the loader's knobs."""
+        from video_features_torch.farm.recipes import StackRecipe
+        return StackRecipe(
+            win=self.stack_size, step=self.step_size, batch_size=64,
+            fps=self.extraction_fps, total=None, tmp_path=self.tmp_path,
+            keep_tmp=self.keep_tmp_files, backend=self.decode_backend,
+            transform=None)

@@ -26,7 +26,6 @@ import torch
 
 from video_features_torch.extract.framewise import BaseFrameWiseExtractor
 from video_features_torch.models import clip as clip_model
-from video_features_torch.ops.host_transforms import center_crop_host, resize_pil
 from video_features_torch.ops.transforms import normalize, to_float_zero_one
 from video_features_torch.transplant import (
     Params, load_checkpoint, params_from_torch, to_device,
@@ -77,10 +76,9 @@ class ExtractCLIP(BaseFrameWiseExtractor):
         self.params = to_device(params, self.device)
         self._text: Optional[Tuple[torch.Tensor, List[str]]] = None
 
-    def host_transform(self, frame: np.ndarray) -> np.ndarray:
+    def host_transform_spec(self):
         n_px = self.input_resolution
-        return center_crop_host(resize_pil(frame, n_px, interpolation='bicubic'),
-                                n_px)
+        return ('edge_resize_crop', n_px, n_px, 'bicubic')
 
     def device_step(self, frames: torch.Tensor) -> torch.Tensor:
         return clip_step(self.params, frames, self.arch)

@@ -16,7 +16,9 @@ of ``video_features_tpu/extract/framewise.py``.
     runs batch k, and reads each step back ``inflight`` steps later;
   * the packed loop (``pack_across_videos``) packs single frames across
     videos: a window's meta is its timestamp, ``fps`` rides in
-    ``task.info``.
+    ``task.info``; the family's host transform is a named spec
+    (``host_transform_spec``), which the decode farm's workers and the
+    fused worklists (one decode, several families) replay.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from video_features_torch.extract.base import (
     FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
 )
 from video_features_torch.extract.streaming import framewise_windows
+from video_features_torch.farm.recipes import resolve_transform
 
 
 class BaseFrameWiseExtractor(BaseExtractor):
@@ -49,8 +52,11 @@ class BaseFrameWiseExtractor(BaseExtractor):
                                                FINGERPRINT_KEYS[self.feature_type])
 
     # subclasses provide:
-    def host_transform(self, frame: np.ndarray) -> np.ndarray:
-        """HWC uint8 RGB frame → fixed-size HWC uint8 (resize + crop)."""
+    def host_transform_spec(self):
+        """The per-frame host transform as a named spec of
+        ``farm/recipes.py`` (``('edge_resize_crop', resize, crop,
+        interpolation)``): the in-process loaders, the decode farm's
+        workers and fused worklists all run it."""
         raise NotImplementedError
 
     def device_step(self, frames: torch.Tensor) -> torch.Tensor:
@@ -60,6 +66,10 @@ class BaseFrameWiseExtractor(BaseExtractor):
     def maybe_show_pred(self, feats: np.ndarray) -> None:
         pass
 
+    def host_transform(self, frame: np.ndarray) -> np.ndarray:
+        """HWC uint8 RGB frame → fixed-size HWC uint8 (resize + crop)."""
+        return resolve_transform(self.host_transform_spec())(frame)
+
     def packed_step(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {self.feature_type: self.device_step(frames)}
 
@@ -67,7 +77,8 @@ class BaseFrameWiseExtractor(BaseExtractor):
         return self.video_loader(video_path, batch_size=self.batch_size,
                                  fps=self.extraction_fps,
                                  total=self.extraction_total,
-                                 transform=self.host_transform,
+                                 transform=resolve_transform(
+                                     self.host_transform_spec()),
                                  transform_workers=self.decode_workers)
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
@@ -109,6 +120,21 @@ class BaseFrameWiseExtractor(BaseExtractor):
         with self._loader(task.path) as loader:
             task.info['fps'] = loader.fps
             yield from framewise_windows(loader)
+
+    def farm_recipe(self):
+        from video_features_torch.farm.recipes import FramewiseRecipe
+        return FramewiseRecipe(
+            batch_size=self.batch_size, fps=self.extraction_fps,
+            total=self.extraction_total, tmp_path=self.tmp_path,
+            keep_tmp=self.keep_tmp_files, backend=self.decode_backend,
+            transform=self.host_transform_spec())
+
+    def fused_decode_signature(self):
+        """Frame-wise families share a raw frame stream when the retiming
+        and the decoder match: the host transform is a pure per-frame
+        call on the decoded frame (``io.video.VideoLoader``)."""
+        return ('framewise', self.extraction_fps, self.extraction_total,
+                self.decode_backend)
 
     def packed_result(self, task) -> Dict[str, np.ndarray]:
         rows = task.rows.get(self.feature_type, [])

@@ -41,11 +41,10 @@ from video_features_torch.extract.base import (
 from video_features_torch.extract.streaming import (
     iter_batched_windows, stream_windows,
 )
+from video_features_torch.farm.recipes import resolve_transform
 from video_features_torch.models import i3d as i3d_model
 from video_features_torch.models import raft as raft_model
-from video_features_torch.ops.host_transforms import (
-    pil_edge_resize_geometry, resize_pil,
-)
+from video_features_torch.ops.host_transforms import pil_edge_resize_geometry
 from video_features_torch.ops.transforms import (
     center_crop, flow_to_uint8_levels, pil_resize_bilinear_device,
     scale_to_pm1,
@@ -147,14 +146,18 @@ class ExtractI3D(BaseExtractor):
                 feature_type='i3d', what='i3d flow stream (raft)')
         return params
 
+    def host_transform_spec(self):
+        """Short side to 256 on the host (PIL bilinear), unless
+        ``device_resize`` (None: raw frames ship)."""
+        return (None if self.device_resize
+                else ('edge_resize', MIN_SIDE_SIZE, 'bilinear'))
+
     def _loader(self, video_path: str):
-        """The video's loader: frames resized to short side 256 on the
-        host (PIL, over ``decode_workers`` threads) unless
-        ``device_resize``."""
+        """The video's loader, its frames through
+        :meth:`host_transform_spec` over ``decode_workers`` threads."""
         return self.video_loader(
             video_path, batch_size=64, fps=self.extraction_fps,
-            transform=(None if self.device_resize
-                       else lambda f: resize_pil(f, MIN_SIDE_SIZE)),
+            transform=resolve_transform(self.host_transform_spec()),
             transform_workers=self.decode_workers)
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
@@ -215,6 +218,16 @@ class ExtractI3D(BaseExtractor):
             for window in stream_windows(loader, self.stack_size + 1,
                                          self.step_size):
                 yield window, None
+
+    def farm_recipe(self):
+        """Stacks of ``stack_size + 1`` frames through
+        :meth:`host_transform_spec`."""
+        from video_features_torch.farm.recipes import StackRecipe
+        return StackRecipe(
+            win=self.stack_size + 1, step=self.step_size, batch_size=64,
+            fps=self.extraction_fps, total=None, tmp_path=self.tmp_path,
+            keep_tmp=self.keep_tmp_files, backend=self.decode_backend,
+            transform=self.host_transform_spec())
 
     def packed_result(self, task) -> Dict[str, np.ndarray]:
         return {s: (np.stack(task.rows[s]) if task.rows.get(s)

@@ -15,9 +15,6 @@ import torch
 
 from video_features_torch.extract.framewise import BaseFrameWiseExtractor
 from video_features_torch.models import resnet as resnet_model
-from video_features_torch.ops.host_transforms import (
-    center_crop_host, short_side_resize_pil,
-)
 from video_features_torch.ops.nn import linear
 from video_features_torch.ops.transforms import normalize, to_float_zero_one
 from video_features_torch.transplant import to_device
@@ -49,10 +46,10 @@ class ExtractResNet(BaseFrameWiseExtractor):
             partial(resnet_model.init_state_dict, arch=self.model_name),
             feature_type='resnet', what=f'resnet ({self.model_name})')
 
-    def host_transform(self, frame: np.ndarray) -> np.ndarray:
-        frame = short_side_resize_pil(
-            frame, RESIZE_OVERRIDES.get(self.model_name, RESIZE_SIZE))
-        return center_crop_host(frame, CROP_SIZE)
+    def host_transform_spec(self):
+        return ('edge_resize_crop',
+                RESIZE_OVERRIDES.get(self.model_name, RESIZE_SIZE), CROP_SIZE,
+                'bilinear')
 
     def device_step(self, frames: torch.Tensor) -> torch.Tensor:
         return resnet_step(self.params, frames, self.model_name)

@@ -40,7 +40,6 @@ from video_features_torch.models import regnet as regnet_model
 from video_features_torch.models import resnet as resnet_model
 from video_features_torch.models import swin as swin_model
 from video_features_torch.models import vit as vit_model
-from video_features_torch.ops.host_transforms import center_crop_host, resize_pil
 from video_features_torch.ops.nn import linear
 from video_features_torch.ops.transforms import normalize, to_float_zero_one
 from video_features_torch.transplant import to_device
@@ -201,10 +200,9 @@ class ExtractTIMM(BaseFrameWiseExtractor):
             partial(module.init_state_dict, arch=self.arch, **init_kwargs),
             feature_type='timm', what=f'timm ({self.model_name})')
 
-    def host_transform(self, frame: np.ndarray) -> np.ndarray:
-        frame = resize_pil(frame, self.data_cfg['resize'],
-                           interpolation=self.data_cfg['interpolation'])
-        return center_crop_host(frame, self.data_cfg['crop'])
+    def host_transform_spec(self):
+        return ('edge_resize_crop', self.data_cfg['resize'],
+                self.data_cfg['crop'], self.data_cfg['interpolation'])
 
     def device_step(self, frames: torch.Tensor) -> torch.Tensor:
         return timm_step(self.params, frames, self.family, self.arch,

@@ -1,6 +1,6 @@
 """Host-side PIL frame resize and center crop (copy of
 ``video_features_tpu/ops/host_transforms.py``: ``pil_edge_resize_geometry``,
-``resize_pil``, ``short_side_resize_pil``, ``center_crop_host``).
+``resize_pil``, ``center_crop_host``).
 
 uint8 in, uint8 out. PIL is imported inside :func:`resize_pil` only, so
 the package imports on machines without it.
@@ -36,11 +36,6 @@ def resize_pil(frame: np.ndarray, size: int,
     oh, ow = geom
     return np.asarray(Image.fromarray(frame).resize((ow, oh),
                                                     modes[interpolation]))
-
-
-def short_side_resize_pil(frame: np.ndarray, size: int) -> np.ndarray:
-    """min(H, W) → ``size`` via PIL bilinear (see :func:`resize_pil`)."""
-    return resize_pil(frame, size, to_smaller_edge=True)
 
 
 def center_crop_host(frame: np.ndarray, size: int) -> np.ndarray:

@@ -1,6 +1,7 @@
 """The packed corpus loop, batch-major across videos, on one device (port
-of ``video_features_tpu/parallel/packing.py``: ``VideoTask``, ``FLUSH``,
-``NUDGE``, ``packed_batches``, ``run_packed``).
+of ``video_features_tpu/parallel/packing.py``: ``VideoTask``,
+``FusedTask``, ``FLUSH``, ``NUDGE``, ``packed_batches``, ``run_packed``,
+``build_fused_recipe``, ``run_packed_fused``).
 
 The per-video loop pads every video's last batch and pays the pipeline's
 ramp once per video. Here:
@@ -22,12 +23,19 @@ ramp once per video. Here:
 
 A host-side fault fails only the videos it touches: a video that does
 not decode is reported and skipped, a batch whose dispatch or readback
-raises fails the videos in it (``doom_batch``), and the worklist goes on.
+raises fails the videos in it (``_doom``), and the worklist goes on.
 A CUDA error (``extract.base.is_device_fault``) ends the run.
+
+With ``decode_workers > 1`` the decode farm (``farm/``) takes the
+windower's place: worker processes decode and ship the windows over
+shared memory, and the loop downstream is unchanged. A fused worklist
+(:func:`run_packed_fused`, ``features=[...]``) decodes each video once
+for several frame-wise families and packs each family's windows apart.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from collections import deque
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
@@ -79,9 +87,35 @@ class VideoTask:
         self.skipped = False
 
 
+class FusedTask(VideoTask):
+    """One video of a fused worklist: the carrier the shared decode runs
+    on, with one :class:`VideoTask` subtask per family.
+
+    The carrier holds what the decode side touches (``emitted``,
+    ``exhausted``, ``failed``, ``info``); each subtask holds its family's
+    rows and outcome and is written by the family's own per-video output
+    path. A family's device fault fails its subtask only; a decode fault
+    fails the carrier, and with it every family still active. ``active``
+    lists the families that still want the video after admission (resume
+    skips drop out), and ``farm_select`` passes that subset to the decode
+    (None: all of them).
+    """
+
+    __slots__ = ('subtasks', 'active', 'farm_select')
+
+    def __init__(self, path: str, families: Iterable[str],
+                 video_id: int = -1) -> None:
+        super().__init__(path, video_id=video_id)
+        self.subtasks: Dict[str, VideoTask] = {
+            fam: VideoTask(path, video_id=video_id) for fam in families}
+        self.active: List[str] = list(self.subtasks)
+        self.farm_select: Optional[Tuple[str, ...]] = None
+
+
 def packed_batches(windows: Iterable, batch: int,
                    max_pool_age_s: Optional[float] = None,
-                   tracer: Tracer = NULL_TRACER
+                   tracer: Tracer = NULL_TRACER,
+                   family_batch: Optional[Dict[str, int]] = None
                    ) -> Iterator[Tuple[Optional[np.ndarray], list, int]]:
     """Group a cross-video ``(task, window, meta)`` stream into full
     batches ``(stacks, provenance, valid)``, provenance being the
@@ -94,16 +128,26 @@ def packed_batches(windows: Iterable, batch: int,
     batchless marker ``(None, [], 0)``. ``max_pool_age_s`` also flushes a
     pool whose oldest window has waited that long, when the next window
     of any geometry arrives.
+
+    ``family_batch`` (a fused worklist: family → its batch size) keys the
+    pools by the window meta's family too, ``meta = (family, t_ms)``, so
+    a batch never mixes families even where their geometries match, and
+    each family's pools fill and pad at its own batch size: the fused run
+    steps each family's model at the shapes its solo run does.
     """
     pools: Dict[tuple, list] = {}
     ages: Dict[tuple, float] = {}
 
+    def cap_of(key) -> int:
+        return batch if family_batch is None else family_batch[key[0]]
+
     def flush(key):
         pool, pools[key] = pools[key], []
         ages.pop(key, None)
+        cap = cap_of(key)
         with tracer.stage('pack'):
             wins = [w for _, w, _ in pool]
-            wins += [wins[-1]] * (batch - len(wins))
+            wins += [wins[-1]] * (cap - len(wins))
             stacked = np.stack(wins)
         return stacked, [(t, m) for t, _, m in pool], len(pool)
 
@@ -118,11 +162,13 @@ def packed_batches(windows: Iterable, batch: int,
         task, window, meta = item
         window = np.asarray(window)
         key = (window.shape, window.dtype.str)
+        if family_batch is not None:
+            key = (meta[0],) + key
         pool = pools.setdefault(key, [])
         if not pool:
             ages[key] = time.monotonic()
         pool.append((task, window, meta))
-        if len(pool) == batch:
+        if len(pool) == cap_of(key):
             yield flush(key)
         if max_pool_age_s is not None:
             now = time.monotonic()
@@ -166,6 +212,46 @@ def _finalize_task(ex, task: VideoTask) -> None:
         task.rows = {}
 
 
+def _start_farm(ex, recipe, workers: int):
+    """The decode farm of a packed run at ``workers`` > 1 processes,
+    started; or None, with a warning naming ``decode_workers`` and the
+    cause (no recipe, no spawn or shared memory, no room for the rings),
+    and the run decodes in-process. ``ex._farm`` keeps the farm, whose
+    ``stats()`` say whether it ran."""
+    from video_features_torch.farm import DecodeFarm, FarmUnavailable
+    if ex.decode_backend != 'cv2':
+        # build the native decoder here once, not in every worker at once
+        from video_features_torch.io import native
+        native.load_library()
+    farm = ex._farm = DecodeFarm(recipe, workers=workers,
+                                 ring_bytes=ex.decode_farm_ring_mb << 20,
+                                 tracer=ex.tracer)
+    try:
+        return farm.start()
+    except FarmUnavailable as e:
+        warnings.warn(f'decode_workers={workers} with pack_across_videos: '
+                      f'{e}; decoding in-process instead')
+        return None
+
+
+def _doom(prov, exc: Exception, subtask=lambda task: task) -> None:
+    """Fail the videos of a batch whose dispatch or readback raised
+    (``subtask`` picks the task each slot's outcome lives on); their
+    accounting still advances, so the sweep never stalls. A device fault
+    ends the run."""
+    from video_features_torch.extract.base import (
+        is_device_fault, log_extraction_error,
+    )
+    if is_device_fault(exc):
+        raise exc
+    for path in sorted({t.path for t, _ in prov}):
+        log_extraction_error(path)
+    for task, _ in prov:
+        sub = subtask(task)
+        sub.failed = True
+        sub.done += 1
+
+
 def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
                decode_ahead: int = 2, inflight: Optional[int] = None) -> None:
     """Drive one extractor over the whole worklist, batch-major.
@@ -176,16 +262,16 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
     ``decode_ahead`` bounds the decode lookahead at ``decode_ahead ×
     batch`` windows; ``inflight`` (default: ``ex.inflight``) is how many
     dispatched batches wait before the oldest is read back (1 =
-    synchronous; the outputs are the same bytes at any depth).
+    synchronous; the outputs are the same bytes at any depth). With
+    ``ex.decode_workers > 1`` the decode farm's worker processes decode
+    (``farm/``), else the producer thread does; the outputs are the
+    same bytes either way.
 
     The per-video contracts hold: a video whose outputs exist is skipped
     with the same message; the files and their contents are those of the
     per-video loop; a video that fails to decode, compute or save is
     reported with the same message and the worklist goes on.
     """
-    from video_features_torch.extract.base import (
-        is_device_fault, log_extraction_error,
-    )
     from video_features_torch.extract.streaming import (
         stream_windows_across_videos, transfer_batches,
     )
@@ -210,8 +296,11 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
             open_q.append(task)
             yield task
 
+    def admit(task: VideoTask) -> bool:
+        return _admit_task(ex, task)
+
     def open_windows(task: VideoTask):
-        if not _admit_task(ex, task):
+        if not admit(task):
             return iter(())
         return ex.packed_windows(task)
 
@@ -236,18 +325,6 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
                 f'packed loop lost windows for {t.path}: {t.done}/'
                 f'{t.emitted} scattered, exhausted={t.exhausted}')
 
-    def doom_batch(prov, exc: Exception) -> None:
-        """Fail the videos of a batch whose dispatch or readback raised
-        (their accounting still advances so the sweep never stalls); a
-        device fault ends the run."""
-        if is_device_fault(exc):
-            raise exc
-        for path in sorted({t.path for t, _ in prov}):
-            log_extraction_error(path)
-        for task, _ in prov:
-            task.failed = True
-            task.done += 1
-
     pending: deque = deque()        # (readback, provenance, valid), oldest first
 
     def sync_oldest() -> None:
@@ -256,7 +333,7 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
             with tracer.stage('d2h'):
                 out = ex.fetch_outputs(readback)
         except Exception as e:
-            doom_batch(prov, e)
+            _doom(prov, e)
             sweep()
             return
         tracer.add_occupancy('d2h', valid, batch)
@@ -269,31 +346,246 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
             task.meta_rows.append(meta)
         sweep()
 
-    windows = stream_windows_across_videos(task_stream(), open_windows)
-    ahead = prefetch_across_videos(tracer.wrap_iter('decode+preprocess', windows),
-                                   decode_ahead * batch)
-    for dev, _, prov, valid in transfer_batches(
-            packed_batches(ahead, batch, tracer=tracer),
-            ex.put_input, tracer=tracer):
-        if dev is None:
-            # the drain marker: a video ended without a window, or the
-            # source is idle; materialize the queue and finalize now
-            while pending:
+    farm = (_start_farm(ex, ex.farm_recipe(), ex.decode_workers)
+            if ex.decode_workers > 1 else None)
+    if farm is None:
+        windows = tracer.wrap_iter(
+            'decode+preprocess',
+            stream_windows_across_videos(task_stream(), open_windows))
+    else:
+        windows = farm.stream(task_stream(), admit)
+    ahead = prefetch_across_videos(windows, decode_ahead * batch)
+    try:
+        for dev, _, prov, valid in transfer_batches(
+                packed_batches(ahead, batch, tracer=tracer),
+                ex.put_input, tracer=tracer):
+            if dev is None:
+                # the drain marker: a video ended without a window, or the
+                # source is idle; materialize the queue and finalize now
+                while pending:
+                    sync_oldest()
+                sweep()
+                continue
+            try:
+                with tracer.stage('model'), torch.inference_mode():
+                    readback = ex.dispatch(dev)
+            except Exception as e:
+                _doom(prov, e)
+                sweep()
+                continue
+            tracer.add_occupancy('model', valid, batch)
+            pending.append((readback, prov, valid))
+            while len(pending) >= depth:
                 sync_oldest()
-            sweep()
-            continue
-        try:
-            with tracer.stage('model'), torch.inference_mode():
-                readback = ex.dispatch(dev)
-        except Exception as e:
-            doom_batch(prov, e)
-            sweep()
-            continue
-        tracer.add_occupancy('model', valid, batch)
-        pending.append((readback, prov, valid))
-        while len(pending) >= depth:
+        while pending:
             sync_oldest()
-    while pending:
-        sync_oldest()
+    finally:
+        if farm is not None:
+            farm.shutdown()
     sweep(final=True)
     ex.print_profile(f'packed worklist ({n_started[0]} videos, batch {batch})')
+
+
+# -- fused worklists: one decode, several frame-wise families ----------------
+
+
+def build_fused_recipe(exs: Dict):
+    """The :class:`~video_features_torch.farm.recipes.FusedRecipe` of a
+    family → extractor map with equal ``fused_decode_signature()``: the
+    shared decode is the lead (first) family's loader, which every family
+    would have built alike, branched into each family's
+    ``host_transform_spec()``."""
+    from video_features_torch.farm.recipes import FusedRecipe
+    lead = next(iter(exs.values()))
+    return FusedRecipe(
+        batch_size=lead.batch_size, fps=lead.extraction_fps,
+        total=lead.extraction_total, tmp_path=lead.tmp_path,
+        keep_tmp=lead.keep_tmp_files, backend=lead.decode_backend,
+        transforms={fam: ex.host_transform_spec() for fam, ex in exs.items()})
+
+
+def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
+                     inflight: Optional[int] = None) -> Dict[str, int]:
+    """Drive several frame-wise extractors over one worklist with one
+    decode per video; returns ``{'videos': n, 'decode_passes': m}``.
+
+    ``exs`` maps family → extractor, all with the same
+    ``fused_decode_signature()`` (else ``ValueError``). Each video's raw
+    frames are decoded once and branched through every family's host
+    transform (:class:`~video_features_torch.farm.recipes.FusedRecipe`),
+    each window tagged ``meta = (family, t_ms)``; the packer pools per
+    family and geometry at each family's own batch size, so every family
+    steps its model at its solo run's shapes and writes its solo run's
+    bytes.
+
+    Each video is a :class:`FusedTask`: admission runs per (family,
+    video), so resume skips stay per family and a video every family
+    skips is never decoded (``decode_passes`` counts the decodes). A
+    family's device fault fails only its subtask; a decode fault fails
+    the carrier, and every family with it, for that video only. With the
+    lead family's ``decode_workers > 1`` the fused recipe runs in the
+    decode farm (``farm/``). Each family keeps its own in-flight queue at
+    its ``inflight`` depth (or ``inflight``).
+    """
+    from video_features_torch.extract.streaming import (
+        stream_windows_across_videos,
+    )
+    from video_features_torch.io.video import prefetch, prefetch_across_videos
+
+    if not exs:
+        raise ValueError('run_packed_fused needs at least one family')
+    sigs = {fam: ex.fused_decode_signature() for fam, ex in exs.items()}
+    if None in sigs.values() or len(set(sigs.values())) != 1:
+        raise ValueError('these families cannot share one decode pass; their '
+                         f'fused decode signatures differ or are None: {sigs}')
+    fams = list(exs)
+    lead = exs[fams[0]]
+    fam_batch = {fam: int(ex.packed_batch_size()) for fam, ex in exs.items()}
+    max_batch = max(fam_batch.values())
+    depth = {fam: max(int(inflight if inflight is not None else ex.inflight), 1)
+             for fam, ex in exs.items()}
+    recipe = build_fused_recipe(exs)
+    open_q: List[FusedTask] = []
+    n_started, n_decoded = [0], [0]
+
+    def task_stream() -> Iterator:
+        for item in video_paths:
+            if item is FLUSH:
+                yield FLUSH
+                continue
+            c = item if isinstance(item, FusedTask) else FusedTask(item, fams)
+            c.video_id = n_started[0]
+            n_started[0] += 1
+            open_q.append(c)
+            yield c
+
+    def admit(c: FusedTask) -> bool:
+        """Per-family admission on the carrier; the families that drop
+        out (resume skips) end now and leave the decode's fan-out."""
+        c.active = [f for f, sub in c.subtasks.items()
+                    if _admit_task(exs[f], sub)]
+        for f, sub in c.subtasks.items():
+            if f not in c.active:
+                sub.exhausted = True
+        c.farm_select = (tuple(c.active) if 0 < len(c.active) < len(fams)
+                         else None)
+        n_decoded[0] += bool(c.active)
+        return bool(c.active)
+
+    def open_windows(c: FusedTask):
+        if not admit(c):
+            return iter(())
+        info, windows = recipe.open(c.path, select=c.farm_select)
+        c.info.update(info)
+        return windows
+
+    def counted(src):
+        """Per-family ``emitted``, counted on the producer side, so it is
+        final by the time the consumer sees the carrier exhausted."""
+        for item in src:
+            if item is not FLUSH and item is not NUDGE:
+                item[0].subtasks[item[2][0]].emitted += 1
+            yield item
+
+    def to_device(item):
+        stacked, prov, valid = item
+        if stacked is None:
+            return item
+        ex = exs[prov[0][1][0]]
+        with ex.tracer.stage('h2d'):
+            return ex.put_input(stacked), prov, valid
+
+    def finalize(c: FusedTask) -> None:
+        for fam, sub in c.subtasks.items():
+            for k, v in c.info.items():
+                sub.info.setdefault(k, v)
+            sub.failed = sub.failed or (c.failed and not sub.skipped)
+            _finalize_task(exs[fam], sub)
+
+    def sweep(final: bool = False) -> None:
+        i = 0
+        while i < len(open_q):
+            c = open_q[i]
+            if not c.exhausted and c.emitted == 0:
+                break
+            if c.exhausted and all(c.subtasks[f].done >= c.subtasks[f].emitted
+                                   for f in c.active):
+                del open_q[i]
+                finalize(c)
+            else:
+                i += 1
+        if final and open_q:
+            c = open_q[0]
+            counts = {f: (c.subtasks[f].done, c.subtasks[f].emitted)
+                      for f in c.active}
+            raise AssertionError(
+                f'fused loop lost windows for {c.path}: (done, emitted) per '
+                f'family {counts}, exhausted={c.exhausted}')
+
+    pending = {fam: deque() for fam in fams}
+
+    def sync_oldest(fam: str) -> None:
+        ex = exs[fam]
+        readback, prov, valid = pending[fam].popleft()
+        try:
+            with ex.tracer.stage('d2h'):
+                out = ex.fetch_outputs(readback)
+        except Exception as e:
+            _doom(prov, e, subtask=lambda c: c.subtasks[fam])
+            sweep()
+            return
+        ex.tracer.add_occupancy('d2h', valid, fam_batch[fam])
+        for i, (c, (_, t_ms)) in enumerate(prov):
+            sub = c.subtasks[fam]
+            sub.done += 1
+            if sub.failed or c.failed:
+                continue
+            for key, arr in out.items():
+                sub.rows.setdefault(key, []).append(arr[i])
+            sub.meta_rows.append(t_ms)
+        sweep()
+
+    def drain_all() -> None:
+        for fam in fams:
+            while pending[fam]:
+                sync_oldest(fam)
+
+    farm = (_start_farm(lead, recipe, lead.decode_workers)
+            if lead.decode_workers > 1 else None)
+    if farm is None:
+        windows = lead.tracer.wrap_iter(
+            'decode+preprocess',
+            stream_windows_across_videos(task_stream(), open_windows))
+    else:
+        windows = farm.stream(task_stream(), admit)
+    ahead = prefetch_across_videos(counted(windows), decode_ahead * max_batch)
+    try:
+        for dev, prov, valid in prefetch(map(to_device, packed_batches(
+                ahead, max_batch, tracer=lead.tracer,
+                family_batch=fam_batch))):
+            if dev is None:
+                drain_all()
+                sweep()
+                continue
+            fam = prov[0][1][0]
+            ex = exs[fam]
+            try:
+                with ex.tracer.stage('model'), torch.inference_mode():
+                    readback = ex.dispatch(dev)
+            except Exception as e:
+                _doom(prov, e, subtask=lambda c: c.subtasks[fam])
+                sweep()
+                continue
+            ex.tracer.add_occupancy('model', valid, fam_batch[fam])
+            pending[fam].append((readback, prov, valid))
+            while len(pending[fam]) >= depth[fam]:
+                sync_oldest(fam)
+        drain_all()
+    finally:
+        if farm is not None:
+            farm.shutdown()
+    sweep(final=True)
+    for fam, ex in exs.items():
+        ex.print_profile(f'fused worklist [{fam}] ({n_started[0]} videos, '
+                         f'batch {fam_batch[fam]})')
+    return {'videos': n_started[0], 'decode_passes': n_decoded[0]}

@@ -15,18 +15,28 @@
     an attribute load and a truthiness check.
 
 ``profile: true`` (any family) prints the table to stderr after each
-video and after a packed run. The stage names: ``decode`` and
-``decode+preprocess`` (producer thread), ``pack`` (packed batch
-assembly), ``h2d`` (the copy to the card, producer thread), ``model``
-(the step's launch on the consumer thread), ``d2h`` (the deferred
-readback and the wait for the step it follows), ``save``.
+video and after a packed run. The stage names: ``decode`` (r21d's and
+s3d's raw decode) and ``decode+preprocess`` (decode and host transform),
+both on the producer thread, ``pack``
+(packed batch assembly), ``h2d`` (the copy to the card, producer
+thread), ``model`` (the step's launch on the consumer thread), ``d2h``
+(the deferred readback and the wait for the step it follows), ``save``;
+with the decode farm (``farm/``), ``decode`` is one window's decode and
+host transform inside a worker process (the workers run in parallel, so
+its total can exceed the wall), and ``shm_copy`` (the parent's copy of a
+window out of the worker's shared-memory ring; its ``occ%`` is the
+ring's fill when the window was shipped). The farm's ``decode`` spans
+also keep their start (``spans``), placed on the parent's clock.
 """
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from contextlib import contextmanager
 from typing import Dict, Iterable, Iterator, List, Optional
+
+SPAN_CAPACITY = 100_000
 
 
 class _StageStat:
@@ -71,6 +81,9 @@ class Tracer:
         self._lock = threading.Lock()
         self._stats: Dict[str, _StageStat] = {}
         self._order: List[str] = []
+        # (name, t0, dt) of the spans recorded with their start, newest
+        # SPAN_CAPACITY kept
+        self.spans: deque = deque(maxlen=SPAN_CAPACITY)
 
     def _stat(self, name: str) -> _StageStat:
         stat = self._stats.get(name)
@@ -79,12 +92,15 @@ class Tracer:
             self._order.append(name)
         return stat
 
-    def add(self, name: str, dt: float) -> None:
-        """Record ``dt`` seconds under ``name``."""
+    def add(self, name: str, dt: float, t0: Optional[float] = None) -> None:
+        """Record ``dt`` seconds under ``name``; with ``t0`` (its start on
+        this process's ``perf_counter`` clock) also the span."""
         if not self.enabled:
             return
         with self._lock:
             self._stat(name).add(dt)
+            if t0 is not None:
+                self.spans.append((name, t0, dt))
 
     def add_occupancy(self, name: str, valid: int, capacity: int) -> None:
         """Record that a ``capacity``-slot batch under ``name`` carried
@@ -170,6 +186,7 @@ class Tracer:
         with self._lock:
             self._stats.clear()
             self._order.clear()
+            self.spans.clear()
 
 
 NULL_TRACER = Tracer(enabled=False)
