@@ -168,10 +168,38 @@ package is not beside it. Phases:
    ``decode_workers`` 1 and 4: frames/s, 0 launches, decode passes (8
    fused against 24 alone), the fused wall against the sum of the solo
    walls, every family's files byte-equal across all four runs; then no
-   ring left in ``/dev/shm`` and no worker process alive.
+   ring left in ``/dev/shm`` and no worker process alive;
+19. precision lanes: (a) the GRU kernel's one-pass instantiation
+   (``passes=1``) against its plain version (the fp32 convolution of the
+   TF32-rounded operands; max abs err ≤ 5e-4, mean ≤ 1e-6: a TF32
+   rounding of r·h may fall the other way after the sigmoid's last bit)
+   and both against float64, both axes at (128, 32, 43) and (8, 32, 43),
+   its time, its plain version's, the two cuDNN convs under TF32
+   (``library_ms``) and its bound (a third of 3xTF32's); (b) the fused I3D
+   path at the YAML's batch 8 (129 seeded frames, 8 windows, one step)
+   and the RAFT family at batch 8 pairs, each from ``load_config`` and
+   ``create_extractor`` under ``highest``, ``high`` (mixed's arithmetic:
+   TF32 libraries, the GRU in 3xTF32) and ``tensorfloat32`` (the one-pass
+   GRU), driven through ``extract_frames`` with the counts reset just
+   before and read just after (one lookup and two GRU launches of the
+   lane's pass count per iteration), ms per window or pair, peak memory,
+   rel L2 against ``highest`` per I3D stream and per flow field; under
+   ``tensorfloat32`` the RAFT step with the kernels against their plain
+   versions (rel L2 ≤ 1e-3) and one traced fused step by kernel group;
+   (c) resnet50, CLIP ViT-B/32, ViT-B/16 (at batch 1 and 32),
+   r2plus1d_18 (batch 4), S3D (one 64-frame stack) and vggish (batch 32)
+   under ``highest``, ``high`` and ``compute_dtype=bfloat16``, and (d)
+   the first three under ``compute_dtype=int8``: rel L2 against the fp32
+   lane (bf16 and int8 held to the JAX package's bounds), ms per item,
+   peak memory, resident param bytes, no launches; (e)
+   ``pil_resize_bilinear_device`` under ``tensorfloat32`` byte-equal to
+   PIL; then ``registry.MIXED_FEATURES`` must be exactly the families
+   whose drift under ``high`` is ≤ 1e-3, which load ``precision=mixed``,
+   while the others refuse it naming ``precision``.
 
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10, 17 and 18); the last line is
+sum over the path runs of phases 4, 5, 10, 17, 18 and 19; the one-pass
+GRU instantiation is an entry of its own); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -192,6 +220,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_ATOL = 1e-5      # fp reassociation of a 4-term blend of O(1) values
+# the one-pass GRU kernel against its plain version: the products agree
+# exactly, but r·h, the q GEMM's input, is rounded to TF32 after a
+# sigmoid whose last bit may differ between the two (expf vs torch's), and
+# a rounding that falls the other way moves that input by one TF32 ulp
+# (2^-11 relative): with weights of ~0.05 and a few such flips in an
+# output's 640 inputs, up to a few 1e-4; rare, so the mean stays at fp32
+# reassociation's level
+GRU1_ATOL, GRU1_MEAN_ATOL = 5e-4, 1e-6
 SLICE_REL_L2 = 1e-3     # the BASELINE feature bar, kernel vs plain end to end
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 rate
 FP32_FLOP_PER_S = 67e12     # H100 SXM published fp32 (non-tensor) rate
@@ -274,6 +310,32 @@ FARM_FAMILIES = {'resnet': 'resnet50', 'clip': 'ViT-B/32',
 # an i3d window (17 × 256 × 341 × 3 uint8, 4.45 MB) must take the ring,
 # which ships windows of up to half its size
 FARM_MIN_RING_MB = 10
+# the precision lanes: highest (the reference), high (mixed's arithmetic:
+# TF32 in cuDNN and cuBLAS, the GRU kernel in 3xTF32; mixed itself is
+# refused outside registry.MIXED_FEATURES) and tensorfloat32 (the one-pass
+# GRU kernel); the fused I3D step at the YAML's batch 8 (129 frames: 8
+# windows, one step) and the RAFT family at batch 8 pairs; mixed is
+# admitted for a family whose drift against highest is at most MIXED_BAR
+LANE_PRECISIONS = ('highest', 'high', 'tensorfloat32')
+LANE_BATCH, LANE_I3D_FRAMES, LANE_RAFT_BATCH = 8, 8 * STACK + 1, 8
+MIXED_BAR = 1e-3
+# the bf16 families at their config batch (the frame-wise ones at 32 too):
+# (family, label, overrides, batches, seeded input of a batch)
+LANE_FAMILIES = (
+    ('resnet', 'resnet50', {'model_name': 'resnet50'}, (1, 32),
+     lambda np, b: rand_frames(np, 80, (b, 224, 224, 3))),
+    ('clip', 'CLIP ViT-B/32', {'model_name': 'ViT-B/32'}, (1, 32),
+     lambda np, b: rand_frames(np, 80, (b, 224, 224, 3))),
+    ('timm', 'ViT-B/16', {'model_name': 'vit_base_patch16_224'}, (1, 32),
+     lambda np, b: rand_frames(np, 80, (b, 224, 224, 3))),
+    ('r21d', 'r2plus1d_18', {}, (4,),
+     lambda np, b: rand_frames(np, 81, (b, 16, 240, 320, 3))),
+    ('s3d', 's3d', {}, (1,),
+     lambda np, b: rand_frames(np, 82, (b, 64, 256, 340, 3))),
+    ('vggish', 'vggish', {}, (32,),
+     lambda np, b: (np.random.RandomState(83).rand(b, 1, 96, 64) * 7
+                    - 4.6).astype(np.float32)),
+)
 
 
 def fail(msg: str) -> None:
@@ -692,12 +754,17 @@ def reset_counts(corr_lookup, gru) -> None:
     corr_lookup.lookup_corr_lanes.launches = 0
     corr_lookup.lookup_corr.launches = 0
     gru.gru_direction.launches = 0
+    for passes in gru.gru_direction.launches_by_passes:
+        gru.gru_direction.launches_by_passes[passes] = 0
 
 
 def read_counts(corr_lookup, gru) -> dict:
+    """Launches by kernel: 'gru' the GRU kernel in 3xTF32, 'gru1' its
+    one-pass instantiation."""
+    by_passes = gru.gru_direction.launches_by_passes
     return {'masked': corr_lookup.lookup_corr_lanes.launches,
             'padded': corr_lookup.lookup_corr.launches,
-            'gru': gru.gru_direction.launches}
+            'gru': by_passes[3], 'gru1': by_passes[1]}
 
 
 def slice_phase(torch, np, ex, corr_lookup, gru, lookup_env: str):
@@ -1942,6 +2009,378 @@ def farm_phase(torch, np, corr_lookup, gru, check_counts) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 19: the precision lanes -------------------------------------------
+
+
+def params_nbytes(tree) -> int:
+    """Resident bytes of a params tree (an int8 weight counts its int8
+    payload and its fp32 scales)."""
+    return sum(params_nbytes(v) if isinstance(v, dict) else
+               (v.nbytes if not hasattr(v, 'element_size')
+                else v.numel() * v.element_size())
+               for v in tree.values())
+
+
+def gru_one_pass_phase(torch, gru):
+    """The GRU kernel's one-pass instantiation against its plain version
+    (the fp32 convolution of the TF32-rounded operands), both axes, at
+    the two main-path shapes; its time, the plain version's, the two
+    cuDNN convs under TF32 (``library_ms``) and its bound: a third of
+    the 3xTF32 products at the TF32 rate."""
+    from video_features_torch.utils.device import precision_scope
+    gen = torch.Generator(device='cuda').manual_seed(11)
+
+    def randn(*s):
+        return torch.randn(*s, device='cuda', generator=gen)
+    rec = {'err': 0.0, 'at': {}}
+    for shape in GRU_SHAPES[:2]:
+        x = (torch.tanh(randn(*shape, 128)), randn(*shape, 128),
+             *gru.pack_direction(0.05 * randn(256, 256, 1, 5),
+                                 0.05 * randn(128, 256, 1, 5)),
+             0.1 * randn(*shape, 256), 0.1 * randn(*shape, 128))
+        m = shape[0] * shape[1] * shape[2]
+        for axis in gru.AXES:
+            got = gru.gru_direction(*x, axis, passes=1)
+            torch.cuda.synchronize()
+            plain = gru.gru_direction_plain(*x, axis, passes=1)
+            diff = (got - plain).abs()
+            err, mean = diff.max().item(), diff.mean().item()
+            flips = (diff > KERNEL_ATOL).float().mean().item()
+            ref = gru.gru_direction_plain(*[t.double() for t in x], axis,
+                                          passes=1)
+            print(f'gru 1xTF32 {shape} axis {axis}: against float64 (the '
+                  f'rounded operands): kernel '
+                  f'{(got - ref).abs().max().item():.3e}, plain '
+                  f'{(plain - ref).abs().max().item():.3e}; kernel vs plain '
+                  f'mean abs {mean:.3e}, {flips:.2e} of outputs past '
+                  f'{KERNEL_ATOL:g}', flush=True)
+            del ref
+            three = (got - gru.gru_direction(*x, axis)).abs().max().item()
+            rec['err'] = max(rec['err'], err)
+            if err > GRU1_ATOL or mean > GRU1_MEAN_ATOL:
+                fail(f'one-pass GRU kernel disagrees with its plain version '
+                     f'at {shape} axis {axis}: max {err}, mean {mean}')
+            if not three > 0:
+                fail(f'one-pass GRU kernel equals the 3xTF32 one at {shape}')
+            convs = [gru._conv_weight(gru.unpack_direction(w), axis)
+                     for w in x[2:4]]
+            ms = cuda_ms(torch, lambda: gru.gru_direction(*x, axis, passes=1), 10)
+            plain_ms = cuda_ms(torch, lambda: gru.gru_direction_plain(
+                *x, axis, passes=1), 5)
+            with precision_scope('tensorfloat32'):
+                lib_ms = cuda_ms(torch, lambda: gru.gru_direction_convs(
+                    x[0], x[1], *convs, x[4], x[5], axis), 5)
+            bound = gru_bound_ms(m)['tf32x3'] / 3
+            rec['at'][(shape, axis)] = (ms, plain_ms, lib_ms, bound)
+            print(f'gru 1xTF32 {shape} axis {axis} (M={m}): max abs err '
+                  f'{err:.3e} vs its plain version ({three:.3e} from 3xTF32); '
+                  f'{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN convs (TF32) '
+                  f'{lib_ms:.4f} ms; bound {bound:.4f} ms (operations, 1xTF32 '
+                  f'at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s), {bound / ms:.1%} '
+                  f'of it', flush=True)
+        del x
+    torch.cuda.empty_cache()
+    at = [rec['at'][(GRU_SHAPES[0], a)] for a in gru.AXES]
+    rec['ms'] = sum(a[0] for a in at) / len(at)
+    rec['plain_ms'] = sum(a[1] for a in at) / len(at)
+    rec['library_ms'] = sum(a[2] for a in at) / len(at)
+    rec['bound_ms'], rec['bound_by'] = at[0][3], 'operations'
+    return rec
+
+
+def step_breakdown(torch, ex, batch) -> None:
+    """One traced step (``torch.profiler``, in the extractor's lane): the
+    device time by kernel group (``tools/profile_torch_i3d.py``'s groups),
+    the top kernels and the device's busy share of the step's wall."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+    from tools.profile_torch_i3d import group_of
+    x = torch.from_numpy(batch).cuda()
+    with torch.inference_mode(), ex.precision_scope():
+        ex.packed_step(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ex.packed_step(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    by_name, spans = defaultdict(float), []
+    for ev in prof.events():
+        if str(getattr(ev, 'device_type', '')).endswith('CUDA'):
+            by_name[ev.name] += (ev.time_range.end - ev.time_range.start) / 1e3
+            spans.append((ev.time_range.start, ev.time_range.end))
+    if not spans:
+        print(f'{ex.feature_type} precision={ex.precision}: breakdown not '
+              'measured (the profiler recorded no device activity)', flush=True)
+        return
+    total = sum(by_name.values())
+    groups = defaultdict(float)
+    for name, ms in by_name.items():
+        groups[group_of(name)] += ms
+    print(f'{ex.feature_type} precision={ex.precision} traced step: kernels '
+          f'{total:.1f} ms, device busy {union_ms(spans):.1f} ms of {wall:.1f} '
+          f'ms wall ({union_ms(spans) / wall:.1%}); by group: ' + ', '.join(
+              f'{g} {ms:.1f} ms ({ms / total:.1%})' for g, ms in
+              sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f'  {ms:9.2f} ms  {name[:90]}', flush=True)
+
+
+def lane_extractor(feature_type: str, precision: str, compute_dtype: str,
+                   **overrides):
+    """An extractor from ``load_config`` and ``create_extractor`` on a
+    lane, with the seeded random weights every lane shares."""
+    from video_features_torch.config import load_config
+    from video_features_torch.registry import create_extractor
+    return create_extractor(load_config(feature_type, {
+        'video_paths': str(ROOT / 'chip_smoke.py'), 'device': 'cuda',
+        'allow_random_weights': True, 'on_extraction': 'save_numpy',
+        'output_path': str(ROOT / 'output'), 'precision': precision,
+        'compute_dtype': compute_dtype, **overrides}))
+
+
+def timed_step(torch, ex, batch, reps: int):
+    """The step's outputs on ``batch`` (``run_step``: put, dispatch in the
+    lane's scope, fetch), its device ms per call and the peak device
+    memory of a call."""
+    out = ex.run_step(batch)
+    x = torch.from_numpy(batch).cuda()
+    with torch.inference_mode(), ex.precision_scope():
+        ms = cuda_ms(torch, lambda: ex.packed_step(x), reps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ex.packed_step(x)
+        torch.cuda.synchronize()
+    return out, ms, torch.cuda.max_memory_allocated()
+
+
+def raft_lane_counts(corr_lookup, gru, passes: int, pairs_steps: int,
+                     iters: int, where: str) -> int:
+    """The launches of a RAFT-bearing run on a lane: a lookup and two GRU
+    directions (of the lane's pass count) per iteration and step."""
+    counts = read_counts(corr_lookup, gru)
+    key = 'gru' if passes == 3 else 'gru1'
+    want = {'masked': pairs_steps * iters, key: 2 * pairs_steps * iters,
+            'gru1' if passes == 3 else 'gru': 0, 'padded': 0}
+    if counts != want:
+        fail(f'{where}: launches {counts}, want {want}')
+    return counts
+
+
+def lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift) -> None:
+    """(b): the fused I3D step at batch 8 and the RAFT family at batch 8
+    pairs under highest, high (mixed's arithmetic: TF32 libraries, the GRU
+    kernel in 3xTF32) and tensorfloat32 (the one-pass kernel), each driven
+    through ``extract_frames`` with the counts reset just before and read
+    just after, rel L2 against highest per stream and per flow field, and
+    ms per window or pair; under tensorfloat32 the RAFT step with the
+    kernels against their plain versions."""
+    from video_features_torch.models import raft as raft_model
+    frames = rand_frames(np, 60, (LANE_I3D_FRAMES, *FRAME_HW, 3))
+    rframes = raft_frames(np)[:LANE_RAFT_BATCH + 1]
+    feats, rflows = {}, {}
+    for prec in LANE_PRECISIONS:
+        passes = 1 if prec == 'tensorfloat32' else 3
+        ex = lane_extractor('i3d', prec, 'float32', stack_size=STACK,
+                            step_size=STACK, raft_iters=SLICE_ITERS,
+                            batch_size=LANE_BATCH, concat_rgb_flow=False)
+        ex.extract_frames(frame_batches(frames[:STACK + 1]))      # warm-up
+        torch.cuda.synchronize()
+        reset_counts(corr_lookup, gru)
+        feats[prec] = ex.extract_frames(frame_batches(frames))
+        torch.cuda.synchronize()
+        counts = raft_lane_counts(corr_lookup, gru, passes, 1, SLICE_ITERS,
+                                  f'I3D at batch {LANE_BATCH}, precision={prec}')
+        for key in launches:
+            launches[key] += counts[key]
+        stacks = np.stack([frames[i * STACK:i * STACK + STACK + 1]
+                           for i in range(LANE_BATCH)])
+        _, ms, peak = timed_step(torch, ex, stacks, 2)
+        print(f'i3d precision={prec}: {ms / LANE_BATCH:.2f} ms per window at '
+              f'batch {LANE_BATCH} ({SLICE_ITERS} RAFT iterations), peak '
+              f'{peak / 2**30:.2f} GiB, launches {counts}', flush=True)
+        if prec == LANE_PRECISIONS[-1]:
+            step_breakdown(torch, ex, stacks)
+        del ex
+        rex = lane_extractor('raft', prec, 'float32', batch_size=LANE_RAFT_BATCH,
+                             raft_iters=SLICE_ITERS)
+        rex.run_step(rframes)                                       # warm-up
+        torch.cuda.synchronize()
+        reset_counts(corr_lookup, gru)
+        out = rex.extract_frames([(list(rframes), list(range(len(rframes))),
+                                   None)], RAFT_FPS)
+        torch.cuda.synchronize()
+        counts = raft_lane_counts(corr_lookup, gru, passes, 1, SLICE_ITERS,
+                                  f'RAFT family at batch {LANE_RAFT_BATCH}, '
+                                  f'precision={prec}')
+        for key in launches:
+            launches[key] += counts[key]
+        rflows[prec] = out['raft']
+        _, ms, _ = timed_step(torch, rex, rframes, 2)
+        print(f'raft precision={prec}: {ms / LANE_RAFT_BATCH:.2f} ms per pair '
+              f'at batch {LANE_RAFT_BATCH} ({SLICE_ITERS} iterations)', flush=True)
+        if prec == 'tensorfloat32':
+            x = torch.from_numpy(rframes).cuda()
+            padded, _ = raft_model.pad_to_multiple(x)
+            with torch.inference_mode(), rex.precision_scope():
+                outs = [raft_model.forward_consecutive(
+                    rex.params, padded, iters=CHECK_ITERS, plain_kernels=plain,
+                    gru_passes=1) for plain in (False, True)]
+            rel = rel_l2(*outs)
+            print(f'raft precision=tensorfloat32: flow, kernels (one-pass GRU) '
+                  f'vs plain versions rel L2 {rel:.3e} ({CHECK_ITERS} '
+                  f'iterations)', flush=True)
+            if not rel <= SLICE_REL_L2:
+                fail(f'one-pass lane: kernels vs plain rel L2 {rel}')
+        del rex
+    for prec in LANE_PRECISIONS[1:]:
+        for s in ('rgb', 'flow'):
+            got, ref = feats[prec][s], feats['highest'][s]
+            rel = rel_l2(torch.from_numpy(got), torch.from_numpy(ref))
+            print(f'i3d {s} stream, precision={prec} vs highest: rel L2 '
+                  f'{rel:.3e} ({len(ref)} windows)', flush=True)
+            if not np.isfinite(got).all():
+                fail(f'i3d {s} stream under precision={prec} not finite')
+            if prec == 'high':
+                drift['i3d'] = max(drift.get('i3d', 0.0), rel)
+        fields = [rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+                  for a, b in zip(rflows[prec], rflows['highest'])]
+        print(f'raft flow, precision={prec} vs highest: rel L2 per flow field '
+              f'max {max(fields):.3e}, median {sorted(fields)[len(fields) // 2]:.3e} '
+              f'({len(fields)} fields)', flush=True)
+        if prec == 'high':
+            drift['raft'] = max(fields)
+    torch.cuda.empty_cache()
+
+
+def lanes_dtype_phase(torch, np, corr_lookup, gru, drift) -> None:
+    """(c) and (d): each bf16 family at its config batch (the frame-wise
+    ones at batch 32 too) under highest (the fp32 lane, the reference),
+    high (mixed's arithmetic), compute_dtype=bfloat16 and, for resnet50,
+    CLIP ViT-B/32 and ViT-B/16, compute_dtype=int8: rel L2 against the
+    fp32 lane (held to the JAX package's bounds), ms per frame, window or
+    example, peak device memory and resident param bytes; no kernel
+    launches."""
+    from video_features_torch.ops import precision as lanes
+    from video_features_torch.registry import BF16_FEATURES, INT8_FEATURES
+    for ft, model, overrides, batches, make in LANE_FAMILIES:
+        if ft not in BF16_FEATURES:
+            fail(f'{ft} is not in registry.BF16_FEATURES')
+        runs = [('highest', 'float32'), ('high', 'float32'),
+                ('highest', 'bfloat16')]
+        if ft in INT8_FEATURES:
+            runs.append(('highest', 'int8'))
+        data = {batch: make(np, batch) for batch in batches}
+        ref = {}
+        for prec, dtype in runs:
+            ex = lane_extractor(ft, prec, dtype, batch_size=batches[0],
+                                **overrides)
+            for batch in batches:
+                reset_counts(corr_lookup, gru)
+                if ft == 'vggish':
+                    out = ex._run_batched(data[batch])
+                    x = torch.from_numpy(data[batch]).to(ex.act_dtype).cuda()
+                    with torch.inference_mode(), ex.precision_scope():
+                        ms = cuda_ms(torch, lambda: ex.model(x), 5)
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        ex.model(x)
+                        torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated()
+                    nbytes = sum(p.numel() * p.element_size()
+                                 for p in ex.model.parameters())
+                else:
+                    out, ms, peak = timed_step(torch, ex, data[batch], 5)
+                    out = out[ft]
+                    nbytes = params_nbytes(ex.params)
+                check_no_launches(read_counts(corr_lookup, gru),
+                                  f'{model} lane ({prec}, {dtype})')
+                if out.dtype != np.float32 or not np.isfinite(out).all():
+                    fail(f'{model} ({prec}, {dtype}): output {out.dtype}, '
+                         f'finite {np.isfinite(out).all()}')
+                line = (f'{model} batch {batch} precision={prec} '
+                        f'compute_dtype={dtype}: {ms / batch:.4f} ms per item, '
+                        f'peak {peak / 2**20:.1f} MiB, params '
+                        f'{nbytes / 2**20:.1f} MiB')
+                if batch not in ref:
+                    ref[batch] = out
+                else:
+                    rel = lanes.rel_l2(ref[batch], out)
+                    line += f', rel L2 vs the fp32 lane {rel:.3e}'
+                    if dtype != 'float32':
+                        bound = (lanes.BF16_REL_L2_BOUNDS if dtype == 'bfloat16'
+                                 else lanes.INT8_REL_L2_BOUNDS)[ft]
+                        line += f' (bound {bound:g})'
+                        if not 0 < rel <= bound:
+                            fail(f'{model} {dtype} lane rel L2 {rel} not in '
+                                 f'(0, {bound}]')
+                    else:
+                        drift[ft] = max(drift.get(ft, 0.0), rel)
+                print(line, flush=True)
+            del ex
+        torch.cuda.empty_cache()
+
+
+def lanes_resize_phase(torch, np, transforms) -> None:
+    """(e): ``pil_resize_bilinear_device`` under tensorfloat32 byte-equal
+    to the host's PIL resize and to the CPU, the I3D geometry included."""
+    from video_features_torch.ops.host_transforms import resize_pil
+    from video_features_torch.utils.device import precision_scope
+    for i, (h, w, oh, ow) in enumerate(RESIZE_GEOMETRIES[:2]
+                                       + RESIZE_GEOMETRIES[-1:]):
+        x = rand_frames(np, 70 + i, (2, h, w, 3))
+        host = np.stack([resize_pil(f, min(oh, ow)) for f in x])
+        with precision_scope('tensorfloat32'):
+            card = transforms.pil_resize_bilinear_device(
+                torch.from_numpy(x).cuda(), (oh, ow)).cpu().numpy()
+        same = host.shape == card.shape and np.array_equal(host, card)
+        print(f'device resize under tensorfloat32, {h}x{w} -> {oh}x{ow}: '
+              f'{"byte-equal to" if same else "DIFFERS from"} the host PIL resize',
+              flush=True)
+        if not same:
+            fail(f'device resize under TF32 differs from PIL at {h}x{w}')
+
+
+def lanes_phase(torch, np, corr_lookup, gru, transforms, launches) -> dict:
+    """Phase 19: (a) the one-pass GRU kernel, (b) the flow families, (c)
+    and (d) the bf16 and int8 lanes, (e) the resize under TF32; then
+    ``registry.MIXED_FEATURES`` against the measured drifts of mixed."""
+    from video_features_torch.config import load_config
+    from video_features_torch.registry import EXTRACTORS, MIXED_FEATURES
+    rec = gru_one_pass_phase(torch, gru)
+    drift = {}
+    lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift)
+    lanes_dtype_phase(torch, np, corr_lookup, gru, drift)
+    lanes_resize_phase(torch, np, transforms)
+    print('precision=mixed drift (rel L2 against highest, max over streams '
+          'and flow fields): ' + json.dumps(
+              {k: float(f'{v:.3e}') for k, v in sorted(drift.items())}),
+          flush=True)
+    for ft in EXTRACTORS:
+        if ft not in drift:
+            fail(f'no mixed drift measured for {ft}')
+        if (drift[ft] <= MIXED_BAR) != (ft in MIXED_FEATURES):
+            fail(f'registry.MIXED_FEATURES and the card disagree on {ft}: '
+                 f'drift {drift[ft]:.3e} against the {MIXED_BAR:g} bar')
+        overrides = {'video_paths': str(ROOT / 'chip_smoke.py'),
+                     'device': 'cuda', 'precision': 'mixed'}
+        if ft == 'timm':
+            overrides['model_name'] = TIMM_VIT
+        if ft in MIXED_FEATURES:
+            load_config(ft, overrides)
+        else:
+            try:
+                load_config(ft, overrides)
+            except NotImplementedError as e:
+                if 'precision' not in str(e):
+                    fail(f'{ft}: the mixed refusal does not name precision')
+            else:
+                fail(f'{ft} accepts precision=mixed outside MIXED_FEATURES')
+    return rec
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -1974,6 +2413,8 @@ def main() -> int:
     from video_features_torch.models.raft import pad_amounts
     from video_features_torch.ops import _kernels, corr_lookup, gru, transforms
     from video_features_torch.utils.device import set_precision
+    # precision=highest's flags for the phases' direct calls (plain
+    # versions, card vs CPU); every extractor step sets its own lane's
     set_precision('highest')
 
     t = phase('build')
@@ -2005,7 +2446,7 @@ def main() -> int:
     })
     windows = (FRAMES - (STACK + 1)) // STACK + 1
     steps = math.ceil(windows / SLICE_BATCH)
-    launches = {'masked': 0, 'padded': 0, 'gru': 0}
+    launches = {'masked': 0, 'padded': 0, 'gru': 0, 'gru1': 0}
 
     def check_counts(counts, lookup_key, steps, where):
         want = {lookup_key: steps * SLICE_ITERS, 'gru': 2 * steps * SLICE_ITERS}
@@ -2058,8 +2499,6 @@ def main() -> int:
     t = phase('I3D with device_resize=true')
     counts = device_resize_phase(torch, np, ex, transforms, corr_lookup, gru)
     check_counts(counts, 'masked', steps, 'I3D slice, device_resize=true')
-    for key in launches:
-        rec[key]['launches'] = launches[key]
     print(f'device_resize phase {time.perf_counter() - t:.1f} s', flush=True)
 
     t = phase('card vs CPU')
@@ -2094,9 +2533,15 @@ def main() -> int:
     t = phase('decode farm and fused worklists (I3D at batch 8; resnet50, '
               'CLIP and ViT-B/16 at batch 32)')
     farm_phase(torch, np, corr_lookup, gru, check_counts)
+    print(f'farm phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('precision lanes (the one-pass GRU kernel; I3D and RAFT under '
+              'highest, high and tensorfloat32; the bf16 and int8 lanes; the '
+              'device resize under TF32)')
+    rec['gru1'] = lanes_phase(torch, np, corr_lookup, gru, transforms, launches)
     for key in launches:
         rec[key]['launches'] = launches[key]
-    print(f'farm phase {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'lanes phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (
@@ -2105,6 +2550,8 @@ def main() -> int:
             ('padded', 'corr_lookup_padded', 'corr_lookup.cu',
              'video_features_tpu/ops/pallas_corr.py:162'),
             ('gru', 'gru_direction', 'gru_direction.cu',
+             'tools/gru_kernel_experiment.py:154'),
+            ('gru1', 'gru_direction_1xtf32', 'gru_direction.cu',
              'tools/gru_kernel_experiment.py:154')):
         r = rec[key]
         kernels.append({
@@ -2114,8 +2561,8 @@ def main() -> int:
             'max_abs_err': r['err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
             'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
             'library_ms': r['library_ms']})
-    # the GRU row's bound is 3xTF32's; the fp32 FMA bound beside it
-    kernels[-1]['fp32_bound_ms'] = rec['gru']['fp32_bound_ms']
+    # the 3xTF32 GRU row's bound is 3xTF32's; the fp32 FMA bound beside it
+    kernels[2]['fp32_bound_ms'] = rec['gru']['fp32_bound_ms']
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

@@ -199,10 +199,18 @@ def _family_overrides(clip, ft, **extra):
 @pytest.mark.parametrize('ft', PORTED)
 @pytest.mark.parametrize('dtype', ['bfloat16', 'int8'])
 def test_compute_dtype_fast_lanes_are_refused(clip, ft, dtype):
-    """The JAX package's bf16 and int8 lanes are not ported: refused
-    naming the key, never run in float32 behind the user's back."""
-    with pytest.raises(NotImplementedError, match=f'compute_dtype={dtype}'):
-        load_config(ft, overrides=_family_overrides(clip, ft, compute_dtype=dtype))
+    """The bf16 and int8 lanes are refused where the JAX package refuses
+    them, naming the key and echoing the value, and taken where it
+    admits them."""
+    from video_features_tpu import registry as jax_registry
+    admits = (jax_registry.BF16_FEATURES if dtype == 'bfloat16'
+              else jax_registry.INT8_FEATURES)
+    overrides = _family_overrides(clip, ft, compute_dtype=dtype)
+    if ft in admits:
+        assert load_config(ft, overrides=overrides)['compute_dtype'] == dtype
+        return
+    with pytest.raises(ValueError, match=f'compute_dtype={dtype} is refused'):
+        load_config(ft, overrides=overrides)
 
 
 @pytest.mark.parametrize('ft', PORTED)
@@ -221,12 +229,12 @@ def test_unknown_compute_dtype_is_a_value_error(clip, dtype):
 
 def test_frame_wise_extractors_refuse_compute_dtype_without_load_config(tmp_path):
     """The extractors check the key themselves too, as they do the other
-    unported keys."""
+    unported keys: an fp8 lane is refused by name."""
     for cls, extra in ((ExtractResNet, {'model_name': 'resnet18'}),
                        (ExtractTIMM, {'model_name': 'vit_tiny_patch16_224'})):
-        with pytest.raises(NotImplementedError, match='compute_dtype'):
+        with pytest.raises(ValueError, match="compute_dtype must be one of .*got 'fp8'"):
             cls({'feature_type': cls.__name__[7:].lower(), 'device': 'cpu',
-                 'compute_dtype': 'bfloat16', 'allow_random_weights': True,
+                 'compute_dtype': 'fp8', 'allow_random_weights': True,
                  'output_path': str(tmp_path), **extra})
 
 

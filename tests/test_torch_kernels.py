@@ -165,6 +165,33 @@ def test_gru_kernel_matches_plain_on_the_card(b, h, w, axis):
                                rtol=0, atol=GRU_ATOL)
 
 
+# the one-pass instantiation (the one-pass precision lanes) against its
+# plain version, the fp32 convolution of the TF32-rounded operands: the
+# products agree exactly, but r·h, the q GEMM's input, is rounded to TF32
+# after a sigmoid whose last bit may differ between the two, and a rounding
+# that falls the other way moves that input by one TF32 ulp; so up to a few
+# 1e-4 at rare outputs (a sigmoid in another fp32 form moves the plain
+# version itself by 4.8e-5 at the (8, 32, 43) grid, on the CPU), the mean
+# at fp32 reassociation's level
+GRU1_ATOL, GRU1_MEAN_ATOL = 5e-4, 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,h,w', [(2, 32, 43), (3, 13, 9), (1, 6, 100)])
+@pytest.mark.parametrize('axis', ['w', 'h'])
+def test_gru_one_pass_kernel_matches_plain_on_the_card(b, h, w, axis):
+    dev = _cuda()
+    x = _gru_inputs(np.random.RandomState(8), b, h, w, dev)
+    before = dict(gru.gru_direction.launches_by_passes)
+    got = gru.gru_direction(*x, axis, passes=1)
+    torch.cuda.synchronize()
+    assert gru.gru_direction.launches_by_passes == {1: before[1] + 1,
+                                                    3: before[3]}
+    diff = (got - gru.gru_direction_plain(*x, axis, passes=1)).abs()
+    assert diff.max() <= GRU1_ATOL and diff.mean() <= GRU1_MEAN_ATOL
+    assert (got - gru.gru_direction(*x, axis)).abs().max() > 0
+
+
 def _params(dev):
     from video_features_torch.transplant import params_from_torch, to_device
     return to_device(params_from_torch(raft.init_state_dict(seed=0)), dev)

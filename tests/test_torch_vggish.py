@@ -288,7 +288,7 @@ def test_show_pred_warns_then_raises(wav, tmp_path):
     ('audio_backend', 'sox', 'audio_backend must be one of'),
     ('post_process', True, 'pca_params_path'),
     ('data_parallel', True, 'data_parallel'),
-    ('compute_dtype', 'bfloat16', 'compute_dtype'),
+    ('compute_dtype', 'int8', 'compute_dtype'),
 ])
 def test_bad_keys_raise_before_the_weights_load(wav, tmp_path, monkeypatch,
                                                 key, value, match):

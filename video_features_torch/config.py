@@ -194,8 +194,6 @@ UNPORTED_DEFAULTS: Dict[str, Any] = {
 COMPILATION_CACHE_DIRS = ('~/.cache/video_features_tpu/xla', None)
 
 RAFT_FINETUNED_ON = ('sintel', 'kitti')
-# the JAX package's compute_dtype values; the port computes in float32 only
-COMPUTE_DTYPES = ('float32', 'bfloat16', 'int8')
 AUDIO_BACKENDS = ('auto', 'ffmpeg', 'native')
 
 
@@ -234,15 +232,31 @@ def check_unported_keys(args: Mapping[str, Any]) -> None:
         raise ValueError(f'decode_backend must be one of {DECODE_BACKENDS}; '
                          f'got {backend!r}')
     check_pipeline_keys(args)
-    dtype = args.get('compute_dtype')
-    if dtype is not None and dtype != 'float32':
-        if dtype not in COMPUTE_DTYPES:
-            raise ValueError(f'compute_dtype must be one of {COMPUTE_DTYPES}; '
-                             f'got {dtype!r}')
+    check_lanes(args)
+
+
+def check_lanes(args: Mapping[str, Any]) -> Tuple[str, str]:
+    """``(precision, compute_dtype)`` of a family's config: an unknown
+    ``precision`` is a ``ValueError``, ``mixed`` on a family outside
+    ``registry.MIXED_FEATURES`` a ``NotImplementedError`` with the card's
+    figure, and ``compute_dtype`` goes through ``ops/precision.py::
+    check_compute_dtype`` (a ``ValueError`` naming the key)."""
+    from video_features_torch.ops.precision import check_compute_dtype
+    from video_features_torch.registry import MIXED_FEATURES, MIXED_REFUSALS
+    from video_features_torch.utils.device import PRECISIONS
+    ft = args.get('feature_type')
+    precision = args.get('precision', 'highest')
+    if precision not in PRECISIONS:
+        raise ValueError(f'precision must be one of {PRECISIONS}; got '
+                         f'{precision!r}')
+    if precision == 'mixed' and ft is not None and ft not in MIXED_FEATURES:
         raise NotImplementedError(
-            f'compute_dtype={dtype} is not ported yet (ROADMAP Queue A 5, '
-            f'precision lanes): the port computes in float32 only; run with '
-            f'compute_dtype=float32')
+            f'precision=mixed is not ported for feature_type={ft}: '
+            f'{MIXED_REFUSALS.get(ft, "its drift under mixed is not measured")}'
+            f'; run with precision=highest, or high for TF32 without the '
+            f'parity bar')
+    dtype = check_compute_dtype(ft, str(args.get('compute_dtype') or 'float32'))
+    return precision, dtype
 
 
 def gate_packing(args: Dict[str, Any]) -> None:
@@ -295,11 +309,8 @@ def sanity_check(args: Dict[str, Any]) -> None:
     """Validate the merged config and append ``<feature_type>[/<model_name>]``
     ('/' → '_') to the output and tmp paths. The device is resolved here, so a run
     that asks for a GPU on a machine without one fails before any work."""
-    from video_features_torch.utils.device import PRECISIONS, resolve_device
+    from video_features_torch.utils.device import resolve_device
     resolve_device(args.get('device', 'cuda'))
-    prec = args.get('precision', 'highest')
-    if prec not in PRECISIONS:
-        raise ValueError(f'precision must be one of {PRECISIONS}; got {prec!r}')
     if not (args.get('file_with_video_paths') or args.get('video_paths')):
         raise ValueError('`video_paths` or `file_with_video_paths` must be specified')
     stems = [Path(p).stem for p in form_list_from_user_input(

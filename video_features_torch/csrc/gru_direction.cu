@@ -32,11 +32,11 @@
 // Design: two implicit GEMMs, M = pixels, N = output channels, K = 5 taps x
 // 256 input channels.
 //
-//   1. gru_tf32x3<WGS, true>: the 256-wide zr GEMM (two blocks along N) with
+//   1. gru_tf32x3<WGS, true, PASSES>: the 256-wide zr GEMM (two blocks along N) with
 //      the sigmoid epilogue. The z half (blockIdx.y == 0) writes z; the r
 //      half writes r*h, which is the q GEMM's input. Writing and reading both
 //      back is 4 x M x 512 bytes, ~0.1 ms at the batch-8 shape.
-//   2. gru_tf32x3<WGS, false>: the 128-wide q GEMM over [r*h, motion] with
+//   2. gru_tf32x3<WGS, false, PASSES>: the 128-wide q GEMM over [r*h, motion] with
 //      the tanh and blend epilogue.
 //
 // Two launches instead of one because the q GEMM needs r at the neighbouring
@@ -80,6 +80,14 @@
 //     moved nothing).
 //   * Tiles: BM = 128 (two warpgroups) wherever a slice's staged rows fit
 //     in shared memory (W <= 83 for axis 'h'), else 64.
+//
+// One pass (PASSES = 1, for the precision lanes that JAX runs in one pass:
+// default, tensorfloat32, bfloat16): each K step issues only hi*hi, the
+// activations are rounded to TF32 with no lo split, and only the hi part of
+// each weight tile is copied in, so a third of the products and half the
+// weight bytes. The least time at the batch-8 shape is then
+// 1.73e11 / 495 TFLOP/s = 0.35 ms. PASSES = 3 is the kernel above, bit for
+// bit.
 //
 // No split-K and no atomics: every output is written once by one thread, so
 // results are deterministic. The TPU kernel's (W, M, C) transposed VMEM
@@ -157,19 +165,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   } while (!done);
 }
 
-// One bulk TMA copy per part (hi, lo) of a weight tile, completing on bar.
+// One bulk TMA copy per part (hi, and lo when PASSES = 3) of a weight tile,
+// completing on bar.
+template <int PASSES>
 __device__ __forceinline__ void load_weights(uint32_t dst, const float* hi,
                                              const float* lo, uint32_t bar) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(kStageBytes) : "memory");
+               :: "r"(bar), "r"(PASSES == 3 ? kStageBytes : kTileBytes)
+               : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(hi), "r"(kTileBytes), "r"(bar) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst + kTileBytes), "l"(lo), "r"(kTileBytes), "r"(bar) : "memory");
+  if constexpr (PASSES == 3)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(dst + kTileBytes), "l"(lo), "r"(kTileBytes), "r"(bar)
+        : "memory");
 }
 
 // K-major B in the 128-byte swizzle: rows of 128 bytes (32 tf32 along K),
@@ -224,7 +237,8 @@ size_t smem_bytes(int bm, int gap) {
 
 // WGS: warpgroups (BM = 64 * WGS pixels per block).
 // ZR: the zr GEMM and its epilogue, else the q GEMM and its epilogue.
-template <int WGS, bool ZR>
+// PASSES: TF32 products per fp32 product, 3 (3xTF32) or 1.
+template <int WGS, bool ZR, int PASSES>
 __global__ void __launch_bounds__(WGS * 128, 1)
 gru_tf32x3(Args a) {
   constexpr int BM = 64 * WGS;
@@ -275,8 +289,8 @@ gru_tf32x3(Args a) {
     const int s = step % kStages;
     // the stage's previous use, step - kStages, released by both warpgroups
     if (step >= kStages) mbar_wait(smem_addr(&empty[s]), (step / kStages - 1) & 1);
-    load_weights(smem_addr(bstage + s * kStageBytes), src, src + part_size,
-                 smem_addr(&full[s]));
+    load_weights<PASSES>(smem_addr(bstage + s * kStageBytes), src,
+                         src + part_size, smem_addr(&full[s]));
   };
   // the block's pixel rows of one slice, with their halo
   auto issue_activations = [&](int slice, int buf) {
@@ -311,7 +325,8 @@ gru_tf32x3(Args a) {
   }
 
   // A fragments of one tap step: 4 K steps of 8 channels, each split into
-  // TF32 hi and lo; rows whose tap leaves the image are zeros. The packed
+  // TF32 hi and lo (hi alone in one pass); rows whose tap leaves the image
+  // are zeros. The packed
   // weights order each slice's 32 channels so that K step k's fragment
   // columns t and t + 4 are channels 8t + 2k and 8t + 2k + 1: a thread's
   // 8 channels of a row are contiguous, two 16-byte loads.
@@ -338,11 +353,13 @@ gru_tf32x3(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         hi[k][j] = tf32_rna(v[k][j]);
-        lo[k][j] = tf32_rna(v[k][j] - __uint_as_float(hi[k][j]));
+        if constexpr (PASSES == 3)
+          lo[k][j] = tf32_rna(v[k][j] - __uint_as_float(hi[k][j]));
       }
   };
 
-  // acc: the running sum; part: one tap's 12 products (see the note)
+  // acc: the running sum; part: one tap's 12 products, 4 in one pass
+  // (see the note)
   float acc[64], part[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
@@ -379,9 +396,13 @@ gru_tf32x3(Args a) {
         const uint64_t dlo = b_desc(bhi + kTileBytes + k * 32);
         const uint32_t (&hi)[4] = frag[cur][0][k];
         const uint32_t (&lo)[4] = frag[cur][1][k];
-        wgmma_m64n128k8(part, lo, dhi, k > 0);        // k = 0 starts afresh
-        wgmma_m64n128k8(part, hi, dlo, 1);
-        wgmma_m64n128k8(part, hi, dhi, 1);
+        if constexpr (PASSES == 3) {
+          wgmma_m64n128k8(part, lo, dhi, k > 0);      // k = 0 starts afresh
+          wgmma_m64n128k8(part, hi, dlo, 1);
+          wgmma_m64n128k8(part, hi, dhi, 1);
+        } else {
+          wgmma_m64n128k8(part, hi, dhi, k > 0);
+        }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       // thread 0 keeps the weight ring two steps ahead, after its own
@@ -444,33 +465,34 @@ gru_tf32x3(Args a) {
 
 // Raise each instantiation's dynamic shared memory limit to the device's
 // opt-in maximum, once per process.
-template <int WGS, bool ZR>
+template <int WGS, bool ZR, int PASSES>
 cudaError_t allow_smem(int limit) {
   static int set = 0;
   if (set == limit) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
-      gru_tf32x3<WGS, ZR>, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+      gru_tf32x3<WGS, ZR, PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      limit);
   if (err == cudaSuccess) set = limit;
   return err;
 }
 
-template <int WGS>
+template <int WGS, int PASSES>
 int launch(Args zr, Args q, int limit, cudaStream_t stream) {
   constexpr int BM = 64 * WGS;
   const int gap = zr.stride < BM ? zr.stride : BM;
   zr.gap = q.gap = gap;
   const size_t smem = smem_bytes(BM, gap);
   if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<WGS, true>(limit);
-  if (err == cudaSuccess) err = allow_smem<WGS, false>(limit);
+  cudaError_t err = allow_smem<WGS, true, PASSES>(limit);
+  if (err == cudaSuccess) err = allow_smem<WGS, false, PASSES>(limit);
   if (err != cudaSuccess) return (int)err;
   const unsigned mblocks = (unsigned)((zr.m + BM - 1) / BM);
-  gru_tf32x3<WGS, true><<<dim3(mblocks, 2 * kC / kBN), WGS * 128, smem,
-                          stream>>>(zr);
+  gru_tf32x3<WGS, true, PASSES><<<dim3(mblocks, 2 * kC / kBN), WGS * 128,
+                                  smem, stream>>>(zr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gru_tf32x3<WGS, false><<<dim3(mblocks, kC / kBN), WGS * 128, smem,
-                           stream>>>(q);
+  gru_tf32x3<WGS, false, PASSES><<<dim3(mblocks, kC / kBN), WGS * 128,
+                                   smem, stream>>>(q);
   return (int)cudaGetLastError();
 }
 
@@ -481,13 +503,15 @@ extern "C" {
 // h, motion, q_term, z, rh, out: (B, H, W, 128); zr_term: (B, H, W, 256);
 // w_zr: (2, 5, 8, 256, 32); w_q: (2, 5, 8, 128, 32) (ops/gru.py::
 // pack_direction); all contiguous float32. axis_h: 0 for the 1x5 pass (taps
-// along W), 1 for the 5x1 pass (along H). z and rh are scratch the caller
-// allocates.
-int vft_gru_direction(const void* h, const void* motion, const void* w_zr,
-                      const void* w_q, const void* zr_term, const void* q_term,
-                      void* z, void* rh, void* out, int batch, int height,
-                      int width, int axis_h, void* stream) {
+// along W), 1 for the 5x1 pass (along H). passes: 3 (3xTF32) or 1. z and rh
+// are scratch the caller allocates.
+int vft_gru_direction_passes(const void* h, const void* motion,
+                             const void* w_zr, const void* w_q,
+                             const void* zr_term, const void* q_term, void* z,
+                             void* rh, void* out, int batch, int height,
+                             int width, int axis_h, int passes, void* stream) {
   const long long m = (long long)batch * height * width;
+  if (passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
   if (m <= 0) return (int)cudaSuccess;
   if (m * kIn >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const int stride = axis_h ? width : 1;
@@ -510,7 +534,19 @@ int vft_gru_direction(const void* h, const void* motion, const void* w_zr,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 128-pixel blocks where a slice's staged rows fit, else 64
   const bool wide = smem_bytes(128, stride < 128 ? stride : 128) <= (size_t)limit;
-  return wide ? launch<2>(zr, q, limit, s) : launch<1>(zr, q, limit, s);
+  if (passes == 1)
+    return wide ? launch<2, 1>(zr, q, limit, s) : launch<1, 1>(zr, q, limit, s);
+  return wide ? launch<2, 3>(zr, q, limit, s) : launch<1, 3>(zr, q, limit, s);
+}
+
+// The same in 3xTF32 (the entry point before the pass count existed).
+int vft_gru_direction(const void* h, const void* motion, const void* w_zr,
+                      const void* w_q, const void* zr_term, const void* q_term,
+                      void* z, void* rh, void* out, int batch, int height,
+                      int width, int axis_h, void* stream) {
+  return vft_gru_direction_passes(h, motion, w_zr, w_q, zr_term, q_term, z,
+                                  rh, out, batch, height, width, axis_h, 3,
+                                  stream);
 }
 
 }  // extern "C"

@@ -7,6 +7,11 @@ output (a slim port of ``video_features_tpu/extract/base.py``).
     "Continuing...", so one bad file never kills the worklist;
   * ``action_on_extraction`` prints (with max/mean/min) or saves
     numpy/pickle atomically, and writes the run-fingerprint sidecar;
+  * the precision lanes: ``precision`` and ``compute_dtype`` are checked
+    per extractor (``config.check_lanes``), and :meth:`~BaseExtractor.
+    dispatch` runs each step in :meth:`~BaseExtractor.precision_scope`,
+    so extractors on different lanes in one process (a fused worklist)
+    each get their own TF32 flags;
   * ``is_already_exist`` requires every output file present *and
     loadable*, and a recorded fingerprint equal to this run's: the
     family's feature-shaping config values and its checkpoints' content
@@ -48,11 +53,14 @@ from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from video_features_torch.config import check_pipeline_keys
+from video_features_torch.config import check_lanes, check_pipeline_keys
 from video_features_torch.extract.streaming import (
     overlap_fetch, stream_windows, transfer_batches,
 )
-from video_features_torch.utils.device import resolve_device, set_precision
+from video_features_torch.ops.precision import activation_dtype
+from video_features_torch.utils.device import (
+    gru_passes, precision_scope, resolve_device,
+)
 from video_features_torch.utils.fingerprint import (
     is_file_key, weights_fingerprint,
 )
@@ -66,37 +74,43 @@ ACTIONS = ('print',) + tuple(ACTION_TO_EXT)
 
 # per family, the config values that shape its features (the resume
 # fingerprint); a *checkpoint_path key and pca_params_path enter by their
-# file's content
+# file's content; compute_dtype for the families with a bf16 or int8 lane
 FINGERPRINT_KEYS = {
     'i3d': ('feature_type', 'streams', 'flow_type', 'stack_size', 'step_size',
             'raft_iters', 'extraction_fps', 'concat_rgb_flow', 'precision',
             'i3d_rgb_checkpoint_path', 'i3d_flow_checkpoint_path',
             'raft_checkpoint_path', 'device_resize'),
     'r21d': ('feature_type', 'model_name', 'stack_size', 'step_size',
-             'extraction_fps', 'precision', 'checkpoint_path'),
+             'extraction_fps', 'precision', 'compute_dtype', 'checkpoint_path'),
     's3d': ('feature_type', 'stack_size', 'step_size', 'extraction_fps',
-            'precision', 'checkpoint_path'),
+            'precision', 'compute_dtype', 'checkpoint_path'),
     'raft': ('feature_type', 'extraction_fps', 'extraction_total',
              'side_size', 'resize_to_smaller_edge', 'finetuned_on',
              'bucket_multiple', 'raft_iters', 'precision', 'checkpoint_path'),
     'resnet': ('feature_type', 'model_name', 'extraction_fps',
-               'extraction_total', 'precision', 'checkpoint_path'),
+               'extraction_total', 'precision', 'compute_dtype',
+               'checkpoint_path'),
     'clip': ('feature_type', 'model_name', 'extraction_fps',
-             'extraction_total', 'precision', 'checkpoint_path'),
+             'extraction_total', 'precision', 'compute_dtype',
+             'checkpoint_path'),
     'timm': ('feature_type', 'model_name', 'extraction_fps',
-             'extraction_total', 'image_size', 'precision', 'checkpoint_path'),
-    'vggish': ('feature_type', 'precision', 'checkpoint_path', 'audio_backend',
-               'post_process', 'pca_params_path'),
+             'extraction_total', 'image_size', 'precision', 'compute_dtype',
+             'checkpoint_path'),
+    'vggish': ('feature_type', 'precision', 'compute_dtype', 'checkpoint_path',
+               'audio_backend', 'post_process', 'pca_params_path'),
 }
 
 
 def run_fingerprint(args: Any, keys: Iterable[str]) -> str:
     """sha256 of the config values among ``keys`` that shape a run's
     features, file path strings left out, and of those files' content
-    (:func:`~video_features_torch.utils.fingerprint.weights_fingerprint`)."""
+    (:func:`~video_features_torch.utils.fingerprint.weights_fingerprint`).
+    An absent ``compute_dtype`` is the float32 lane."""
     keys = sorted(keys)
-    blob = json.dumps({k: args.get(k) for k in keys if not is_file_key(k)},
-                      sort_keys=True, default=str)
+    values = {k: args.get(k) for k in keys if not is_file_key(k)}
+    if 'compute_dtype' in values and values['compute_dtype'] is None:
+        values['compute_dtype'] = 'float32'
+    blob = json.dumps(values, sort_keys=True, default=str)
     cfg = hashlib.sha256(blob.encode('utf-8')).hexdigest()
     return hashlib.sha256(
         f'cfg:{cfg}|w:{weights_fingerprint(args, keys)}'.encode()).hexdigest()
@@ -175,7 +189,12 @@ class BaseExtractor:
         self.on_extraction = on_extraction
         self.output_path = args['output_path']
         self.device = resolve_device(args.get('device', 'cuda'))
-        set_precision(args.get('precision', 'highest'))
+        # the lanes: the TF32 flags and the GRU kernel's pass count of
+        # ``precision`` (utils/device.py), and the stored and activation
+        # dtypes of ``compute_dtype`` (ops/precision.py)
+        self.precision, self.compute_dtype = check_lanes(args)
+        self.gru_passes = gru_passes(self.precision)
+        self.act_dtype = activation_dtype(self.compute_dtype)
         self.concat_rgb_flow = bool(args.get('concat_rgb_flow', False))
         self.tmp_path = str(args.get('tmp_path', './tmp'))
         self.keep_tmp_files = bool(args.get('keep_tmp_files', False))
@@ -194,6 +213,15 @@ class BaseExtractor:
         if self.device.type == 'cuda':
             self._h2d_stream = torch.cuda.Stream(self.device)
             self._d2h_stream = torch.cuda.Stream(self.device)
+
+    def precision_scope(self):
+        """The TF32 flags of this extractor's ``precision``, restored on
+        exit: every step of this extractor runs inside it."""
+        return precision_scope(self.precision)
+
+    def lane_label(self) -> str:
+        """This extractor's lanes, for the stage tables' titles."""
+        return f'precision={self.precision}, compute_dtype={self.compute_dtype}'
 
     # -- the device loop ----------------------------------------------------
 
@@ -216,7 +244,8 @@ class BaseExtractor:
         and start its outputs' readback; returns without waiting for the
         device. Call it in ``torch.inference_mode`` on the consumer
         thread."""
-        out = self.packed_step(batch.take())
+        with self.precision_scope():
+            out = self.packed_step(batch.take())
         if self.device.type != 'cuda':
             return Readback(out, inputs=batch)
         step_done = torch.cuda.Event()

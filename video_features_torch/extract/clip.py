@@ -24,25 +24,34 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from video_features_torch.config import check_lanes
 from video_features_torch.extract.framewise import BaseFrameWiseExtractor
 from video_features_torch.models import clip as clip_model
+from video_features_torch.ops.precision import features_to_f32
+from video_features_torch.ops.quant import dequantize_tree
 from video_features_torch.ops.transforms import normalize, to_float_zero_one
 from video_features_torch.transplant import (
-    Params, load_checkpoint, params_from_torch, to_device,
+    Params, float32_params, load_checkpoint, params_from_torch, to_device,
 )
 from video_features_torch.utils.device import resolve_device
 from video_features_torch.utils.fingerprint import CLIP_CUSTOM_CHECKPOINT
 
 
-def clip_step(params, frames: torch.Tensor, arch: str) -> torch.Tensor:
-    """(B, H, W, 3) uint8 → (B, embed_dim): [0, 1] → normalize →
-    ``encode_image``."""
-    x = normalize(to_float_zero_one(frames), clip_model.MEAN, clip_model.STD)
-    return clip_model.encode_image(params, x, arch)
+def clip_step(params, frames: torch.Tensor, arch: str,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, H, W, 3) uint8 → (B, embed_dim) float32: [0, 1] in ``dtype``
+    (the lane's activations) → normalize → ``encode_image``; int8
+    weights are dequantized first."""
+    x = normalize(to_float_zero_one(frames, dtype), clip_model.MEAN,
+                  clip_model.STD)
+    return features_to_f32(clip_model.encode_image(dequantize_tree(params),
+                                                   x, arch))
 
 
-def load_params(args) -> Tuple[Params, str]:
-    """(params, arch) from the configured checkpoint source."""
+def load_params(args, compute_dtype: str = 'float32') -> Tuple[Params, str]:
+    """(params, arch) from the configured checkpoint source, cast for the
+    ``compute_dtype`` lane."""
+    from video_features_torch.extract.weights import lane_params
     model_name = args.get('model_name', 'ViT-B/32')
     if model_name != 'custom':
         clip_model.model_def(model_name)
@@ -59,14 +68,15 @@ def load_params(args) -> Tuple[Params, str]:
                                  weights_only=False)
     arch = (clip_model.infer_model_name_from_params(params)
             if model_name == 'custom' else model_name)
-    return params, arch
+    return lane_params(params, compute_dtype, ckpt,
+                       clip_model.NO_TRANSPOSE), arch
 
 
 class ExtractCLIP(BaseFrameWiseExtractor):
 
     def __init__(self, args) -> None:
         resolve_device(args.get('device', 'cuda'))   # before the weights load
-        params, self.arch = load_params(args)
+        params, self.arch = load_params(args, check_lanes(args)[1])
         self.model_name = args.get('model_name', 'ViT-B/32')
         cfg = clip_model.VISUAL_CFGS[self.arch]
         super().__init__(args, feat_dim=cfg['embed_dim'])
@@ -81,7 +91,7 @@ class ExtractCLIP(BaseFrameWiseExtractor):
         return ('edge_resize_crop', n_px, n_px, 'bicubic')
 
     def device_step(self, frames: torch.Tensor) -> torch.Tensor:
-        return clip_step(self.params, frames, self.arch)
+        return clip_step(self.params, frames, self.arch, self.act_dtype)
 
     def text_features(self) -> Tuple[Optional[torch.Tensor], List[str]]:
         """(text features, class texts) of the zero-shot prompts, computed
@@ -98,8 +108,9 @@ class ExtractCLIP(BaseFrameWiseExtractor):
                     return None, []
                 classes = [f'a photo of {label}' for label in labels]
             tokens = torch.from_numpy(tokenize(classes)).to(self.device)
-            with torch.inference_mode():
-                self._text = (clip_model.encode_text(self.params, tokens), classes)
+            with torch.inference_mode(), self.precision_scope():
+                self._text = (clip_model.encode_text(
+                    float32_params(self.params), tokens), classes)
         return self._text
 
     def maybe_show_pred(self, feats: np.ndarray) -> None:
@@ -112,7 +123,8 @@ class ExtractCLIP(BaseFrameWiseExtractor):
             return
         if text_feats is None:
             return
-        with torch.inference_mode():
+        with torch.inference_mode(), self.precision_scope():
             logits = clip_model.zero_shot_logits(
-                self.params, torch.from_numpy(feats).to(self.device), text_feats)
+                float32_params(self.params),
+                torch.from_numpy(feats).to(self.device), text_feats)
         show_predictions_on_dataset(logits.cpu().numpy(), classes)

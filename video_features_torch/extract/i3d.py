@@ -63,12 +63,14 @@ def rgb_stream_input(stacks: torch.Tensor, crop_size: int) -> torch.Tensor:
 
 def flow_stream_input(raft_params, stacks: torch.Tensor, pads, crop_size: int,
                       raft_iters: int = raft_model.ITERS,
-                      plain_kernels: bool = False) -> torch.Tensor:
+                      plain_kernels: bool = False,
+                      gru_passes: int = 3) -> torch.Tensor:
     """(B, S+1, H, W, 3) frames → quantized flow I3D input (B, S, c, c, 2)."""
     padded = raft_model.edge_pad(stacks, pads, h_axis=2)
     flow = raft_model.forward_stack_pairs(raft_params, padded,
                                           iters=raft_iters,
-                                          plain_kernels=plain_kernels)
+                                          plain_kernels=plain_kernels,
+                                          gru_passes=gru_passes)
     flow = center_crop(flow, crop_size)
     return scale_to_pm1(flow_to_uint8_levels(flow, 20.0))
 
@@ -77,14 +79,15 @@ def fused_two_stream_step(params, stacks: torch.Tensor, pads,
                           streams: Sequence[str], crop_size: int = CROP_SIZE,
                           raft_iters: int = raft_model.ITERS,
                           plain_kernels: bool = False,
-                          resize_to: Optional[Tuple[int, int]] = None
-                          ) -> Dict[str, torch.Tensor]:
+                          resize_to: Optional[Tuple[int, int]] = None,
+                          gru_passes: int = 3) -> Dict[str, torch.Tensor]:
     """(B, stack+1, H, W, 3) frames → {stream: (B, 1024)}: RAFT flow,
     quantization and both I3D towers. ``resize_to=(H', W')`` first
     resizes the uint8 frames on the device (``device_resize``; ``pads``
     are then those of H'×W'). ``plain_kernels`` runs RAFT's lookup and
     GRU direction through their plain versions instead of the kernels (a
-    test seam)."""
+    test seam); ``gru_passes`` is the GRU kernel's TF32 products per fp32
+    product (the run's ``precision``)."""
     if resize_to is not None:
         stacks = pil_resize_bilinear_device(stacks, resize_to)
     out = {}
@@ -94,7 +97,8 @@ def fused_two_stream_step(params, stacks: torch.Tensor, pads,
     if 'flow' in streams:
         flow = flow_stream_input(params['raft'], stacks, pads, crop_size,
                                  raft_iters=raft_iters,
-                                 plain_kernels=plain_kernels)
+                                 plain_kernels=plain_kernels,
+                                 gru_passes=gru_passes)
         out['flow'] = i3d_model.forward(params['flow'], flow)
     return out
 
@@ -206,7 +210,8 @@ class ExtractI3D(BaseExtractor):
         resize_to, pads = self.geometry(*stacks.shape[2:4])
         return fused_two_stream_step(self.params, stacks, pads, self.streams,
                                      raft_iters=self.raft_iters,
-                                     resize_to=resize_to)
+                                     resize_to=resize_to,
+                                     gru_passes=self.gru_passes)
 
     def step(self, stacks: np.ndarray) -> Dict[str, np.ndarray]:
         """One (batch, S+1, H, W, 3) uint8 stack batch → {stream: (batch,
@@ -245,7 +250,7 @@ class ExtractI3D(BaseExtractor):
         from video_features_torch.utils.preds import show_predictions_on_dataset
         resize_to, pads = self.geometry(*stacks.shape[2:4])
         x = torch.from_numpy(stacks).to(self.device)
-        with torch.inference_mode():
+        with torch.inference_mode(), self.precision_scope():
             if resize_to is not None:
                 x = pil_resize_bilinear_device(x, resize_to)
             crop = min(CROP_SIZE, x.shape[2], x.shape[3])
@@ -254,7 +259,8 @@ class ExtractI3D(BaseExtractor):
                     inp = rgb_stream_input(x, crop)
                 else:
                     inp = flow_stream_input(self.params['raft'], x, pads, crop,
-                                            raft_iters=self.raft_iters)
+                                            raft_iters=self.raft_iters,
+                                            gru_passes=self.gru_passes)
                 _, logits = i3d_model.forward(self.params[stream], inp,
                                               features=False)
                 print(f'At stack {stack_counter} ({stream} stream)')
@@ -263,7 +269,8 @@ class ExtractI3D(BaseExtractor):
                 return
             pair = raft_model.edge_pad(x[:1, :2], pads, h_axis=2)
             flow = raft_model.forward_stack_pairs(self.params['raft'], pair,
-                                                  iters=self.raft_iters)
+                                                  iters=self.raft_iters,
+                                                  gru_passes=self.gru_passes)
             flow = center_crop(flow, crop)[0, 0].cpu().numpy()
         img = flow_to_image(flow)
         try:

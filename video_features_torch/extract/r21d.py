@@ -31,10 +31,11 @@ from video_features_torch.extract.streaming import (
 )
 from video_features_torch.models import r21d as r21d_model
 from video_features_torch.ops.nn import linear
+from video_features_torch.ops.precision import features_to_f32
 from video_features_torch.ops.transforms import (
     center_crop, normalize, resize_bilinear, to_float_zero_one,
 )
-from video_features_torch.transplant import to_device
+from video_features_torch.transplant import float32_params, to_device
 
 # model_name -> (arch, native stack, native step, pred dataset)
 MODEL_CFGS = {
@@ -58,12 +59,15 @@ def model_def(model_name: str) -> dict:
                          f'got {model_name!r}') from None
 
 
-def r21d_step(params, stacks: torch.Tensor, arch: str) -> torch.Tensor:
-    """(B, stack, H, W, 3) uint8 → (B, 512) features: [0, 1] → resize to
-    128×171 → normalize → crop 112 → R(2+1)D."""
-    x = resize_bilinear(to_float_zero_one(stacks), (128, 171))
+def r21d_step(params, stacks: torch.Tensor, arch: str,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, stack, H, W, 3) uint8 → (B, 512) float32 features: [0, 1] in
+    ``dtype`` (the lane's activations) → resize to 128×171 → normalize →
+    crop 112 → R(2+1)D."""
+    x = resize_bilinear(to_float_zero_one(stacks, dtype), (128, 171))
     x = center_crop(normalize(x, r21d_model.MEAN, r21d_model.STD), 112)
-    return r21d_model.forward(params, x, arch=arch, features=True)
+    return features_to_f32(r21d_model.forward(params, x, arch=arch,
+                                              features=True))
 
 
 class ExtractR21D(StackPackingMixin, BaseExtractor):
@@ -89,7 +93,7 @@ class ExtractR21D(StackPackingMixin, BaseExtractor):
         return load_or_init(
             args, 'checkpoint_path',
             partial(r21d_model.init_state_dict, arch=self.model_def['arch']),
-            feature_type='r21d')
+            feature_type='r21d', compute_dtype=self.compute_dtype)
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         """Decode (cv2, retimed to ``extraction_fps``), then
@@ -123,7 +127,8 @@ class ExtractR21D(StackPackingMixin, BaseExtractor):
         """One (batch, stack, H, W, 3) uint8 device batch → {'r21d':
         (batch, 512)}."""
         return {self.feature_type: r21d_step(self.params, stacks,
-                                             self.model_def['arch'])}
+                                             self.model_def['arch'],
+                                             self.act_dtype)}
 
     def step(self, stacks: np.ndarray) -> np.ndarray:
         """One (batch, stack, H, W, 3) uint8 batch → (batch, 512)."""
@@ -132,8 +137,8 @@ class ExtractR21D(StackPackingMixin, BaseExtractor):
     def maybe_show_pred(self, feats: np.ndarray, start: int, end: int) -> None:
         """The window's top-5 from ``fc`` on its features."""
         from video_features_torch.utils.preds import show_predictions_on_dataset
-        with torch.inference_mode():
+        with torch.inference_mode(), self.precision_scope():
             logits = linear(torch.from_numpy(feats).to(self.device),
-                            self.params['fc']).cpu().numpy()
+                            float32_params(self.params['fc'])).cpu().numpy()
         print(f'At frames ({start}, {end})')
         show_predictions_on_dataset(logits, self.model_def['dataset'])

@@ -130,7 +130,8 @@ class ExtractRAFT(BaseExtractor):
         padded, pads = raft_model.pad_to_multiple(
             frames, mode=self.finetuned_on, multiple=self.bucket_multiple)
         flow = raft_model.forward_consecutive(self.params, padded,
-                                              iters=self.raft_iters)
+                                              iters=self.raft_iters,
+                                              gru_passes=self.gru_passes)
         return {self.feature_type: raft_model.unpad(flow, pads)}
 
     def maybe_show_pred(self, flows: np.ndarray) -> None:

@@ -27,6 +27,7 @@ from video_features_torch.extract.streaming import (
     iter_batched_windows, stream_windows,
 )
 from video_features_torch.models import s3d as s3d_model
+from video_features_torch.ops.precision import features_to_f32
 from video_features_torch.ops.transforms import (
     center_crop, resize_bilinear_scale, to_float_zero_one,
 )
@@ -45,12 +46,15 @@ def resize_geometry(h: int, w: int) -> Tuple[Tuple[int, int], float]:
     return (math.floor(h * scale), math.floor(w * scale)), scale
 
 
-def s3d_step(params, stacks: torch.Tensor, features: bool = True) -> torch.Tensor:
-    """(B, stack, H, W, 3) uint8 → (B, 1024) features (or (B, 400)
-    logits): [0, 1] → resize at the given scale → crop 224 → S3D."""
+def s3d_step(params, stacks: torch.Tensor, features: bool = True,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, stack, H, W, 3) uint8 → (B, 1024) float32 features (or (B,
+    400) logits): [0, 1] in ``dtype`` (the lane's activations) → resize
+    at the given scale (in ``dtype``) → crop 224 → S3D."""
     size, scale = resize_geometry(*stacks.shape[2:4])
-    x = resize_bilinear_scale(to_float_zero_one(stacks), size, scale)
-    return s3d_model.forward(params, center_crop(x, SIZE), features=features)
+    x = resize_bilinear_scale(to_float_zero_one(stacks, dtype), size, scale)
+    return features_to_f32(s3d_model.forward(params, center_crop(x, SIZE),
+                                             features=features))
 
 
 class ExtractS3D(StackPackingMixin, BaseExtractor):
@@ -72,7 +76,7 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
     def load_params(self, args):
         from video_features_torch.extract.weights import load_or_init
         return load_or_init(args, 'checkpoint_path', s3d_model.init_state_dict,
-                            feature_type='s3d')
+                            feature_type='s3d', compute_dtype=self.compute_dtype)
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         """Decode (cv2, retimed to ``extraction_fps``), then
@@ -105,7 +109,8 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
     def packed_step(self, stacks: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One (batch, stack, H, W, 3) uint8 device batch → {'s3d':
         (batch, 1024)}."""
-        return {self.feature_type: s3d_step(self.params, stacks)}
+        return {self.feature_type: s3d_step(self.params, stacks,
+                                            dtype=self.act_dtype)}
 
     def step(self, stacks: np.ndarray, features: bool = True) -> np.ndarray:
         """One (batch, stack, H, W, 3) uint8 batch → (batch, 1024), or
@@ -113,8 +118,9 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
         if features:
             return self.run_step(stacks)[self.feature_type]
         x = torch.from_numpy(stacks).to(self.device)
-        with torch.inference_mode():
-            return s3d_step(self.params, x, features=False).cpu().numpy()
+        with torch.inference_mode(), self.precision_scope():
+            return s3d_step(self.params, x, features=False,
+                            dtype=self.act_dtype).cpu().numpy()
 
     def maybe_show_pred(self, stacks: np.ndarray, start: int, end: int) -> None:
         """The window's top-5, recomputed through the classifier head."""

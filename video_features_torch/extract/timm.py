@@ -41,8 +41,10 @@ from video_features_torch.models import resnet as resnet_model
 from video_features_torch.models import swin as swin_model
 from video_features_torch.models import vit as vit_model
 from video_features_torch.ops.nn import linear
+from video_features_torch.ops.precision import features_to_f32
+from video_features_torch.ops.quant import dequantize_tree
 from video_features_torch.ops.transforms import normalize, to_float_zero_one
-from video_features_torch.transplant import to_device
+from video_features_torch.transplant import float32_params, to_device
 
 
 def _data_cfg(family: str, arch: str = '') -> Dict[str, Any]:
@@ -155,11 +157,14 @@ def resolve_model_name(model_name: str) -> Dict[str, Any]:
 
 
 def timm_step(params, frames: torch.Tensor, family: str, arch: str,
-              mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
-    """(B, H, W, 3) uint8 → (B, feat_dim): [0, 1] → normalize → the
-    family's ``forward(features=True)``."""
-    x = normalize(to_float_zero_one(frames), mean, std)
-    return MODEL_MODULES[family].forward(params, x, arch=arch, features=True)
+              mean: Sequence[float], std: Sequence[float],
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, H, W, 3) uint8 → (B, feat_dim) float32: [0, 1] in ``dtype``
+    (the lane's activations) → normalize → the family's
+    ``forward(features=True)``; int8 weights are dequantized first."""
+    x = normalize(to_float_zero_one(frames, dtype), mean, std)
+    return features_to_f32(MODEL_MODULES[family].forward(
+        dequantize_tree(params), x, arch=arch, features=True))
 
 
 class ExtractTIMM(BaseFrameWiseExtractor):
@@ -198,7 +203,8 @@ class ExtractTIMM(BaseFrameWiseExtractor):
         return load_or_init(
             args, 'checkpoint_path',
             partial(module.init_state_dict, arch=self.arch, **init_kwargs),
-            feature_type='timm', what=f'timm ({self.model_name})')
+            feature_type='timm', what=f'timm ({self.model_name})',
+            compute_dtype=self.compute_dtype)
 
     def host_transform_spec(self):
         return ('edge_resize_crop', self.data_cfg['resize'],
@@ -206,7 +212,8 @@ class ExtractTIMM(BaseFrameWiseExtractor):
 
     def device_step(self, frames: torch.Tensor) -> torch.Tensor:
         return timm_step(self.params, frames, self.family, self.arch,
-                         self.data_cfg['mean'], self.data_cfg['std'])
+                         self.data_cfg['mean'], self.data_cfg['std'],
+                         self.act_dtype)
 
     def classifier(self):
         """The family's classifier params, or None: ``head`` (ViT, BEiT,
@@ -233,6 +240,7 @@ class ExtractTIMM(BaseFrameWiseExtractor):
         if not head:
             return
         from video_features_torch.utils.preds import show_predictions_on_dataset
-        with torch.inference_mode():
-            logits = linear(torch.from_numpy(feats).to(self.device), head)
+        with torch.inference_mode(), self.precision_scope():
+            logits = linear(torch.from_numpy(feats).to(self.device),
+                            float32_params(head))
         show_predictions_on_dataset(logits.cpu().numpy(), 'imagenet1k')

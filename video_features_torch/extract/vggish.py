@@ -28,6 +28,7 @@ from video_features_torch.extract.base import (
     FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
 )
 from video_features_torch.models import vggish as vggish_model
+from video_features_torch.ops.precision import features_to_f32
 from video_features_torch.ops.audio import SAMPLE_RATE, waveform_to_examples
 from video_features_torch.transplant import flatten
 
@@ -47,6 +48,8 @@ class ExtractVGGish(BaseExtractor):
         self.audio_backend = args.get('audio_backend') or 'auto'
         self.post_process = bool(args.get('post_process', False))
         self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['vggish'])
+        # on the bf16 lane the params load bf16 and the examples narrow to
+        # bf16 on the host, before the copy (half the bytes)
         self.model = vggish_model.build(flatten(self.load_params(args)),
                                         self.device)
         if self.post_process:
@@ -59,7 +62,8 @@ class ExtractVGGish(BaseExtractor):
     def load_params(self, args):
         from video_features_torch.extract.weights import load_or_init
         return load_or_init(args, 'checkpoint_path',
-                            vggish_model.init_state_dict, feature_type='vggish')
+                            vggish_model.init_state_dict, feature_type='vggish',
+                            compute_dtype=self.compute_dtype)
 
     def _read_audio(self, video_path: str) -> Tuple[np.ndarray, int, tuple]:
         """``(waveform, sample rate, temp files to remove)`` for a .wav or
@@ -117,7 +121,7 @@ class ExtractVGGish(BaseExtractor):
             # the DSP is float64 by design, the VGG float32: narrow here
             feats = self._run_batched(examples.astype(np.float32)[:, None])
             if self.post_process:
-                with torch.inference_mode():
+                with torch.inference_mode(), self.precision_scope():
                     feats = vggish_model.postprocess(
                         self._pca_eig, self._pca_means,
                         torch.from_numpy(feats).to(self.device)
@@ -133,13 +137,13 @@ class ExtractVGGish(BaseExtractor):
         if n == 0:
             return np.zeros((0, vggish_model.FEAT_DIM), np.float32)
         out = []
-        with torch.inference_mode():
+        with torch.inference_mode(), self.precision_scope():
             for start in range(0, n, self.batch_size):
                 chunk = examples[start:start + self.batch_size]
                 valid = chunk.shape[0]
                 if valid < self.batch_size:
                     pad = np.repeat(chunk[-1:], self.batch_size - valid, axis=0)
                     chunk = np.concatenate([chunk, pad], axis=0)
-                x = torch.from_numpy(chunk).to(self.device)
-                out.append(self.model(x)[:valid].cpu().numpy())
+                x = torch.from_numpy(chunk).to(self.act_dtype).to(self.device)
+                out.append(features_to_f32(self.model(x)[:valid]).cpu().numpy())
         return np.concatenate(out, axis=0)

@@ -10,10 +10,10 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 from video_features_torch.transplant import (
-    Params, load_checkpoint, params_from_torch,
+    Params, load_checkpoint, params_from_torch, to_lane,
 )
 
 ENV_FLAG = 'VFT_ALLOW_RANDOM_WEIGHTS'
@@ -59,9 +59,25 @@ def require_checkpoint(args: Any, key: str, *, feature_type: str,
 
 def load_or_init(args: Any, key: str,
                  init_fn: Callable[[], Dict[str, Any]], *,
-                 feature_type: str, what: Optional[str] = None) -> Params:
-    """Params from ``args[key]``, or the gated random init."""
+                 feature_type: str, what: Optional[str] = None,
+                 compute_dtype: str = 'float32') -> Params:
+    """Params from ``args[key]``, or the gated random init, cast for
+    the ``compute_dtype`` lane (:func:`lane_params`)."""
     ckpt = require_checkpoint(args, key, feature_type=feature_type, what=what)
-    if ckpt:
-        return load_checkpoint(ckpt)
-    return params_from_torch(init_fn())
+    params = load_checkpoint(ckpt) if ckpt else params_from_torch(init_fn())
+    return lane_params(params, compute_dtype, ckpt)
+
+
+def lane_params(params: Params, compute_dtype: str,
+                checkpoint: Optional[str] = None,
+                no_transpose: Iterable[str] = ()) -> Params:
+    """``params`` cast once for the ``compute_dtype`` lane
+    (``transplant.to_lane``); on the int8 lane a checkpoint's pinned
+    scale table ``<checkpoint>.int8-scales.npz`` is consumed verbatim."""
+    scales = None
+    if compute_dtype == 'int8' and checkpoint:
+        from video_features_torch.ops.quant import (
+            load_scale_table, scale_table_path,
+        )
+        scales = load_scale_table(scale_table_path(checkpoint))
+    return to_lane(params, compute_dtype, no_transpose, scales)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from video_features_torch.models.vit import layer_norm, mlp
+from video_features_torch.ops import nn
 from video_features_torch.ops.nn import conv
 
 Params = Dict[str, Any]
@@ -78,7 +79,7 @@ def _attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)         # (B, H, N, hd)
     scores = (q * hd ** -0.5) @ k.transpose(-1, -2)
     scores = scores + _rel_pos_bias(p, num_heads)[None]
-    out = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(B, N, D)
+    out = (nn.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(B, N, D)
     return F.linear(out, p['proj']['weight'], p['proj']['bias'])
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from video_features_torch.ops import nn
 from video_features_torch.ops.nn import avg_pool, batch_norm, conv, linear, relu
 
 Params = Dict[str, Any]
@@ -72,7 +73,7 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the trailing axis (biased variance)."""
-    return F.layer_norm(x, x.shape[-1:], p['weight'], p['bias'], eps)
+    return nn.layer_norm(x, p, eps)
 
 
 def multi_head_attention(p: Params, x: torch.Tensor, num_heads: int,
@@ -89,7 +90,7 @@ def multi_head_attention(p: Params, x: torch.Tensor, num_heads: int,
     attn = (q @ k.transpose(-2, -1)) * (head_dim ** -0.5)
     if mask is not None:
         attn = attn + mask
-    out = (attn.softmax(dim=-1) @ v).transpose(1, 2).reshape(b, n, d)
+    out = (nn.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(b, n, d)
     return linear(out, p['out_proj'])
 
 
@@ -158,7 +159,7 @@ def _attention_pool(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     k = linear(x, p['k_proj']).reshape(b, n, num_heads, head_dim)
     v = linear(x, p['v_proj']).reshape(b, n, num_heads, head_dim)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    attn = ((q @ k.transpose(-2, -1)) * (head_dim ** -0.5)).softmax(dim=-1)
+    attn = nn.softmax((q @ k.transpose(-2, -1)) * (head_dim ** -0.5), dim=-1)
     return linear((attn @ v).transpose(1, 2).reshape(b, c), p['c_proj'])
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from video_features_torch.ops import nn
 from video_features_torch.ops.nn import conv, linear
 
 Params = Dict[str, Any]
@@ -33,7 +34,7 @@ ARCHS = {
 
 
 def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
-    return F.layer_norm(x, x.shape[-1:], p['weight'], p['bias'], eps)
+    return nn.layer_norm(x, p, eps)
 
 
 def _block(p: Params, x: torch.Tensor) -> torch.Tensor:

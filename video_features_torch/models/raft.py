@@ -16,7 +16,9 @@ On the card every refinement iteration launches two hand-written CUDA
 kernels: the correlation-window lookup selected by ``VFT_RAFT_LOOKUP``
 (ops/corr_lookup.py, once) and the SepConvGRU direction
 (ops/gru.py, twice: the 1×5 pass, then the 5×1 pass). On the CPU both
-run their plain versions.
+run their plain versions. ``gru_passes`` is the GRU kernel's TF32
+products per fp32 product: 3 (3xTF32) or 1, as the run's ``precision``
+sets it (``utils/device.py::LANES``).
 """
 from __future__ import annotations
 
@@ -151,15 +153,17 @@ def gru_inp_terms(fused: Params, inp: torch.Tensor) -> Params:
 
 
 def sep_conv_gru(fused: Params, terms: Params, h: torch.Tensor,
-                 motion: torch.Tensor, plain: bool = False) -> torch.Tensor:
+                 motion: torch.Tensor, plain: bool = False,
+                 passes: int = 3) -> torch.Tensor:
     """SepConvGRU: a 1×5 then a 5×1 pass over :func:`fuse_gru_params`
     weights plus the precomputed context terms, each pass one
-    ``ops/gru.py::gru_direction`` (its plain version when ``plain``)."""
+    ``ops/gru.py::gru_direction`` in ``passes`` TF32 products (its plain
+    version when ``plain``)."""
     direction = gru_op.gru_direction_plain if plain else gru_op.gru_direction
     for suffix, axis in GRU_AXES:
         w_zr, w_q = fused[f'taps{suffix}']
         h = direction(h, motion, w_zr, w_q, terms[f'zr{suffix}'],
-                      terms[f'q{suffix}'], axis)
+                      terms[f'q{suffix}'], axis, passes=passes)
     return h
 
 
@@ -192,29 +196,32 @@ def _normalize_frames(img: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, image1: torch.Tensor, image2: torch.Tensor,
-            iters: int = ITERS, plain_kernels: bool = False) -> torch.Tensor:
+            iters: int = ITERS, plain_kernels: bool = False,
+            gru_passes: int = 3) -> torch.Tensor:
     """Two (B, H, W, 3) frames (values 0..255) → (B, H, W, 2) flow."""
     image1 = _normalize_frames(image1)
     image2 = _normalize_frames(image2)
     fmap1 = basic_encoder(params['fnet'], image1, 'instance')
     fmap2 = basic_encoder(params['fnet'], image2, 'instance')
     cnet = basic_encoder(params['cnet'], image1, 'batch')
-    return _refine(params, fmap1, fmap2, cnet, iters, plain_kernels)
+    return _refine(params, fmap1, fmap2, cnet, iters, plain_kernels,
+                   gru_passes)
 
 
 def forward_consecutive(params: Params, frames: torch.Tensor,
-                        iters: int = ITERS,
-                        plain_kernels: bool = False) -> torch.Tensor:
+                        iters: int = ITERS, plain_kernels: bool = False,
+                        gru_passes: int = 3) -> torch.Tensor:
     """(N, H, W, 3) consecutive frames → (N-1, H, W, 2) pairwise flows:
     :func:`forward` on ``(frames[:-1], frames[1:])``, with every frame
     fnet-encoded once."""
     return forward_stack_pairs(params, frames[None], iters,
-                               plain_kernels=plain_kernels)[0]
+                               plain_kernels=plain_kernels,
+                               gru_passes=gru_passes)[0]
 
 
 def forward_stack_pairs(params: Params, stacks: torch.Tensor,
-                        iters: int = ITERS,
-                        plain_kernels: bool = False) -> torch.Tensor:
+                        iters: int = ITERS, plain_kernels: bool = False,
+                        gru_passes: int = 3) -> torch.Tensor:
     """(B, S+1, H, W, 3) frame stacks → (B, S, H, W, 2) within-stack
     flows; fnet runs once on each of the B·(S+1) unique frames."""
     B, S1, H, W, C = stacks.shape
@@ -227,13 +234,14 @@ def forward_stack_pairs(params: Params, stacks: torch.Tensor,
     fmap2 = fmaps[:, 1:].reshape(B * S, h8, w8, c)
     first = flat.reshape(B, S1, H, W, C)[:, :-1].reshape(B * S, H, W, C)
     cnet = basic_encoder(params['cnet'], first, 'batch')
-    flow = _refine(params, fmap1, fmap2, cnet, iters, plain_kernels)
+    flow = _refine(params, fmap1, fmap2, cnet, iters, plain_kernels,
+                   gru_passes)
     return flow.reshape(B, S, flow.shape[1], flow.shape[2], 2)
 
 
 def _refine(params: Params, fmap1: torch.Tensor, fmap2: torch.Tensor,
-            cnet: torch.Tensor, iters: int,
-            plain_kernels: bool = False) -> torch.Tensor:
+            cnet: torch.Tensor, iters: int, plain_kernels: bool = False,
+            gru_passes: int = 3) -> torch.Tensor:
     """Correlation pyramid + GRU refinement + 8× upsample.
 
     ``plain_kernels=True`` runs the plain versions of the selected lookup
@@ -262,7 +270,8 @@ def _refine(params: Params, fmap1: torch.Tensor, fmap2: torch.Tensor,
         corr = lookup(levels, coords1)
         flow = coords1 - coords0
         motion = motion_encoder(up['encoder'], flow, corr)
-        net = sep_conv_gru(gru, gru_terms, net, motion, plain=plain_kernels)
+        net = sep_conv_gru(gru, gru_terms, net, motion, plain=plain_kernels,
+                           passes=gru_passes)
         t = relu(_conv_b(fh['conv1'], net, padding=1))
         delta = _conv_b(fh['conv2'], t, padding=1)
         coords1 = (coords1 + delta).contiguous()

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from video_features_torch.models.vit import mlp
+from video_features_torch.ops import nn
 from video_features_torch.ops.nn import conv, linear
 
 Params = Dict[str, Any]
@@ -50,7 +51,7 @@ LN_EPS = 1e-5  # timm swin uses the nn.LayerNorm default, not ViT's 1e-6
 
 
 def _layer_norm(x: torch.Tensor, p: Params) -> torch.Tensor:
-    return F.layer_norm(x, x.shape[-1:], p['weight'], p['bias'], LN_EPS)
+    return nn.layer_norm(x, p, LN_EPS)
 
 
 def _calc_window_shift(feat: Tuple[int, int], window: int, shift: int
@@ -141,7 +142,7 @@ def _window_attention(p: Params, x: torch.Tensor, num_heads: int,
         nw = mask.shape[0]
         scores = (scores.reshape(Bn // nw, nw, num_heads, N, N)
                   + mask[None, :, None]).reshape(Bn, num_heads, N, N)
-    out = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(Bn, N, C)
+    out = (nn.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(Bn, N, C)
     return linear(out, p['proj'])
 
 

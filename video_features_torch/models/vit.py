@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_features_torch.ops import attention
+from video_features_torch.ops import attention, nn
 from video_features_torch.ops.nn import conv
 
 Params = Dict[str, Any]
@@ -52,7 +52,7 @@ _BLOCK = 512
 
 
 def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
-    return F.layer_norm(x, x.shape[-1:], p['weight'], p['bias'], eps)
+    return nn.layer_norm(x, p, eps)
 
 
 def _attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:

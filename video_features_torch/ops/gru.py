@@ -24,7 +24,11 @@ accumulate in fp32, which keeps fp32-class results under
 ``precision=highest`` (the Hopper form of the Pallas kernel's bf16_3x).
 Bound by operations: 1.05 ms per direction at the main path's batch-8
 shape at 3 × the TF32 rate (2.58 ms at the fp32 FMA rate). The source's
-note gives the design.
+note gives the design. ``passes=1`` selects the kernel's one-pass
+instantiation for the one-pass precision lanes (``default``,
+``tensorfloat32``, ``bfloat16``; ``utils/device.py::LANES``): only the
+hi·hi products, the activations rounded to TF32 and the weights' lo
+parts not read, a third of the products.
 
 Weights: :func:`pack_direction` turns the conv weights (O, I, kh, kw),
 I = [h | motion], into the kernel's layout, once per RAFT forward:
@@ -35,7 +39,8 @@ descriptors read. :func:`unpack_direction` reads it back into
 tap weights (hi + lo) for :func:`gru_direction_plain`. The wrapper
 launches the kernel on a CUDA tensor (or raises) and takes the plain
 version only for a CPU tensor; ``gru_direction.launches`` counts one per
-direction (two CUDA launches).
+direction (two CUDA launches), and ``gru_direction.launches_by_passes``
+the same by pass count.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from video_features_torch.ops.nn import conv
 HIDDEN = 128
 TAPS = 5
 AXES = ('w', 'h')
+PASSES = (1, 3)     # TF32 products per fp32 product: 1xTF32, 3xTF32
 PADS = {'w': [(0, 0), (2, 2)], 'h': [(2, 2), (0, 0)]}   # the convs' padding
 
 
@@ -125,48 +131,66 @@ def _conv_weight(taps: torch.Tensor, axis: str) -> torch.Tensor:
     return (w.unsqueeze(2) if axis == 'w' else w.unsqueeze(3)).contiguous()
 
 
+def _operand(t: torch.Tensor, passes: int) -> torch.Tensor:
+    """A conv operand as the tensor cores read it: as it is in 3xTF32
+    (fp32-class), rounded to TF32 in one pass."""
+    return t if passes == 3 else tf32_round(t.float()).to(t.dtype)
+
+
 def gru_direction_convs(h: torch.Tensor, motion: torch.Tensor,
                         conv_zr: torch.Tensor, conv_q: torch.Tensor,
                         zr_term: torch.Tensor, q_term: torch.Tensor,
-                        axis: str) -> torch.Tensor:
+                        axis: str, passes: int = 3) -> torch.Tensor:
     """The direction through ``ops.nn.conv`` from conv weights (O, I, kh,
     kw): the JAX package's ``sep_conv_gru`` direction body
-    (``video_features_tpu/models/raft.py::sep_conv_gru``)."""
+    (``video_features_tpu/models/raft.py::sep_conv_gru``). ``passes=1``
+    convolves the TF32-rounded inputs and weights (in the inputs' dtype)
+    with the same epilogues."""
     pad = PADS[axis]
-    zr = torch.sigmoid(conv(torch.cat([h, motion], -1), conv_zr, padding=pad)
-                       + zr_term)
+    w_zr, w_q = _operand(conv_zr, passes), _operand(conv_q, passes)
+    zr = torch.sigmoid(conv(_operand(torch.cat([h, motion], -1), passes),
+                            w_zr, padding=pad) + zr_term)
     z, r = torch.chunk(zr, 2, dim=-1)
-    q = torch.tanh(conv(torch.cat([r * h, motion], -1), conv_q, padding=pad)
-                   + q_term)
+    q = torch.tanh(conv(_operand(torch.cat([r * h, motion], -1), passes),
+                        w_q, padding=pad) + q_term)
     return (1 - z) * h + z * q
 
 
 def gru_direction_plain(h: torch.Tensor, motion: torch.Tensor,
                         w_zr: torch.Tensor, w_q: torch.Tensor,
                         zr_term: torch.Tensor, q_term: torch.Tensor,
-                        axis: str) -> torch.Tensor:
+                        axis: str, passes: int = 3) -> torch.Tensor:
     """Plain version of :func:`gru_direction`: the packed weights read back
-    (:func:`unpack_direction`) through :func:`gru_direction_convs`."""
-    return gru_direction_convs(
-        h, motion, _conv_weight(unpack_direction(w_zr).to(h.dtype), axis),
-        _conv_weight(unpack_direction(w_q).to(h.dtype), axis), zr_term,
-        q_term, axis)
+    through :func:`gru_direction_convs`, hi + lo (:func:`unpack_direction`)
+    for ``passes=3``, the hi parts alone for ``passes=1``."""
+    if passes not in PASSES:
+        raise ValueError(f'passes must be one of {PASSES}; got {passes!r}')
+
+    def weight(packed):
+        taps = (unpack_direction(packed) if passes == 3
+                else unpack_parts(packed)[0])
+        return _conv_weight(taps.to(h.dtype), axis)
+    return gru_direction_convs(h, motion, weight(w_zr), weight(w_q), zr_term,
+                               q_term, axis, passes)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     from video_features_torch.ops import _kernels
     lib = _kernels.load('gru_direction')
-    lib.vft_gru_direction.argtypes = ([ctypes.c_void_p] * 9
-                                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    lib.vft_gru_direction.restype = ctypes.c_int
+    lib.vft_gru_direction_passes.argtypes = ([ctypes.c_void_p] * 9
+                                             + [ctypes.c_int] * 5
+                                             + [ctypes.c_void_p])
+    lib.vft_gru_direction_passes.restype = ctypes.c_int
     return lib
 
 
-def _check(h, motion, w_zr, w_q, zr_term, q_term, axis) -> None:
+def _check(h, motion, w_zr, w_q, zr_term, q_term, axis, passes) -> None:
     """Raise on anything the kernel does not take."""
     if axis not in AXES:
         raise ValueError(f'axis must be one of {AXES}; got {axis!r}')
+    if passes not in PASSES:
+        raise ValueError(f'passes must be one of {PASSES}; got {passes!r}')
     if h.ndim != 4 or h.shape[-1] != HIDDEN:
         raise ValueError(f'h must be (B, H, W, {HIDDEN}); got {tuple(h.shape)}')
     pix = tuple(h.shape[:3])
@@ -189,29 +213,36 @@ def _check(h, motion, w_zr, w_q, zr_term, q_term, axis) -> None:
 
 def gru_direction(h: torch.Tensor, motion: torch.Tensor, w_zr: torch.Tensor,
                   w_q: torch.Tensor, zr_term: torch.Tensor,
-                  q_term: torch.Tensor, axis: str) -> torch.Tensor:
-    """One GRU direction → the new h (B, H, W, 128).
+                  q_term: torch.Tensor, axis: str,
+                  passes: int = 3) -> torch.Tensor:
+    """One GRU direction → the new h (B, H, W, 128), in ``passes`` TF32
+    products per fp32 product (3: 3xTF32; 1: one pass).
 
-    CUDA tensors launch ``vft_gru_direction``; CPU tensors run
+    CUDA tensors launch ``vft_gru_direction_passes``; CPU tensors run
     :func:`gru_direction_plain`.
     """
-    _check(h, motion, w_zr, w_q, zr_term, q_term, axis)
+    _check(h, motion, w_zr, w_q, zr_term, q_term, axis, passes)
     if h.device.type == 'cpu':
-        return gru_direction_plain(h, motion, w_zr, w_q, zr_term, q_term, axis)
+        return gru_direction_plain(h, motion, w_zr, w_q, zr_term, q_term,
+                                   axis, passes)
     out = torch.empty_like(h)
     z = torch.empty_like(h)          # scratch: the z gate
     rh = torch.empty_like(h)         # scratch: r·h, the q GEMM's input
     B, H, W, _ = h.shape
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _library().vft_gru_direction(
+        rc = _library().vft_gru_direction_passes(
             h.data_ptr(), motion.data_ptr(), w_zr.data_ptr(), w_q.data_ptr(),
             zr_term.data_ptr(), q_term.data_ptr(), z.data_ptr(),
-            rh.data_ptr(), out.data_ptr(), B, H, W, int(axis == 'h'), stream)
+            rh.data_ptr(), out.data_ptr(), B, H, W, int(axis == 'h'), passes,
+            stream)
     if rc != 0:
-        raise RuntimeError(f'vft_gru_direction failed to launch: CUDA error {rc}')
+        raise RuntimeError(f'vft_gru_direction_passes failed to launch: CUDA '
+                           f'error {rc}')
     gru_direction.launches += 1
+    gru_direction.launches_by_passes[passes] += 1
     return out
 
 
 gru_direction.launches = 0
+gru_direction.launches_by_passes = {p: 0 for p in PASSES}

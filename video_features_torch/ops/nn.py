@@ -14,8 +14,15 @@ Numerics follow the JAX functions:
     ``(x - mean) * rsqrt(var + eps) * weight + bias``;
   * max pool pads with ``-inf`` (ceil mode and TF-SAME become explicit
     high-side pads); avg pool is valid (no padding);
+  * layer norm is over the trailing axis with torch's biased variance;
   * linear keeps torch's (O, I) weight; adaptive average pooling is the
     global mean over the spatial dims.
+
+The bf16 lane (``compute_dtype=bfloat16``) has float32 islands where the
+JAX package has them: batch norm, instance norm, layer norm, softmax, average
+and global pooling take a bf16 input, compute in float32 (params cast up
+too) and return bf16. The JAX package's group norm has no counterpart
+here: no ported model uses it.
 """
 from __future__ import annotations
 
@@ -77,11 +84,17 @@ def conv(x: torch.Tensor, weight: torch.Tensor, stride: IntOrTuple = 1,
     return out.movedim(1, -1)
 
 
+def _f32(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.float() for k, v in p.items()}
+
+
 def batch_norm(x: torch.Tensor, p: Dict[str, torch.Tensor],
                eps: float = 1e-5) -> torch.Tensor:
     """Inference-mode batch norm over the trailing channel axis; ``p``
     holds torch-named entries (weight, bias, running_mean, running_var),
     the affine pair optional."""
+    if x.dtype == torch.bfloat16:
+        return batch_norm(x.float(), _f32(p), eps).to(x.dtype)
     out = (x - p['running_mean']) * torch.rsqrt(p['running_var'] + eps)
     if 'weight' in p:
         out = out * p['weight']
@@ -94,6 +107,8 @@ def instance_norm(x: torch.Tensor, p: Dict[str, torch.Tensor],
                   eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm over the spatial dims (torch InstanceNorm2d: biased
     variance, affine optional, no running statistics)."""
+    if x.dtype == torch.bfloat16:
+        return instance_norm(x.float(), _f32(p), eps).to(x.dtype)
     dims = tuple(range(1, x.ndim - 1))
     mean = x.mean(dim=dims, keepdim=True)
     var = x.var(dim=dims, keepdim=True, correction=0)
@@ -105,6 +120,15 @@ def instance_norm(x: torch.Tensor, p: Dict[str, torch.Tensor],
     return out
 
 
+def layer_norm(x: torch.Tensor, p: Dict[str, torch.Tensor],
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the trailing axis (biased variance), ``p`` holding
+    weight and bias; a float32 island for a bf16 input."""
+    if x.dtype == torch.bfloat16:
+        return layer_norm(x.float(), _f32(p), eps).to(x.dtype)
+    return F.layer_norm(x, x.shape[-1:], p['weight'], p['bias'], eps)
+
+
 def linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Dense layer over the trailing axis; ``p['weight']`` is (O, I)."""
     return F.linear(x, p['weight'], p.get('bias'))
@@ -112,6 +136,14 @@ def linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``torch.softmax``; a bf16 input is exponentiated and summed in
+    float32 and the result cast back."""
+    if x.dtype == torch.bfloat16:
+        return torch.softmax(x.float(), dim=dim).to(x.dtype)
+    return torch.softmax(x, dim=dim)
 
 
 def max_pool(x: torch.Tensor, window: IntOrTuple,
@@ -128,6 +160,8 @@ def max_pool(x: torch.Tensor, window: IntOrTuple,
 def avg_pool(x: torch.Tensor, window: IntOrTuple,
              stride: Optional[IntOrTuple] = None) -> torch.Tensor:
     """Valid average pooling."""
+    if x.dtype == torch.bfloat16:
+        return avg_pool(x.float(), window, stride).to(x.dtype)
     n = x.ndim - 2
     window = _tuple(window, n)
     stride = window if stride is None else _tuple(stride, n)
@@ -136,6 +170,8 @@ def avg_pool(x: torch.Tensor, window: IntOrTuple,
 
 def adaptive_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool to 1 in every spatial dim: (B, *spatial, C) → (B, C)."""
+    if x.dtype == torch.bfloat16:
+        return adaptive_avg_pool(x.float()).to(x.dtype)
     return x.mean(dim=tuple(range(1, x.ndim - 1)))
 
 

@@ -19,9 +19,11 @@ import numpy as np
 import torch
 
 
-def to_float_zero_one(x: torch.Tensor) -> torch.Tensor:
-    """uint8 [0, 255] → float32 [0, 1]."""
-    return x.to(torch.float32) / 255.0
+def to_float_zero_one(x: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 [0, 255] → float [0, 1] in ``dtype`` (the lane's activation
+    dtype: bf16 on the bf16 lane)."""
+    return x.to(dtype) / 255.0
 
 
 def scale_to_pm1(x: torch.Tensor) -> torch.Tensor:
@@ -72,8 +74,9 @@ def _lerp_axis(x: torch.Tensor, dim: int, lo, hi, w_lo, w_hi) -> torch.Tensor:
     shape = [1] * x.ndim
     shape[dim] = len(lo)
 
-    def dev(a):
-        return torch.from_numpy(a).to(x.device)
+    def dev(a):     # the weights in x's dtype: a bf16 input stays bf16
+        t = torch.from_numpy(a).to(x.device)
+        return t.to(x.dtype) if t.is_floating_point() else t
     return (x.index_select(dim, dev(lo)) * dev(w_lo).reshape(shape)
             + x.index_select(dim, dev(hi)) * dev(w_hi).reshape(shape))
 

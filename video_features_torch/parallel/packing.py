@@ -383,7 +383,8 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
         if farm is not None:
             farm.shutdown()
     sweep(final=True)
-    ex.print_profile(f'packed worklist ({n_started[0]} videos, batch {batch})')
+    ex.print_profile(f'packed worklist ({n_started[0]} videos, batch {batch}) '
+                     f'[{ex.lane_label()}]')
 
 
 # -- fused worklists: one decode, several frame-wise families ----------------
@@ -570,6 +571,8 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
             fam = prov[0][1][0]
             ex = exs[fam]
             try:
+                # dispatch runs the batch in its family's precision scope:
+                # adjacent batches may belong to families on other lanes
                 with ex.tracer.stage('model'), torch.inference_mode():
                     readback = ex.dispatch(dev)
             except Exception as e:
@@ -587,5 +590,5 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
     sweep(final=True)
     for fam, ex in exs.items():
         ex.print_profile(f'fused worklist [{fam}] ({n_started[0]} videos, '
-                         f'batch {fam_batch[fam]})')
+                         f'batch {fam_batch[fam]}) [{ex.lane_label()}]')
     return {'videos': n_started[0], 'decode_passes': n_decoded[0]}

@@ -12,11 +12,14 @@ layout: conv (O, I, *spatial), linear (O, I).
   JAX transplant kept in torch layout are named in ``no_transpose``.
 * :func:`load_checkpoint` reads a ``.pt``/``.pth`` state_dict (or a
   pickled model), or a ``.npz`` archive in the JAX package's
-  transplanted layout.
+  transplanted layout;
+* :func:`to_lane` casts a params tree once for its ``compute_dtype``
+  lane: bf16 floating leaves, or int8-quantized conv and linear weights
+  (``ops/quant.py``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Mapping
+from typing import Any, Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -114,6 +117,34 @@ def load_checkpoint(path: str, no_transpose: Iterable[str] = (),
     if isinstance(ckpt, dict) and 'state_dict' in ckpt:
         ckpt = ckpt['state_dict']
     return params_from_torch(ckpt)
+
+
+def to_lane(tree: Params, compute_dtype: str, no_transpose: Iterable[str] = (),
+            scales: Optional[Mapping[str, Any]] = None) -> Params:
+    """The params of a ``compute_dtype`` lane: float32 as they are;
+    ``bfloat16`` with every floating leaf cast to bf16; ``int8`` with the
+    eligible weights quantized (``ops/quant.py::quantize_flat``, a pinned
+    scale table's ``scales`` consumed verbatim) and the other floating
+    leaves float32."""
+    if compute_dtype == 'float32':
+        return tree
+    if compute_dtype == 'bfloat16':
+        return nest({k: (v.to(torch.bfloat16) if v.is_floating_point() else v)
+                     for k, v in flatten(tree).items()})
+    if compute_dtype == 'int8':
+        from video_features_torch.ops.quant import quantize_flat
+        return nest(quantize_flat(flatten(tree), skip=no_transpose,
+                                  scales=scales))
+    raise ValueError(f'unknown compute_dtype {compute_dtype!r}')
+
+
+def float32_params(tree: Params) -> Params:
+    """A lane's params as float32 (int8 weights dequantized, bf16 leaves
+    cast up), for the surfaces outside the step (``show_pred``)."""
+    from video_features_torch.ops.quant import dequantize_tree
+    return {k: (float32_params(v) if isinstance(v, Mapping)
+                else v.float() if v.is_floating_point() else v)
+            for k, v in dequantize_tree(tree).items()}
 
 
 def to_device(tree: Mapping[str, Any], device) -> Params:

@@ -1,21 +1,48 @@
-"""Device resolution and the float32 precision policy.
+"""Device resolution and the matmul precision lanes.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``. A
 request for a GPU on a machine without one raises; the port never falls
 back to the CPU.
 
-Precision: ``precision='highest'`` means true float32 on the card. cuDNN
-runs float32 convolutions in TF32 by default (``torch.backends.cudnn.
-allow_tf32`` is True), which keeps about three decimal digits and drifts
-the features at the 1e-3 level, so :func:`set_precision` switches TF32
-off for both cuDNN and cuBLAS. These two flags are process-wide torch
-settings.
+Precision: ``precision`` takes the JAX package's seven values
+(:data:`PRECISIONS`). On the card a value decides two things
+(:data:`LANES`): whether cuDNN and cuBLAS may run float32 convolutions
+and matmuls in TF32 (about three decimal digits), and how many TF32
+products the GRU direction kernel (``csrc/gru_direction.cu``) issues per
+fp32 one: 3 (3xTF32, fp32-class) or 1.
+
+  * ``highest``, ``float32``: TF32 off, the kernel in 3xTF32. ``float32``
+    is the JAX package's name for ``highest``: the same bytes.
+  * ``high``, ``mixed``: TF32 on, the kernel in 3xTF32. ``mixed`` is the
+    JAX package's ambient ``high`` with no pins; the libraries have no
+    three-pass mode, so only the hand kernel keeps JAX's three passes.
+  * ``default``, ``tensorfloat32``, ``bfloat16``: TF32 on, the kernel in
+    1xTF32 (one-pass modes in JAX).
+
+The two library flags are process-wide torch settings, read when a
+kernel is launched on the host, so :func:`precision_scope` sets them
+around each step's dispatch and restores them after: two extractors on
+different lanes in one process each run on their own. Extractors never
+set them for the whole process; :func:`set_precision` does, for scripts
+that call the models and kernels directly.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+from typing import Dict, Iterator, Tuple
+
 import torch
 
-PRECISIONS = ('highest',)
+PRECISIONS = ('default', 'high', 'highest', 'mixed', 'bfloat16',
+              'tensorfloat32', 'float32')
+
+# precision → (TF32 in cuDNN and cuBLAS, TF32 products per fp32 product
+# in the GRU direction kernel)
+LANES: Dict[str, Tuple[bool, int]] = {
+    'highest': (False, 3), 'float32': (False, 3),
+    'high': (True, 3), 'mixed': (True, 3),
+    'default': (True, 1), 'tensorfloat32': (True, 1), 'bfloat16': (True, 1),
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -43,11 +70,39 @@ def resolve_device(device) -> torch.device:
         f"device must be 'cuda', 'cuda:N' or 'cpu'; got {device!r}")
 
 
-def set_precision(precision: str = 'highest') -> None:
-    """Apply the float32 policy: TF32 off for cuBLAS and cuDNN."""
-    if precision not in PRECISIONS:
+def lane(precision: str) -> Tuple[bool, int]:
+    """``(tf32, gru_passes)`` of a precision value; an unknown value
+    raises ``ValueError`` naming ``precision``."""
+    try:
+        return LANES[precision]
+    except KeyError:
         raise ValueError(f'precision must be one of {PRECISIONS}; got '
-                         f'{precision!r} (faster precision modes are not '
-                         f'ported yet)')
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+                         f'{precision!r}') from None
+
+
+def gru_passes(precision: str) -> int:
+    """TF32 products per fp32 product in the GRU direction kernel."""
+    return lane(precision)[1]
+
+
+def set_precision(precision: str = 'highest') -> None:
+    """Set cuDNN's and cuBLAS's TF32 flags for ``precision`` for the whole
+    process, with no restore: for scripts that call the models and
+    kernels outside an extractor."""
+    tf32 = lane(precision)[0]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
+@contextmanager
+def precision_scope(precision: str) -> Iterator[None]:
+    """Set cuDNN's and cuBLAS's TF32 flags for ``precision`` (see
+    :data:`LANES`) and restore both on exit, also when the body raises."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    set_precision(precision)
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
