@@ -195,11 +195,30 @@ package is not beside it. Phases:
    ``pil_resize_bilinear_device`` under ``tensorfloat32`` byte-equal to
    PIL; then ``registry.MIXED_FEATURES`` must be exactly the families
    whose drift under ``high`` is ≤ 1e-3, which load ``precision=mixed``,
-   while the others refuse it naming ``precision``.
+   while the others refuse it naming ``precision``;
+20. feature cache: phase 17's four clips and a byte copy of the first
+   under another name, the I3D path of 17 from ``create_extractor(
+   load_config('i3d', ...))`` with ``cache_enabled=true`` and a
+   ``cache_l2_dir``, after a warm-up with the cache detached: (a) the
+   per-video loop, a missing run (four fused steps with their launches,
+   each video published to L1 and L2; the copy already a hit) and a run
+   into a fresh ``output_path`` that is all hits, with no step and no
+   launch, its files byte-identical; per-video wall of a miss and of a
+   hit, the publish and lookup ms per video; (b) ``extract_packed`` at
+   ``decode_workers`` 2 on a cold cache: the copy parks in the decode
+   farm (``deduped`` ≥ 1, one decode fewer than the tasks) and every
+   file is (a)'s bytes; (c) resnet50, CLIP ViT-B/32 and ViT-B/16 fused
+   on fresh copies of the corpus over a cold cache: one ``hash_file``
+   pass per file, and ``hash_file``'s MB/s; (d) a fresh L1 over (a)'s
+   L2: every video a peer hit, no step, (a)'s bytes; (e) ``python -m
+   video_features_torch.cache.gc --verify`` on (a)'s L1 exits 0, and 1
+   after one stored file is truncated; the next run re-extracts that
+   video alone (one step), byte-equal to (a). Every number is printed
+   with the card's name and power limit. No ring or worker is left.
 
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10, 17, 18 and 19; the one-pass
-GRU instantiation is an entry of its own); the last line is
+sum over the path runs of phases 4, 5, 10, 17, 18, 19 and 20; the
+one-pass GRU instantiation is an entry of its own); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2381,6 +2400,285 @@ def lanes_phase(torch, np, corr_lookup, gru, transforms, launches) -> dict:
     return rec
 
 
+# -- phase 20: the feature cache ----------------------------------------------
+
+
+def cache_extract(ex, paths, steps) -> list:
+    """``_extract`` over ``paths``: (outcome, wall s) per video, the step
+    counter reset first."""
+    steps[0] = 0
+    runs = []
+    for p in paths:
+        t0 = time.perf_counter()
+        outcome = ex._extract(p)
+        runs.append((outcome, time.perf_counter() - t0))
+    return runs
+
+
+def cache_gc(cache_dir: Path) -> tuple:
+    """``python -m video_features_torch.cache.gc --verify`` on a directory:
+    (exit code, report)."""
+    proc = subprocess.run(
+        [sys.executable, '-m', 'video_features_torch.cache.gc', '--cache-dir',
+         str(cache_dir), '--verify'], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode not in (0, 1) or not lines:
+        fail(f'phase 20 (e): the GC exited {proc.returncode}: {proc.stderr}')
+    return proc.returncode, json.loads(lines[-1])
+
+
+def cache_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
+    """Phase 20: the feature cache on the I3D path at batch 8 over phase
+    17's clips and a byte copy of one of them: (a) per video, a missing
+    run then a hit run; (b) packed through the decode farm, the copy
+    parked; (c) a fused frame-wise worklist hashing each file once; (d) a
+    second L1 over (a)'s L2; (e) the GC entry point and a truncated
+    entry."""
+    import multiprocessing
+
+    from video_features_torch.config import load_config, load_fused_configs
+    from video_features_torch.parallel.packing import VideoTask, run_packed_fused
+    from video_features_torch.registry import create_extractor
+    from video_features_torch.utils.fingerprint import (
+        hash_file, hash_file_stats, reset_hash_file_stats,
+    )
+    from video_features_torch.utils.tracing import Tracer
+    os.environ['VFT_RAFT_LOOKUP'] = 'auto'
+    root = ROOT / 'output' / 'cache'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shm_before = set(os.listdir('/dev/shm'))
+    paths = write_clips(np, root, PACK_CLIPS, seed=40)
+    copy = root / 'clip40_0_copy.avi'
+    shutil.copyfile(paths[0], copy)
+    corpus = paths + [str(copy)]
+    l1a, l2 = root / 'l1a', root / 'l2'
+
+    def i3d_args(out: str, l1: Path, **kw):
+        return load_config('i3d', overrides={
+            'video_paths': corpus, 'device': 'cuda', 'streams': None,
+            'stack_size': STACK, 'step_size': STACK, 'raft_iters': SLICE_ITERS,
+            'batch_size': PACK_BATCH, 'allow_random_weights': True,
+            'on_extraction': 'save_numpy', 'output_path': str(root / out),
+            'tmp_path': str(root / 'tmp'), 'cache_enabled': True,
+            'cache_dir': str(l1), **kw})
+
+    t0 = time.perf_counter()
+    ex = create_extractor(i3d_args('a1', l1a, cache_l2_dir=str(l2)))
+    ex.tracer = Tracer()
+    ex.print_profile = lambda title: None
+    steps = [0]
+    packed_step = ex.packed_step
+
+    def counted_step(x):
+        steps[0] += 1
+        return packed_step(x)
+    ex.packed_step = counted_step
+    cache, ex.cache = ex.cache, None        # a warm-up that leaves no entry
+    ex.output_path = str(root / 'warm')
+    cache_extract(ex, [paths[1], paths[3]], steps)   # both geometries
+    ex.cache, ex.output_path = cache, str(root / 'a1')
+    print(f'phase 20: clips written, extractor built and warmed up in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+    # (a) the per-video loop: a missing run, then a run that is all hits
+    torch.cuda.synchronize()
+    ex.tracer.reset()
+    reset_counts(corr_lookup, gru)
+    run1 = cache_extract(ex, corpus, steps)
+    torch.cuda.synchronize()
+    counts = read_counts(corr_lookup, gru)
+    outcomes = [o for o, _ in run1]
+    if outcomes != ['saved'] * len(paths) + ['cached']:
+        fail(f'phase 20 (a) run 1: outcomes {outcomes}, want four saved and '
+             'the byte copy cached')
+    if steps[0] != len(paths):
+        fail(f'phase 20 (a) run 1: {steps[0]} fused steps, want {len(paths)}')
+    check_counts(counts, 'masked', steps[0], 'phase 20 (a) run 1')
+    rep1 = ex.tracer.report()
+    st = ex.cache.stats()
+    if (st['puts'], st['l2_publishes'], st['hits']) != (len(paths), len(paths), 1):
+        fail(f'phase 20 (a) run 1: cache stats {st}')
+    ex.tracer.reset()
+    ex.output_path = str(root / 'a2')
+    reset_counts(corr_lookup, gru)
+    run2 = cache_extract(ex, corpus, steps)
+    torch.cuda.synchronize()
+    counts2 = read_counts(corr_lookup, gru)
+    rep2 = ex.tracer.report()
+    if [o for o, _ in run2] != ['cached'] * len(corpus) or steps[0] \
+            or any(counts2.values()):
+        fail(f'phase 20 (a) run 2: outcomes {[o for o, _ in run2]}, '
+             f'{steps[0]} fused steps, launches {counts2}: want all hits, '
+             'no step, no launch')
+    tree_a1 = tree_arrays(np, str(root / 'a1'))
+    worst = compare_trees(np, tree_arrays(np, str(root / 'a2')), tree_a1,
+                          'phase 20 (a) hit run vs missing run')
+    copy_out, orig_out = tree_a1.get(copy.stem + '.npy'), tree_a1.get(
+        Path(paths[0]).stem + '.npy')
+    if worst or copy_out is None or orig_out is None \
+            or copy_out.tobytes() != orig_out.tobytes():
+        fail('phase 20 (a): the hit run or the byte copy is not byte-identical')
+    width = 1024 * len(ex.streams)
+    for p, n in zip(paths, PACK_WINDOWS):
+        out = tree_a1[Path(p).stem + '.npy']
+        if out.shape != (n, width) or not np.isfinite(out).all():
+            fail(f'phase 20 (a): {Path(p).name} gave {out.shape}, want '
+                 f'({n}, {width}), finite')
+    miss_ms = [w * 1e3 for o, w in run1 if o == 'saved']
+    hit_ms = [w * 1e3 for _, w in run2]
+    publish_ms = rep1['cache_publish']['mean_s'] * 1e3
+    lookup_ms = rep2['cache_lookup']['mean_s'] * 1e3
+    print(f'phase 20 (a) per video ({card}): missed-and-published '
+          f'{", ".join(f"{m:.1f}" for m in miss_ms)} ms (mean '
+          f'{sum(miss_ms) / len(miss_ms):.1f}), launches {counts}, '
+          f'{len(paths)} fused steps; the byte copy a hit in run 1 '
+          f'({run1[-1][1] * 1e3:.2f} ms); hit run {", ".join(f"{h:.2f}" for h in hit_ms)} '
+          f'ms (mean {sum(hit_ms) / len(hit_ms):.2f}), 0 steps, 0 launches; '
+          f'publish overhead {publish_ms:.2f} ms per video (L1 and L2), lookup '
+          f'{lookup_ms:.2f} ms per hit; outputs byte-identical', flush=True)
+
+    # (b) packed through the decode farm on a cold cache: the copy parks
+    ex.configure_cache(i3d_args('b', root / 'l1b'))
+    ex.decode_workers = 2
+    torch.cuda.synchronize()
+    reset_counts(corr_lookup, gru)
+    steps[0] = 0
+    t1 = time.perf_counter()
+    tasks = [VideoTask(p, out_root=str(root / 'b')) for p in corpus]
+    ex.extract_packed(tasks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = read_counts(corr_lookup, gru)
+    fs = ex._farm.stats()
+    if not fs['ran'] or fs['deduped'] < 1 \
+            or fs['videos_assigned'] != len(corpus) - 1 \
+            or not tasks[-1].cached or steps[0] < 2:
+        fail(f'phase 20 (b): farm stats {fs}, copy cached {tasks[-1].cached}, '
+             f'{steps[0]} fused steps: want the copy parked and one decode '
+             'fewer than the tasks')
+    check_counts(counts, 'masked', steps[0], 'phase 20 (b)')
+    worst = compare_trees(np, tree_arrays(np, str(root / 'b')), tree_a1,
+                          'phase 20 (b) vs (a)')
+    if worst:
+        fail(f'phase 20 (b): outputs differ from (a) (rel L2 {worst})')
+    print(f'phase 20 (b) packed, decode_workers 2, cold cache ({card}): '
+          f'{wall:.3f} s wall, {fs["videos_assigned"]} decodes for '
+          f'{len(corpus)} tasks, deduped {fs["deduped"]}, {steps[0]} fused '
+          f'steps, launches {counts}; outputs byte-equal to (a)', flush=True)
+
+    # (c) a fused frame-wise worklist over fresh copies: one hash per file
+    csrc = root / 'c_src'
+    csrc.mkdir()
+    fused_paths = [str(shutil.copyfile(p, csrc / Path(p).name)) for p in corpus]
+    configs = load_fused_configs(list(FARM_FAMILIES), {
+        'video_paths': fused_paths, 'device': 'cuda',
+        'allow_random_weights': True, 'on_extraction': 'save_numpy',
+        'output_path': str(root / 'c'), 'tmp_path': str(root / 'tmp'),
+        'batch_size': PACK_RESNET_BATCH, 'cache_enabled': True,
+        'cache_dir': str(root / 'l1c'),
+        **{f'{fam}.model_name': m for fam, m in FARM_FAMILIES.items()}})
+    exs = {fam: create_extractor(args) for fam, args in configs.items()}
+    reset_hash_file_stats()
+    reset_counts(corr_lookup, gru)
+    t1 = time.perf_counter()
+    res = run_packed_fused(exs, list(fused_paths))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    passes = hash_file_stats()['passes']
+    counts = read_counts(corr_lookup, gru)
+    if passes != len(fused_paths) or any(counts.values()):
+        fail(f'phase 20 (c): {passes} hash passes for {len(fused_paths)} '
+             f'files (want one each), launches {counts}')
+    for fam, fex in exs.items():
+        for p in fused_paths:
+            f = Path(fex.output_path) / f'{Path(p).stem}_{fam}.npy'
+            if not f.exists() or not np.isfinite(np.load(f)).all():
+                fail(f'phase 20 (c): {fam} output of {Path(p).name} missing '
+                     'or not finite')
+    print(f'phase 20 (c) features=[{",".join(FARM_FAMILIES)}] fused, cold '
+          f'cache ({card}): {passes} hash passes for {len(fused_paths)} files '
+          f'and {len(exs)} families, {res["decode_passes"]} decode passes, '
+          f'{exs["resnet"].cache.stats()["puts"]} publishes, {wall:.3f} s '
+          'wall, 0 launches', flush=True)
+    hash_dir = root / 'hash'
+    hash_dir.mkdir()
+    fresh = [shutil.copyfile(p, hash_dir / Path(p).name) for p in corpus]
+    nbytes = sum(os.path.getsize(p) for p in fresh)
+    t1 = time.perf_counter()
+    for p in fresh:
+        hash_file(str(p))
+    dt = time.perf_counter() - t1
+    print(f'phase 20: hash_file at {nbytes / dt / 1e6:.1f} MB/s over '
+          f'{len(fresh)} files, {nbytes / 1e6:.2f} MB, page cache warm '
+          f'({card})', flush=True)
+    del exs
+    torch.cuda.empty_cache()
+
+    # (d) a second L1 over the L2 that (a) filled: every video from the L2
+    ex.configure_cache(i3d_args('d', root / 'l1d', cache_l2_dir=str(l2)))
+    ex.output_path = str(root / 'd')
+    reset_counts(corr_lookup, gru)
+    run_d = cache_extract(ex, paths, steps)
+    counts = read_counts(corr_lookup, gru)
+    st = ex.cache.stats()
+    if [o for o, _ in run_d] != ['cached'] * len(paths) or steps[0] \
+            or any(counts.values()) or st['peer_hits'] != len(paths):
+        fail(f'phase 20 (d): outcomes {[o for o, _ in run_d]}, {steps[0]} '
+             f'steps, launches {counts}, peer hits {st["peer_hits"]}: want '
+             f'{len(paths)} L2 hits and no step')
+    tree_d = tree_arrays(np, str(root / 'd'))
+    if compare_trees(np, tree_d, {k: tree_a1[k] for k in tree_d},
+                     'phase 20 (d) vs (a)') or len(tree_d) != len(paths):
+        fail('phase 20 (d): L2-served outputs differ from (a)')
+    peer_ms = [w * 1e3 for _, w in run_d]
+    print(f'phase 20 (d) a fresh L1 over the L2 ({card}): {st["peer_hits"]} '
+          f'peer hits, promoted into L1 ({st["entries"]} entries), '
+          f'{", ".join(f"{m:.2f}" for m in peer_ms)} ms per video, 0 steps, '
+          '0 launches; outputs byte-equal to (a)', flush=True)
+
+    # (e) the GC: clean, then one truncated stored file
+    rc, report = cache_gc(l1a)
+    if rc != 0 or report['corrupt_evicted'] or report['entries_after'] != len(paths):
+        fail(f'phase 20 (e): GC on the clean store exited {rc}: {report}')
+    victim_key = ex._video_cache_key(paths[1])
+    victim = l1a / 'objects' / victim_key[:2] / victim_key / 'rgb.npy'
+    victim.write_bytes(victim.read_bytes()[:-16])
+    rc1, report1 = cache_gc(l1a)
+    if rc1 != 1 or report1['corrupt_evicted'] != 1:
+        fail(f'phase 20 (e): GC after a truncation exited {rc1}: {report1}')
+    # L1 alone (the L2 would serve the video): the store as GC left it
+    ex.configure_cache(i3d_args('e', l1a))
+    ex.output_path = str(root / 'e')
+    reset_counts(corr_lookup, gru)
+    run_e = cache_extract(ex, paths, steps)
+    torch.cuda.synchronize()
+    counts = read_counts(corr_lookup, gru)
+    want = ['cached'] * len(paths)
+    want[1] = 'saved'
+    if [o for o, _ in run_e] != want or steps[0] != 1:
+        fail(f'phase 20 (e): outcomes {[o for o, _ in run_e]}, {steps[0]} '
+             f'steps: want {paths[1]} re-extracted in one step')
+    check_counts(counts, 'masked', 1, 'phase 20 (e)')
+    name = Path(paths[1]).stem + '.npy'
+    if tree_arrays(np, str(root / 'e'))[name].tobytes() != tree_a1[name].tobytes():
+        fail('phase 20 (e): the re-extracted video differs from (a)')
+    print(f'phase 20 (e) GC --verify ({card}): exit 0 on the clean store '
+          f'({report["entries_after"]} entries); after truncating one stored '
+          f'file exit 1, {report1["corrupt_evicted"]} corrupt evicted; the '
+          f'next run re-extracted that video in 1 step (launches {counts}), '
+          'byte-equal to (a), and served the rest', flush=True)
+    gc.collect()
+    left = sorted(set(os.listdir('/dev/shm')) - shm_before)
+    children = multiprocessing.active_children()
+    if left or children:
+        fail(f'phase 20: left behind: /dev/shm {left}, processes {children}')
+    del ex
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -2399,7 +2697,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f'nvidia-smi failed: {smi.stderr.strip()}')
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     kind = torch.cuda.get_device_name(0)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} device {kind}',
           flush=True)
@@ -2539,9 +2838,15 @@ def main() -> int:
               'highest, high and tensorfloat32; the bf16 and int8 lanes; the '
               'device resize under TF32)')
     rec['gru1'] = lanes_phase(torch, np, corr_lookup, gru, transforms, launches)
+    print(f'lanes phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('feature cache (I3D at batch 8 per video, packed through the '
+              'decode farm, a second L1 over the L2, the GC; a fused '
+              'frame-wise worklist)')
+    cache_phase(torch, np, corr_lookup, gru, check_counts, card)
     for key in launches:
         rec[key]['launches'] = launches[key]
-    print(f'lanes phase {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'cache phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

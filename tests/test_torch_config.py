@@ -2,6 +2,7 @@
 timm and vggish families (video_features_torch/config.py, configs/*.yml) and the resume
 fingerprint (its keys, and checkpoints entering by their content), on
 the CPU."""
+import os
 import shutil
 
 import numpy as np
@@ -9,8 +10,8 @@ import pytest
 import torch
 
 from tools.make_sample_video import write_noise_clip
-from video_features_torch.config import load_config
-from video_features_torch.extract.base import FINGERPRINT_KEYS, run_fingerprint
+from video_features_torch.cache.key import run_fingerprint
+from video_features_torch.config import knob_exclude, load_config
 from video_features_torch.extract.clip import ExtractCLIP
 from video_features_torch.extract.r21d import MODEL_CFGS, ExtractR21D
 from video_features_torch.extract.resnet import ExtractResNet
@@ -178,12 +179,12 @@ def test_fingerprint_keys(tmp_path, ft, key, a, b):
     device_resize, its pipeline's inputs) change its resume fingerprint;
     a checkpoint or PCA path enters by its file's content (a file written
     here) against a null path's ``random`` or ``none``."""
-    assert key in FINGERPRINT_KEYS[ft]
-    keys = FINGERPRINT_KEYS[ft]
+    assert key not in knob_exclude('fingerprint')
     if key.endswith(('checkpoint_path', 'pca_params_path')):
         b = tmp_path / b
         b.write_bytes(b'weights')
-    assert run_fingerprint({key: a}, keys) != run_fingerprint({key: b}, keys)
+    assert run_fingerprint({'feature_type': ft, key: a}) != \
+        run_fingerprint({'feature_type': ft, key: b})
 
 
 PORTED = ('i3d', 'r21d', 's3d', 'raft', 'resnet', 'clip', 'timm', 'vggish')
@@ -258,38 +259,45 @@ def test_timm_without_a_gpu_is_an_error(clip, tmp_path):
 
 
 def test_batch_size_is_not_in_the_fingerprint():
+    """The port's former allow-list left ``batch_size`` out of the
+    fingerprint; it now follows the JAX package's rule, where every key
+    its knob table does not exclude enters, ``batch_size`` included."""
+    from video_features_tpu.cache.key import config_fingerprint as jax_cfg
     for ft in ('resnet', 'clip'):
-        keys = FINGERPRINT_KEYS[ft]
-        assert run_fingerprint({'feature_type': ft, 'batch_size': 1}, keys) == \
-            run_fingerprint({'feature_type': ft, 'batch_size': 32}, keys)
+        assert run_fingerprint({'feature_type': ft, 'batch_size': 1}) != \
+            run_fingerprint({'feature_type': ft, 'batch_size': 32})
+        assert jax_cfg({'feature_type': ft, 'batch_size': 1}) != \
+            jax_cfg({'feature_type': ft, 'batch_size': 32})
 
 
 def test_checkpoint_path_string_is_not_in_the_fingerprint(tmp_path):
     """Only the file's content counts: the same bytes under two names
     give one fingerprint, a rewrite under one name changes it."""
-    keys = FINGERPRINT_KEYS['resnet']
     one, two = tmp_path / 'a.pt', tmp_path / 'b.pt'
     one.write_bytes(b'v1')
     two.write_bytes(b'v1')
-    fp = run_fingerprint({'checkpoint_path': str(one)}, keys)
-    assert run_fingerprint({'checkpoint_path': str(two)}, keys) == fp
+    fp = run_fingerprint({'checkpoint_path': str(one)})
+    assert run_fingerprint({'checkpoint_path': str(two)}) == fp
     one.write_bytes(b'v2')
-    assert run_fingerprint({'checkpoint_path': str(one)}, keys) != fp
+    # a same-size rewrite within one mtime tick keeps the hash memo's
+    # stat identity; a real rewrite moves the mtime
+    os.utime(one, ns=(1, 1))
+    assert run_fingerprint({'checkpoint_path': str(one)}) != fp
 
 
 def test_clip_custom_keys_on_the_implicit_checkpoint(tmp_path, monkeypatch):
     """model_name=custom with no path loads ./checkpoints/CLIP-custom.pth,
     so its content is the weights' identity, not ``random``."""
     monkeypatch.chdir(tmp_path)
-    keys = FINGERPRINT_KEYS['clip']
     args = {'feature_type': 'clip', 'model_name': 'custom', 'checkpoint_path': None}
-    missing = run_fingerprint(args, keys)
+    missing = run_fingerprint(args)
     (tmp_path / 'checkpoints').mkdir()
     implicit = tmp_path / 'checkpoints' / 'CLIP-custom.pth'
     implicit.write_bytes(b'v1')
-    v1 = run_fingerprint(args, keys)
+    v1 = run_fingerprint(args)
     implicit.write_bytes(b'v2')
-    assert len({missing, v1, run_fingerprint(args, keys)}) == 3
+    os.utime(implicit, ns=(1, 1))      # as a rewrite a tick later would
+    assert len({missing, v1, run_fingerprint(args)}) == 3
 
 
 def _resnet18(tmp_path, ckpt):
@@ -359,7 +367,8 @@ PORT_IMPLEMENTS = {'video_paths', 'file_with_video_paths', 'output_path',
                    'allow_random_weights', 'compute_dtype', 'inflight',
                    'decode_workers', 'pack_across_videos', 'pack_decode_ahead',
                    'profile', 'compilation_cache_dir', 'decode_farm_ring_mb',
-                   'features'}
+                   'features', 'cache_enabled', 'cache_dir', 'cache_max_bytes',
+                   'cache_l2_dir'}
 
 
 def test_every_jax_knob_is_ported_or_refused_at_the_jax_default():

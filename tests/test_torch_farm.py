@@ -296,6 +296,72 @@ def test_farm_admission_skips_without_decoding(tmp_path):
     assert farm.stats()['videos_assigned'] == 1
 
 
+def test_farm_parks_a_duplicate_until_its_twin_finalizes(tmp_path):
+    """Two tasks whose cache keys match: the second parks while the first
+    decodes, and once the first is finalized its gate runs again, which
+    (as a cache hit would) ends it without a decode, while the task
+    stream is still open."""
+    import threading
+    pk = _packing()
+    a, b = pk.VideoTask(str(tmp_path / 'a.bin')), pk.VideoTask(str(tmp_path / 'b.bin'))
+    stop, timed_out = threading.Event(), []
+
+    def feed():
+        yield a
+        yield b
+        deadline = time.monotonic() + 20
+        while not stop.is_set():     # an open stream, FLUSH between bursts
+            if time.monotonic() > deadline:
+                timed_out.append(True)
+                return
+            time.sleep(0.05)
+            yield pk.FLUSH
+
+    farm = DecodeFarm(SyntheticRecipe(n_windows=6), workers=2,
+                      ring_bytes=1 << 20, cache_key_fn=lambda p: 'same-content')
+    for item in farm.stream(feed(), lambda t: t is a or not a.finalized):
+        if item is not pk.FLUSH and item is not pk.NUDGE:
+            task, window, meta = item
+            np.testing.assert_array_equal(window, expected_window(task.path, meta))
+        if a.exhausted and not a.finalized:
+            a.finalized = True            # the packed loop's finalize
+        if b.exhausted:
+            stop.set()
+    assert not timed_out, 'the duplicate stayed parked until the stream ended'
+    assert a.emitted == 6 and not a.failed
+    assert b.exhausted and not b.failed and b.emitted == 0
+    st = farm.stats()
+    assert (st['deduped'], st['videos_assigned']) == (1, 1)
+    assert merge_farm_stats([st, st])['deduped'] == 2
+
+
+def test_farm_parked_duplicate_decodes_when_its_twin_failed(tmp_path):
+    """A twin that fails publishes nothing: the parked task's gate lets
+    it through and it decodes itself. A key function that raises skips
+    parking."""
+    pk = _packing()
+    bad = pk.VideoTask(str(tmp_path / 'BAD.bin'))
+    dup = pk.VideoTask(str(tmp_path / 'dup.bin'))
+    odd = pk.VideoTask(str(tmp_path / 'odd.bin'))
+
+    def key_fn(path):
+        if 'odd' in path:
+            raise OSError('unreadable')
+        return 'same-content'
+
+    farm = DecodeFarm(SyntheticRecipe(n_windows=3), workers=1,
+                      ring_bytes=1 << 20, cache_key_fn=key_fn)
+    got = {}
+    for item in farm.stream(iter([bad, dup, odd]), lambda t: True):
+        if item is not pk.FLUSH and item is not pk.NUDGE:
+            got[item[0].path] = got.get(item[0].path, 0) + 1
+        if bad.exhausted:
+            bad.finalized = True
+    assert bad.failed and not dup.failed and not odd.failed
+    assert got[dup.path] == 3 and got[odd.path] == 3
+    assert farm.stats()['deduped'] == 1 and farm.stats()['videos_assigned'] == 3
+
+
 def test_farm_flush_waits_for_the_videos_before_it(tmp_path):
     """A FLUSH in the task stream comes out after every window of the
     videos before it, as the in-process windower yields it."""

@@ -96,7 +96,9 @@ def _overrides(paths, out, **kw):
 
 def test_load_fused_configs_matches_jax(worklist, tmp_path):
     """Each family's merged config equals the JAX package's on every key
-    they share, scoped keys and output paths included."""
+    they share, scoped keys and output paths included; the default
+    ``cache_dir`` is the port's own store (its keys carry a backend tag,
+    so the JAX package's directory would serve no hit either)."""
     from video_features_tpu.config import load_fused_configs as jax_load
     overrides = _overrides(worklist, tmp_path, features=FAMILIES)
     ours = load_fused_configs(FAMILIES, overrides)
@@ -105,6 +107,8 @@ def test_load_fused_configs_matches_jax(worklist, tmp_path):
     for fam in FAMILIES:
         shared = set(ours[fam]) & set(theirs[fam])
         assert {'model_name', 'output_path', 'batch_size', 'decode_workers'} <= shared
+        assert ours[fam]['cache_dir'] == '~/.cache/video_features_torch/features'
+        shared.discard('cache_dir')
         assert {k: ours[fam][k] for k in shared} == {k: theirs[fam][k] for k in shared}
         assert 'features' not in ours[fam]
     assert ours['resnet']['model_name'] == 'resnet18'

@@ -9,13 +9,14 @@ PORT_SOURCES = sorted((REPO / 'video_features_torch').rglob('*.py')) + [
     REPO / 'chip_smoke.py']
 FORBIDDEN = ('jax', 'jaxlib', 'video_features_tpu', 'timm')
 # the vggish slice's modules, the decoders' binding, the streaming
-# loop's and the packed loop's modules, the decode farm's, and the
-# precision lanes', by name
+# loop's and the packed loop's modules, the decode farm's, the precision
+# lanes' and the feature cache's, by name
 REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'io.native', 'io.audio', 'ops.audio', 'models.vggish', 'extract.vggish',
     'parallel', 'parallel.packing', 'extract.streaming', 'utils.tracing',
     'farm', 'farm.farm', 'farm.ring', 'farm.recipes', 'farm.worker',
-    'ops.precision', 'ops.quant'))
+    'ops.precision', 'ops.quant', 'cache', 'cache.key', 'cache.store',
+    'cache.gc', 'fleet', 'fleet.tier'))
 
 IMPORT_ALL = r'''
 import importlib, pkgutil, sys

@@ -33,13 +33,13 @@ from video_features_tpu.ops import precision as jax_precision
 from video_features_tpu.transplant.torch2jax import transplant
 from video_features_tpu.utils.device import MATMUL_PRECISIONS
 from video_features_torch import registry
-from video_features_torch.config import load_config, load_fused_configs
+from video_features_torch.cache.key import run_fingerprint
+from video_features_torch.config import knob_exclude, load_config, load_fused_configs
 from video_features_torch.extract import clip as clip_ex
 from video_features_torch.extract import r21d as r21d_ex
 from video_features_torch.extract import resnet as resnet_ex
 from video_features_torch.extract import s3d as s3d_ex
 from video_features_torch.extract import timm as timm_ex
-from video_features_torch.extract.base import FINGERPRINT_KEYS, run_fingerprint
 from video_features_torch.models import raft, vggish, vit
 from video_features_torch.ops import attention, gru, nn
 from video_features_torch.ops import precision as lanes
@@ -457,12 +457,12 @@ def test_s3d_resize_yields_the_lanes_dtype():
 
 @pytest.mark.parametrize('ft', BF16_FAMILIES)
 def test_compute_dtype_enters_the_fingerprint(ft):
-    keys = FINGERPRINT_KEYS[ft]
-    assert 'compute_dtype' in keys
-    assert run_fingerprint({'compute_dtype': 'float32'}, keys) != \
-        run_fingerprint({'compute_dtype': 'bfloat16'}, keys)
-    assert run_fingerprint({'compute_dtype': 'float32'}, keys) == \
-        run_fingerprint({}, keys) == run_fingerprint({'compute_dtype': None}, keys)
+    assert 'compute_dtype' not in knob_exclude('fingerprint')
+
+    def fp(**kw):
+        return run_fingerprint({'feature_type': ft, **kw})
+    assert fp(compute_dtype='float32') != fp(compute_dtype='bfloat16')
+    assert fp(compute_dtype='float32') == fp() == fp(compute_dtype=None)
 
 
 @pytest.fixture(scope='module')

@@ -18,9 +18,8 @@ from video_features_tpu.models import vggish as jax_vggish
 from video_features_tpu.ops.audio import waveform_to_examples as jax_examples
 from video_features_tpu.registry import create_extractor as jax_create_extractor
 from video_features_tpu.transplant.torch2jax import transplant
-from video_features_torch.config import load_config
+from video_features_torch.config import knob_exclude, load_config
 from video_features_torch.extract import vggish as extract
-from video_features_torch.extract.base import FINGERPRINT_KEYS
 from video_features_torch.io import native, video
 from video_features_torch.io.audio import read_wav
 from video_features_torch.models import vggish
@@ -359,8 +358,8 @@ def test_no_gpu_without_device_cpu_is_an_error(wav, tmp_path):
 # ---------------------------------------------------- resume and CLI --
 
 def test_pca_file_rewritten_in_place_re_extracts(wav, tmp_path):
-    assert {'audio_backend', 'post_process', 'pca_params_path'} <= set(
-        FINGERPRINT_KEYS['vggish'])
+    assert not {'audio_backend', 'post_process', 'pca_params_path'} & \
+        knob_exclude('fingerprint')
     pca = write_pca(tmp_path / 'pca.npz', 1)
     args = port_args(tmp_path, post_process=True, pca_params_path=pca)
     first = extract.ExtractVGGish(args)

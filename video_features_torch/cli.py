@@ -10,7 +10,9 @@ gives each family its config (``config.load_fused_configs``; a
 ``<family>.<knob>=`` key reaches that family only): the frame-wise
 families with equal decode signatures share one decode per video
 (``parallel.packing.run_packed_fused``), and every other family runs
-its own pass over the same list, packed where the family packs.
+its own pass over the same list, packed where the family packs. With
+``cache_enabled=true`` every path consults the feature cache through
+the extractors ``create_extractor`` builds.
 """
 from __future__ import annotations
 

@@ -5,7 +5,12 @@ clip, timm and vggish subset of ``video_features_tpu/config.py``).
 Every knob of the JAX package that the port does not implement is
 refused by name when it is set away from the JAX package's default
 (:func:`check_unported_keys`), so a JAX YAML of defaults loads and a
-request for a cache, a trace or a second GPU never passes silently.
+request for a trace, an index or a second GPU never passes silently.
+Which knobs can change the extracted bytes is one table,
+:data:`KNOB_CLASSIFICATION` (a copy of the JAX package's): the run
+fingerprint (``cache/key.py``) leaves out what :func:`knob_exclude`
+names and takes in everything else, so an unknown knob costs a
+re-extraction, never a wrong resume skip or cache hit.
 A fused worklist (``features=[...]``) gets one config per family
 (:func:`load_fused_configs`), ``<family>.<knob>=`` scoping a knob to one.
 
@@ -63,8 +68,9 @@ def load_config(feature_type: Optional[str] = None,
             f'Known: {", ".join(EXTRACTORS)}')
     with open(path) as f:
         args = dict(yaml.safe_load(f) or {})
-    for key, value in PIPELINE_DEFAULTS.items():
-        args.setdefault(key, value)
+    for table in (CACHE_DEFAULTS, PIPELINE_DEFAULTS):
+        for key, value in table.items():
+            args.setdefault(key, value)
     args.update(overrides)
     if run_sanity_check:
         sanity_check(args)
@@ -158,6 +164,17 @@ def form_list_from_user_input(
     return path_list
 
 
+# the content-addressed feature cache (cache/), injected into every merged
+# config; off by default. The port's store has a directory of its own
+# (the JAX package's default, ~/.cache/video_features_tpu/features, is
+# accepted too: the backend tag in every key keeps the two apart)
+CACHE_DEFAULTS: Dict[str, Any] = {
+    'cache_enabled': False,
+    'cache_dir': '~/.cache/video_features_torch/features',
+    'cache_max_bytes': None,     # LRU bound in bytes; null = unbounded
+    'cache_l2_dir': None,        # a shared second tier behind cache_dir
+}
+
 # injected into every merged config, as the JAX package does; a family's
 # YAML may carry its own value (i3d ships decode_workers: 2)
 PIPELINE_DEFAULTS: Dict[str, Any] = {
@@ -171,11 +188,9 @@ PIPELINE_DEFAULTS: Dict[str, Any] = {
 
 # the JAX package's knobs the port does not implement, with the JAX
 # package's default: any other value raises NotImplementedError naming
-# the key (its cache, executable store, feature index, flight recorder,
-# SLOs, meshes, several hosts and serving)
+# the key (its executable store, feature index, flight recorder, SLOs,
+# meshes, several hosts and serving)
 UNPORTED_DEFAULTS: Dict[str, Any] = {
-    'cache_enabled': False, 'cache_dir': '~/.cache/video_features_tpu/features',
-    'cache_max_bytes': None, 'cache_l2_dir': None,
     'aot_enabled': False, 'aot_dir': '~/.cache/video_features_tpu/executables',
     'aot_max_bytes': None, 'aot_l2_dir': None,
     'index_enabled': False, 'index_dir': None, 'index_shard_rows': 1024,
@@ -192,6 +207,90 @@ UNPORTED_DEFAULTS: Dict[str, Any] = {
 # the JAX default, and null (off), which is what the port does: it keeps
 # no compilation cache
 COMPILATION_CACHE_DIRS = ('~/.cache/video_features_tpu/xla', None)
+
+# Which knobs can change what a run computes (a copy of the JAX package's
+# table, classes unchanged, so both packages leave the same keys out of
+# their fingerprints):
+#   'neither'          — the bytes never depend on it: out of the run
+#                        fingerprint and out of a warm-pool key
+#   'pool_only'        — where or how a run executes, never the bytes:
+#                        out of the fingerprint, in a pool key
+#   'fingerprint_only' — in the fingerprint only (unused)
+#   'both'             — in both (compute_dtype: a bf16 run computes
+#                        other bytes than an fp32 run)
+# A knob not listed is in both: the fingerprint fails closed.
+KNOB_CLASSIFICATION: Dict[str, str] = {
+    # the work list and where outputs land
+    'video_paths': 'neither',
+    'file_with_video_paths': 'neither',
+    'features': 'neither',       # a fused run keys as its solo runs do
+    'output_path': 'neither',
+    'tmp_path': 'pool_only',
+    'keep_tmp_files': 'pool_only',
+    # where the program runs and how it is spread
+    'device': 'pool_only',
+    'device_ids': 'pool_only',
+    'data_parallel': 'pool_only',
+    'multihost': 'pool_only',
+    'coordinator_address': 'pool_only',
+    'num_processes': 'pool_only',
+    'process_id': 'pool_only',
+    'pack_across_videos': 'pool_only',
+    'pack_decode_ahead': 'pool_only',
+    'mesh_devices': 'pool_only',
+    'compute_dtype': 'both',
+    'compilation_cache_dir': 'pool_only',
+    # decode parallelism and readback depth: the same bytes at any value
+    'decode_workers': 'neither',
+    'decode_farm_ring_mb': 'neither',
+    'inflight': 'neither',
+    # observability and debug surfaces
+    'profile': 'neither',
+    'profile_dir': 'neither',
+    'show_pred': 'pool_only',
+    'trace_out': 'neither',
+    'trace_capacity': 'neither',
+    'manifest_out': 'neither',
+    'postmortem_dir': 'neither',
+    'postmortem_max_bytes': 'neither',
+    'watchdog_stall_s': 'neither',
+    'slo_latency_p99_s': 'neither',
+    'slo_availability': 'neither',
+    # the cache's own namespace must not fragment its key space
+    'cache_enabled': 'pool_only',
+    'cache_dir': 'pool_only',
+    'cache_max_bytes': 'pool_only',
+    'cache_l2_dir': 'pool_only',
+    # the executable store and the feature index (not ported)
+    'aot_enabled': 'pool_only',
+    'aot_dir': 'pool_only',
+    'aot_max_bytes': 'pool_only',
+    'aot_l2_dir': 'pool_only',
+    'index_enabled': 'neither',
+    'index_dir': 'neither',
+    'index_shard_rows': 'neither',
+    'index_poll_s': 'neither',
+    'index_query_block': 'neither',
+    'index_k_max': 'neither',
+    # the weights fingerprint hashes the checkpoints' content
+    'allow_random_weights': 'pool_only',
+    # serving's per-request plumbing
+    'timeout_s': 'neither',
+    'config': 'pool_only',
+}
+
+_KNOB_AXIS_EXCLUDES = {
+    'fingerprint': ('neither', 'pool_only'),
+    'pool_key': ('neither', 'fingerprint_only'),
+}
+
+
+def knob_exclude(axis: str) -> frozenset:
+    """The keys left out of ``axis`` (``'fingerprint'`` | ``'pool_key'``),
+    derived from :data:`KNOB_CLASSIFICATION`."""
+    excluded = _KNOB_AXIS_EXCLUDES[axis]
+    return frozenset(k for k, cls in KNOB_CLASSIFICATION.items()
+                     if cls in excluded)
 
 RAFT_FINETUNED_ON = ('sintel', 'kitti')
 AUDIO_BACKENDS = ('auto', 'ffmpeg', 'native')
@@ -259,6 +358,32 @@ def check_lanes(args: Mapping[str, Any]) -> Tuple[str, str]:
     return precision, dtype
 
 
+def check_cache_keys(args: Dict[str, Any]) -> None:
+    """The feature cache's rules, as the JAX package's ``sanity_check``
+    has them: ``cache_enabled`` needs ``cache_dir``; ``cache_max_bytes``
+    is an int >= 0 or null; ``on_extraction=print`` writes nothing to
+    address, so it disables the cache with a warning; ``cache_l2_dir``
+    needs ``cache_enabled``."""
+    if args.get('cache_enabled'):
+        if not args.get('cache_dir'):
+            raise ValueError('cache_enabled=true requires cache_dir '
+                             '(see docs/caching.md)')
+        if args.get('cache_max_bytes') is not None:
+            args['cache_max_bytes'] = int(args['cache_max_bytes'])
+            if args['cache_max_bytes'] < 0:
+                raise ValueError('cache_max_bytes must be >= 0 or null; '
+                                 f'got {args["cache_max_bytes"]}')
+        if args.get('on_extraction') == 'print':
+            warnings.warn('cache_enabled has no effect with '
+                          'on_extraction=print — disabling the cache')
+            args['cache_enabled'] = False
+    if args.get('cache_l2_dir') is not None:
+        args['cache_l2_dir'] = str(args['cache_l2_dir'])
+        if not args.get('cache_enabled'):
+            raise ValueError('cache_l2_dir requires cache_enabled=true '
+                             '(see docs/fleet.md)')
+
+
 def gate_packing(args: Dict[str, Any]) -> None:
     """``pack_across_videos`` on a family without a packed loop, or with
     the per-video ``show_pred`` surface, warns and runs the per-video
@@ -321,6 +446,7 @@ def sanity_check(args: Dict[str, Any]) -> None:
                          'flat output dir)')
     ft = args.get('feature_type')
     gate_packing(args)
+    check_cache_keys(args)
     if ft == 'raft':
         check_raft_args(args)
     elif ft == 'vggish':

@@ -13,9 +13,14 @@ output (a slim port of ``video_features_tpu/extract/base.py``).
     so extractors on different lanes in one process (a fused worklist)
     each get their own TF32 flags;
   * ``is_already_exist`` requires every output file present *and
-    loadable*, and a recorded fingerprint equal to this run's: the
-    family's feature-shaping config values and its checkpoints' content
-    (:func:`run_fingerprint`);
+    loadable*, and a recorded fingerprint equal to this run's
+    (``cache.key.run_fingerprint``: every config key that can change the
+    outputs, and the checkpoints' content);
+  * the content-addressed feature cache (``cache_enabled``):
+    :meth:`~BaseExtractor.configure_cache` attaches the store,
+    ``_extract`` consults it before decoding (``cache_lookup``; a hit is
+    the ``cached`` outcome) and publishes the saved files after
+    (``cache_publish``);
   * the device loop's two ends: :meth:`~BaseExtractor.put_input` (the
     copy to the card, on the producer thread) and
     :meth:`~BaseExtractor.dispatch` / :meth:`~BaseExtractor.fetch_outputs`
@@ -41,8 +46,6 @@ errors end the run instead of "Continuing...".
 """
 from __future__ import annotations
 
-import hashlib
-import json
 import os
 import sys
 import traceback
@@ -61,9 +64,6 @@ from video_features_torch.ops.precision import activation_dtype
 from video_features_torch.utils.device import (
     gru_passes, precision_scope, resolve_device,
 )
-from video_features_torch.utils.fingerprint import (
-    is_file_key, weights_fingerprint,
-)
 from video_features_torch.utils.output import (
     ACTION_TO_EXT, ACTION_TO_LOAD, ACTION_TO_SAVE, CorruptOutputError,
     make_path, read_fingerprint, write_fingerprint,
@@ -71,50 +71,6 @@ from video_features_torch.utils.output import (
 from video_features_torch.utils.tracing import NULL_TRACER, Tracer
 
 ACTIONS = ('print',) + tuple(ACTION_TO_EXT)
-
-# per family, the config values that shape its features (the resume
-# fingerprint); a *checkpoint_path key and pca_params_path enter by their
-# file's content; compute_dtype for the families with a bf16 or int8 lane
-FINGERPRINT_KEYS = {
-    'i3d': ('feature_type', 'streams', 'flow_type', 'stack_size', 'step_size',
-            'raft_iters', 'extraction_fps', 'concat_rgb_flow', 'precision',
-            'i3d_rgb_checkpoint_path', 'i3d_flow_checkpoint_path',
-            'raft_checkpoint_path', 'device_resize'),
-    'r21d': ('feature_type', 'model_name', 'stack_size', 'step_size',
-             'extraction_fps', 'precision', 'compute_dtype', 'checkpoint_path'),
-    's3d': ('feature_type', 'stack_size', 'step_size', 'extraction_fps',
-            'precision', 'compute_dtype', 'checkpoint_path'),
-    'raft': ('feature_type', 'extraction_fps', 'extraction_total',
-             'side_size', 'resize_to_smaller_edge', 'finetuned_on',
-             'bucket_multiple', 'raft_iters', 'precision', 'checkpoint_path'),
-    'resnet': ('feature_type', 'model_name', 'extraction_fps',
-               'extraction_total', 'precision', 'compute_dtype',
-               'checkpoint_path'),
-    'clip': ('feature_type', 'model_name', 'extraction_fps',
-             'extraction_total', 'precision', 'compute_dtype',
-             'checkpoint_path'),
-    'timm': ('feature_type', 'model_name', 'extraction_fps',
-             'extraction_total', 'image_size', 'precision', 'compute_dtype',
-             'checkpoint_path'),
-    'vggish': ('feature_type', 'precision', 'compute_dtype', 'checkpoint_path',
-               'audio_backend', 'post_process', 'pca_params_path'),
-}
-
-
-def run_fingerprint(args: Any, keys: Iterable[str]) -> str:
-    """sha256 of the config values among ``keys`` that shape a run's
-    features, file path strings left out, and of those files' content
-    (:func:`~video_features_torch.utils.fingerprint.weights_fingerprint`).
-    An absent ``compute_dtype`` is the float32 lane."""
-    keys = sorted(keys)
-    values = {k: args.get(k) for k in keys if not is_file_key(k)}
-    if 'compute_dtype' in values and values['compute_dtype'] is None:
-        values['compute_dtype'] = 'float32'
-    blob = json.dumps(values, sort_keys=True, default=str)
-    cfg = hashlib.sha256(blob.encode('utf-8')).hexdigest()
-    return hashlib.sha256(
-        f'cfg:{cfg}|w:{weights_fingerprint(args, keys)}'.encode()).hexdigest()
-
 
 def is_device_fault(e: BaseException) -> bool:
     """True for an error of the CUDA runtime, cuDNN or cuBLAS, or of a
@@ -199,7 +155,10 @@ class BaseExtractor:
         self.tmp_path = str(args.get('tmp_path', './tmp'))
         self.keep_tmp_files = bool(args.get('keep_tmp_files', False))
         self.decode_backend = args.get('decode_backend') or 'auto'
+        # the run's identity (each family sets it from its config) and
+        # the feature cache, attached by configure_cache
         self.run_fingerprint = None
+        self.cache = None
         # inflight: dispatched steps whose readback is deferred (1 =
         # synchronous); decode_workers: threads of the per-frame host
         # transform in the per-video loop, and the decode farm's worker
@@ -316,21 +275,107 @@ class BaseExtractor:
                            keep_tmp=self.keep_tmp_files,
                            backend=self.decode_backend, **kwargs)
 
-    def _extract(self, video_path: str) -> None:
+    # -- content-addressed feature cache (cache/) ---------------------------
+
+    def configure_cache(self, args: Mapping[str, Any]) -> None:
+        """With ``cache_enabled`` (and outputs saved to disk), attach the
+        process-wide store of ``cache_dir`` (with ``cache_l2_dir``, the
+        two-level tier). ``registry.create_extractor`` calls it with the
+        merged config; a store that cannot open is reported and the run
+        goes on uncached."""
+        if not args.get('cache_enabled') or self.on_extraction not in ACTION_TO_EXT:
+            return
+        from video_features_torch.cache import FeatureCache, log_cache_error
+        try:
+            l2 = args.get('cache_l2_dir')
+            if l2:
+                from video_features_torch.fleet.tier import TieredFeatureCache
+                self.cache = TieredFeatureCache.get_pair(
+                    args['cache_dir'], l2, args.get('cache_max_bytes'))
+            else:
+                self.cache = FeatureCache.get(args['cache_dir'],
+                                              args.get('cache_max_bytes'))
+        except Exception:
+            log_cache_error(f'open ({args.get("cache_dir")})')
+            self.cache = None
+
+    def _video_cache_key(self, video_path: str) -> str:
+        from video_features_torch.cache.key import video_cache_key
+        return video_cache_key(video_path, self.run_fingerprint)
+
+    def cache_fetch(self, video_path: str, output_path: Optional[str] = None
+                    ) -> bool:
+        """Serve this video's outputs from the cache: a hit writes the
+        stored files (and the resume sidecar) under the output root with
+        no decode and no step. A cache failure is a miss, never a failed
+        video."""
+        if self.cache is None or self.run_fingerprint is None:
+            return False
+        from video_features_torch.cache import log_cache_error
+        out_root = output_path or self.output_path
+        try:
+            hit = self.cache.fetch_to(self._video_cache_key(video_path),
+                                      out_root, video_path,
+                                      fingerprint=self.run_fingerprint)
+        except Exception:
+            log_cache_error(f'lookup for {video_path}')
+            return False
+        if hit:
+            print(f'Features for {video_path} served from cache into '
+                  f'{Path(out_root).absolute()}/ - skipping extraction..')
+        return hit
+
+    def cache_publish(self, video_path: str, output_path: Optional[str] = None
+                      ) -> None:
+        """Publish the files just saved for this video (their exact
+        bytes, so every later hit is byte-identical to this run)."""
+        if self.cache is None or self.run_fingerprint is None:
+            return
+        from video_features_torch.cache import hash_file, log_cache_error
+        out_root = output_path or self.output_path
+        ext = ACTION_TO_EXT[self.on_extraction]
+        files = {key: (make_path(out_root, video_path, key, ext), ext)
+                 for key in self._saved_feat_keys()}
+        if not all(os.path.exists(src) for src, _ in files.values()):
+            return                       # a partial save: nothing to publish
+        try:
+            self.cache.put(self._video_cache_key(video_path), files,
+                           meta={'video': Path(video_path).name,
+                                 'feature_type': self.feature_type,
+                                 'video_sha256': hash_file(video_path)})
+        except Exception:
+            log_cache_error(f'publish for {video_path}')
+
+    def _extract(self, video_path: str) -> str:
         """Fault-isolating wrapper around :meth:`extract` for the work
-        loop; a device fault (:func:`is_device_fault`) ends the run."""
+        loop; returns the video's outcome (``skipped``, ``cached``,
+        ``saved``, ``printed`` or ``failed``). A device fault
+        (:func:`is_device_fault`) ends the run."""
+        outcome = 'failed'
         try:
             if self.is_already_exist(video_path):
-                return
+                outcome = 'skipped'
+                return outcome
+            if self.cache is not None:
+                with self.tracer.stage('cache_lookup'):
+                    hit = self.cache_fetch(video_path)
+                if hit:
+                    outcome = 'cached'
+                    return outcome
             feats_dict = self._maybe_concat_streams(self.extract(video_path))
             with self.tracer.stage('save'):
                 self.action_on_extraction(feats_dict, video_path)
+            if self.cache is not None:
+                with self.tracer.stage('cache_publish'):
+                    self.cache_publish(video_path)
+            outcome = 'saved' if self.on_extraction in ACTION_TO_EXT else 'printed'
         except Exception as e:
             if is_device_fault(e):
                 raise
             log_extraction_error(video_path)
         finally:
             self.print_profile(str(video_path))
+        return outcome
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         raise NotImplementedError

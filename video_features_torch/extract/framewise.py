@@ -27,10 +27,9 @@ from typing import Dict, Iterable
 import numpy as np
 import torch
 
+from video_features_torch.cache.key import run_fingerprint
 from video_features_torch.config import check_unported_keys
-from video_features_torch.extract.base import (
-    FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
-)
+from video_features_torch.extract.base import BaseExtractor
 from video_features_torch.extract.streaming import framewise_windows
 from video_features_torch.farm.recipes import resolve_transform
 
@@ -48,8 +47,7 @@ class BaseFrameWiseExtractor(BaseExtractor):
         self.show_pred = bool(args.get('show_pred', False))
         self.feat_dim = feat_dim
         self.output_feat_keys = [self.feature_type, 'fps', 'timestamps_ms']
-        self.run_fingerprint = run_fingerprint(args,
-                                               FINGERPRINT_KEYS[self.feature_type])
+        self.run_fingerprint = run_fingerprint(args)
 
     # subclasses provide:
     def host_transform_spec(self):

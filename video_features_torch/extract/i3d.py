@@ -34,10 +34,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from video_features_torch.cache.key import run_fingerprint
 from video_features_torch.config import check_unported_keys
-from video_features_torch.extract.base import (
-    FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
-)
+from video_features_torch.extract.base import BaseExtractor
 from video_features_torch.extract.streaming import (
     iter_batched_windows, stream_windows,
 )
@@ -127,7 +126,7 @@ class ExtractI3D(BaseExtractor):
         self.show_pred = bool(args.get('show_pred', False))
         self.output_feat_keys = list(self.streams)
         self.params = to_device(self.load_params(args), self.device)
-        self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['i3d'])
+        self.run_fingerprint = run_fingerprint(args)
         self._viz_stem = 'frames'
         self._geometries: Dict[Tuple[int, int], tuple] = {}
 

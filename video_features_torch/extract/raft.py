@@ -29,10 +29,9 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from video_features_torch.cache.key import run_fingerprint
 from video_features_torch.config import check_raft_args
-from video_features_torch.extract.base import (
-    FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
-)
+from video_features_torch.extract.base import BaseExtractor
 from video_features_torch.models import raft as raft_model
 from video_features_torch.transplant import to_device
 
@@ -53,7 +52,7 @@ class ExtractRAFT(BaseExtractor):
         self.raft_iters = raft_model.resolve_iters(args.get('raft_iters'))
         self.output_feat_keys = [self.feature_type, 'fps', 'timestamps_ms']
         self.params = to_device(self.load_params(args), self.device)
-        self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['raft'])
+        self.run_fingerprint = run_fingerprint(args)
         self._viz_stem, self._viz_count = 'frames', 0
 
     def load_params(self, args):

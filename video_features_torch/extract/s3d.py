@@ -19,10 +19,9 @@ from typing import Dict, Iterable, Tuple
 import numpy as np
 import torch
 
+from video_features_torch.cache.key import run_fingerprint
 from video_features_torch.config import check_unported_keys
-from video_features_torch.extract.base import (
-    FINGERPRINT_KEYS, BaseExtractor, StackPackingMixin, run_fingerprint,
-)
+from video_features_torch.extract.base import BaseExtractor, StackPackingMixin
 from video_features_torch.extract.streaming import (
     iter_batched_windows, stream_windows,
 )
@@ -71,7 +70,7 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
         self.show_pred = bool(args.get('show_pred', False))
         self.output_feat_keys = [self.feature_type]
         self.params = to_device(self.load_params(args), self.device)
-        self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['s3d'])
+        self.run_fingerprint = run_fingerprint(args)
 
     def load_params(self, args):
         from video_features_torch.extract.weights import load_or_init

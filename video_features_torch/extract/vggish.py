@@ -23,10 +23,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from video_features_torch.cache.key import run_fingerprint
 from video_features_torch.config import check_vggish_args
-from video_features_torch.extract.base import (
-    FINGERPRINT_KEYS, BaseExtractor, run_fingerprint,
-)
+from video_features_torch.extract.base import BaseExtractor
 from video_features_torch.models import vggish as vggish_model
 from video_features_torch.ops.precision import features_to_f32
 from video_features_torch.ops.audio import SAMPLE_RATE, waveform_to_examples
@@ -47,7 +46,7 @@ class ExtractVGGish(BaseExtractor):
         self.batch_size = int(args.get('batch_size') or BATCH)
         self.audio_backend = args.get('audio_backend') or 'auto'
         self.post_process = bool(args.get('post_process', False))
-        self.run_fingerprint = run_fingerprint(args, FINGERPRINT_KEYS['vggish'])
+        self.run_fingerprint = run_fingerprint(args)
         # on the bf16 lane the params load bf16 and the examples narrow to
         # bf16 on the host, before the copy (half the bytes)
         self.model = vggish_model.build(flatten(self.load_params(args)),

@@ -12,9 +12,13 @@ shared-memory ring (``farm/ring.py``).
 Threads, all in the parent:
 
   * the dispatcher consumes the task stream, runs the admission gate
-    (the resume skip) per video as it reaches it, and hands each video to
-    the least-loaded worker, at most ``max(2N, 4)`` videos ahead of the
-    drain;
+    (the resume skip, the cache lookup) per video as it reaches it, and
+    hands each video to the least-loaded worker, at most ``max(2N, 4)``
+    videos ahead of the drain. With a ``cache_key_fn`` (the feature
+    cache is on) a video whose content is already in flight parks
+    instead of decoding a second time; once its twin is finalized it
+    runs the gate again, which the twin's publish answers (a twin that
+    failed leaves the parked video to decode itself);
   * the caller's thread (the packed loop's prefetch producer) runs
     :meth:`DecodeFarm.stream`'s drain loop: it waits on every worker's
     message queue, copies each window out of shared memory (freeing its
@@ -34,7 +38,7 @@ import sys
 import threading
 import time
 from collections import deque
-from typing import Dict, Iterable, Iterator, List, Optional
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
@@ -102,13 +106,17 @@ class DecodeFarm:
     With ``tracer`` enabled, each window adds the worker's decode time
     as ``decode`` (its span placed on the parent's clock) and the parent's
     copy out of the ring as ``shm_copy``, whose ``occ%`` is the ring's
-    fill when the window was shipped.
+    fill when the window was shipped. ``cache_key_fn(path)`` (the
+    extractor's cache key) turns on duplicate parking; a path it cannot
+    hash skips parking and decodes.
     """
 
     def __init__(self, recipe, workers: int = 2, ring_bytes: int = 64 * _MB,
                  tracer: Tracer = NULL_TRACER,
-                 respawn_limit: int = RESPAWN_LIMIT) -> None:
+                 respawn_limit: int = RESPAWN_LIMIT,
+                 cache_key_fn: Optional[Callable[[str], str]] = None) -> None:
         self.recipe = recipe
+        self.cache_key_fn = cache_key_fn
         self.n_workers = max(int(workers), 1)
         self.ring_bytes = max(int(ring_bytes), _MB // 4)
         self.tracer = tracer
@@ -124,9 +132,12 @@ class DecodeFarm:
         self._runahead = max(2 * self.n_workers, 4)
         self._retried: set = set()             # seqs given a retry after a crash
         self._respawns = 0
+        self._inflight_keys: Dict[str, object] = {}   # cache key → its task
+        self._parked: Dict[str, List] = {}            # cache key → duplicates
+        self._admit = None
         self._stats = {'windows': 0, 'bytes': 0, 'queue_fallback': 0,
                        'videos_assigned': 0, 'videos_done': 0,
-                       'videos_failed': 0, 'start_s': 0.0,
+                       'videos_failed': 0, 'deduped': 0, 'start_s': 0.0,
                        'first_window_s': None}
         self._workers: List[_Worker] = []
         self._dispatch_done = False
@@ -248,7 +259,8 @@ class DecodeFarm:
 
     def stats(self) -> Dict[str, object]:
         """Counters over the farm's life: windows, bytes and queue
-        fallbacks shipped, videos assigned, done and failed, respawns,
+        fallbacks shipped, videos assigned, done and failed, duplicates
+        parked (``deduped``), respawns,
         ring bytes in use and in all, workers alive and busy; ``ran``
         (the workers started) and ``fallback`` (why not); the seconds
         ``start()`` took (``start_s``: the spawn calls) and from its start
@@ -273,22 +285,89 @@ class DecodeFarm:
         try:
             for task in tasks:
                 if task is FLUSH:
-                    with self._lock:
-                        # held back until every video assigned before it
-                        # has ended, as the in-process windower yields
-                        # FLUSH after the windows of the videos before it
-                        self._ctrl.append(('flush', self._next_seq))
-                elif self._gate(task, admit):
+                    self._append_flush()
+                elif self._gate(task, admit) and not self._park(task):
                     self._assign(task)
+            # the source is spent: unpark duplicates as their twins end
+            last_flush = 0.0
+            while not self._stopping:
+                self._resolve_parked(admit)
+                with self._lock:
+                    if not any(self._parked.values()):
+                        break
+                if time.monotonic() - last_flush > 0.05:
+                    # a twin's last windows may wait in a partial pool:
+                    # flush the packer so the twin can finalize
+                    self._append_flush()
+                    last_flush = time.monotonic()
+                time.sleep(0.02)
         except BaseException as e:              # raised again by the drain
             self._dispatch_error = e
         finally:
             self._dispatch_done = True
 
+    def _append_flush(self) -> None:
+        """Queue a FLUSH, held back until every video assigned before it
+        has ended, as the in-process windower yields FLUSH after the
+        windows of the videos before it."""
+        with self._lock:
+            self._ctrl.append(('flush', self._next_seq))
+
+    def _park(self, task) -> bool:
+        """With ``cache_key_fn``: True, and the task parked, when a video
+        of the same content is in flight and not finalized; else the task
+        becomes its key's in-flight video (False)."""
+        if self.cache_key_fn is None:
+            return False
+        try:
+            key = self.cache_key_fn(str(task.path))
+        except Exception:
+            return False              # unhashable: no parking, it decodes
+        with self._lock:
+            twin = self._inflight_keys.get(key)
+            if twin is not None and not getattr(twin, 'finalized', False):
+                self._parked.setdefault(key, []).append(task)
+                self._stats['deduped'] += 1
+                return True
+            self._inflight_keys[key] = task
+        return False
+
+    def _resolve_parked(self, admit, block: bool = True) -> None:
+        """Run the gate again for duplicates whose twin has finalized (a
+        hit now, if the twin published) and assign those it lets through.
+        The dispatcher calls it once the source is spent (``block``), the
+        drain loop on its supervise tick (``block=False``: it never waits
+        for room in the runahead window, which only it can make)."""
+        with self._lock:
+            ready = [key for key, twin in self._inflight_keys.items()
+                     if getattr(twin, 'finalized', False)]
+            # parked with no twin in flight (put back after a full window)
+            ready += [key for key in self._parked
+                      if key not in self._inflight_keys]
+        for key in ready:
+            with self._lock:
+                waiters = self._parked.pop(key, [])
+                self._inflight_keys.pop(key, None)
+            for task in waiters:
+                if not self._gate(task, admit):
+                    continue
+                with self._lock:
+                    twin = self._inflight_keys.get(key)
+                    if twin is not None and not getattr(twin, 'finalized',
+                                                        False):
+                        self._parked.setdefault(key, []).append(task)
+                        continue
+                    self._inflight_keys[key] = task
+                if not self._assign(task, block=block):
+                    with self._lock:
+                        if self._inflight_keys.get(key) is task:
+                            del self._inflight_keys[key]
+                        self._parked.setdefault(key, []).append(task)
+
     def _gate(self, task, admit) -> bool:
         """The admission gate: False (with a NUDGE queued) for a video
-        that ends without decoding: a resume skip, or a gate that raised,
-        which fails the video as the in-process path does."""
+        that ends without decoding: a resume skip, a cache hit, or a gate
+        that raised, which fails the video as the in-process path does."""
         from video_features_torch.extract.base import log_extraction_error
         try:
             go = admit(task)
@@ -307,17 +386,20 @@ class DecodeFarm:
                  if w.proc is not None and w.proc.is_alive()]
         return min(alive, key=lambda w: len(w.pending)) if alive else None
 
-    def _assign(self, task) -> None:
+    def _assign(self, task, block: bool = True) -> bool:
         """Hand the video to a worker, waiting while ``_runahead`` videos
-        are outstanding (the drain shrinks the count)."""
+        are outstanding (the drain shrinks the count); with ``block``
+        False, return False instead of waiting."""
         while not self._stopping:
             with self._lock:
                 if self._outstanding < self._runahead:
                     self._outstanding += 1
                     break
+            if not block:
+                return False
             time.sleep(0.01)
         if self._stopping:
-            return
+            return True
         with self._lock:
             target = self._pick_worker()
             if target is None:
@@ -327,7 +409,7 @@ class DecodeFarm:
                 self._stats['videos_done'] += 1
                 self._stats['videos_failed'] += 1
                 self._ctrl.append(('nudge', task))
-                return
+                return True
             seq = self._next_seq
             self._next_seq += 1
             self._tasks[seq] = task
@@ -335,6 +417,7 @@ class DecodeFarm:
             target.pending.append(seq)
             self._stats['videos_assigned'] += 1
         target.task_q.put(self._task_msg(seq, task))
+        return True
 
     # -- the packed loop's stream --------------------------------------------
 
@@ -344,6 +427,7 @@ class DecodeFarm:
         ``admit(task)`` run before each video's decode; shuts the farm
         down when the stream ends or is closed."""
         self.start()
+        self._admit = admit
         threading.Thread(target=self._dispatch, args=(tasks, admit),
                          daemon=True, name='vft-farm-dispatch').start()
         try:
@@ -390,6 +474,9 @@ class DecodeFarm:
             if now - last_supervise >= 0.2:
                 last_supervise = now
                 yield from self._supervise()
+                # a source that never ends (FLUSH between bursts) must not
+                # keep a duplicate parked until it does
+                self._resolve_parked(self._admit, block=False)
 
     def _drain_worker(self, w: _Worker) -> Iterator:
         while w.out_q is not None:            # None: retired
@@ -563,7 +650,7 @@ def merge_farm_stats(stats: Iterable[Dict[str, object]]) -> Dict[str, int]:
     keys = ('decode_workers', 'alive_workers', 'busy_workers',
             'ring_bytes_in_use', 'ring_bytes_capacity', 'respawns', 'windows',
             'bytes', 'queue_fallback', 'videos_assigned', 'videos_done',
-            'videos_failed')
+            'videos_failed', 'deduped')
     out = dict.fromkeys(keys, 0)
     for s in stats:
         for k in keys:

@@ -61,8 +61,10 @@ class VideoTask:
 
     ``emitted`` counts windows the decode side yielded, ``done`` windows
     whose rows have come back; the video is complete when ``exhausted``
-    and ``done == emitted``. ``skipped`` (resume) and ``failed`` finalize
-    without writing. ``rows`` and ``meta_rows`` hold the scattered rows
+    and ``done == emitted``. ``skipped`` (resume, or ``cached``: served
+    from the feature cache) and ``failed`` finalize without writing;
+    ``finalized`` is set once the video is written (or dropped), which
+    the decode farm's duplicate parking waits for. ``rows`` and ``meta_rows`` hold the scattered rows
     in window order (a video's windows share one pool, which is FIFO);
     ``info`` holds video-level metadata (the frame-wise ``fps``).
     ``out_root`` (None: the extractor's ``output_path``) routes this
@@ -70,7 +72,8 @@ class VideoTask:
     """
 
     __slots__ = ('path', 'video_id', 'out_root', 'rows', 'meta_rows', 'info',
-                 'emitted', 'done', 'exhausted', 'failed', 'skipped')
+                 'emitted', 'done', 'exhausted', 'failed', 'skipped',
+                 'cached', 'finalized')
 
     def __init__(self, path: str, video_id: int = -1,
                  out_root: Optional[str] = None) -> None:
@@ -85,6 +88,8 @@ class VideoTask:
         self.exhausted = False
         self.failed = False
         self.skipped = False
+        self.cached = False
+        self.finalized = False
 
 
 class FusedTask(VideoTask):
@@ -183,17 +188,25 @@ def packed_batches(windows: Iterable, batch: int,
 def _admit_task(ex, task: VideoTask) -> bool:
     """The per-video admission gate, run as the decode side reaches the
     video (never as an up-front scan of the worklist): False, with
-    ``task.skipped`` set, when its outputs already exist."""
+    ``task.skipped`` set, when its outputs already exist, or, with
+    ``task.cached`` too, when the feature cache served them. A hit drops
+    out here, before batch planning: it never decodes and takes no
+    batch slot."""
     if ex.is_already_exist(task.path, output_path=task.out_root):
         task.skipped = True
+        return False
+    if ex.cache is not None and ex.cache_fetch(task.path,
+                                               output_path=task.out_root):
+        task.skipped = task.cached = True
         return False
     return True
 
 
 def _finalize_task(ex, task: VideoTask) -> None:
     """Write one finished video (unless skipped or failed) through the
-    per-video output path, then free its rows. A failed write fails the
-    video; a device fault ends the run."""
+    per-video output path and publish it to the feature cache, then free
+    its rows and mark it ``finalized``. A failed write fails the video; a
+    device fault ends the run."""
     from video_features_torch.extract.base import (
         is_device_fault, log_extraction_error,
     )
@@ -203,6 +216,9 @@ def _finalize_task(ex, task: VideoTask) -> None:
             with ex.tracer.stage('save'):
                 ex.action_on_extraction(feats_dict, task.path,
                                         output_path=task.out_root)
+            if ex.cache is not None:
+                with ex.tracer.stage('cache_publish'):
+                    ex.cache_publish(task.path, output_path=task.out_root)
     except Exception as e:
         if is_device_fault(e):
             raise
@@ -210,14 +226,16 @@ def _finalize_task(ex, task: VideoTask) -> None:
         log_extraction_error(task.path)
     finally:
         task.rows = {}
+        task.finalized = True     # a parked duplicate may re-run its gate
 
 
-def _start_farm(ex, recipe, workers: int):
+def _start_farm(ex, recipe, workers: int, cache_key_fn=None):
     """The decode farm of a packed run at ``workers`` > 1 processes,
     started; or None, with a warning naming ``decode_workers`` and the
     cause (no recipe, no spawn or shared memory, no room for the rings),
     and the run decodes in-process. ``ex._farm`` keeps the farm, whose
-    ``stats()`` say whether it ran."""
+    ``stats()`` say whether it ran. ``cache_key_fn`` turns on the farm's
+    duplicate parking."""
     from video_features_torch.farm import DecodeFarm, FarmUnavailable
     if ex.decode_backend != 'cv2':
         # build the native decoder here once, not in every worker at once
@@ -225,7 +243,7 @@ def _start_farm(ex, recipe, workers: int):
         native.load_library()
     farm = ex._farm = DecodeFarm(recipe, workers=workers,
                                  ring_bytes=ex.decode_farm_ring_mb << 20,
-                                 tracer=ex.tracer)
+                                 tracer=ex.tracer, cache_key_fn=cache_key_fn)
     try:
         return farm.start()
     except FarmUnavailable as e:
@@ -346,7 +364,11 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
             task.meta_rows.append(meta)
         sweep()
 
-    farm = (_start_farm(ex, ex.farm_recipe(), ex.decode_workers)
+    # with the cache on, a video whose content is already decoding parks
+    # until its twin is published, and the cache then answers it
+    farm = (_start_farm(ex, ex.farm_recipe(), ex.decode_workers,
+                        cache_key_fn=(ex._video_cache_key
+                                      if ex.cache is not None else None))
             if ex.decode_workers > 1 else None)
     if farm is None:
         windows = tracer.wrap_iter(
@@ -420,8 +442,11 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
     bytes.
 
     Each video is a :class:`FusedTask`: admission runs per (family,
-    video), so resume skips stay per family and a video every family
-    skips is never decoded (``decode_passes`` counts the decodes). A
+    video), so resume skips and cache hits stay per family and a video
+    every family skips is never decoded (``decode_passes`` counts the
+    decodes). The video's content is hashed once for all its families
+    (``hash_file``'s memo), so each family's cache key costs no second
+    read. A
     family's device fault fails only its subtask; a decode fault fails
     the carrier, and every family with it, for that video only. With the
     lead family's ``decode_workers > 1`` the fused recipe runs in the
@@ -462,7 +487,8 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
 
     def admit(c: FusedTask) -> bool:
         """Per-family admission on the carrier; the families that drop
-        out (resume skips) end now and leave the decode's fan-out."""
+        out (resume skips, cache hits) end now and leave the decode's
+        fan-out."""
         c.active = [f for f, sub in c.subtasks.items()
                     if _admit_task(exs[f], sub)]
         for f, sub in c.subtasks.items():
@@ -551,6 +577,8 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
             while pending[fam]:
                 sync_oldest(fam)
 
+    # no duplicate parking: the families' cache keys differ, so a key of
+    # the carrier could merge videos that one family still needs apart
     farm = (_start_farm(lead, recipe, lead.decode_workers)
             if lead.decode_workers > 1 else None)
     if farm is None:

@@ -56,4 +56,6 @@ def create_extractor(args):
     except KeyError:
         raise NotImplementedError(f'Unknown feature_type {feature_type!r}. '
                                   f'Known: {", ".join(EXTRACTORS)}')
-    return getattr(importlib.import_module(module_name), class_name)(args)
+    extractor = getattr(importlib.import_module(module_name), class_name)(args)
+    extractor.configure_cache(args)
+    return extractor
