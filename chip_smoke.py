@@ -215,9 +215,31 @@ package is not beside it. Phases:
    after one stored file is truncated; the next run re-extracts that
    video alone (one step), byte-equal to (a). Every number is printed
    with the card's name and power limit. No ring or worker is left.
+21. flight recorder: phase 17's four clips through the I3D path of 17
+   from ``create_extractor(load_config('i3d', ...))``: (a) per video
+   with ``trace_out``, ``manifest_out``, ``postmortem_dir`` and
+   ``profile_dir`` (the run inside ``torch_profiler_trace``, as the CLI
+   runs it) in a cold build directory, against the same run without
+   them: byte-identical outputs; a valid trace (monotonic timestamps,
+   every key in the JAX package's trace-event set, every stage span's
+   name in ``STAGES``) with one ``saved`` ``video`` span per clip under
+   one trace id; the manifest's outcomes, its ``model`` and ``d2h``
+   stages and its ``compile`` section naming one ``nvcc`` build of each
+   kernel source with its seconds; (b) the ``torch.profiler`` trace's
+   ``masked_kernel`` and ``gru_tf32x3`` events against the launch
+   counters (two kernels per GRU direction); (c) ``extract_packed`` at
+   the YAML's 2 farm workers with ``trace_out`` and ``manifest_out``:
+   ``decode`` spans on two worker pid lanes inside the run's window, the
+   manifest's ``farm`` naming 2 workers, (a)'s bytes, no ring or worker
+   left; (d) I3D per video with ``trace_out`` and ``manifest_out`` on
+   and off, in turns, 3 runs each (corpus wall and ms per window), a
+   warm build directory's ``compile`` of ``{}``, and the µs of one
+   ``SpanRecorder.span`` append and of ``Tracer.stage`` with and without
+   a recorder. Every number is printed with the card's name and power
+   limit.
 
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10, 17, 18, 19 and 20; the
+sum over the path runs of phases 4, 5, 10, 17, 18, 19, 20 and 21; the
 one-pass GRU instantiation is an entry of its own); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2679,6 +2701,259 @@ def cache_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# the flight recorder: the JAX package's trace-event key set (its
+# tests/test_obs.py contract), the I3D path of phase 17 per video with
+# every obs knob and without, the recorder's cost over FLIGHT_REPEATS
+# alternating runs of each, and SPAN_APPENDS appends timed alone
+TRACE_EVENT_KEYS = frozenset({'name', 'ph', 'ts', 'dur', 'pid', 'tid', 'args',
+                              's'})
+FLIGHT_REPEATS, SPAN_APPENDS = 3, 100_000
+FARM_WINDOW_SLACK_S = 0.05      # the farm's clock exchange: trusted below it
+
+
+def kernel_events(trace_dir: Path) -> dict:
+    """The CUDA kernel events of the one ``torch.profiler`` trace under
+    ``trace_dir``, counted by kernel name."""
+    traces = list(trace_dir.glob('*.pt.trace.json'))
+    if len(traces) != 1:
+        fail(f'phase 21 (b): {len(traces)} torch.profiler traces under '
+             f'{trace_dir}, want 1')
+    with open(traces[0]) as f:
+        doc = json.load(f)
+    counts = {}
+    for ev in doc.get('traceEvents', []):
+        if ev.get('cat') == 'kernel':
+            counts[ev['name']] = counts.get(ev['name'], 0) + 1
+    return counts
+
+
+def check_trace(trace_path: str, where: str, extra=()) -> list:
+    """The trace of a run: valid (``obs.spans.validate_events``: keys,
+    monotonic timestamps, durations), every key in the JAX package's set,
+    every stage span's name in ``STAGES`` or ``extra``; returns its
+    events."""
+    from video_features_torch.obs.spans import validate_events
+    from video_features_torch.utils.tracing import STAGES
+    with open(trace_path) as f:
+        events = json.load(f)['traceEvents']
+    errors = validate_events(events)
+    if errors:
+        fail(f'{where}: the trace is not valid: {errors[:5]}')
+    stray = sorted({k for e in events for k in e} - TRACE_EVENT_KEYS)
+    if stray:
+        fail(f'{where}: trace event keys outside the JAX set: {stray}')
+    names = {e['name'] for e in events if e['ph'] == 'X'} - {'video'}
+    if not names <= set(STAGES) | set(extra):
+        fail(f'{where}: stage spans outside STAGES: {sorted(names - set(STAGES))}')
+    return events
+
+
+def flight_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
+    """Phase 21: the flight recorder on the I3D path of phase 17 at the
+    i3d YAML (batch 8, stack 16, RAFT 20 iterations): (a) per video with
+    trace_out, manifest_out, postmortem_dir and profile_dir against the
+    same run without them, in a cold build directory; (b) the
+    torch.profiler trace's kernels against the launch counters; (c)
+    packed through the decode farm at 2 workers; (d) what the recorder
+    costs."""
+    import multiprocessing
+
+    from video_features_torch.config import load_config
+    from video_features_torch.obs.spans import SpanRecorder
+    from video_features_torch.ops import _kernels
+    from video_features_torch.registry import create_extractor
+    from video_features_torch.utils.tracing import Tracer, torch_profiler_trace
+    os.environ['VFT_RAFT_LOOKUP'] = 'auto'
+    root = ROOT / 'output' / 'flight'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shm_before = set(os.listdir('/dev/shm'))
+    paths = write_clips(np, root, PACK_CLIPS, seed=40)
+    windows = sum(PACK_WINDOWS)
+
+    def i3d(tag: str, **kw):
+        return create_extractor(load_config('i3d', overrides={
+            'video_paths': paths, 'device': 'cuda', 'streams': None,
+            'stack_size': STACK, 'step_size': STACK, 'raft_iters': SLICE_ITERS,
+            'batch_size': PACK_BATCH, 'allow_random_weights': True,
+            'on_extraction': 'save_numpy', 'output_path': str(root / tag),
+            'tmp_path': str(root / 'tmp'), **kw}))
+
+    def per_video(ex, tag: str) -> float:
+        ex.output_path = str(root / tag)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outcomes = [ex._extract(p) for p in paths]
+        torch.cuda.synchronize()
+        if outcomes != ['saved'] * len(paths):
+            fail(f'phase 21 {tag}: outcomes {outcomes}')
+        return time.perf_counter() - t0
+
+    obs = {'trace_out': str(root / 'a_trace.json'),
+           'manifest_out': str(root / 'a_manifest.json'),
+           'postmortem_dir': str(root / 'postmortem')}
+    t0 = time.perf_counter()
+    ex_off = i3d('off')
+    per_video(ex_off, 'warm')               # cuDNN's choices, the allocator
+    wall_off = per_video(ex_off, 'off')
+    print(f'phase 21: clips written, extractor built, warm-up and the run '
+          f'without the knobs ({wall_off:.3f} s) in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+    # (a) + (b): every knob, in a cold build directory, the run profiled
+    _kernels.BUILD_DIR = root / 'build'
+    for fn in (_kernels.load, corr_lookup._library, gru._library):
+        fn.cache_clear()
+    ex_on = i3d('on', **obs)
+    prof_dir = root / 'profile'
+    reset_counts(corr_lookup, gru)
+    with torch_profiler_trace(str(prof_dir)):
+        wall_on = per_video(ex_on, 'on')
+    counts = read_counts(corr_lookup, gru)
+    ex_on.finish_obs()
+    check_counts(counts, 'masked', len(paths), 'phase 21 (a)')
+    worst = compare_trees(np, tree_arrays(np, str(root / 'on')),
+                          tree_arrays(np, str(root / 'off')),
+                          'phase 21 (a) knobs on vs off')
+    if worst:
+        fail('phase 21 (a): telemetry changed the output bytes')
+    events = check_trace(obs['trace_out'], 'phase 21 (a)')
+    videos = [e for e in events if e['ph'] == 'X' and e['name'] == 'video']
+    got = sorted((e['args']['video'], e['args']['outcome']) for e in videos)
+    tids = {e['args'].get('trace_id') for e in videos}
+    if got != sorted((p, 'saved') for p in paths) or len(tids) != 1 \
+            or None in tids:
+        fail(f'phase 21 (a): video spans {got}, trace ids {tids}: want one '
+             'saved span per clip under one trace id')
+    with open(obs['manifest_out']) as f:
+        man = json.load(f)
+    if man['outcomes'] != {'saved': len(paths)} \
+            or not {'model', 'd2h'} <= set(man['stages']):
+        fail(f'phase 21 (a): manifest outcomes {man["outcomes"]}, stages '
+             f'{sorted(man["stages"])}')
+    compiled = man['compile']
+    if set(compiled) != {f'nvcc:{k}' for k in KERNELS} \
+            or any(r['count'] != 1 or r['total_s'] <= 0
+                   for r in compiled.values()):
+        fail(f'phase 21 (a): a cold build directory gave compile {compiled}, '
+             f'want one build of each of {KERNELS}')
+    stage_ms = {k: round(v['mean_s'] * 1e3, 3) for k, v in man['stages'].items()}
+    print(f'phase 21 (a) ({card}): outputs byte-identical with and without '
+          f'trace_out, manifest_out, postmortem_dir and profile_dir; trace of '
+          f'{len(events)} events valid, keys in the JAX set, '
+          f'{len(videos)} video spans saved under one trace id; manifest '
+          f'outcomes {man["outcomes"]}, stage means (ms) {stage_ms}; cold '
+          'build directory: compile '
+          + ', '.join(f'{k} {r["count"]} build in {r["total_s"]:.1f} s'
+                      for k, r in sorted(compiled.items()))
+          + f'; wall {wall_on:.3f} s profiled with the cold builds, '
+          f'{wall_off:.3f} s without the knobs', flush=True)
+    kernels = kernel_events(prof_dir)
+    masked = sum(n for k, n in kernels.items() if 'masked_kernel' in k)
+    gru3 = sum(n for k, n in kernels.items() if 'gru_tf32x3' in k)
+    # ops/gru.py counts one per direction, each the zr and the q kernel
+    if masked != counts['masked'] or gru3 != 2 * counts['gru'] \
+            or counts['gru1']:
+        fail(f'phase 21 (b): the trace shows {masked} masked_kernel and '
+             f'{gru3} gru_tf32x3 launches; the counters say {counts}')
+    print(f'phase 21 (b) ({card}): the torch.profiler trace under profile_dir '
+          f'shows {masked} masked_kernel launches (lookup counter '
+          f'{counts["masked"]}) and {gru3} gru_tf32x3 launches (GRU counter '
+          f'{counts["gru"]} directions of 2 kernels); {len(kernels)} kernel '
+          'names in all', flush=True)
+
+    # (c) packed through the decode farm at the YAML's 2 workers
+    ex_pack = i3d('c', pack_across_videos=True,
+                  trace_out=str(root / 'c_trace.json'),
+                  manifest_out=str(root / 'c_manifest.json'))
+    reset_counts(corr_lookup, gru)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    ex_pack.extract_packed(paths)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = read_counts(corr_lookup, gru)
+    ex_pack.finish_obs()
+    check_counts(counts, 'masked', FARM_SHORT_STEPS, 'phase 21 (c)')
+    check_farm(ex_pack, 2, len(paths), windows, 'phase 21 (c)')
+    compare_trees(np, tree_arrays(np, str(root / 'c')),
+                  tree_arrays(np, str(root / 'on')), 'phase 21 (c) vs (a)')
+    # the farm's parent-side ring copy is a stage of the port's own
+    events = check_trace(str(root / 'c_trace.json'), 'phase 21 (c)',
+                         extra=('shm_copy',))
+    origin = ex_pack.tracer.recorder.origin()
+    decode = [e for e in events if e['name'] == 'decode']
+    lanes = {e['pid'] for e in decode} - {os.getpid()}
+    early = min(origin + e['ts'] / 1e6 for e in decode) - t_start
+    late = t_end - max(origin + (e['ts'] + e['dur']) / 1e6 for e in decode)
+    if len(decode) != windows or len(lanes) < 2 \
+            or min(early, late) < -FARM_WINDOW_SLACK_S:
+        fail(f'phase 21 (c): {len(decode)} decode spans on worker lanes '
+             f'{sorted(lanes)}, {early:.4f} s after the run began and '
+             f'{late:.4f} s before it ended: want {windows} on 2 lanes inside')
+    with open(root / 'c_manifest.json') as f:
+        man = json.load(f)
+    if man['farm'].get('decode_workers') != 2 \
+            or man['outcomes'] != {'saved': len(paths)}:
+        fail(f'phase 21 (c): manifest farm {man["farm"]}, outcomes '
+             f'{man["outcomes"]}')
+    print(f'phase 21 (c) ({card}): packed through the farm, {len(decode)} '
+          f'decode spans on {len(lanes)} worker pid lanes, inside the run '
+          f'({early * 1e3:.1f} ms after its start, {late * 1e3:.1f} ms before '
+          f'its end); manifest farm decode_workers {man["farm"]["decode_workers"]}, '
+          f'executables {sorted(man["executables"])}; outputs byte-equal to '
+          f'(a); wall {t_end - t_start:.3f} s', flush=True)
+    del ex_pack
+    gc.collect()
+    left = sorted(set(os.listdir('/dev/shm')) - shm_before)
+    children = multiprocessing.active_children()
+    if left or children:
+        fail(f'phase 21 (c): left behind: /dev/shm {left}, processes {children}')
+
+    # (d) the recorder's cost: trace_out and manifest_out on and off, in
+    # turns, on a warm build directory
+    ex_on.configure_obs(dict(obs, trace_out=str(root / 'd_trace.json'),
+                             manifest_out=str(root / 'd_manifest.json')))
+    walls = {'off': [], 'on': []}
+    for i, mode in enumerate(['off', 'on', 'on', 'off', 'off', 'on']
+                             [:2 * FLIGHT_REPEATS]):
+        ex = ex_on if mode == 'on' else ex_off
+        walls[mode].append(per_video(ex, f'd{i}_{mode}'))
+    ex_on.finish_obs()
+    with open(root / 'd_manifest.json') as f:
+        warm = json.load(f)['compile']
+    if warm != {}:
+        fail(f'phase 21 (d): a warm build directory gave compile {warm}')
+    rec = SpanRecorder(capacity=SPAN_APPENDS)
+    t = time.perf_counter()
+    for _ in range(SPAN_APPENDS):
+        rec.span('model', t, t + 1e-3, videos=paths[:1], valid=8)
+    span_us = (time.perf_counter() - t) / SPAN_APPENDS * 1e6
+    traced = Tracer(recorder=SpanRecorder(capacity=SPAN_APPENDS))
+    plain = Tracer()
+    stage_us = {}
+    for name, tr in (('with the recorder', traced), ('without', plain)):
+        t = time.perf_counter()
+        for _ in range(SPAN_APPENDS):
+            with tr.stage('model', valid=8):
+                pass
+        stage_us[name] = (time.perf_counter() - t) / SPAN_APPENDS * 1e6
+    for mode in ('off', 'on'):
+        ms = [w / windows * 1e3 for w in walls[mode]]
+        print(f'phase 21 (d) ({card}): trace_out and manifest_out {mode}: '
+              f'corpus wall {", ".join(f"{w:.3f}" for w in walls[mode])} s, '
+              f'{", ".join(f"{m:.2f}" for m in ms)} ms per window '
+              f'({windows} windows, {len(paths)} videos)', flush=True)
+    print(f'phase 21 (d) ({card}): SpanRecorder.span {span_us:.3f} us per '
+          f'append; Tracer.stage {stage_us["with the recorder"]:.3f} us with '
+          f'the recorder, {stage_us["without"]:.3f} us without; a warm build '
+          'directory gave compile {}', flush=True)
+    del ex_on, ex_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -2844,9 +3119,15 @@ def main() -> int:
               'decode farm, a second L1 over the L2, the GC; a fused '
               'frame-wise worklist)')
     cache_phase(torch, np, corr_lookup, gru, check_counts, card)
+    print(f'cache phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('flight recorder (I3D at batch 8 per video with trace_out, '
+              'manifest_out, postmortem_dir and profile_dir; packed through '
+              'the decode farm; the recorder\'s cost)')
+    flight_phase(torch, np, corr_lookup, gru, check_counts, card)
     for key in launches:
         rec[key]['launches'] = launches[key]
-    print(f'cache phase {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'flight recorder phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

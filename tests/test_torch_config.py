@@ -368,7 +368,8 @@ PORT_IMPLEMENTS = {'video_paths', 'file_with_video_paths', 'output_path',
                    'decode_workers', 'pack_across_videos', 'pack_decode_ahead',
                    'profile', 'compilation_cache_dir', 'decode_farm_ring_mb',
                    'features', 'cache_enabled', 'cache_dir', 'cache_max_bytes',
-                   'cache_l2_dir'}
+                   'cache_l2_dir', 'trace_out', 'trace_capacity', 'manifest_out',
+                   'postmortem_dir', 'postmortem_max_bytes', 'profile_dir'}
 
 
 def test_every_jax_knob_is_ported_or_refused_at_the_jax_default():
@@ -426,6 +427,63 @@ def test_a_jax_yaml_of_defaults_loads(clip, tmp_path, ft):
 def test_pipeline_depths_must_be_positive(clip, key, value):
     with pytest.raises(ValueError, match=f'{key} must be >= 1'):
         load_config('resnet', overrides=_family_overrides(clip, 'resnet', **{key: value}))
+
+
+OBS_KEYS = {'trace_out': 'x.json', 'trace_capacity': 10, 'manifest_out': 'm.json',
+            'postmortem_dir': 'pm', 'postmortem_max_bytes': 1024,
+            'profile_dir': 'prof'}
+
+
+@pytest.mark.parametrize('key', sorted(OBS_KEYS))
+def test_flight_recorder_keys_are_taken(clip, key):
+    """The flight recorder's six knobs load away from their defaults, and
+    the merged config carries the JAX package's injected defaults."""
+    args = load_config('resnet', overrides=_family_overrides(
+        clip, 'resnet', **{key: OBS_KEYS[key]}))
+    assert args[key] == OBS_KEYS[key]
+    from video_features_tpu.config import OBS_DEFAULTS as JAX_OBS
+    for k in ('trace_out', 'trace_capacity', 'manifest_out', 'postmortem_dir',
+              'postmortem_max_bytes'):
+        if k != key:
+            assert args[k] == JAX_OBS[k], k
+
+
+@pytest.mark.parametrize('key', ['trace_capacity', 'postmortem_max_bytes'])
+@pytest.mark.parametrize('value', [0, -5])
+def test_flight_recorder_bounds_raise_as_the_jax_package(clip, key, value):
+    """The JAX package's rule and message: a bound below 1 is a
+    ValueError, in both packages."""
+    from video_features_tpu.config import sanity_check as jax_sanity_check
+    with pytest.raises(ValueError, match=f'{key} must be >= 1; got {value}'):
+        load_config('resnet', overrides=_family_overrides(clip, 'resnet',
+                                                          **{key: value}))
+    jax_args = {'feature_type': 'resnet', 'model_name': 'resnet18',
+                'video_paths': [str(clip)], 'device': 'cpu',
+                'output_path': 'o', 'tmp_path': 't', key: value}
+    with pytest.raises(ValueError, match=f'{key} must be >= 1; got {value}'):
+        jax_sanity_check(jax_args)
+
+
+def test_flight_recorder_paths_become_strings(clip, tmp_path):
+    args = load_config('resnet', overrides=_family_overrides(
+        clip, 'resnet', trace_out=tmp_path / 't.json',
+        manifest_out=tmp_path / 'm.json', postmortem_dir=tmp_path / 'pm',
+        trace_capacity='12'))
+    assert (args['trace_out'], args['manifest_out'], args['postmortem_dir'],
+            args['trace_capacity']) == (str(tmp_path / 't.json'),
+                                        str(tmp_path / 'm.json'),
+                                        str(tmp_path / 'pm'), 12)
+
+
+@pytest.mark.parametrize('key,value', [('watchdog_stall_s', 5.0),
+                                       ('slo_latency_p99_s', 2.0),
+                                       ('slo_availability', 0.999)])
+def test_serve_only_obs_knobs_stay_refused_by_name(clip, key, value):
+    """The stall watchdog and the SLOs come with the serve daemon, their
+    one consumer: set, they raise NotImplementedError naming the key."""
+    with pytest.raises(NotImplementedError, match=key):
+        load_config('resnet', overrides=_family_overrides(clip, 'resnet',
+                                                          **{key: value}))
 
 
 def test_pipeline_defaults_are_injected(clip):

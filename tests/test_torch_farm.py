@@ -272,7 +272,7 @@ def test_farm_decode_error_fails_one_video(tmp_path, capsys, name):
     st = farm.stats()
     assert (st['respawns'], st['videos_failed']) == (0, 1)
     err = capsys.readouterr().err
-    assert f'An error occurred during extraction of {bad.path}' in err
+    assert f'decode farm worker failed {bad.path}' in err
     assert ('cannot decode' if name == 'BAD.bin' else 'must be uint8') in err
 
 
@@ -384,9 +384,10 @@ def test_farm_flush_waits_for_the_videos_before_it(tmp_path):
 
 def test_farm_traces_worker_decode_on_the_parents_clock(tmp_path):
     """With a tracer, each window adds a 'decode' row (its span placed on
-    the parent's clock, inside the run) and an 'shm_copy' row whose
-    occupancy is the ring's fill."""
-    tracer = Tracer()
+    the parent's clock, inside the run, under its worker's pid lane) and
+    an 'shm_copy' row whose occupancy is the ring's fill."""
+    from video_features_torch.obs.spans import SpanRecorder
+    tracer = Tracer(recorder=SpanRecorder())
     farm = DecodeFarm(SyntheticRecipe(n_windows=6), workers=2,
                       ring_bytes=1 << 20, tracer=tracer)
     t0 = time.perf_counter()
@@ -395,9 +396,15 @@ def test_farm_traces_worker_decode_on_the_parents_clock(tmp_path):
     rep = tracer.report()
     assert rep['decode']['count'] == rep['shm_copy']['count'] == 12
     assert 0 < rep['shm_copy']['occupancy'] <= 1
-    assert len(tracer.spans) == 12
-    for name, start, dt in tracer.spans:
-        assert name == 'decode' and t0 <= start and start + dt <= t1
+    # origin 0: ts is the CLOCK reading itself, in microseconds
+    decode = [e for e in tracer.recorder.snapshot(origin=0.0)
+              if e['name'] == 'decode']
+    assert len(decode) == 12
+    for e in decode:
+        start = e['ts'] / 1e6
+        assert t0 <= start and start + e['dur'] / 1e6 <= t1 + 1e-6
+        assert e['pid'] != os.getpid() and e['tid'] == e['args']['worker']
+    assert len({e['pid'] for e in decode}) >= 1
     assert 'shm_copy' in tracer.summary()
 
 
@@ -596,7 +603,7 @@ def test_packed_farm_fault_isolation(resnet, worklist, tmp_path, monkeypatch,
     bad = str(tmp_path / 'gone.mp4')
     paths = worklist[:1] + [bad] + worklist[1:]
     ex.extract_packed(_tasks(paths, tmp_path / 'o'))
-    assert f'An error occurred during extraction of {bad}' in capsys.readouterr().err
+    assert f'video={bad}' in capsys.readouterr().err
     assert _npys(tmp_path / 'o') == ref
     assert ex._farm.stats()['videos_failed'] == 1
 

@@ -227,7 +227,7 @@ def test_fused_decode_fault_fails_every_family_for_that_video(
     stats, got = fused.run(f'decfault{workers}',
                            lambda: run_packed_fused(fused.exs, paths))
     assert got == fused.solo and stats['videos'] == 4
-    assert f'An error occurred during extraction of {bad}' in capsys.readouterr().err
+    assert f'video={bad}' in capsys.readouterr().err
 
 
 def test_fused_admission_is_per_family(fused, worklist):

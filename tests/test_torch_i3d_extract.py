@@ -118,7 +118,7 @@ def test_bad_video_path_continues(tmp_path, capsys):
     ex = extract.ExtractI3D(_args(tmp_path, streams='rgb'))
     ex._extract(str(tmp_path / 'missing.mp4'))     # must not raise
     err = capsys.readouterr().err
-    assert 'Continuing' in err and 'missing.mp4' in err
+    assert 'continuing with the next video' in err and 'missing.mp4' in err
 
 
 def test_missing_checkpoint_is_an_error(tmp_path, monkeypatch):

@@ -16,7 +16,8 @@ REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'parallel', 'parallel.packing', 'extract.streaming', 'utils.tracing',
     'farm', 'farm.farm', 'farm.ring', 'farm.recipes', 'farm.worker',
     'ops.precision', 'ops.quant', 'cache', 'cache.key', 'cache.store',
-    'cache.gc', 'fleet', 'fleet.tier'))
+    'cache.gc', 'fleet', 'fleet.tier', 'obs', 'obs.events', 'obs.context',
+    'obs.spans', 'obs.metrics', 'obs.manifest', 'obs.blackbox'))
 
 IMPORT_ALL = r'''
 import importlib, pkgutil, sys
@@ -46,3 +47,48 @@ def test_port_sources_import_no_jax():
     offenders = [str(p.relative_to(REPO)) for p in PORT_SOURCES
                  if pattern.search(p.read_text())]
     assert offenders == []
+
+
+OBS_MODULES = ('obs', 'obs.events', 'obs.context', 'obs.spans', 'obs.metrics',
+               'obs.manifest', 'obs.blackbox', 'utils.tracing')
+
+
+def test_obs_modules_import_neither_torch_jax_nor_timm():
+    """The flight recorder's modules, as a decode worker may import them,
+    pull in no torch (only the functions that need it import it), no jax,
+    no JAX package and no timm."""
+    code = ('import sys\n'
+            + ''.join(f'import video_features_torch.{m}\n' for m in OBS_MODULES)
+            + 'print(sorted(m for m in ("torch", "jax", "video_features_tpu", '
+              '"timm") if m in sys.modules))')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == '[]'
+
+
+def test_a_farm_worker_with_the_recorder_attached_stays_torch_free(tmp_path):
+    """With a span recorder on the tracer and a black box on the farm, a
+    spawned worker decoding a real clip imports neither torch nor jax nor
+    the JAX package, and its decode spans come back on its own pid lane."""
+    from tests.test_torch_farm import ProbeRecipe, _drain
+    from tools.make_sample_video import write_noise_clip
+    from video_features_torch.farm import DecodeFarm, StackRecipe
+    from video_features_torch.obs.blackbox import BlackBox
+    from video_features_torch.obs.spans import SpanRecorder
+    from video_features_torch.utils.tracing import Tracer
+    clip = write_noise_clip(tmp_path / 'c.mp4', 14, w=80, h=60, seed=3)
+    recipe = StackRecipe(win=5, step=4, batch_size=8, fps=None, total=None,
+                         tmp_path=str(tmp_path), keep_tmp=False, backend='cv2',
+                         transform=('edge_resize', 32, 'bilinear'))
+    rec = SpanRecorder()
+    farm = DecodeFarm(ProbeRecipe(recipe), workers=1, ring_bytes=1 << 20,
+                      tracer=Tracer(recorder=rec),
+                      blackbox=BlackBox(str(tmp_path / 'pm'),
+                                        recorders=lambda: [rec]))
+    tasks, got, _ = _drain(farm, [clip])
+    assert not tasks[0].failed and len(got[str(clip)]) == 3
+    assert tasks[0].info['modules'] == []
+    decode = [e for e in rec.snapshot() if e['name'] == 'decode']
+    assert [e['pid'] for e in decode] == [tasks[0].info['pid']] * 3
+    assert not (tmp_path / 'pm').exists()      # nothing died

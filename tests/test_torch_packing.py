@@ -182,7 +182,8 @@ def test_fault_isolation_bad_file(runs, worklists, monkeypatch, tmp_path, capsys
     ex = _resnet(runs, monkeypatch, tmp_path)
     bad = str(tmp_path / 'gone.mp4')
     ex.extract_packed(paths[:1] + [bad] + paths[1:])
-    assert f'An error occurred during extraction of {bad}' in capsys.readouterr().err
+    assert f'extraction failed; continuing with the next video [video={bad}' \
+        in capsys.readouterr().err
     assert not Path(make_path(str(tmp_path), bad, 'resnet', '.npy')).exists()
     assert _outputs(tmp_path) == _outputs(runs['resnet'][1]['packed3'])
 
@@ -318,6 +319,7 @@ def test_occupancy_and_the_stage_table(runs, worklists, monkeypatch, tmp_path,
     ex = _resnet(runs, monkeypatch, tmp_path)
     tracer = Tracer()
     monkeypatch.setattr(ex, 'tracer', tracer)
+    monkeypatch.setattr(ex, 'profile', True)
     reports = []
     real_reset = tracer.reset
     monkeypatch.setattr(tracer, 'reset',

@@ -19,3 +19,5 @@ iteration on the card runs hand-written CUDA kernels: the
 correlation-window lookup (``csrc/corr_lookup.cu``) and the SepConvGRU
 direction (``csrc/gru_direction.cu``).
 """
+
+__version__ = '0.1.0'

@@ -497,9 +497,11 @@ def merge_cache_stats(stats: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
 
 def log_cache_error(what: str) -> None:
     """A cache failure degrades to a miss, never to a failed extraction,
-    but it is reported: a warning on the ``video_features_torch.cache``
-    logger with the traceback (the port has no event log)."""
+    but it is reported through the structured event log
+    (``obs/events.py``): a warning with the traceback, on stderr."""
     import logging
-    logging.getLogger('video_features_torch.cache').warning(
-        'feature cache %s failed (continuing uncached) [subsystem=cache]',
-        what, exc_info=True)
+
+    from video_features_torch.obs.events import event
+    event(logging.WARNING,
+          f'feature cache {what} failed (continuing uncached)',
+          subsystem='cache', exc_info=True)

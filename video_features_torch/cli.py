@@ -13,6 +13,13 @@ families with equal decode signatures share one decode per video
 its own pass over the same list, packed where the family packs. With
 ``cache_enabled=true`` every path consults the feature cache through
 the extractors ``create_extractor`` builds.
+
+The flight recorder on every path: ``profile_dir`` runs the worklist
+inside ``torch.profiler`` (``utils/tracing.py::torch_profiler_trace``);
+``trace_out`` and ``manifest_out`` are written by each extractor's
+``finish_obs`` when the run ends, a failed video or an error included;
+with ``postmortem_dir`` a fatal signal (SIGTERM, SIGQUIT, SIGABRT)
+dumps a black-box bundle before the process goes down.
 """
 from __future__ import annotations
 
@@ -23,6 +30,21 @@ from video_features_torch.config import (
     form_list_from_user_input, load_config, load_fused_configs, parse_dotlist,
 )
 from video_features_torch.registry import EXTRACTORS, create_extractor
+from video_features_torch.utils.tracing import torch_profiler_trace
+
+
+def install_dump(extractor) -> None:
+    """With ``postmortem_dir``, a black-box dump on SIGTERM (a batch
+    scheduler's kill), SIGQUIT and SIGABRT, each followed by the signal's
+    own handling."""
+    if extractor.blackbox is None:
+        return
+    import signal
+
+    from video_features_torch.obs.blackbox import install_signal_dump
+    install_signal_dump(extractor.blackbox, signals=tuple(
+        getattr(signal, name) for name in ('SIGTERM', 'SIGQUIT', 'SIGABRT')
+        if hasattr(signal, name)))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -44,17 +66,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     print('Device:', args['device'])
 
     extractor = create_extractor(args)
+    install_dump(extractor)
     video_paths = form_list_from_user_input(
         args.get('video_paths'), args.get('file_with_video_paths'))
     print(f'The number of specified videos: {len(video_paths)}')
-    if args.get('pack_across_videos'):
-        print(f'Packing device batches across {len(video_paths)} videos')
-        extractor.extract_packed(video_paths,
-                                 decode_ahead=int(args['pack_decode_ahead']))
-        return 0
-    for i, video_path in enumerate(video_paths):
-        print(f'[{i + 1}/{len(video_paths)}] {video_path}')
-        extractor._extract(video_path)
+    try:
+        with torch_profiler_trace(args.get('profile_dir')):
+            if args.get('pack_across_videos'):
+                print(f'Packing device batches across {len(video_paths)} '
+                      'videos')
+                extractor.extract_packed(
+                    video_paths, decode_ahead=int(args['pack_decode_ahead']))
+            else:
+                for i, video_path in enumerate(video_paths):
+                    print(f'[{i + 1}/{len(video_paths)}] {video_path}')
+                    extractor._extract(video_path)
+    finally:
+        extractor.finish_obs()
     return 0
 
 
@@ -73,6 +101,7 @@ def _fused_main(cli_args: dict) -> int:
             line += f' -> {args["output_path"]}'
         print(line)
     exs = {fam: create_extractor(args) for fam, args in configs.items()}
+    install_dump(next(iter(exs.values())))
     # the worklist keys are shared overrides: every family has the same
     shared = next(iter(configs.values()))
     video_paths = form_list_from_user_input(
@@ -89,19 +118,26 @@ def _fused_main(cli_args: dict) -> int:
             groups.setdefault(sig, {})[fam] = ex
     singles += [fam for g in groups.values() if len(g) == 1 for fam in g]
     decode_ahead = int(shared['pack_decode_ahead'])
-    for group in (g for g in groups.values() if len(g) > 1):
-        print(f'Fusing decode for [{", ".join(group)}]: one pass over '
-              f'{len(video_paths)} videos')
-        run_packed_fused(group, list(video_paths), decode_ahead=decode_ahead)
-    for fam in singles:
-        ex = exs[fam]
-        print(f'[{fam}] cannot share a decode pass: running its own')
-        if ex.supports_packing:
-            ex.extract_packed(list(video_paths), decode_ahead=decode_ahead)
-            continue
-        for i, video_path in enumerate(video_paths):
-            print(f'[{fam}] [{i + 1}/{len(video_paths)}] {video_path}')
-            ex._extract(video_path)
+    try:
+        with torch_profiler_trace(shared.get('profile_dir')):
+            for group in (g for g in groups.values() if len(g) > 1):
+                print(f'Fusing decode for [{", ".join(group)}]: one pass over '
+                      f'{len(video_paths)} videos')
+                run_packed_fused(group, list(video_paths),
+                                 decode_ahead=decode_ahead)
+            for fam in singles:
+                ex = exs[fam]
+                print(f'[{fam}] cannot share a decode pass: running its own')
+                if ex.supports_packing:
+                    ex.extract_packed(list(video_paths),
+                                      decode_ahead=decode_ahead)
+                    continue
+                for i, video_path in enumerate(video_paths):
+                    print(f'[{fam}] [{i + 1}/{len(video_paths)}] {video_path}')
+                    ex._extract(video_path)
+    finally:
+        for ex in exs.values():
+            ex.finish_obs()
     farms = [ex._farm.stats() for ex in exs.values() if ex._farm is not None]
     if farms:
         s = merge_farm_stats(farms)

@@ -68,7 +68,7 @@ def load_config(feature_type: Optional[str] = None,
             f'Known: {", ".join(EXTRACTORS)}')
     with open(path) as f:
         args = dict(yaml.safe_load(f) or {})
-    for table in (CACHE_DEFAULTS, PIPELINE_DEFAULTS):
+    for table in (CACHE_DEFAULTS, OBS_DEFAULTS, PIPELINE_DEFAULTS):
         for key, value in table.items():
             args.setdefault(key, value)
     args.update(overrides)
@@ -186,19 +186,28 @@ PIPELINE_DEFAULTS: Dict[str, Any] = {
     'decode_farm_ring_mb': 64,   # shared-memory ring of each decode farm worker, MiB
 }
 
+# the flight recorder (obs/), injected into every merged config with the
+# JAX package's defaults; profile_dir (a torch.profiler trace) is off
+# when absent, as in the JAX package
+OBS_DEFAULTS: Dict[str, Any] = {
+    'trace_out': None,           # Chrome trace of the run's spans; null = off
+    'trace_capacity': 200_000,   # the span ring's size, in events
+    'manifest_out': None,        # the per-run JSON manifest; null = off
+    'postmortem_dir': None,      # black-box bundles on a crash; null = off
+    'postmortem_max_bytes': 64 * (1 << 20),  # the bundles' size cap
+}
+
 # the JAX package's knobs the port does not implement, with the JAX
 # package's default: any other value raises NotImplementedError naming
-# the key (its executable store, feature index, flight recorder, SLOs,
-# meshes, several hosts and serving)
+# the key (its executable store, feature index, stall watchdog and SLOs,
+# which only its serve daemon reads, meshes, several hosts and serving)
 UNPORTED_DEFAULTS: Dict[str, Any] = {
     'aot_enabled': False, 'aot_dir': '~/.cache/video_features_tpu/executables',
     'aot_max_bytes': None, 'aot_l2_dir': None,
     'index_enabled': False, 'index_dir': None, 'index_shard_rows': 1024,
     'index_poll_s': 0.5, 'index_query_block': 8, 'index_k_max': 10,
-    'trace_out': None, 'trace_capacity': 200_000, 'manifest_out': None,
-    'postmortem_dir': None, 'postmortem_max_bytes': 64 * (1 << 20),
     'watchdog_stall_s': None, 'slo_latency_p99_s': None,
-    'slo_availability': None, 'profile_dir': None,
+    'slo_availability': None,
     'mesh_devices': 1, 'device_ids': None, 'multihost': False,
     'coordinator_address': None, 'num_processes': None, 'process_id': None,
     'data_parallel': False, 'sequence_parallel': False, 'timeout_s': None,
@@ -384,6 +393,20 @@ def check_cache_keys(args: Dict[str, Any]) -> None:
                              '(see docs/fleet.md)')
 
 
+def check_obs_keys(args: Dict[str, Any]) -> None:
+    """The flight recorder's rules, as the JAX package's ``sanity_check``
+    has them: the paths become strings, ``trace_capacity`` and
+    ``postmortem_max_bytes`` ints >= 1 (a ``ValueError`` otherwise)."""
+    for key in ('trace_out', 'manifest_out', 'postmortem_dir'):
+        if args.get(key) is not None:
+            args[key] = str(args[key])
+    for key in ('trace_capacity', 'postmortem_max_bytes'):
+        if args.get(key) is not None:
+            args[key] = int(args[key])
+            if args[key] < 1:
+                raise ValueError(f'{key} must be >= 1; got {args[key]}')
+
+
 def gate_packing(args: Dict[str, Any]) -> None:
     """``pack_across_videos`` on a family without a packed loop, or with
     the per-video ``show_pred`` surface, warns and runs the per-video
@@ -447,6 +470,7 @@ def sanity_check(args: Dict[str, Any]) -> None:
     ft = args.get('feature_type')
     gate_packing(args)
     check_cache_keys(args)
+    check_obs_keys(args)
     if ft == 'raft':
         check_raft_args(args)
     elif ft == 'vggish':

@@ -29,7 +29,13 @@ output (a slim port of ``video_features_tpu/extract/base.py``).
   * the packed corpus mode (``pack_across_videos``): the hooks a family
     implements and :meth:`~BaseExtractor.extract_packed`, which runs
     ``parallel.packing.run_packed``; ``farm_recipe`` (the decode farm's
-    worker-side decode) and ``fused_decode_signature`` (fused worklists).
+    worker-side decode) and ``fused_decode_signature`` (fused worklists);
+  * the flight recorder (``obs/``): :meth:`~BaseExtractor.configure_obs`
+    attaches a span recorder to the tracer (``trace_out``), a run
+    manifest (``manifest_out``) and a black box (``postmortem_dir``);
+    ``_extract`` records a ``video`` span per video under the run's
+    trace id, and :meth:`~BaseExtractor.finish_obs` writes the trace and
+    the manifest at the end of the run.
 
 On the card, ``put_input`` copies from pinned host memory on a copy
 stream of its own and records an event; the consumer's stream waits on
@@ -48,7 +54,7 @@ from __future__ import annotations
 
 import os
 import sys
-import traceback
+import time
 import warnings
 from pathlib import Path
 from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Union
@@ -84,12 +90,13 @@ def is_device_fault(e: BaseException) -> bool:
         key in msg for key in ('CUDA', 'cuDNN', 'CUBLAS', 'failed to launch'))
 
 
-def log_extraction_error(video_path) -> None:
-    """The per-video fault report: the traceback and "Continuing..." on
-    stderr."""
-    traceback.print_exc()
-    print(f'An error occurred during extraction of {video_path}. '
-          'Continuing...', file=sys.stderr)
+def log_extraction_error(video_path, stage: Optional[str] = None) -> None:
+    """The per-video fault report of every loop, through the structured
+    event log (``obs/events.py``): a warning with the video's path and
+    the full traceback, on stderr, so ``on_extraction=print`` keeps
+    stdout clean."""
+    from video_features_torch.obs.events import log_extraction_error as log
+    log(video_path, stage=stage)
 
 
 class DeviceBatch:
@@ -167,8 +174,15 @@ class BaseExtractor:
         self.inflight, self.decode_workers, self.decode_farm_ring_mb = \
             check_pipeline_keys(args)
         self._farm = None           # the last packed run's decode farm
+        # profile prints the stage tables; configure_obs may enable the
+        # tracer without them, for a trace or a manifest
         self.profile = bool(args.get('profile', False))
         self.tracer = Tracer() if self.profile else NULL_TRACER
+        # the flight recorder, attached by configure_obs
+        self.trace_ctx = None
+        self.trace_out = self.manifest_out = None
+        self.manifest = None
+        self.blackbox = None
         if self.device.type == 'cuda':
             self._h2d_stream = torch.cuda.Stream(self.device)
             self._d2h_stream = torch.cuda.Stream(self.device)
@@ -259,11 +273,19 @@ class BaseExtractor:
                              self.tracer)
 
     def print_profile(self, title: str) -> None:
-        """With ``profile``, the stage table on stderr, then reset."""
-        if self.tracer.enabled and self.tracer.report():
+        """End of a video or a packed run: fold the stage table into the
+        run manifest, print it on stderr with ``profile``, then reset."""
+        if not self.tracer.enabled:
+            return
+        report = self.tracer.report()
+        if not report:
+            return
+        if self.manifest is not None:
+            self.manifest.fold_stages(report)
+        if self.profile:
             print(f'--- stage timing: {title}', file=sys.stderr)
             print(self.tracer.summary(), file=sys.stderr)
-            self.tracer.reset()
+        self.tracer.reset()
 
     def video_loader(self, video_path: str, **kwargs):
         """A :class:`~video_features_torch.io.video.VideoLoader` that
@@ -346,27 +368,102 @@ class BaseExtractor:
         except Exception:
             log_cache_error(f'publish for {video_path}')
 
+    # -- the flight recorder (obs/) -----------------------------------------
+
+    def configure_obs(self, args: Mapping[str, Any]) -> None:
+        """Attach the flight recorder the config asks for:
+        ``postmortem_dir`` a black box (dumped on a fatal signal by the
+        CLI and on a decode worker's death by the farm, with the spans,
+        the event tail, the metrics registry and the manifest so far);
+        ``trace_out`` a span recorder of ``trace_capacity`` events on the
+        tracer; ``manifest_out`` a run manifest. Either of the last two
+        mints the run's trace context and enables the tracer (the tables
+        stay gated on ``profile``). ``registry.create_extractor`` calls
+        it; an extractor constructed directly records nothing."""
+        trace_out = args.get('trace_out')
+        manifest_out = args.get('manifest_out')
+        if args.get('postmortem_dir'):
+            from video_features_torch.obs.blackbox import BlackBox
+            from video_features_torch.obs.metrics import REGISTRY
+            self.blackbox = BlackBox(
+                str(args['postmortem_dir']),
+                max_bytes=args.get('postmortem_max_bytes'),
+                recorders=lambda: [self.tracer.recorder],
+                metrics_fn=REGISTRY.collect, prom_fn=REGISTRY.render,
+                manifest_fn=lambda: (self.manifest.document()
+                                     if self.manifest is not None else None))
+        if not (trace_out or manifest_out):
+            return
+        # a CLI run is one trace: every video is a child span under it
+        from video_features_torch.obs.context import mint
+        self.trace_ctx = mint()
+        if not self.tracer.enabled:
+            self.tracer = Tracer()
+        if trace_out:
+            from video_features_torch.obs.spans import (
+                DEFAULT_CAPACITY, SpanRecorder,
+            )
+            self.trace_out = str(trace_out)
+            self.tracer.recorder = SpanRecorder(
+                int(args.get('trace_capacity') or DEFAULT_CAPACITY))
+        if manifest_out:
+            from video_features_torch.obs.manifest import RunManifest
+            self.manifest_out = str(manifest_out)
+            self.manifest = RunManifest(args)
+
+    def finish_obs(self) -> None:
+        """Write the run's manifest and trace (the CLI's end of run, in a
+        ``finally``). Never raises: a failed write is a warning event,
+        and the run's outputs, already saved, stand."""
+        import logging
+
+        from video_features_torch.obs.events import event
+        if self.manifest is not None and self.manifest_out:
+            try:
+                # what was recorded since the loops' last fold
+                self.manifest.fold_stages(self.tracer.report())
+                self.manifest.write(self.manifest_out)
+            except Exception:
+                event(logging.WARNING, 'run-manifest write failed',
+                      exc_info=True, path=self.manifest_out)
+        if self.tracer.recorder is not None and self.trace_out:
+            try:
+                self.tracer.recorder.export(self.trace_out)
+            except Exception:
+                event(logging.WARNING, 'trace export failed',
+                      exc_info=True, path=self.trace_out)
+
+    def executable_cost(self, batch) -> None:
+        """The JAX package's XLA cost analysis of the step at ``batch``'s
+        geometry has no counterpart in eager PyTorch: None, so the run
+        manifest's ``executables`` records carry no FLOPs or bytes."""
+        return None
+
     def _extract(self, video_path: str) -> str:
         """Fault-isolating wrapper around :meth:`extract` for the work
         loop; returns the video's outcome (``skipped``, ``cached``,
-        ``saved``, ``printed`` or ``failed``). A device fault
+        ``saved``, ``printed`` or ``failed``), which the run manifest and
+        the ``video`` span record. A device fault
         (:func:`is_device_fault`) ends the run."""
+        recorder = self.tracer.recorder
+        t0_video = time.perf_counter()
+        video_ctx = self.trace_ctx.child() if self.trace_ctx is not None else None
         outcome = 'failed'
         try:
             if self.is_already_exist(video_path):
                 outcome = 'skipped'
                 return outcome
             if self.cache is not None:
-                with self.tracer.stage('cache_lookup'):
+                with self.tracer.stage('cache_lookup', video=str(video_path)):
                     hit = self.cache_fetch(video_path)
                 if hit:
                     outcome = 'cached'
                     return outcome
             feats_dict = self._maybe_concat_streams(self.extract(video_path))
-            with self.tracer.stage('save'):
+            with self.tracer.stage('save', video=str(video_path)):
                 self.action_on_extraction(feats_dict, video_path)
             if self.cache is not None:
-                with self.tracer.stage('cache_publish'):
+                with self.tracer.stage('cache_publish', video=str(video_path)):
                     self.cache_publish(video_path)
             outcome = 'saved' if self.on_extraction in ACTION_TO_EXT else 'printed'
         except Exception as e:
@@ -374,7 +471,15 @@ class BaseExtractor:
                 raise
             log_extraction_error(video_path)
         finally:
+            # the video's stages fold into the manifest before the reset
             self.print_profile(str(video_path))
+            if self.manifest is not None:
+                self.manifest.video_done(video_path, outcome)
+            if recorder is not None:
+                recorder.span('video', t0_video, time.perf_counter(),
+                              video=str(video_path), outcome=outcome,
+                              **(video_ctx.attrs() if video_ctx is not None
+                                 else {}))
         return outcome
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:

@@ -30,11 +30,20 @@ Threads, all in the parent:
 
 A decode error or a worker crash fails one video, as the in-process path
 does; only a farm with no worker left fails the videos that remain.
+
+The flight recorder (``obs/``): each window's ``decode`` span goes to
+the tracer under its worker's own pid lane (``span_pid``), placed on the
+parent's clock; the process-wide ``vft_farm_workers``,
+``vft_farm_busy_workers``, ``vft_farm_ring_bytes`` gauges (summed over
+the live farms, zero once every farm retired) and the
+``vft_farm_respawns_total`` counter are on ``obs.metrics.REGISTRY``; a
+decode error and a worker's death are warning events, and a death dumps
+the ``blackbox`` given (``farm_worker_died``).
 """
 from __future__ import annotations
 
+import logging
 import queue as queue_mod
-import sys
 import threading
 import time
 from collections import deque
@@ -42,6 +51,9 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
+from video_features_torch.obs.context import trace_attrs
+from video_features_torch.obs.events import event, log_extraction_error
+from video_features_torch.obs.metrics import REGISTRY
 from video_features_torch.utils.tracing import NULL_TRACER, Tracer
 
 # respawns over a farm's life; a poison video costs at most two (one
@@ -53,6 +65,12 @@ RESPAWN_LIMIT = 8
 CLOCK_RTT_MAX_S = 0.05
 
 _MB = 1 << 20
+
+# the vft_farm_* gauges are process-wide and farms are per run: each write
+# sums over the farms alive, so one farm's retirement does not zero a
+# sibling's workers
+_LIVE_FARMS: set = set()
+_LIVE_LOCK = threading.Lock()
 
 
 class FarmUnavailable(RuntimeError):
@@ -108,14 +126,17 @@ class DecodeFarm:
     copy out of the ring as ``shm_copy``, whose ``occ%`` is the ring's
     fill when the window was shipped. ``cache_key_fn(path)`` (the
     extractor's cache key) turns on duplicate parking; a path it cannot
-    hash skips parking and decodes.
+    hash skips parking and decodes. ``blackbox`` (``obs.blackbox.
+    BlackBox``) dumps a bundle when a worker dies.
     """
 
     def __init__(self, recipe, workers: int = 2, ring_bytes: int = 64 * _MB,
                  tracer: Tracer = NULL_TRACER,
                  respawn_limit: int = RESPAWN_LIMIT,
-                 cache_key_fn: Optional[Callable[[str], str]] = None) -> None:
+                 cache_key_fn: Optional[Callable[[str], str]] = None,
+                 blackbox=None) -> None:
         self.recipe = recipe
+        self._blackbox = blackbox
         self.cache_key_fn = cache_key_fn
         self.n_workers = max(int(workers), 1)
         self.ring_bytes = max(int(ring_bytes), _MB // 4)
@@ -147,6 +168,16 @@ class DecodeFarm:
         self._ran = False
         self._t_start = 0.0
         self._fallback: Optional[str] = None
+        self._g_workers = REGISTRY.gauge(
+            'vft_farm_workers', 'decode farm worker processes alive')
+        self._g_busy = REGISTRY.gauge(
+            'vft_farm_busy_workers',
+            'decode farm workers with videos assigned')
+        self._g_ring = REGISTRY.gauge(
+            'vft_farm_ring_bytes',
+            'decoded bytes resident in the farm SHM rings')
+        self._c_respawns = REGISTRY.counter(
+            'vft_farm_respawns_total', 'decode farm worker respawns')
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -216,6 +247,9 @@ class DecodeFarm:
         self._started = self._ran = True
         self._t_start = t0
         self._stats['start_s'] = time.perf_counter() - t0
+        with _LIVE_LOCK:
+            _LIVE_FARMS.add(self)
+        self._update_gauges()
         return self
 
     def shutdown(self) -> None:
@@ -235,6 +269,20 @@ class DecodeFarm:
                         w.proc.join(1.0)
                 self._retire(w)
             self._started = False
+        with _LIVE_LOCK:
+            _LIVE_FARMS.discard(self)
+        self._update_gauges()
+
+    def _update_gauges(self) -> None:
+        """The vft_farm_* gauges: workers alive, workers with videos
+        assigned and ring bytes in use, over every live farm."""
+        with _LIVE_LOCK:
+            farms = list(_LIVE_FARMS)
+        workers = [w for f in farms for w in f._workers]
+        self._g_workers.set(sum(1 for w in workers
+                                if w.proc is not None and w.proc.is_alive()))
+        self._g_busy.set(sum(1 for w in workers if w.pending))
+        self._g_ring.set(sum(w.ring_used for w in workers))
 
     @staticmethod
     def _retire(w: _Worker) -> None:
@@ -368,7 +416,6 @@ class DecodeFarm:
         """The admission gate: False (with a NUDGE queued) for a video
         that ends without decoding: a resume skip, a cache hit, or a gate
         that raised, which fails the video as the in-process path does."""
-        from video_features_torch.extract.base import log_extraction_error
         try:
             go = admit(task)
         except Exception:
@@ -474,6 +521,7 @@ class DecodeFarm:
             if now - last_supervise >= 0.2:
                 last_supervise = now
                 yield from self._supervise()
+                self._update_gauges()
                 # a source that never ends (FLUSH between bursts) must not
                 # keep a duplicate parked until it does
                 self._resolve_parked(self._admit, block=False)
@@ -548,7 +596,18 @@ class DecodeFarm:
                     self._stats['first_window_s'] = (time.perf_counter()
                                                      - self._t_start)
                 self._stats['windows'] += 1
-            self.tracer.add('decode', dt, t0=t0 + w.clock_offset)
+            if self.tracer.enabled:
+                # the worker's own lane and its ring's fill; a fused
+                # recipe's windows name the family they were decoded for
+                family_of = getattr(self.recipe, 'family_of', None)
+                family = family_of(meta) if family_of is not None else None
+                self.tracer.add(
+                    'decode', dt, t0=t0 + w.clock_offset,
+                    span_pid=w.proc.pid if w.proc is not None else None,
+                    span_tid=w.idx, video=str(task.path), worker=w.idx,
+                    ring_used=w.ring_used, ring_capacity=self.ring_bytes,
+                    **({'family': family} if family is not None else {}),
+                    **trace_attrs(task))
             return task, window, meta
         if kind in ('end', 'err'):
             seq = msg[3]
@@ -558,9 +617,9 @@ class DecodeFarm:
                 return None
             if kind == 'err':
                 task.failed = True
-                print(msg[4], end='', file=sys.stderr)
-                print(f'An error occurred during extraction of {task.path}. '
-                      'Continuing...', file=sys.stderr)
+                event(logging.WARNING,
+                      f'decode farm worker failed {task.path}:\n{msg[4]}',
+                      subsystem='farm', video=str(task.path), stage='decode')
             task.exhausted = True
             with self._lock:
                 self._stats['videos_done'] += 1
@@ -613,24 +672,38 @@ class DecodeFarm:
                     # it may never have started: one retry, so a queued
                     # video is not lost and a poison one fails the second time
                     self._retried.add(oldest)
-            print(f'decode farm worker {w.idx} died (exit code '
+            victim_path = (str(self._tasks[victim].path)
+                           if victim is not None else None)
+            with self._lock:
+                respawn = self._respawns < self.respawn_limit
+                self._respawns += int(respawn)
+            if respawn:
+                # counted before the dump, so the bundle's metrics hold it
+                self._c_respawns.inc()
+            event(logging.WARNING,
+                  f'decode farm worker {w.idx} died (exit code '
                   f'{w.proc.exitcode}); '
-                  + (f'failing {self._tasks[victim].path}; '
-                     if victim is not None else '')
-                  + f'{len(requeue)} queued video(s) go on', file=sys.stderr)
+                  + (f'failing {victim_path}; ' if victim is not None
+                     else 'no video in flight; ')
+                  + f'{len(requeue)} queued video(s) go on',
+                  subsystem='farm')
+            if self._blackbox is not None:
+                self._blackbox.dump('farm_worker_died', worker=w.idx,
+                                    exitcode=w.proc.exitcode,
+                                    victim=victim_path,
+                                    requeued=len(requeue))
             if victim is not None:
                 yield from self._fail_seq(w, victim)
             self._retire(w)
             with self._lock:
-                respawn = self._respawns < self.respawn_limit
-                self._respawns += int(respawn)
                 w.pending.clear()
                 w.started.clear()
             if respawn:
                 self._workers[i] = self._spawn(w.idx, w.epoch + 1, requeue)
                 continue
-            print(f'decode farm respawn budget ({self.respawn_limit}) spent; '
-                  f'worker {w.idx} stays down', file=sys.stderr)
+            event(logging.WARNING,
+                  f'decode farm respawn budget ({self.respawn_limit}) spent; '
+                  f'worker {w.idx} stays down', subsystem='farm')
             w.proc.join(0.1)
             w.proc = None
             for seq in requeue:

@@ -104,6 +104,13 @@ class FusedRecipe(_LoaderRecipe):
                          backend, transform=None)
         self.transforms = dict(transforms)     # family → spec, in order
 
+    def family_of(self, meta) -> Optional[str]:
+        """The family a window's meta names (its decode span's
+        ``family`` arg), or None."""
+        if isinstance(meta, tuple) and len(meta) == 2:
+            return meta[0]
+        return None
+
     def open(self, path: str, select=None) -> Tuple[Dict, Iterator]:
         from video_features_torch.extract.streaming import framewise_windows
         loader = self._make_loader(path)

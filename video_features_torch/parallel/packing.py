@@ -31,6 +31,16 @@ windower's place: worker processes decode and ship the windows over
 shared memory, and the loop downstream is unchanged. A fused worklist
 (:func:`run_packed_fused`, ``features=[...]``) decodes each video once
 for several frame-wise families and packs each family's windows apart.
+
+The flight recorder (``obs/``): with a span recorder on the tracer,
+each video gets ``video_start`` and ``video_done`` instants (with its
+outcome) under a child of the run's trace context, decode spans name
+their video, and ``pack``, ``model`` and ``d2h`` spans name the batch's
+videos, slots and trace ids and the ``compute_dtype``; a fused run adds
+one ``decode_pass`` instant per decoded video. With a run manifest,
+every video's outcome, each batch geometry (``note_executable``), the
+farm (``note_farm``) and the stage table (folded before the tracer's
+reset) go into it. A failed batch is reported by ``log_batch_error``.
 """
 from __future__ import annotations
 
@@ -42,6 +52,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from video_features_torch.obs.context import trace_attrs, trace_ids_of
+from video_features_torch.utils.output import ACTION_TO_EXT
 from video_features_torch.utils.tracing import NULL_TRACER, Tracer
 
 # Stream sentinel: "no more input for now, flush the partial pools". A
@@ -68,18 +80,20 @@ class VideoTask:
     in window order (a video's windows share one pool, which is FIFO);
     ``info`` holds video-level metadata (the frame-wise ``fps``).
     ``out_root`` (None: the extractor's ``output_path``) routes this
-    video's files elsewhere.
+    video's files elsewhere. ``trace`` (an ``obs.context.TraceContext``,
+    or None) is the video's span under the run's trace.
     """
 
-    __slots__ = ('path', 'video_id', 'out_root', 'rows', 'meta_rows', 'info',
-                 'emitted', 'done', 'exhausted', 'failed', 'skipped',
-                 'cached', 'finalized')
+    __slots__ = ('path', 'video_id', 'out_root', 'trace', 'rows',
+                 'meta_rows', 'info', 'emitted', 'done', 'exhausted',
+                 'failed', 'skipped', 'cached', 'finalized')
 
     def __init__(self, path: str, video_id: int = -1,
-                 out_root: Optional[str] = None) -> None:
+                 out_root: Optional[str] = None, trace=None) -> None:
         self.path = str(path)
         self.video_id = video_id
         self.out_root = out_root
+        self.trace = trace
         self.rows: Dict[str, List[np.ndarray]] = {}
         self.meta_rows: List = []
         self.info: Dict = {}
@@ -109,10 +123,11 @@ class FusedTask(VideoTask):
     __slots__ = ('subtasks', 'active', 'farm_select')
 
     def __init__(self, path: str, families: Iterable[str],
-                 video_id: int = -1) -> None:
-        super().__init__(path, video_id=video_id)
+                 video_id: int = -1, trace=None) -> None:
+        super().__init__(path, video_id=video_id, trace=trace)
         self.subtasks: Dict[str, VideoTask] = {
-            fam: VideoTask(path, video_id=video_id) for fam in families}
+            fam: VideoTask(path, video_id=video_id, trace=trace)
+            for fam in families}
         self.active: List[str] = list(self.subtasks)
         self.farm_select: Optional[Tuple[str, ...]] = None
 
@@ -150,7 +165,17 @@ def packed_batches(windows: Iterable, batch: int,
         pool, pools[key] = pools[key], []
         ages.pop(key, None)
         cap = cap_of(key)
-        with tracer.stage('pack'):
+        # the span's provenance, built only when tracing is on (getattr:
+        # tests drive the packer with plain tokens)
+        attrs = {}
+        if tracer.enabled:
+            attrs = {'videos': sorted({str(getattr(t, 'path', t))
+                                       for t, _, _ in pool}),
+                     'valid': len(pool), 'capacity': cap}
+            tids = trace_ids_of(t for t, _, _ in pool)
+            if tids:
+                attrs['trace_ids'] = tids
+        with tracer.stage('pack', **attrs):
             wins = [w for _, w, _ in pool]
             wins += [wins[-1]] * (cap - len(wins))
             stacked = np.stack(wins)
@@ -205,28 +230,39 @@ def _admit_task(ex, task: VideoTask) -> bool:
 def _finalize_task(ex, task: VideoTask) -> None:
     """Write one finished video (unless skipped or failed) through the
     per-video output path and publish it to the feature cache, then free
-    its rows and mark it ``finalized``. A failed write fails the video; a
-    device fault ends the run."""
+    its rows, mark it ``finalized`` and stamp its outcome on the
+    extractor's span recorder (a ``video_done`` instant) and run
+    manifest. A failed write fails the video; a device fault ends the
+    run."""
     from video_features_torch.extract.base import (
         is_device_fault, log_extraction_error,
     )
     try:
         if not (task.failed or task.skipped):
             feats_dict = ex._maybe_concat_streams(ex.packed_result(task))
-            with ex.tracer.stage('save'):
+            with ex.tracer.stage('save', video=task.path, **trace_attrs(task)):
                 ex.action_on_extraction(feats_dict, task.path,
                                         output_path=task.out_root)
             if ex.cache is not None:
-                with ex.tracer.stage('cache_publish'):
+                with ex.tracer.stage('cache_publish', video=task.path):
                     ex.cache_publish(task.path, output_path=task.out_root)
     except Exception as e:
         if is_device_fault(e):
             raise
         task.failed = True
-        log_extraction_error(task.path)
+        log_extraction_error(task.path, stage='save')
     finally:
         task.rows = {}
         task.finalized = True     # a parked duplicate may re-run its gate
+        outcome = ('failed' if task.failed else 'cached' if task.cached
+                   else 'skipped' if task.skipped
+                   else 'saved' if ex.on_extraction in ACTION_TO_EXT
+                   else 'printed')
+        if ex.tracer.recorder is not None:
+            ex.tracer.recorder.instant('video_done', video=task.path,
+                                       outcome=outcome, **trace_attrs(task))
+        if ex.manifest is not None:
+            ex.manifest.video_done(task.path, outcome)
 
 
 def _start_farm(ex, recipe, workers: int, cache_key_fn=None):
@@ -243,7 +279,8 @@ def _start_farm(ex, recipe, workers: int, cache_key_fn=None):
         native.load_library()
     farm = ex._farm = DecodeFarm(recipe, workers=workers,
                                  ring_bytes=ex.decode_farm_ring_mb << 20,
-                                 tracer=ex.tracer, cache_key_fn=cache_key_fn)
+                                 tracer=ex.tracer, cache_key_fn=cache_key_fn,
+                                 blackbox=ex.blackbox)
     try:
         return farm.start()
     except FarmUnavailable as e:
@@ -252,22 +289,85 @@ def _start_farm(ex, recipe, workers: int, cache_key_fn=None):
         return None
 
 
-def _doom(prov, exc: Exception, subtask=lambda task: task) -> None:
-    """Fail the videos of a batch whose dispatch or readback raised
+def _doom(prov, exc: Exception, batch: int, valid: int, stage: str,
+          subtask=lambda task: task) -> None:
+    """Fail the videos of a batch whose dispatch (``stage='model'``) or
+    readback (``'d2h'``) raised, reported once by ``log_batch_error``
     (``subtask`` picks the task each slot's outcome lives on); their
     accounting still advances, so the sweep never stalls. A device fault
     ends the run."""
-    from video_features_torch.extract.base import (
-        is_device_fault, log_extraction_error,
-    )
+    from video_features_torch.extract.base import is_device_fault
+    from video_features_torch.obs.events import log_batch_error
     if is_device_fault(exc):
         raise exc
-    for path in sorted({t.path for t, _ in prov}):
-        log_extraction_error(path)
+    log_batch_error(sorted({t.path for t, _ in prov}), valid, batch,
+                    stage=stage)
     for task, _ in prov:
         sub = subtask(task)
         sub.failed = True
         sub.done += 1
+
+
+def _identity(ex, dev) -> Tuple[str, tuple]:
+    """A batch's executable identity (family × geometry × dtype, and the
+    lane off the default) for the run manifest, with its (shape, dtype)."""
+    lane = '' if ex.compute_dtype == 'float32' else f':{ex.compute_dtype}'
+    dtype = dev.tensor.dtype
+    name = str(dtype).replace('torch.', '')
+    return (f'{ex.feature_type}:{tuple(dev.shape)}:{name}{lane}',
+            (tuple(dev.shape), dtype))
+
+
+def _note_run(ex, identities: Dict[str, tuple], batch: int, farm) -> None:
+    """After a packed run, the run manifest's ``executables`` (each batch
+    geometry with its batch and ``compute_dtype``, and whatever
+    ``executable_cost`` gives for it, on a meta tensor) and ``farm``."""
+    manifest = ex.manifest
+    if manifest is None:
+        return
+    for identity, (shape, dtype) in identities.items():
+        info = {'batch': batch, 'compute_dtype': ex.compute_dtype}
+        info.update(ex.executable_cost(
+            torch.empty(shape, dtype=dtype, device='meta')) or {})
+        manifest.note_executable(identity, info)
+    if farm is not None:
+        manifest.note_farm({'decode_workers': farm.n_workers,
+                            'ring_bytes_per_worker': farm.ring_bytes,
+                            'stats': farm.stats()})
+
+
+def _batch_attrs(ex, prov, valid: int, capacity: int) -> Dict:
+    """The args of a batch's ``model`` and ``d2h`` spans (tracing on
+    only): its videos, slots, trace ids and lane."""
+    if not ex.tracer.enabled:
+        return {}
+    attrs = {'videos': sorted({t.path for t, _ in prov}), 'valid': valid,
+             'capacity': capacity, 'compute_dtype': ex.compute_dtype}
+    tids = trace_ids_of(t for t, _ in prov)
+    if tids:
+        attrs['trace_ids'] = tids
+    return attrs
+
+
+def _timed_windows(tracer: Tracer, source: Iterable) -> Iterator:
+    """The in-process window stream with each ``next()`` timed as
+    ``decode+preprocess``, the span naming the video it decoded for."""
+    if not tracer.enabled:
+        yield from source
+        return
+    it = iter(source)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        attrs = {}
+        if item is not FLUSH and item is not NUDGE:
+            attrs = {'video': item[0].path, **trace_attrs(item[0])}
+        tracer.add('decode+preprocess', time.perf_counter() - t0, t0=t0,
+                   **attrs)
+        yield item
 
 
 def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
@@ -298,6 +398,9 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
     batch = int(batch_size or ex.packed_batch_size())
     depth = max(int(inflight if inflight is not None else ex.inflight), 1)
     tracer = ex.tracer
+    recorder = tracer.recorder
+    run_ctx = ex.trace_ctx
+    identities: Dict[str, tuple] = {}
     # the decode thread appends each task as the source yields it; only
     # this thread deletes (list.append and del are atomic in CPython)
     open_q: List[VideoTask] = []
@@ -309,9 +412,14 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
                 yield FLUSH
                 continue
             task = item if isinstance(item, VideoTask) else VideoTask(item)
+            if task.trace is None and run_ctx is not None:
+                task.trace = run_ctx.child()
             task.video_id = n_started[0]
             n_started[0] += 1
             open_q.append(task)
+            if recorder is not None:
+                recorder.instant('video_start', video=task.path,
+                                 **trace_attrs(task))
             yield task
 
     def admit(task: VideoTask) -> bool:
@@ -343,15 +451,16 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
                 f'packed loop lost windows for {t.path}: {t.done}/'
                 f'{t.emitted} scattered, exhausted={t.exhausted}')
 
-    pending: deque = deque()        # (readback, provenance, valid), oldest first
+    # (readback, provenance, valid, span attrs), oldest first
+    pending: deque = deque()
 
     def sync_oldest() -> None:
-        readback, prov, valid = pending.popleft()
+        readback, prov, valid, attrs = pending.popleft()
         try:
-            with tracer.stage('d2h'):
+            with tracer.stage('d2h', **attrs):
                 out = ex.fetch_outputs(readback)
         except Exception as e:
-            _doom(prov, e)
+            _doom(prov, e, batch, valid, 'd2h')
             sweep()
             return
         tracer.add_occupancy('d2h', valid, batch)
@@ -371,9 +480,8 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
                                       if ex.cache is not None else None))
             if ex.decode_workers > 1 else None)
     if farm is None:
-        windows = tracer.wrap_iter(
-            'decode+preprocess',
-            stream_windows_across_videos(task_stream(), open_windows))
+        windows = _timed_windows(tracer, stream_windows_across_videos(
+            task_stream(), open_windows))
     else:
         windows = farm.stream(task_stream(), admit)
     ahead = prefetch_across_videos(windows, decode_ahead * batch)
@@ -388,15 +496,19 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
                     sync_oldest()
                 sweep()
                 continue
+            attrs = _batch_attrs(ex, prov, valid, batch)
             try:
-                with tracer.stage('model'), torch.inference_mode():
+                with tracer.stage('model', **attrs), torch.inference_mode():
                     readback = ex.dispatch(dev)
             except Exception as e:
-                _doom(prov, e)
+                _doom(prov, e, batch, valid, 'model')
                 sweep()
                 continue
             tracer.add_occupancy('model', valid, batch)
-            pending.append((readback, prov, valid))
+            if ex.manifest is not None:
+                identity, geometry = _identity(ex, dev)
+                identities.setdefault(identity, geometry)
+            pending.append((readback, prov, valid, attrs))
             while len(pending) >= depth:
                 sync_oldest()
         while pending:
@@ -405,6 +517,7 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
         if farm is not None:
             farm.shutdown()
     sweep(final=True)
+    _note_run(ex, identities, batch, farm)
     ex.print_profile(f'packed worklist ({n_started[0]} videos, batch {batch}) '
                      f'[{ex.lane_label()}]')
 
@@ -471,6 +584,8 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
     depth = {fam: max(int(inflight if inflight is not None else ex.inflight), 1)
              for fam, ex in exs.items()}
     recipe = build_fused_recipe(exs)
+    lead_recorder = lead.tracer.recorder
+    identities: Dict[str, Dict[str, tuple]] = {fam: {} for fam in fams}
     open_q: List[FusedTask] = []
     n_started, n_decoded = [0], [0]
 
@@ -479,10 +594,15 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
             if item is FLUSH:
                 yield FLUSH
                 continue
-            c = item if isinstance(item, FusedTask) else FusedTask(item, fams)
+            c = item if isinstance(item, FusedTask) else FusedTask(
+                item, fams, trace=(lead.trace_ctx.child()
+                                   if lead.trace_ctx is not None else None))
             c.video_id = n_started[0]
             n_started[0] += 1
             open_q.append(c)
+            if lead_recorder is not None:
+                lead_recorder.instant('video_start', video=c.path,
+                                      **trace_attrs(c))
             yield c
 
     def admit(c: FusedTask) -> bool:
@@ -497,6 +617,10 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
         c.farm_select = (tuple(c.active) if 0 < len(c.active) < len(fams)
                          else None)
         n_decoded[0] += bool(c.active)
+        if c.active and lead_recorder is not None:
+            # one shared decode, whichever families it feeds
+            lead_recorder.instant('decode_pass', video=c.path,
+                                  families=list(c.active), **trace_attrs(c))
         return bool(c.active)
 
     def open_windows(c: FusedTask):
@@ -553,12 +677,13 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
 
     def sync_oldest(fam: str) -> None:
         ex = exs[fam]
-        readback, prov, valid = pending[fam].popleft()
+        readback, prov, valid, attrs = pending[fam].popleft()
         try:
-            with ex.tracer.stage('d2h'):
+            with ex.tracer.stage('d2h', **attrs):
                 out = ex.fetch_outputs(readback)
         except Exception as e:
-            _doom(prov, e, subtask=lambda c: c.subtasks[fam])
+            _doom(prov, e, fam_batch[fam], valid, 'd2h',
+                  subtask=lambda c: c.subtasks[fam])
             sweep()
             return
         ex.tracer.add_occupancy('d2h', valid, fam_batch[fam])
@@ -582,9 +707,8 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
     farm = (_start_farm(lead, recipe, lead.decode_workers)
             if lead.decode_workers > 1 else None)
     if farm is None:
-        windows = lead.tracer.wrap_iter(
-            'decode+preprocess',
-            stream_windows_across_videos(task_stream(), open_windows))
+        windows = _timed_windows(lead.tracer, stream_windows_across_videos(
+            task_stream(), open_windows))
     else:
         windows = farm.stream(task_stream(), admit)
     ahead = prefetch_across_videos(counted(windows), decode_ahead * max_batch)
@@ -598,17 +722,22 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
                 continue
             fam = prov[0][1][0]
             ex = exs[fam]
+            attrs = _batch_attrs(ex, prov, valid, fam_batch[fam])
             try:
                 # dispatch runs the batch in its family's precision scope:
                 # adjacent batches may belong to families on other lanes
-                with ex.tracer.stage('model'), torch.inference_mode():
+                with ex.tracer.stage('model', **attrs), torch.inference_mode():
                     readback = ex.dispatch(dev)
             except Exception as e:
-                _doom(prov, e, subtask=lambda c: c.subtasks[fam])
+                _doom(prov, e, fam_batch[fam], valid, 'model',
+                      subtask=lambda c: c.subtasks[fam])
                 sweep()
                 continue
             ex.tracer.add_occupancy('model', valid, fam_batch[fam])
-            pending[fam].append((readback, prov, valid))
+            if ex.manifest is not None:
+                identity, geometry = _identity(ex, dev)
+                identities[fam].setdefault(identity, geometry)
+            pending[fam].append((readback, prov, valid, attrs))
             while len(pending[fam]) >= depth[fam]:
                 sync_oldest(fam)
         drain_all()
@@ -617,6 +746,7 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
             farm.shutdown()
     sweep(final=True)
     for fam, ex in exs.items():
+        _note_run(ex, identities[fam], fam_batch[fam], farm)
         ex.print_profile(f'fused worklist [{fam}] ({n_started[0]} videos, '
                          f'batch {fam_batch[fam]}) [{ex.lane_label()}]')
     return {'videos': n_started[0], 'decode_passes': n_decoded[0]}

@@ -1,4 +1,6 @@
-"""Extractor registry with lazy imports."""
+"""Extractor registry with lazy imports: :func:`create_extractor` builds
+a family's extractor from its merged config and attaches the feature
+cache and the flight recorder the config asks for."""
 from __future__ import annotations
 
 import importlib
@@ -58,4 +60,5 @@ def create_extractor(args):
                                   f'Known: {", ".join(EXTRACTORS)}')
     extractor = getattr(importlib.import_module(module_name), class_name)(args)
     extractor.configure_cache(args)
+    extractor.configure_obs(args)
     return extractor

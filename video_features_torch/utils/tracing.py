@@ -1,42 +1,64 @@
-"""Per-stage wall-time accounting for the device loops (port of
-``video_features_tpu/utils/tracing.py``: ``Tracer``, ``NULL_TRACER``,
-``merge_reports``, ``round_report``).
+"""Per-stage wall-time accounting for the device loops, and the seam to
+the flight recorder (port of ``video_features_tpu/utils/tracing.py``:
+``STAGES``, ``Tracer``, ``NULL_TRACER``, ``merge_reports``,
+``round_report``; ``torch_profiler_trace`` takes the place of
+``jax_profiler_trace``).
 
   * :class:`Tracer` is a thread-safe accumulator of named stage timings:
     ``with tracer.stage('h2d'): ...``, or ``tracer.wrap_iter('decode',
     loader)``, which times each ``next()`` on the thread that runs it
     (the prefetch producer for streaming decode);
+  * with a ``recorder`` (``obs.spans.SpanRecorder``) attached, every
+    timed stage is also a span on the timeline that ``trace_out=``
+    exports, with the ``attrs`` given to ``stage``/``add`` as its args:
+    the table and the timeline are two views of the same sites;
   * ``add_occupancy`` counts how many of a batch's slots carried real
     work, so the table shows the padded share (``occ%``);
   * the ``ramp`` column is the first call over the steady-state mean:
     the warm-up wall a run pays once (cuDNN's algorithm choice, the
     kernels' build, the caching allocator's first blocks);
   * :data:`NULL_TRACER` is disabled: an instrumentation site then costs
-    an attribute load and a truthiness check.
+    an attribute load and a truthiness check;
+  * :func:`torch_profiler_trace` (``profile_dir=``) wraps a run in
+    ``torch.profiler`` and writes a Chrome trace of its CPU ops and CUDA
+    kernels.
 
 ``profile: true`` (any family) prints the table to stderr after each
-video and after a packed run. The stage names: ``decode`` (r21d's and
-s3d's raw decode) and ``decode+preprocess`` (decode and host transform),
-both on the producer thread, ``pack``
-(packed batch assembly), ``h2d`` (the copy to the card, producer
-thread), ``model`` (the step's launch on the consumer thread), ``d2h``
-(the deferred readback and the wait for the step it follows), ``save``;
-with the decode farm (``farm/``), ``decode`` is one window's decode and
-host transform inside a worker process (the workers run in parallel, so
-its total can exceed the wall), and ``shm_copy`` (the parent's copy of a
-window out of the worker's shared-memory ring; its ``occ%`` is the
-ring's fill when the window was shipped). The farm's ``decode`` spans
-also keep their start (``spans``), placed on the parent's clock.
+video and after a packed run. The stage names are :data:`STAGES`; with
+the decode farm (``farm/``), ``decode`` is one window's decode and host
+transform inside a worker process (its span on that worker's own pid
+lane, placed on the parent's clock; the workers run in parallel, so its
+total can exceed the wall), and ``shm_copy`` is the parent's copy of a
+window out of the worker's shared-memory ring (its ``occ%`` is the
+ring's fill when the window was shipped).
+
+Nothing here imports torch at module level: a spawned decode worker
+imports this module.
 """
 from __future__ import annotations
 
 import threading
 import time
-from collections import deque
 from contextlib import contextmanager
 from typing import Dict, Iterable, Iterator, List, Optional
 
-SPAN_CAPACITY = 100_000
+# The stage vocabulary of the table, the timeline and the run manifest
+# (the JAX package's, unchanged). ``model`` is the step's dispatch and
+# whatever runs before it returns; ``d2h`` the deferred readback and the
+# wait for the step, so readback never counts as compute.
+STAGES = (
+    'decode',             # raw decode (stack families without preprocess)
+    'decode+preprocess',  # decode + host transform on the prefetch thread
+    'audio_dsp',          # vggish: host-side mel/log-mel DSP on the wav
+    'queue_idle',         # serve: blocking waits on an idle request feed
+    'pack',               # packed batch assembly (pool flush + np.stack)
+    'h2d',                # host→device input transfer (producer thread)
+    'model',              # device-step dispatch + compute until the sync
+    'd2h',                # deferred device→host readback of step outputs
+    'save',               # output materialization (.npy/.pkl writes)
+    'cache_lookup',       # content-addressed cache consult
+    'cache_publish',      # content-addressed cache publish
+)
 
 
 class _StageStat:
@@ -74,16 +96,15 @@ class _StageStat:
 
 
 class Tracer:
-    """Thread-safe named-stage wall-time accumulator."""
+    """Thread-safe named-stage wall-time accumulator; with a ``recorder``
+    attached, each timed stage is also a span event."""
 
-    def __init__(self, enabled: bool = True) -> None:
+    def __init__(self, enabled: bool = True, recorder=None) -> None:
         self.enabled = enabled
+        self.recorder = recorder
         self._lock = threading.Lock()
         self._stats: Dict[str, _StageStat] = {}
         self._order: List[str] = []
-        # (name, t0, dt) of the spans recorded with their start, newest
-        # SPAN_CAPACITY kept
-        self.spans: deque = deque(maxlen=SPAN_CAPACITY)
 
     def _stat(self, name: str) -> _StageStat:
         stat = self._stats.get(name)
@@ -92,15 +113,22 @@ class Tracer:
             self._order.append(name)
         return stat
 
-    def add(self, name: str, dt: float, t0: Optional[float] = None) -> None:
-        """Record ``dt`` seconds under ``name``; with ``t0`` (its start on
-        this process's ``perf_counter`` clock) also the span."""
+    def add(self, name: str, dt: float, t0: Optional[float] = None,
+            span_pid: Optional[int] = None, span_tid: Optional[int] = None,
+            **attrs) -> None:
+        """Record ``dt`` seconds under ``name``. On an attached recorder
+        the span starts at ``t0`` (this process's ``perf_counter``; without
+        it, ``dt`` before now), under ``span_pid``/``span_tid`` when given
+        (a decode worker's span), with ``attrs`` as its args."""
         if not self.enabled:
             return
+        rec = self.recorder
+        if rec is not None and rec.enabled:
+            if t0 is None:
+                t0 = time.perf_counter() - dt
+            rec.span(name, t0, t0 + dt, pid=span_pid, tid=span_tid, **attrs)
         with self._lock:
             self._stat(name).add(dt)
-            if t0 is not None:
-                self.spans.append((name, t0, dt))
 
     def add_occupancy(self, name: str, valid: int, capacity: int) -> None:
         """Record that a ``capacity``-slot batch under ``name`` carried
@@ -113,8 +141,9 @@ class Tracer:
             stat.occ_capacity += int(capacity)
 
     @contextmanager
-    def stage(self, name: str):
-        """Time a block under ``name`` (a no-op when disabled)."""
+    def stage(self, name: str, **attrs):
+        """Time a block under ``name`` (a no-op when disabled); ``attrs``
+        annotate the span on an attached recorder."""
         if not self.enabled:
             yield
             return
@@ -122,7 +151,7 @@ class Tracer:
         try:
             yield
         finally:
-            self.add(name, time.perf_counter() - t0)
+            self.add(name, time.perf_counter() - t0, t0=t0, **attrs)
 
     def wrap_iter(self, name: str, iterable: Iterable) -> Iterator:
         """Yield from ``iterable``, timing each ``next()`` under ``name``."""
@@ -137,7 +166,7 @@ class Tracer:
             except StopIteration:
                 return
             finally:
-                self.add(name, time.perf_counter() - t0)
+                self.add(name, time.perf_counter() - t0, t0=t0)
             yield item
 
     @staticmethod
@@ -186,7 +215,6 @@ class Tracer:
         with self._lock:
             self._stats.clear()
             self._order.clear()
-            self.spans.clear()
 
 
 NULL_TRACER = Tracer(enabled=False)
@@ -222,3 +250,38 @@ def round_report(report: Dict[str, Dict[str, float]],
     return {name: {k: round(v, ndigits) if isinstance(v, float) else v
                    for k, v in rec.items()}
             for name, rec in report.items()}
+
+
+@contextmanager
+def torch_profiler_trace(profile_dir: Optional[str]):
+    """Run the block under ``torch.profiler`` (CPU and, on a machine with
+    a card, CUDA activities) and write its Chrome trace under
+    ``profile_dir`` as ``<host>_<pid>.<ns>.pt.trace.json``; a null
+    ``profile_dir`` is a no-op. The trace names each CUDA kernel the block
+    launched (the RAFT path's ``masked_kernel`` and ``gru_tf32x3``); open
+    it in Perfetto. (The JAX package writes an XLA profile there.) A
+    trace that cannot be written is a warning event, never a failed run."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import (
+        ProfilerActivity, profile, tensorboard_trace_handler,
+    )
+    write = tensorboard_trace_handler(str(profile_dir))
+
+    def on_trace_ready(prof) -> None:
+        try:
+            write(prof)
+        except Exception:
+            import logging
+
+            from video_features_torch.obs.events import event
+            event(logging.WARNING, 'profile_dir trace export failed',
+                  subsystem='obs', exc_info=True, path=str(profile_dir))
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=on_trace_ready):
+        yield
