@@ -238,8 +238,29 @@ package is not beside it. Phases:
    a recorder. Every number is printed with the card's name and power
    limit.
 
+22. several processes and devices, on phase 17's four clips through the
+   I3D path at the YAML's width (stack 16, step 16, RAFT 20 iterations,
+   batch 8): (a) ``multihost``: two CLI processes (``multihost=true
+   coordinator_address=127.0.0.1:<free port> num_processes=2
+   process_id=r``, gloo) on the one card, each process's wall printed:
+   disjoint interleaved shards, both exit 0 after the barrier, every
+   output byte-equal to a one-process run; (b) the mesh knobs:
+   ``mesh_devices=0`` resolves to ``torch.cuda.device_count()`` and runs
+   packed, ``mesh_devices`` one over the count raises naming the counts,
+   ``data_parallel=true`` gives a mesh of every card, byte-equal to the
+   plain run; (c) two shards on the one card (``make_mesh(devices=[cuda:0,
+   cuda:0])``, ``use_mesh``): packed I3D at 8 per shard and packed resnet50
+   at 32, byte-equal to one device, the lookup and GRU counters holding
+   both shards' launches; (d) ``sequence_parallel``: ViT-B/16 at image_size
+   768 (2305 tokens) through the extractor on a one-card ring, and a
+   two-shard ring on the one card, against the blockwise path (rel L2 ≤
+   1e-5), the max abs error and the times beside the blockwise path's;
+   (e) with two cards or more, ``data_parallel`` I3D over two cards
+   byte-equal to one card; with one card a line saying it was not run.
+   The phase prints its own wall time.
+
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10, 17, 18, 19, 20 and 21; the
+sum over the path runs of phases 4, 5, 10, 17, 18, 19, 20, 21 and 22; the
 one-pass GRU instantiation is an entry of its own); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2954,6 +2975,266 @@ def flight_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+SP_REL_L2 = 1e-5    # ring vs blockwise online softmax: block reassociation
+MULTIHOST_TIMEOUT_S = 300
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def tree_bytes(root: Path) -> dict:
+    return {str(f.relative_to(root)): f.read_bytes()
+            for f in sorted(Path(root).rglob('*.npy'))}
+
+
+def same_bytes(a: dict, b: dict, where: str) -> None:
+    if not a or a != b:
+        diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        fail(f'{where}: outputs differ from one device: {diff or "none written"}')
+
+
+def multihost_runs(np, root: Path, paths, one: dict) -> None:
+    """(a): two CLI processes over gloo on the one card."""
+    port = free_port()
+    procs, t0 = [], time.perf_counter()
+    for rank in (0, 1):
+        cmd = [sys.executable, '-m', 'video_features_torch', 'feature_type=i3d',
+               'device=cuda', 'multihost=true',
+               f'coordinator_address=127.0.0.1:{port}', 'num_processes=2',
+               f'process_id={rank}', f'video_paths=[{",".join(paths)}]',
+               f'stack_size={STACK}', f'step_size={STACK}',
+               f'raft_iters={SLICE_ITERS}', f'batch_size={PACK_BATCH}',
+               'allow_random_weights=true', 'on_extraction=save_numpy',
+               f'output_path={root / "multihost"}', f'tmp_path={root / "tmp"}']
+        procs.append(subprocess.Popen(cmd, cwd=str(ROOT), text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE))
+    shards = []
+    try:
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=MULTIHOST_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            print(f'phase 22 (a) multihost process {rank}: exit {proc.returncode}'
+                  f', {wall:.2f} s wall from both starts', flush=True)
+            if proc.returncode != 0:
+                fail(f'phase 22 (a): process {rank} exited {proc.returncode}:\n'
+                     f'{out[-1500:]}\n{err[-1500:]}')
+            shards.append([p for p in paths if f'] {p}' in out])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if shards != [paths[0::2], paths[1::2]]:
+        fail(f'phase 22 (a): shards {shards}, want disjoint and interleaved '
+             f'{[paths[0::2], paths[1::2]]}')
+    same_bytes(tree_bytes(root / 'multihost' / 'i3d'), one,
+               'phase 22 (a) multihost')
+    print(f'phase 22 (a): shards {[len(s) for s in shards]} videos, disjoint and '
+          'interleaved; every output byte-equal to the one-process run',
+          flush=True)
+
+
+def sequence_parallel_runs(torch, np) -> None:
+    """(d): ViT-B/16 at 768 px on a one-card ring through the extractor,
+    and a two-shard ring on the one card, against the blockwise path."""
+    from video_features_torch.config import load_config
+    from video_features_torch.models import vit as vit_model
+    from video_features_torch.ops.transforms import normalize, to_float_zero_one
+    from video_features_torch.parallel.mesh import make_mesh
+    from video_features_torch.registry import create_extractor
+    frames = rand_frames(np, 41, (TIMM_LONG_FRAMES, TIMM_LONG_SIZE, TIMM_LONG_SIZE, 3))
+    times = [i / FRAMEWISE_FPS * 1000 for i in range(TIMM_LONG_FRAMES)]
+    batches = [([f], [t], None) for f, t in zip(frames, times)]
+    rows = {}
+    for sp in (False, True):
+        ex = create_extractor(load_config('timm', overrides={
+            'video_paths': [str(ROOT / 'output' / 'frames.mp4')],
+            'device': 'cuda', 'model_name': TIMM_VIT,
+            'image_size': TIMM_LONG_SIZE, 'sequence_parallel': sp,
+            'allow_random_weights': True, 'batch_size': 1,
+            'output_path': str(ROOT / 'output'), 'tmp_path': str(ROOT / 'tmp')}))
+        rows[sp] = ex.extract_frames(batches, FRAMEWISE_FPS)['timm']
+    rel = rel_l2(torch.from_numpy(rows[True]), torch.from_numpy(rows[False]))
+    print(f'phase 22 (d) sequence_parallel through the extractor, a ring over '
+          f'{ex._mesh.shape["time"]} card(s), {TIMM_VIT} at {TIMM_LONG_SIZE} px: '
+          f'rel L2 {rel:.3e}, max abs '
+          f'{np.abs(rows[True] - rows[False]).max():.3e} against blockwise',
+          flush=True)
+    if not rel <= SP_REL_L2:
+        fail(f'phase 22 (d): one-card ring vs blockwise rel L2 {rel} > {SP_REL_L2}')
+    cuda0 = torch.device('cuda', 0)
+    x = normalize(to_float_zero_one(torch.from_numpy(frames[:1]).to(cuda0)),
+                  ex.data_cfg['mean'], ex.data_cfg['std'])
+    rings = {n: make_mesh(devices=[cuda0] * n, time_parallel=n) for n in (1, 2)}
+    runs = {'blockwise': lambda: vit_model.forward(ex.params, x, arch=ex.arch)}
+    for n, mesh in rings.items():
+        runs[f'ring of {n}'] = functools.partial(
+            vit_model.forward_sequence_parallel, ex.params, x, mesh, arch=ex.arch)
+    with torch.inference_mode():
+        ref = runs['blockwise']()
+        for name, run in runs.items():
+            out = run()
+            ms = cuda_ms(torch, run, reps=5)
+            rel = rel_l2(out, ref)
+            print(f'phase 22 (d) {TIMM_VIT} forward at {TIMM_LONG_SIZE} px, batch 1, '
+                  f'{name} on cuda:0: {ms:.3f} ms, rel L2 {rel:.3e}, max abs '
+                  f'{(out - ref).abs().max().item():.3e} against blockwise',
+                  flush=True)
+            if not rel <= SP_REL_L2:
+                fail(f'phase 22 (d): {name} vs blockwise rel L2 {rel} > {SP_REL_L2}')
+    del ex, x
+    torch.cuda.empty_cache()
+
+
+def parallel_phase(torch, np, corr_lookup, gru, check_counts) -> None:
+    """Several processes and devices on the I3D path of phase 17 and on
+    resnet50 and ViT-B/16: ``multihost`` over gloo, the mesh knobs, two
+    shards on one card, ``sequence_parallel``, and two cards where the
+    machine has them."""
+    from video_features_torch.config import load_config
+    from video_features_torch.parallel.mesh import make_mesh
+    from video_features_torch.parallel.packing import VideoTask
+    from video_features_torch.registry import create_extractor
+    t_phase = time.perf_counter()
+    os.environ['VFT_RAFT_LOOKUP'] = 'auto'
+    root = ROOT / 'output' / 'parallel'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    paths = write_clips(np, root, PACK_CLIPS, seed=40)
+    n_cards = torch.cuda.device_count()
+
+    def i3d(tree: str, **over):
+        return create_extractor(load_config('i3d', overrides={
+            'video_paths': paths, 'device': 'cuda', 'streams': None,
+            'stack_size': STACK, 'step_size': STACK, 'raft_iters': SLICE_ITERS,
+            'batch_size': PACK_BATCH, 'allow_random_weights': True,
+            'on_extraction': 'save_numpy', 'output_path': str(root / tree),
+            'tmp_path': str(root / 'tmp'), 'decode_workers': 1, **over}))
+
+    def counted(where, run, steps, kernels=True):
+        torch.cuda.synchronize()
+        reset_counts(corr_lookup, gru)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(corr_lookup, gru)
+        print(f'phase 22 {where}: {wall:.3f} s wall, launches {counts}', flush=True)
+        if kernels:
+            check_counts(counts, 'masked', steps, f'phase 22 {where}')
+        else:
+            check_no_launches(counts, f'phase 22 {where}')
+
+    def per_video(ex):
+        return lambda: [ex._extract(p) for p in paths]
+
+    # the one-device references: per video (4 steps) and packed (2 steps)
+    ex = i3d('one')
+    per_video(ex)()                         # warm-up: cuDNN's choices
+    shutil.rmtree(root / 'one')
+    counted('one device, per video', per_video(ex), 4)
+    one = tree_bytes(Path(ex.output_path))
+    counted('one device, packed', lambda: ex.extract_packed(
+        [VideoTask(p, out_root=str(root / 'one_packed')) for p in paths]), 2)
+    one_packed = tree_bytes(root / 'one_packed')
+    same_bytes(one_packed, one, 'phase 22 packed vs per video')
+    del ex
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    multihost_runs(np, root, paths, one)
+    print(f'phase 22 (a) {time.perf_counter() - t:.1f} s', flush=True)
+
+    # (b) the mesh knobs on this machine's cards
+    ex = i3d('mesh0', mesh_devices=0, pack_across_videos=True)
+    if ex.mesh_devices != n_cards:
+        fail(f'phase 22 (b): mesh_devices=0 resolved to {ex.mesh_devices}, '
+             f'want {n_cards}')
+    # each geometry's pool (5 and 6 windows) flushes once: 2 batches, each
+    # split into one shard per card
+    counted(f'(b) mesh_devices=0 ({ex.mesh_devices} card(s)), packed',
+            lambda: ex.extract_packed(paths), 2 * n_cards)
+    same_bytes(tree_bytes(Path(ex.output_path)), one, 'phase 22 (b) mesh_devices=0')
+    del ex
+    try:
+        i3d('overask', mesh_devices=n_cards + 1)
+        fail(f'phase 22 (b): mesh_devices={n_cards + 1} did not raise')
+    except ValueError as e:
+        if f'only {n_cards} local cuda device(s)' not in str(e):
+            fail(f'phase 22 (b): the over-ask raised {e!r}')
+        print(f'phase 22 (b) mesh_devices={n_cards + 1}: ValueError: {e}', flush=True)
+    ex = i3d('dp', data_parallel=True)
+    if ex._mesh.shape != {'data': n_cards, 'time': 1}:
+        fail(f'phase 22 (b): data_parallel mesh {ex._mesh.shape}')
+    counted(f'(b) data_parallel over {n_cards} card(s), per video',
+            per_video(ex), 4 * n_cards)
+    same_bytes(tree_bytes(Path(ex.output_path)), one, 'phase 22 (b) data_parallel')
+    del ex
+    torch.cuda.empty_cache()
+
+    # (c) two shards on the one card: 8 windows per shard, 16 per batch;
+    # each geometry's pool flushes once, so 2 batches × 2 shard steps
+    cuda0 = torch.device('cuda', 0)
+    ex = i3d('two_shards')
+    ex.use_mesh(make_mesh(devices=[cuda0, cuda0], time_parallel=1))
+    counted('(c) two shards on cuda:0, packed I3D', lambda: ex.extract_packed(
+        paths), 4)
+    same_bytes(tree_bytes(Path(ex.output_path)), one_packed,
+               'phase 22 (c) two shards')
+    del ex
+    torch.cuda.empty_cache()
+    rpaths = write_clips(np, root, PACK_RESNET_CLIPS, seed=41)
+
+    def resnet(tree: str):
+        return create_extractor(load_config('resnet', overrides={
+            'video_paths': rpaths, 'device': 'cuda', 'model_name': 'resnet50',
+            'batch_size': PACK_RESNET_BATCH, 'allow_random_weights': True,
+            'on_extraction': 'save_numpy', 'output_path': str(root / tree),
+            'tmp_path': str(root / 'tmp'), 'decode_workers': 1}))
+    ex = resnet('resnet_one')
+    ex.extract_packed(rpaths)               # warm-up, then the reference
+    shutil.rmtree(ex.output_path)
+    counted('(c) resnet50 packed, one device', lambda: ex.extract_packed(rpaths),
+            0, kernels=False)
+    ref = tree_bytes(Path(ex.output_path))
+    ex = resnet('resnet_two')
+    ex.use_mesh(make_mesh(devices=[cuda0, cuda0], time_parallel=1))
+    counted('(c) resnet50 packed, two shards on cuda:0',
+            lambda: ex.extract_packed(rpaths), 0, kernels=False)
+    same_bytes(tree_bytes(Path(ex.output_path)), ref,
+               'phase 22 (c) resnet50 two shards')
+    print('phase 22 (c): I3D and resnet50 over two shards on cuda:0 byte-equal '
+          'to one device', flush=True)
+    del ex
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    sequence_parallel_runs(torch, np)
+    print(f'phase 22 (d) {time.perf_counter() - t:.1f} s', flush=True)
+
+    # (e) the repair's witness: the kernels' shared-memory attributes are
+    # set per device, so a second card launches them too
+    if n_cards >= 2:
+        ex = i3d('two_cards', mesh_devices=2)
+        counted('(e) a data mesh over two cards, packed', lambda: ex.extract_packed(
+            paths), 4)
+        same_bytes(tree_bytes(Path(ex.output_path)), one_packed,
+                   'phase 22 (e) two cards')
+        print('phase 22 (e): two cards byte-equal to one', flush=True)
+    else:
+        print(f'phase 22 (e): NOT RUN: this machine has {n_cards} card; the '
+              'two-card data_parallel check (the per-device shared-memory '
+              'attributes on a second card) counts as not run, not as passed',
+              flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f'phase 22 wall {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -3125,9 +3406,15 @@ def main() -> int:
               'manifest_out, postmortem_dir and profile_dir; packed through '
               'the decode farm; the recorder\'s cost)')
     flight_phase(torch, np, corr_lookup, gru, check_counts, card)
+    print(f'flight recorder phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('several processes and devices (multihost over gloo, the mesh '
+              'knobs, two shards on one card, sequence_parallel, two cards)')
+    print(card, flush=True)
+    parallel_phase(torch, np, corr_lookup, gru, check_counts)
     for key in launches:
         rec[key]['launches'] = launches[key]
-    print(f'flight recorder phase {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'parallel phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

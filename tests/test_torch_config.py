@@ -123,7 +123,7 @@ def test_output_and_tmp_paths_must_differ(clip, tmp_path):
 
 
 @pytest.mark.parametrize('ft', ['i3d', 'r21d', 's3d', 'resnet', 'clip'])
-@pytest.mark.parametrize('key,value', [('data_parallel', True)])
+@pytest.mark.parametrize('key,value', [('aot_enabled', True)])
 def test_unported_keys_raise_naming_themselves(clip, ft, key, value):
     with pytest.raises(NotImplementedError, match=key):
         load_config(ft, overrides={'video_paths': clip, 'device': 'cpu',
@@ -239,8 +239,8 @@ def test_frame_wise_extractors_refuse_compute_dtype_without_load_config(tmp_path
                  'output_path': str(tmp_path), **extra})
 
 
-@pytest.mark.parametrize('key,value', [('data_parallel', True),
-                                       ('sequence_parallel', True)])
+@pytest.mark.parametrize('key,value', [('index_enabled', True),
+                                       ('timeout_s', 5.0)])
 def test_timm_unported_keys_raise_naming_themselves(clip, key, value):
     with pytest.raises(NotImplementedError, match=key):
         load_config('timm', overrides=_family_overrides(clip, 'timm', **{key: value}))
@@ -369,7 +369,16 @@ PORT_IMPLEMENTS = {'video_paths', 'file_with_video_paths', 'output_path',
                    'profile', 'compilation_cache_dir', 'decode_farm_ring_mb',
                    'features', 'cache_enabled', 'cache_dir', 'cache_max_bytes',
                    'cache_l2_dir', 'trace_out', 'trace_capacity', 'manifest_out',
-                   'postmortem_dir', 'postmortem_max_bytes', 'profile_dir'}
+                   'postmortem_dir', 'postmortem_max_bytes', 'profile_dir',
+                   'mesh_devices', 'device_ids', 'multihost',
+                   'coordinator_address', 'num_processes', 'process_id',
+                   'data_parallel'}
+# the keys that left the refused table when several processes and devices
+# were ported (sequence_parallel is a key of the JAX timm YAML, not a
+# classified knob)
+PARALLEL_KEYS = {'mesh_devices', 'device_ids', 'multihost',
+                 'coordinator_address', 'num_processes', 'process_id',
+                 'data_parallel', 'sequence_parallel'}
 
 
 def test_every_jax_knob_is_ported_or_refused_at_the_jax_default():
@@ -378,8 +387,9 @@ def test_every_jax_knob_is_ported_or_refused_at_the_jax_default():
     the JAX package adds fails this test until the port takes a side."""
     from video_features_torch.config import UNPORTED_DEFAULTS
     knobs = _jax_knobs()
-    # sequence_parallel is a key of the JAX timm YAML, not a classified knob
-    assert set(knobs) - PORT_IMPLEMENTS == set(UNPORTED_DEFAULTS) - {'sequence_parallel'}
+    assert set(knobs) - PORT_IMPLEMENTS == set(UNPORTED_DEFAULTS)
+    assert not PARALLEL_KEYS & set(UNPORTED_DEFAULTS)
+    assert PARALLEL_KEYS - {'sequence_parallel'} <= set(knobs)
     for key, default in UNPORTED_DEFAULTS.items():
         # a knob the JAX package injects no default for is off when absent
         assert knobs.get(key) in ((default, None) if not default else (default,)), key

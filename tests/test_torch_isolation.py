@@ -10,14 +10,16 @@ PORT_SOURCES = sorted((REPO / 'video_features_torch').rglob('*.py')) + [
 FORBIDDEN = ('jax', 'jaxlib', 'video_features_tpu', 'timm')
 # the vggish slice's modules, the decoders' binding, the streaming
 # loop's and the packed loop's modules, the decode farm's, the precision
-# lanes' and the feature cache's, by name
+# lanes', the feature cache's and the mesh and multihost layer's, by name
 REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'io.native', 'io.audio', 'ops.audio', 'models.vggish', 'extract.vggish',
     'parallel', 'parallel.packing', 'extract.streaming', 'utils.tracing',
     'farm', 'farm.farm', 'farm.ring', 'farm.recipes', 'farm.worker',
     'ops.precision', 'ops.quant', 'cache', 'cache.key', 'cache.store',
     'cache.gc', 'fleet', 'fleet.tier', 'obs', 'obs.events', 'obs.context',
-    'obs.spans', 'obs.metrics', 'obs.manifest', 'obs.blackbox'))
+    'obs.spans', 'obs.metrics', 'obs.manifest', 'obs.blackbox',
+    'parallel.mesh', 'parallel.distributed', 'parallel.worklist',
+    'parallel.pipeline', 'parallel.ring'))
 
 IMPORT_ALL = r'''
 import importlib, pkgutil, sys
@@ -59,6 +61,21 @@ def test_obs_modules_import_neither_torch_jax_nor_timm():
     no JAX package and no timm."""
     code = ('import sys\n'
             + ''.join(f'import video_features_torch.{m}\n' for m in OBS_MODULES)
+            + 'print(sorted(m for m in ("torch", "jax", "video_features_tpu", '
+              '"timm") if m in sys.modules))')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == '[]'
+
+
+def test_mesh_and_multihost_modules_import_neither_torch_nor_jax():
+    """The worklist, multihost, mesh and pipeline modules import torch only
+    inside the functions that use it (``torch.distributed`` included), and
+    no jax, no JAX package and no timm."""
+    code = ('import sys\n'
+            + ''.join(f'import video_features_torch.parallel.{m}\n'
+                      for m in ('worklist', 'distributed', 'mesh', 'pipeline'))
             + 'print(sorted(m for m in ("torch", "jax", "video_features_tpu", '
               '"timm") if m in sys.modules))')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,

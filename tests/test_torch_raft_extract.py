@@ -202,7 +202,7 @@ def test_config_defaults_and_checks(tmp_path):
                             ('batch_size', None, ValueError),
                             ('raft_iters', 0, ValueError),
                             ('extraction_total', 5, None),
-                            ('data_parallel', True, NotImplementedError),
+                            ('aot_enabled', True, NotImplementedError),
                             ('decode_backend', 'gpu', ValueError),
                             ('decode_workers', 0, ValueError)):
         overrides = dict(base, **{key: value})

@@ -14,6 +14,14 @@ its own pass over the same list, packed where the family packs. With
 ``cache_enabled=true`` every path consults the feature cache through
 the extractors ``create_extractor`` builds.
 
+Several processes over one worklist (``multihost=true``, read from the
+command line only): the process group comes up before the config loads
+(``parallel/distributed.py``: ``coordinator_address``, ``num_processes``
+and ``process_id`` on every process, or ``torchrun``'s environment),
+each process takes its interleaved shard of the unshuffled list
+(``parallel/worklist.py``), and all wait at a final barrier before they
+leave the group.
+
 The flight recorder on every path: ``profile_dir`` runs the worklist
 inside ``torch.profiler`` (``utils/tracing.py::torch_profiler_trace``);
 ``trace_out`` and ``manifest_out`` are written by each extractor's
@@ -47,19 +55,67 @@ def install_dump(extractor) -> None:
         if hasattr(signal, name)))
 
 
+MULTIHOST_FROM_CONFIG = (
+    'multihost must be passed on the command line (multihost=true), not via '
+    'a config file: the distributed runtime must initialize before device '
+    'probing')
+
+
+def start_multihost(cli_args: dict) -> bool:
+    """With ``multihost=true`` on the command line, join the process group
+    (coordinator keys, ``torchrun``'s environment, or a one-process run
+    with a warning); returns whether ``multihost`` was asked for."""
+    multihost = bool(cli_args.get('multihost'))
+    if multihost:
+        from video_features_torch.parallel.distributed import initialize
+        initialize(cli_args.get('coordinator_address'),
+                   cli_args.get('num_processes'), cli_args.get('process_id'))
+    return multihost
+
+
+def worklist(args: dict, multihost: bool) -> List[str]:
+    """The run's video list: shuffled for a single process, as the
+    reference does, or this process's interleaved shard of the list in
+    order with ``multihost``."""
+    video_paths = form_list_from_user_input(
+        args.get('video_paths'), args.get('file_with_video_paths'),
+        to_shuffle=not multihost)
+    if multihost:
+        from video_features_torch.parallel.worklist import shard_worklist
+        video_paths = shard_worklist(video_paths)
+    return video_paths
+
+
+def finish_multihost(multihost: bool) -> None:
+    """Hold every process at the final barrier (a process that drew short
+    videos must not leave while the others extract), then leave the
+    group."""
+    if not multihost:
+        return
+    from video_features_torch.parallel.distributed import (
+        barrier, process_count, shutdown,
+    )
+    if process_count() > 1:
+        barrier('extraction_done')
+    shutdown()
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     import yaml
     argv = sys.argv[1:] if argv is None else argv
     cli_args = parse_dotlist(argv)
-    if 'features' in cli_args:
-        return _fused_main(cli_args)
-    if 'feature_type' not in cli_args:
+    if 'feature_type' not in cli_args and 'features' not in cli_args:
         print('Usage: python -m video_features_torch '
               f'feature_type={"|".join(EXTRACTORS)} [key=value ...]\n'
               '       python -m video_features_torch features=[f1,f2,...] '
               '[<family>.key=value ...] [key=value ...]')
         return 2
+    multihost = start_multihost(cli_args)
+    if 'features' in cli_args:
+        return _fused_main(cli_args, multihost)
     args = load_config(cli_args['feature_type'], overrides=cli_args)
+    if args.get('multihost') and not multihost:
+        raise ValueError(MULTIHOST_FROM_CONFIG)
     print(yaml.safe_dump(dict(args), sort_keys=False, default_flow_style=False))
     if args['on_extraction'] in ('save_numpy', 'save_pickle'):
         print(f'Saving features to {args["output_path"]}')
@@ -67,8 +123,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     extractor = create_extractor(args)
     install_dump(extractor)
-    video_paths = form_list_from_user_input(
-        args.get('video_paths'), args.get('file_with_video_paths'))
+    video_paths = worklist(args, multihost)
     print(f'The number of specified videos: {len(video_paths)}')
     try:
         with torch_profiler_trace(args.get('profile_dir')):
@@ -83,10 +138,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     extractor._extract(video_path)
     finally:
         extractor.finish_obs()
+    finish_multihost(multihost)
     return 0
 
 
-def _fused_main(cli_args: dict) -> int:
+def _fused_main(cli_args: dict, multihost: bool = False) -> int:
     """``features=[...]``: one config and extractor per family; families
     whose ``fused_decode_signature()`` match share one decode pass, the
     others run their own pass. Each family's files, resume and fault
@@ -94,6 +150,8 @@ def _fused_main(cli_args: dict) -> int:
     from video_features_torch.farm import merge_farm_stats
     from video_features_torch.parallel.packing import run_packed_fused
     configs = load_fused_configs(cli_args['features'], overrides=cli_args)
+    if any(a.get('multihost') for a in configs.values()) and not multihost:
+        raise ValueError(MULTIHOST_FROM_CONFIG)
     print(f'Fused worklist ({len(configs)} families): ' + ', '.join(configs))
     for fam, args in configs.items():
         line = f'  {fam}: device={args["device"]} on_extraction={args["on_extraction"]}'
@@ -104,8 +162,7 @@ def _fused_main(cli_args: dict) -> int:
     install_dump(next(iter(exs.values())))
     # the worklist keys are shared overrides: every family has the same
     shared = next(iter(configs.values()))
-    video_paths = form_list_from_user_input(
-        shared.get('video_paths'), shared.get('file_with_video_paths'))
+    video_paths = worklist(shared, multihost)
     print(f'The number of specified videos: {len(video_paths)}')
 
     groups: dict = {}
@@ -145,4 +202,5 @@ def _fused_main(cli_args: dict) -> int:
               f'{s["windows"]} windows, {s["queue_fallback"]} queue '
               f'fallbacks, {s["respawns"]} respawns over {len(farms)} '
               'pass(es)', file=sys.stderr)
+    finish_multihost(multihost)
     return 0

@@ -5,7 +5,7 @@ clip, timm and vggish subset of ``video_features_tpu/config.py``).
 Every knob of the JAX package that the port does not implement is
 refused by name when it is set away from the JAX package's default
 (:func:`check_unported_keys`), so a JAX YAML of defaults loads and a
-request for a trace, an index or a second GPU never passes silently.
+request for an index or a server never passes silently.
 Which knobs can change the extracted bytes is one table,
 :data:`KNOB_CLASSIFICATION` (a copy of the JAX package's): the run
 fingerprint (``cache/key.py``) leaves out what :func:`knob_exclude`
@@ -200,18 +200,14 @@ OBS_DEFAULTS: Dict[str, Any] = {
 # the JAX package's knobs the port does not implement, with the JAX
 # package's default: any other value raises NotImplementedError naming
 # the key (its executable store, feature index, stall watchdog and SLOs,
-# which only its serve daemon reads, meshes, several hosts and serving)
+# which only its serve daemon reads, and serving)
 UNPORTED_DEFAULTS: Dict[str, Any] = {
     'aot_enabled': False, 'aot_dir': '~/.cache/video_features_tpu/executables',
     'aot_max_bytes': None, 'aot_l2_dir': None,
     'index_enabled': False, 'index_dir': None, 'index_shard_rows': 1024,
     'index_poll_s': 0.5, 'index_query_block': 8, 'index_k_max': 10,
     'watchdog_stall_s': None, 'slo_latency_p99_s': None,
-    'slo_availability': None,
-    'mesh_devices': 1, 'device_ids': None, 'multihost': False,
-    'coordinator_address': None, 'num_processes': None, 'process_id': None,
-    'data_parallel': False, 'sequence_parallel': False, 'timeout_s': None,
-    'config': None,
+    'slo_availability': None, 'timeout_s': None, 'config': None,
 }
 # the JAX default, and null (off), which is what the port does: it keeps
 # no compilation cache
@@ -407,6 +403,42 @@ def check_obs_keys(args: Dict[str, Any]) -> None:
                 raise ValueError(f'{key} must be >= 1; got {args[key]}')
 
 
+def check_parallel_keys(args: Dict[str, Any]) -> None:
+    """The rules of the parallel knobs, as the JAX package's
+    ``sanity_check`` has them: ``device_ids`` warns and is ignored;
+    ``mesh_devices`` is an int >= 0 (0: every local device), and yields
+    to ``data_parallel`` with a warning; ``data_parallel`` on a family
+    outside ``registry.DATA_PARALLEL_FEATURES`` warns and runs on one
+    device."""
+    if 'device_ids' in args:
+        warnings.warn(
+            'multi-device single-process extraction is not supported. '
+            'Scale out by sharding the video list across workers/hosts '
+            f'(device_ids={args["device_ids"]} ignored; using one '
+            'accelerator).')
+    if args.get('mesh_devices') is not None:
+        args['mesh_devices'] = int(args['mesh_devices'])
+        if args['mesh_devices'] < 0:
+            raise ValueError(
+                'mesh_devices must be >= 0 (0 = auto-detect local '
+                f'devices, 1 = single device); got {args["mesh_devices"]}')
+        if args['mesh_devices'] != 1 and args.get('data_parallel'):
+            warnings.warn(
+                'mesh_devices and data_parallel both requested — '
+                'data_parallel already owns the device mesh, so '
+                'mesh_devices is ignored (running mesh_devices=1)')
+            args['mesh_devices'] = 1
+    ft = args.get('feature_type')
+    if args.get('data_parallel'):
+        from video_features_torch.registry import DATA_PARALLEL_FEATURES
+        if ft not in DATA_PARALLEL_FEATURES:
+            warnings.warn(
+                f'data_parallel is not implemented for {ft} — running '
+                'single-device (scale out with multihost=true / sharded '
+                'worklists instead)')
+            args['data_parallel'] = False
+
+
 def gate_packing(args: Dict[str, Any]) -> None:
     """``pack_across_videos`` on a family without a packed loop, or with
     the per-video ``show_pred`` surface, warns and runs the per-video
@@ -468,6 +500,7 @@ def sanity_check(args: Dict[str, Any]) -> None:
         raise ValueError('Non-unique video filenames (stems collide in the '
                          'flat output dir)')
     ft = args.get('feature_type')
+    check_parallel_keys(args)
     gate_packing(args)
     check_cache_keys(args)
     check_obs_keys(args)

@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kLevels = 4;
@@ -335,6 +337,26 @@ int blocks_per_sm(Kernel kernel) {
   return blocks;
 }
 
+// The runtime keeps a function's attributes per device context, so the
+// allowance above is set, and the occupancy it gives cached, once per device
+// ordinal: a value cached once per process would leave a second card at the
+// 48 KB default, where the launch fails with cudaErrorInvalidValue. A failed
+// query caches nothing (0), so the next launch on that device asks again.
+constexpr int kMaxDevices = 64;
+
+int blocks_per_sm_here(Kernel kernel, std::atomic<int>* table) {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0
+      || device >= kMaxDevices)
+    return 0;
+  int per_sm = table[device].load(std::memory_order_acquire);
+  if (per_sm == 0) {
+    per_sm = blocks_per_sm(kernel);
+    table[device].store(per_sm, std::memory_order_release);
+  }
+  return per_sm;
+}
+
 int launch(Kernel kernel, int per_sm, const void* l0, const void* l1,
            const void* l2, const void* l3, int h0, int w0, int h1, int w1,
            int h2, int w2, int h3, int w3, const void* coords, void* out,
@@ -368,8 +390,8 @@ int vft_corr_lookup_masked(const void* l0, const void* l1, const void* l2,
                            const void* l3, int h0, int w0, int h1, int w1,
                            int h2, int w2, int h3, int w3, const void* coords,
                            void* out, long long n, void* stream) {
-  static const int per_sm = blocks_per_sm(masked_kernel);
-  return launch(masked_kernel, per_sm, l0, l1, l2, l3, h0, w0, h1, w1, h2, w2,
+  static std::atomic<int> per_sm[kMaxDevices];
+  return launch(masked_kernel, blocks_per_sm_here(masked_kernel, per_sm), l0, l1, l2, l3, h0, w0, h1, w1, h2, w2,
                 h3, w3, coords, out, n, stream);
 }
 
@@ -377,8 +399,8 @@ int vft_corr_lookup_padded(const void* l0, const void* l1, const void* l2,
                            const void* l3, int h0, int w0, int h1, int w1,
                            int h2, int w2, int h3, int w3, const void* coords,
                            void* out, long long n, void* stream) {
-  static const int per_sm = blocks_per_sm(padded_kernel);
-  return launch(padded_kernel, per_sm, l0, l1, l2, l3, h0, w0, h1, w1, h2, w2,
+  static std::atomic<int> per_sm[kMaxDevices];
+  return launch(padded_kernel, blocks_per_sm_here(padded_kernel, per_sm), l0, l1, l2, l3, h0, w0, h1, w1, h2, w2,
                 h3, w3, coords, out, n, stream);
 }
 

@@ -100,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kC = 128;                  // hidden and motion channels
@@ -464,27 +466,33 @@ gru_tf32x3(Args a) {
 }
 
 // Raise each instantiation's dynamic shared memory limit to the device's
-// opt-in maximum, once per process.
+// opt-in maximum, once per device ordinal. The runtime keeps a function's
+// attributes per device context: a flag set once per process would leave a
+// second card at the 48 KB default, where the launch fails with
+// cudaErrorInvalidValue.
+constexpr int kMaxDevices = 64;
+
 template <int WGS, bool ZR, int PASSES>
-cudaError_t allow_smem(int limit) {
-  static int set = 0;
-  if (set == limit) return cudaSuccess;
+cudaError_t allow_smem(int device, int limit) {
+  static std::atomic<int> set[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (set[device].load(std::memory_order_acquire) == limit) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
       gru_tf32x3<WGS, ZR, PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       limit);
-  if (err == cudaSuccess) set = limit;
+  if (err == cudaSuccess) set[device].store(limit, std::memory_order_release);
   return err;
 }
 
 template <int WGS, int PASSES>
-int launch(Args zr, Args q, int limit, cudaStream_t stream) {
+int launch(Args zr, Args q, int device, int limit, cudaStream_t stream) {
   constexpr int BM = 64 * WGS;
   const int gap = zr.stride < BM ? zr.stride : BM;
   zr.gap = q.gap = gap;
   const size_t smem = smem_bytes(BM, gap);
   if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<WGS, true, PASSES>(limit);
-  if (err == cudaSuccess) err = allow_smem<WGS, false, PASSES>(limit);
+  cudaError_t err = allow_smem<WGS, true, PASSES>(device, limit);
+  if (err == cudaSuccess) err = allow_smem<WGS, false, PASSES>(device, limit);
   if (err != cudaSuccess) return (int)err;
   const unsigned mblocks = (unsigned)((zr.m + BM - 1) / BM);
   gru_tf32x3<WGS, true, PASSES><<<dim3(mblocks, 2 * kC / kBN), WGS * 128,
@@ -535,8 +543,10 @@ int vft_gru_direction_passes(const void* h, const void* motion,
   // 128-pixel blocks where a slice's staged rows fit, else 64
   const bool wide = smem_bytes(128, stride < 128 ? stride : 128) <= (size_t)limit;
   if (passes == 1)
-    return wide ? launch<2, 1>(zr, q, limit, s) : launch<1, 1>(zr, q, limit, s);
-  return wide ? launch<2, 3>(zr, q, limit, s) : launch<1, 3>(zr, q, limit, s);
+    return wide ? launch<2, 1>(zr, q, device, limit, s)
+                : launch<1, 1>(zr, q, device, limit, s);
+  return wide ? launch<2, 3>(zr, q, device, limit, s)
+              : launch<1, 3>(zr, q, device, limit, s);
 }
 
 // The same in 3xTF32 (the entry point before the pass count existed).

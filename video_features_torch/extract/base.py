@@ -30,6 +30,13 @@ output (a slim port of ``video_features_tpu/extract/base.py``).
     implements and :meth:`~BaseExtractor.extract_packed`, which runs
     ``parallel.packing.run_packed``; ``farm_recipe`` (the decode farm's
     worker-side decode) and ``fused_decode_signature`` (fused worklists);
+  * the mesh (``parallel/mesh.py``): with ``data_parallel`` or
+    ``mesh_devices`` > 1 the extractor holds one replica of itself per
+    data shard, each with its params on its shard's device, and the
+    device loop's three calls split each host batch into one shard per
+    replica, launch each and concatenate their readbacks in shard order
+    (:meth:`~BaseExtractor.configure_mesh`, :meth:`~BaseExtractor.
+    _ensure_mesh`, :meth:`~BaseExtractor._ensure_packed_mesh`);
   * the flight recorder (``obs/``): :meth:`~BaseExtractor.configure_obs`
     attaches a span recorder to the tracer (``trace_out``), a run
     manifest (``manifest_out``) and a black box (``postmortem_dir``);
@@ -44,7 +51,10 @@ is used there (``record_stream``). ``dispatch`` records an event after
 the step and starts the outputs' copy into pinned host memory on a
 second copy stream that waits on it, so ``fetch_outputs`` waits for
 that one step, never for the steps launched after it. Each object keeps
-the tensors its copies read or write referenced until they are done.
+the tensors its copies read or write referenced until they are done. On
+a mesh each replica keeps this discipline on its own device and streams:
+a :class:`ShardedBatch` holds one ``DeviceBatch`` per shard, and
+``dispatch`` gives one ``Readback`` per shard.
 
 A CUDA error is not a per-video fault: after an illegal address or a
 failed launch every later batch fails too, so :func:`is_device_fault`
@@ -113,6 +123,10 @@ class DeviceBatch:
     def shape(self) -> torch.Size:
         return self.tensor.shape
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.tensor.dtype
+
     def take(self) -> torch.Tensor:
         """The tensor, for the consumer's current stream: that stream
         waits for the copy, and the caching allocator learns the tensor
@@ -122,6 +136,21 @@ class DeviceBatch:
             stream.wait_event(self.copied)
             self.tensor.record_stream(stream)
         return self.tensor
+
+
+class ShardedBatch:
+    """One host batch split over a mesh's data axis: a
+    :class:`DeviceBatch` per shard, each on its replica's device, and
+    the host batch's ``shape``."""
+
+    __slots__ = ('shards', 'shape')
+
+    def __init__(self, shards: List[DeviceBatch], shape: tuple):
+        self.shards, self.shape = shards, tuple(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
 
 
 class Readback:
@@ -183,6 +212,15 @@ class BaseExtractor:
         self.trace_out = self.manifest_out = None
         self.manifest = None
         self.blackbox = None
+        # the mesh: data_parallel's (the batch split over every local
+        # device) or the packed loop's (mesh_devices, resolved by
+        # configure_mesh); one replica of this extractor per data shard
+        self.data_parallel = bool(args.get('data_parallel', False))
+        self.mesh_devices = 1
+        self._mesh = None
+        self._replicas: List['BaseExtractor'] = []
+        self._put_batch = None
+        self._packed_mesh_ndev = 1
         if self.device.type == 'cuda':
             self._h2d_stream = torch.cuda.Stream(self.device)
             self._d2h_stream = torch.cuda.Stream(self.device)
@@ -198,10 +236,15 @@ class BaseExtractor:
 
     # -- the device loop ----------------------------------------------------
 
-    def put_input(self, batch: np.ndarray) -> DeviceBatch:
+    def put_input(self, batch: np.ndarray) -> Union[DeviceBatch, ShardedBatch]:
         """Place one host batch on the device; safe on the producer
         thread. On the card the batch is pinned and copied without
-        blocking on the extractor's copy stream."""
+        blocking on the extractor's copy stream. On a mesh each shard goes
+        to its replica's device, on that replica's copy stream."""
+        if self._replicas:
+            shards = self._put_batch(batch)
+            return ShardedBatch([rep.put_input(rows) for rep, rows
+                                 in zip(self._replicas, shards)], np.shape(batch))
         host = torch.from_numpy(np.ascontiguousarray(batch))
         if self.device.type != 'cuda':
             return DeviceBatch(host)
@@ -212,15 +255,20 @@ class BaseExtractor:
             copied.record(self._h2d_stream)
         return DeviceBatch(tensor, copied, pinned)
 
-    def dispatch(self, batch: DeviceBatch) -> Readback:
+    def dispatch(self, batch: Union[DeviceBatch, ShardedBatch]
+                 ) -> Union[Readback, List[Readback]]:
         """Launch :meth:`packed_step` on a batch from :meth:`put_input`
         and start its outputs' readback; returns without waiting for the
         device. Call it in ``torch.inference_mode`` on the consumer
-        thread."""
-        with self.precision_scope():
-            out = self.packed_step(batch.take())
+        thread. A sharded batch launches each shard on its replica (one
+        ``Readback`` each)."""
+        if isinstance(batch, ShardedBatch):
+            return [rep.dispatch(b) for rep, b in zip(self._replicas, batch.shards)]
         if self.device.type != 'cuda':
-            return Readback(out, inputs=batch)
+            with self.precision_scope():
+                return Readback(self.packed_step(batch.take()), inputs=batch)
+        with torch.cuda.device(self.device), self.precision_scope():
+            out = self.packed_step(batch.take())
         step_done = torch.cuda.Event()
         step_done.record(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._d2h_stream):
@@ -233,10 +281,15 @@ class BaseExtractor:
             done.record(self._d2h_stream)
         return Readback(out, host, done, batch)
 
-    def fetch_outputs(self, readback: Readback) -> Dict[str, np.ndarray]:
+    def fetch_outputs(self, readback: Union[Readback, List[Readback]]
+                      ) -> Dict[str, np.ndarray]:
         """A dispatched step's outputs as numpy arrays: waits for that
         step's readback only. An error the step raised on the device
-        surfaces here."""
+        surfaces here. A sharded step's outputs are its shards' readbacks
+        concatenated in shard order."""
+        if isinstance(readback, list):
+            outs = [rep.fetch_outputs(r) for rep, r in zip(self._replicas, readback)]
+            return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
         if readback.done is None:
             return {k: v.numpy() for k, v in readback.out.items()}
         readback.done.synchronize()
@@ -271,6 +324,112 @@ class BaseExtractor:
         return overlap_fetch(dispatched(), fetch,
                              self.inflight if depth is None else depth,
                              self.tracer)
+
+    # -- the mesh (parallel/mesh.py) ----------------------------------------
+
+    # what a replica holds on its own device: its params, and any other
+    # tensor or module its step reads (vggish: the module and the PCA)
+    _device_state_attrs: tuple = ('params',)
+
+    def _device_state(self) -> Dict[str, Any]:
+        return {a: getattr(self, a) for a in self._device_state_attrs
+                if getattr(self, a, None) is not None}
+
+    def _install_mesh(self, mesh, states: List[Dict[str, Any]],
+                      put_batch) -> None:
+        """One replica per data shard of ``mesh``: a shallow copy of this
+        extractor on the shard's device, with ``states[i]`` (its device
+        state there) and copy streams of its own; ``put_batch`` splits a
+        host batch into the shards."""
+        import copy
+        replicas = []
+        for dev, state in zip(mesh.data_devices(), states):
+            rep = copy.copy(self)
+            rep.device = torch.device(dev)
+            rep._mesh, rep._replicas = None, []
+            for attr, value in state.items():
+                setattr(rep, attr, value)
+            if rep.device.type == 'cuda':
+                rep._h2d_stream = torch.cuda.Stream(rep.device)
+                rep._d2h_stream = torch.cuda.Stream(rep.device)
+            replicas.append(rep)
+        self._mesh, self._replicas, self._put_batch = mesh, replicas, put_batch
+
+    def _ensure_mesh(self, batch_attr: str) -> None:
+        """``data_parallel``: a data mesh over every local device of this
+        extractor's kind, the batch attribute named ``batch_attr`` rounded
+        up to the global batch, one replica per device
+        (``parallel/pipeline.py::setup_data_parallel``). Families call it
+        once their device state is loaded."""
+        if self._mesh is not None:
+            return
+        from video_features_torch.parallel.pipeline import setup_data_parallel
+        mesh, global_batch, states, split = setup_data_parallel(
+            self.device, getattr(self, batch_attr), self._device_state())
+        self._install_mesh(mesh, states, split)
+        setattr(self, batch_attr, global_batch)
+
+    def configure_mesh(self, args: Mapping[str, Any]) -> None:
+        """Resolve the ``mesh_devices`` knob against this process's local
+        devices (``utils/device.py::local_devices``): ``0`` is every local
+        device, an over-ask raises naming the counts. Called by
+        ``registry.create_extractor``; an extractor constructed directly
+        stays on one device."""
+        n = args.get('mesh_devices', 1)
+        n = 1 if n is None else int(n)
+        if n != 1:
+            from video_features_torch.utils.device import local_devices
+            local = local_devices(self.device)
+            if n == 0:
+                n = len(local)
+            elif n > len(local):
+                raise ValueError(
+                    f'mesh_devices={n} but this host has only '
+                    f'{len(local)} local {local[0].type} device(s) — '
+                    'lower mesh_devices (or 0 to auto-detect)')
+        self.mesh_devices = max(n, 1)
+
+    def use_mesh(self, mesh) -> None:
+        """Run the packed loop over ``mesh``, a data mesh the caller built
+        (``make_mesh(devices=...)``, where a device may appear twice): one
+        replica per shard, batches planned at ``capacity × ndev``."""
+        from functools import partial
+
+        from video_features_torch.parallel.mesh import replicate, split_batch
+        self._install_mesh(mesh, replicate(self._device_state(), mesh),
+                           partial(split_batch, mesh=mesh))
+        self.mesh_devices = self._packed_mesh_ndev = mesh.shape['data']
+
+    def _ensure_packed_mesh(self) -> int:
+        """The packed loop's data mesh when ``mesh_devices > 1``: the
+        first ``mesh_devices`` local devices, one replica each. Returns
+        the data-axis size (1: one device). Idempotent; an extractor that
+        already owns a mesh (``data_parallel``, with its batch already the
+        global one; ``sequence_parallel``) keeps it and its batch plan."""
+        if self._mesh is not None:
+            return self._packed_mesh_ndev
+        n = int(self.mesh_devices or 1)
+        if n <= 1:
+            return 1
+        from video_features_torch.parallel.mesh import make_mesh
+        from video_features_torch.utils.device import local_devices
+        self.use_mesh(make_mesh(n_devices=n, time_parallel=1,
+                                devices=local_devices(self.device)))
+        return n
+
+    def mesh_record(self, batch: int) -> Dict[str, Any]:
+        """The run manifest's ``mesh`` section for ``batch``-row global
+        batches over this extractor's mesh (``obs/manifest.py::
+        note_mesh``)."""
+        n = len(self._replicas)
+        return {'mesh_devices': n, 'shape': dict(self._mesh.shape),
+                'devices': self.mesh_labels(),
+                'capacity_per_device': batch // n, 'global_batch': batch,
+                'compute_dtype': self.compute_dtype}
+
+    def mesh_labels(self) -> List[str]:
+        """Per-shard labels ``d<i>``, in shard order."""
+        return [f'd{i}' for i in range(len(self._replicas))]
 
     def print_profile(self, title: str) -> None:
         """End of a video or a packed run: fold the stage table into the
@@ -410,6 +569,8 @@ class BaseExtractor:
             from video_features_torch.obs.manifest import RunManifest
             self.manifest_out = str(manifest_out)
             self.manifest = RunManifest(args)
+            if self._replicas:              # data_parallel's mesh
+                self.manifest.note_mesh(self.mesh_record(int(self.batch_size)))
 
     def finish_obs(self) -> None:
         """Write the run's manifest and trace (the CLI's end of run, in a

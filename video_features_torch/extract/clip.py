@@ -85,6 +85,8 @@ class ExtractCLIP(BaseFrameWiseExtractor):
             list(args['pred_texts']) if args.get('pred_texts') else None)
         self.params = to_device(params, self.device)
         self._text: Optional[Tuple[torch.Tensor, List[str]]] = None
+        if self.data_parallel:
+            self._ensure_mesh('batch_size')
 
     def host_transform_spec(self):
         n_px = self.input_resolution

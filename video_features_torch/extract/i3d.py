@@ -129,6 +129,8 @@ class ExtractI3D(BaseExtractor):
         self.run_fingerprint = run_fingerprint(args)
         self._viz_stem = 'frames'
         self._geometries: Dict[Tuple[int, int], tuple] = {}
+        if self.data_parallel:
+            self._ensure_mesh('batch_size')
 
     def load_params(self, args):
         """{'rgb': i3d params, 'flow': i3d params, 'raft': raft params}."""

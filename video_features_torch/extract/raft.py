@@ -16,7 +16,11 @@
 
 The loop decodes (``decode_workers`` resize threads), pads the tail and
 copies batch k+1 on a producer thread while the card runs batch k, and
-reads each step back ``inflight`` steps later. RAFT has no packed loop,
+reads each step back ``inflight`` steps later. With ``data_parallel``
+the ``batch_size + 1`` frames split into one run of k + 1 frames per
+device (k = batch_size / devices; the frame at each shard boundary is
+copied into both runs on the host), so each device computes k flows and
+encodes each of its frames once, as one device does. RAFT has no packed loop,
 in the JAX package either: ``pack_across_videos`` warns and runs this
 one.
 """
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import sys
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +58,17 @@ class ExtractRAFT(BaseExtractor):
         self.params = to_device(self.load_params(args), self.device)
         self.run_fingerprint = run_fingerprint(args)
         self._viz_stem, self._viz_count = 'frames', 0
+        if self.data_parallel:
+            self._ensure_mesh('batch_size')
+            self._put_batch = self._halo_shards
+
+    def _halo_shards(self, frames: np.ndarray) -> List[np.ndarray]:
+        """``(B + 1, ...)`` consecutive frames → one run of ``k + 1`` per
+        data shard (k = B / shards): shard d holds frames ``[d·k, d·k +
+        k]``, so its k flows are the global flows ``d·k … d·k + k - 1``."""
+        n = self._mesh.shape['data']
+        k = (len(frames) - 1) // n
+        return [frames[d * k: d * k + k + 1] for d in range(n)]
 
     def load_params(self, args):
         """RAFT params; DataParallel ``module.`` prefixes are stripped by

@@ -45,6 +45,8 @@ class ExtractResNet(BaseFrameWiseExtractor):
         cfg = resnet_model.arch_def(self.model_name)
         super().__init__(args, feat_dim=cfg['feat_dim'])
         self.params = to_device(self.load_params(args), self.device)
+        if self.data_parallel:
+            self._ensure_mesh('batch_size')
 
     def load_params(self, args):
         from video_features_torch.extract.weights import load_or_init

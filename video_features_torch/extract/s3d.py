@@ -71,6 +71,8 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
         self.output_feat_keys = [self.feature_type]
         self.params = to_device(self.load_params(args), self.device)
         self.run_fingerprint = run_fingerprint(args)
+        if self.data_parallel:
+            self._ensure_mesh('batch_size')
 
     def load_params(self, args):
         from video_features_torch.extract.weights import load_or_init

@@ -14,7 +14,9 @@ family's interpolation and a center crop on the host (timm's
 backbone's features. ``image_size`` overrides the crop (and scales the
 resize to keep crop_pct); a ViT/DeiT resamples its pos embed to the
 larger patch grid, and from 2048 tokens on its attention runs blockwise.
-BEiT and Mixer refuse it.
+BEiT and Mixer refuse it. ``sequence_parallel=true`` (ViT/DeiT, float32
+only) splits each frame's tokens over every local device and runs
+attention as a ring over them.
 
 Weights: ``checkpoint_path`` (``.pt``/``.pth``/``.npz``) or the gated
 random init. Unlike the JAX package, the port never imports pip
@@ -194,8 +196,41 @@ class ExtractTIMM(BaseFrameWiseExtractor):
             self.data_cfg['resize'] = int(round(self.data_cfg['resize'] * factor))
             self.data_cfg['crop'] = image_size
         super().__init__(args, feat_dim=spec['feat_dim'])
+        # sequence_parallel (ViT/DeiT only): each frame's tokens split over
+        # every local device, attention a ring over them (models/vit.py::
+        # forward_sequence_parallel); refused before the weights load
+        self.sequence_parallel = bool(args.get('sequence_parallel', False))
+        if self.sequence_parallel:
+            if self.compute_dtype != 'float32':
+                raise NotImplementedError(
+                    'sequence_parallel + compute_dtype=bfloat16 is not '
+                    'supported: the ring-attention kernel\'s online-'
+                    'softmax accumulators are tuned fp32 end to end '
+                    '(ops/attention.py) and have no measured bf16 parity '
+                    'bound — run the fast lane on the standard path, or '
+                    'sequence-parallel at float32')
+            if self.family not in ('vit', 'deit'):
+                raise NotImplementedError(
+                    'sequence_parallel is implemented for the ViT/DeiT '
+                    f'families (attention over tokens); {self.family} has '
+                    'no token axis to shard')
+            if self.data_parallel:
+                raise NotImplementedError(
+                    'sequence_parallel claims every local device for the '
+                    'token axis; combine with data parallelism across '
+                    'hosts (multihost=true), not data_parallel=true')
         self.params = to_device(self.load_params(args, spec.get('init', {})),
                                 self.device)
+        self._seq_replicas = None
+        if self.sequence_parallel:
+            from video_features_torch.parallel.mesh import make_mesh, move
+            from video_features_torch.utils.device import local_devices
+            devices = local_devices(self.device)
+            # the data axis is 1: each batch goes to this extractor's device
+            self._mesh = make_mesh(devices=devices, time_parallel=len(devices))
+            self._seq_replicas = [move(self.params, d) for d in devices]
+        if self.data_parallel:
+            self._ensure_mesh('batch_size')
 
     def load_params(self, args, init_kwargs: Dict[str, Any]):
         from video_features_torch.extract.weights import load_or_init
@@ -211,6 +246,12 @@ class ExtractTIMM(BaseFrameWiseExtractor):
                 self.data_cfg['crop'], self.data_cfg['interpolation'])
 
     def device_step(self, frames: torch.Tensor) -> torch.Tensor:
+        if self._seq_replicas is not None:
+            x = normalize(to_float_zero_one(frames), self.data_cfg['mean'],
+                          self.data_cfg['std'])
+            return vit_model.forward_sequence_parallel(
+                self.params, x, self._mesh, arch=self.arch,
+                replicas=self._seq_replicas)
         return timm_step(self.params, frames, self.family, self.arch,
                          self.data_cfg['mean'], self.data_cfg['std'],
                          self.act_dtype)

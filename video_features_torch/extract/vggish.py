@@ -10,9 +10,11 @@ error naming both). Any other extension raises.
 The log-mel DSP runs on the host in float64 (``ops/audio.py``) and
 narrows to float32 just before the copy to the device; the 0.96 s
 examples go through the VGG in batches of ``batch_size``, the last one
-padded by repeating its last example so every step has one shape. The
-output is ``{'vggish': (Ta, 128)}``, float32, or uint8 with
-``post_process``.
+padded by repeating its last example so every step has one shape, on the
+device loop of the other families (``BaseExtractor.run_batches``; with
+``data_parallel`` each batch splits over the local devices, the VGG and
+the PCA buffers copied to each). The output is ``{'vggish': (Ta, 128)}``,
+float32, or uint8 with ``post_process``.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ BATCH = 32      # examples per device step (a 30 s clip is ~31 examples)
 
 class ExtractVGGish(BaseExtractor):
 
+    _device_state_attrs = ('model', '_pca_eig', '_pca_means')
+
     def __init__(self, args) -> None:
         super().__init__(args)
         check_vggish_args(args)
@@ -57,6 +61,8 @@ class ExtractVGGish(BaseExtractor):
                 means = pca['pca_means'].astype(np.float32).reshape(-1)
             self._pca_eig = torch.from_numpy(eig).to(self.device)
             self._pca_means = torch.from_numpy(means).to(self.device)
+        if self.data_parallel:
+            self._ensure_mesh('batch_size')
 
     def load_params(self, args):
         from video_features_torch.extract.weights import load_or_init
@@ -135,14 +141,21 @@ class ExtractVGGish(BaseExtractor):
         n = examples.shape[0]
         if n == 0:
             return np.zeros((0, vggish_model.FEAT_DIM), np.float32)
-        out = []
-        with torch.inference_mode(), self.precision_scope():
+
+        def batches():
             for start in range(0, n, self.batch_size):
                 chunk = examples[start:start + self.batch_size]
                 valid = chunk.shape[0]
                 if valid < self.batch_size:
                     pad = np.repeat(chunk[-1:], self.batch_size - valid, axis=0)
                     chunk = np.concatenate([chunk, pad], axis=0)
-                x = torch.from_numpy(chunk).to(self.act_dtype).to(self.device)
-                out.append(features_to_f32(self.model(x)[:valid]).cpu().numpy())
-        return np.concatenate(out, axis=0)
+                yield chunk, valid
+
+        return np.concatenate([out[self.feature_type][:valid] for out, _, valid
+                               in self.run_batches(batches())], axis=0)
+
+    def packed_step(self, examples: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``(B, 1, 96, 64)`` float32 examples on the device → {'vggish':
+        (B, 128)} float32, the VGG run in the lane's dtype."""
+        return {self.feature_type: features_to_f32(
+            self.model(examples.to(self.act_dtype)))}

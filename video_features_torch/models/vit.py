@@ -20,7 +20,7 @@ weights in torch's layout. Input (B, H, W, 3), normalized.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,6 +158,12 @@ def forward(params: Params, x: torch.Tensor, arch: str = 'vit_base_patch16_224',
     """(B, H, W, 3) normalized frames → (B, width) features, or (B, 1000)
     logits with ``features=False``."""
     x = layer_norm(trunk(params, embed(params, x, arch), arch), params['norm'])
+    return _pool(params, x, features)
+
+
+def _pool(params: Params, x: torch.Tensor, features: bool) -> torch.Tensor:
+    """Final-normed (B, N, width) tokens → features (the cls token, or for
+    distilled DeiT the mean of cls and dist) or logits."""
     if 'dist_token' in params:
         if features:
             return (x[:, 0] + x[:, 1]) / 2
@@ -167,6 +173,55 @@ def forward(params: Params, x: torch.Tensor, arch: str = 'vit_base_patch16_224',
     if features:
         return x[:, 0]
     return F.linear(x[:, 0], params['head']['weight'], params['head']['bias'])
+
+
+def forward_sequence_parallel(params: Params, x: torch.Tensor, mesh,
+                              arch: str = 'vit_base_patch16_224',
+                              axis: str = 'time', features: bool = True,
+                              replicas: Optional[List[Params]] = None
+                              ) -> torch.Tensor:
+    """:func:`forward` with the TOKEN axis split over the devices of
+    ``mesh[axis]``: tokens are zero-padded to a multiple of the shard
+    count with a validity mask, every token-local op (layer norms, qkv,
+    projections, MLP) runs on its shard's device, and attention is
+    :func:`~video_features_torch.ops.attention.ring_attention`, the padded
+    keys masked out of every softmax. ``replicas`` are the params on each
+    device of the axis (copied here when None). The result, and the same
+    head dispatch as :func:`forward`'s, are on ``x``'s device."""
+    from video_features_torch.ops.attention import ring_attention
+    from video_features_torch.parallel.mesh import move
+    from video_features_torch.parallel.ring import axis_devices
+    devices = axis_devices(mesh, axis)
+    n = len(devices)
+    if replicas is None:
+        replicas = [move(params, d) for d in devices]
+    cfg = ARCHS[arch]
+    heads = cfg['heads']
+    tokens = embed(params, x, arch)
+    B, N, width = tokens.shape
+    pad = (-N) % n
+    if pad:
+        tokens = F.pad(tokens, (0, 0, 0, pad))
+    s = (N + pad) // n
+    valid = torch.arange(N + pad, device=tokens.device) < N
+    xs = [tokens[:, i * s:(i + 1) * s].to(d) for i, d in enumerate(devices)]
+    masks = [valid[i * s:(i + 1) * s].to(d) for i, d in enumerate(devices)]
+    for layer in range(cfg['layers']):
+        ps = [r['blocks'][str(layer)] for r in replicas]
+        qkv = []
+        for p, t in zip(ps, xs):
+            a = p['attn']['qkv']
+            h = F.linear(layer_norm(t, p['norm1']), a['weight'], a['bias'])
+            qkv.append(h.reshape(B, s, 3, heads, width // heads).unbind(2))
+        outs = ring_attention([t[0] for t in qkv], [t[1] for t in qkv],
+                              [t[2] for t in qkv], kv_valid=masks)
+        xs = [t + F.linear(o.reshape(B, s, width), p['attn']['proj']['weight'],
+                           p['attn']['proj']['bias'])
+              for p, t, o in zip(ps, xs, outs)]
+        xs = [t + mlp(p['mlp'], layer_norm(t, p['norm2']))
+              for p, t in zip(ps, xs)]
+    out = torch.cat([t.to(tokens.device) for t in xs], dim=1)[:, :N]
+    return _pool(params, layer_norm(out, params['norm']), features)
 
 
 def init_state_dict(seed: int = 0, arch: str = 'vit_base_patch16_224',

@@ -18,11 +18,15 @@ One document with the JAX package's key set:
     geometry × dtype) with its batch and ``compute_dtype``; eager
     PyTorch has no ahead-of-time cost analysis, so no FLOPs or bytes;
   * **farm**: the decode farm's configuration and lifetime stats;
-  * ``mesh``, ``ingress``, ``programs_lock``, ``aot``, ``index`` and
-    ``slo`` stay ``{}``: the port has none of those surfaces yet.
+  * **mesh**: a packed run over several devices (``mesh_devices``): its
+    width, (data, time) shape, device labels, per-device capacity, global
+    batch and lane; ``{}`` on one device;
+  * ``ingress``, ``programs_lock``, ``aot``, ``index`` and ``slo`` stay
+    ``{}``: the port has none of those surfaces yet.
 
 The loops push (``video_done``, ``fold_stages``, ``note_executable``,
-``note_farm``); :meth:`RunManifest.write` publishes atomically.
+``note_farm``, ``note_mesh``); :meth:`RunManifest.write` publishes
+atomically.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ class RunManifest:
         self.stages: Dict[str, Dict[str, float]] = {}
         self.executables: Dict[str, Dict[str, Any]] = {}
         self.farm: Dict[str, Any] = {}
+        self.mesh: Dict[str, Any] = {}
         self._compile0 = _compile_snapshot()
 
     @staticmethod
@@ -107,6 +112,15 @@ class RunManifest:
         with self._lock:
             self.farm.update({k: _jsonable(v) for k, v in info.items()})
 
+    def note_mesh(self, info: Dict[str, Any]) -> None:
+        """Record the device mesh a mesh-sharded packed run executed on
+        (``mesh_devices``, the (data, time) shape, per-device labels,
+        per-device capacity against the global batch, the lane); the
+        section stays ``{}`` on one device. Later notes merge over earlier
+        ones."""
+        with self._lock:
+            self.mesh.update({k: _jsonable(v) for k, v in info.items()})
+
     # -- publication ---------------------------------------------------------
 
     def document(self) -> Dict[str, Any]:
@@ -123,6 +137,7 @@ class RunManifest:
             stages = {k: dict(v) for k, v in self.stages.items()}
             executables = {k: dict(v) for k, v in self.executables.items()}
             farm = dict(self.farm)
+            mesh = dict(self.mesh)
         outcomes: Dict[str, int] = {}
         for v in videos.values():
             outcomes[v['outcome']] = outcomes.get(v['outcome'], 0) + 1
@@ -140,9 +155,11 @@ class RunManifest:
             'compile': compile_delta,
             'executables': executables,
             'farm': farm,
+            # mesh-sharded packed execution: {} on one device
+            'mesh': mesh,
             # the surfaces the port has not ported yet
-            'mesh': {}, 'ingress': {}, 'programs_lock': {}, 'aot': {},
-            'index': {}, 'slo': {},
+            'ingress': {}, 'programs_lock': {}, 'aot': {}, 'index': {},
+            'slo': {},
         }
 
     def write(self, path: str) -> str:

@@ -6,14 +6,16 @@
     by default), O(S·block) score memory instead of O(S²); a ragged S
     pads the keys to a block multiple and masks the padded ones out.
 
-Both are plain batched matmuls and ``torch.softmax``/``torch.exp`` left
-to cuBLAS and torch's elementwise kernels. The JAX package's
-``ring_attention`` (sequence parallel over several devices) is not
-ported.
+  * :func:`ring_attention`: sequence parallel over several devices, each
+    holding one shard of the queries, the key/value shards moving one hop
+    around the ring per step.
+
+All are plain batched matmuls and ``torch.softmax``/``torch.exp`` left
+to cuBLAS and torch's elementwise kernels.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -94,3 +96,39 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               valid=mask)
     _, l, o = carry
     return (o / l).to(q.dtype).transpose(1, 2)
+
+
+def ring_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
+                   vs: Sequence[torch.Tensor], scale: Optional[float] = None,
+                   kv_valid: Optional[Sequence[torch.Tensor]] = None
+                   ) -> List[torch.Tensor]:
+    """Sequence-parallel attention over n shards, shard i of q, k, v a
+    (B, S/n, H, D) tensor on device i (a device may hold several shards).
+
+    Each device keeps its queries and an online-softmax carry; the key and
+    value shards, with their validity masks, move one hop around the ring
+    per step (device j's to device j+1, as the JAX package's
+    ``lax.ppermute``), so after n steps every query has attended every
+    key. ``kv_valid[i]`` (S/n,) bool masks shard i's padded keys out of
+    every softmax (it travels with its shard): how a ragged token count
+    shards. Rows of padded queries come out as garbage; slice them off.
+    Returns the n output shards, each on its query's device.
+    """
+    n = len(qs)
+    sc = _scale(qs[0], scale)
+    qh = [q.transpose(1, 2) for q in qs]                    # (B, H, S/n, D)
+    kb = [k.transpose(1, 2) for k in ks]
+    vb = [v.transpose(1, 2) for v in vs]
+    mb = (list(kv_valid) if kv_valid is not None else
+          [torch.ones(k.shape[1], dtype=torch.bool, device=k.device) for k in ks])
+    carries = [_online_init(q) for q in qh]
+    for step in range(n):
+        carries = [_online_block(qh[i], *carries[i], kb[i], vb[i], sc,
+                                 valid=mb[i]) for i in range(n)]
+        if step == n - 1:
+            break                      # the last block needs no send
+        devices = [q.device for q in qh]
+        kb, vb, mb = ([t[(i - 1) % n].to(devices[i], non_blocking=True)
+                       for i in range(n)] for t in (kb, vb, mb))
+    return [(o / l).to(q.dtype).transpose(1, 2)
+            for (_, l, o), q in zip(carries, qs)]

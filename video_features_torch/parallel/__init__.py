@@ -1,1 +1,3 @@
-"""Execution across videos: the batch-major packed loop (``packing``)."""
+"""Execution across videos, devices and processes: the batch-major packed
+loop (``packing``), device meshes (``mesh``, ``pipeline``, ``ring``) and
+several processes over one worklist (``distributed``, ``worklist``)."""

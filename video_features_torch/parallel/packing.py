@@ -1,5 +1,5 @@
-"""The packed corpus loop, batch-major across videos, on one device (port
-of ``video_features_tpu/parallel/packing.py``: ``VideoTask``,
+"""The packed corpus loop, batch-major across videos (port of
+``video_features_tpu/parallel/packing.py``: ``VideoTask``,
 ``FusedTask``, ``FLUSH``, ``NUDGE``, ``packed_batches``, ``run_packed``,
 ``build_fused_recipe``, ``run_packed_fused``).
 
@@ -25,6 +25,15 @@ A host-side fault fails only the videos it touches: a video that does
 not decode is reported and skipped, a batch whose dispatch or readback
 raises fails the videos in it (``_doom``), and the worklist goes on.
 A CUDA error (``extract.base.is_device_fault``) ends the run.
+
+With ``mesh_devices`` > 1 (``extract/base.py::_ensure_packed_mesh``)
+the loop plans batches at ``capacity × ndev`` (``parallel/mesh.py::
+plan_device_batch``), so every device runs at its one-device batch shape,
+and ``put_input`` splits each batch into one shard per device; the
+in-flight queue and the scatter-back are unchanged. An uneven tail
+leaves later shards partly or wholly padded, masked at scatter-back like
+any padding. Occupancy is recorded per batch at the global capacity and
+per device (``d<i>``) at the per-device one.
 
 With ``decode_workers > 1`` the decode farm (``farm/``) takes the
 windower's place: worker processes decode and ship the windows over
@@ -308,23 +317,56 @@ def _doom(prov, exc: Exception, batch: int, valid: int, stage: str,
         sub.done += 1
 
 
+def _plan(ex, batch_size: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(ndev, capacity, batch)`` of a packed run: the extractor's packed
+    mesh width, its window slots per device, and the global batch the
+    packer fills (``capacity × ndev`` on a mesh)."""
+    ndev = ex._ensure_packed_mesh()
+    capacity = int(batch_size or ex.packed_batch_size())
+    if ndev > 1:
+        from video_features_torch.parallel.mesh import plan_device_batch
+        return ndev, capacity, plan_device_batch(capacity, ex._mesh)
+    return ndev, capacity, capacity
+
+
+def _shard_valids(valid: int, capacity: int, ndev: int) -> List[int]:
+    """Per-device valid slots of a ``valid``-row global batch: shard i
+    holds rows ``[i·capacity, (i+1)·capacity)``."""
+    return [max(0, min(valid - i * capacity, capacity)) for i in range(ndev)]
+
+
+def _occupancy(ex, name: str, valid: int, plan: Tuple[int, int, int]) -> None:
+    """Occupancy at the global capacity and, on a mesh, one record per
+    device shard at the per-device capacity (the two never mix)."""
+    ndev, capacity, batch = plan
+    ex.tracer.add_occupancy(name, valid, batch)
+    if ndev > 1:
+        for label, v in zip(ex.mesh_labels(), _shard_valids(valid, capacity, ndev)):
+            ex.tracer.add_occupancy(name, v, capacity, device=label)
+
+
 def _identity(ex, dev) -> Tuple[str, tuple]:
     """A batch's executable identity (family × geometry × dtype, and the
     lane off the default) for the run manifest, with its (shape, dtype)."""
     lane = '' if ex.compute_dtype == 'float32' else f':{ex.compute_dtype}'
-    dtype = dev.tensor.dtype
+    dtype = dev.dtype
     name = str(dtype).replace('torch.', '')
     return (f'{ex.feature_type}:{tuple(dev.shape)}:{name}{lane}',
             (tuple(dev.shape), dtype))
 
 
-def _note_run(ex, identities: Dict[str, tuple], batch: int, farm) -> None:
+def _note_run(ex, identities: Dict[str, tuple], plan: Tuple[int, int, int],
+              farm) -> None:
     """After a packed run, the run manifest's ``executables`` (each batch
     geometry with its batch and ``compute_dtype``, and whatever
-    ``executable_cost`` gives for it, on a meta tensor) and ``farm``."""
+    ``executable_cost`` gives for it, on a meta tensor), ``mesh`` (a run
+    over several devices) and ``farm``."""
     manifest = ex.manifest
     if manifest is None:
         return
+    ndev, _, batch = plan
+    if ndev > 1:
+        manifest.note_mesh(ex.mesh_record(batch))
     for identity, (shape, dtype) in identities.items():
         info = {'batch': batch, 'compute_dtype': ex.compute_dtype}
         info.update(ex.executable_cost(
@@ -336,13 +378,18 @@ def _note_run(ex, identities: Dict[str, tuple], batch: int, farm) -> None:
                             'stats': farm.stats()})
 
 
-def _batch_attrs(ex, prov, valid: int, capacity: int) -> Dict:
+def _batch_attrs(ex, prov, valid: int, plan: Tuple[int, int, int]) -> Dict:
     """The args of a batch's ``model`` and ``d2h`` spans (tracing on
-    only): its videos, slots, trace ids and lane."""
+    only): its videos, slots, trace ids and lane, and on a mesh its width
+    and each shard's valid slots."""
     if not ex.tracer.enabled:
         return {}
+    ndev, capacity, batch = plan
     attrs = {'videos': sorted({t.path for t, _ in prov}), 'valid': valid,
-             'capacity': capacity, 'compute_dtype': ex.compute_dtype}
+             'capacity': batch, 'compute_dtype': ex.compute_dtype}
+    if ndev > 1:
+        attrs.update(mesh_devices=ndev,
+                     shard_valid=_shard_valids(valid, capacity, ndev))
     tids = trace_ids_of(t for t, _ in prov)
     if tids:
         attrs['trace_ids'] = tids
@@ -395,7 +442,8 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
     )
     from video_features_torch.io.video import prefetch_across_videos
 
-    batch = int(batch_size or ex.packed_batch_size())
+    plan = _plan(ex, batch_size)
+    ndev, capacity, batch = plan
     depth = max(int(inflight if inflight is not None else ex.inflight), 1)
     tracer = ex.tracer
     recorder = tracer.recorder
@@ -463,7 +511,7 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
             _doom(prov, e, batch, valid, 'd2h')
             sweep()
             return
-        tracer.add_occupancy('d2h', valid, batch)
+        _occupancy(ex, 'd2h', valid, plan)
         for i, (task, meta) in enumerate(prov):
             task.done += 1
             if task.failed:
@@ -496,7 +544,7 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
                     sync_oldest()
                 sweep()
                 continue
-            attrs = _batch_attrs(ex, prov, valid, batch)
+            attrs = _batch_attrs(ex, prov, valid, plan)
             try:
                 with tracer.stage('model', **attrs), torch.inference_mode():
                     readback = ex.dispatch(dev)
@@ -504,7 +552,7 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
                 _doom(prov, e, batch, valid, 'model')
                 sweep()
                 continue
-            tracer.add_occupancy('model', valid, batch)
+            _occupancy(ex, 'model', valid, plan)
             if ex.manifest is not None:
                 identity, geometry = _identity(ex, dev)
                 identities.setdefault(identity, geometry)
@@ -517,9 +565,10 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
         if farm is not None:
             farm.shutdown()
     sweep(final=True)
-    _note_run(ex, identities, batch, farm)
-    ex.print_profile(f'packed worklist ({n_started[0]} videos, batch {batch}) '
-                     f'[{ex.lane_label()}]')
+    _note_run(ex, identities, plan, farm)
+    mesh_note = f' = {capacity} x {ndev} devices' if ndev > 1 else ''
+    ex.print_profile(f'packed worklist ({n_started[0]} videos, batch {batch}'
+                     f'{mesh_note}) [{ex.lane_label()}]')
 
 
 # -- fused worklists: one decode, several frame-wise families ----------------
@@ -579,7 +628,10 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
                          f'fused decode signatures differ or are None: {sigs}')
     fams = list(exs)
     lead = exs[fams[0]]
-    fam_batch = {fam: int(ex.packed_batch_size()) for fam, ex in exs.items()}
+    # each family keeps its own batch (and mesh) plan, so its fused batches
+    # step its model at the shapes of its solo run
+    plans = {fam: _plan(ex) for fam, ex in exs.items()}
+    fam_batch = {fam: plan[2] for fam, plan in plans.items()}
     max_batch = max(fam_batch.values())
     depth = {fam: max(int(inflight if inflight is not None else ex.inflight), 1)
              for fam, ex in exs.items()}
@@ -686,7 +738,7 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
                   subtask=lambda c: c.subtasks[fam])
             sweep()
             return
-        ex.tracer.add_occupancy('d2h', valid, fam_batch[fam])
+        _occupancy(ex, 'd2h', valid, plans[fam])
         for i, (c, (_, t_ms)) in enumerate(prov):
             sub = c.subtasks[fam]
             sub.done += 1
@@ -722,7 +774,7 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
                 continue
             fam = prov[0][1][0]
             ex = exs[fam]
-            attrs = _batch_attrs(ex, prov, valid, fam_batch[fam])
+            attrs = _batch_attrs(ex, prov, valid, plans[fam])
             try:
                 # dispatch runs the batch in its family's precision scope:
                 # adjacent batches may belong to families on other lanes
@@ -733,7 +785,7 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
                       subtask=lambda c: c.subtasks[fam])
                 sweep()
                 continue
-            ex.tracer.add_occupancy('model', valid, fam_batch[fam])
+            _occupancy(ex, 'model', valid, plans[fam])
             if ex.manifest is not None:
                 identity, geometry = _identity(ex, dev)
                 identities[fam].setdefault(identity, geometry)
@@ -746,7 +798,7 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
             farm.shutdown()
     sweep(final=True)
     for fam, ex in exs.items():
-        _note_run(ex, identities[fam], fam_batch[fam], farm)
+        _note_run(ex, identities[fam], plans[fam], farm)
         ex.print_profile(f'fused worklist [{fam}] ({n_started[0]} videos, '
                          f'batch {fam_batch[fam]}) [{ex.lane_label()}]')
     return {'videos': n_started[0], 'decode_passes': n_decoded[0]}

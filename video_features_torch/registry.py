@@ -1,6 +1,7 @@
 """Extractor registry with lazy imports: :func:`create_extractor` builds
-a family's extractor from its merged config and attaches the feature
-cache and the flight recorder the config asks for."""
+a family's extractor from its merged config, resolves its
+``mesh_devices`` and attaches the feature cache and the flight recorder
+the config asks for."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +17,12 @@ EXTRACTORS: Dict[str, Tuple[str, str]] = {
     'timm': ('video_features_torch.extract.timm', 'ExtractTIMM'),
     'vggish': ('video_features_torch.extract.vggish', 'ExtractVGGish'),
 }
+
+# the families that split their batches over the local devices
+# (data_parallel), as in the JAX package: an explicit set, so a family
+# added later warns and runs on one device until it opts in
+DATA_PARALLEL_FEATURES = frozenset(
+    {'i3d', 'r21d', 's3d', 'vggish', 'resnet', 'raft', 'clip', 'timm'})
 
 # the families with a packed loop (pack_across_videos), as in the JAX package
 PACKED_FEATURES = ('i3d', 'r21d', 's3d', 'resnet', 'clip', 'timm')
@@ -59,6 +66,7 @@ def create_extractor(args):
         raise NotImplementedError(f'Unknown feature_type {feature_type!r}. '
                                   f'Known: {", ".join(EXTRACTORS)}')
     extractor = getattr(importlib.import_module(module_name), class_name)(args)
+    extractor.configure_mesh(args)
     extractor.configure_cache(args)
     extractor.configure_obs(args)
     return extractor

@@ -29,7 +29,7 @@ that call the models and kernels directly.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import torch
 
@@ -68,6 +68,17 @@ def resolve_device(device) -> torch.device:
         return dev
     raise ValueError(
         f"device must be 'cuda', 'cuda:N' or 'cpu'; got {device!r}")
+
+
+def local_devices(device) -> List[torch.device]:
+    """This process's devices of ``device``'s kind, the counterpart of the
+    JAX package's ``jax_devices_all``: ``[cuda:0 … cuda:n-1]`` for a CUDA
+    device, ``[cpu]`` for the CPU. The mesh knobs (``mesh_devices``,
+    ``data_parallel``, ``sequence_parallel``) resolve against it."""
+    dev = resolve_device(device)
+    if dev.type == 'cuda':
+        return [torch.device('cuda', i) for i in range(torch.cuda.device_count())]
+    return [torch.device('cpu')]
 
 
 def lane(precision: str) -> Tuple[bool, int]:

@@ -63,7 +63,7 @@ STAGES = (
 
 class _StageStat:
     __slots__ = ('count', 'total_s', 'max_s', 'first_s', 'occ_valid',
-                 'occ_capacity')
+                 'occ_capacity', 'occ_device')
 
     def __init__(self) -> None:
         self.count = 0
@@ -72,6 +72,10 @@ class _StageStat:
         self.first_s = 0.0
         self.occ_valid = 0
         self.occ_capacity = 0
+        # mesh-sharded batches: device label → [valid, capacity], kept
+        # apart from the aggregate (recorded once per batch at the global
+        # capacity), so neither view double-counts the other
+        self.occ_device: Optional[Dict[str, list]] = None
 
     def add(self, dt: float) -> None:
         if self.count == 0:
@@ -130,15 +134,24 @@ class Tracer:
         with self._lock:
             self._stat(name).add(dt)
 
-    def add_occupancy(self, name: str, valid: int, capacity: int) -> None:
+    def add_occupancy(self, name: str, valid: int, capacity: int,
+                      device: Optional[str] = None) -> None:
         """Record that a ``capacity``-slot batch under ``name`` carried
-        ``valid`` real items (the rest was padding)."""
+        ``valid`` real items (the rest was padding). With ``device`` (a
+        mesh shard's label) the counts go to that device's record."""
         if not self.enabled:
             return
         with self._lock:
             stat = self._stat(name)
-            stat.occ_valid += int(valid)
-            stat.occ_capacity += int(capacity)
+            if device is not None:
+                if stat.occ_device is None:
+                    stat.occ_device = {}
+                rec = stat.occ_device.setdefault(str(device), [0, 0])
+                rec[0] += int(valid)
+                rec[1] += int(capacity)
+            else:
+                stat.occ_valid += int(valid)
+                stat.occ_capacity += int(capacity)
 
     @contextmanager
     def stage(self, name: str, **attrs):
@@ -182,6 +195,11 @@ class Tracer:
             # the raw counts ride along so reports stay mergeable
             rec.update(occupancy=occ, occ_valid=s.occ_valid,
                        occ_capacity=s.occ_capacity)
+        if s.occ_device:
+            rec['occ_device'] = {
+                dev: {'occ_valid': v, 'occ_capacity': c,
+                      'occupancy': (v / c) if c else 0.0}
+                for dev, (v, c) in s.occ_device.items()}
         return rec
 
     def report(self) -> Dict[str, Dict[str, float]]:
@@ -237,18 +255,32 @@ def merge_reports(reports: Iterable[Dict[str, Dict[str, float]]]
             if 'occ_capacity' in r:
                 m['occ_valid'] = m.get('occ_valid', 0) + r['occ_valid']
                 m['occ_capacity'] = m.get('occ_capacity', 0) + r['occ_capacity']
+            for dev, d in (r.get('occ_device') or {}).items():
+                md = m.setdefault('occ_device', {}).setdefault(
+                    dev, {'occ_valid': 0, 'occ_capacity': 0})
+                md['occ_valid'] += d.get('occ_valid', 0)
+                md['occ_capacity'] += d.get('occ_capacity', 0)
     for m in merged.values():
         m['mean_s'] = m['total_s'] / max(m['count'], 1)
         if m.get('occ_capacity'):
             m['occupancy'] = m['occ_valid'] / m['occ_capacity']
+        for md in (m.get('occ_device') or {}).values():
+            md['occupancy'] = (md['occ_valid'] / md['occ_capacity']
+                               if md['occ_capacity'] else 0.0)
     return merged
 
 
 def round_report(report: Dict[str, Dict[str, float]],
                  ndigits: int = 6) -> Dict[str, Dict[str, float]]:
     """A report with its floats rounded, for compact JSON."""
-    return {name: {k: round(v, ndigits) if isinstance(v, float) else v
-                   for k, v in rec.items()}
+    def _round(v):
+        if isinstance(v, float):
+            return round(v, ndigits)
+        if isinstance(v, dict):             # occ_device's records
+            return {k: _round(x) for k, x in v.items()}
+        return v
+
+    return {name: {k: _round(v) for k, v in rec.items()}
             for name, rec in report.items()}
 
 
