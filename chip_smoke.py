@@ -17,7 +17,9 @@ package is not beside it. Phases:
 2. build: compile the CUDA kernels from ``video_features_torch/csrc``,
    one nvcc per source, all started together, with ptxas's register and
    spill lines, and the count of tensor-core (HGMMA) instructions in the
-   GRU kernel's SASS (``cuobjdump -sass``), which must not be 0;
+   GRU kernel's SASS (``cuobjdump -sass``), which must not be 0; beside
+   them ``tools/gru_tf32x3_variants.py``'s ``pr14_one_pass`` (the one-pass
+   design before the cluster kernel, phase 19 (a)'s yardstick);
 3. kernels: each correlation-lookup kernel at the main path's shapes
    (h8=32, w8=43; N from 16, 128 and 8 frame pairs) and on an edge-case
    set (ragged N, a 13×9 grid whose top level is 1×1, windows all
@@ -169,13 +171,19 @@ package is not beside it. Phases:
    fused against 24 alone), the fused wall against the sum of the solo
    walls, every family's files byte-equal across all four runs; then no
    ring left in ``/dev/shm`` and no worker process alive;
-19. precision lanes: (a) the GRU kernel's one-pass instantiation
-   (``passes=1``) against its plain version (the fp32 convolution of the
-   TF32-rounded operands; max abs err ≤ 5e-4, mean ≤ 1e-6: a TF32
-   rounding of r·h may fall the other way after the sigmoid's last bit)
-   and both against float64, both axes at (128, 32, 43) and (8, 32, 43),
-   its time, its plain version's, the two cuDNN convs under TF32
-   (``library_ms``) and its bound (a third of 3xTF32's); (b) the fused I3D
+19. precision lanes: (a) the one-pass GRU kernel (``passes=1``,
+   ``gru_tf32_onepass``: clusters of CTAs sharing multicast weight
+   tiles) with its cluster size, ring depth, tile, ptxas registers and
+   spills, and its SASS HGMMA count (which must not be 0); against its
+   plain version (the fp32 convolution of the TF32-rounded operands; max
+   abs err ≤ 5e-4, mean ≤ 1e-6: a TF32 rounding of r·h may fall the
+   other way after the sigmoid's last bit), float64 and the 3xTF32
+   kernel (which must differ), both axes at (128, 32, 43) and (8, 32,
+   43); its time and ``pr14_one_pass``'s in turns (old, new, new, old;
+   the new one may not be slower), the bytes each pulls from L2 into
+   shared memory and that rate, its plain version's time, the two cuDNN
+   convs under TF32 (``library_ms``) and its bound (a third of
+   3xTF32's); (b) the fused I3D
    path at the YAML's batch 8 (129 seeded frames, 8 windows, one step)
    and the RAFT family at batch 8 pairs, each from ``load_config`` and
    ``create_extractor`` under ``highest``, ``high`` (mixed's arithmetic:
@@ -226,8 +234,8 @@ package is not beside it. Phases:
    one trace id; the manifest's outcomes, its ``model`` and ``d2h``
    stages and its ``compile`` section naming one ``nvcc`` build of each
    kernel source with its seconds; (b) the ``torch.profiler`` trace's
-   ``masked_kernel`` and ``gru_tf32x3`` events against the launch
-   counters (two kernels per GRU direction); (c) ``extract_packed`` at
+   ``masked_kernel``, ``gru_tf32x3`` and ``gru_tf32_onepass`` events
+   against the launch counters (two kernels per GRU direction); (c) ``extract_packed`` at
    the YAML's 2 farm workers with ``trace_out`` and ``manifest_out``:
    ``decode`` spans on two worker pid lanes inside the run's window, the
    manifest's ``farm`` naming 2 workers, (a)'s bytes, no ring or worker
@@ -290,6 +298,9 @@ KERNEL_ATOL = 1e-5      # fp reassociation of a 4-term blend of O(1) values
 # output's 640 inputs, up to a few 1e-4; rare, so the mean stays at fp32
 # reassociation's level
 GRU1_ATOL, GRU1_MEAN_ATOL = 5e-4, 1e-6
+# the one-pass kernel may not be slower than pr14_one_pass (the mean of
+# its two turns against the mean of the old kernel's two, in one call)
+ONE_PASS_SLOWER = 1.0
 SLICE_REL_L2 = 1e-3     # the BASELINE feature bar, kernel vs plain end to end
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 rate
 FP32_FLOP_PER_S = 67e12     # H100 SXM published fp32 (non-tensor) rate
@@ -793,17 +804,29 @@ def gru_phase(torch, gru):
     return rec
 
 
-def sass_count(path: Path, opcode: str) -> int:
-    """Instructions whose opcode starts with ``opcode`` in the built
-    library's SASS (``cuobjdump -sass``)."""
+def sass_counts(path: Path, opcode: str) -> dict:
+    """Instructions whose opcode starts with ``opcode``, per function of
+    the built library's SASS (``cuobjdump -sass``)."""
     tool = shutil.which('cuobjdump') or str(
         Path(os.environ.get('CUDA_HOME', '/usr/local/cuda')) / 'bin' / 'cuobjdump')
     out = subprocess.run([tool, '-sass', str(path)], capture_output=True,
                          text=True, timeout=120)
     if out.returncode != 0:
         fail(f'cuobjdump -sass {path.name} failed: {out.stderr.strip()}')
-    return sum(1 for line in out.stdout.splitlines()
-               if f' {opcode}' in line and '/*' in line)
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if 'Function :' in line:
+            fn = line.split('Function :', 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and f' {opcode}' in line and '/*' in line:
+            counts[fn] += 1
+    return counts
+
+
+def sass_count(path: Path, opcode: str) -> int:
+    """Instructions whose opcode starts with ``opcode`` in the built
+    library's SASS (``cuobjdump -sass``)."""
+    return sum(sass_counts(path, opcode).values())
 
 
 def slice_frames(np):
@@ -2083,13 +2106,44 @@ def params_nbytes(tree) -> int:
                for v in tree.values())
 
 
-def gru_one_pass_phase(torch, gru):
-    """The GRU kernel's one-pass instantiation against its plain version
-    (the fp32 convolution of the TF32-rounded operands), both axes, at
-    the two main-path shapes; its time, the plain version's, the two
-    cuDNN convs under TF32 (``library_ms``) and its bound: a third of
-    the 3xTF32 products at the TF32 rate."""
+def ptxas_report(log: str, key: str) -> list:
+    """ptxas's register, barrier and spill lines (and any wgmma warning)
+    for the entry functions whose name holds ``key``, from an ``nvcc
+    -Xptxas -v`` log."""
+    keep, lines = False, []
+    for line in log.splitlines():
+        if 'entry function' in line:
+            keep = key in line
+        if keep and any(k in line for k in ('entry function', 'registers',
+                                            'spill', 'wgmma')):
+            lines.append(line.strip())
+    return lines
+
+
+def gru_one_pass_phase(torch, gru, pr14, build_log: str, lib_path: Path):
+    """(a): the one-pass kernel (``gru_tf32_onepass``, clusters of CTAs
+    sharing multicast weight tiles) against its plain version (the fp32
+    convolution of the TF32-rounded operands), float64 and the 3xTF32
+    kernel (must differ), both axes, at the two main-path shapes; its
+    cluster size, ring depth, tile, registers, spills and HGMMA count;
+    its time against ``pr14_one_pass`` (the one-pass instantiation of
+    the 3xTF32 schedule, built from this source by
+    ``tools/gru_tf32x3_variants.py``) in turns, old, new, new, old, both
+    called into preallocated outputs; the plain version's time, the two
+    cuDNN convs under TF32 (``library_ms``) and its bound: a third of the
+    3xTF32 products at the TF32 rate."""
+    from tools import gru_tf32x3_variants as variants
     from video_features_torch.utils.device import precision_scope
+    lib = gru._library()
+    for line in ptxas_report(build_log, 'gru_tf32_onepass'):
+        print(f'  ptxas gru_tf32_onepass: {line}', flush=True)
+    hgmma = {k: n for k, n in sass_counts(lib_path, 'HGMMA').items()
+             if 'gru_tf32_onepass' in k}
+    print(f'gru_tf32_onepass SASS: HGMMA instructions per instantiation '
+          f'{hgmma}', flush=True)
+    if not hgmma or not all(hgmma.values()):
+        fail(f'the one-pass GRU kernel has no tensor-core (HGMMA) '
+             f'instructions: {hgmma}')
     gen = torch.Generator(device='cuda').manual_seed(11)
 
     def randn(*s):
@@ -2100,8 +2154,10 @@ def gru_one_pass_phase(torch, gru):
              *gru.pack_direction(0.05 * randn(256, 256, 1, 5),
                                  0.05 * randn(128, 256, 1, 5)),
              0.1 * randn(*shape, 256), 0.1 * randn(*shape, 128))
+        outs = tuple(torch.empty_like(x[0]) for _ in range(3))
         m = shape[0] * shape[1] * shape[2]
         for axis in gru.AXES:
+            cfg = variants.one_pass_config(lib, shape[2], axis)
             got = gru.gru_direction(*x, axis, passes=1)
             torch.cuda.synchronize()
             plain = gru.gru_direction_plain(*x, axis, passes=1)
@@ -2110,10 +2166,15 @@ def gru_one_pass_phase(torch, gru):
             flips = (diff > KERNEL_ATOL).float().mean().item()
             ref = gru.gru_direction_plain(*[t.double() for t in x], axis,
                                           passes=1)
-            print(f'gru 1xTF32 {shape} axis {axis}: against float64 (the '
+            old = variants.direction_call(pr14, x, axis, 1, outs)
+            torch.cuda.synchronize()
+            print(f'gru 1xTF32 {shape} axis {axis} (cluster {cfg["cluster"]}, '
+                  f'ring {cfg["stages"]} x 16 KB, BM {cfg["bm"]}, '
+                  f'{cfg["smem"]} B shared per CTA): against float64 (the '
                   f'rounded operands): kernel '
                   f'{(got - ref).abs().max().item():.3e}, plain '
-                  f'{(plain - ref).abs().max().item():.3e}; kernel vs plain '
+                  f'{(plain - ref).abs().max().item():.3e}, pr14_one_pass '
+                  f'{(old - ref).abs().max().item():.3e}; kernel vs plain '
                   f'mean abs {mean:.3e}, {flips:.2e} of outputs past '
                   f'{KERNEL_ATOL:g}', flush=True)
             del ref
@@ -2124,29 +2185,46 @@ def gru_one_pass_phase(torch, gru):
                      f'at {shape} axis {axis}: max {err}, mean {mean}')
             if not three > 0:
                 fail(f'one-pass GRU kernel equals the 3xTF32 one at {shape}')
+            turns = []
+            for which in ('old', 'new', 'new', 'old'):
+                turns.append(cuda_ms(torch, lambda: variants.direction_call(
+                    pr14 if which == 'old' else lib, x, axis, 1, outs), 20))
+            ms, old_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
             convs = [gru._conv_weight(gru.unpack_direction(w), axis)
                      for w in x[2:4]]
-            ms = cuda_ms(torch, lambda: gru.gru_direction(*x, axis, passes=1), 10)
             plain_ms = cuda_ms(torch, lambda: gru.gru_direction_plain(
                 *x, axis, passes=1), 5)
             with precision_scope('tensorfloat32'):
                 lib_ms = cuda_ms(torch, lambda: gru.gru_direction_convs(
                     x[0], x[1], *convs, x[4], x[5], axis), 5)
             bound = gru_bound_ms(m)['tf32x3'] / 3
-            rec['at'][(shape, axis)] = (ms, plain_ms, lib_ms, bound)
+            feed = variants.feed_bytes(shape, axis, cfg['cluster'], cfg['bm'])
+            feed_old = variants.feed_bytes(shape, axis, 1,
+                                           variants.pr14_bm(shape[2], axis))
+            rec['at'][(shape, axis)] = (ms, plain_ms, lib_ms, bound, old_ms)
             print(f'gru 1xTF32 {shape} axis {axis} (M={m}): max abs err '
                   f'{err:.3e} vs its plain version ({three:.3e} from 3xTF32); '
-                  f'{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN convs (TF32) '
-                  f'{lib_ms:.4f} ms; bound {bound:.4f} ms (operations, 1xTF32 '
-                  f'at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s), {bound / ms:.1%} '
-                  f'of it', flush=True)
-        del x
+                  f'in turns old/new/new/old {turns[0]:.4f} / {turns[1]:.4f} / '
+                  f'{turns[2]:.4f} / {turns[3]:.4f} ms: {ms:.4f} ms against '
+                  f'pr14_one_pass {old_ms:.4f} ({old_ms / ms:.2f}x); L2 -> SM '
+                  f'{feed["total"] / 1e9:.3f} GB ({feed["total"] / ms / 1e9:.2f} '
+                  f'TB/s) against {feed_old["total"] / 1e9:.3f} GB '
+                  f'({feed_old["total"] / old_ms / 1e9:.2f} TB/s); plain '
+                  f'{plain_ms:.4f} ms, cuDNN convs (TF32) {lib_ms:.4f} ms; '
+                  f'bound {bound:.4f} ms (operations, 1xTF32 at '
+                  f'{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s), {bound / ms:.1%} of '
+                  f'it (pr14_one_pass {bound / old_ms:.1%})', flush=True)
+            if ms > old_ms * ONE_PASS_SLOWER:
+                fail(f'the one-pass GRU kernel is slower than pr14_one_pass at '
+                     f'{shape} axis {axis}: {ms:.4f} against {old_ms:.4f} ms')
+        del x, outs
     torch.cuda.empty_cache()
     at = [rec['at'][(GRU_SHAPES[0], a)] for a in gru.AXES]
     rec['ms'] = sum(a[0] for a in at) / len(at)
     rec['plain_ms'] = sum(a[1] for a in at) / len(at)
     rec['library_ms'] = sum(a[2] for a in at) / len(at)
     rec['bound_ms'], rec['bound_by'] = at[0][3], 'operations'
+    rec['pr14_one_pass_ms'] = sum(a[4] for a in at) / len(at)
     return rec
 
 
@@ -2405,13 +2483,14 @@ def lanes_resize_phase(torch, np, transforms) -> None:
             fail(f'device resize under TF32 differs from PIL at {h}x{w}')
 
 
-def lanes_phase(torch, np, corr_lookup, gru, transforms, launches) -> dict:
+def lanes_phase(torch, np, corr_lookup, gru, transforms, launches, pr14,
+                build_log: str, lib_path: Path) -> dict:
     """Phase 19: (a) the one-pass GRU kernel, (b) the flow families, (c)
     and (d) the bf16 and int8 lanes, (e) the resize under TF32; then
     ``registry.MIXED_FEATURES`` against the measured drifts of mixed."""
     from video_features_torch.config import load_config
     from video_features_torch.registry import EXTRACTORS, MIXED_FEATURES
-    rec = gru_one_pass_phase(torch, gru)
+    rec = gru_one_pass_phase(torch, gru, pr14, build_log, lib_path)
     drift = {}
     lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift)
     lanes_dtype_phase(torch, np, corr_lookup, gru, drift)
@@ -2872,16 +2951,19 @@ def flight_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
     kernels = kernel_events(prof_dir)
     masked = sum(n for k, n in kernels.items() if 'masked_kernel' in k)
     gru3 = sum(n for k, n in kernels.items() if 'gru_tf32x3' in k)
+    gru1 = sum(n for k, n in kernels.items() if 'gru_tf32_onepass' in k)
     # ops/gru.py counts one per direction, each the zr and the q kernel
     if masked != counts['masked'] or gru3 != 2 * counts['gru'] \
-            or counts['gru1']:
-        fail(f'phase 21 (b): the trace shows {masked} masked_kernel and '
-             f'{gru3} gru_tf32x3 launches; the counters say {counts}')
+            or gru1 != 2 * counts['gru1']:
+        fail(f'phase 21 (b): the trace shows {masked} masked_kernel, '
+             f'{gru3} gru_tf32x3 and {gru1} gru_tf32_onepass launches; the '
+             f'counters say {counts}')
     print(f'phase 21 (b) ({card}): the torch.profiler trace under profile_dir '
           f'shows {masked} masked_kernel launches (lookup counter '
-          f'{counts["masked"]}) and {gru3} gru_tf32x3 launches (GRU counter '
-          f'{counts["gru"]} directions of 2 kernels); {len(kernels)} kernel '
-          'names in all', flush=True)
+          f'{counts["masked"]}), {gru3} gru_tf32x3 launches (GRU counter '
+          f'{counts["gru"]} directions of 2 kernels) and {gru1} '
+          f'gru_tf32_onepass launches (one-pass counter {counts["gru1"]}); '
+          f'{len(kernels)} kernel names in all', flush=True)
 
     # (c) packed through the decode farm at the YAML's 2 workers
     ex_pack = i3d('c', pack_across_videos=True,
@@ -3273,8 +3355,12 @@ def main() -> int:
     set_precision('highest')
 
     t = phase('build')
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    from tools import gru_tf32x3_variants as variants
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        # the one-pass yardstick of phase 19 (a), built beside the kernels
+        pr14_job = pool.submit(variants.build, 'pr14_one_pass')
         built = list(pool.map(_kernels.build, KERNELS))
+        pr14 = pr14_job.result()[0]
     for name, (path, log) in zip(KERNELS, built):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line or 'entry function' in line:
@@ -3393,7 +3479,9 @@ def main() -> int:
     t = phase('precision lanes (the one-pass GRU kernel; I3D and RAFT under '
               'highest, high and tensorfloat32; the bf16 and int8 lanes; the '
               'device resize under TF32)')
-    rec['gru1'] = lanes_phase(torch, np, corr_lookup, gru, transforms, launches)
+    gru_built = built[KERNELS.index('gru_direction')]
+    rec['gru1'] = lanes_phase(torch, np, corr_lookup, gru, transforms, launches,
+                              pr14, gru_built[1], gru_built[0])
     print(f'lanes phase {time.perf_counter() - t:.1f} s', flush=True)
 
     t = phase('feature cache (I3D at batch 8 per video, packed through the '
@@ -3436,6 +3524,9 @@ def main() -> int:
             'library_ms': r['library_ms']})
     # the 3xTF32 GRU row's bound is 3xTF32's; the fp32 FMA bound beside it
     kernels[2]['fp32_bound_ms'] = rec['gru']['fp32_bound_ms']
+    # the one-pass row's same-call yardstick: the design before the cluster
+    # kernel
+    kernels[3]['pr14_one_pass_ms'] = rec['gru1']['pr14_one_pass_ms']
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

@@ -176,8 +176,13 @@ def test_gru_kernel_matches_plain_on_the_card(b, h, w, axis):
 GRU1_ATOL, GRU1_MEAN_ATOL = 5e-4, 1e-6
 
 
+# the grids above but the one smaller than the taps' halo, plus the
+# cluster kernel's edges: 300 pixels in 3 tiles of 128 (the last partial;
+# the last cluster holds a CTA with no rows), a grid smaller than one
+# cluster, and the RAFT family's main-path grid at batch 8
 @pytest.mark.cuda
-@pytest.mark.parametrize('b,h,w', [(2, 32, 43), (3, 13, 9), (1, 6, 100)])
+@pytest.mark.parametrize('b,h,w', [(2, 32, 43), (3, 13, 9), (1, 6, 100),
+                                   (1, 5, 60), (2, 3, 4), (8, 32, 43)])
 @pytest.mark.parametrize('axis', ['w', 'h'])
 def test_gru_one_pass_kernel_matches_plain_on_the_card(b, h, w, axis):
     dev = _cuda()

@@ -28,7 +28,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 GROUPS = (('corr_lookup', ('masked_kernel', 'padded_kernel')),
-          ('gru_direction', ('gru_tf32x3',)),
+          ('gru_direction', ('gru_tf32x3', 'gru_tf32_onepass')),
           ('gemm', ('gemm', 'cutlass', 'sm90_xmma', 'cublas')),
           ('conv', ('conv', 'cudnn', 'implicit', 'winograd', 'fft')),
           ('pool', ('pool',)))

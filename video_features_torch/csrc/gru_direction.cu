@@ -81,13 +81,18 @@
 //   * Tiles: BM = 128 (two warpgroups) wherever a slice's staged rows fit
 //     in shared memory (W <= 83 for axis 'h'), else 64.
 //
-// One pass (PASSES = 1, for the precision lanes that JAX runs in one pass:
-// default, tensorfloat32, bfloat16): each K step issues only hi*hi, the
-// activations are rounded to TF32 with no lo split, and only the hi part of
-// each weight tile is copied in, so a third of the products and half the
-// weight bytes. The least time at the batch-8 shape is then
-// 1.73e11 / 495 TFLOP/s = 0.35 ms. PASSES = 3 is the kernel above, bit for
-// bit.
+// One pass (the precision lanes that JAX runs in one pass: default,
+// tensorfloat32, bfloat16): each K step issues only hi*hi, the activations
+// are rounded to TF32 with no lo split, and only the hi part of each weight
+// tile is read, so a third of the products. The least time at the batch-8
+// shape is then 1.73e11 / 495 TFLOP/s = 0.35 ms. gru_tf32x3<WGS, ZR, 1>
+// did that on the schedule above and reached 27% of it: every block
+// streamed the direction's whole weight set (40 tiles x 16 KB) through L2
+// for 128 pixels, 2.71 GB per direction for 1.3 MB of weights, and drained
+// the tensor cores at every tap. The entry point runs gru_tf32_onepass
+// instead (its own note, below); the PASSES = 1 instantiation stays as the
+// yardstick that tools/gru_tf32x3_variants.py builds. PASSES = 3 is the
+// kernel above, bit for bit.
 //
 // No split-K and no atomics: every output is written once by one thread, so
 // results are deterministic. The TPU kernel's (W, M, C) transposed VMEM
@@ -465,23 +470,512 @@ gru_tf32x3(Args a) {
   }
 }
 
-// Raise each instantiation's dynamic shared memory limit to the device's
-// opt-in maximum, once per device ordinal. The runtime keeps a function's
-// attributes per device context: a flag set once per process would leave a
-// second card at the 48 KB default, where the launch fails with
-// cudaErrorInvalidValue.
+// ---------------------------------------------------------------------------
+// The one-pass kernel: gru_tf32_onepass<WGS, ZR>, the same two GEMMs and
+// epilogues in one TF32 pass (hi*hi; the A fragments rounded by tf32_rna in
+// registers, the taps masked per row at the image's edge). Per 128-pixel
+// block a tap's 4 products (m64n128k8 per warpgroup) take 512 tensor-core
+// cycles and need a 16 KB weight tile: 32 B per cycle per SM, 7.4 TB/s
+// from L2 over 132 SMs at the bound, which is why the design cuts the
+// weight stream. On the card (tools/gru_tf32x3_variants.py, NVIDIA H100
+// 80GB HBM3, 700 W) the feed turned out not to be what held the
+// instantiation of gru_tf32x3 back: its floors with no products and with
+// no refills are both near its time, a cluster of 1 runs as fast as one of
+// 2, and the time went to draining the tensor cores at every tap, to
+// registers (spills make ptxas serialise wgmma) and to the epilogue's
+// round trips. The layout:
+//
+//   * Clusters along M: kCluster CTAs on neighbouring M-tiles with the same
+//     128 outputs share every weight tile. Each CTA fetches 1/kCluster of
+//     the tile and multicasts it to all of them at the same shared-memory
+//     offset (cp.async.bulk ... .multicast::cluster), completing on each
+//     CTA's "full" mbarrier, which expects the whole 16 KB. A stage is
+//     refilled only once every consumer warp of every CTA has released it:
+//     each arrives on every CTA's "empty" mbarrier (mapa and a remote
+//     arrive in CUTLASS's form; an explicit .release.cluster arrive costs
+//     a fence on every call). The weight stream falls by kCluster: 2.71 GB
+//     -> 1.35 GB per direction at the batch-8 shape.
+//   * A producer warpgroup: its thread 0 issues the weight copies, and its
+//     128 threads stage each slice's activation rows by cp.async
+//     (zero-filled past the tensor), completing on the slice buffer's
+//     "afull" mbarrier. The consumer warpgroups only load fragments, round,
+//     issue wgmma and run the epilogue. The register file is handed out by
+//     warpgroup, so a lone producer warp would cost a warpgroup's registers
+//     all the same (168 a thread at 3 warpgroups, where the consumers
+//     spill); instead the producers give theirs away (setmaxnreg.dec to
+//     56) and the consumers take them (setmaxnreg.inc to 224). One-pass
+//     stages are 16 KB, so the ring runs up to kRingMax = 8 deep (a 3-deep
+//     ring measured 28-42% slower).
+//   * Fewer drains: a tap's 4 products are one wgmma group, and the fp32
+//     flush is widened from every tap to every slice (kFlushTaps = 5 taps,
+//     20 K steps summed in the tensor cores' accumulator before the fp32
+//     add): 8 flushes per tile instead of 40 (every tap measured 38%
+//     slower). Against
+//     the plain version that moved the mean error from 4.1e-7 to 4.9e-7
+//     and left the max at the r*h rounding flips' ~9e-5, inside the
+//     one-pass bounds (5e-4, 1e-6); the 3xTF32 kernel keeps its per-tap
+//     flush. Each group is waited for before the next is queued
+//     (kInFlight = 0): leaving one running (1) keeps a second fragment set
+//     live, which spills, and measured 2-4% slower. The loop body is one
+//     slice, so taps and fragment sets are known at compile time (a
+//     runtime tap put the flush in a branch, and ptxas serialised the
+//     products). Empty asm statements that name the sums and fragments
+//     (fence_regs) pin every read of a sum and every write of a fragment
+//     after the wait that frees it; without them the compiler may hoist
+//     one above the wait, and ptxas then serialises the products too.
+//   * The epilogue reads term, h and z (540 MB per direction at the batch-8
+//     shape) at the tile's end, with nothing to overlap: its loads, one
+//     round trip after another behind stores that may alias them, cost
+//     ~0.15-0.2 ms. They are issued in batches of kEpilogueBatch channel
+//     pairs before their stores (a prefetch of the rows into L2 mid-tile
+//     gained nothing: the round trips, not the bytes, cost the time).
+//
+// A CTA past the last M-tile (the grid is a whole number of clusters) has
+// no rows: it stages zeros, takes part in every multicast and barrier, and
+// writes nothing. Each CTA starts after a cluster barrier (no peer writes
+// into barriers before they exist) and ends with one (no CTA leaves while a
+// peer may still arrive on its barriers). Every wait is bounded: a barrier
+// that never completes traps (a launch error) instead of hanging the card.
+// Tiles: BM = 128 where the staged rows leave room for kRingWide stages
+// (axis 'h' with W <= 83), else 64.
+constexpr int kCluster = 2;              // CTAs per cluster sharing a tile
+constexpr int kRingMax = 8;              // deepest weight ring, 16 KB stages
+constexpr int kRingWide = 6;             // stages that BM = 128 must leave
+constexpr int kActBufs = 2;              // slice buffers: staged a slice ahead
+constexpr int kProducers = 128;          // one warpgroup
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;   // setmaxnreg
+constexpr int kInFlight = 0;             // wgmma groups left running at a wait
+constexpr int kFlushTaps = 5;            // taps summed in the tensor cores
+constexpr int kEpilogueBatch = 8;        // channel pairs loaded together
+constexpr uint32_t kSpinLimit = 1u << 26;
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster, divergent or not
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n"
+               "barrier.cluster.wait;\n" ::: "memory");
+}
+
+// mbar_wait, bounded
+__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar, int parity) {
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin == kSpinLimit) __trap();
+  }
+}
+
+// where on: arrive on the mbarrier at the same offset as bar in cluster CTA
+// rank (the form of CUTLASS's ClusterBarrier::arrive: an explicit
+// .release.cluster arrive costs a fence on every call). Predicated, not
+// branched: ptxas serialises wgmma around divergent paths.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank,
+                                                   bool on) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 remote;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" :: "r"(bar), "r"(rank), "r"((int)on) : "memory");
+}
+
+// where on: arrive on this CTA's mbarrier bar, predicated
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool on) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" :: "r"(bar), "r"((int)on) : "memory");
+}
+
+// bytes from src into every CTA of the cluster at dst, completing on the
+// mbarrier at bar's offset in each
+__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src,
+                                               int bytes, uint32_t bar) {
+  if constexpr (kCluster == 1)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
+        :: "r"(dst), "l"(src), "r"(bytes), "r"(bar),
+           "h"((uint16_t)((1u << kCluster) - 1)) : "memory");
+}
+
+// pin the compiler's reads and writes of r to this point in the program
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+size_t onepass_smem(int bm, int gap, int stages) {
+  return 1024 + (size_t)stages * kTileBytes
+       + kActBufs * (size_t)staged_rows(bm, gap) * kLda * 4
+       + (2 * kRingMax + 2 * kActBufs) * 8;
+}
+
+// WGS: consumer warpgroups (BM = 64 * WGS pixels per CTA); ZR as above;
+// stages: the weight ring's depth, 2..kRingMax, as the host sized it.
+template <int WGS, bool ZR>
+__global__ void __launch_bounds__(WGS * 128 + kProducers, 1)
+gru_tf32_onepass(Args a, int stages) {
+  constexpr int BM = 64 * WGS;
+  constexpr int kConsumers = WGS * 128;
+  constexpr int kConsumerWarps = WGS * 4;
+  extern __shared__ uint8_t smem_raw[];
+  // the same offsets in every CTA, which the multicast relies on
+  const uint32_t raw = smem_addr(smem_raw);
+  uint8_t* base = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t bstage = smem_addr(base);                  // stages x 16 KB
+  const int rows = staged_rows(BM, a.gap);
+  float* astage = reinterpret_cast<float*>(base + (size_t)stages * kTileBytes);
+  // full[s]: stage s's tile arrived (16 KB from all the cluster's CTAs);
+  // empty[s]: every consumer warp of the cluster is done with it
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(astage) + kActBufs * (size_t)rows * kLda * 4);
+  uint64_t* empty = full + kRingMax;
+  // afull[b]: activation buffer b's rows arrived (every producer thread's
+  // copies); aempty[b]: every consumer warp has loaded its fragments
+  uint64_t* afull = empty + kRingMax;
+  uint64_t* aempty = afull + kActBufs;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * kBN;
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(smem_addr(&full[i]), 1);
+      mbar_init(smem_addr(&empty[i]), kConsumerWarps * kCluster);
+    }
+    for (int i = 0; i < kActBufs; ++i) {
+      mbar_init(smem_addr(&afull[i]), kProducers);
+      mbar_init(smem_addr(&aempty[i]), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  // one if-else for the whole kernel, as setmaxnreg needs; at WGS = 1 (256
+  // threads) every thread has its 255 registers already
+  if (tid >= kConsumers) {
+    // ---- producer warpgroup ----
+    if constexpr (WGS == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    const int ptid = tid - kConsumers;
+    const uint32_t rank = cluster_rank();
+    constexpr int kShare = kTileBytes / kCluster;
+    // this CTA's share of step w's hi tile (this block's 128 outputs), to
+    // every CTA's stage s
+    auto issue_weights = [&](int w, int s) {
+      const int slice = w / kTaps, tap = w % kTaps;
+      const float* src = a.w + ((int64_t)(tap * kSlices + slice) * a.n_out + n0)
+                                 * kSlice + rank * (kShare / 4);
+      const uint32_t bar = smem_addr(&full[s]);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(bar), "r"(kTileBytes) : "memory");
+      bulk_multicast(bstage + s * kTileBytes + rank * kShare, src, kShare, bar);
+    };
+    // the CTA's pixel rows of one slice, with their halo, into buffer
+    // slice % kActBufs: this thread's 16-byte chunk of every 16th row
+    constexpr int kChunks = kSlice / 4, kRowStep = kProducers / kChunks;
+    const int chunk = ptid % kChunks;
+    auto issue_activations = [&](int slice) {
+      const float* src = (slice < kSlices / 2 ? a.src0 : a.src1)
+                       + (slice % (kSlices / 2)) * kSlice + chunk * 4;
+      const uint32_t dst = smem_addr(astage + (size_t)(slice % kActBufs) * rows * kLda
+                                     + chunk * 4);
+      for (int row = ptid / kChunks; row < rows; row += kRowStep) {
+        const int p = a.gap == a.stride
+            ? m0 - 2 * a.stride + row
+            : m0 + (row / BM - 2) * a.stride + row % BM;
+        const bool valid = p >= 0 && p < a.m;
+        cp_async16(dst + row * kLda * 4, src + (valid ? (int64_t)p * kC : 0),
+                   valid);
+      }
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                   :: "r"(smem_addr(&afull[slice % kActBufs])) : "memory");
+    };
+    // slice g's buffer is free once the consumers have read slice
+    // g - kActBufs
+    auto stage_slice = [&](int g) {
+      if (g >= kActBufs)
+        mbar_wait_bounded(smem_addr(&aempty[g % kActBufs]),
+                          (g / kActBufs - 1) & 1);
+      issue_activations(g);
+    };
+    const int wsteps = kSteps, aslices = kSlices;   // streamed, in full
+    int next = 0;
+    for (; next < kActBufs && next < aslices; ++next) stage_slice(next);
+    int s = 0, ph = 0;
+    for (int w = 0; w < wsteps; ++w) {
+      if (w >= stages) {
+        // every consumer of the cluster has released step w - stages, so
+        // slices whose buffer that frees (past slice g - kActBufs's last
+        // tap, step kTaps * (g - kActBufs + 1) - 1) are staged now, ahead
+        // of their use
+        mbar_wait_bounded(smem_addr(&empty[s]), ph ^ 1);
+        while (next < aslices
+               && w - stages >= kTaps * (next - kActBufs + 1) - 1)
+          stage_slice(next++);
+      }
+      if (ptid == 0) issue_weights(w, s);
+      __syncwarp();
+      if (++s == stages) { s = 0; ph ^= 1; }
+    }
+    while (next < aslices) stage_slice(next++);
+    cluster_sync();
+  } else {
+    // ---- consumer warpgroups ----
+    if constexpr (WGS == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    const int wg = tid / 128;
+    const int warp = (tid / 32) % 4;
+    // this thread's two pixels (fragment rows g and g + 8 of its warp) and
+    // their positions along the tap axis
+    const int r0 = wg * 64 + warp * 16 + lane / 4;
+    const int extent = a.axis_h ? a.height : a.width;
+    int pos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = m0 + r0 + 8 * r;
+      // a pixel past the end gets a position that fails every tap's mask
+      pos[r] = p >= a.m ? -(1 << 20)
+             : (a.axis_h ? (p / a.width) % a.height : p % a.width);
+    }
+    // A fragments of one tap of slice g: 4 K steps of 8 channels rounded to
+    // TF32, rows whose tap leaves the image zeros (gru_tf32x3's
+    // load_fragments)
+    auto load_fragments = [&](int g, int tap, uint32_t (&f)[4][4]) {
+      const float* as = astage + (size_t)(g % kActBufs) * rows * kLda;
+      const int d = tap - kTaps / 2;
+      const bool ok0 = pos[0] + d >= 0 && pos[0] + d < extent;
+      const bool ok1 = pos[1] + d >= 0 && pos[1] + d < extent;
+      const float* row0 = as + (tap * a.gap + r0) * kLda + 8 * (lane % 4);
+      const float* row1 = row0 + 8 * kLda;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 x[4] = {
+          ok0 ? *reinterpret_cast<const float4*>(row0) : zero,
+          ok0 ? *reinterpret_cast<const float4*>(row0 + 4) : zero,
+          ok1 ? *reinterpret_cast<const float4*>(row1) : zero,
+          ok1 ? *reinterpret_cast<const float4*>(row1 + 4) : zero};
+      const float v[4][4] = {{x[0].x, x[2].x, x[0].y, x[2].y},
+                             {x[0].z, x[2].z, x[0].w, x[2].w},
+                             {x[1].x, x[3].x, x[1].y, x[3].y},
+                             {x[1].z, x[3].z, x[1].w, x[3].w}};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) f[k][j] = tf32_rna(v[k][j]);
+    };
+    // where on: this warp is done with weight stage s; tell every CTA's
+    // producer
+    auto release = [&](int s, bool on) {
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r)
+        mbar_arrive_remote(smem_addr(&empty[s]), r, on && lane == 0);
+    };
+
+    // acc: the running sum; psum: kFlushTaps taps' products, summed in the
+    // tensor cores
+    float acc[64], psum[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = psum[i] = 0.f;
+    // two fragment sets: step k + 1's load runs beside step k's products,
+    // which read the other set
+    uint32_t frag[2][4][4];
+    // the ring's position at step K
+    int s = 0, ph = 0, prev = 0;
+    // the stage of the current step, once its tile has arrived
+    auto wait_weights = [&]() {
+      mbar_wait_bounded(smem_addr(&full[s]), ph);
+      return bstage + s * kTileBytes;
+    };
+    // step K's fragments (tap `tap` of its slice) into f, whose last reader
+    // (step K - 2's group) is done; after a slice's last tap the warp is
+    // done with its rows. Past the last step (in = false)
+    // the registers are loaded all the same, from a stale buffer and never
+    // used, so that no fragment write sits in a branch.
+    auto prefetch = [&](int K, int tap, bool in, uint32_t (&f)[4][4]) {
+      const int g = K / kTaps;
+      if (tap == 0 && in)
+        mbar_wait_bounded(smem_addr(&afull[g % kActBufs]),
+                          (g / kActBufs) & 1);
+      fence_regs(f[0]);
+      fence_regs(f[1]);
+      fence_regs(f[2]);
+      fence_regs(f[3]);
+      load_fragments(g, tap, f);
+      if (tap == kTaps - 1) {
+        __syncwarp();
+        mbar_arrive_if(smem_addr(&aempty[g % kActBufs]), lane == 0 && in);
+      }
+    };
+    // Step K (tap `tap` of its slice, known at compile time) queues
+    // its 4 products into psum, which restarts at each flush; waits for
+    // its group (wait_group kInFlight = 0; at 1, step K - 1's), which frees
+    // step K - 1's weight stage and fragment set; loads step K + 1's
+    // fragments while the other warpgroup's products run; and
+    // after every kFlushTaps taps (and a slice's last) drains and adds psum
+    // to acc in fp32. psum is read only after wait_group 0: ptxas
+    // serialises wgmma when a running group's sums are read. A slice's
+    // last tap loads the next slice's first fragments after its drain, into
+    // the set it has just freed, so that every slice uses the sets in the
+    // same order. last: the last step.
+    auto step = [&](int K, int tap, bool last, uint32_t (&f)[4][4],
+                    uint32_t (&fnext)[4][4]) {
+      const uint32_t b = wait_weights();
+      fence_regs(psum);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128k8(psum, f[kk], b_desc(b + kk * 32),
+                        kk > 0 || tap % kFlushTaps != 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      fence_regs(psum);
+      wgmma_wait<kInFlight>();
+      release(prev, K > 0);
+      if (tap < kTaps - 1) prefetch(K + 1, tap + 1, true, fnext);
+      if (tap % kFlushTaps == kFlushTaps - 1 || tap == kTaps - 1) {
+        wgmma_wait<0>();
+        fence_regs(psum);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += psum[i];
+      }
+      if (tap == kTaps - 1) prefetch(K + 1, 0, !last, f);
+      prev = s;
+      if (++s == stages) { s = 0; ph ^= 1; }
+    };
+    static_assert(kTaps == 5, "the fragment sets below follow 5 taps");
+
+    mbar_wait_bounded(smem_addr(&afull[0]), 0);
+    load_fragments(0, 0, frag[0]);
+    // one slice per iteration: sets 0, 1, 0, 1, 0
+#pragma unroll 1
+    for (int k0 = 0; k0 < kSteps; k0 += kTaps) {
+      const bool last = k0 + kTaps == kSteps;
+      step(k0, 0, false, frag[0], frag[1]);
+      step(k0 + 1, 1, false, frag[1], frag[0]);
+      step(k0 + 2, 2, false, frag[0], frag[1]);
+      step(k0 + 3, 3, false, frag[1], frag[0]);
+      step(k0 + 4, 4, last, frag[0], frag[1]);
+    }
+
+    // Epilogue: acc[4j + 2r + e] is pixel m0 + r0 + 8r, channel 8j + 2t + e
+    // of this block's 128 (t = lane % 4), as in gru_tf32x3. The outputs may
+    // alias the inputs as far as the compiler knows, so it keeps every load
+    // after the stores before it: the loads of kEpilogueBatch channel pairs are
+    // issued together, then their stores, 16 / kEpilogueBatch round trips to
+    // memory instead of 16.
+    const bool rh = ZR && blockIdx.y == 1;       // the r half writes r*h
+#pragma unroll
+    for (int j0 = 0; j0 < 16; j0 += kEpilogueBatch) {
+      float2 t[2][kEpilogueBatch], hv[2][kEpilogueBatch], zv[2][kEpilogueBatch];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = m0 + r0 + 8 * r;
+#pragma unroll
+        for (int j = 0; j < kEpilogueBatch; ++j) {
+          const int n = 8 * (j0 + j) + 2 * (lane % 4);
+          const int64_t o = (int64_t)p * kC + n;
+          t[r][j] = hv[r][j] = zv[r][j] = make_float2(0.f, 0.f);
+          if (p >= a.m) continue;
+          t[r][j] = __ldg(reinterpret_cast<const float2*>(
+              a.term + (int64_t)p * a.n_out + n0 + n));
+          if (!ZR || rh)
+            hv[r][j] = __ldg(reinterpret_cast<const float2*>(a.h + o));
+          if (!ZR) zv[r][j] = __ldg(reinterpret_cast<const float2*>(a.z + o));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = m0 + r0 + 8 * r;
+        if (p >= a.m) continue;
+#pragma unroll
+        for (int j = 0; j < kEpilogueBatch; ++j) {
+          const int n = 8 * (j0 + j) + 2 * (lane % 4);
+          const int64_t o = (int64_t)p * kC + n;
+          const float s0 = acc[4 * (j0 + j) + 2 * r] + t[r][j].x;
+          const float s1 = acc[4 * (j0 + j) + 2 * r + 1] + t[r][j].y;
+          if constexpr (ZR) {
+            const float v0 = sigmoid(s0), v1 = sigmoid(s1);
+            if (rh)
+              *reinterpret_cast<float2*>(a.out1 + o) =
+                  make_float2(v0 * hv[r][j].x, v1 * hv[r][j].y);
+            else
+              *reinterpret_cast<float2*>(a.out0 + o) = make_float2(v0, v1);
+          } else {
+            *reinterpret_cast<float2*>(a.out0 + o) = make_float2(
+                (1.0f - zv[r][j].x) * hv[r][j].x + zv[r][j].x * tanhf(s0),
+                (1.0f - zv[r][j].y) * hv[r][j].y + zv[r][j].y * tanhf(s1));
+          }
+        }
+      }
+    }
+    cluster_sync();
+  }
+}
+
+// Raise a kernel's dynamic shared memory limit to the device's opt-in
+// maximum, once per device ordinal (set: the kernel's own table). The
+// runtime keeps a function's attributes per device context: a flag set
+// once per process would leave a second card at the 48 KB default, where
+// the launch fails with cudaErrorInvalidValue.
 constexpr int kMaxDevices = 64;
+
+cudaError_t raise_smem(const void* kernel, std::atomic<int>* set, int device,
+                       int limit) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (set[device].load(std::memory_order_acquire) == limit) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (err == cudaSuccess) set[device].store(limit, std::memory_order_release);
+  return err;
+}
 
 template <int WGS, bool ZR, int PASSES>
 cudaError_t allow_smem(int device, int limit) {
   static std::atomic<int> set[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (set[device].load(std::memory_order_acquire) == limit) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_tf32x3<WGS, ZR, PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      limit);
-  if (err == cudaSuccess) set[device].store(limit, std::memory_order_release);
-  return err;
+  return raise_smem(reinterpret_cast<const void*>(gru_tf32x3<WGS, ZR, PASSES>),
+                    set, device, limit);
+}
+
+template <int WGS, bool ZR>
+cudaError_t allow_onepass_smem(int device, int limit) {
+  static std::atomic<int> set[kMaxDevices];
+  return raise_smem(reinterpret_cast<const void*>(gru_tf32_onepass<WGS, ZR>),
+                    set, device, limit);
 }
 
 template <int WGS, int PASSES>
@@ -502,6 +996,105 @@ int launch(Args zr, Args q, int device, int limit, cudaStream_t stream) {
   gru_tf32x3<WGS, false, PASSES><<<dim3(mblocks, kC / kBN), WGS * 128,
                                    smem, stream>>>(q);
   return (int)cudaGetLastError();
+}
+
+// The one-pass kernel's tile and ring for a tap stride: BM = 128 where the
+// staged rows leave room for kRingWide stages, else 64; as many stages as
+// fit, up to kRingMax. wgs = 0: nothing fits.
+struct OnePass {
+  int wgs, gap, stages;
+  size_t smem;
+};
+
+OnePass onepass_config(int stride, int limit) {
+  for (int wgs = 2; wgs >= 1; --wgs) {
+    const int bm = 64 * wgs, gap = stride < bm ? stride : bm;
+    const long long room = (long long)limit - (long long)onepass_smem(bm, gap, 0);
+    const long long fit = room > 0 ? room / kTileBytes : 0;
+    if (fit >= (wgs == 2 ? kRingWide : 2)) {
+      const int stages = fit < kRingMax ? (int)fit : kRingMax;
+      return {wgs, gap, stages, onepass_smem(bm, gap, stages)};
+    }
+  }
+  return {0, 0, 0, 0};
+}
+
+// a launch of gru_tf32_onepass<WGS, ·> in clusters of kCluster along x
+template <int WGS>
+cudaLaunchConfig_t onepass_launch(dim3 grid, const OnePass& c,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* cluster) {
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = kCluster;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(WGS * 128 + kProducers);
+  cfg.dynamicSmemBytes = c.smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int WGS, bool ZR>
+cudaError_t launch_onepass_kernel(const Args& a, int blocks_n, const OnePass& c,
+                                  int device, int limit, cudaStream_t stream) {
+  constexpr int BM = 64 * WGS;
+  cudaError_t err = allow_onepass_smem<WGS, ZR>(device, limit);
+  if (err != cudaSuccess) return err;
+  // a whole number of clusters along M; the CTAs past the last tile idle
+  const unsigned tiles = (unsigned)((a.m + BM - 1) / BM);
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = onepass_launch<WGS>(
+      dim3((tiles + kCluster - 1) / kCluster * kCluster, blocks_n), c, stream,
+      &cluster);
+  err = cudaLaunchKernelEx(&cfg, gru_tf32_onepass<WGS, ZR>, a, c.stages);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// CTAs of gru_tf32_onepass<WGS, true> the device holds at once
+template <int WGS>
+cudaError_t resident_ctas(const OnePass& c, int device, int limit, int* ctas) {
+  cudaError_t err = allow_onepass_smem<WGS, true>(device, limit);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = onepass_launch<WGS>(dim3(kCluster), c,
+                                                     nullptr, &cluster);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, gru_tf32_onepass<WGS, true>,
+                                       &cfg);
+  *ctas = clusters * kCluster;
+  return err;
+}
+
+template <int WGS>
+int launch_onepass(Args zr, Args q, const OnePass& c, int device, int limit,
+                   cudaStream_t stream) {
+  zr.gap = q.gap = c.gap;
+  cudaError_t err = launch_onepass_kernel<WGS, true>(zr, 2 * kC / kBN, c,
+                                                     device, limit, stream);
+  if (err == cudaSuccess)
+    err = launch_onepass_kernel<WGS, false>(q, kC / kBN, c, device, limit,
+                                            stream);
+  return (int)err;
+}
+
+int launch_one_pass(Args zr, Args q, int stride, int device, int limit,
+                    cudaStream_t stream) {
+  const OnePass c = onepass_config(stride, limit);
+  if (c.wgs == 2) return launch_onepass<2>(zr, q, c, device, limit, stream);
+  if (c.wgs == 1) return launch_onepass<1>(zr, q, c, device, limit, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+cudaError_t device_limit(int* device, int* limit) {
+  cudaError_t err = cudaGetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, *device);
+  return err;
 }
 
 }  // namespace
@@ -534,19 +1127,32 @@ int vft_gru_direction_passes(const void* h, const void* motion,
          static_cast<float*>(out), nullptr, (int)m, height, width, axis_h, kC,
          stride, 0};
   int device = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaError_t err = device_limit(&device, &limit);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 128-pixel blocks where a slice's staged rows fit, else 64
   const bool wide = smem_bytes(128, stride < 128 ? stride : 128) <= (size_t)limit;
-  if (passes == 1)
-    return wide ? launch<2, 1>(zr, q, device, limit, s)
-                : launch<1, 1>(zr, q, device, limit, s);
+  if (passes == 1) return launch_one_pass(zr, q, stride, device, limit, s);
   return wide ? launch<2, 3>(zr, q, device, limit, s)
               : launch<1, 3>(zr, q, device, limit, s);
+}
+
+// How the one-pass kernel runs a grid of this width on the current device:
+// CTAs per cluster, weight ring stages, pixels per CTA, shared memory bytes
+// per CTA and the CTAs the device holds at once. Returns a CUDA error code.
+int vft_gru_one_pass_config(int width, int axis_h, int* cluster, int* stages,
+                            int* bm, int* smem, int* resident) {
+  int device = 0, limit = 0;
+  cudaError_t err = device_limit(&device, &limit);
+  if (err != cudaSuccess) return (int)err;
+  const OnePass c = onepass_config(axis_h ? width : 1, limit);
+  if (!c.wgs) return (int)cudaErrorInvalidValue;
+  *cluster = kCluster;
+  *stages = c.stages;
+  *bm = 64 * c.wgs;
+  *smem = (int)c.smem;
+  return (int)(c.wgs == 2 ? resident_ctas<2>(c, device, limit, resident)
+                          : resident_ctas<1>(c, device, limit, resident));
 }
 
 // The same in 3xTF32 (the entry point before the pass count existed).

@@ -24,11 +24,13 @@ accumulate in fp32, which keeps fp32-class results under
 ``precision=highest`` (the Hopper form of the Pallas kernel's bf16_3x).
 Bound by operations: 1.05 ms per direction at the main path's batch-8
 shape at 3 × the TF32 rate (2.58 ms at the fp32 FMA rate). The source's
-note gives the design. ``passes=1`` selects the kernel's one-pass
-instantiation for the one-pass precision lanes (``default``,
+note gives the design. ``passes=1`` selects the one-pass kernel
+(``gru_tf32_onepass``) for the one-pass precision lanes (``default``,
 ``tensorfloat32``, ``bfloat16``; ``utils/device.py::LANES``): only the
 hi·hi products, the activations rounded to TF32 and the weights' lo
-parts not read, a third of the products.
+parts not read, a third of the products; its CTAs run in clusters that
+share each weight tile by multicast, fed by a producer warp, with one
+half of each tap's products in flight while the other is summed.
 
 Weights: :func:`pack_direction` turns the conv weights (O, I, kh, kw),
 I = [h | motion], into the kernel's layout, once per RAFT forward:
@@ -182,6 +184,11 @@ def _library() -> ctypes.CDLL:
                                              + [ctypes.c_int] * 5
                                              + [ctypes.c_void_p])
     lib.vft_gru_direction_passes.restype = ctypes.c_int
+    # (width, axis_h, *cluster, *stages, *bm, *smem, *resident): how the
+    # one-pass kernel runs a grid (tools/gru_tf32x3_variants.py reads it)
+    lib.vft_gru_one_pass_config.argtypes = ([ctypes.c_int] * 2
+                                            + [ctypes.POINTER(ctypes.c_int)] * 5)
+    lib.vft_gru_one_pass_config.restype = ctypes.c_int
     return lib
 
 
