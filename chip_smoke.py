@@ -267,10 +267,40 @@ package is not beside it. Phases:
    byte-equal to one card; with one card a line saying it was not run.
    The phase prints its own wall time.
 
+23. serve (fused I3D): (a) an in-process ``ExtractionServer`` with the
+   fused I3D configuration at full width (both towers at 224, stack 16,
+   step 16, RAFT 20 iterations, batch 8, seeded random weights, the
+   card) answers three requests on three seeded clips written as phase
+   17 writes them, over its loopback socket through ``ServeClient``: two
+   clips (cold: the extractor is built), the same two into a fresh
+   ``output_path`` (warm) and one clip with a path that does not exist;
+   the counts reset just before and read just after each request (a
+   lookup and two GRU launches per RAFT iteration of every step); one
+   extractor build, requests 1 and 2 byte-equal, the missing path
+   failed alone; the per-video loop on the same clips and weights
+   against them (rel L2 ≤ 1e-6); (b) the cold and the warm request's
+   wall; a sustained stream: 24 seeded clips (phase 17's four shapes six
+   times over, 66 windows) sent as 24 one-clip requests at once, twice,
+   and the per-video loop on the same corpus twice, in the order server,
+   loop, loop, server, each round's launches counted from 0 and its
+   windows/s over the whole round; the requests' latencies; the outputs
+   of both server rounds and a loop round against each other (rel L2 ≤
+   1e-6); the device's busy share over a third, traced server round;
+   each line with the card's name and power limit; (c) with
+   ``watchdog_stall_s=30``, ``slo_latency_p99_s=60`` and
+   ``slo_availability=0.99``: no stall, a filled ``slo`` section, and
+   the ``vft_serve_*``, ``vft_slo_*`` families in ``metrics_prom``; (d)
+   ``python -m video_features_torch serve`` in a subprocess with
+   ``trace_out``, once without and once with ``serve_prewarm=i3d``: the
+   time to its endpoint line and its first (cold) request's wall, one
+   request from ``ServeClient``, then SIGTERM: exit 0, the drained line,
+   a merged trace whose spans cover the request, no ring left in
+   ``/dev/shm`` and no child process alive.
+
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10, 17, 18, 19, 20, 21 and 22; the
-one-pass GRU instantiation is an entry of its own); the last line is
-``{"ok": true, "device": {...}}``.
+sum over the path runs of phases 4, 5, 10, 17, 18, 19, 20, 21, 22 and
+23; the one-pass GRU instantiation is an entry of its own); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3317,6 +3347,364 @@ def parallel_phase(torch, np, corr_lookup, gru, check_counts) -> None:
     print(f'phase 22 wall {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
+# -- phase 23: the serve daemon -------------------------------------------------
+
+# three of phase 17's clips (3, 2 and 5 windows)
+SERVE_CLIPS = PACK_CLIPS[:3]
+SERVE_WINDOWS = PACK_WINDOWS[:3]
+SERVE_OBS = {'watchdog_stall_s': 30, 'slo_latency_p99_s': 60,
+             'slo_availability': 0.99}
+# the sustained stream's corpus: phase 17's four clip shapes six times
+# over (24 clips, 66 windows), each clip a request of its own
+STREAM_CLIPS = PACK_CLIPS * 6
+STREAM_WINDOWS = PACK_WINDOWS * 6
+
+
+def serve_base(root: Path) -> dict:
+    """The fused I3D configuration at full width (both towers at 224,
+    stack 16, step 16, RAFT 20 iterations, batch 8, seeded random weights,
+    the card), as base overrides of a serve daemon."""
+    return {'device': 'cuda', 'stack_size': STACK, 'step_size': STACK,
+            'raft_iters': SLICE_ITERS, 'batch_size': PACK_BATCH,
+            'allow_random_weights': True, 'on_extraction': 'save_numpy',
+            'tmp_path': str(root / 'tmp')}
+
+
+def serve_request(client, paths, out: str, timeout_s: float = 600) -> tuple:
+    """Submit ``paths`` into ``out`` and wait: (status, wall seconds)."""
+    t0 = time.perf_counter()
+    st = client.wait(client.submit('i3d', paths, overrides={'output_path': out}),
+                     timeout_s=timeout_s)
+    return st, time.perf_counter() - t0
+
+
+def serve_stream(client, paths, out: str) -> tuple:
+    """Every clip of ``paths`` as a request of its own, all submitted at
+    once into ``out``: (seconds from the first submit to the last answer,
+    the requests' latencies as the server measured them, their states)."""
+    t0 = time.perf_counter()
+    rids = [client.submit('i3d', [p], overrides={'output_path': out})
+            for p in paths]
+    sts = [client.wait(rid, timeout_s=600) for rid in rids]
+    return (time.perf_counter() - t0, [st.get('latency_s') for st in sts],
+            [st['state'] for st in sts])
+
+
+def nearest_rank(values, q: float) -> float:
+    """The ``q`` quantile of ``values`` by nearest rank."""
+    ordered = sorted(values)
+    return ordered[max(0, math.ceil(q * len(ordered)) - 1)]
+
+
+def child_pids(pid: int) -> list:
+    """The processes whose parent is ``pid`` (from /proc)."""
+    out = []
+    for entry in os.listdir('/proc'):
+        if not entry.isdigit():
+            continue
+        try:
+            stat = Path(f'/proc/{entry}/stat').read_text()
+        except OSError:
+            continue
+        if int(stat.rsplit(')', 1)[1].split()[1]) == pid:
+            out.append(int(entry))
+    return out
+
+
+def serve_subprocess_phase(root: Path, paths: list, card: str,
+                           prewarm: bool) -> tuple:
+    """(d) ``python -m video_features_torch serve`` on the card (with
+    ``serve_prewarm=i3d`` when ``prewarm``), one request from
+    ``ServeClient``, then SIGTERM: exit 0, the drained line, a merged
+    ``trace_out`` whose spans cover the request, no ring left in
+    /dev/shm and no child process alive. Returns (seconds to the
+    endpoint line, the first request's wall)."""
+    import signal
+    from video_features_torch.serve.client import ServeClient
+    tag = 'prewarm' if prewarm else 'cold'
+    where = f'phase 23 (d, {tag})'
+    trace = root / f'serve_trace_{tag}.json'
+    args = [f'{k}={v}' for k, v in serve_base(root / f'sub_{tag}').items()]
+    args.append(f'trace_out={trace}')
+    if prewarm:
+        args.append('serve_prewarm=i3d')
+    shm_before = set(os.listdir('/dev/shm'))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'video_features_torch', 'serve', *args],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        line = proc.stdout.readline()
+        endpoint_s = time.perf_counter() - t0
+        if not line.startswith('serving on '):
+            proc.kill()
+            fail(f'{where}: no endpoint line: {line!r} '
+                 f'{proc.stderr.read()[-2000:]}')
+        port = int(line.split()[2].rsplit(':', 1)[1])
+        client = ServeClient(port=port)
+        st, first_wall = serve_request(client, paths[:1], str(root / f'd_{tag}'))
+        trace_id = st.get('trace_id')
+        if st['state'] != 'done':
+            proc.kill()
+            fail(f'{where}: the request ended {st}')
+        m = client.metrics()
+        children = child_pids(proc.pid)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    builds = (m['warm_pool']['builds_compiled'], m['warm_pool']['misses'])
+    if builds != ((1, 0) if prewarm else (1, 1)):
+        fail(f'{where}: warm pool {m["warm_pool"]}: want one build, '
+             + ('at start-up' if prewarm else 'by the request'))
+    print(f'{where} [{card}]: endpoint line {endpoint_s:.3f} s after the '
+          f'start{" (the pre-warm included)" if prewarm else ""}, first '
+          f'request {first_wall:.3f} s wall; drained '
+          f'{time.perf_counter() - t_term:.3f} s after SIGTERM, exit '
+          f'{proc.returncode}', flush=True)
+    if proc.returncode != 0 or 'serve: drained, exiting' not in stdout:
+        fail(f'{where}: exit {proc.returncode}, stdout {stdout[-500:]!r}, '
+             f'stderr {stderr[-2000:]}')
+    deadline = time.monotonic() + 10
+    alive = children
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if Path(f'/proc/{p}').exists()
+                 and 'Z' not in Path(f'/proc/{p}/stat').read_text().split()[2]]
+        time.sleep(0.1)
+    left = sorted(set(os.listdir('/dev/shm')) - shm_before)
+    if left or alive:
+        fail(f'{where}: left behind: /dev/shm {left}, processes {alive}')
+    try:
+        events = json.loads(trace.read_text())['traceEvents']
+    except (OSError, ValueError, KeyError) as e:
+        fail(f'{where}: no merged trace at {trace}: {e}')
+    mine = [e for e in events
+            if (e.get('args') or {}).get('trace_id') == trace_id
+            or trace_id in ((e.get('args') or {}).get('trace_ids') or ())]
+    names = {e['name'] for e in mine}
+    if not {'admission', 'model', 'd2h', 'save'} <= names:
+        fail(f'{where}: the merged trace covers the request with '
+             f'{sorted(names)}, want admission, model, d2h and save')
+    span = [e for e in mine if e.get('ph') == 'X']
+    print(f'{where}: merged trace, {len(mine)} events of the request '
+          f'({sorted(names)}) over '
+          f'{(max(e["ts"] + e["dur"] for e in span) - min(e["ts"] for e in span)) / 1e6:.3f} s; '
+          f'{len(children)} farm worker(s) gone, /dev/shm clean', flush=True)
+    return endpoint_s, first_wall
+
+
+def serve_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
+    """The warm-pool daemon on the card: an in-process ExtractionServer
+    with the fused I3D configuration answers three requests over its
+    loopback socket, then a sustained stream against the per-video loop;
+    then a daemon started from the command line, without and with its
+    pre-warm."""
+    import multiprocessing
+
+    from video_features_torch.config import load_config
+    from video_features_torch.extract.i3d import ExtractI3D
+    from video_features_torch.registry import create_extractor
+    from video_features_torch.serve.client import ServeClient
+    from video_features_torch.serve.server import ExtractionServer
+    os.environ['VFT_RAFT_LOOKUP'] = 'auto'
+    root = ROOT / 'output' / 'serve'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    paths = write_clips(np, root, SERVE_CLIPS, seed=23)
+    stream_paths = write_clips(np, root, STREAM_CLIPS, seed=231)
+    missing = str(root / 'missing.avi')
+    shm_before = set(os.listdir('/dev/shm'))
+    steps = [0]
+    packed_step = ExtractI3D.packed_step
+    width = 2048
+
+    def counted_step(self, x):
+        steps[0] += 1
+        return packed_step(self, x)
+
+    def counted(where, run):
+        """``run()`` with the counts set to 0 just before and read just
+        after: its result and its fused steps."""
+        reset_counts(corr_lookup, gru)
+        steps[0] = 0
+        out = run()
+        torch.cuda.synchronize()
+        check_counts(read_counts(corr_lookup, gru), 'masked', steps[0], where)
+        return out, steps[0]
+
+    def check_shapes(tree, clip_paths, windows, where):
+        for p, n in zip(clip_paths, windows):
+            out = tree.get(Path(p).stem + '.npy')
+            if out is None or out.shape != (n, width) \
+                    or not np.isfinite(out).all():
+                fail(f'{where}: {Path(p).name} gave '
+                     f'{None if out is None else out.shape}, want ({n}, '
+                     f'{width}), finite')
+
+    ExtractI3D.packed_step = counted_step
+    server = None
+    try:
+        server = ExtractionServer(base_overrides={**serve_base(root),
+                                                  **SERVE_OBS}).start()
+        client = ServeClient(port=server.port)
+        results = {}
+        for name, req_paths, out in (
+                ('1 (cold)', paths[:2], 'r1'), ('2 (warm)', paths[:2], 'r2'),
+                ('3 (a missing path)', [paths[2], missing], 'r3')):
+            reset_counts(corr_lookup, gru)
+            steps[0] = 0
+            st, wall = serve_request(client, req_paths, str(root / out))
+            torch.cuda.synchronize()
+            counts = read_counts(corr_lookup, gru)
+            windows = sum(SERVE_WINDOWS[paths.index(p)] for p in req_paths
+                          if p in paths)
+            print(f'phase 23 (a) request {name} [{card}]: {st["state"]}, '
+                  f'{wall:.3f} s wall, {windows} windows, {steps[0]} fused '
+                  f'steps at batch {PACK_BATCH}, launches {counts}',
+                  flush=True)
+            check_counts(counts, 'masked', steps[0],
+                         f'phase 23 (a) request {name}')
+            results[name] = (st, wall, windows)
+        st1, st3 = results['1 (cold)'][0], results['3 (a missing path)'][0]
+        if st1['state'] != 'done' or results['2 (warm)'][0]['state'] != 'done':
+            fail(f'phase 23 (a): requests 1 and 2 ended {st1}, '
+                 f'{results["2 (warm)"][0]}')
+        if st3['state'] != 'partial' or st3['videos'] != {
+                paths[2]: 'saved', missing: 'failed'}:
+            fail(f'phase 23 (a): request 3 ended {st3}, want the missing '
+                 'path failed alone')
+        m = client.metrics()
+        if (m['warm_pool']['builds_compiled'], m['warm_pool']['misses']) != (1, 1):
+            fail(f'phase 23 (a): {m["warm_pool"]} (want one extractor build)')
+        trees = {t: tree_arrays(np, str(root / t)) for t in ('r1', 'r2')}
+        if compare_trees(np, trees['r1'], trees['r2'], 'phase 23 r1 vs r2'):
+            fail('phase 23 (a): requests 1 and 2 are not byte-equal')
+        check_shapes(trees['r1'], paths[:2], SERVE_WINDOWS[:2], 'phase 23 (a)')
+        check_shapes(tree_arrays(np, str(root / 'r3')), paths[2:],
+                     SERVE_WINDOWS[2:], 'phase 23 (a)')
+
+        # the per-video loop on the same clips and weights, for the bytes
+        ex = create_extractor(load_config('i3d', overrides={
+            **serve_base(root), 'video_paths': paths[:2],
+            'output_path': str(root / 'pv')}))
+        counted('phase 23 per-video loop',
+                lambda: [ex._extract(p) for p in paths[:2]])
+        worst = compare_trees(np, tree_arrays(np, str(root / 'pv')),
+                              trees['r1'], 'phase 23 per-video vs served')
+        print(f'phase 23 (a): served requests 1 and 2 byte-equal; the '
+              f'per-video loop against them '
+              + ('byte-equal' if not worst else f'rel L2 {worst:.3e}'),
+              flush=True)
+        cold, warm = results['1 (cold)'][1], results['2 (warm)'][1]
+        print(f'phase 23 (b) [{card}]: request wall cold {cold:.3f} s, warm '
+              f'{warm:.3f} s (one request each)', flush=True)
+
+        # (b) a sustained stream: rounds in the order server, loop, loop,
+        # server, each over the whole corpus
+        def loop_round(out):
+            ex.output_path = out
+            t0 = time.perf_counter()
+            for p in stream_paths:
+                ex._extract(p)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        corpus = sum(STREAM_WINDOWS)
+        rates = {'server': [], 'loop': []}
+        latencies = []
+        for i, kind in enumerate(('server', 'loop', 'loop', 'server')):
+            out = str(root / f'stream{i}_{kind}')
+            where = f'phase 23 (b) stream round {i + 1} ({kind})'
+            if kind == 'server':
+                (wall, lat, states), n_steps = counted(
+                    where, lambda: serve_stream(client, stream_paths, out))
+                if set(states) != {'done'}:
+                    fail(f'{where}: states {sorted(set(states))}')
+                latencies += lat
+            else:
+                wall, n_steps = counted(where, lambda: loop_round(out))
+            rates[kind].append(corpus / wall)
+            print(f'{where} [{card}]: {len(stream_paths)} clips, {corpus} '
+                  f'windows in {wall:.3f} s, {n_steps} fused steps: '
+                  f'{corpus / wall:.3f} windows/s', flush=True)
+        streams = {i: tree_arrays(np, str(root / f'stream{i}_{kind}'))
+                   for i, kind in ((0, 'server'), (1, 'loop'), (3, 'server'))}
+        check_shapes(streams[0], stream_paths, STREAM_WINDOWS,
+                     'phase 23 (b) stream')
+        worst = max(compare_trees(np, streams[0], streams[3],
+                                  'phase 23 (b) server rounds 1 vs 4'),
+                    compare_trees(np, streams[1], streams[0],
+                                  'phase 23 (b) loop vs server'))
+        server_rate = sum(rates['server']) / 2
+        loop_rate = sum(rates['loop']) / 2
+        print(f'phase 23 (b) [{card}]: sustained stream, {server_rate:.3f} '
+              f'windows/s through the server (rounds '
+              f'{", ".join(f"{r:.3f}" for r in rates["server"])}) against '
+              f'{loop_rate:.3f} through the per-video loop (rounds '
+              f'{", ".join(f"{r:.3f}" for r in rates["loop"])}): '
+              f'{server_rate / loop_rate:.3f}x; outputs '
+              + ('byte-equal' if not worst else f'within rel L2 {worst:.3e}'),
+              flush=True)
+        print(f'phase 23 (b) [{card}]: latency of the {len(latencies)} stream '
+              f'requests (all of a round submitted at once): p50 '
+              f'{nearest_rank(latencies, 0.5):.4f} s, p90 '
+              f'{nearest_rank(latencies, 0.9):.4f} s, max '
+              f'{max(latencies):.4f} s', flush=True)
+        del ex, streams
+        torch.cuda.empty_cache()
+        busy, n_steps = counted('phase 23 (b) traced stream round', lambda: busy_share(
+            torch, lambda: serve_stream(client, stream_paths,
+                                        str(root / 'stream_traced'))))
+        print(f'phase 23 (b) [{card}]: device busy '
+              + ('not measured (the profiler recorded no device activity)'
+                 if busy is None else f'{busy:.1%} of a traced stream '
+                 f'round\'s wall ({n_steps} fused steps)'), flush=True)
+
+        # (c) the watchdog and the SLOs
+        m = client.metrics()
+        wd, slo = m['watchdog'], m['slo']
+        if not wd['enabled'] or wd['stalls_total'] != 0:
+            fail(f'phase 23 (c): watchdog {wd}')
+        if not slo['enabled'] or set(slo['burn_rates']) != {
+                'latency', 'availability'}:
+            fail(f'phase 23 (c): slo section {slo}')
+        prom = client.metrics_prom()
+        families = {ln.split()[2] for ln in prom.splitlines()
+                    if ln.startswith('# TYPE ')}
+        want = {'vft_serve_requests_total', 'vft_serve_request_latency_seconds',
+                'vft_serve_queue_depth', 'vft_slo_latency_burn_rate',
+                'vft_slo_availability_burn_rate', 'vft_slo_alert',
+                'vft_watchdog_enabled'}
+        if not want <= families:
+            fail(f'phase 23 (c): metrics_prom lacks {sorted(want - families)}')
+        print(f'phase 23 (c): watchdog stalls 0 over {len(wd["workers"])} '
+              f'row(s); slo burn rates {slo["burn_rates"]}, alerts '
+              f'{slo["alerts"]}; {len(families)} Prometheus families',
+              flush=True)
+        server.drain(wait=True, grace_s=300)
+        server = None
+    finally:
+        ExtractI3D.packed_step = packed_step
+        if server is not None:
+            server.drain(wait=True, grace_s=60)
+    left = sorted(set(os.listdir('/dev/shm')) - shm_before)
+    children = multiprocessing.active_children()
+    if left or children:
+        fail(f'phase 23: left behind: /dev/shm {left}, processes {children}')
+    cold_up, cold_first = serve_subprocess_phase(root, paths, card, False)
+    warm_up, warm_first = serve_subprocess_phase(root, paths, card, True)
+    print(f'phase 23 (d) [{card}]: serve_prewarm=i3d took the first '
+          f'request from {cold_first:.3f} s to {warm_first:.3f} s '
+          f'({cold_first - warm_first:.3f} s saved) and the endpoint line '
+          f'from {cold_up:.3f} s to {warm_up:.3f} s after the start',
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -3500,9 +3888,15 @@ def main() -> int:
               'knobs, two shards on one card, sequence_parallel, two cards)')
     print(card, flush=True)
     parallel_phase(torch, np, corr_lookup, gru, check_counts)
+    print(f'parallel phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('serve (fused I3D): the warm-pool daemon on the card, in '
+              'process and from the command line')
+    print(card, flush=True)
+    serve_phase(torch, np, corr_lookup, gru, check_counts, card)
     for key in launches:
         rec[key]['launches'] = launches[key]
-    print(f'parallel phase {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'serve phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

@@ -240,7 +240,7 @@ def test_frame_wise_extractors_refuse_compute_dtype_without_load_config(tmp_path
 
 
 @pytest.mark.parametrize('key,value', [('index_enabled', True),
-                                       ('timeout_s', 5.0)])
+                                       ('aot_enabled', True)])
 def test_timm_unported_keys_raise_naming_themselves(clip, key, value):
     with pytest.raises(NotImplementedError, match=key):
         load_config('timm', overrides=_family_overrides(clip, 'timm', **{key: value}))
@@ -372,7 +372,8 @@ PORT_IMPLEMENTS = {'video_paths', 'file_with_video_paths', 'output_path',
                    'postmortem_dir', 'postmortem_max_bytes', 'profile_dir',
                    'mesh_devices', 'device_ids', 'multihost',
                    'coordinator_address', 'num_processes', 'process_id',
-                   'data_parallel'}
+                   'data_parallel', 'watchdog_stall_s', 'slo_latency_p99_s',
+                   'slo_availability', 'timeout_s', 'config'}
 # the keys that left the refused table when several processes and devices
 # were ported (sequence_parallel is a key of the JAX timm YAML, not a
 # classified knob)
@@ -488,12 +489,37 @@ def test_flight_recorder_paths_become_strings(clip, tmp_path):
 @pytest.mark.parametrize('key,value', [('watchdog_stall_s', 5.0),
                                        ('slo_latency_p99_s', 2.0),
                                        ('slo_availability', 0.999)])
-def test_serve_only_obs_knobs_stay_refused_by_name(clip, key, value):
-    """The stall watchdog and the SLOs come with the serve daemon, their
-    one consumer: set, they raise NotImplementedError naming the key."""
-    with pytest.raises(NotImplementedError, match=key):
+def test_watchdog_and_slo_knobs_validate_as_in_the_jax_package(clip, key,
+                                                              value):
+    """The stall watchdog and the SLOs came with the serve daemon, their
+    one consumer, and are validated as the JAX package validates them: a
+    good value loads (as a float), a bad one raises the JAX package's
+    ValueError text."""
+    from video_features_tpu.config import sanity_check as jax_sanity_check
+    args = load_config('resnet', overrides=_family_overrides(
+        clip, 'resnet', **{key: str(value)}))
+    assert args[key] == value and isinstance(args[key], float)
+    bad = 1.5 if key == 'slo_availability' else -1.0
+    jax_args = {'feature_type': 'resnet', 'model_name': 'resnet18',
+                'video_paths': [str(clip)], 'device': 'cpu',
+                'output_path': 'o', 'tmp_path': 't', key: bad}
+    with pytest.raises(ValueError) as want:
+        jax_sanity_check(jax_args)
+    with pytest.raises(ValueError) as got:
         load_config('resnet', overrides=_family_overrides(clip, 'resnet',
-                                                          **{key: value}))
+                                                          **{key: bad}))
+    assert str(got.value) == str(want.value)
+    assert str(got.value).startswith(key)
+
+
+@pytest.mark.parametrize('key,value', [('timeout_s', 5.0),
+                                       ('config', 'serve.yml')])
+def test_serve_request_keys_load_as_in_the_jax_package(clip, key, value):
+    """``timeout_s`` and ``config`` are serve-side plumbing the JAX package
+    accepts on any config; the port takes them too, unchanged."""
+    args = load_config('resnet', overrides=_family_overrides(
+        clip, 'resnet', **{key: value}))
+    assert args[key] == value
 
 
 def test_pipeline_defaults_are_injected(clip):

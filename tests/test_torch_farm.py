@@ -13,6 +13,7 @@ which imports it, are imported inside the tests), which is what lets
 :func:`test_spawned_worker_imports_neither_torch_nor_jax` see the
 worker's own imports."""
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -105,6 +106,24 @@ class ProbeRecipe:
         mods = sorted(m for m in ('torch', 'jax', 'video_features_tpu')
                       if m in sys.modules)
         return dict(info, modules=mods, pid=os.getpid()), iter(windows)
+
+
+class HoldRecipe:
+    """Wraps a real recipe: a path with 'HOLD' in its name waits, before
+    it decodes, until the file ``release`` exists (at most 120 s), so the
+    farm worker that took it holds one video and ships nothing."""
+
+    def __init__(self, inner, release):
+        self.inner = inner
+        self.release = release
+
+    def open(self, path):
+        if 'HOLD' in os.path.basename(path):
+            deadline = time.monotonic() + 120
+            while not os.path.exists(self.release) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+        return self.inner.open(path)
 
 
 # -- the ring, against the JAX package's ---------------------------------
@@ -427,6 +446,46 @@ def test_farm_clock_calibration_trusts_tight_exchanges_only():
     assert w.clock_offset == kept
 
 
+@pytest.mark.parametrize('early', [False, True], ids=['drained', 'stopped'])
+@pytest.mark.parametrize('package', ['port', 'jax'])
+def test_farm_pending_cb_mirrors_backlog_and_zeroes_on_shutdown(tmp_path,
+                                                                package,
+                                                                early):
+    """The stall watchdog's feed: the farm mirrors each worker's backlog
+    through ``pending_cb``, and shutdown leaves every row at 0 (also when
+    the stream stops at its first window, with videos still assigned), so
+    a retired farm never reads as a stall; the JAX package's farm on the
+    same stream reports the same rows."""
+    if package == 'jax':
+        from video_features_tpu.farm import DecodeFarm as Farm
+        from video_features_tpu.parallel.packing import FLUSH, NUDGE, VideoTask
+    else:
+        Farm, VideoTask = DecodeFarm, _packing().VideoTask
+        FLUSH, NUDGE = _packing().FLUSH, _packing().NUDGE
+    calls = []
+    tasks = [VideoTask(str(tmp_path / f'pb{i}.bin')) for i in range(3)]
+    farm = Farm(SyntheticRecipe(n_windows=6), workers=2, ring_bytes=1 << 20,
+                pending_cb=lambda idx, n: calls.append((idx, n)))
+    stream = farm.stream(iter(tasks), lambda t: True)
+    for item in stream:
+        if early and item is not FLUSH and item is not NUDGE:
+            break
+    if early:
+        assert any(n > 0 for _, n in calls)      # work still assigned
+        farm.shutdown()
+        stream.close()
+    else:
+        assert all(t.exhausted and not t.failed for t in tasks)
+    last, busy = {}, set()
+    for idx, n in calls:
+        last[idx] = n
+        if n > 0:
+            busy.add(idx)
+    assert last == {0: 0, 1: 0}          # zeroed at shutdown
+    if not early:
+        assert busy == {0, 1}            # each worker's backlog was mirrored
+
+
 def test_farm_without_a_recipe_does_not_start():
     farm = DecodeFarm(None, workers=2)
     with pytest.raises(FarmUnavailable, match='no decode recipe'):
@@ -606,6 +665,66 @@ def test_packed_farm_fault_isolation(resnet, worklist, tmp_path, monkeypatch,
     assert f'video={bad}' in capsys.readouterr().err
     assert _npys(tmp_path / 'o') == ref
     assert ex._farm.stats()['videos_failed'] == 1
+
+
+def test_serve_watchdog_trips_on_a_held_farm_worker(worklist, tmp_path,
+                                                   monkeypatch):
+    """A serve daemon with ``decode_workers=2`` and ``watchdog_stall_s``:
+    a farm worker held before its decode trips exactly one stall report
+    on its own ``<entry>/farm-wN`` row (fed by the farm's ``pending_cb``)
+    and none on the other worker's; once released, the request
+    completes and every farm row is back at 0 pending."""
+    import shutil
+
+    from video_features_torch.extract.resnet import ExtractResNet
+    from video_features_torch.obs import events
+    from video_features_torch.serve.client import ServeClient
+    from video_features_torch.serve.server import ExtractionServer
+    release = tmp_path / 'release'
+    recipe = ExtractResNet.farm_recipe
+    monkeypatch.setattr(ExtractResNet, 'farm_recipe',
+                        lambda self: HoldRecipe(recipe(self), str(release)))
+    held = str(tmp_path / 'HOLD.mp4')
+    shutil.copy(worklist[0], held)
+    server = ExtractionServer(base_overrides=dict(
+        device='cpu', model_name='resnet18', batch_size=4,
+        allow_random_weights=True, on_extraction='save_numpy',
+        tmp_path=str(tmp_path / 'tmp'), decode_workers=2,
+        watchdog_stall_s=5.0)).start()
+    try:
+        client = ServeClient(port=server.port)
+        # a first request boots both farm workers, so that the held
+        # request's other video decodes at once
+        st = client.wait(client.submit(
+            'resnet', worklist[:2], overrides={'output_path': str(tmp_path / 'w')}),
+            timeout_s=180)
+        assert st['state'] == 'done', st
+        farm_row = re.compile(re.escape(server.pool.entries()[0].wd_key)
+                              + r'/farm-w\d+$')
+
+        def farm_stalls():
+            return [e['fields'] for e in events.events_tail(500)
+                    if e['msg'] == 'watchdog: worker stalled with queued '
+                    'work' and farm_row.match(e['fields']['worker'])]
+        before = len(farm_stalls())
+        rid = client.submit('resnet', [held, worklist[1]],
+                            overrides={'output_path': str(tmp_path / 'o')})
+        deadline = time.monotonic() + 90
+        while len(farm_stalls()) == before and time.monotonic() < deadline:
+            time.sleep(0.1)
+        release.touch()
+        st = client.wait(rid, timeout_s=180)
+        assert st['state'] == 'done', st
+        stalls = farm_stalls()[before:]
+        assert len(stalls) == 1, stalls
+        assert int(stalls[0]['pending']) >= 1
+        rows = {w: r for w, r in server.watchdog.snapshot()['workers'].items()
+                if farm_row.match(w)}
+        assert len(rows) == 2 and stalls[0]['worker'] in rows
+        assert all(r['pending'] == 0 for r in rows.values()), rows
+    finally:
+        release.touch()
+        server.drain(wait=True, grace_s=120)
 
 
 def test_cli_i3d_packed_runs_the_farm_at_the_yaml_default(tmp_path, monkeypatch,

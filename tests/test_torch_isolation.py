@@ -10,7 +10,8 @@ PORT_SOURCES = sorted((REPO / 'video_features_torch').rglob('*.py')) + [
 FORBIDDEN = ('jax', 'jaxlib', 'video_features_tpu', 'timm')
 # the vggish slice's modules, the decoders' binding, the streaming
 # loop's and the packed loop's modules, the decode farm's, the precision
-# lanes', the feature cache's and the mesh and multihost layer's, by name
+# lanes', the feature cache's, the mesh and multihost layer's, and the
+# serve daemon's and the HF re-keying's, by name
 REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'io.native', 'io.audio', 'ops.audio', 'models.vggish', 'extract.vggish',
     'parallel', 'parallel.packing', 'extract.streaming', 'utils.tracing',
@@ -19,7 +20,9 @@ REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'cache.gc', 'fleet', 'fleet.tier', 'obs', 'obs.events', 'obs.context',
     'obs.spans', 'obs.metrics', 'obs.manifest', 'obs.blackbox',
     'parallel.mesh', 'parallel.distributed', 'parallel.worklist',
-    'parallel.pipeline', 'parallel.ring'))
+    'parallel.pipeline', 'parallel.ring', 'obs.watchdog', 'obs.slo',
+    'serve', 'serve.protocol', 'serve.pool', 'serve.client', 'serve.metrics',
+    'serve.server', 'transplant', 'transplant.hf'))
 
 IMPORT_ALL = r'''
 import importlib, pkgutil, sys
@@ -53,6 +56,9 @@ def test_port_sources_import_no_jax():
 
 OBS_MODULES = ('obs', 'obs.events', 'obs.context', 'obs.spans', 'obs.metrics',
                'obs.manifest', 'obs.blackbox', 'utils.tracing')
+# the serve daemon's modules a client or the watchdog imports: no torch
+SERVE_CLIENT_MODULES = ('obs.watchdog', 'obs.slo', 'serve', 'serve.protocol',
+                        'serve.pool', 'serve.client')
 
 
 def test_obs_modules_import_neither_torch_jax_nor_timm():
@@ -61,6 +67,21 @@ def test_obs_modules_import_neither_torch_jax_nor_timm():
     no JAX package and no timm."""
     code = ('import sys\n'
             + ''.join(f'import video_features_torch.{m}\n' for m in OBS_MODULES)
+            + 'print(sorted(m for m in ("torch", "jax", "video_features_tpu", '
+              '"timm") if m in sys.modules))')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == '[]'
+
+
+def test_serve_client_side_modules_import_neither_torch_nor_jax():
+    """The stall watchdog, the SLOs and the serve package's protocol,
+    pool and client import no torch, so a client of the daemon needs
+    none, and no jax, no JAX package and no timm."""
+    code = ('import sys\n'
+            + ''.join(f'import video_features_torch.{m}\n'
+                      for m in SERVE_CLIENT_MODULES)
             + 'print(sorted(m for m in ("torch", "jax", "video_features_tpu", '
               '"timm") if m in sys.modules))')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,

@@ -538,7 +538,8 @@ print(json.dumps({{'failed': [t.path for t in tasks if t.failed], 'windows': n,
 
 def test_a_killed_farm_worker_dumps_one_valid_bundle(tmp_path):
     """A worker SIGKILLed mid-video: the supervisor respawns it, fails that
-    video alone and dumps one bundle naming ``farm_worker_died`` whose
+    video alone and dumps one bundle naming ``farm_worker_death`` (the
+    JAX package's reason) whose
     metrics read one respawn; the gauges read 0 once the farm retired."""
     pm = tmp_path / 'pm'
     paths = [str(tmp_path / 'a.bin'), str(tmp_path / 'CRASH.bin'),
@@ -556,7 +557,7 @@ def test_a_killed_farm_worker_dumps_one_valid_bundle(tmp_path):
     assert blackbox.validate_bundle(str(bundles[0])) == []
     assert jax_blackbox.validate_bundle(str(bundles[0])) == []
     meta = json.loads((bundles[0] / 'meta.json').read_text())
-    assert meta['reason'] == 'farm_worker_died'
+    assert meta['reason'] == 'farm_worker_death'
     assert meta['extra']['victim'] == paths[1]
     assert meta['extra']['exitcode'] == -signal.SIGKILL
     series = json.loads((bundles[0] / 'metrics.json').read_text()

@@ -1,6 +1,8 @@
 """CLI entry point: ``python -m video_features_torch feature_type=<family>
 key=val ...`` (families: i3d, r21d, s3d, raft, resnet, clip, timm,
-vggish), or ``features=[f1,f2,...] key=val ...`` for a fused worklist.
+vggish), or ``features=[f1,f2,...] key=val ...`` for a fused worklist;
+``python -m video_features_torch serve ...`` starts the warm-pool daemon
+(``serve/server.py::serve_main``).
 
 Load the family's YAML, merge the dotlist (CLI wins), sanity-check,
 build the extractor, shuffle the video list and run ``_extract`` per
@@ -103,12 +105,19 @@ def finish_multihost(multihost: bool) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     import yaml
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == 'serve':
+        # the warm-pool daemon (serve/): extractors stay resident and
+        # requests over a loopback socket pack into shared batches
+        from video_features_torch.serve.server import serve_main
+        return serve_main(argv[1:])
     cli_args = parse_dotlist(argv)
     if 'feature_type' not in cli_args and 'features' not in cli_args:
         print('Usage: python -m video_features_torch '
               f'feature_type={"|".join(EXTRACTORS)} [key=value ...]\n'
               '       python -m video_features_torch features=[f1,f2,...] '
-              '[<family>.key=value ...] [key=value ...]')
+              '[<family>.key=value ...] [key=value ...]\n'
+              '       python -m video_features_torch serve [serve_port=N ...] '
+              '[key=value ...]')
         return 2
     multihost = start_multihost(cli_args)
     if 'features' in cli_args:

@@ -5,7 +5,9 @@ clip, timm and vggish subset of ``video_features_tpu/config.py``).
 Every knob of the JAX package that the port does not implement is
 refused by name when it is set away from the JAX package's default
 (:func:`check_unported_keys`), so a JAX YAML of defaults loads and a
-request for an index or a server never passes silently.
+request for an index or an executable store never passes silently. The
+serve daemon's own knobs are :data:`SERVE_DEFAULTS`
+(:func:`split_serve_config`).
 Which knobs can change the extracted bytes is one table,
 :data:`KNOB_CLASSIFICATION` (a copy of the JAX package's): the run
 fingerprint (``cache/key.py``) leaves out what :func:`knob_exclude`
@@ -199,15 +201,12 @@ OBS_DEFAULTS: Dict[str, Any] = {
 
 # the JAX package's knobs the port does not implement, with the JAX
 # package's default: any other value raises NotImplementedError naming
-# the key (its executable store, feature index, stall watchdog and SLOs,
-# which only its serve daemon reads, and serving)
+# the key (its executable store and its feature index)
 UNPORTED_DEFAULTS: Dict[str, Any] = {
     'aot_enabled': False, 'aot_dir': '~/.cache/video_features_tpu/executables',
     'aot_max_bytes': None, 'aot_l2_dir': None,
     'index_enabled': False, 'index_dir': None, 'index_shard_rows': 1024,
     'index_poll_s': 0.5, 'index_query_block': 8, 'index_k_max': 10,
-    'watchdog_stall_s': None, 'slo_latency_p99_s': None,
-    'slo_availability': None, 'timeout_s': None, 'config': None,
 }
 # the JAX default, and null (off), which is what the port does: it keeps
 # no compilation cache
@@ -392,7 +391,9 @@ def check_cache_keys(args: Dict[str, Any]) -> None:
 def check_obs_keys(args: Dict[str, Any]) -> None:
     """The flight recorder's rules, as the JAX package's ``sanity_check``
     has them: the paths become strings, ``trace_capacity`` and
-    ``postmortem_max_bytes`` ints >= 1 (a ``ValueError`` otherwise)."""
+    ``postmortem_max_bytes`` ints >= 1, ``watchdog_stall_s`` and
+    ``slo_latency_p99_s`` floats > 0, ``slo_availability`` a float in
+    (0, 1) (a ``ValueError`` otherwise, with the JAX package's text)."""
     for key in ('trace_out', 'manifest_out', 'postmortem_dir'):
         if args.get(key) is not None:
             args[key] = str(args[key])
@@ -401,6 +402,23 @@ def check_obs_keys(args: Dict[str, Any]) -> None:
             args[key] = int(args[key])
             if args[key] < 1:
                 raise ValueError(f'{key} must be >= 1; got {args[key]}')
+    if args.get('watchdog_stall_s') is not None:
+        args['watchdog_stall_s'] = float(args['watchdog_stall_s'])
+        if args['watchdog_stall_s'] <= 0:
+            raise ValueError('watchdog_stall_s must be > 0 (seconds '
+                             'without a stage advance before a stall '
+                             f'trips); got {args["watchdog_stall_s"]}')
+    if args.get('slo_latency_p99_s') is not None:
+        args['slo_latency_p99_s'] = float(args['slo_latency_p99_s'])
+        if args['slo_latency_p99_s'] <= 0:
+            raise ValueError('slo_latency_p99_s must be > 0 (the p99 '
+                             'latency objective in seconds); got '
+                             f'{args["slo_latency_p99_s"]}')
+    if args.get('slo_availability') is not None:
+        args['slo_availability'] = float(args['slo_availability'])
+        if not 0 < args['slo_availability'] < 1:
+            raise ValueError('slo_availability must be in (0, 1), e.g. '
+                             f'0.999; got {args["slo_availability"]}')
 
 
 def check_parallel_keys(args: Dict[str, Any]) -> None:
@@ -550,3 +568,127 @@ def sanity_check(args: Dict[str, Any]) -> None:
     for key in ('output_path', 'tmp_path'):
         if key in args:
             args[key] = os.path.join(str(args[key]), *subs)
+
+
+# -- serving (python -m video_features_torch serve) --------------------------
+
+# The server's own knobs (every other key on the serve command line is a
+# base override merged under each request's config: device=cuda
+# allow_random_weights=true output_path=...). The JAX package's table,
+# defaults unchanged; the ingress knobs are refused by name until the
+# port has ``ingress/``.
+SERVE_DEFAULTS: Dict[str, Any] = {
+    # the loopback JSON-lines endpoint; port 0 = ephemeral, printed at
+    # start-up
+    'serve_host': '127.0.0.1',
+    'serve_port': 0,
+    # admission: at most this many videos queued or in flight; a submit
+    # that would exceed it is rejected (backpressure), not queued
+    'serve_queue_depth': 64,
+    # resident extractors (one per pool key), LRU-evicted beyond this
+    'serve_warm_pool_size': 4,
+    # a worker's feed idle this long with windows pooled flushes them
+    # padded: a lone request's tail waits at most this and one step
+    'serve_idle_flush_s': 0.05,
+    # under continuous traffic, partial pools still flush this often
+    'serve_max_batch_wait_s': 2.0,
+    # the default per-request deadline (seconds; null = none): videos
+    # whose deadline passes before they start decoding expire
+    'serve_default_timeout_s': None,
+    # the metrics document (and ``<path>.prom``), rewritten atomically on
+    # every request completion; null = off
+    'serve_metrics_path': None,
+    # 'batch' requests see this fraction of serve_queue_depth, so a
+    # saturated queue sheds batch before interactive
+    'serve_batch_shed_fraction': 0.5,
+    # warm-pool entries built at start-up, before the first request:
+    # 'family' or 'family@lane' specs
+    'serve_prewarm': None,
+    # the network front door (not ported: each is refused by name when
+    # set away from its JAX default)
+    'serve_ingress_port': None,
+    'serve_ingress_host': '127.0.0.1',
+    'serve_ingress_auth_file': None,
+    'serve_ingress_max_body_mb': 64,
+    'serve_ingress_max_connections': 64,
+}
+INGRESS_KEYS = tuple(k for k in SERVE_DEFAULTS
+                     if k.startswith('serve_ingress_'))
+
+
+def split_serve_config(cli_args: Mapping[str, Any]
+                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A serve command line's dotlist as ``(server knobs, base
+    overrides)``, validated with the JAX package's rules and error texts:
+    an unknown ``serve_*`` key is a ``ValueError`` listing the known ones
+    (a typo must not become a per-request override); every other key is a
+    base override. A ``serve_ingress_*`` knob that is valid by the JAX
+    rules but set away from its default is refused by name with
+    ``NotImplementedError`` (no ``ingress/`` in the port)."""
+    serve, base = dict(SERVE_DEFAULTS), {}
+    for key, value in dict(cli_args).items():
+        if key.startswith('serve_'):
+            if key not in SERVE_DEFAULTS:
+                raise ValueError(
+                    f'Unknown serve option {key!r}. '
+                    f'Known: {", ".join(sorted(SERVE_DEFAULTS))}')
+            serve[key] = value
+        else:
+            base[key] = value
+    for key in ('serve_queue_depth', 'serve_warm_pool_size'):
+        serve[key] = int(serve[key])
+        if serve[key] < 1:
+            raise ValueError(f'{key} must be >= 1; got {serve[key]}')
+    serve['serve_port'] = int(serve['serve_port'])
+    for key in ('serve_idle_flush_s', 'serve_max_batch_wait_s'):
+        serve[key] = float(serve[key])
+        if serve[key] <= 0:
+            raise ValueError(f'{key} must be > 0')
+    if serve['serve_default_timeout_s'] is not None:
+        serve['serve_default_timeout_s'] = \
+            float(serve['serve_default_timeout_s'])
+    if serve['serve_prewarm'] is not None:
+        specs = serve['serve_prewarm']
+        if isinstance(specs, str):
+            specs = [specs]
+        if not isinstance(specs, (list, tuple)) or not all(
+                isinstance(s, str) and s.strip() for s in specs):
+            raise ValueError(
+                "serve_prewarm must be a 'family[@lane]' spec or a list "
+                f'of them (e.g. [resnet,resnet@bfloat16]); got '
+                f'{serve["serve_prewarm"]!r}')
+        specs = [s.strip() for s in specs]
+        for spec in specs:
+            family = spec.split('@', 1)[0]
+            if family == 'index':
+                continue
+            if family not in PACKED_FEATURES:
+                raise ValueError(
+                    f'serve_prewarm names unknown or unserveable family '
+                    f'{family!r} (serveable: index, '
+                    f'{", ".join(sorted(PACKED_FEATURES))})')
+        serve['serve_prewarm'] = specs
+    serve['serve_batch_shed_fraction'] = \
+        float(serve['serve_batch_shed_fraction'])
+    if not (0 < serve['serve_batch_shed_fraction'] <= 1):
+        raise ValueError('serve_batch_shed_fraction must be in (0, 1]; '
+                         f'got {serve["serve_batch_shed_fraction"]}')
+    if serve['serve_ingress_port'] is not None:
+        serve['serve_ingress_port'] = int(serve['serve_ingress_port'])
+        if not serve['serve_ingress_auth_file']:
+            raise ValueError(
+                'serve_ingress_port requires serve_ingress_auth_file '
+                '(an API-key file; see docs/ingress.md) — the network '
+                'front door has no anonymous mode')
+    for key in ('serve_ingress_max_body_mb',
+                'serve_ingress_max_connections'):
+        serve[key] = int(serve[key])
+        if serve[key] < 1:
+            raise ValueError(f'{key} must be >= 1; got {serve[key]}')
+    for key in INGRESS_KEYS:
+        if serve[key] != SERVE_DEFAULTS[key]:
+            raise NotImplementedError(
+                f'{key}={serve[key]!r} is not ported yet: the port has no '
+                'network front door (ingress/); see the README\'s port '
+                'section')
+    return serve, base

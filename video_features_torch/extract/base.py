@@ -212,6 +212,10 @@ class BaseExtractor:
         self.trace_out = self.manifest_out = None
         self.manifest = None
         self.blackbox = None
+        # the serve daemon's stall watchdog installs
+        # ``watchdog_pending(worker_idx, n_queued)``; the packed loop hands
+        # it to the decode farm as its backlog feed
+        self.watchdog_pending = None
         # the mesh: data_parallel's (the batch split over every local
         # device) or the packed loop's (mesh_devices, resolved by
         # configure_mesh); one replica of this extractor per data shard
@@ -335,6 +339,48 @@ class BaseExtractor:
         return {a: getattr(self, a) for a in self._device_state_attrs
                 if getattr(self, a, None) is not None}
 
+    def params_nbytes(self) -> int:
+        """The bytes of this extractor's device state (its params, and
+        whatever else ``_device_state_attrs`` names), one copy: what the
+        serve daemon's placer (``serve/pool.py::DevicePlacer``) charges
+        each device it puts this extractor on."""
+        def nbytes(value) -> int:
+            if isinstance(value, torch.Tensor):
+                return value.numel() * value.element_size()
+            if isinstance(value, torch.nn.Module):
+                return sum(nbytes(t) for t in value.state_dict().values())
+            if isinstance(value, dict):
+                return sum(nbytes(v) for v in value.values())
+            if isinstance(value, (list, tuple)):
+                return sum(nbytes(v) for v in value)
+            return sum(nbytes(v) for v in getattr(value, '__dict__', {}).values())
+        return nbytes(self._device_state())
+
+    def place_on(self, devices: List[torch.device]) -> None:
+        """Pin this extractor to ``devices`` before its first batch (the
+        serve daemon's placement): one device moves the device state
+        there, with copy streams of its own; several are the devices the
+        packed loop's mesh (``mesh_devices``) is built over."""
+        from video_features_torch.parallel.mesh import move
+        devices = [torch.device(d) for d in devices]
+        if not devices:
+            return
+        self._placement_devices = devices
+        if self._mesh is not None or len(devices) > 1:
+            return
+        dev = devices[0]
+        here = self.device
+        if here.type == 'cuda' and here.index is None:
+            here = torch.device('cuda', torch.cuda.current_device())
+        if dev == here:
+            return
+        for attr, value in self._device_state().items():
+            setattr(self, attr, move(value, dev))
+        self.device = dev
+        if dev.type == 'cuda':
+            self._h2d_stream = torch.cuda.Stream(dev)
+            self._d2h_stream = torch.cuda.Stream(dev)
+
     def _install_mesh(self, mesh, states: List[Dict[str, Any]],
                       put_batch) -> None:
         """One replica per data shard of ``mesh``: a shallow copy of this
@@ -413,8 +459,9 @@ class BaseExtractor:
             return 1
         from video_features_torch.parallel.mesh import make_mesh
         from video_features_torch.utils.device import local_devices
-        self.use_mesh(make_mesh(n_devices=n, time_parallel=1,
-                                devices=local_devices(self.device)))
+        devices = (getattr(self, '_placement_devices', None)
+                   or local_devices(self.device))
+        self.use_mesh(make_mesh(n_devices=n, time_parallel=1, devices=devices))
         return n
 
     def mesh_record(self, batch: int) -> Dict[str, Any]:
@@ -572,9 +619,11 @@ class BaseExtractor:
             if self._replicas:              # data_parallel's mesh
                 self.manifest.note_mesh(self.mesh_record(int(self.batch_size)))
 
-    def finish_obs(self) -> None:
+    def finish_obs(self, export_trace: bool = True) -> None:
         """Write the run's manifest and trace (the CLI's end of run, in a
-        ``finally``). Never raises: a failed write is a warning event,
+        ``finally``; a serve worker's end, which passes
+        ``export_trace=False`` where the daemon writes one merged trace to
+        the same path). Never raises: a failed write is a warning event,
         and the run's outputs, already saved, stand."""
         import logging
 
@@ -587,7 +636,7 @@ class BaseExtractor:
             except Exception:
                 event(logging.WARNING, 'run-manifest write failed',
                       exc_info=True, path=self.manifest_out)
-        if self.tracer.recorder is not None and self.trace_out:
+        if export_trace and self.tracer.recorder is not None and self.trace_out:
             try:
                 self.tracer.recorder.export(self.trace_out)
             except Exception:
@@ -683,6 +732,20 @@ class BaseExtractor:
         a warning."""
         return None
 
+    # the source geometry the serve daemon's prewarm step runs at: the
+    # JAX package's canonical decode geometry (``PROGRAM_DECODE_HW``), at
+    # which its prewarm loads executables. The geometry-free warm-up (the
+    # kernels' builds, the CUDA context, the cuBLAS and cuDNN handles)
+    # holds for every request; a first batch of another geometry still
+    # pays its own cuDNN plans and allocations
+    WARM_FRAME_HW = (240, 320)
+
+    def warm_window(self) -> Optional[np.ndarray]:
+        """One zero window of this family's packed geometry from a
+        :data:`WARM_FRAME_HW` source, which the serve daemon's prewarm
+        steps once; None: the family is built but not stepped."""
+        return None
+
     def fused_decode_signature(self):
         """Families whose signatures are equal, and not None, decode one
         raw frame stream per video in a fused worklist
@@ -693,17 +756,24 @@ class BaseExtractor:
 
     def extract_packed(self, video_paths: Iterable, decode_ahead: int = 2,
                        batch_size: Optional[int] = None,
-                       inflight: Optional[int] = None) -> None:
+                       inflight: Optional[int] = None,
+                       on_video_done=None,
+                       max_pool_age_s: Optional[float] = None) -> None:
         """Run the whole worklist batch-major (``parallel.packing``):
-        ``video_paths`` yields paths or ``VideoTask`` objects;
-        ``inflight`` overrides the extractor's readback depth. With
-        ``decode_workers > 1`` the decode farm's worker processes decode."""
+        ``video_paths`` yields paths, ``VideoTask`` objects or ``FLUSH``,
+        lazily and possibly blocking (the serve daemon feeds its request
+        queue through here); ``inflight`` overrides the extractor's
+        readback depth; ``on_video_done(task)`` is called as each video
+        finalizes; ``max_pool_age_s`` bounds how long a partial batch
+        waits for batch-mates. With ``decode_workers > 1`` the decode
+        farm's worker processes decode."""
         if not self.supports_packing:
             raise NotImplementedError(
                 f'{type(self).__name__} does not support pack_across_videos')
         from video_features_torch.parallel.packing import run_packed
         run_packed(self, video_paths, batch_size=batch_size,
-                   decode_ahead=decode_ahead, inflight=inflight)
+                   decode_ahead=decode_ahead, inflight=inflight,
+                   on_video_done=on_video_done, max_pool_age_s=max_pool_age_s)
 
     def _maybe_concat_streams(self, feats_dict: Dict[str, np.ndarray]
                               ) -> Dict[str, np.ndarray]:
@@ -803,6 +873,9 @@ class StackPackingMixin:
         return {self.feature_type: (
             np.stack(rows) if rows
             else np.zeros((0, self.packed_feat_dim), np.float32))}
+
+    def warm_window(self) -> np.ndarray:
+        return np.zeros((self.stack_size, *self.WARM_FRAME_HW, 3), np.uint8)
 
     def farm_recipe(self):
         """Raw frame stacks: the window geometry and the loader's knobs."""

@@ -68,6 +68,9 @@ class BaseFrameWiseExtractor(BaseExtractor):
         """HWC uint8 RGB frame → fixed-size HWC uint8 (resize + crop)."""
         return resolve_transform(self.host_transform_spec())(frame)
 
+    def warm_window(self) -> np.ndarray:
+        return self.host_transform(np.zeros((*self.WARM_FRAME_HW, 3), np.uint8))
+
     def packed_step(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {self.feature_type: self.device_step(frames)}
 

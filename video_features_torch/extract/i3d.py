@@ -157,6 +157,12 @@ class ExtractI3D(BaseExtractor):
         return (None if self.device_resize
                 else ('edge_resize', MIN_SIDE_SIZE, 'bilinear'))
 
+    def warm_window(self) -> np.ndarray:
+        h, w = self.WARM_FRAME_HW
+        if not self.device_resize:
+            h, w = pil_edge_resize_geometry(h, w, MIN_SIDE_SIZE) or (h, w)
+        return np.zeros((self.stack_size + 1, h, w, 3), np.uint8)
+
     def _loader(self, video_path: str):
         """The video's loader, its frames through
         :meth:`host_transform_spec` over ``decode_workers`` threads."""

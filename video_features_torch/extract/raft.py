@@ -26,7 +26,6 @@ one.
 """
 from __future__ import annotations
 
-import sys
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -151,8 +150,8 @@ class ExtractRAFT(BaseExtractor):
     def maybe_show_pred(self, flows: np.ndarray) -> None:
         """Render the step's first flow with the Middlebury wheel and write
         it as a PNG under ``<output_path>/flow_debug/`` (the reference
-        opens a cv2 window instead). A debug surface: a failed write is
-        reported, never raised."""
+        opens a cv2 window instead). A debug surface: any failure to write
+        is a warning event (``flow viz PNG write skipped``), never raised."""
         from video_features_torch.utils.flow_viz import flow_to_image
         img = flow_to_image(flows[0])
         print(f'[flow viz] frame rendered: shape={img.shape}, '
@@ -165,5 +164,9 @@ class ExtractRAFT(BaseExtractor):
             if not cv2.imwrite(str(path), img[..., ::-1]):   # RGB → BGR
                 raise OSError(f'cv2.imwrite failed for {path}')
             self._viz_count += 1
-        except (ImportError, OSError) as e:
-            print(f'WARNING: flow viz PNG not written ({e})', file=sys.stderr)
+        except Exception:
+            import logging
+
+            from video_features_torch.obs.events import event
+            event(logging.WARNING, 'flow viz PNG write skipped',
+                  exc_info=True, subsystem='raft')

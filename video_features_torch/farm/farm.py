@@ -38,7 +38,7 @@ parent's clock; the process-wide ``vft_farm_workers``,
 the live farms, zero once every farm retired) and the
 ``vft_farm_respawns_total`` counter are on ``obs.metrics.REGISTRY``; a
 decode error and a worker's death are warning events, and a death dumps
-the ``blackbox`` given (``farm_worker_died``).
+the ``blackbox`` given (``farm_worker_death``).
 """
 from __future__ import annotations
 
@@ -127,16 +127,25 @@ class DecodeFarm:
     fill when the window was shipped. ``cache_key_fn(path)`` (the
     extractor's cache key) turns on duplicate parking; a path it cannot
     hash skips parking and decodes. ``blackbox`` (``obs.blackbox.
-    BlackBox``) dumps a bundle when a worker dies.
+    BlackBox``) dumps a bundle when a worker dies. ``pending_cb(idx, n)``
+    gets each worker's backlog on every gauge refresh (the serve
+    daemon's stall watchdog), and 0 for each at shutdown.
     """
 
     def __init__(self, recipe, workers: int = 2, ring_bytes: int = 64 * _MB,
                  tracer: Tracer = NULL_TRACER,
                  respawn_limit: int = RESPAWN_LIMIT,
                  cache_key_fn: Optional[Callable[[str], str]] = None,
-                 blackbox=None) -> None:
+                 blackbox=None,
+                 pending_cb: Optional[Callable[[int, int], None]] = None
+                 ) -> None:
         self.recipe = recipe
         self._blackbox = blackbox
+        # the stall watchdog's feed (serve): ``pending_cb(worker_idx,
+        # n_queued)`` mirrors each worker's assignment backlog, so one
+        # wedged decode worker trips its own row while its siblings keep
+        # the serve-level row advancing
+        self._pending_cb = pending_cb
         self.cache_key_fn = cache_key_fn
         self.n_workers = max(int(workers), 1)
         self.ring_bytes = max(int(ring_bytes), _MB // 4)
@@ -269,13 +278,24 @@ class DecodeFarm:
                         w.proc.join(1.0)
                 self._retire(w)
             self._started = False
+            if self._pending_cb is not None:
+                # a retired farm's backlog must not read as a stall: clear
+                # it first, as _update_gauges mirrors it through the hook
+                for w in self._workers:
+                    with self._lock:
+                        w.pending.clear()
+                    try:
+                        self._pending_cb(w.idx, 0)
+                    except Exception:
+                        pass    # teardown; retiring the serve worker clears the rows
         with _LIVE_LOCK:
             _LIVE_FARMS.discard(self)
         self._update_gauges()
 
     def _update_gauges(self) -> None:
         """The vft_farm_* gauges: workers alive, workers with videos
-        assigned and ring bytes in use, over every live farm."""
+        assigned and ring bytes in use, over every live farm; and this
+        farm's backlog per worker through ``pending_cb``."""
         with _LIVE_LOCK:
             farms = list(_LIVE_FARMS)
         workers = [w for f in farms for w in f._workers]
@@ -283,6 +303,14 @@ class DecodeFarm:
                                 if w.proc is not None and w.proc.is_alive()))
         self._g_busy.set(sum(1 for w in workers if w.pending))
         self._g_ring.set(sum(w.ring_used for w in workers))
+        if self._pending_cb is not None:
+            with self._lock:
+                backlog = [(w.idx, len(w.pending)) for w in self._workers]
+            for idx, n in backlog:
+                try:
+                    self._pending_cb(idx, n)
+                except Exception:
+                    pass    # a broken liveness hook must not stop the drain
 
     @staticmethod
     def _retire(w: _Worker) -> None:
@@ -681,14 +709,14 @@ class DecodeFarm:
                 # counted before the dump, so the bundle's metrics hold it
                 self._c_respawns.inc()
             event(logging.WARNING,
-                  f'decode farm worker {w.idx} died (exit code '
-                  f'{w.proc.exitcode}); '
-                  + (f'failing {victim_path}; ' if victim is not None
-                     else 'no video in flight; ')
-                  + f'{len(requeue)} queued video(s) go on',
+                  f'decode farm worker {w.idx} died '
+                  f'(exitcode {w.proc.exitcode}); '
+                  + (f'failing {victim_path}' if victim is not None
+                     else 'no video in flight')
+                  + f'; respawning with {len(requeue)} queued video(s)',
                   subsystem='farm')
             if self._blackbox is not None:
-                self._blackbox.dump('farm_worker_died', worker=w.idx,
+                self._blackbox.dump('farm_worker_death', worker=w.idx,
                                     exitcode=w.proc.exitcode,
                                     victim=victim_path,
                                     requeued=len(requeue))

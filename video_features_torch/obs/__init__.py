@@ -11,7 +11,9 @@ black box (the port's copy of ``video_features_tpu/obs/``).
   * **Structured event log** (``obs.events``): the warning and error
     channel, on stderr, so ``on_extraction=print`` keeps stdout clean;
   * **Black box** (``obs.blackbox``, ``postmortem_dir=``): a post-mortem
-    bundle on a fatal signal or a decode worker's death.
+    bundle on a fatal signal or a decode worker's death;
+  * **Stall watchdog** (``obs.watchdog``, ``watchdog_stall_s=``) and
+    **SLO burn rates** (``obs.slo``, ``slo_*=``): the serve daemon's.
 
 No module here imports torch at its top, so a decode farm worker that
 imports one stays torch-free.

@@ -56,7 +56,7 @@ from __future__ import annotations
 import time
 import warnings
 from collections import deque
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -236,13 +236,14 @@ def _admit_task(ex, task: VideoTask) -> bool:
     return True
 
 
-def _finalize_task(ex, task: VideoTask) -> None:
+def _finalize_task(ex, task: VideoTask,
+                   on_video_done: Optional[Callable] = None) -> None:
     """Write one finished video (unless skipped or failed) through the
     per-video output path and publish it to the feature cache, then free
-    its rows, mark it ``finalized`` and stamp its outcome on the
+    its rows, mark it ``finalized``, stamp its outcome on the
     extractor's span recorder (a ``video_done`` instant) and run
-    manifest. A failed write fails the video; a device fault ends the
-    run."""
+    manifest, and call ``on_video_done(task)``. A failed write fails the
+    video; a device fault ends the run."""
     from video_features_torch.extract.base import (
         is_device_fault, log_extraction_error,
     )
@@ -272,6 +273,8 @@ def _finalize_task(ex, task: VideoTask) -> None:
                                        outcome=outcome, **trace_attrs(task))
         if ex.manifest is not None:
             ex.manifest.video_done(task.path, outcome)
+        if on_video_done is not None:
+            on_video_done(task)
 
 
 def _start_farm(ex, recipe, workers: int, cache_key_fn=None):
@@ -289,7 +292,8 @@ def _start_farm(ex, recipe, workers: int, cache_key_fn=None):
     farm = ex._farm = DecodeFarm(recipe, workers=workers,
                                  ring_bytes=ex.decode_farm_ring_mb << 20,
                                  tracer=ex.tracer, cache_key_fn=cache_key_fn,
-                                 blackbox=ex.blackbox)
+                                 blackbox=ex.blackbox,
+                                 pending_cb=ex.watchdog_pending)
     try:
         return farm.start()
     except FarmUnavailable as e:
@@ -418,7 +422,9 @@ def _timed_windows(tracer: Tracer, source: Iterable) -> Iterator:
 
 
 def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
-               decode_ahead: int = 2, inflight: Optional[int] = None) -> None:
+               decode_ahead: int = 2, inflight: Optional[int] = None,
+               on_video_done: Optional[Callable] = None,
+               max_pool_age_s: Optional[float] = None) -> None:
     """Drive one extractor over the whole worklist, batch-major.
 
     ``video_paths`` yields paths or :class:`VideoTask` objects (with an
@@ -431,6 +437,12 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
     ``ex.decode_workers > 1`` the decode farm's worker processes decode
     (``farm/``), else the producer thread does; the outputs are the
     same bytes either way.
+
+    A dynamic source (the serve daemon's request queue) may block between
+    items and yield ``FLUSH`` when idle; ``on_video_done(task)`` is called
+    as each video finalizes (saved, skipped, cached or failed), and
+    ``max_pool_age_s`` flushes a partial geometry pool that waited that
+    long. ``ex._inflight_now`` mirrors the in-flight queue's depth.
 
     The per-video contracts hold: a video whose outputs exist is skipped
     with the same message; the files and their contents are those of the
@@ -490,7 +502,7 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
                 break
             if t.exhausted and t.done >= t.emitted:
                 del open_q[i]
-                _finalize_task(ex, t)
+                _finalize_task(ex, t, on_video_done)
             else:
                 i += 1
         if final and open_q:
@@ -504,6 +516,7 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
 
     def sync_oldest() -> None:
         readback, prov, valid, attrs = pending.popleft()
+        ex._inflight_now = len(pending)
         try:
             with tracer.stage('d2h', **attrs):
                 out = ex.fetch_outputs(readback)
@@ -533,9 +546,11 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
     else:
         windows = farm.stream(task_stream(), admit)
     ahead = prefetch_across_videos(windows, decode_ahead * batch)
+    ex._inflight_now = 0
     try:
         for dev, _, prov, valid in transfer_batches(
-                packed_batches(ahead, batch, tracer=tracer),
+                packed_batches(ahead, batch, max_pool_age_s=max_pool_age_s,
+                               tracer=tracer),
                 ex.put_input, tracer=tracer):
             if dev is None:
                 # the drain marker: a video ended without a window, or the
@@ -557,11 +572,13 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
                 identity, geometry = _identity(ex, dev)
                 identities.setdefault(identity, geometry)
             pending.append((readback, prov, valid, attrs))
+            ex._inflight_now = len(pending)
             while len(pending) >= depth:
                 sync_oldest()
         while pending:
             sync_oldest()
     finally:
+        ex._inflight_now = 0
         if farm is not None:
             farm.shutdown()
     sweep(final=True)

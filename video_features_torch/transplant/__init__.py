@@ -16,6 +16,9 @@ layout: conv (O, I, *spatial), linear (O, I).
 * :func:`to_lane` casts a params tree once for its ``compute_dtype``
   lane: bf16 floating leaves, or int8-quantized conv and linear weights
   (``ops/quant.py``).
+
+:mod:`.hf` re-keys ``transformers`` checkpoints into the timm and OpenAI
+CLIP layouts these functions load.
 """
 from __future__ import annotations
 

@@ -106,6 +106,10 @@ class Tracer:
     def __init__(self, enabled: bool = True, recorder=None) -> None:
         self.enabled = enabled
         self.recorder = recorder
+        # the stall watchdog's liveness hook (obs/watchdog.py): called
+        # with (stage, worker) on every recorded stage, ``worker`` being
+        # the decode farm worker's index where the span names one
+        self.progress = None
         self._lock = threading.Lock()
         self._stats: Dict[str, _StageStat] = {}
         self._order: List[str] = []
@@ -131,6 +135,12 @@ class Tracer:
             if t0 is None:
                 t0 = time.perf_counter() - dt
             rec.span(name, t0, t0 + dt, pid=span_pid, tid=span_tid, **attrs)
+        progress = self.progress
+        if progress is not None:
+            try:
+                progress(name, attrs.get('worker'))
+            except Exception:
+                pass    # a broken liveness hook must not fail the loop
         with self._lock:
             self._stat(name).add(dt)
 
