@@ -297,10 +297,31 @@ package is not beside it. Phases:
    a merged trace whose spans cover the request, no ring left in
    ``/dev/shm`` and no child process alive.
 
+24. ingress (fused I3D): an ``ExtractionServer`` of phase 23's
+   configuration with an ``IngressGateway`` on loopback (an API-key table
+   built in process: one tenant, and one capped at burst 1 and 1
+   concurrent request), every fused step counted (a lookup and two GRU
+   launches per RAFT iteration): (a) one seeded 161-frame clip (10
+   windows) whole (cold), then two ``range`` queries over
+   ``POST /v1/extract``, one inside it (windows 2–6) and one at its edges
+   (all 10): rows byte-equal to the matching rows of the whole clip,
+   steps ⌈covered/8⌉, the decode tracer's windows equal to the covered
+   ones and the extractor's own ``packed_windows`` decoding only the
+   loader batches the range reaches; (b) phase 23's 24-clip corpus as 24
+   one-clip file requests at once, then as 24 unpaced live sessions
+   (``POST /v1/live/<id>``, each the clip's decoded frames as ``.npy``
+   chunks) at once: windows/s of each, live rows against the file-backed
+   rows (rel L2 ≤ 1e-6); (c) one live session of 257 seeded frames
+   paced at 25 fps: each window's latency from its last frame's push to
+   its row (p50, max) and the backlog at the end; (d) the capped
+   tenant's second request shed with 429, a request without a key 401,
+   ``vft_ingress_shed_total`` in ``/metrics``. Each line with the card's
+   name and power limit; the phase prints its own wall.
+
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10, 17, 18, 19, 20, 21, 22 and
-23; the one-pass GRU instantiation is an entry of its own); the last
-line is ``{"ok": true, "device": {...}}``.
+sum over the path runs of phases 4, 5, 10 and 17–24; the one-pass GRU
+instantiation is an entry of its own); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3705,6 +3726,388 @@ def serve_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# the network front door (phase 24): one seeded clip of 161 frames (10
+# windows, 2 fused steps at batch 8) and two segment queries on it, one
+# inside it (frames 40–100: windows 2–6, 1 step) and one at its edges
+# (frames 0–161: all 10, 2 steps): (range, first window, end window)
+INGRESS_CLIP = (161, 256, 340)
+INGRESS_WINDOWS = 10
+INGRESS_RANGES = {'inside': ((1.6, 4.0), 2, 7), 'edges': ((0.0, 6.44), 0, 10)}
+# the paced live session: 257 seeded 240×320 frames pushed one by one at
+# 25 fps (10.28 s of video, 16 windows)
+INGRESS_PACED = (257, 240, 320)
+INGRESS_KEY, INGRESS_LIMITED_KEY = 'smoke-key', 'smoke-limited'
+
+
+def http_json(port: int, method: str, path: str, body=None,
+              key: str = INGRESS_KEY) -> tuple:
+    """One request to the gateway on loopback: (status, decoded body)."""
+    import http.client
+    c = http.client.HTTPConnection('127.0.0.1', port, timeout=600)
+    headers = {'Authorization': f'Bearer {key}'} if key else {}
+    c.request(method, path, body=json.dumps(body) if body is not None else None,
+              headers=headers)
+    r = c.getresponse()
+    raw = r.read()
+    c.close()
+    try:
+        return r.status, json.loads(raw)
+    except ValueError:
+        return r.status, raw.decode('utf-8', 'replace')
+
+
+def http_submit(port: int, paths, out: str, range_s=None) -> str:
+    """``POST /v1/extract`` of i3d on ``paths`` into ``out``: its id."""
+    body = {'feature_type': 'i3d', 'video_paths': list(paths),
+            'overrides': {'output_path': out}}
+    if range_s is not None:
+        body['range'] = list(range_s)
+    st, doc = http_json(port, 'POST', '/v1/extract', body)
+    if st != 200:
+        fail(f'phase 24: POST /v1/extract answered {st}: {doc}')
+    return doc['request_id']
+
+
+def http_wait(port: int, rid: str) -> dict:
+    """``GET /v1/requests/<id>`` every 20 ms until the request ends."""
+    while True:
+        st, doc = http_json(port, 'GET', f'/v1/requests/{rid}')
+        if st != 200:
+            fail(f'phase 24: GET /v1/requests/{rid} answered {st}: {doc}')
+        if doc['state'] != 'running':
+            return doc
+        time.sleep(0.02)
+
+
+def http_extract(port: int, paths, out: str, range_s=None) -> tuple:
+    """One request submitted and waited for: (status, wall seconds)."""
+    t0 = time.perf_counter()
+    doc = http_wait(port, http_submit(port, paths, out, range_s))
+    return doc, time.perf_counter() - t0
+
+
+def live_session(np, port: int, sid: str, frames, fps: float,
+                 pace_s=None, chunk: int = 16) -> tuple:
+    """One live session over the gateway: the JSON header, the frames as
+    ``.npy`` chunks (``chunk`` frames each as fast as the socket takes
+    them, or with ``pace_s`` one frame every ``pace_s`` seconds), then the
+    end, while the rows stream back. Returns (rows, final line, when each
+    frame was pushed, when each row arrived), on ``time.perf_counter``."""
+    import io
+    import socket
+    import threading
+    s = socket.create_connection(('127.0.0.1', port), timeout=600)
+    s.sendall(f'POST /v1/live/{sid} HTTP/1.1\r\nHost: smoke\r\n'
+              f'Authorization: Bearer {INGRESS_KEY}\r\n'
+              f'Transfer-Encoding: chunked\r\n\r\n'.encode())
+
+    def send(payload: bytes) -> None:
+        s.sendall(b'%x\r\n%s\r\n' % (len(payload), payload))
+
+    send(json.dumps({'feature_type': 'i3d', 'fps': fps}).encode())
+    pushed = [0.0] * len(frames)
+    errors = []
+
+    def sender():
+        try:
+            step = 1 if pace_s else chunk
+            t0 = time.perf_counter()
+            for i in range(0, len(frames), step):
+                if pace_s:
+                    time.sleep(max(0.0, t0 + i * pace_s - time.perf_counter()))
+                buf = io.BytesIO()
+                np.save(buf, np.ascontiguousarray(frames[i:i + step]))
+                send(buf.getvalue())
+                now = time.perf_counter()
+                for j in range(i, min(i + step, len(frames))):
+                    pushed[j] = now
+            s.sendall(b'0\r\n\r\n')
+        except Exception as e:          # reported by the reader's fail below
+            errors.append(e)
+
+    thread = threading.Thread(target=sender, daemon=True)
+    thread.start()
+    rf = s.makefile('rb')
+    status = rf.readline()
+    while rf.readline() not in (b'\r\n', b''):
+        pass
+
+    def read_chunk():
+        size = int(rf.readline().split(b';')[0], 16)
+        data = rf.read(size)
+        rf.readline()
+        return data
+
+    if b' 200 ' not in status:
+        fail(f'phase 24: live session {sid} answered {status!r}: '
+             f'{read_chunk()!r}')
+    hello = json.loads(read_chunk())
+    rows, arrived = [], []
+    while True:
+        row = json.loads(read_chunk())
+        if row.get('done'):
+            break
+        rows.append(row)
+        arrived.append(time.perf_counter())
+    thread.join(60)
+    s.close()
+    if errors or not hello.get('ok'):
+        fail(f'phase 24: live session {sid}: {errors or hello}')
+    return rows, row, pushed, arrived
+
+
+def live_rows(np, rows) -> 'np.ndarray':
+    """Streamed i3d rows as the saved (T, 2048) array: rgb ‖ flow."""
+    return np.asarray([r['feats']['rgb'] + r['feats']['flow'] for r in rows],
+                      np.float32)
+
+
+def decoded_frames(np, path: str):
+    """A clip's raw decoded frames, as the daemon's loader decodes them."""
+    from video_features_torch.io.video import VideoLoader
+    with VideoLoader(path, batch_size=64) as loader:
+        return np.stack([f for batch, _, _ in loader for f in batch])
+
+
+def segment_frames_read(ex, clip: str, segment) -> tuple:
+    """The extractor's own ``packed_windows`` of a segment on the host,
+    its loader wrapped to count the frames decoded: (windows, frames)."""
+    from video_features_torch.parallel.packing import VideoTask
+    real, frames = ex._loader, [0]
+
+    class Counted:
+        def __init__(self, loader):
+            self.loader, self.fps = loader, loader.fps
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.loader.close()
+
+        def __iter__(self):
+            for batch in self.loader:
+                frames[0] += len(batch[0])
+                yield batch
+
+    ex._loader = lambda path: Counted(real(path))
+    try:
+        windows = sum(1 for _ in ex.packed_windows(VideoTask(clip,
+                                                             segment=segment)))
+    finally:
+        del ex._loader
+    return windows, frames[0]
+
+
+def ingress_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
+    """The network front door on the card: an ExtractionServer with an
+    IngressGateway on loopback over the fused I3D configuration answers
+    segment queries, live sessions unpaced and paced at 25 fps, and sheds
+    a quota-limited tenant, every fused step counted."""
+    import multiprocessing
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    from video_features_torch.extract.i3d import ExtractI3D
+    from video_features_torch.ingress.auth import ApiKeyAuth, Tenant
+    from video_features_torch.ingress.gateway import IngressGateway
+    from video_features_torch.parallel.packing import segment_name
+    from video_features_torch.serve.server import ExtractionServer
+    os.environ['VFT_RAFT_LOOKUP'] = 'auto'
+    t_phase = time.perf_counter()
+    root = ROOT / 'output' / 'ingress'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    clip = write_clips(np, root, [INGRESS_CLIP], seed=24)[0]
+    stream_paths = write_clips(np, root, STREAM_CLIPS, seed=231)
+    shm_before = set(os.listdir('/dev/shm'))
+    steps = [0]
+    packed_step = ExtractI3D.packed_step
+
+    def counted_step(self, x):
+        steps[0] += 1
+        return packed_step(self, x)
+
+    def counted(where, run):
+        reset_counts(corr_lookup, gru)
+        steps[0] = 0
+        out = run()
+        torch.cuda.synchronize()
+        counts = read_counts(corr_lookup, gru)
+        check_counts(counts, 'masked', steps[0], where)
+        print(f'{where}: {steps[0]} fused steps, launches {counts}', flush=True)
+        return out, steps[0]
+
+    ExtractI3D.packed_step = counted_step
+    server = None
+    try:
+        server = ExtractionServer(base_overrides=serve_base(root)).start()
+        auth = ApiKeyAuth({INGRESS_KEY: Tenant('smoke'),
+                           INGRESS_LIMITED_KEY: Tenant(
+                               'capped', rate_rps=0.001, burst=1,
+                               max_concurrent=1)})
+        gateway = IngressGateway(server, auth=auth).start()
+        port = gateway.port
+
+        # (a) the whole clip (cold: the entry is built), then the two ranges
+        (st, wall), n = counted('phase 24 (a) whole clip (cold)', lambda:
+                                http_extract(port, [clip], str(root / 'full')))
+        full = tree_arrays(np, str(root / 'full'))[Path(clip).stem + '.npy']
+        if st['state'] != 'done' or full.shape != (INGRESS_WINDOWS, 2048) \
+                or n != 2 or not np.isfinite(full).all():
+            fail(f'phase 24 (a): whole clip {st}, {full.shape}, {n} steps')
+        print(f'phase 24 (a) [{card}]: whole clip {INGRESS_WINDOWS} windows '
+              f'in {wall:.3f} s (cold)', flush=True)
+        worker = server.pool.entries()[0]
+        for name, (rng, k0, k1) in INGRESS_RANGES.items():
+            report = worker.ex.tracer.report()
+            before = sum(report.get(k, {}).get('count', 0)
+                         for k in ('decode', 'decode+preprocess'))
+            out = str(root / f'seg_{name}')
+            (st, wall), n = counted(f'phase 24 (a) range {name} {list(rng)}',
+                                    lambda: http_extract(port, [clip], out, rng))
+            report = worker.ex.tracer.report()
+            decoded = sum(report.get(k, {}).get('count', 0)
+                          for k in ('decode', 'decode+preprocess')) - before
+            covered = k1 - k0
+            seg = tree_arrays(np, out).get(
+                Path(segment_name(clip, rng)).stem + '.npy')
+            if st['state'] != 'done' or st.get('range') != list(rng) \
+                    or seg is None:
+                fail(f'phase 24 (a) {name}: {st}, files {os.listdir(out)}')
+            if seg.tobytes() != full[k0:k1].tobytes():
+                fail(f'phase 24 (a) {name}: rows are not byte-equal to rows '
+                     f'{k0}…{k1 - 1} of the whole clip ({seg.shape})')
+            if n != math.ceil(covered / PACK_BATCH) or decoded != covered:
+                fail(f'phase 24 (a) {name}: {n} steps and {decoded} windows '
+                     f'decoded, want {math.ceil(covered / PACK_BATCH)} and '
+                     f'{covered}')
+            windows, frames = segment_frames_read(worker.ex, clip, tuple(rng))
+            if windows != covered:
+                fail(f'phase 24 (a) {name}: packed_windows gave {windows}')
+            print(f'phase 24 (a) [{card}]: range {name} {list(rng)}: windows '
+                  f'{k0}…{k1 - 1} of {INGRESS_WINDOWS}, byte-equal to the '
+                  f'whole clip\'s rows; {n} fused steps, {decoded} windows '
+                  f'through the decode tracer; {frames} of '
+                  f'{INGRESS_CLIP[0]} frames decoded; {wall:.3f} s wall',
+                  flush=True)
+
+        # (b) phase 23's corpus: 24 one-clip file requests submitted at
+        # once (then waited for in turn, as phase 23's stream), then 24
+        # unpaced live sessions of the same frames at once
+        corpus = sum(STREAM_WINDOWS)
+
+        def files():
+            t0 = time.perf_counter()
+            rids = [http_submit(port, [p], str(root / 'files'))
+                    for p in stream_paths]
+            return [http_wait(port, rid) for rid in rids], \
+                time.perf_counter() - t0
+
+        (sts, wall), n = counted('phase 24 (b) file requests', files)
+        if {s_['state'] for s_ in sts} != {'done'}:
+            fail(f'phase 24 (b): file requests ended {sts}')
+        print(f'phase 24 (b) [{card}]: {len(stream_paths)} file requests at '
+              f'once, {corpus} windows in {wall:.3f} s, {n} fused steps: '
+              f'{corpus / wall:.3f} windows/s', flush=True)
+        files_tree = tree_arrays(np, str(root / 'files'))
+        clips_frames = [decoded_frames(np, p) for p in stream_paths]
+
+        def sessions():
+            t0 = time.perf_counter()
+            with Pool(len(stream_paths)) as pool:
+                got = list(pool.map(lambda i: live_session(
+                    np, port, f'unpaced-{i}', clips_frames[i], PACK_FPS),
+                    range(len(stream_paths))))
+            return got, time.perf_counter() - t0
+
+        (got, wall), n = counted('phase 24 (b) live sessions', sessions)
+        worst = 0.0
+        for p, (rows, final, _, _), want_n in zip(stream_paths, got,
+                                                  STREAM_WINDOWS):
+            want = files_tree[Path(p).stem + '.npy']
+            have = live_rows(np, rows)
+            if final['state'] != 'done' or have.shape != want.shape \
+                    or final['windows'] != want_n:
+                fail(f'phase 24 (b): live session of {Path(p).name}: '
+                     f'{final}, rows {have.shape}, want {want.shape}')
+            if have.tobytes() != want.tobytes():
+                worst = max(worst, float(
+                    np.linalg.norm((have - want).astype(np.float64))
+                    / max(np.linalg.norm(want.astype(np.float64)), 1e-30)))
+        if not worst <= PACK_REL_L2:
+            fail(f'phase 24 (b): live rows against the file-backed run: rel '
+                 f'L2 {worst}')
+        print(f'phase 24 (b) [{card}]: {len(stream_paths)} unpaced live '
+              f'sessions at once, {corpus} windows in {wall:.3f} s, {n} fused '
+              f'steps: {corpus / wall:.3f} windows/s; rows '
+              + ('byte-equal to' if not worst else f'within rel L2 {worst:.3e} of')
+              + ' the file-backed run', flush=True)
+        del clips_frames, files_tree
+
+        # (c) one session paced at 25 fps
+        n_frames, h, w = INGRESS_PACED
+        frames = np.random.RandomState(241).randint(
+            0, 256, (n_frames, h, w, 3)).astype(np.uint8)
+        (rows, final, pushed, arrived), n = counted(
+            'phase 24 (c) paced live session', lambda: live_session(
+                np, port, 'paced', frames, PACK_FPS, pace_s=1 / PACK_FPS))
+        want_n = (n_frames - (STACK + 1)) // STACK + 1
+        if final['state'] != 'done' or len(rows) != want_n \
+                or not np.isfinite(live_rows(np, rows)).all():
+            fail(f'phase 24 (c): {final}, {len(rows)} rows, want {want_n}')
+        lat = [arrived[k] - pushed[k * STACK + STACK] for k in range(len(rows))]
+        print(f'phase 24 (c) [{card}]: {len(rows)} windows of a {n_frames}-'
+              f'frame session paced at {PACK_FPS:g} fps ({n} fused steps): '
+              f'latency from a window\'s last frame to its row p50 '
+              f'{nearest_rank(lat, 0.5):.4f} s, max {max(lat):.4f} s (first '
+              f'{lat[0]:.4f}, last {lat[-1]:.4f}: the backlog at the end; '
+              f'{(lat[-1] - lat[0]) / max(len(lat) - 1, 1):+.4f} s per '
+              f'window); latencies {", ".join(f"{x:.3f}" for x in lat)}',
+              flush=True)
+
+        # (d) a quota-limited tenant shed with 429, a request without a key
+        # 401 (neither spends a step: the admitted request's path is missing)
+        def shed():
+            first = http_json(port, 'POST', '/v1/extract', {
+                'feature_type': 'i3d', 'video_paths': [str(root / 'gone.avi')],
+                'overrides': {'output_path': str(root / 'q')}},
+                key=INGRESS_LIMITED_KEY)
+            second = http_json(port, 'POST', '/v1/extract', {
+                'feature_type': 'i3d', 'video_paths': [clip]},
+                key=INGRESS_LIMITED_KEY)
+            anonymous = http_json(port, 'GET', '/v1/metrics', key=None)
+            return first, second, anonymous
+
+        (first, second, anonymous), n = counted('phase 24 (d) quota', shed)
+        if first[0] != 200 or second[0] != 429 \
+                or second[1].get('error') not in ('rate_limited', 'concurrency') \
+                or anonymous[0] != 401 or n != 0:
+            fail(f'phase 24 (d): {first}, {second}, {anonymous}, {n} steps')
+        m = server.metrics()['ingress']
+        prom = http_json(port, 'GET', '/metrics')[1]
+        shed_lines = [ln for ln in prom.splitlines()
+                      if ln.startswith('vft_ingress_shed_total{')]
+        if m['tenants']['capped']['shed'] < 1 or not shed_lines:
+            fail(f'phase 24 (d): ingress section {m}, {shed_lines}')
+        print(f'phase 24 (d): the capped tenant\'s second request answered '
+              f'{second[0]} {second[1]["error"]}, no key 401; ingress '
+              f'{ {k: m[k] for k in ("requests_total", "shed_total")} }; '
+              f'{shed_lines[0]}', flush=True)
+        server.drain(wait=True, grace_s=300)
+        server = None
+    finally:
+        ExtractI3D.packed_step = packed_step
+        if server is not None:
+            server.drain(wait=True, grace_s=60)
+    left = sorted(set(os.listdir('/dev/shm')) - shm_before)
+    children = multiprocessing.active_children()
+    if left or children:
+        fail(f'phase 24: left behind: /dev/shm {left}, processes {children}')
+    shutil.rmtree(root, ignore_errors=True)
+    print(f'phase 24 [{card}]: {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -3894,9 +4297,15 @@ def main() -> int:
               'process and from the command line')
     print(card, flush=True)
     serve_phase(torch, np, corr_lookup, gru, check_counts, card)
+    print(f'serve phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('ingress (fused I3D): the network front door on loopback, '
+              'segment queries, live sessions unpaced and paced, quotas')
+    print(card, flush=True)
+    ingress_phase(torch, np, corr_lookup, gru, check_counts, card)
     for key in launches:
         rec[key]['launches'] = launches[key]
-    print(f'serve phase {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'ingress phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

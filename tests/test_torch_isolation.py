@@ -10,8 +10,8 @@ PORT_SOURCES = sorted((REPO / 'video_features_torch').rglob('*.py')) + [
 FORBIDDEN = ('jax', 'jaxlib', 'video_features_tpu', 'timm')
 # the vggish slice's modules, the decoders' binding, the streaming
 # loop's and the packed loop's modules, the decode farm's, the precision
-# lanes', the feature cache's, the mesh and multihost layer's, and the
-# serve daemon's and the HF re-keying's, by name
+# lanes', the feature cache's, the mesh and multihost layer's, the serve
+# daemon's and the HF re-keying's, and the network front door's, by name
 REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'io.native', 'io.audio', 'ops.audio', 'models.vggish', 'extract.vggish',
     'parallel', 'parallel.packing', 'extract.streaming', 'utils.tracing',
@@ -22,7 +22,8 @@ REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'parallel.mesh', 'parallel.distributed', 'parallel.worklist',
     'parallel.pipeline', 'parallel.ring', 'obs.watchdog', 'obs.slo',
     'serve', 'serve.protocol', 'serve.pool', 'serve.client', 'serve.metrics',
-    'serve.server', 'transplant', 'transplant.hf'))
+    'serve.server', 'transplant', 'transplant.hf', 'ingress', 'ingress.http',
+    'ingress.auth', 'ingress.quota', 'ingress.live', 'ingress.gateway'))
 
 IMPORT_ALL = r'''
 import importlib, pkgutil, sys
@@ -82,6 +83,25 @@ def test_serve_client_side_modules_import_neither_torch_nor_jax():
     code = ('import sys\n'
             + ''.join(f'import video_features_torch.{m}\n'
                       for m in SERVE_CLIENT_MODULES)
+            + 'print(sorted(m for m in ("torch", "jax", "video_features_tpu", '
+              '"timm") if m in sys.modules))')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == '[]'
+
+
+INGRESS_MODULES = ('ingress', 'ingress.http', 'ingress.auth', 'ingress.quota',
+                   'ingress.live', 'ingress.gateway')
+
+
+def test_ingress_modules_import_neither_torch_nor_jax():
+    """The network front door's modules (transport, tenants, quotas, live
+    sessions, the gateway) import no torch (the daemon behind the gateway
+    does), no jax, no JAX package and no timm."""
+    code = ('import sys\n'
+            + ''.join(f'import video_features_torch.{m}\n'
+                      for m in INGRESS_MODULES)
             + 'print(sorted(m for m in ("torch", "jax", "video_features_tpu", '
               '"timm") if m in sys.modules))')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,

@@ -6,6 +6,7 @@ build for two requests, the CLI's bytes, a broken video failing alone, a
 SIGTERMed ``python -m video_features_torch serve`` draining, a restart
 resuming), admission (deadlines, shedding ``batch`` before
 ``interactive``, every refused field named) and fused requests."""
+import json
 import os
 import re
 import signal
@@ -279,20 +280,62 @@ def test_deadlines_and_shedding_batch_before_interactive(small_server, clips):
 
 @pytest.mark.parametrize('field', ['range', 'search', 'index_status', 'live'])
 def test_unported_fields_answer_naming_themselves(small_server, clips, field):
+    """``search`` and ``index_status`` (no ``index/``) answer an error
+    naming themselves. ``range`` and ``live`` (refused until the port had
+    ``ingress/``; the test keeps its name) are answered as the JAX daemon
+    answers them: a segment query writes the range's segment-named files,
+    and a live session streams one row per pushed frame."""
     server, tmp = small_server
     client = ServeClient(port=server.port)
     if field == 'live':
-        resp = server.submit_live('resnet', session=object())
-        assert resp['ok'] is False and resp['code'] == 'unsupported'
-        assert resp['error'].startswith('live is not ported yet: live sessions')
-        with pytest.raises(NotImplementedError, match='attach_ingress'):
-            server.attach_ingress(object())
+        from video_features_torch.ingress.live import LiveSession
+
+        class Writer:
+            def __init__(self):
+                self.chunks = []
+
+            def write_chunk(self, data):
+                self.chunks.append(data)
+
+        session = LiveSession('serve-live', 'local', fps=25.0)
+        writer = Writer()
+        session.attach_writer(writer)
+        resp = server.submit_live('resnet', session,
+                                  overrides={'output_path': str(tmp / 'l')})
+        assert resp['ok'] is True, resp
+        rng = np.random.default_rng(5)
+        session.push(rng.integers(0, 255, (3, 48, 64, 3), dtype=np.uint8))
+        session.end_input()
+        st = client.wait(resp['request_id'], timeout_s=180)
+        assert st['state'] == 'done' and st['videos'] == {
+            session.pseudo_path: 'saved'}
+        rows = [json.loads(c) for c in writer.chunks]
+        assert [r['window'] for r in rows] == [0, 1, 2]
+        assert [r['timestamp_ms'] for r in rows] == [0.0, 40.0, 80.0]
+        assert not (tmp / 'l').exists()           # streamed, never saved
+        stub = object()
+        server.attach_ingress(stub)
+        try:
+            assert server.ingress is stub
+        finally:
+            server.ingress = None
+        return
+    if field == 'range':
+        out = tmp / 'r'
+        st = client.wait(client.submit('resnet', clips, range_s=[0.0, 0.1],
+                                       overrides={'output_path': str(out)}),
+                         timeout_s=180)
+        assert st['state'] == 'done' and st['range'] == [0.0, 0.1]
+        stems = sorted(f.name for f in out.rglob('*_resnet.npy'))
+        assert stems == sorted(f'{Path(c).stem}_seg0-100ms_resnet.npy'
+                               for c in clips)
+        with pytest.raises(ServeError, match='invalid range') as e:
+            client.submit('resnet', clips, range_s=[0.2, 0.1],
+                          overrides={'output_path': str(out)})
+        assert e.value.code == 'invalid'
         return
     with pytest.raises(ServeError) as e:
-        if field == 'range':
-            client.submit('resnet', clips, range_s=[0.0, 0.1],
-                          overrides={'output_path': str(tmp / 'r')})
-        elif field == 'search':
+        if field == 'search':
             client.search(family='resnet', vector=[0.0] * 512)
         else:
             client.index_status()

@@ -173,16 +173,24 @@ def test_split_serve_config_matches_jax(cli):
     ('serve_ingress_max_connections', 8),
 ])
 def test_serve_ingress_knobs_are_refused_by_name(key, value):
-    """A front-door knob the JAX package accepts, set away from its
-    default, makes the port raise naming that knob: the port has no
-    ``ingress/``, and a knob must not be taken and then ignored."""
+    """Each front-door knob, set away from its default, is taken as the
+    JAX package takes it (the port has ``ingress/`` now; the name is the
+    one this test had while the port refused the knobs): the same server
+    knobs and base overrides, and ``serve_ingress_port`` without a key
+    file raises the JAX package's ``ValueError`` with its text."""
     cli = {key: value}
     if key == 'serve_ingress_port':
-        # the JAX rule: a port needs a key file (refused first by name)
+        with pytest.raises(ValueError) as want:
+            jax_split(dict(cli))
+        with pytest.raises(ValueError) as got:
+            split_serve_config(dict(cli))
+        assert str(got.value) == str(want.value)
+        assert 'serve_ingress_auth_file' in str(got.value)
         cli['serve_ingress_auth_file'] = 'keys.yml'
-    jax_split(dict(cli))
-    with pytest.raises(NotImplementedError, match=key):
-        split_serve_config(dict(cli))
+    want_serve, want_base = jax_split(dict(cli))
+    serve, base = split_serve_config(dict(cli))
+    assert serve == dict(want_serve) and base == dict(want_base)
+    assert serve[key] == value
 
 
 # -- the metrics document's Prometheus rendering --------------------------------

@@ -159,7 +159,9 @@ def form_list_from_user_input(
     else:
         path_list = [str(p) for p in video_paths]
     for path in path_list:
-        if not Path(path).exists():
+        # a '.live' path is a live session's pseudo-identity
+        # (serve/server.py::submit_live): nothing exists at it
+        if not path.endswith('.live') and not Path(path).exists():
             warnings.warn(f'path does not exist: {path}')
     if to_shuffle:
         random.shuffle(path_list)
@@ -575,8 +577,7 @@ def sanity_check(args: Dict[str, Any]) -> None:
 # The server's own knobs (every other key on the serve command line is a
 # base override merged under each request's config: device=cuda
 # allow_random_weights=true output_path=...). The JAX package's table,
-# defaults unchanged; the ingress knobs are refused by name until the
-# port has ``ingress/``.
+# defaults unchanged.
 SERVE_DEFAULTS: Dict[str, Any] = {
     # the loopback JSON-lines endpoint; port 0 = ephemeral, printed at
     # start-up
@@ -604,16 +605,19 @@ SERVE_DEFAULTS: Dict[str, Any] = {
     # warm-pool entries built at start-up, before the first request:
     # 'family' or 'family@lane' specs
     'serve_prewarm': None,
-    # the network front door (not ported: each is refused by name when
-    # set away from its JAX default)
+    # the network front door (ingress/): its HTTP port (null: off, the
+    # loopback socket only; 0: ephemeral, printed at start-up)
     'serve_ingress_port': None,
     'serve_ingress_host': '127.0.0.1',
+    # the API-key file (JSON or YAML: key → {tenant, priority, rate_rps,
+    # burst, max_concurrent}); required with a port, as there is no
+    # anonymous mode
     'serve_ingress_auth_file': None,
+    # the request-body bound (MiB): a larger body is a structured 413
     'serve_ingress_max_body_mb': 64,
+    # concurrent connections; one more is answered 503 at once
     'serve_ingress_max_connections': 64,
 }
-INGRESS_KEYS = tuple(k for k in SERVE_DEFAULTS
-                     if k.startswith('serve_ingress_'))
 
 
 def split_serve_config(cli_args: Mapping[str, Any]
@@ -622,9 +626,7 @@ def split_serve_config(cli_args: Mapping[str, Any]
     overrides)``, validated with the JAX package's rules and error texts:
     an unknown ``serve_*`` key is a ``ValueError`` listing the known ones
     (a typo must not become a per-request override); every other key is a
-    base override. A ``serve_ingress_*`` knob that is valid by the JAX
-    rules but set away from its default is refused by name with
-    ``NotImplementedError`` (no ``ingress/`` in the port)."""
+    base override."""
     serve, base = dict(SERVE_DEFAULTS), {}
     for key, value in dict(cli_args).items():
         if key.startswith('serve_'):
@@ -685,10 +687,4 @@ def split_serve_config(cli_args: Mapping[str, Any]
         serve[key] = int(serve[key])
         if serve[key] < 1:
             raise ValueError(f'{key} must be >= 1; got {serve[key]}')
-    for key in INGRESS_KEYS:
-        if serve[key] != SERVE_DEFAULTS[key]:
-            raise NotImplementedError(
-                f'{key}={serve[key]!r} is not ported yet: the port has no '
-                'network front door (ingress/); see the README\'s port '
-                'section')
     return serve, base

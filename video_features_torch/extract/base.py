@@ -74,7 +74,7 @@ import torch
 
 from video_features_torch.config import check_lanes, check_pipeline_keys
 from video_features_torch.extract.streaming import (
-    overlap_fetch, stream_windows, transfer_batches,
+    overlap_fetch, segment_frame_range, stream_windows, transfer_batches,
 )
 from video_features_torch.ops.precision import activation_dtype
 from video_features_torch.utils.device import (
@@ -527,23 +527,26 @@ class BaseExtractor:
             log_cache_error(f'open ({args.get("cache_dir")})')
             self.cache = None
 
-    def _video_cache_key(self, video_path: str) -> str:
+    def _video_cache_key(self, video_path: str, segment=None) -> str:
         from video_features_torch.cache.key import video_cache_key
-        return video_cache_key(video_path, self.run_fingerprint)
+        return video_cache_key(video_path, self.run_fingerprint,
+                               segment=segment)
 
-    def cache_fetch(self, video_path: str, output_path: Optional[str] = None
-                    ) -> bool:
+    def cache_fetch(self, video_path: str, output_path: Optional[str] = None,
+                    segment=None, name_path: Optional[str] = None) -> bool:
         """Serve this video's outputs from the cache: a hit writes the
         stored files (and the resume sidecar) under the output root with
         no decode and no step. A cache failure is a miss, never a failed
-        video."""
+        video. ``segment`` keys a range apart from the full video, and
+        ``name_path`` (its segment-suffixed name) names the files; the
+        content hash reads ``video_path``."""
         if self.cache is None or self.run_fingerprint is None:
             return False
         from video_features_torch.cache import log_cache_error
         out_root = output_path or self.output_path
         try:
-            hit = self.cache.fetch_to(self._video_cache_key(video_path),
-                                      out_root, video_path,
+            hit = self.cache.fetch_to(self._video_cache_key(video_path, segment),
+                                      out_root, name_path or video_path,
                                       fingerprint=self.run_fingerprint)
         except Exception:
             log_cache_error(f'lookup for {video_path}')
@@ -553,22 +556,24 @@ class BaseExtractor:
                   f'{Path(out_root).absolute()}/ - skipping extraction..')
         return hit
 
-    def cache_publish(self, video_path: str, output_path: Optional[str] = None
-                      ) -> None:
+    def cache_publish(self, video_path: str, output_path: Optional[str] = None,
+                      segment=None, name_path: Optional[str] = None) -> None:
         """Publish the files just saved for this video (their exact
-        bytes, so every later hit is byte-identical to this run)."""
+        bytes, so every later hit is byte-identical to this run), keyed
+        and named as :meth:`cache_fetch` looks them up."""
         if self.cache is None or self.run_fingerprint is None:
             return
         from video_features_torch.cache import hash_file, log_cache_error
         out_root = output_path or self.output_path
         ext = ACTION_TO_EXT[self.on_extraction]
-        files = {key: (make_path(out_root, video_path, key, ext), ext)
+        name = name_path or video_path
+        files = {key: (make_path(out_root, name, key, ext), ext)
                  for key in self._saved_feat_keys()}
         if not all(os.path.exists(src) for src, _ in files.values()):
             return                       # a partial save: nothing to publish
         try:
-            self.cache.put(self._video_cache_key(video_path), files,
-                           meta={'video': Path(video_path).name,
+            self.cache.put(self._video_cache_key(video_path, segment), files,
+                           meta={'video': Path(name).name,
                                  'feature_type': self.feature_type,
                                  'video_sha256': hash_file(video_path)})
         except Exception:
@@ -711,8 +716,21 @@ class BaseExtractor:
         """Yield ``(window, meta)`` for one video in window order: the
         host array one batch slot carries, and per-window metadata
         scattered back beside the features (or None). Video-level
-        metadata goes in ``task.info``."""
+        metadata goes in ``task.info``. With ``task.segment`` (a
+        ``(start_s, end_s)`` range) only the windows overlapping it are
+        yielded, and decoding stops past its end."""
         raise NotImplementedError
+
+    def live_window_spec(self):
+        """How a live session windows raw network frames for this family,
+        or None where it cannot (``registry.LIVE_FEATURES`` lists the
+        families that can): ``(win, step, transform, timed)``, the window
+        length and stride in frames, the per-frame host transform (HWC
+        uint8 in, the packed window's frame out; None: raw frames) and
+        whether a window's meta is a timestamp (frame-wise families) or
+        None (stack families). ``ingress/live.py`` replays the packed
+        path's windowing with it, so live windows feed the same step."""
+        return None
 
     def packed_step(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One step on a ``(B, ...)`` device batch → ``{key: (B, D)}``
@@ -864,9 +882,15 @@ class StackPackingMixin:
     def packed_windows(self, task):
         with self.video_loader(task.path, batch_size=64,
                                fps=self.extraction_fps) as loader:
-            for window in stream_windows(loader, self.stack_size,
-                                         self.step_size):
+            for window in stream_windows(
+                    loader, self.stack_size, self.step_size,
+                    frame_range=segment_frame_range(task.segment,
+                                                    loader.fps)):
                 yield window, None
+
+    def live_window_spec(self):
+        # raw frame stacks: live frames window as decoded ones do
+        return (self.stack_size, self.step_size, None, False)
 
     def packed_result(self, task) -> Dict[str, np.ndarray]:
         rows = task.rows.get(self.feature_type, [])

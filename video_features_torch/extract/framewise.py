@@ -16,7 +16,7 @@ of ``video_features_tpu/extract/framewise.py``.
     runs batch k, and reads each step back ``inflight`` steps later;
   * the packed loop (``pack_across_videos``) packs single frames across
     videos: a window's meta is its timestamp, ``fps`` rides in
-    ``task.info``; the family's host transform is a named spec
+    ``task.info``, and a segment query keeps the frames of its range; the family's host transform is a named spec
     (``host_transform_spec``), which the decode farm's workers and the
     fused worklists (one decode, several families) replay.
 """
@@ -30,7 +30,9 @@ import torch
 from video_features_torch.cache.key import run_fingerprint
 from video_features_torch.config import check_unported_keys
 from video_features_torch.extract.base import BaseExtractor
-from video_features_torch.extract.streaming import framewise_windows
+from video_features_torch.extract.streaming import (
+    framewise_segment_windows, segment_frame_range,
+)
 from video_features_torch.farm.recipes import resolve_transform
 
 
@@ -120,7 +122,13 @@ class BaseFrameWiseExtractor(BaseExtractor):
     def packed_windows(self, task):
         with self._loader(task.path) as loader:
             task.info['fps'] = loader.fps
-            yield from framewise_windows(loader)
+            yield from framewise_segment_windows(
+                loader, segment_frame_range(task.segment, loader.fps))
+
+    def live_window_spec(self):
+        # a window is one host-transformed frame; the live session stamps
+        # its timestamp from the session's declared fps
+        return (1, 1, self.host_transform, True)
 
     def farm_recipe(self):
         from video_features_torch.farm.recipes import FramewiseRecipe

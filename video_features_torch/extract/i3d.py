@@ -38,7 +38,7 @@ from video_features_torch.cache.key import run_fingerprint
 from video_features_torch.config import check_unported_keys
 from video_features_torch.extract.base import BaseExtractor
 from video_features_torch.extract.streaming import (
-    iter_batched_windows, stream_windows,
+    iter_batched_windows, segment_frame_range, stream_windows,
 )
 from video_features_torch.farm.recipes import resolve_transform
 from video_features_torch.models import i3d as i3d_model
@@ -227,9 +227,18 @@ class ExtractI3D(BaseExtractor):
 
     def packed_windows(self, task):
         with self._loader(task.path) as loader:
-            for window in stream_windows(loader, self.stack_size + 1,
-                                         self.step_size):
+            for window in stream_windows(
+                    loader, self.stack_size + 1, self.step_size,
+                    frame_range=segment_frame_range(task.segment,
+                                                    loader.fps)):
                 yield window, None
+
+    def live_window_spec(self):
+        """Stacks of ``stack_size + 1`` raw frames (S flow pairs) stepped
+        by ``step_size``, each frame through the host short-side resize
+        unless ``device_resize`` moved it into the step."""
+        return (self.stack_size + 1, self.step_size,
+                resolve_transform(self.host_transform_spec()), False)
 
     def farm_recipe(self):
         """Stacks of ``stack_size + 1`` frames through

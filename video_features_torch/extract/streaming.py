@@ -1,8 +1,9 @@
 """Streaming window assembly and the asynchronous device loop's two
 ends (port of ``video_features_tpu/extract/streaming.py``:
 ``stream_windows``, ``iter_batched_windows``, ``transfer_batches``,
-``overlap_fetch``, ``stream_windows_across_videos`` and the frame-wise
-window stream).
+``overlap_fetch``, ``stream_windows_across_videos``, the frame-wise
+window stream ``framewise_segment_windows`` and ``segment_frame_range``;
+the stream sentinels ``FLUSH`` and ``NUDGE``).
 
 Frames stream off the decoder through a bounded buffer and a window is
 emitted as soon as it completes, so memory is O(window). Window k starts
@@ -22,12 +23,27 @@ The device loop of every video family runs in three places:
 """
 from __future__ import annotations
 
+import math
 from collections import deque
-from typing import Callable, Iterable, Iterator, List
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from video_features_torch.utils.tracing import NULL_TRACER, Tracer
+
+# Stream sentinel: "no more input for now, flush the partial pools". A
+# dynamic source yields it between bursts (the serve daemon's request
+# queue) or mid-video (a live session's arrival lull); it passes through
+# the windowers and the prefetch untouched. Defined here, in a module the
+# decode farm's torch-free workers import, and re-exported by
+# ``parallel.packing``.
+FLUSH = object()
+
+# Stream marker: "a video ended without emitting a window" (resume skip,
+# too short, failed open). It reaches the consumer as a batchless
+# ``(None, [], 0)`` item, so the video finalizes without waiting for a
+# batch.
+NUDGE = object()
 
 
 def iter_batched_windows(windows: Iterable[np.ndarray],
@@ -57,14 +73,38 @@ def iter_batched_windows(windows: Iterable[np.ndarray],
         yield flush()[0]
 
 
-def stream_windows(batches: Iterable, win: int,
-                   step: int) -> Iterator[np.ndarray]:
+def stream_windows(batches: Iterable, win: int, step: int,
+                   frame_range: Optional[Tuple[int, int]] = None
+                   ) -> Iterator[np.ndarray]:
     """Yield (win, ...)-shaped frame windows from a loader's batch stream
-    of ``(batch, times, indices)`` tuples."""
+    of ``(batch, times, indices)`` tuples.
+
+    ``frame_range`` (a segment query) keeps the windows that overlap the
+    half-open frame range ``[start_f, end_f)``: window k spans frames
+    ``[k·step, k·step + win)``. The stream stops pulling batches once
+    the last covered window is out, so decode ends at the range's end
+    (frames before the range still decode, and are dropped unstacked).
+
+    A bare :data:`FLUSH` item passes through untouched: a
+    live session marks its arrival lulls so, and runs its network frames
+    through this same windower.
+    """
     buf: List[np.ndarray] = []
     offset = 0          # absolute frame index of buf[0]
     next_start = 0      # absolute start of the next window
+    end_f = None
+    if frame_range is not None:
+        start_f, end_f = frame_range
+        if start_f >= end_f:
+            return      # an empty range: no window overlaps it
+        # the first window that reaches into the range: k·step + win > start_f
+        next_start = max(0, (start_f - win) // step + 1) * step
+        if next_start >= end_f:
+            return
     for item in batches:
+        if item is FLUSH:
+            yield FLUSH
+            continue
         buf.extend(item[0])
         # drop frames the next window can no longer touch
         d = min(next_start - offset, len(buf))
@@ -75,18 +115,42 @@ def stream_windows(batches: Iterable, win: int,
             s = next_start - offset
             yield np.stack(buf[s:s + win])
             next_start += step
+            if end_f is not None and next_start >= end_f:
+                return  # past the range: decode no further
             d = min(next_start - offset, len(buf))
             if d > 0:
                 del buf[:d]
                 offset += d
 
 
-def framewise_windows(batches: Iterable) -> Iterator[tuple]:
+def segment_frame_range(segment, fps) -> Optional[Tuple[int, int]]:
+    """A ``(start_s, end_s)`` segment as the half-open frame range
+    ``[start_f, end_f)`` at the loader's output (retimed) frame rate:
+    floor of the start, ceiling of the end, so a window that only touches
+    a boundary is covered. None for None."""
+    if segment is None:
+        return None
+    fps = float(fps)
+    return (int(math.floor(float(segment[0]) * fps)),
+            max(int(math.ceil(float(segment[1]) * fps)), 0))
+
+
+def framewise_segment_windows(batches: Iterable,
+                              frame_range: Optional[Tuple[int, int]]
+                              ) -> Iterator[tuple]:
     """Per-frame ``(frame, t_ms)`` windows from a loader's batch stream:
     the frame-wise families' packed window, with its timestamp as the
-    window's meta."""
-    for batch, times, _ in batches:
-        for frame, t_ms in zip(batch, times):
+    window's meta. With a half-open ``frame_range`` (None: every frame),
+    frames before it are dropped and decoding stops at its end: the one
+    home of the frame-wise boundary rule, for the in-process loaders and
+    the decode farm's recipes alike."""
+    for batch, times, indices in batches:
+        for frame, t_ms, idx in zip(batch, times, indices):
+            if frame_range is not None:
+                if idx < frame_range[0]:
+                    continue
+                if idx >= frame_range[1]:
+                    return
             yield np.asarray(frame), t_ms
 
 
@@ -155,7 +219,9 @@ def stream_windows_across_videos(tasks: Iterable,
     ``tasks`` yields ``parallel.packing.VideoTask`` objects (or the
     ``FLUSH`` sentinel, passed through); ``open_windows(task)`` returns
     the video's ``(window, meta)`` iterator (the extractor's
-    ``packed_windows``). Videos drain in order. An exception while
+    ``packed_windows``, or a live session's window source, whose
+    mid-video ``FLUSH`` at an arrival lull passes through too). Videos
+    drain in order. An exception while
     opening or decoding one video fails that task, is reported as the
     per-video loop reports it, and the stream goes on with the next
     video; its windows already pooled flow on but are never saved. A
@@ -165,13 +231,16 @@ def stream_windows_across_videos(tasks: Iterable,
     from video_features_torch.extract.base import (
         is_device_fault, log_extraction_error,
     )
-    from video_features_torch.parallel.packing import FLUSH, NUDGE
     for task in tasks:
         if task is FLUSH:
             yield FLUSH
             continue
         try:
-            for window, meta in open_windows(task):
+            for item in open_windows(task):
+                if item is FLUSH:
+                    yield FLUSH
+                    continue
+                window, meta = item
                 if task.failed:
                     break       # the consumer failed this video: stop decoding it
                 task.emitted += 1

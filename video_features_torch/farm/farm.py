@@ -31,6 +31,12 @@ Threads, all in the parent:
 A decode error or a worker crash fails one video, as the in-process path
 does; only a farm with no worker left fails the videos that remain.
 
+A live task (an ingress live session: a task with ``windows_override``)
+has no file to decode: with ``live_open`` its window source runs on a
+feeder thread of the parent (its frames arrive over the network there),
+whose windows the drain yields first, beside the workers'. A segment
+query's range rides in the worker's task message.
+
 The flight recorder (``obs/``): each window's ``decode`` span goes to
 the tracer under its worker's own pid lane (``span_pid``), placed on the
 parent's clock; the process-wide ``vft_farm_workers``,
@@ -130,6 +136,7 @@ class DecodeFarm:
     BlackBox``) dumps a bundle when a worker dies. ``pending_cb(idx, n)``
     gets each worker's backlog on every gauge refresh (the serve
     daemon's stall watchdog), and 0 for each at shutdown.
+    ``live_open(task)`` returns a live task's window iterator.
     """
 
     def __init__(self, recipe, workers: int = 2, ring_bytes: int = 64 * _MB,
@@ -137,8 +144,8 @@ class DecodeFarm:
                  respawn_limit: int = RESPAWN_LIMIT,
                  cache_key_fn: Optional[Callable[[str], str]] = None,
                  blackbox=None,
-                 pending_cb: Optional[Callable[[int, int], None]] = None
-                 ) -> None:
+                 pending_cb: Optional[Callable[[int, int], None]] = None,
+                 live_open: Optional[Callable] = None) -> None:
         self.recipe = recipe
         self._blackbox = blackbox
         # the stall watchdog's feed (serve): ``pending_cb(worker_idx,
@@ -170,6 +177,11 @@ class DecodeFarm:
                        'videos_failed': 0, 'deduped': 0, 'start_s': 0.0,
                        'first_window_s': None}
         self._workers: List[_Worker] = []
+        # live tasks: one feeder thread each, appending to the bounded
+        # _live_out, which the drain yields before the workers' windows
+        self._live_open = live_open
+        self._live_out: deque = deque()
+        self._live_threads: List[threading.Thread] = []
         self._dispatch_done = False
         self._dispatch_error: Optional[BaseException] = None
         self._stopping = False
@@ -221,12 +233,14 @@ class DecodeFarm:
 
     @staticmethod
     def _task_msg(seq: int, task) -> tuple:
-        """('video', seq, path[, select]): ``task.farm_select`` (a fused
+        """('video', seq, path, segment[, select]): the task's segment
+        (None for a whole video), and ``task.farm_select`` (a fused
         worklist's families still wanting the video) only when set."""
+        segment = getattr(task, 'segment', None)
         select = getattr(task, 'farm_select', None)
         if select is not None:
-            return ('video', seq, str(task.path), tuple(select))
-        return ('video', seq, str(task.path))
+            return ('video', seq, str(task.path), segment, tuple(select))
+        return ('video', seq, str(task.path), segment)
 
     def start(self) -> 'DecodeFarm':
         """Spawn the workers and their rings; raises
@@ -362,6 +376,11 @@ class DecodeFarm:
             for task in tasks:
                 if task is FLUSH:
                     self._append_flush()
+                elif getattr(task, 'windows_override', None) is not None \
+                        and self._live_open is not None:
+                    # a live session: no file, its windows come from the
+                    # network on a feeder thread here
+                    self._start_live(task)
                 elif self._gate(task, admit) and not self._park(task):
                     self._assign(task)
             # the source is spent: unpark duplicates as their twins end
@@ -382,6 +401,51 @@ class DecodeFarm:
         finally:
             self._dispatch_done = True
 
+    def _prune_live(self) -> None:
+        """Drop finished feeder threads (a serve farm outlives many
+        sessions)."""
+        with self._lock:
+            self._live_threads = [t for t in self._live_threads
+                                  if t.is_alive()]
+
+    def _start_live(self, task) -> None:
+        t = threading.Thread(target=self._feed_live, args=(task,),
+                             daemon=True, name='vft-farm-live')
+        self._prune_live()
+        with self._lock:
+            self._live_threads.append(t)
+        t.start()
+
+    def _feed_live(self, task) -> None:
+        """One live task's feeder: its window source's windows go to the
+        drain through ``_live_out``, bounded at 64 so a stalled consumer
+        holds the session back rather than growing the parent's memory;
+        an arrival lull's FLUSH becomes a FLUSH marker. A failure of the
+        source fails this task alone."""
+        from video_features_torch.parallel.packing import FLUSH
+        try:
+            for item in self._live_open(task):
+                if self._stopping or task.failed:
+                    break
+                if item is FLUSH:
+                    self._append_flush()
+                    continue
+                window, meta = item
+                task.emitted += 1
+                while len(self._live_out) >= 64 and not self._stopping:
+                    time.sleep(0.005)
+                self._live_out.append((task, window, meta))
+        except Exception:
+            task.failed = True
+            log_extraction_error(task.path)
+        finally:
+            task.exhausted = True
+            if task.emitted == 0:
+                self._ctrl.append(('nudge', task))
+            else:
+                # the session's tail windows may wait in a partial pool
+                self._append_flush()
+
     def _append_flush(self) -> None:
         """Queue a FLUSH, held back until every video assigned before it
         has ended, as the in-process windower yields FLUSH after the
@@ -395,8 +459,12 @@ class DecodeFarm:
         becomes its key's in-flight video (False)."""
         if self.cache_key_fn is None:
             return False
+        segment = getattr(task, 'segment', None)
         try:
-            key = self.cache_key_fn(str(task.path))
+            # a range never parks behind its whole video, nor another range
+            key = (self.cache_key_fn(str(task.path), segment)
+                   if segment is not None
+                   else self.cache_key_fn(str(task.path)))
         except Exception:
             return False              # unhashable: no parking, it decodes
         with self._lock:
@@ -518,6 +586,10 @@ class DecodeFarm:
         from video_features_torch.parallel.packing import FLUSH, NUDGE
         last_supervise = 0.0
         while True:
+            # live windows first: made in the parent, they must reach the
+            # packer before a lull's FLUSH queued after them
+            while self._live_out:
+                yield self._live_out.popleft()
             while self._ctrl:
                 marker = self._ctrl[0]
                 if marker[0] == 'flush':
@@ -532,7 +604,9 @@ class DecodeFarm:
                     yield NUDGE
             with self._lock:
                 drained = (self._dispatch_done and self._outstanding == 0
-                           and not self._ctrl)
+                           and not self._ctrl and not self._live_out
+                           and not any(t.is_alive()
+                                       for t in self._live_threads))
             if drained:
                 return
             # Queue._reader (CPython's read end of the queue's pipe) is
@@ -553,6 +627,7 @@ class DecodeFarm:
                 # a source that never ends (FLUSH between bursts) must not
                 # keep a duplicate parked until it does
                 self._resolve_parked(self._admit, block=False)
+                self._prune_live()
 
     def _drain_worker(self, w: _Worker) -> Iterator:
         while w.out_q is not None:            # None: retired

@@ -3,10 +3,11 @@ port's copy of ``video_features_tpu/farm/recipes.py``).
 
 A recipe describes a family's decode and host transform in a form a
 worker process can replay byte for byte without the extractor, whose
-weights stay on the card in the parent. ``recipe.open(path)`` returns
-``(info, windows)``: ``info`` is the video-level metadata folded into
-``task.info`` (the frame-wise ``fps``), and ``windows`` yields
-``(window, meta)`` as the family's ``packed_windows`` does.
+weights stay on the card in the parent. ``recipe.open(path, segment=)``
+returns ``(info, windows)``: ``info`` is the video-level metadata folded
+into ``task.info`` (the frame-wise ``fps``), and ``windows`` yields
+``(window, meta)`` as the family's ``packed_windows`` does, a segment's
+range filter and early stop included.
 
 Transforms are named specs (``('edge_resize', size, interp)``,
 ``('edge_resize_crop', resize, crop, interp)``) over
@@ -72,13 +73,16 @@ class FramewiseRecipe(_LoaderRecipe):
     """One window is one host-transformed frame, its meta the frame's
     timestamp: the frame-wise families' ``packed_windows``."""
 
-    def open(self, path: str) -> Tuple[Dict, Iterator]:
-        from video_features_torch.extract.streaming import framewise_windows
+    def open(self, path: str, segment=None) -> Tuple[Dict, Iterator]:
+        from video_features_torch.extract.streaming import (
+            framewise_segment_windows, segment_frame_range,
+        )
         loader = self._make_loader(path)
+        frame_range = segment_frame_range(segment, loader.fps)
 
         def windows():
             try:
-                yield from framewise_windows(loader)
+                yield from framewise_segment_windows(loader, frame_range)
             finally:
                 loader.close()
 
@@ -111,16 +115,21 @@ class FusedRecipe(_LoaderRecipe):
             return meta[0]
         return None
 
-    def open(self, path: str, select=None) -> Tuple[Dict, Iterator]:
-        from video_features_torch.extract.streaming import framewise_windows
+    def open(self, path: str, segment=None,
+             select=None) -> Tuple[Dict, Iterator]:
+        from video_features_torch.extract.streaming import (
+            framewise_segment_windows, segment_frame_range,
+        )
         loader = self._make_loader(path)
+        frame_range = segment_frame_range(segment, loader.fps)
         branch = {f: resolve_transform(spec)
                   for f, spec in self.transforms.items()
                   if select is None or f in select}
 
         def windows():
             try:
-                for frame, t_ms in framewise_windows(loader):
+                for frame, t_ms in framewise_segment_windows(loader,
+                                                             frame_range):
                     for fam, t in branch.items():
                         yield (frame if t is None else t(frame)), (fam, t_ms)
             finally:
@@ -143,13 +152,17 @@ class StackRecipe(_LoaderRecipe):
         self.win = int(win)
         self.step = int(step)
 
-    def open(self, path: str) -> Tuple[Dict, Iterator]:
-        from video_features_torch.extract.streaming import stream_windows
+    def open(self, path: str, segment=None) -> Tuple[Dict, Iterator]:
+        from video_features_torch.extract.streaming import (
+            segment_frame_range, stream_windows,
+        )
         loader = self._make_loader(path)
+        frame_range = segment_frame_range(segment, loader.fps)
 
         def windows():
             try:
-                for window in stream_windows(loader, self.win, self.step):
+                for window in stream_windows(loader, self.win, self.step,
+                                             frame_range=frame_range):
                     yield window, None
             finally:
                 loader.close()

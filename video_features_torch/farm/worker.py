@@ -108,10 +108,17 @@ def worker_main(widx: int, epoch: int, recipe, ring_name: str,
             msg = task_q.get()
             if msg[0] == 'stop':
                 break
-            # ('video', seq, path[, select]): select is the subset of a
-            # fused recipe's families still wanting this video
+            # ('video', seq, path, segment[, select]): segment is a
+            # segment query's (start_s, end_s) range, replayed with the
+            # in-process path's frame filter; select is the subset of a
+            # fused recipe's families still wanting this video. Each is
+            # passed only when set
             _, seq, path = msg[:3]
-            kw = {'select': msg[3]} if len(msg) > 3 else {}
+            kw = {}
+            if len(msg) > 3 and msg[3] is not None:
+                kw['segment'] = msg[3]
+            if len(msg) > 4:
+                kw['select'] = msg[4]
             n = 0
             try:
                 info, windows = recipe.open(path, **kw)

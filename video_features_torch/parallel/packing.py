@@ -1,7 +1,7 @@
 """The packed corpus loop, batch-major across videos (port of
 ``video_features_tpu/parallel/packing.py``: ``VideoTask``,
-``FusedTask``, ``FLUSH``, ``NUDGE``, ``packed_batches``, ``run_packed``,
-``build_fused_recipe``, ``run_packed_fused``).
+``FusedTask``, ``segment_name``, ``FLUSH``, ``NUDGE``, ``packed_batches``,
+``run_packed``, ``build_fused_recipe``, ``run_packed_fused``).
 
 The per-video loop pads every video's last batch and pays the pipeline's
 ramp once per video. Here:
@@ -25,6 +25,13 @@ A host-side fault fails only the videos it touches: a video that does
 not decode is reported and skipped, a batch whose dispatch or readback
 raises fails the videos in it (``_doom``), and the worklist goes on.
 A CUDA error (``extract.base.is_device_fault``) ends the run.
+
+A task may carry a ``segment`` (a segment query: only the windows of a
+time range, files named by :func:`segment_name`, cache keyed on the
+range). A live session's task (the serve daemon's ``_LiveServeTask``)
+brings its own window source (``windows_override``), skips the resume
+and cache gates (``ephemeral``), streams each row out as it is read back
+(``on_window``) and saves nothing (``stream_only``).
 
 With ``mesh_devices`` > 1 (``extract/base.py::_ensure_packed_mesh``)
 the loop plans batches at ``capacity × ndev`` (``parallel/mesh.py::
@@ -53,6 +60,7 @@ reset) go into it. A failed batch is reported by ``log_batch_error``.
 """
 from __future__ import annotations
 
+import logging
 import time
 import warnings
 from collections import deque
@@ -61,20 +69,29 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+# FLUSH (flush the partial pools) and NUDGE (a video ended without a
+# window) are defined in the torch-free extract/streaming.py, which the
+# decode farm's workers import
+from video_features_torch.extract.streaming import FLUSH, NUDGE  # noqa: F401
 from video_features_torch.obs.context import trace_attrs, trace_ids_of
+from video_features_torch.obs.events import event
 from video_features_torch.utils.output import ACTION_TO_EXT
 from video_features_torch.utils.tracing import NULL_TRACER, Tracer
 
-# Stream sentinel: "no more input for now, flush the partial pools". A
-# dynamic source yields it between bursts; it passes through the
-# windower and the prefetch untouched.
-FLUSH = object()
 
-# Stream marker: "a video ended without emitting a window" (resume skip,
-# too short, failed open). It reaches the consumer as a batchless
-# ``(None, [], 0)`` item, so the video finalizes without waiting for a
-# batch.
-NUDGE = object()
+def segment_name(path: str, segment) -> str:
+    """The path a segment extraction's files are named after: the stem
+    gains ``_seg<start>-<end>ms`` (integer milliseconds; a dot would cut
+    ``Path.stem``), so a range never collides with the full video's
+    outputs or another range's. The cache key quantizes alike
+    (``cache.key.video_cache_key``)."""
+    if segment is None:
+        return str(path)
+    from pathlib import Path
+    p = Path(path)
+    start_ms = int(round(float(segment[0]) * 1000))
+    end_ms = int(round(float(segment[1]) * 1000))
+    return str(p.with_name(f'{p.stem}_seg{start_ms}-{end_ms}ms{p.suffix}'))
 
 
 class VideoTask:
@@ -90,19 +107,29 @@ class VideoTask:
     ``info`` holds video-level metadata (the frame-wise ``fps``).
     ``out_root`` (None: the extractor's ``output_path``) routes this
     video's files elsewhere. ``trace`` (an ``obs.context.TraceContext``,
-    or None) is the video's span under the run's trace.
+    or None) is the video's span under the run's trace. ``segment`` (a
+    ``(start_s, end_s)`` range, or None) makes it a segment query: only
+    the windows overlapping the range are decoded and extracted, and the
+    files are named after :attr:`name_path`.
     """
 
-    __slots__ = ('path', 'video_id', 'out_root', 'trace', 'rows',
+    __slots__ = ('path', 'video_id', 'out_root', 'trace', 'segment', 'rows',
                  'meta_rows', 'info', 'emitted', 'done', 'exhausted',
                  'failed', 'skipped', 'cached', 'finalized')
 
     def __init__(self, path: str, video_id: int = -1,
-                 out_root: Optional[str] = None, trace=None) -> None:
+                 out_root: Optional[str] = None,
+                 segment: Optional[tuple] = None, trace=None) -> None:
         self.path = str(path)
         self.video_id = video_id
         self.out_root = out_root
         self.trace = trace
+        # quantized to milliseconds here, once, so the frame filter, the
+        # file name and the cache key all derive from one range
+        if segment is not None:
+            segment = (round(float(segment[0]), 3),
+                       round(float(segment[1]), 3))
+        self.segment = segment
         self.rows: Dict[str, List[np.ndarray]] = {}
         self.meta_rows: List = []
         self.info: Dict = {}
@@ -113,6 +140,13 @@ class VideoTask:
         self.skipped = False
         self.cached = False
         self.finalized = False
+
+    @property
+    def name_path(self) -> str:
+        """The path the output files are named after: ``path``, or its
+        segment-suffixed name for a range. Decode and content hashing
+        read ``path``."""
+        return segment_name(self.path, self.segment)
 
 
 class FusedTask(VideoTask):
@@ -132,10 +166,13 @@ class FusedTask(VideoTask):
     __slots__ = ('subtasks', 'active', 'farm_select')
 
     def __init__(self, path: str, families: Iterable[str],
-                 video_id: int = -1, trace=None) -> None:
-        super().__init__(path, video_id=video_id, trace=trace)
+                 video_id: int = -1, segment: Optional[tuple] = None,
+                 trace=None) -> None:
+        super().__init__(path, video_id=video_id, segment=segment,
+                         trace=trace)
         self.subtasks: Dict[str, VideoTask] = {
-            fam: VideoTask(path, video_id=video_id, trace=trace)
+            fam: VideoTask(path, video_id=video_id, segment=segment,
+                           trace=trace)
             for fam in families}
         self.active: List[str] = list(self.subtasks)
         self.farm_select: Optional[Tuple[str, ...]] = None
@@ -225,12 +262,19 @@ def _admit_task(ex, task: VideoTask) -> bool:
     ``task.skipped`` set, when its outputs already exist, or, with
     ``task.cached`` too, when the feature cache served them. A hit drops
     out here, before batch planning: it never decodes and takes no
-    batch slot."""
-    if ex.is_already_exist(task.path, output_path=task.out_root):
+    batch slot. Resume and the cache look under ``task.name_path``, so a
+    segment never reuses or overwrites the full video's outputs. An
+    ``ephemeral`` task (a live session) has no file behind it and is
+    always admitted."""
+    if getattr(task, 'ephemeral', False):
+        return True
+    name = task.name_path
+    if ex.is_already_exist(name, output_path=task.out_root):
         task.skipped = True
         return False
-    if ex.cache is not None and ex.cache_fetch(task.path,
-                                               output_path=task.out_root):
+    if ex.cache is not None and ex.cache_fetch(
+            task.path, output_path=task.out_root, segment=task.segment,
+            name_path=name):
         task.skipped = task.cached = True
         return False
     return True
@@ -242,20 +286,25 @@ def _finalize_task(ex, task: VideoTask,
     per-video output path and publish it to the feature cache, then free
     its rows, mark it ``finalized``, stamp its outcome on the
     extractor's span recorder (a ``video_done`` instant) and run
-    manifest, and call ``on_video_done(task)``. A failed write fails the
-    video; a device fault ends the run."""
+    manifest, and call ``on_video_done(task)``. A ``stream_only`` task (a
+    live session) already delivered its rows through ``on_window`` and
+    saves nothing. A failed write fails the video; a device fault ends
+    the run."""
     from video_features_torch.extract.base import (
         is_device_fault, log_extraction_error,
     )
     try:
-        if not (task.failed or task.skipped):
+        if not (task.failed or task.skipped
+                or getattr(task, 'stream_only', False)):
             feats_dict = ex._maybe_concat_streams(ex.packed_result(task))
             with ex.tracer.stage('save', video=task.path, **trace_attrs(task)):
-                ex.action_on_extraction(feats_dict, task.path,
+                ex.action_on_extraction(feats_dict, task.name_path,
                                         output_path=task.out_root)
             if ex.cache is not None:
                 with ex.tracer.stage('cache_publish', video=task.path):
-                    ex.cache_publish(task.path, output_path=task.out_root)
+                    ex.cache_publish(task.path, output_path=task.out_root,
+                                     segment=task.segment,
+                                     name_path=task.name_path)
     except Exception as e:
         if is_device_fault(e):
             raise
@@ -277,13 +326,14 @@ def _finalize_task(ex, task: VideoTask,
             on_video_done(task)
 
 
-def _start_farm(ex, recipe, workers: int, cache_key_fn=None):
+def _start_farm(ex, recipe, workers: int, cache_key_fn=None, live_open=None):
     """The decode farm of a packed run at ``workers`` > 1 processes,
     started; or None, with a warning naming ``decode_workers`` and the
     cause (no recipe, no spawn or shared memory, no room for the rings),
     and the run decodes in-process. ``ex._farm`` keeps the farm, whose
     ``stats()`` say whether it ran. ``cache_key_fn`` turns on the farm's
-    duplicate parking."""
+    duplicate parking; ``live_open(task)`` opens a live task's window
+    source, which the farm runs on a thread of the parent."""
     from video_features_torch.farm import DecodeFarm, FarmUnavailable
     if ex.decode_backend != 'cv2':
         # build the native decoder here once, not in every worker at once
@@ -293,7 +343,8 @@ def _start_farm(ex, recipe, workers: int, cache_key_fn=None):
                                  ring_bytes=ex.decode_farm_ring_mb << 20,
                                  tracer=ex.tracer, cache_key_fn=cache_key_fn,
                                  blackbox=ex.blackbox,
-                                 pending_cb=ex.watchdog_pending)
+                                 pending_cb=ex.watchdog_pending,
+                                 live_open=live_open)
     try:
         return farm.start()
     except FarmUnavailable as e:
@@ -488,6 +539,11 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
     def open_windows(task: VideoTask):
         if not admit(task):
             return iter(())
+        # a live task brings its own window source (frames arriving over
+        # the network, windowed to this extractor's geometry)
+        override = getattr(task, 'windows_override', None)
+        if override is not None:
+            return override(ex)
         return ex.packed_windows(task)
 
     def sweep(final: bool = False) -> None:
@@ -529,6 +585,21 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
             task.done += 1
             if task.failed:
                 continue
+            on_window = getattr(task, 'on_window', None)
+            if on_window is not None:
+                # a live session gets each row now; a delivery that fails
+                # (the client went away) fails the task, which also stops
+                # its window source
+                try:
+                    on_window({key: arr[i] for key, arr in out.items()}, meta)
+                except Exception:
+                    task.failed = True
+                    event(logging.WARNING, 'per-window delivery failed; '
+                          'failing the live task', exc_info=True,
+                          video=str(task.path), stage='d2h')
+                    continue
+            if getattr(task, 'stream_only', False):
+                continue    # a live session's rows are not kept
             for key, arr in out.items():
                 task.rows.setdefault(key, []).append(arr[i])
             task.meta_rows.append(meta)
@@ -538,7 +609,8 @@ def run_packed(ex, video_paths: Iterable, batch_size: Optional[int] = None,
     # until its twin is published, and the cache then answers it
     farm = (_start_farm(ex, ex.farm_recipe(), ex.decode_workers,
                         cache_key_fn=(ex._video_cache_key
-                                      if ex.cache is not None else None))
+                                      if ex.cache is not None else None),
+                        live_open=lambda task: task.windows_override(ex))
             if ex.decode_workers > 1 else None)
     if farm is None:
         windows = _timed_windows(tracer, stream_windows_across_videos(
@@ -695,7 +767,8 @@ def run_packed_fused(exs: Dict, video_paths: Iterable, decode_ahead: int = 2,
     def open_windows(c: FusedTask):
         if not admit(c):
             return iter(())
-        info, windows = recipe.open(c.path, select=c.farm_select)
+        info, windows = recipe.open(c.path, segment=c.segment,
+                                    select=c.farm_select)
         c.info.update(info)
         return windows
 

@@ -33,6 +33,12 @@ PACKED_FEATURES = ('i3d', 'r21d', 's3d', 'resnet', 'clip', 'timm')
 BF16_FEATURES = frozenset({'r21d', 's3d', 'resnet', 'clip', 'timm', 'vggish'})
 INT8_FEATURES = frozenset({'resnet', 'clip', 'timm'})
 
+# the families a live session (ingress/) can feed: raw network frames
+# windowed to the family's packed geometry (BaseExtractor.live_window_spec),
+# as in the JAX package; a family opts in here and returns a spec, or the
+# daemon refuses the session up front
+LIVE_FEATURES = frozenset({'i3d', 'r21d', 's3d', 'resnet', 'clip', 'timm'})
+
 # the families that accept precision=mixed: those whose feature rel L2
 # under mixed (TF32 in cuDNN and cuBLAS, the GRU kernel in 3xTF32) against
 # highest the card measured at <= 1e-3, on seeded weights and the

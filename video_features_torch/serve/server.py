@@ -27,18 +27,25 @@ file and the merged trace are written, then the process exits. No
 completed output is lost; an interrupted video re-extracts on restart
 through the resume contract.
 
+Segment queries (``range`` on submit) extract the windows of a time
+range into segment-named files; live sessions
+(:meth:`ExtractionServer.submit_live`, from the network front door of
+``ingress/``, which :meth:`ExtractionServer.attach_ingress` registers so
+that drain stops it first and reaps it last) stream windows in and rows
+out through the same workers. ``completion_listeners`` are called with
+each terminal request (the gateway releases its tenant's quota there).
+
 Not ported, each refused by name with the JAX package's error shape:
-``range`` on submit (segments come with ``ingress/``), live sessions
-(:meth:`ExtractionServer.submit_live`, :meth:`~ExtractionServer.
-attach_ingress`), ``search`` and ``index_status`` (no ``index/``). The
-metrics document's ``aot`` section is ``{}`` (no executable store), and
-``serve_prewarm`` warms an entry by one step on a zero batch
+``search`` and ``index_status`` (no ``index/``). The metrics document's
+``aot`` section is ``{}`` (no executable store), and ``serve_prewarm``
+warms an entry by one step on a zero batch
 (``BaseExtractor.warm_window``) where the JAX package loads executables.
 """
 from __future__ import annotations
 
 import itertools
 import logging
+import math
 import os
 import queue
 import signal
@@ -55,7 +62,9 @@ from video_features_torch.config import (
 from video_features_torch.obs.context import accept_traceparent
 from video_features_torch.obs.events import event
 from video_features_torch.parallel.packing import FLUSH, VideoTask
-from video_features_torch.registry import PACKED_FEATURES, create_extractor
+from video_features_torch.registry import (
+    LIVE_FEATURES, PACKED_FEATURES, create_extractor,
+)
 from video_features_torch.serve import metrics as metrics_mod
 from video_features_torch.serve import protocol
 from video_features_torch.serve.pool import DevicePlacer, WarmPool, device_id
@@ -77,11 +86,6 @@ _KEY_EXCLUDE = knob_exclude('pool_key')
 
 # what the port refuses by name, and why
 NOT_PORTED = {
-    'range': 'segment queries (submit range=[start_s, end_s]) come with '
-             'ingress/, which the port does not have yet (its VideoTask has '
-             'no segment); submit without range',
-    'live': 'live sessions come with ingress/, which the port does not '
-            'have yet',
     'search': 'the search command needs the feature index, index/, which '
               'the port does not have yet',
     'index_status': 'the index_status command needs the feature index, '
@@ -112,11 +116,35 @@ class _ServeTask(VideoTask):
 
     __slots__ = ('request',)
 
-    def __init__(self, path: str, request: 'Request', out_root: str) -> None:
-        super().__init__(path, out_root=out_root,
+    def __init__(self, path: str, request: 'Request', out_root: str,
+                 segment=None) -> None:
+        super().__init__(path, out_root=out_root, segment=segment,
                          trace=(request.trace.child()
                                 if request.trace is not None else None))
         self.request = request
+
+
+class _LiveServeTask(_ServeTask):
+    """One live session's task: its windows come from the session's
+    network-fed windower (``windows_override``), each row read back goes
+    out through ``on_window``, and nothing is saved or cached
+    (``stream_only``): the chunked response is the output."""
+
+    __slots__ = ('session',)
+
+    ephemeral = True          # no file behind it: no resume, no cache
+    stream_only = True        # rows stream out; none is kept or saved
+
+    def __init__(self, path: str, request: 'Request', out_root: str,
+                 session) -> None:
+        super().__init__(path, request, out_root)
+        self.session = session
+
+    def windows_override(self, ex):
+        return self.session.windows(ex)
+
+    def on_window(self, feats: Dict[str, Any], meta) -> None:
+        self.session.send_window(feats, meta)
 
 
 class Request:
@@ -124,6 +152,7 @@ class Request:
 
     def __init__(self, request_id: str, feature_type: str, paths: List[str],
                  deadline: Optional[float],
+                 segment: Optional[tuple] = None,
                  priority: str = 'interactive',
                  trace=None) -> None:
         self.id = request_id
@@ -131,6 +160,7 @@ class Request:
         self.videos: Dict[str, str] = {p: 'pending' for p in paths}
         self.pending = len(paths)
         self.deadline = deadline          # monotonic; None: no deadline
+        self.segment = segment            # (start_s, end_s) or None
         self.priority = priority
         # the request's trace context (obs/context.TraceContext), taken
         # from the caller's traceparent or minted at admission
@@ -157,6 +187,8 @@ class Request:
                'videos': dict(self.videos)}
         if self.trace is not None:
             out['trace_id'] = self.trace.trace_id
+        if self.segment is not None:
+            out['range'] = [float(self.segment[0]), float(self.segment[1])]
         if self.priority != 'interactive':
             out['priority'] = self.priority
         if self.done_t is not None:
@@ -371,6 +403,12 @@ class ExtractionServer:
         self.batch_shed_fraction = float(batch_shed_fraction)
         self._batch_capacity = max(
             1, int(queue_depth * self.batch_shed_fraction))
+        # the network front door (ingress/), once attach_ingress registers
+        # it: drain stops it first and reaps its connections last
+        self.ingress = None
+        # called with every terminal request (the gateway releases the
+        # tenant's concurrency unit there)
+        self.completion_listeners: List = []
 
         self.pool = WarmPool(pool_size)
         self._placer = DevicePlacer()
@@ -490,6 +528,14 @@ class ExtractionServer:
             if wait:
                 self._drained.wait(grace_s)
             return
+        if self.ingress is not None:
+            # first: stop taking network traffic and end every live
+            # session's input, or a live task would wait on frames forever
+            try:
+                self.ingress.begin_drain()
+            except Exception:
+                event(logging.WARNING, 'ingress begin_drain failed',
+                      subsystem='serve', exc_info=True)
         with self._lock:
             workers = self.pool.pop_all() + list(self._retired)
         for w in workers:
@@ -516,6 +562,14 @@ class ExtractionServer:
                     self._sock.close()
                 except OSError:
                     pass
+            if self.ingress is not None:
+                # last: force-close the connections still open, so no
+                # half-open client pins a handler thread past the drain
+                try:
+                    self.ingress.finish_drain()
+                except Exception:
+                    event(logging.WARNING, 'ingress finish_drain failed',
+                          subsystem='serve', exc_info=True)
             if self.watchdog is not None:
                 # before the final exports: a drained worker must not read
                 # as a stall while the monitor races shutdown
@@ -675,10 +729,26 @@ class ExtractionServer:
         return (self._batch_capacity if priority == 'batch'
                 else self.queue_depth)
 
-    def _refuse(self, what: str) -> Dict[str, Any]:
-        self.stats.bump('rejected')
-        return protocol.error(f'{what} is not ported yet: {NOT_PORTED[what]}',
-                              code=protocol.ERR_UNSUPPORTED)
+    @staticmethod
+    def _check_range(range_s) -> Optional[tuple]:
+        """A validated ``(start_s, end_s)`` segment, or ``ValueError``."""
+        if range_s is None:
+            return None
+        if not isinstance(range_s, (list, tuple)) or len(range_s) != 2:
+            raise ValueError('range must be [start_s, end_s]')
+        if not all(math.isfinite(float(v)) for v in range_s):
+            # JSON reads 1e999 as inf, which would pass the order check
+            # and fail in the decode thread instead of here
+            raise ValueError(f'range values must be finite; got {range_s}')
+        # quantized to milliseconds as VideoTask quantizes, so the wire,
+        # the frame filter, the file name and the cache key agree
+        start_s = round(float(range_s[0]), 3)
+        end_s = round(float(range_s[1]), 3)
+        if not (0 <= start_s < end_s):
+            raise ValueError(
+                f'range must satisfy 0 <= start < end (at millisecond '
+                f'resolution); got {range_s}')
+        return (start_s, end_s)
 
     def submit(self, feature_type: str, video_paths: List[str],
                overrides: Optional[Dict[str, Any]] = None,
@@ -686,13 +756,12 @@ class ExtractionServer:
                range_s=None,
                priority: str = 'interactive',
                traceparent: Optional[str] = None,
-               features: Optional[List[str]] = None) -> Dict[str, Any]:
-        if range_s is not None:
-            return self._refuse('range')
-        if features is not None:
+               features: Optional[List[str]] = None,
+               _live_session=None) -> Dict[str, Any]:
+        if features is not None and _live_session is None:
             return self._submit_fused(
                 features, video_paths, overrides=overrides,
-                timeout_s=timeout_s, priority=priority,
+                timeout_s=timeout_s, range_s=range_s, priority=priority,
                 traceparent=traceparent)
         t0_admit = time.perf_counter()
         trace_ctx = accept_traceparent(traceparent)
@@ -708,6 +777,12 @@ class ExtractionServer:
                 f'unknown priority {priority!r}; known: '
                 f'{", ".join(protocol.PRIORITIES)}',
                 code=protocol.ERR_INVALID)
+        try:
+            segment = self._check_range(range_s)
+        except (TypeError, ValueError) as e:
+            self.stats.bump('rejected')
+            return protocol.error(f'invalid range: {e}',
+                                  code=protocol.ERR_INVALID)
         paths = [str(p) for p in video_paths]
         if len(set(paths)) != len(paths):
             # Request.videos is keyed by path: a duplicate would never
@@ -721,6 +796,12 @@ class ExtractionServer:
                 f'feature_type {feature_type!r} has no packed/serving '
                 f'support; serveable: {", ".join(sorted(PACKED_FEATURES))}',
                 code=protocol.ERR_UNSUPPORTED)
+        if _live_session is not None and feature_type not in LIVE_FEATURES:
+            self.stats.bump('rejected')
+            return protocol.error(
+                f'feature_type {feature_type!r} has no live-session '
+                f'support; live-capable: {", ".join(sorted(LIVE_FEATURES))}',
+                code=protocol.ERR_UNSUPPORTED)
         # the YAML read and sanity_check run outside the admission lock
         try:
             args, key = self._resolve_entry_config(feature_type, paths,
@@ -733,8 +814,9 @@ class ExtractionServer:
         # feature cache hits are answered before admission: a file copy
         # takes no queue slot and wakes no worker
         cache_hits: List[str] = []
-        if args.get('cache_enabled') and not self._draining:
-            cache_hits = self._answer_cache_hits(args, paths)
+        if args.get('cache_enabled') and not self._draining \
+                and _live_session is None:
+            cache_hits = self._answer_cache_hits(args, paths, segment)
             if cache_hits:
                 self.stats.bump('cached_videos', len(cache_hits))
         miss_paths = ([p for p in paths if p not in set(cache_hits)]
@@ -743,7 +825,8 @@ class ExtractionServer:
             with self._lock:
                 self._next_id += 1
                 req = Request(f'r{self._next_id:06d}', feature_type, paths,
-                              None, priority=priority, trace=trace_ctx)
+                              None, segment=segment, priority=priority,
+                              trace=trace_ctx)
                 for p in paths:
                     req.videos[p] = 'cached'
                 req.pending = 0
@@ -815,14 +898,22 @@ class ExtractionServer:
                             if timeout_s is not None else None)
                 self._next_id += 1
                 req = Request(f'r{self._next_id:06d}', feature_type, paths,
-                              deadline, priority=priority, trace=trace_ctx)
+                              deadline, segment=segment, priority=priority,
+                              trace=trace_ctx)
                 for p in cache_hits:
                     req.videos[p] = 'cached'
                     req.pending -= 1
                 self._requests[req.id] = req
                 self._inflight_videos += len(miss_paths)
-                tasks = [_ServeTask(p, req, out_root=args['output_path'])
-                         for p in miss_paths]
+                if _live_session is not None:
+                    tasks: List[_ServeTask] = [_LiveServeTask(
+                        miss_paths[0], req, out_root=args['output_path'],
+                        session=_live_session)]
+                    _live_session.bind(req)
+                else:
+                    tasks = [_ServeTask(p, req, out_root=args['output_path'],
+                                        segment=segment)
+                             for p in miss_paths]
                 # under the admission lock: eviction (pool.put) runs under
                 # it too, so a worker cannot be closed before the enqueue
                 worker.submit(tasks)
@@ -837,6 +928,7 @@ class ExtractionServer:
     def _submit_fused(self, features, video_paths,
                       overrides: Optional[Dict[str, Any]] = None,
                       timeout_s: Optional[float] = None,
+                      range_s=None,
                       priority: str = 'interactive',
                       traceparent: Optional[str] = None) -> Dict[str, Any]:
         """One ``features=[...]`` submit: every family's config is checked
@@ -892,7 +984,7 @@ class ExtractionServer:
         for fam in fams:
             resp = self.submit(fam, paths,
                                overrides=fam_overrides[fam],
-                               timeout_s=timeout_s,
+                               timeout_s=timeout_s, range_s=range_s,
                                priority=priority,
                                traceparent=trace_ctx.traceparent())
             if resp.get('ok'):
@@ -923,9 +1015,12 @@ class ExtractionServer:
                 child.fused_parent = parent
             # children terminal at birth (all cache hits) completed before
             # the parent hook was attached: close the umbrella here
-            if parent.done_t is None and all(c.done_t is not None
-                                             for c in children.values()):
+            done = (parent.done_t is None
+                    and all(c.done_t is not None for c in children.values()))
+            if done:
                 self._record_done_locked(parent)
+        if done:
+            self._fire_completion_listeners(parent)
         out: Dict[str, Any] = {'request_id': parent.id,
                                'trace_id': trace_ctx.trace_id,
                                'requests': {f: c.id
@@ -934,16 +1029,27 @@ class ExtractionServer:
             out['errors'] = errors
         return protocol.ok(**out)
 
-    def submit_live(self, feature_type: str, session, **kwargs
-                    ) -> Dict[str, Any]:
-        """A live session (frames arriving over the network): refused by
-        name, as the port has no ``ingress/``."""
-        return self._refuse('live')
+    def submit_live(self, feature_type: str, session,
+                    overrides: Optional[Dict[str, Any]] = None,
+                    timeout_s: Optional[float] = None,
+                    priority: str = 'interactive',
+                    traceparent: Optional[str] = None) -> Dict[str, Any]:
+        """Admit one live session (``session``: an ``ingress.live.
+        LiveSession``, or anything with ``pseudo_path``, ``bind``,
+        ``windows`` and ``send_window``): a long-lived request whose
+        frames arrive over time. It takes :meth:`submit`'s admission
+        (deadline, priority shed, queue depth: one slot until it ends),
+        but its task decodes and saves nothing: windows come in through
+        the session and rows go back out through it."""
+        return self.submit(feature_type, [session.pseudo_path],
+                           overrides=overrides, timeout_s=timeout_s,
+                           priority=priority, traceparent=traceparent,
+                           _live_session=session)
 
     def attach_ingress(self, ingress) -> None:
-        raise NotImplementedError(
-            'attach_ingress is not ported yet: the port has no network '
-            'front door (ingress/)')
+        """Register the network front door, so drain quiesces it: stop
+        accepting, end the live sessions, reap half-open connections."""
+        self.ingress = ingress
 
     def _resolve_entry_config(self, feature_type: str, paths: List[str],
                               overrides: Optional[Dict[str, Any]] = None,
@@ -1087,15 +1193,17 @@ class ExtractionServer:
                 devices,
                 nbytes=getattr(worker.ex, '_placement_nbytes', 0))
 
-    def _answer_cache_hits(self, args: Dict[str, Any],
-                           paths: List[str]) -> List[str]:
+    def _answer_cache_hits(self, args: Dict[str, Any], paths: List[str],
+                           segment=None) -> List[str]:
         """Copy every video the feature cache holds for this request's
         recipe into its output root; returns the hit paths. Never raises:
         a cache failure is a miss, and extraction reports what is wrong
-        with the video."""
+        with the video. ``segment`` keys and names a range apart from the
+        whole video."""
         from video_features_torch.cache import (
             FeatureCache, log_cache_error, run_fingerprint, video_cache_key,
         )
+        from video_features_torch.parallel.packing import segment_name
         hits: List[str] = []
         try:
             l2 = args.get('cache_l2_dir')
@@ -1114,8 +1222,9 @@ class ExtractionServer:
             return hits
         for p in paths:
             try:
-                if cache.fetch_to(video_cache_key(p, fp), args['output_path'],
-                                  p, fingerprint=fp):
+                if cache.fetch_to(video_cache_key(p, fp, segment=segment),
+                                  args['output_path'], segment_name(p, segment),
+                                  fingerprint=fp):
                     hits.append(p)
             except Exception:
                 log_cache_error(f'serve-side lookup for {p}')
@@ -1166,6 +1275,14 @@ class ExtractionServer:
                 int(getattr(w.ex, '_inflight_now', 0) or 0) for w in workers)
             farms = [w.ex._farm.stats() for w in workers
                      if getattr(w.ex, '_farm', None) is not None]
+        ingress_stats = None
+        if self.ingress is not None:
+            try:
+                ingress_stats = self.ingress.stats()
+            except Exception:
+                event(logging.WARNING, 'ingress stats unavailable; '
+                      'metrics document degrades to enabled=False',
+                      subsystem='serve', exc_info=True)
         pool_stats = self.pool.stats()
         pool_stats['builds_compiled'] = builds_compiled
         pool_stats['builds_loaded'] = 0
@@ -1183,6 +1300,7 @@ class ExtractionServer:
             cache_stats=merge_cache_stats(c.stats() for c in caches),
             inflight_batches=inflight_batches,
             farm_stats=merge_farm_stats(farms),
+            ingress_stats=ingress_stats,
             trace_stats=trace_stats,
             watchdog_stats=(self.watchdog.snapshot()
                             if self.watchdog is not None else None),
@@ -1198,18 +1316,34 @@ class ExtractionServer:
         while len(self._done_ids) > REQUEST_HISTORY:
             self._requests.pop(self._done_ids.popleft(), None)
 
+    def _fire_completion_listeners(self, req: Request) -> None:
+        for listener in list(self.completion_listeners):
+            # a broken listener must not lose a completion, but a silent
+            # one would leak what it guards (a tenant's quota unit)
+            try:
+                listener(req)
+            except Exception:
+                event(logging.WARNING, 'completion listener failed',
+                      subsystem='serve', exc_info=True, request_id=req.id)
+
     def _fused_child_done(self, parent: 'FusedRequest') -> None:
-        """A fused child is terminal: close the umbrella after the last."""
+        """A fused child is terminal: close the umbrella after the last;
+        its one side effect is the completion listeners."""
         with self._lock:
-            if parent.done_t is None and parent.children and all(
-                    c.done_t is not None for c in parent.children.values()):
+            done = (parent.done_t is None and parent.children
+                    and all(c.done_t is not None
+                            for c in parent.children.values()))
+            if done:
                 self._record_done_locked(parent)
+        if done:
+            self._fire_completion_listeners(parent)
 
     def _after_completion(self, req: Request) -> None:
         self.stats.bump('completed')
         if req.state() in ('partial', 'failed'):
             self.stats.bump('failed')
         self.stats.observe_latency(req.done_t - req.t0)
+        self._fire_completion_listeners(req)
         parent = getattr(req, 'fused_parent', None)
         if parent is not None:
             self._fused_child_done(parent)
@@ -1353,6 +1487,22 @@ def serve_main(argv: List[str]) -> int:
           f'(pid {os.getpid()}; queue_depth='
           f'{serve_cfg["serve_queue_depth"]}, warm_pool='
           f'{serve_cfg["serve_warm_pool_size"]})', flush=True)
+    if serve_cfg['serve_ingress_port'] is not None:
+        # the network front door: HTTP/1.1 and chunked transfer, API-key
+        # tenants, quotas and priorities, segment queries, live sessions
+        from video_features_torch.ingress.gateway import IngressGateway
+        gateway = IngressGateway(
+            server,
+            host=serve_cfg['serve_ingress_host'],
+            port=serve_cfg['serve_ingress_port'],
+            auth_file=serve_cfg['serve_ingress_auth_file'],
+            max_body_bytes=(serve_cfg['serve_ingress_max_body_mb']
+                            * (1 << 20)),
+            max_connections=serve_cfg['serve_ingress_max_connections'],
+        ).start()
+        # the second endpoint line, scraped alike
+        print(f'ingress on {gateway.host}:{gateway.port} '
+              f'(tenants={gateway.n_tenants})', flush=True)
     server.serve_forever()
     print('serve: drained, exiting', flush=True)
     sys.stdout.flush()
