@@ -240,7 +240,7 @@ package is not beside it. Phases:
    ``decode`` spans on two worker pid lanes inside the run's window, the
    manifest's ``farm`` naming 2 workers, (a)'s bytes, no ring or worker
    left; (d) I3D per video with ``trace_out`` and ``manifest_out`` on
-   and off, in turns, 3 runs each (corpus wall and ms per window), a
+   and off, in turns, 2 runs each (corpus wall and ms per window), a
    warm build directory's ``compile`` of ``{}``, and the µs of one
    ``SpanRecorder.span`` append and of ``Tracer.stage`` with and without
    a recorder. Every number is printed with the card's name and power
@@ -280,12 +280,12 @@ package is not beside it. Phases:
    failed alone; the per-video loop on the same clips and weights
    against them (rel L2 ≤ 1e-6); (b) the cold and the warm request's
    wall; a sustained stream: 24 seeded clips (phase 17's four shapes six
-   times over, 66 windows) sent as 24 one-clip requests at once, twice,
-   and the per-video loop on the same corpus twice, in the order server,
-   loop, loop, server, each round's launches counted from 0 and its
-   windows/s over the whole round; the requests' latencies; the outputs
-   of both server rounds and a loop round against each other (rel L2 ≤
-   1e-6); the device's busy share over a third, traced server round;
+   times over, 66 windows) sent as 24 one-clip requests at once, then
+   the per-video loop on the same corpus, each round's launches counted
+   from 0 and its windows/s over the whole round; the requests'
+   latencies; the outputs of the server round and the loop round against
+   each other (rel L2 ≤ 1e-6); the device's busy share over a second,
+   traced server round;
    each line with the card's name and power limit; (c) with
    ``watchdog_stall_s=30``, ``slo_latency_p99_s=60`` and
    ``slo_availability=0.99``: no stall, a filled ``slo`` section, and
@@ -318,8 +318,48 @@ package is not beside it. Phases:
    ``vft_ingress_shed_total`` in ``/metrics``. Each line with the card's
    name and power limit; the phase prints its own wall.
 
+25. the feature index: (a) lanes side by side: one in-process daemon
+   serves fused I3D under ``highest`` (phase 23's configuration) and
+   resnet50 under ``tensorfloat32`` at batch 32 on phase 17's four clips,
+   first each family alone, then both with their requests interleaved
+   (two workers dispatching at once, every fused step counted): the i3d
+   rows equal the solo run's at rel L2 ≤ 1e-6, the resnet rows too, and
+   the TF32 flags are the ones found before; (b) full-width serving: a
+   daemon with ``cache_enabled`` and ``index_enabled`` serves
+   ``features=[resnet,clip]`` (resnet50, 2048 dims; CLIP ViT-B/32, 512;
+   batch 32) over phase 23's 24-clip corpus as 24 one-clip requests:
+   frames/s, the ingest lag to zero after the last answer and the fold's
+   rows/s; every window's query (``rows_for``, the engine's top-10) finds
+   its own row first, and the hits agree with a float64 numpy brute
+   force over the same rows; ``search`` by video per clip; an evicted key
+   is never a hit; no kernel launch; (c) a seeded index of 262,144 × 512
+   rows (256 shards of 1024) takes 64 queries at k 10 through
+   ``QueryEngine.search``: queries/s of the engine as shipped, then the
+   time's split between the shard snapshot copy, host padding and merge,
+   H2D and the top-k with its readback from an instrumented copy that
+   syncs the device per shard (shares only); beside it ``torch.topk(q @ X.T, 10)`` on one
+   device-resident tensor (the yardstick), with the same top-10.
+
+26. the fleet: two ``python -m video_features_torch serve`` processes on
+   the card (each its own ``cache_dir``, one shared ``cache_l2_dir``,
+   both with ``index_enabled`` and ``serve_prewarm=[resnet,clip]``)
+   behind ``python -m video_features_torch fleet`` with
+   ``fleet_http_port``: the 24 clips of 25 (b) as fused requests land on
+   their ring owners with rows byte-equal to 25 (b)'s; a repeat is
+   answered from the caches (no step); ``POST /v1/search`` and ``GET
+   /metrics`` (``host=`` labels) through the router's HTTP port; one
+   request's trace merged across router and backend; then a stream of
+   eight fresh clips with one backend SIGKILLed before the fourth: the
+   survivor answers, the failovers and the added latency are printed;
+   SIGTERM ends the survivor and the router (exit 0) and no child
+   process is left. Phases 25 (b) and (c) launch none of the four
+   kernels and check it. Phase 26's extraction runs in the daemon
+   processes, whose counts this process cannot read: it serves resnet50
+   and CLIP, which reach none of the kernels. Each line carries the
+   card's name and power limit, and each phase prints its wall.
+
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10 and 17–24; the one-pass GRU
+sum over the path runs of phases 4, 5, 10, 17–24 and 25 (a); the one-pass GRU
 instantiation is an entry of its own); the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -2858,7 +2898,7 @@ def cache_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
 # alternating runs of each, and SPAN_APPENDS appends timed alone
 TRACE_EVENT_KEYS = frozenset({'name', 'ph', 'ts', 'dur', 'pid', 'tid', 'args',
                               's'})
-FLIGHT_REPEATS, SPAN_APPENDS = 3, 100_000
+FLIGHT_REPEATS, SPAN_APPENDS = 2, 100_000
 FARM_WINDOW_SLACK_S = 0.05      # the farm's clock exchange: trusted below it
 
 
@@ -3624,8 +3664,8 @@ def serve_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
         print(f'phase 23 (b) [{card}]: request wall cold {cold:.3f} s, warm '
               f'{warm:.3f} s (one request each)', flush=True)
 
-        # (b) a sustained stream: rounds in the order server, loop, loop,
-        # server, each over the whole corpus
+        # (b) a sustained stream: a server round, then a loop round, each
+        # over the whole corpus
         def loop_round(out):
             ex.output_path = out
             t0 = time.perf_counter()
@@ -3637,7 +3677,7 @@ def serve_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
         corpus = sum(STREAM_WINDOWS)
         rates = {'server': [], 'loop': []}
         latencies = []
-        for i, kind in enumerate(('server', 'loop', 'loop', 'server')):
+        for i, kind in enumerate(('server', 'loop')):
             out = str(root / f'stream{i}_{kind}')
             where = f'phase 23 (b) stream round {i + 1} ({kind})'
             if kind == 'server':
@@ -3653,15 +3693,13 @@ def serve_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
                   f'windows in {wall:.3f} s, {n_steps} fused steps: '
                   f'{corpus / wall:.3f} windows/s', flush=True)
         streams = {i: tree_arrays(np, str(root / f'stream{i}_{kind}'))
-                   for i, kind in ((0, 'server'), (1, 'loop'), (3, 'server'))}
+                   for i, kind in ((0, 'server'), (1, 'loop'))}
         check_shapes(streams[0], stream_paths, STREAM_WINDOWS,
                      'phase 23 (b) stream')
-        worst = max(compare_trees(np, streams[0], streams[3],
-                                  'phase 23 (b) server rounds 1 vs 4'),
-                    compare_trees(np, streams[1], streams[0],
-                                  'phase 23 (b) loop vs server'))
-        server_rate = sum(rates['server']) / 2
-        loop_rate = sum(rates['loop']) / 2
+        worst = compare_trees(np, streams[1], streams[0],
+                              'phase 23 (b) loop vs server')
+        server_rate = sum(rates['server']) / len(rates['server'])
+        loop_rate = sum(rates['loop']) / len(rates['loop'])
         print(f'phase 23 (b) [{card}]: sustained stream, {server_rate:.3f} '
               f'windows/s through the server (rounds '
               f'{", ".join(f"{r:.3f}" for r in rates["server"])}) against '
@@ -4108,6 +4146,583 @@ def ingress_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
           flush=True)
 
 
+# -- phases 25 and 26: the feature index and the fleet router ----------------
+
+INDEX_FEATURES = ['resnet', 'clip']
+INDEX_DIMS = {'resnet': 2048, 'clip': 512}
+# 25 (c): 256 shards of 1024 rows of 512 (the canonical shard), 64 queries
+LARGE_ROWS, LARGE_DIM, LARGE_QUERIES, LARGE_K = 262_144, 512, 64, 10
+FLEET_KEY = 'fleet-smoke'
+# the failover stream: eight fresh clips of one shape, so latencies compare
+FAILOVER_CLIPS = (PACK_CLIPS[0],) * 8
+FAILOVER_KILL_AT = 3
+
+
+def frame_base(root: Path, **extra) -> dict:
+    """resnet50 and CLIP ViT-B/32 at batch 32 on the card with seeded
+    random weights, as base overrides of a serve daemon."""
+    base = {'device': 'cuda', 'batch_size': 32, 'allow_random_weights': True,
+            'on_extraction': 'save_numpy', 'tmp_path': str(root / 'tmp')}
+    base.update(extra)
+    return base
+
+
+def wait_all(client, rids, where: str, timeout_s: float = 900) -> list:
+    sts = [client.wait(rid, timeout_s=timeout_s) for rid in rids]
+    bad = [st for st in sts if st['state'] != 'done']
+    if bad:
+        fail(f'{where}: requests ended {bad[:2]}')
+    return sts
+
+
+def lanes_side_by_side(torch, np, root: Path, corr_lookup, gru, check_counts,
+                       card: str) -> None:
+    """25 (a): two lanes on two workers of one daemon at once. The mixed
+    run counts only where the two lanes' scopes met: some scope waited on
+    the other lane (``scope_wait_stats``); a run where they never met is
+    repeated, at most three times."""
+    from video_features_torch.extract.i3d import ExtractI3D
+    from video_features_torch.serve.client import ServeClient
+    from video_features_torch.serve.server import ExtractionServer
+    from video_features_torch.utils.device import scope_wait_stats
+    root.mkdir(parents=True, exist_ok=True)
+    clips = write_clips(np, root, PACK_CLIPS, seed=251)
+    lanes = {'i3d': {'stack_size': STACK, 'step_size': STACK,
+                     'raft_iters': SLICE_ITERS, 'batch_size': PACK_BATCH,
+                     'precision': 'highest'},
+             'resnet': {'model_name': 'resnet50', 'batch_size': 32,
+                        'precision': 'tensorfloat32'}}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    steps = [0]
+    packed_step = ExtractI3D.packed_step
+
+    def counted_step(self, x):
+        steps[0] += 1
+        return packed_step(self, x)
+    ExtractI3D.packed_step = counted_step
+    server = ExtractionServer(base_overrides=frame_base(root)).start()
+    try:
+        client = ServeClient(port=server.port)
+
+        def run(tag, jobs):
+            reset_counts(corr_lookup, gru)
+            steps[0] = 0
+            scope_wait_stats(reset=True)
+            t0 = time.perf_counter()
+            rids = [client.submit(fam, [clip], overrides={
+                **lanes[fam], 'output_path': str(root / tag / fam)})
+                for fam, clip in jobs]
+            wait_all(client, rids, f'phase 25 (a) {tag}')
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            waits = scope_wait_stats(reset=True)
+            counts = read_counts(corr_lookup, gru)
+            check_counts(counts, 'masked', steps[0], f'phase 25 (a) {tag}')
+            print(f'phase 25 (a) {tag} [{card}]: {len(jobs)} requests in '
+                  f'{wall:.3f} s, {steps[0]} fused steps, launches {counts}, '
+                  f'{waits["waits"]} scopes waited on the other lane '
+                  f'(longest {1e3 * waits["longest_wait_s"]:.3f} ms)',
+                  flush=True)
+            return waits
+        run('solo', [('i3d', c) for c in clips])
+        run('solo', [('resnet', c) for c in clips])
+        for attempt in range(3):
+            mixed_tag = f'mixed{attempt}'
+            waits = run(mixed_tag, [(fam, c) for c in clips
+                                    for fam in ('i3d', 'resnet')])
+            if waits['waits']:
+                break
+        else:
+            fail('phase 25 (a): in three mixed runs no scope ever waited on '
+                 'the other lane: the lanes never met, so the run cannot '
+                 'show the repair')
+    finally:
+        ExtractI3D.packed_step = packed_step
+        server.drain(wait=True, grace_s=300)
+    after = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    worst = {}
+    for fam in lanes:
+        solo = tree_arrays(np, str(root / 'solo' / fam))
+        mixed = tree_arrays(np, str(root / mixed_tag / fam))
+        if sorted(solo) != sorted(mixed) or not solo:
+            fail(f'phase 25 (a): {fam} files {sorted(mixed)} against '
+                 f'{sorted(solo)}')
+        worst[fam] = max(float(np.linalg.norm(
+            mixed[k].astype(np.float64) - solo[k])
+            / max(np.linalg.norm(solo[k].astype(np.float64)), 1e-30))
+            for k in solo)
+        if worst[fam] > 1e-6:
+            fail(f'phase 25 (a): {fam} ({lanes[fam]["precision"]}) next to '
+                 f'the other lane differs from its solo run: rel L2 '
+                 f'{worst[fam]:.3e}')
+    if after != flags:
+        fail(f'phase 25 (a): TF32 flags {after} after the daemon, {flags} '
+             f'before')
+    print(f'phase 25 (a) [{card}]: lanes side by side ({mixed_tag}: '
+          f'{waits["waits"]} scopes waited on the other lane, longest '
+          f'{1e3 * waits["longest_wait_s"]:.3f} ms), i3d (highest) vs solo '
+          f'rel L2 {worst["i3d"]:.3e}, resnet50 (tensorfloat32) vs solo '
+          f'{worst["resnet"]:.3e}; TF32 flags {after} as found', flush=True)
+
+
+def brute_check(np, store, family: str, engine, corpus, where: str) -> dict:
+    """Every window of every clip queried by its own row: its own row
+    first (score reported), and the top-10 against a float64 brute force
+    over the same live rows (scores within 2e-5; no better row missed;
+    the ranking non-increasing in float64 within 2e-5)."""
+    from video_features_torch.cache.key import hash_file
+    gkey = store.group_for(family)
+    rows, metas = [], []
+    for arr, mask, ms in store.shard_views(gkey):
+        for j, m in enumerate(ms):
+            if m is not None:
+                rows.append(arr[j])
+                metas.append(m)
+    x64 = np.asarray(rows, np.float64)
+    where_row = {(m['key'], m['t_ms']): i for i, m in enumerate(metas)}
+    own_min, err_max, queries, t_search = 2.0, 0.0, 0, 0.0
+    for clip in corpus:
+        q, qmetas = store.rows_for(family, hash_file(clip))
+        t0 = time.perf_counter()
+        hits, _ = engine.search(family, q, LARGE_K)
+        t_search += time.perf_counter() - t0
+        q64 = np.asarray(q, np.float64)
+        q64 /= np.linalg.norm(q64, axis=1, keepdims=True)
+        s64 = q64 @ x64.T
+        for i, (lst, meta) in enumerate(zip(hits, qmetas)):
+            queries += 1
+            got = np.array([s64[i, where_row[(h['key'], h['t_ms'])]]
+                            for h in lst])
+            if (lst[0]['key'], lst[0]['t_ms']) != (meta['key'], meta['t_ms']):
+                fail(f'{where}: {family} window {meta["t_ms"]} of '
+                     f'{Path(clip).name}: top hit {lst[0]}, not its own row')
+            own_min = min(own_min, lst[0]['score'])
+            err_max = max(err_max, float(np.abs(
+                got - [h['score'] for h in lst]).max()))
+            tenth = np.sort(s64[i])[::-1][len(lst) - 1]
+            if got[-1] < tenth - 2e-5 or (np.diff(got) > 2e-5).any():
+                fail(f'{where}: {family} top-{len(lst)} against float64: '
+                     f'{got} vs 10th {tenth}')
+    if err_max > 2e-5 or own_min < 1 - 1e-6:
+        fail(f'{where}: {family} scores off float64 by {err_max:.3e}, own '
+             f'row scored {own_min:.9f}')
+    return {'queries': queries, 'own_min': own_min, 'err_max': err_max,
+            'search_s': t_search}
+
+
+def index_serving(torch, np, root: Path, corpus, corr_lookup, gru,
+                  card: str) -> Path:
+    """25 (b): the served index at full width; returns the output root."""
+    from video_features_torch.cache.key import hash_file
+    from video_features_torch.serve.client import ServeClient
+    from video_features_torch.serve.server import ExtractionServer
+    out = root / 'out'
+    reset_counts(corr_lookup, gru)
+    server = ExtractionServer(base_overrides=frame_base(
+        root, cache_enabled=True, cache_dir=str(root / 'cache'),
+        index_enabled=True, index_poll_s=0.05,
+        trace_out=str(root / 'trace.json'))).start()
+    try:
+        client = ServeClient(port=server.port)
+        svc = server.index_service
+        t0 = time.perf_counter()
+        rids = [client.submit(None, [c], overrides={'output_path': str(out)},
+                              features=INDEX_FEATURES) for c in corpus]
+        wait_all(client, rids, 'phase 25 (b)')
+        t_done = time.perf_counter()
+        frames = {fam: sum(a.shape[0] for name, a in tree_arrays(
+            np, str(out / fam)).items() if name.endswith(f'_{fam}.npy'))
+            for fam in INDEX_FEATURES}
+        want = sum(frames.values())
+        while True:
+            st = svc.stats()
+            if st['rows_live'] >= want and st['ingest_lag_bytes'] == 0:
+                break
+            if time.perf_counter() - t_done > 120:
+                fail(f'phase 25 (b): ingest stuck at {st}')
+            time.sleep(0.005)
+        lag_s = time.perf_counter() - t_done
+        spans = [e for e in svc._recorder.snapshot()
+                 if e.get('name') == 'index_ingest' and e.get('ph') == 'X']
+        fold_s = sum(e['dur'] for e in spans) / 1e6
+        print(f'phase 25 (b) [{card}]: {len(corpus)} fused requests '
+              f'(resnet50 + CLIP ViT-B/32, batch 32), {frames} frames in '
+              f'{t_done - t0:.3f} s ({sum(frames.values()) / 2 / (t_done - t0):.1f} '
+              f'frames/s); ingest lag 0 {lag_s:.3f} s after the last answer; '
+              f'{st["rows_indexed"]} rows folded in {len(spans)} cycles, '
+              f'{fold_s:.3f} s of fold, {st["rows_indexed"] / max(fold_s, 1e-9):.0f} '
+              f'rows/s; {st["shards"]} shards', flush=True)
+        for fam in INDEX_FEATURES:
+            got = svc.store.group_for(fam)
+            if got != (fam, INDEX_DIMS[fam]):
+                fail(f'phase 25 (b): {fam} indexed as {got}')
+            r = brute_check(np, svc.store, fam, svc.engine, corpus,
+                            'phase 25 (b)')
+            print(f'phase 25 (b) [{card}]: {fam}: {r["queries"]} window '
+                  f'queries, each its own top hit (lowest score '
+                  f'{r["own_min"]:.9f}, {1 - r["own_min"]:.2e} below 1), '
+                  f'top-10 vs float64 max |d| {r["err_max"]:.2e}; '
+                  f'{r["queries"] / r["search_s"]:.1f} queries/s', flush=True)
+        lat = []
+        for clip in corpus[:4]:
+            t = time.perf_counter()
+            res = client.search(video_path=clip, features=INDEX_FEATURES,
+                                k=LARGE_K)
+            lat.append(time.perf_counter() - t)
+            for fam in INDEX_FEATURES:
+                top = res['results'][fam][0]
+                if top['video_sha256'] != hash_file(clip) or \
+                        top['score'] < 1 - 1e-5:
+                    fail(f'phase 25 (b): search by video {fam} top {top}')
+        # eviction: the first clip's resnet entry leaves the cache
+        q, qmetas = svc.store.rows_for('resnet', hash_file(corpus[0]))
+        key = qmetas[0]['key']
+        with svc.cache._lock:
+            svc.cache._evict_locked(key)
+        svc.cache._notify_evictions()
+        hits, _ = svc.engine.search('resnet', q, LARGE_K)
+        if any(h['key'] == key for lst in hits for h in lst):
+            fail('phase 25 (b): an evicted key is still a hit')
+        print(f'phase 25 (b) [{card}]: search by video {[round(x, 3) for x in lat]} '
+              f's; the evicted key ({len(qmetas)} rows) is no hit of its own '
+              f'rows; index {svc.stats()["rows_live"]} rows live', flush=True)
+    finally:
+        server.drain(wait=True, grace_s=300)
+    check_no_launches(read_counts(corr_lookup, gru), 'phase 25 (b)')
+    return out
+
+
+def large_index(torch, np, root: Path, corr_lookup, gru, card: str) -> None:
+    """25 (c): query time at a realistic index size, beside one
+    device-resident ``torch.topk(q @ X.T)``."""
+    from video_features_torch.index.search import QueryEngine, topk
+    from video_features_torch.index.shards import IndexStore
+    from video_features_torch.utils.device import precision_scope
+    reset_counts(corr_lookup, gru)
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((LARGE_ROWS, LARGE_DIM), dtype=np.float32)
+    per_key = 64
+    metas = [{'video': f'v{i // per_key}.mp4', 'video_sha256': None,
+              't_ms': (i % per_key) * 40, 'key': f'k{i // per_key}'}
+             for i in range(LARGE_ROWS)]
+    t0 = time.perf_counter()
+    store = IndexStore(str(root / 'large'), shard_rows=1024)
+    store.add_rows('bench', x, metas)
+    build_s = time.perf_counter() - t0
+    queries = rng.standard_normal((LARGE_QUERIES, LARGE_DIM), dtype=np.float32)
+    # queries/s: the shipped engine, untouched
+    engine = QueryEngine(store, device='cuda')
+    engine.prewarm()
+    walls = []
+    for _ in range(2):
+        t = time.perf_counter()
+        hits, _ = engine.search('bench', queries, LARGE_K)
+        walls.append(time.perf_counter() - t)
+    wall = walls[-1]
+    # the time split: a copy of the engine's per-shard step with a device
+    # sync between the copy in and the top-k, and the snapshot timed; the
+    # syncs make it slower than the engine, so it gives shares only
+    acc = {'views': 0.0, 'h2d': 0.0, 'topk': 0.0}
+    views = store.shard_views
+
+    def timed_views(gkey):
+        t = time.perf_counter()
+        out = views(gkey)
+        acc['views'] += time.perf_counter() - t
+        return out
+
+    class TimedEngine(QueryEngine):
+        def _run(self, shard, queries, mask, k):
+            t = time.perf_counter()
+            dev = self.device
+            s, q, m = (torch.from_numpy(a).to(dev) for a in (shard, queries,
+                                                            mask))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                values, rows = topk(s, q, m, k)
+                out = values.cpu().numpy(), rows.cpu().numpy()
+            acc['h2d'] += t1 - t
+            acc['topk'] += time.perf_counter() - t1
+            return out
+    timed = TimedEngine(store, device='cuda')
+    timed.prewarm()
+    store.shard_views = timed_views
+    try:
+        t = time.perf_counter()
+        timed_hits, _ = timed.search('bench', queries, LARGE_K)
+        split_wall = time.perf_counter() - t
+    finally:
+        del store.shard_views
+    ids = [[(h['key'], h['t_ms']) for h in lst] for lst in hits]
+    if ids != [[(h['key'], h['t_ms']) for h in lst] for lst in timed_hits] \
+            or max(abs(a['score'] - b['score']) for la, lb in zip(
+                hits, timed_hits) for a, b in zip(la, lb)) > 1e-6:
+        fail('phase 25 (c): the instrumented copy answered otherwise than '
+             'the engine')
+    host = split_wall - sum(acc.values())
+    # the yardstick: one call over one device-resident tensor
+    xd = torch.from_numpy(x).cuda()
+    xd = xd / xd.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    qd = torch.from_numpy(queries).cuda()
+    qd = qd / qd.norm(dim=1, keepdim=True).clamp_min(1e-12)
+
+    def library():
+        with precision_scope('highest'):
+            return torch.topk(qd @ xd.T, LARGE_K)
+    lib_ms = cuda_ms(torch, library, reps=20)
+    values, rows = library()
+    values, rows = values.cpu().numpy(), rows.cpu().numpy()
+    diff = 0.0
+    for qi, lst in enumerate(hits):
+        got = [int(h['key'][1:]) * per_key + h['t_ms'] // 40 for h in lst]
+        vals = np.array([h['score'] for h in lst])
+        diff = max(diff, float(np.abs(vals - values[qi]).max()))
+        gaps = np.abs(np.diff(values[qi])) > 1e-5
+        same = [a == b for a, b in zip(got, rows[qi].tolist())]
+        if not all(s or not (g_prev and g_next) for s, g_prev, g_next in zip(
+                same, [True, *gaps], [*gaps, True])):
+            fail(f'phase 25 (c): query {qi} top-{LARGE_K} {got} against the '
+                 f'yardstick {rows[qi].tolist()}')
+    if diff > 1e-5:
+        fail(f'phase 25 (c): scores off the yardstick by {diff:.3e}')
+    del xd, qd
+    shares = {k: round(100 * v / split_wall, 1) for k, v in
+              (('snapshot copy', acc['views']), ('pad and merge', host),
+               ('H2D', acc['h2d']), ('top-k and readback', acc['topk']))}
+    print(f'phase 25 (c) [{card}]: {LARGE_ROWS} x {LARGE_DIM} rows in '
+          f'{store.stats()["shards"]} shards (built in '
+          f'{build_s:.3f} s); {LARGE_QUERIES} queries at k {LARGE_K}: '
+          f'{[round(w, 4) for w in walls]} s, {LARGE_QUERIES / wall:.1f} '
+          f'queries/s, {1e3 * wall / lib_ms:.0f}x the yardstick '
+          f'torch.topk(q @ X.T) {lib_ms:.4f} ms on the device-resident index '
+          f'(the same top-10, |d| {diff:.1e}); time % of the instrumented '
+          f'copy ({split_wall:.4f} s, synced per shard) {shares}',
+          flush=True)
+    check_no_launches(read_counts(corr_lookup, gru), 'phase 25 (c)')
+
+
+def index_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> tuple:
+    """Phase 25: returns 25 (b)'s output root and its corpus."""
+    t_phase = time.perf_counter()
+    root = ROOT / 'output' / 'index'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    corpus = write_clips(np, root, STREAM_CLIPS, seed=231)
+    t = time.perf_counter()
+    lanes_side_by_side(torch, np, root / 'lanes', corr_lookup, gru,
+                       check_counts, card)
+    print(f'phase 25 (a) {time.perf_counter() - t:.1f} s', flush=True)
+    t = time.perf_counter()
+    out = index_serving(torch, np, root / 'serving', corpus, corr_lookup, gru,
+                        card)
+    print(f'phase 25 (b) {time.perf_counter() - t:.1f} s', flush=True)
+    t = time.perf_counter()
+    large_index(torch, np, root, corr_lookup, gru, card)
+    print(f'phase 25 (c) {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'phase 25 [{card}]: {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return out, corpus
+
+
+def start_cli(args, lines: int, where: str, env=None):
+    """``python -m video_features_torch <args>``: the process and its
+    first ``lines`` lines of stdout."""
+    proc = subprocess.Popen([sys.executable, '-m', 'video_features_torch',
+                             *args], cwd=str(ROOT), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+    got = []
+    for _ in range(lines):
+        line = proc.stdout.readline()
+        if not line:
+            proc.kill()
+            fail(f'{where}: no start-up line; {proc.stderr.read()[-2000:]}')
+        got.append(line.strip())
+    return proc, got
+
+
+def fleet_phase(np, ref_out: Path, corpus, card: str) -> None:
+    """Phase 26: two serve daemons behind the fleet router on the card."""
+    import signal
+
+    from video_features_torch.cache.key import hash_file
+    from video_features_torch.fleet.ring import HashRing
+    from video_features_torch.serve.client import ServeClient
+    t_phase = time.perf_counter()
+    root = ROOT / 'output' / 'fleet'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    keys = root / 'keys.yml'
+    keys.write_text(f'keys:\n  {FLEET_KEY}: {{tenant: smoke}}\n')
+    shm_before = set(os.listdir('/dev/shm'))
+    procs, children = {}, []
+    try:
+        t0 = time.perf_counter()
+        for tag in ('a', 'b'):
+            args = [f'{k}={v}' for k, v in frame_base(
+                root / tag, cache_enabled=True,
+                cache_dir=str(root / tag / 'cache'),
+                cache_l2_dir=str(root / 'l2'), index_enabled=True,
+                index_poll_s=0.05,
+                trace_out=str(root / tag / 'trace.json')).items()]
+            procs[tag] = subprocess.Popen(
+                [sys.executable, '-m', 'video_features_torch', 'serve',
+                 *args, 'serve_prewarm=[resnet,clip]'], cwd=str(ROOT),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        addrs = {}
+        for tag, proc in procs.items():
+            line = proc.stdout.readline()
+            if not line.startswith('serving on '):
+                fail(f'phase 26: daemon {tag}: {line!r} '
+                     f'{proc.stderr.read()[-2000:]}')
+            addrs[tag] = line.split()[2]
+        boot_s = time.perf_counter() - t0
+        hosts = [addrs['a'], addrs['b']]
+        router, lines = start_cli(
+            ['fleet', f'fleet_hosts=[{",".join(hosts)}]', 'fleet_port=0',
+             'fleet_http_port=0', f'fleet_auth_file={keys}',
+             'fleet_probe_interval_s=0.5'], 2, 'phase 26 router')
+        procs['router'] = router
+        if not (lines[0].startswith('fleet router on ')
+                and lines[1].startswith('fleet ingress on ')):
+            fail(f'phase 26: router lines {lines}')
+        port = int(lines[0].split()[3].rsplit(':', 1)[1])
+        http_port = int(lines[1].split()[3].rsplit(':', 1)[1])
+        print(f'phase 26 [{card}]: two daemons ready (pre-warmed) '
+              f'{boot_s:.3f} s after the start; {lines[0]}', flush=True)
+        client = ServeClient(port=port)
+        ring = HashRing(hosts)
+        out = root / 'out'
+
+        def fused(clips, dest):
+            t = time.perf_counter()
+            resps = [client._call({'cmd': 'submit', 'feature_type': None,
+                                   'features': INDEX_FEATURES,
+                                   'video_paths': [c],
+                                   'overrides': {'output_path': str(dest)}})
+                     for c in clips]
+            # each daemon numbers its requests from r000001, so the two
+            # issue the same ids and the router's id → backend table keeps
+            # the latest: wait on each request's own backend
+            sts = [ServeClient(port=int(r['backend'].rsplit(':', 1)[1])).wait(
+                r['request_id'], timeout_s=900) for r in resps]
+            return resps, sts, time.perf_counter() - t
+        resps, sts, wall = fused(corpus, out)
+        wrong = [(Path(c).name, r['backend']) for c, r in zip(corpus, resps)
+                 if r['backend'] != ring.host_for(hash_file(c))]
+        if wrong or any(st['state'] != 'done' for st in sts):
+            fail(f'phase 26: off their ring owners {wrong}, states '
+                 f'{[st["state"] for st in sts]}')
+        owned = {h: sum(r['backend'] == h for r in resps) for h in hosts}
+        mine, ref = tree_bytes(out), tree_bytes(ref_out)
+        same_bytes(ref, mine, 'phase 26 rows against 25 (b)')
+        # the last submit's id is the router's latest entry for it
+        last = resps[-1]
+        trace = client.trace(last['request_id'])
+        tid = trace.get('trace_id')
+
+        def joined(e):
+            a = e.get('args') or {}
+            return a.get('trace_id') == tid or tid in (a.get('trace_ids') or ())
+        spans = {h: [e for e in trace['events'] if e.get('ph') == 'X'
+                     and e['args'].get('host') == h]
+                 for h in ('router', last['backend'])}
+        # the router's spans are the request's; the backend's carry it, or
+        # share a batch with other requests (their ids in trace_ids)
+        if not tid or not all(spans.values()) or not all(
+                joined(e) for e in spans['router']) or not any(
+                joined(e) for e in spans[last['backend']]):
+            fail(f'phase 26: trace {tid} over hosts {trace["hosts"]}: '
+                 f'{ {h: len(v) for h, v in spans.items()} } spans')
+        print(f'phase 26 [{card}]: {len(corpus)} fused requests on their '
+              f'ring owners {owned} in {wall:.3f} s; {len(mine)} files '
+              f'byte-equal to 25 (b)', flush=True)
+        resps2, sts2, wall2 = fused(corpus, root / 'again')
+        states = {s for st in sts2 for fam in st['videos'].values()
+                  for s in fam.values()}
+        if states != {'cached'}:
+            fail(f'phase 26: the repeat ran {states}, want cached only')
+        print(f'phase 26 [{card}]: the repeat answered from the caches in '
+              f'{wall2:.3f} s (every video cached)', flush=True)
+        # a vector search routes by its family: query a row of a clip that
+        # the family's backend indexed
+        searcher = ring.host_for('family:clip')
+        probe = next(c for c, r in zip(corpus, resps)
+                     if r['backend'] == searcher)
+        vec = np.load(next((out / 'clip').rglob(
+            f'{Path(probe).stem}_clip.npy')))[0]
+        st, doc = http_json(http_port, 'POST', '/v1/search',
+                            {'family': 'clip', 'vector': vec.tolist(),
+                             'k': LARGE_K}, key=FLEET_KEY)
+        if st != 200 or not doc.get('hits') or doc['hits'][0]['score'] < \
+                1 - 1e-5 or doc['hits'][0]['video'] != Path(probe).name:
+            fail(f'phase 26: POST /v1/search through the router {st} {doc}')
+        st, prom = http_json(http_port, 'GET', '/metrics', key=FLEET_KEY)
+        labelled = [h for h in hosts if f'host="{h}"' in prom]
+        if st != 200 or labelled != hosts:
+            fail(f'phase 26: GET /metrics {st}, host labels {labelled}')
+        print(f'phase 26 [{card}]: POST /v1/search 200 (top score '
+              f'{doc["hits"][0]["score"]:.7f}); /metrics labels both hosts; '
+              f'one trace {tid} over {trace["hosts"]}: '
+              f'{ {h: len(v) for h, v in spans.items()} } spans, '
+              f'{sum(map(joined, spans[last["backend"]]))} of the '
+              f'backend\'s under its id', flush=True)
+        fresh = write_clips(np, root, FAILOVER_CLIPS, seed=262)
+        victim_host = ring.host_for(hash_file(fresh[FAILOVER_KILL_AT]))
+        victim = 'a' if addrs['a'] == victim_host else 'b'
+        lat, backends = [], []
+        for i, clip in enumerate(fresh):
+            if i == FAILOVER_KILL_AT:
+                procs[victim].kill()
+                procs[victim].wait()
+            resps3, sts3, w = fused([clip], root / 'stream')
+            if sts3[0]['state'] != 'done':
+                fail(f'phase 26: stream request {i} {sts3[0]}')
+            lat.append(w)
+            backends.append(resps3[0]['backend'])
+        fleet = client.metrics()['fleet']
+        survivor = [h for h in hosts if h != victim_host][0]
+        if any(b != survivor for b in backends[FAILOVER_KILL_AT:]):
+            fail(f'phase 26: after the kill requests went to {backends}')
+        before = sorted(lat[:FAILOVER_KILL_AT])[FAILOVER_KILL_AT // 2]
+        print(f'phase 26 [{card}]: SIGKILL of {victim_host} before request '
+              f'{FAILOVER_KILL_AT}: the survivor answered the rest; '
+              f'failovers {fleet["failovers"]}, rejected {fleet["rejected"]}; '
+              f'latencies {[round(x, 3) for x in lat]} s, the first '
+              f'request after the kill (failed over unless the probe had '
+              f'already seen it) {lat[FAILOVER_KILL_AT]:.3f} s against a '
+              f'median '
+              f'{before:.3f} before ({lat[FAILOVER_KILL_AT] - before:+.3f} s)',
+              flush=True)
+        children = [c for p in procs.values() if p.poll() is None
+                    for c in child_pids(p.pid)]
+        for name in ('router', 'a' if victim == 'b' else 'b'):
+            procs[name].send_signal(signal.SIGTERM)
+        outs = {}
+        for name in ('router', 'a' if victim == 'b' else 'b'):
+            outs[name] = procs[name].communicate(timeout=300)
+            if procs[name].returncode != 0:
+                fail(f'phase 26: {name} exit {procs[name].returncode} '
+                     f'{outs[name][1][-2000:]}')
+        if 'fleet: stopped, exiting' not in outs['router'][0]:
+            fail(f'phase 26: router stdout {outs["router"][0][-500:]!r}')
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    alive = [c for c in children if Path(f'/proc/{c}').exists() and 'Z' not in
+             Path(f'/proc/{c}/stat').read_text().split()[2]]
+    left = sorted(set(os.listdir('/dev/shm')) - shm_before)
+    if alive or left:
+        fail(f'phase 26: left behind: processes {alive}, /dev/shm {left}')
+    print(f'phase 26 [{card}]: router and survivor exited 0 on SIGTERM; no '
+          f'child process left; {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -4303,9 +4918,21 @@ def main() -> int:
               'segment queries, live sessions unpaced and paced, quotas')
     print(card, flush=True)
     ingress_phase(torch, np, corr_lookup, gru, check_counts, card)
+    print(f'ingress phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('feature index: two lanes side by side, resnet50 + CLIP '
+              'served with the index, a 262,144-row index')
+    print(card, flush=True)
+    index_out, corpus = index_phase(torch, np, corr_lookup, gru, check_counts,
+                                    card)
+    print(f'index phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('fleet: two serve daemons behind the fleet router')
+    print(card, flush=True)
+    fleet_phase(np, index_out, corpus, card)
     for key in launches:
         rec[key]['launches'] = launches[key]
-    print(f'ingress phase {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'fleet phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (

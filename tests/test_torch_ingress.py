@@ -506,11 +506,13 @@ def test_health_auth_and_metrics_surfaces(gatewayed):
     assert st == 200 and b'vft_ingress_requests_total' in text
     st, doc = _api(gateway, 'GET', '/v1/nope')
     assert st == 404
-    # /v1/search: the daemon's by-name refusal (no index/), no quota spent
+    # /v1/search on a daemon without index_enabled: the JAX gateway's 503
+    # index_disabled, before any quota is spent
     st, doc = _api(gateway, 'POST', '/v1/search',
                    {'family': 'resnet', 'vector': [0.0] * 512})
-    assert st == 503 and doc['error'] == 'unsupported', doc
-    assert doc['message'].startswith('search is not ported yet')
+    assert st == 503 and doc['error'] == 'index_disabled', doc
+    assert doc['message'] == ('the feature index is not enabled on this '
+                              'server (index_enabled=true)')
     st, doc = _api(gateway, 'POST', '/v1/search', {'surprise': 1})
     assert st == 400 and doc['error'] == 'bad_request'
 

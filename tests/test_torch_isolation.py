@@ -11,7 +11,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'video_features_tpu', 'timm')
 # the vggish slice's modules, the decoders' binding, the streaming
 # loop's and the packed loop's modules, the decode farm's, the precision
 # lanes', the feature cache's, the mesh and multihost layer's, the serve
-# daemon's and the HF re-keying's, and the network front door's, by name
+# daemon's and the HF re-keying's, the network front door's, and the
+# feature index's and the fleet router's, by name
 REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'io.native', 'io.audio', 'ops.audio', 'models.vggish', 'extract.vggish',
     'parallel', 'parallel.packing', 'extract.streaming', 'utils.tracing',
@@ -23,7 +24,10 @@ REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'parallel.pipeline', 'parallel.ring', 'obs.watchdog', 'obs.slo',
     'serve', 'serve.protocol', 'serve.pool', 'serve.client', 'serve.metrics',
     'serve.server', 'transplant', 'transplant.hf', 'ingress', 'ingress.http',
-    'ingress.auth', 'ingress.quota', 'ingress.live', 'ingress.gateway'))
+    'ingress.auth', 'ingress.quota', 'ingress.live', 'ingress.gateway',
+    'index', 'index.shards', 'index.search', 'index.service', 'index.cli',
+    'index.gc', 'fleet.ring', 'fleet.aggregate', 'fleet.router',
+    'fleet.status'))
 
 IMPORT_ALL = r'''
 import importlib, pkgutil, sys
@@ -108,6 +112,42 @@ def test_ingress_modules_import_neither_torch_nor_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == '[]'
+
+
+# the offline index tools and the fleet router: a router process never
+# touches a card, and the GC and the CLI's ingest never need one
+INDEX_FLEET_MODULES = ('index', 'index.shards', 'index.gc', 'index.cli',
+                       'index.service', 'fleet', 'fleet.ring', 'fleet.tier',
+                       'fleet.aggregate', 'fleet.router', 'fleet.status', 'cli')
+
+
+def test_index_tools_and_fleet_modules_import_neither_torch_nor_jax():
+    """``index/shards.py``, ``index/gc.py``, ``index/cli.py``, every
+    ``fleet/`` module and the CLI that dispatches to them import no torch,
+    no jax, no JAX package and no timm."""
+    code = ('import sys\n'
+            + ''.join(f'import video_features_torch.{m}\n'
+                      for m in INDEX_FLEET_MODULES)
+            + 'print(sorted(m for m in ("torch", "jax", "video_features_tpu", '
+              '"timm") if m in sys.modules))')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == '[]'
+
+
+def test_the_index_cli_imports_torch_only_to_query(tmp_path):
+    """Ingest, compaction and status run without torch; a query imports
+    it (its top-k runs on a device)."""
+    code = ('import sys\n'
+            'from video_features_torch.cli import main\n'
+            f'rc = main(["index", "--cache-dir", {str(tmp_path)!r}, '
+            '"--ingest", "--compact", "--status"])\n'
+            'print(rc, "torch" in sys.modules, "jax" in sys.modules)')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == '0 False False'
 
 
 def test_mesh_and_multihost_modules_import_neither_torch_nor_jax():

@@ -238,6 +238,54 @@ def test_lifecycle_warm_cli_bytes_fault_sigterm_resume(clips, tmp_path,
         server.drain(wait=True, grace_s=120)
 
 
+# the daemon's main thread in serve_forever, and SIGTERM delivered to
+# another thread of the process (the kernel may pick any thread that does
+# not block it): the handler must still run and drain
+_SIGNAL_ON_ANOTHER_THREAD = """
+import signal, sys, threading, time
+from video_features_torch.serve.server import ExtractionServer
+server = ExtractionServer(base_overrides=dict(
+    device='cpu', model_name='resnet18', allow_random_weights=True,
+    tmp_path=sys.argv[1])).start()
+server.install_signal_handlers()
+main = threading.main_thread().ident
+
+def kill_from_here():
+    # wait until the main thread blocks inside serve_forever's wait
+    while True:
+        frame = sys._current_frames().get(main)
+        names = []
+        while frame is not None:
+            names.append(frame.f_code.co_name)
+            frame = frame.f_back
+        if 'serve_forever' in names and names[0] == 'wait':
+            break
+        time.sleep(0.01)
+    time.sleep(0.2)
+    signal.pthread_kill(threading.get_ident(), signal.SIGTERM)
+
+threading.Thread(target=kill_from_here, daemon=True).start()
+server.serve_forever()
+print('drained', flush=True)
+"""
+
+
+def test_sigterm_on_another_thread_still_drains(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(
+        [sys.executable, '-c', _SIGNAL_ON_ANOTHER_THREAD, str(tmp_path)],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, stderr
+    assert 'drained' in stdout and 'draining' in stderr
+
+
 # -- (c) admission and refusals -----------------------------------------------------
 
 
@@ -280,11 +328,13 @@ def test_deadlines_and_shedding_batch_before_interactive(small_server, clips):
 
 @pytest.mark.parametrize('field', ['range', 'search', 'index_status', 'live'])
 def test_unported_fields_answer_naming_themselves(small_server, clips, field):
-    """``search`` and ``index_status`` (no ``index/``) answer an error
-    naming themselves. ``range`` and ``live`` (refused until the port had
-    ``ingress/``; the test keeps its name) are answered as the JAX daemon
-    answers them: a segment query writes the range's segment-named files,
-    and a live session streams one row per pushed frame."""
+    """Each field, refused by name until the port had the subsystem behind
+    it (the test keeps its name), is answered as the JAX daemon answers
+    it: a segment query (``range``) writes the range's segment-named
+    files, a live session streams one row per pushed frame, and on a
+    daemon without ``index_enabled`` ``search`` is refused naming the
+    knob (``unsupported``) while ``index_status`` reports the index
+    disabled."""
     server, tmp = small_server
     client = ServeClient(port=server.port)
     if field == 'live':
@@ -334,12 +384,13 @@ def test_unported_fields_answer_naming_themselves(small_server, clips, field):
                           overrides={'output_path': str(out)})
         assert e.value.code == 'invalid'
         return
+    if field == 'index_status':
+        assert client.index_status() == {'enabled': False}
+        return
     with pytest.raises(ServeError) as e:
-        if field == 'search':
-            client.search(family='resnet', vector=[0.0] * 512)
-        else:
-            client.index_status()
-    assert str(e.value).startswith(f'{field} is not ported yet')
+        client.search(family='resnet', vector=[0.0] * 512)
+    assert str(e.value) == ('index is not enabled on this server '
+                            '(start with index_enabled=true)')
     assert e.value.code == 'unsupported'
 
 
@@ -444,8 +495,9 @@ def test_watchdog_reports_one_stall_of_a_held_worker(clips, tmp_path):
 
 def test_prewarm_builds_and_steps_each_spec_once(clips, tmp_path):
     """``serve_prewarm``: each spec is built and stepped once on a zero
-    batch of its window (a duplicate spec is one entry; ``index`` names
-    the refused feature index); the first request then finds it warm."""
+    batch of its window (a duplicate spec is one entry; ``index`` on a
+    daemon without ``index_enabled`` is the JAX package's error); the
+    first request then finds it warm."""
     server = ExtractionServer(base_overrides=_base(tmp_path)).start()
     try:
         report = server.prewarm(['resnet', 'resnet', 'index'])

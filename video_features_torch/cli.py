@@ -2,7 +2,10 @@
 key=val ...`` (families: i3d, r21d, s3d, raft, resnet, clip, timm,
 vggish), or ``features=[f1,f2,...] key=val ...`` for a fused worklist;
 ``python -m video_features_torch serve ...`` starts the warm-pool daemon
-(``serve/server.py::serve_main``).
+(``serve/server.py::serve_main``), ``python -m video_features_torch index
+...`` runs the offline feature index (``index/cli.py::index_main``) and
+``python -m video_features_torch fleet ...`` the fleet router over serve
+daemons (``fleet/router.py::fleet_main``; it imports no torch).
 
 Load the family's YAML, merge the dotlist (CLI wins), sanity-check,
 build the extractor, shuffle the video list and run ``_extract`` per
@@ -110,6 +113,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         # requests over a loopback socket pack into shared batches
         from video_features_torch.serve.server import serve_main
         return serve_main(argv[1:])
+    if argv and argv[0] == 'index':
+        # the offline feature index (index/): fold the cache manifest and
+        # run exact top-k queries without a resident server
+        from video_features_torch.index.cli import index_main
+        return index_main(argv[1:])
+    if argv and argv[0] == 'fleet':
+        # the fleet router (fleet/): consistent-hash routing over serve
+        # daemons, torch-free, so the router process never touches a card
+        from video_features_torch.fleet.router import fleet_main
+        return fleet_main(argv[1:])
     cli_args = parse_dotlist(argv)
     if 'feature_type' not in cli_args and 'features' not in cli_args:
         print('Usage: python -m video_features_torch '
@@ -117,7 +130,11 @@ def main(argv: Optional[List[str]] = None) -> int:
               '       python -m video_features_torch features=[f1,f2,...] '
               '[<family>.key=value ...] [key=value ...]\n'
               '       python -m video_features_torch serve [serve_port=N ...] '
-              '[key=value ...]')
+              '[key=value ...]\n'
+              '       python -m video_features_torch index --cache-dir DIR '
+              '[--ingest] [--query vec.npy --family f] [--device cuda|cpu]\n'
+              '       python -m video_features_torch fleet '
+              'fleet_hosts=[h1:p1,h2:p2] [fleet_port=N ...]')
         return 2
     multihost = start_multihost(cli_args)
     if 'features' in cli_args:

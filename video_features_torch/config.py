@@ -5,9 +5,10 @@ clip, timm and vggish subset of ``video_features_tpu/config.py``).
 Every knob of the JAX package that the port does not implement is
 refused by name when it is set away from the JAX package's default
 (:func:`check_unported_keys`), so a JAX YAML of defaults loads and a
-request for an index or an executable store never passes silently. The
-serve daemon's own knobs are :data:`SERVE_DEFAULTS`
-(:func:`split_serve_config`).
+request for an executable store never passes silently. The serve
+daemon's own knobs are :data:`SERVE_DEFAULTS`
+(:func:`split_serve_config`), the fleet router's :data:`FLEET_DEFAULTS`
+(:func:`split_fleet_config`).
 Which knobs can change the extracted bytes is one table,
 :data:`KNOB_CLASSIFICATION` (a copy of the JAX package's): the run
 fingerprint (``cache/key.py``) leaves out what :func:`knob_exclude`
@@ -70,7 +71,8 @@ def load_config(feature_type: Optional[str] = None,
             f'Known: {", ".join(EXTRACTORS)}')
     with open(path) as f:
         args = dict(yaml.safe_load(f) or {})
-    for table in (CACHE_DEFAULTS, OBS_DEFAULTS, PIPELINE_DEFAULTS):
+    for table in (CACHE_DEFAULTS, INDEX_DEFAULTS, OBS_DEFAULTS,
+                  PIPELINE_DEFAULTS):
         for key, value in table.items():
             args.setdefault(key, value)
     args.update(overrides)
@@ -201,14 +203,23 @@ OBS_DEFAULTS: Dict[str, Any] = {
     'postmortem_max_bytes': 64 * (1 << 20),  # the bundles' size cap
 }
 
+# the feature index (index/), injected into every merged config with the
+# JAX package's defaults; off by default
+INDEX_DEFAULTS: Dict[str, Any] = {
+    'index_enabled': False,      # the serve daemon's ingest worker and search
+    'index_dir': None,           # null = <cache_dir>/index
+    'index_shard_rows': 1024,    # rows per shard file; every shard pads to it
+    'index_poll_s': 0.5,         # ingest poll when caught up, seconds
+    'index_query_block': 8,      # queries pad to multiples of this
+    'index_k_max': 10,           # the largest k a query answers
+}
+
 # the JAX package's knobs the port does not implement, with the JAX
 # package's default: any other value raises NotImplementedError naming
-# the key (its executable store and its feature index)
+# the key (its executable store)
 UNPORTED_DEFAULTS: Dict[str, Any] = {
     'aot_enabled': False, 'aot_dir': '~/.cache/video_features_tpu/executables',
     'aot_max_bytes': None, 'aot_l2_dir': None,
-    'index_enabled': False, 'index_dir': None, 'index_shard_rows': 1024,
-    'index_poll_s': 0.5, 'index_query_block': 8, 'index_k_max': 10,
 }
 # the JAX default, and null (off), which is what the port does: it keeps
 # no compilation cache
@@ -267,7 +278,7 @@ KNOB_CLASSIFICATION: Dict[str, str] = {
     'cache_dir': 'pool_only',
     'cache_max_bytes': 'pool_only',
     'cache_l2_dir': 'pool_only',
-    # the executable store and the feature index (not ported)
+    # the executable store (not ported) and the feature index
     'aot_enabled': 'pool_only',
     'aot_dir': 'pool_only',
     'aot_max_bytes': 'pool_only',
@@ -388,6 +399,32 @@ def check_cache_keys(args: Dict[str, Any]) -> None:
         if not args.get('cache_enabled'):
             raise ValueError('cache_l2_dir requires cache_enabled=true '
                              '(see docs/fleet.md)')
+
+
+def check_index_keys(args: Dict[str, Any]) -> None:
+    """The feature index's rules, as the JAX package's ``sanity_check``
+    has them: the ingest worker tails the cache manifest, so
+    ``index_enabled`` needs ``cache_enabled``; the geometry knobs are ints
+    >= 1 and ``index_poll_s`` is > 0."""
+    if args.get('index_enabled'):
+        if not args.get('cache_enabled'):
+            raise ValueError('index_enabled=true requires '
+                             'cache_enabled=true — the index ingests '
+                             'published cache objects '
+                             '(see docs/feature_index.md)')
+    if args.get('index_dir') is not None:
+        args['index_dir'] = str(args['index_dir'])
+    for key in ('index_shard_rows', 'index_query_block', 'index_k_max'):
+        if args.get(key) is not None:
+            args[key] = int(args[key])
+            if args[key] < 1:
+                raise ValueError(f'{key} must be >= 1; got {args[key]}')
+    if args.get('index_poll_s') is not None:
+        args['index_poll_s'] = float(args['index_poll_s'])
+        if args['index_poll_s'] <= 0:
+            raise ValueError('index_poll_s must be > 0 (seconds between '
+                             'ingest polls when caught up); got '
+                             f'{args["index_poll_s"]}')
 
 
 def check_obs_keys(args: Dict[str, Any]) -> None:
@@ -523,6 +560,7 @@ def sanity_check(args: Dict[str, Any]) -> None:
     check_parallel_keys(args)
     gate_packing(args)
     check_cache_keys(args)
+    check_index_keys(args)
     check_obs_keys(args)
     if ft == 'raft':
         check_raft_args(args)
@@ -688,3 +726,89 @@ def split_serve_config(cli_args: Mapping[str, Any]
         if serve[key] < 1:
             raise ValueError(f'{key} must be >= 1; got {serve[key]}')
     return serve, base
+
+
+# -- the fleet router (fleet/) ------------------------------------------------
+# The router's own knobs, not extraction config: the `fleet` command takes
+# only these (its backends own their extraction and serve config), so they
+# never merge into a family's config and carry no fingerprint or pool-key
+# class. The JAX package's table and defaults.
+FLEET_DEFAULTS: Dict[str, Any] = {
+    # the backends: a list of host:port serve daemons (a bare port means
+    # loopback). Liveness is probed: an unhealthy or draining host leaves
+    # the eligible set without a config change
+    'fleet_hosts': None,
+    # the router's loopback JSON-lines listener (0 = ephemeral)
+    'fleet_port': 9310,
+    'fleet_host': '127.0.0.1',
+    # the HTTP front door (the ingress transport); null = loopback only
+    'fleet_http_port': None,
+    'fleet_http_host': '127.0.0.1',
+    # its API-key file, required with a port: no anonymous mode
+    'fleet_auth_file': None,
+    # the health probe's period; the probe reads each backend's draining
+    'fleet_probe_interval_s': 2.0,
+    # how many ring hosts one request may try
+    'fleet_max_attempts': 3,
+    # the backoff between ring hosts (doubling, capped)
+    'fleet_backoff_base_s': 0.05,
+    # the connect deadline per backend on the request path
+    'fleet_connect_timeout_s': 2.0,
+    # virtual nodes per host on the consistent-hash ring
+    'fleet_ring_replicas': 64,
+    # the fleet's SLOs over the router's routed requests, always on
+    'fleet_slo_latency_p99_s': 30.0,
+    'fleet_slo_availability': 0.999,
+}
+
+
+def split_fleet_config(cli_args: Mapping[str, Any]
+                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A fleet command line's dotlist as ``(router knobs, leftovers)``,
+    validated with the JAX package's rules and error texts; the leftovers
+    are returned for ``fleet_main`` to refuse (the router forwards
+    requests and owns no extraction config)."""
+    fleet, extra = dict(FLEET_DEFAULTS), {}
+    for key, value in dict(cli_args).items():
+        if key.startswith('fleet_'):
+            if key not in FLEET_DEFAULTS:
+                raise ValueError(
+                    f'Unknown fleet option {key!r}. '
+                    f'Known: {", ".join(sorted(FLEET_DEFAULTS))}')
+            fleet[key] = value
+        else:
+            extra[key] = value
+    if fleet['fleet_hosts'] is not None:
+        hosts = fleet['fleet_hosts']
+        if isinstance(hosts, (str, int)):
+            hosts = [hosts]
+        if not isinstance(hosts, (list, tuple)) or not hosts:
+            raise ValueError(
+                'fleet_hosts must be a host:port (or bare-port) list, '
+                f'e.g. [127.0.0.1:9301,127.0.0.1:9302]; got '
+                f'{fleet["fleet_hosts"]!r}')
+        fleet['fleet_hosts'] = [str(h) for h in hosts]
+    for key in ('fleet_port', 'fleet_max_attempts', 'fleet_ring_replicas'):
+        fleet[key] = int(fleet[key])
+    if fleet['fleet_port'] < 0:
+        raise ValueError(f'fleet_port must be >= 0; got {fleet["fleet_port"]}')
+    for key in ('fleet_max_attempts', 'fleet_ring_replicas'):
+        if fleet[key] < 1:
+            raise ValueError(f'{key} must be >= 1; got {fleet[key]}')
+    for key in ('fleet_probe_interval_s', 'fleet_backoff_base_s',
+                'fleet_connect_timeout_s', 'fleet_slo_latency_p99_s'):
+        fleet[key] = float(fleet[key])
+        if fleet[key] <= 0:
+            raise ValueError(f'{key} must be > 0; got {fleet[key]}')
+    fleet['fleet_slo_availability'] = float(fleet['fleet_slo_availability'])
+    if not 0 < fleet['fleet_slo_availability'] < 1:
+        raise ValueError('fleet_slo_availability must be in (0, 1), '
+                         f'e.g. 0.999; got {fleet["fleet_slo_availability"]}')
+    if fleet['fleet_http_port'] is not None:
+        fleet['fleet_http_port'] = int(fleet['fleet_http_port'])
+        if not fleet['fleet_auth_file']:
+            raise ValueError(
+                'fleet_http_port requires fleet_auth_file (an API-key '
+                'file; see docs/ingress.md) — the fleet front door has '
+                'no anonymous mode either')
+    return fleet, extra

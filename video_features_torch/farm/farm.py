@@ -587,10 +587,17 @@ class DecodeFarm:
         last_supervise = 0.0
         while True:
             # live windows first: made in the parent, they must reach the
-            # packer before a lull's FLUSH queued after them
+            # packer before a lull's FLUSH queued after them. Only the
+            # markers counted before the windows are drained go out this
+            # round: a feeder appends its window, then its FLUSH, so a
+            # marker counted here has its windows in _live_out already,
+            # while one appended during the drain waits a round (else it
+            # overtakes its last window, which then waits in a partial
+            # pool for a FLUSH that never comes)
+            n_ctrl = len(self._ctrl)
             while self._live_out:
                 yield self._live_out.popleft()
-            while self._ctrl:
+            while n_ctrl and self._ctrl:
                 marker = self._ctrl[0]
                 if marker[0] == 'flush':
                     with self._lock:
@@ -598,9 +605,11 @@ class DecodeFarm:
                     if blocked:
                         break
                     self._ctrl.popleft()
+                    n_ctrl -= 1
                     yield FLUSH
                 else:
                     self._ctrl.popleft()
+                    n_ctrl -= 1
                     yield NUDGE
             with self._lock:
                 drained = (self._dispatch_done and self._outstanding == 0

@@ -18,10 +18,10 @@ Endpoints (all JSON unless noted; auth via ``Authorization: Bearer
     plus a per-family ``requests`` id map (and ``errors`` for families
     rejected mid-fan-out); status on the umbrella id nests per-family
     ``videos``. One quota unit per fused request, not per family.
-  * ``POST /v1/search``          — the feature-index query (wire v1.3).
-    The port has no ``index/`` yet: a well-formed body is answered 503
-    with the daemon's by-name refusal (``unsupported``, "search is not
-    ported yet: ..."), before any quota is spent.
+  * ``POST /v1/search``          — the feature-index query (wire v1.3):
+    ``{family, vector, k?}`` or ``{video_path, features, k?,
+    timeout_s?}`` → ranked hits; 503 ``index_disabled`` without
+    ``index_enabled``, before any quota is spent.
   * ``GET  /v1/requests/<id>``   — request status (tenant-scoped)
   * ``GET  /v1/requests/<id>/trace`` — the request's assembled span
     timeline (tenant-scoped: ANOTHER tenant's id answers 403 — the
@@ -484,20 +484,50 @@ class IngressGateway:
 
     def _handle_search(self, req: HttpRequest, resp: ResponseWriter,
                        tenant: Tenant) -> Tuple[int, Optional[str]]:
-        """``POST /v1/search`` — the feature-index query surface. The body
-        is checked as the JAX gateway checks it; then, where the JAX
-        gateway finds no index service (503 ``index_disabled``), the port
-        answers 503 with the daemon's by-name refusal of ``search``: it
-        has no ``index/``. No quota unit is spent."""
-        from video_features_torch.serve.server import NOT_PORTED
+        """``POST /v1/search`` — the feature-index query surface.
+        Same admission layering as extract (auth happened upstream;
+        priority cap, then quota) but the concurrency unit is held only
+        for the synchronous query, released in ``finally`` — there is
+        no completion listener to wait on."""
         body = req.json_body(self.max_body_bytes)
         unknown = set(body) - _SEARCH_FIELDS
         if unknown:
             raise HttpError(BAD_REQUEST, 'bad_request',
                             f'unknown fields: {sorted(unknown)}')
-        raise HttpError(SERVICE_UNAVAILABLE, 'unsupported',
-                        f'search is not ported yet: {NOT_PORTED["search"]}',
-                        tenant=tenant.name)
+        svc = self.server.index_service
+        if svc is None:
+            # shed before admission: a disabled index never spends a
+            # quota unit
+            raise HttpError(SERVICE_UNAVAILABLE, 'index_disabled',
+                            'the feature index is not enabled on this '
+                            'server (index_enabled=true)',
+                            tenant=tenant.name)
+        priority = self._resolve_priority(body, tenant)
+        self._check_quota(tenant, priority)
+        try:
+            if body.get('video_path') is not None:
+                result = svc.search_by_video(
+                    body['video_path'], features=body.get('features'),
+                    k=int(body.get('k', 10)),
+                    timeout_s=body.get('timeout_s'), priority=priority,
+                    traceparent=req.headers.get(_TRACEPARENT_HEADER))
+            else:
+                result = svc.search_vector(
+                    body.get('family'), body.get('vector'),
+                    k=int(body.get('k', 10)))
+        except (TypeError, ValueError, KeyError) as e:
+            raise HttpError(BAD_REQUEST, 'bad_request',
+                            f'search failed: {e}', tenant=tenant.name)
+        finally:
+            self.quota.release(tenant.name)
+        rid = result.get('request_id')
+        if not result.get('ok'):
+            raise HttpError(BAD_REQUEST, 'search_failed',
+                            str(result.get('error', 'search failed')),
+                            tenant=tenant.name, request_id=rid)
+        result.pop('ok', None)
+        resp.send_json(OK, {'ok': True, 'tenant': tenant.name, **result})
+        return OK, rid
 
     def _handle_trace(self, req: HttpRequest, resp: ResponseWriter,
                       tenant: Tenant) -> Tuple[int, Optional[str]]:

@@ -21,12 +21,15 @@ One document with the JAX package's key set:
   * **mesh**: a packed run over several devices (``mesh_devices``): its
     width, (data, time) shape, device labels, per-device capacity, global
     batch and lane; ``{}`` on one device;
-  * ``ingress``, ``programs_lock``, ``aot``, ``index`` and ``slo`` stay
-    ``{}``: the port has none of those surfaces yet.
+  * **index**: the feature index's view (``note_index``, from the
+    offline ``index`` CLI): rows, shards, ingest counters; ``{}``
+    otherwise;
+  * ``ingress``, ``programs_lock``, ``aot`` and ``slo`` stay ``{}``: the
+    port writes none of those sections yet.
 
 The loops push (``video_done``, ``fold_stages``, ``note_executable``,
-``note_farm``, ``note_mesh``); :meth:`RunManifest.write` publishes
-atomically.
+``note_farm``, ``note_mesh``, ``note_index``); :meth:`RunManifest.write`
+publishes atomically.
 """
 from __future__ import annotations
 
@@ -62,6 +65,7 @@ class RunManifest:
         self.executables: Dict[str, Dict[str, Any]] = {}
         self.farm: Dict[str, Any] = {}
         self.mesh: Dict[str, Any] = {}
+        self.index: Dict[str, Any] = {}
         self._compile0 = _compile_snapshot()
 
     @staticmethod
@@ -121,6 +125,15 @@ class RunManifest:
         with self._lock:
             self.mesh.update({k: _jsonable(v) for k, v in info.items()})
 
+    def note_index(self, info: Dict[str, Any]) -> None:
+        """Record the feature-index view of a run (``IndexService.stats``
+        / ``IndexStore.stats``: rows, shards, ingest lag) — written by runs
+        that build or query the index (the offline ``index`` CLI); the
+        section stays ``{}`` otherwise. Later notes merge over earlier
+        ones."""
+        with self._lock:
+            self.index.update({k: _jsonable(v) for k, v in info.items()})
+
     # -- publication ---------------------------------------------------------
 
     def document(self) -> Dict[str, Any]:
@@ -138,6 +151,7 @@ class RunManifest:
             executables = {k: dict(v) for k, v in self.executables.items()}
             farm = dict(self.farm)
             mesh = dict(self.mesh)
+            index = dict(self.index)
         outcomes: Dict[str, int] = {}
         for v in videos.values():
             outcomes[v['outcome']] = outcomes.get(v['outcome'], 0) + 1
@@ -157,9 +171,10 @@ class RunManifest:
             'farm': farm,
             # mesh-sharded packed execution: {} on one device
             'mesh': mesh,
-            # the surfaces the port has not ported yet
-            'ingress': {}, 'programs_lock': {}, 'aot': {}, 'index': {},
-            'slo': {},
+            # the feature index's view: {} unless a run noted one
+            'index': index,
+            # sections the port writes nothing into yet
+            'ingress': {}, 'programs_lock': {}, 'aot': {}, 'slo': {},
         }
 
     def write(self, path: str) -> str:

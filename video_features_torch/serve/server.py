@@ -35,10 +35,11 @@ that drain stops it first and reaps it last) stream windows in and rows
 out through the same workers. ``completion_listeners`` are called with
 each terminal request (the gateway releases its tenant's quota there).
 
-Not ported, each refused by name with the JAX package's error shape:
-``search`` and ``index_status`` (no ``index/``). The metrics document's
-``aot`` section is ``{}`` (no executable store), and ``serve_prewarm``
-warms an entry by one step on a zero batch
+With ``index_enabled`` an :class:`~video_features_torch.index.service.
+IndexService` rides along: its ingest thread folds the feature cache
+into the index, and the ``search`` and ``index_status`` commands answer
+from it. The metrics document's ``aot`` section is ``{}`` (no executable
+store), and ``serve_prewarm`` warms an entry by one step on a zero batch
 (``BaseExtractor.warm_window``) where the JAX package loads executables.
 """
 from __future__ import annotations
@@ -83,14 +84,8 @@ TRACE_ROUTE_SPAN_LIMIT = 50_000
 # runs stay out of the pool key (config.KNOB_CLASSIFICATION, the JAX
 # package's table)
 _KEY_EXCLUDE = knob_exclude('pool_key')
-
-# what the port refuses by name, and why
-NOT_PORTED = {
-    'search': 'the search command needs the feature index, index/, which '
-              'the port does not have yet',
-    'index_status': 'the index_status command needs the feature index, '
-                    'index/, which the port does not have yet',
-}
+# the main thread's wait slice: how late a signal's handler may run
+SIGNAL_POLL_S = 0.5
 
 
 def pool_key(args: Dict[str, Any]) -> tuple:
@@ -482,6 +477,14 @@ class ExtractionServer:
                 latency_p99_s=(float(_lat) if _lat is not None else None),
                 availability=(float(_avail) if _avail is not None
                               else None))
+        # the feature index (index_enabled): ingest worker and query engine
+        # behind search and index_status and the gateway's /v1/search;
+        # made after the watchdog so its ingest row can register, started
+        # with the server
+        self.index_service = None
+        if self.base_overrides.get('index_enabled'):
+            from video_features_torch.index.service import IndexService
+            self.index_service = IndexService(self, self.base_overrides)
         self._draining = False
         self._drained = threading.Event()
         self._sock: Optional[socket.socket] = None
@@ -502,6 +505,8 @@ class ExtractionServer:
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name='serve-accept', daemon=True)
         self._accept_thread.start()
+        if self.index_service is not None:
+            self.index_service.start()
         return self
 
     def install_signal_handlers(self) -> None:
@@ -514,7 +519,11 @@ class ExtractionServer:
         signal.signal(signal.SIGINT, _on_signal)
 
     def serve_forever(self) -> None:
-        self._drained.wait()
+        # in slices: a signal that lands on another thread runs its Python
+        # handler only when the main thread next runs bytecode, and an
+        # untimed wait would never return to let it (SIGTERM then hangs)
+        while not self._drained.wait(SIGNAL_POLL_S):
+            pass
 
     def drain(self, wait: bool = True, grace_s: float = 300.0) -> None:
         """Close admission, let every worker finish its queued videos
@@ -570,6 +579,11 @@ class ExtractionServer:
                 except Exception:
                     event(logging.WARNING, 'ingress finish_drain failed',
                           subsystem='serve', exc_info=True)
+            if self.index_service is not None:
+                # before the watchdog goes down (the ingest row is
+                # forgotten here) and before the final exports, so they
+                # carry the index's terminal state
+                self.index_service.stop()
             if self.watchdog is not None:
                 # before the final exports: a drained worker must not read
                 # as a stall while the monitor races shutdown
@@ -1115,7 +1129,16 @@ class ExtractionServer:
         for spec in specs:
             family, _, lane = str(spec).partition('@')
             if family == 'index':
-                report['errors'].append(f'{spec}: index_enabled is false')
+                # the index's top-k is not a warm-pool entry: it warms
+                # through the index service
+                if self.index_service is None:
+                    report['errors'].append(
+                        f'{spec}: index_enabled is false')
+                    continue
+                outcome = self.index_service.prewarm()
+                report['entries'] += 1
+                report['programs_loaded'] += int(outcome == 'loaded')
+                report['programs_compiled'] += int(outcome == 'compiled')
                 continue
             try:
                 args, key = self._resolve_entry_config(
@@ -1304,6 +1327,8 @@ class ExtractionServer:
             trace_stats=trace_stats,
             watchdog_stats=(self.watchdog.snapshot()
                             if self.watchdog is not None else None),
+            index_stats=(self.index_service.stats()
+                         if self.index_service is not None else None),
             slo_stats=(self.slo.stats() if self.slo is not None else None))
 
     # -- completion (worker threads) -----------------------------------------
@@ -1446,10 +1471,31 @@ class ExtractionServer:
             return protocol.ok(metrics=self.metrics())
         if cmd == protocol.CMD_METRICS_PROM:
             return protocol.ok(text=self._prometheus(self.metrics()))
-        if cmd in (protocol.CMD_SEARCH, protocol.CMD_INDEX_STATUS):
-            return protocol.error(f'{cmd} is not ported yet: '
-                                  f'{NOT_PORTED[cmd]}',
-                                  code=protocol.ERR_UNSUPPORTED)
+        if cmd == protocol.CMD_SEARCH:
+            if self.index_service is None:
+                return protocol.error(
+                    'index is not enabled on this server '
+                    '(start with index_enabled=true)',
+                    code=protocol.ERR_UNSUPPORTED)
+            try:
+                if msg.get('video_path') is not None:
+                    return protocol.ok(**self.index_service.search_by_video(
+                        msg['video_path'],
+                        features=msg.get('features'),
+                        k=msg.get('k', 10),
+                        timeout_s=msg.get('timeout_s')))
+                return protocol.ok(**self.index_service.search_vector(
+                    msg.get('family'), msg.get('vector'),
+                    k=msg.get('k', 10)))
+            except (TypeError, ValueError, KeyError) as e:
+                # a malformed query is the client's error, answered
+                # structurally; it never takes the handler thread down
+                return protocol.error(f'search failed: {e}',
+                                      code=protocol.ERR_INVALID)
+        if cmd == protocol.CMD_INDEX_STATUS:
+            if self.index_service is None:
+                return protocol.ok(index={'enabled': False})
+            return protocol.ok(index=self.index_service.stats())
         if cmd == protocol.CMD_DRAIN:
             self.drain(wait=False)
             return protocol.ok(draining=True)

@@ -21,15 +21,24 @@ fp32 one: 3 (3xTF32, fp32-class) or 1.
 
 The two library flags are process-wide torch settings, read when a
 kernel is launched on the host, so :func:`precision_scope` sets them
-around each step's dispatch and restores them after: two extractors on
-different lanes in one process each run on their own. Extractors never
-set them for the whole process; :func:`set_precision` does, for scripts
-that call the models and kernels directly.
+around each step's dispatch and restores them after. Because they are
+process-wide, only one TF32 setting is in force at a time: scopes that
+ask for the same setting overlap across threads, and a scope that asks
+for the other one waits until every open scope has exited (the serve
+daemon runs one worker thread per warm-pool entry, so two lanes do
+dispatch at once). While it waits, new scopes of the setting in force
+wait behind it, so the two settings take turns. A scope covers only the
+host's launch of a step; :func:`scope_wait_stats` reports how many
+scopes waited and the longest wait. Extractors never set the flags for the whole process;
+:func:`set_precision` does, for scripts that call the models and kernels
+directly.
 """
 from __future__ import annotations
 
+import threading
+import time
 from contextlib import contextmanager
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -105,15 +114,107 @@ def set_precision(precision: str = 'highest') -> None:
     torch.backends.cudnn.allow_tf32 = tf32
 
 
+# the TF32 setting in force across threads: `_held` is the flags every
+# open scope asked for (None when no scope is open), `_open` the number of
+# open scopes, `_saved` the flags from before the first of them,
+# `_waiting` the outermost scopes waiting for each setting, `_turn` the
+# setting whose waiters go next once the open scopes have all closed
+_scope_cond = threading.Condition()
+_held: Optional[Tuple[bool, bool]] = None
+_open = 0
+_saved: Tuple[bool, bool] = (False, False)
+_waiting: Dict[Tuple[bool, bool], int] = {}
+_turn: Optional[Tuple[bool, bool]] = None
+# scopes that had to wait, and the longest wait in seconds
+_wait_stats = {'waits': 0, 'longest_wait_s': 0.0}
+# this thread's open scopes, innermost last
+_scope_local = threading.local()
+
+
+def _flags() -> Tuple[bool, bool]:
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def _may_enter(want: Tuple[bool, bool]) -> bool:
+    """Whether an outermost scope asking for ``want`` may enter now:
+    while the other setting has waiters, new scopes of the one in force
+    queue behind them, so the two settings take turns."""
+    other = sum(n for flags, n in _waiting.items() if flags != want)
+    if _held is None:
+        return _turn in (None, want) or not _waiting.get(_turn)
+    return _held == want and not other
+
+
+def scope_wait_stats(reset: bool = False) -> Dict[str, float]:
+    """``{'waits': n, 'longest_wait_s': s}``: how many outermost scopes
+    waited for the other TF32 setting to clear, and the longest such
+    wait, since the process started or the last ``reset``."""
+    with _scope_cond:
+        out = dict(_wait_stats)
+        if reset:
+            _wait_stats.update(waits=0, longest_wait_s=0.0)
+    return out
+
+
 @contextmanager
 def precision_scope(precision: str) -> Iterator[None]:
     """Set cuDNN's and cuBLAS's TF32 flags for ``precision`` (see
-    :data:`LANES`) and restore both on exit, also when the body raises."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    set_precision(precision)
+    :data:`LANES`) and restore both on exit, also when the body raises.
+
+    One TF32 setting is in force in the process at a time. A scope whose
+    setting is the one in force enters at once, from any thread, unless a
+    scope of the other setting is waiting: then it waits too, so the
+    settings take turns and neither starves the other. A scope with the
+    other setting waits until every open scope has exited. The first
+    scope to enter sets the flags, the last to leave restores those it
+    found. A scope nested on the same thread re-enters with the same
+    setting and raises ``RuntimeError`` with the other one (waiting there
+    would wait for itself)."""
+    global _held, _open, _saved, _turn
+    tf32 = lane(precision)[0]
+    want = (tf32, tf32)
+    stack = getattr(_scope_local, 'stack', None)
+    if stack is None:
+        stack = _scope_local.stack = []
+    if stack and stack[-1] != want:
+        raise RuntimeError(
+            f'precision_scope({precision!r}) nested in a scope with TF32 '
+            f'{"off" if tf32 else "on"} on the same thread: one TF32 setting '
+            f'is in force at a time')
+    with _scope_cond:
+        if not stack and not _may_enter(want):
+            t0 = time.perf_counter()
+            _waiting[want] = _waiting.get(want, 0) + 1
+            try:
+                while not _may_enter(want):
+                    _scope_cond.wait()
+            finally:
+                _waiting[want] -= 1
+                # a waiter that leaves by an exception hands its turn on
+                _scope_cond.notify_all()
+            waited = time.perf_counter() - t0
+            _wait_stats['waits'] += 1
+            _wait_stats['longest_wait_s'] = max(
+                _wait_stats['longest_wait_s'], waited)
+        if _held is None:
+            _saved = _flags()
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = want
+            _held = want
+            _turn = None
+        _open += 1
+    stack.append(want)
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+        stack.pop()
+        with _scope_cond:
+            _open -= 1
+            if not _open:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _saved
+                _held = None
+                _turn = next((flags for flags, n in _waiting.items()
+                              if n and flags != want), None)
+                _scope_cond.notify_all()
