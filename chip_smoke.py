@@ -227,13 +227,13 @@ package is not beside it. Phases:
    from ``create_extractor(load_config('i3d', ...))``: (a) per video
    with ``trace_out``, ``manifest_out``, ``postmortem_dir`` and
    ``profile_dir`` (the run inside ``torch_profiler_trace``, as the CLI
-   runs it) in a cold build directory, against the same run without
-   them: byte-identical outputs; a valid trace (monotonic timestamps,
-   every key in the JAX package's trace-event set, every stage span's
-   name in ``STAGES``) with one ``saved`` ``video`` span per clip under
-   one trace id; the manifest's outcomes, its ``model`` and ``d2h``
-   stages and its ``compile`` section naming one ``nvcc`` build of each
-   kernel source with its seconds; (b) the ``torch.profiler`` trace's
+   runs it), against the same run without them: byte-identical outputs;
+   a valid trace (monotonic timestamps, every key in the JAX package's
+   trace-event set, every stage span's name in ``STAGES``) with one
+   ``saved`` ``video`` span per clip under one trace id; the manifest's
+   outcomes and its ``model`` and ``d2h`` stages (its ``compile``
+   section after a cold build is checked in phase 27 (a), which builds
+   cold anyway); (b) the ``torch.profiler`` trace's
    ``masked_kernel``, ``gru_tf32x3`` and ``gru_tf32_onepass`` events
    against the launch counters (two kernels per GRU direction); (c) ``extract_packed`` at
    the YAML's 2 farm workers with ``trace_out`` and ``manifest_out``:
@@ -348,7 +348,9 @@ package is not beside it. Phases:
    their ring owners with rows byte-equal to 25 (b)'s; a repeat is
    answered from the caches (no step); ``POST /v1/search`` and ``GET
    /metrics`` (``host=`` labels) through the router's HTTP port; one
-   request's trace merged across router and backend; then a stream of
+   request's trace merged across router and backend, every router span
+   under its trace id (the request is one whose id only its own daemon
+   issued); then a stream of
    eight fresh clips with one backend SIGKILLed before the fourth: the
    survivor answers, the failovers and the added latency are printed;
    SIGTERM ends the survivor and the router (exit 0) and no child
@@ -358,10 +360,36 @@ package is not beside it. Phases:
    and CLIP, which reach none of the kernels. Each line carries the
    card's name and power limit, and each phase prints its wall.
 
+27. the executable store: the fused I3D path of phase 4 (batch 2, full
+   width, ``highest``, the masked lookup) from ``create_extractor(
+   load_config('i3d', ...))`` with ``aot_enabled``, one seeded
+   ``extract_frames`` per process (``chip_smoke.py --aot-step``), so that
+   no process has a library loaded before it asks the store, each with
+   its counts reset just before and read just after: (a) empty L1, L2
+   and private ``compilation_cache_dir``: compiled 2, one nvcc build of
+   each source, 2 puts in each tier; (b) a fresh build directory over
+   (a)'s L1: loaded 2, no nvcc, the libraries' and the outputs' bytes
+   equal to (a)'s, ``extract_frames``' wall beside (a)'s; (c) a fresh
+   build directory and L1 over (a)'s L2: pulled 2, compiled 0, (a)'s
+   bytes; (d) a copy of (a)'s L1 over its L2 with one payload's bytes
+   flipped at its size: evicted by the sha256 check and never dlopened,
+   pulled again, (a)'s bytes; (e) a
+   stored entry re-keyed to another ``device_kind``: the drift event
+   names it, the library is found built, (a)'s bytes; (f) ``python -m
+   video_features_torch serve`` with ``serve_prewarm=i3d
+   aot_enabled=true`` in a fresh build directory over (a)'s L1:
+   ``builds_loaded`` 1, ``programs_compiled`` 0, no store miss or put (no
+   nvcc), its endpoint line beside phase 23 (d)'s, one request, exit 0 on
+   SIGTERM; (g) ``python -m video_features_torch aot-gc --verify``: exit
+   0, then 1 after a payload is truncated. (c), (d) and (e) run side by
+   side. Every step writes a run manifest: its ``compile`` section names
+   one nvcc build of each source in (a) and none after, its ``aot``
+   section each library's path.
+
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10, 17–24 and 25 (a); the one-pass GRU
-instantiation is an entry of its own); the last line is ``{"ok": true,
-"device": {...}}``.
+sum over the path runs of phases 4, 5, 10, 17–24, 25 (a) and 27 (a)–(e);
+the one-pass GRU instantiation is an entry of its own); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2943,7 +2971,7 @@ def flight_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
     """Phase 21: the flight recorder on the I3D path of phase 17 at the
     i3d YAML (batch 8, stack 16, RAFT 20 iterations): (a) per video with
     trace_out, manifest_out, postmortem_dir and profile_dir against the
-    same run without them, in a cold build directory; (b) the
+    same run without them; (b) the
     torch.profiler trace's kernels against the launch counters; (c)
     packed through the decode farm at 2 workers; (d) what the recorder
     costs."""
@@ -2951,7 +2979,6 @@ def flight_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
 
     from video_features_torch.config import load_config
     from video_features_torch.obs.spans import SpanRecorder
-    from video_features_torch.ops import _kernels
     from video_features_torch.registry import create_extractor
     from video_features_torch.utils.tracing import Tracer, torch_profiler_trace
     os.environ['VFT_RAFT_LOOKUP'] = 'auto'
@@ -2991,10 +3018,7 @@ def flight_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
           f'without the knobs ({wall_off:.3f} s) in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
 
-    # (a) + (b): every knob, in a cold build directory, the run profiled
-    _kernels.BUILD_DIR = root / 'build'
-    for fn in (_kernels.load, corr_lookup._library, gru._library):
-        fn.cache_clear()
+    # (a) + (b): every knob, the run profiled
     ex_on = i3d('on', **obs)
     prof_dir = root / 'profile'
     reset_counts(corr_lookup, gru)
@@ -3022,23 +3046,14 @@ def flight_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
             or not {'model', 'd2h'} <= set(man['stages']):
         fail(f'phase 21 (a): manifest outcomes {man["outcomes"]}, stages '
              f'{sorted(man["stages"])}')
-    compiled = man['compile']
-    if set(compiled) != {f'nvcc:{k}' for k in KERNELS} \
-            or any(r['count'] != 1 or r['total_s'] <= 0
-                   for r in compiled.values()):
-        fail(f'phase 21 (a): a cold build directory gave compile {compiled}, '
-             f'want one build of each of {KERNELS}')
     stage_ms = {k: round(v['mean_s'] * 1e3, 3) for k, v in man['stages'].items()}
     print(f'phase 21 (a) ({card}): outputs byte-identical with and without '
           f'trace_out, manifest_out, postmortem_dir and profile_dir; trace of '
           f'{len(events)} events valid, keys in the JAX set, '
           f'{len(videos)} video spans saved under one trace id; manifest '
-          f'outcomes {man["outcomes"]}, stage means (ms) {stage_ms}; cold '
-          'build directory: compile '
-          + ', '.join(f'{k} {r["count"]} build in {r["total_s"]:.1f} s'
-                      for k, r in sorted(compiled.items()))
-          + f'; wall {wall_on:.3f} s profiled with the cold builds, '
-          f'{wall_off:.3f} s without the knobs', flush=True)
+          f'outcomes {man["outcomes"]}, stage means (ms) {stage_ms}; '
+          f'wall {wall_on:.3f} s profiled, {wall_off:.3f} s without the '
+          'knobs', flush=True)
     kernels = kernel_events(prof_dir)
     masked = sum(n for k, n in kernels.items() if 'masked_kernel' in k)
     gru3 = sum(n for k, n in kernels.items() if 'gru_tf32x3' in k)
@@ -3756,6 +3771,7 @@ def serve_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
         fail(f'phase 23: left behind: /dev/shm {left}, processes {children}')
     cold_up, cold_first = serve_subprocess_phase(root, paths, card, False)
     warm_up, warm_first = serve_subprocess_phase(root, paths, card, True)
+    SERVE_ENDPOINT_S.update(cold=cold_up, prewarm=warm_up)
     print(f'phase 23 (d) [{card}]: serve_prewarm=i3d took the first '
           f'request from {cold_first:.3f} s to {warm_first:.3f} s '
           f'({cold_first - warm_first:.3f} s saved) and the endpoint line '
@@ -4618,8 +4634,25 @@ def fleet_phase(np, ref_out: Path, corpus, card: str) -> None:
         owned = {h: sum(r['backend'] == h for r in resps) for h in hosts}
         mine, ref = tree_bytes(out), tree_bytes(ref_out)
         same_bytes(ref, mine, 'phase 26 rows against 25 (b)')
-        # the last submit's id is the router's latest entry for it
-        last = resps[-1]
+        # each daemon numbers its requests from r000001 and the router
+        # also takes spans by request id (the ids collide, as in the JAX
+        # router: ROADMAP Queue C), so trace a request whose id only its
+        # own daemon issued; after an even split every id was issued by
+        # both, and one more (cached) request takes an id only its owner
+        # issued
+        traced = list(resps)
+
+        def issued_once():
+            by_id = {}
+            for r in traced:
+                by_id.setdefault(r['request_id'], set()).add(r['backend'])
+            return [r for r in traced if len(by_id[r['request_id']]) == 1]
+        if not issued_once():
+            extra, extra_sts, _ = fused(corpus[:1], root / 'extra')
+            if extra_sts[0]['state'] != 'done':
+                fail(f'phase 26: the extra request ended {extra_sts[0]}')
+            traced += extra
+        last = issued_once()[-1]
         trace = client.trace(last['request_id'])
         tid = trace.get('trace_id')
 
@@ -4631,11 +4664,14 @@ def fleet_phase(np, ref_out: Path, corpus, card: str) -> None:
                  for h in ('router', last['backend'])}
         # the router's spans are the request's; the backend's carry it, or
         # share a batch with other requests (their ids in trace_ids)
+        rid = last['request_id']
         if not tid or not all(spans.values()) or not all(
                 joined(e) for e in spans['router']) or not any(
                 joined(e) for e in spans[last['backend']]):
-            fail(f'phase 26: trace {tid} over hosts {trace["hosts"]}: '
-                 f'{ {h: len(v) for h, v in spans.items()} } spans')
+            fail(f'phase 26: trace {tid} of {rid} over hosts {trace["hosts"]}: '
+                 f'{ {h: len(v) for h, v in spans.items()} } spans; router '
+                 + str([(e['name'], e['args'].get('request_id'),
+                         e['args'].get('trace_id')) for e in spans['router']]))
         print(f'phase 26 [{card}]: {len(corpus)} fused requests on their '
               f'ring owners {owned} in {wall:.3f} s; {len(mine)} files '
               f'byte-equal to 25 (b)', flush=True)
@@ -4721,6 +4757,346 @@ def fleet_phase(np, ref_out: Path, corpus, card: str) -> None:
     print(f'phase 26 [{card}]: router and survivor exited 0 on SIGTERM; no '
           f'child process left; {time.perf_counter() - t_phase:.1f} s',
           flush=True)
+
+
+# the executable store (phase 27): one step per process, so that no
+# process has a library loaded before it asks the store
+AOT_DRIFT_KIND = 'NVIDIA A100-SXM4-80GB'   # another card, for the drift step
+AOT_STEP_TIMEOUT_S = 300
+# phase 23 (d)'s endpoint lines, read beside phase 27 (f)'s
+SERVE_ENDPOINT_S = {}
+
+
+def aot_step(spec: dict) -> int:
+    """One step of phase 27 in a process of its own: the fused I3D path
+    of phase 4 (batch 2, full width, ``highest``, the default masked
+    lookup) built by ``create_extractor(load_config('i3d', ...))`` with
+    ``aot_enabled`` over ``spec``'s store and build directory, one
+    ``extract_frames`` on phase 4's seeded frames with the counts reset
+    just before and read just after; prints one JSON line of what the
+    parent checks."""
+    import hashlib
+    sys.path.insert(0, str(ROOT))
+    import ctypes
+
+    import numpy as np
+    import torch
+    dlopened = []
+    real_cdll = ctypes.CDLL
+
+    class RecordingCDLL(real_cdll):
+        """Every library file handed to dlopen, by its bytes' sha256."""
+        def __init__(self, name, *args, **kwargs):
+            if name and os.path.isfile(str(name)):
+                dlopened.append(hashlib.sha256(Path(name).read_bytes()).hexdigest())
+            super().__init__(name, *args, **kwargs)
+    ctypes.CDLL = RecordingCDLL
+    from video_features_torch.config import load_config
+    from video_features_torch.obs.events import events_tail
+    from video_features_torch.ops import _kernels, corr_lookup, gru
+    from video_features_torch.registry import create_extractor
+    from video_features_torch.utils.device import set_precision
+    set_precision('highest')
+    args = load_config('i3d', overrides={
+        'video_paths': ['phase27.avi'], 'device': 'cuda', 'stack_size': STACK,
+        'step_size': STACK, 'raft_iters': SLICE_ITERS,
+        'batch_size': SLICE_BATCH, 'precision': 'highest',
+        'allow_random_weights': True, 'on_extraction': 'save_numpy',
+        'output_path': spec['out'], 'tmp_path': spec['out'] + '_tmp',
+        'aot_enabled': True, 'aot_dir': spec['l1'],
+        'aot_l2_dir': spec.get('l2'), 'compilation_cache_dir': spec['build'],
+        'manifest_out': spec['out'] + '_manifest.json'})
+    ex = create_extractor(args)
+    frames = slice_frames(np)
+    batches = [(list(frames[i:i + 16]), None, None) for i in range(0, FRAMES, 16)]
+    reset_counts(corr_lookup, gru)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = ex.extract_frames(batches)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    store = ex._aot_store.stats()
+    ex.finish_obs()
+    with open(spec['out'] + '_manifest.json') as f:
+        manifest = json.load(f)
+    print(json.dumps({
+        'compile': manifest['compile'], 'manifest_aot': manifest['aot'],
+        'aot_stats': ex.aot_stats, 'store': store,
+        'builds': _kernels.build_record(), 'counts': read_counts(corr_lookup, gru),
+        'extract_s': extract_s,
+        'sha': {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+                for k, v in feats.items()},
+        'shapes': {k: list(v.shape) for k, v in feats.items()},
+        'finite': all(bool(np.isfinite(v).all()) for v in feats.values()),
+        'resident': {n: _kernels.resident(n)['path'] for n in KERNELS},
+        'files': {n: hashlib.sha256(Path(_kernels.resident(n)['file'])
+                                    .read_bytes()).hexdigest() for n in KERNELS},
+        'dlopened': dlopened,
+        'events': [e for e in events_tail(100) if e['subsystem'] == 'aot'],
+        'programs': sorted(ex.aot_snapshot()['programs'])}), flush=True)
+    return 0
+
+
+def start_aot_step(spec: dict):
+    env = dict(os.environ, VFT_RAFT_LOOKUP='auto')
+    return (subprocess.Popen(
+        [sys.executable, str(ROOT / 'chip_smoke.py'), '--aot-step',
+         json.dumps(spec)], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env), time.perf_counter())
+
+
+def finish_aot_step(started, where: str) -> dict:
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=AOT_STEP_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0 or not out.strip():
+        fail(f'{where}: the step exited {proc.returncode}: {err[-3000:]}')
+    rec = json.loads(out.strip().splitlines()[-1])
+    rec['process_s'] = time.perf_counter() - t0
+    return rec
+
+
+def check_aot_step(rec: dict, where: str, check_counts, loaded: int,
+                   compiled: int, nvcc: bool, ref=None) -> None:
+    """The step's library paths, nvcc builds, launches (a lookup and two
+    GRU launches per RAFT iteration) and outputs."""
+    windows = (FRAMES - (STACK + 1)) // STACK + 1
+    if rec['aot_stats'] != {'loaded': loaded, 'compiled': compiled}:
+        fail(f'{where}: libraries {rec["aot_stats"]}, want {loaded} loaded and '
+             f'{compiled} compiled')
+    if bool(rec['builds']) != nvcc or (nvcc and set(rec['builds']) != set(KERNELS)):
+        fail(f'{where}: nvcc builds {rec["builds"]}, want '
+             + (f'one of each of {KERNELS}' if nvcc else 'none'))
+    if rec['shapes'] != {'rgb': [windows, 1024], 'flow': [windows, 1024]} \
+            or not rec['finite']:
+        fail(f'{where}: outputs {rec["shapes"]}, finite {rec["finite"]}')
+    if ref is not None and rec['sha'] != ref['sha']:
+        fail(f'{where}: outputs differ from (a) byte for byte')
+    # the run manifest: its compile section the nvcc builds of the run (one
+    # of each source after a cold build, else none), its aot section how
+    # each library was reached
+    nvcc_runs = rec['compile']
+    if (set(nvcc_runs) != ({f'nvcc:{k}' for k in KERNELS} if nvcc else set())
+            or any(r['count'] != 1 or r['total_s'] <= 0
+                   for r in nvcc_runs.values())):
+        fail(f'{where}: the manifest\'s compile section {nvcc_runs}')
+    man = rec['manifest_aot']
+    paths = sorted(p['path'] for p in man.get('programs', {}).values())
+    if (man.get('enabled'), man.get('loaded'), man.get('compiled')) != (
+            True, loaded, compiled) \
+            or paths != sorted(['loaded'] * loaded + ['compiled'] * compiled):
+        fail(f'{where}: the manifest\'s aot section {man}')
+    check_counts(rec['counts'], 'masked', math.ceil(windows / SLICE_BATCH), where)
+
+
+def drift_entry(store_dir: str, library: str) -> str:
+    """Re-key ``library``'s entry as if another card had published it: its
+    meta's ``device_kind`` changed and its key rehashed from the changed
+    components (the store's own digest)."""
+    from video_features_torch.aot.store import ExecStore, exec_digest
+    store = ExecStore(store_dir)
+    (digest, entry), = [(d, e) for d, e in store._index.items()
+                        if e['meta'].get('program') == library]
+    meta = dict(entry['meta'], device_kind=AOT_DRIFT_KIND)
+    new = exec_digest({k: v for k, v in meta.items()
+                       if k not in ('feature_type', 'program')})
+    os.makedirs(os.path.dirname(store._entry_dir(new)), exist_ok=True)
+    os.replace(store._entry_dir(digest), store._entry_dir(new))
+    with open(store.manifest_path, 'a') as f:
+        f.write(json.dumps({'op': 'del', 'key': digest, 't': time.time()}) + '\n')
+        f.write(json.dumps({'op': 'put', 'key': new, 'size': entry['size'],
+                            'sha256': entry['sha256'], 'meta': meta,
+                            't': time.time()}) + '\n')
+    return new
+
+
+def aot_payload(store_dir: str, library: str) -> Path:
+    from video_features_torch.aot.store import ExecStore
+    store = ExecStore(store_dir)
+    (digest,) = [d for d, e in store._index.items()
+                 if e['meta'].get('program') == library]
+    return Path(store._payload_path(digest))
+
+
+def aot_gc(store_dir: str) -> tuple:
+    proc = subprocess.run([sys.executable, '-m', 'video_features_torch', 'aot-gc',
+                           '--aot-dir', store_dir, '--verify'], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=120)
+    try:
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        fail(f'phase 27 (g): aot-gc printed no report: {proc.stderr[-2000:]}')
+    return proc.returncode, report
+
+
+def aot_serve(np, root: Path, l1: str, card: str) -> None:
+    """(f) ``python -m video_features_torch serve`` with
+    ``serve_prewarm=i3d aot_enabled=true`` over the published store, in a
+    fresh build directory: its boot loads both libraries (no nvcc: the
+    store's misses and puts stay 0), one request, then SIGTERM."""
+    import signal
+    from video_features_torch.serve.client import ServeClient
+    where = 'phase 27 (f)'
+    clip = write_clips(np, root, PACK_CLIPS[:1], seed=27)
+    args = [f'{k}={v}' for k, v in serve_base(root / 'serve').items()]
+    args += ['serve_prewarm=i3d', 'aot_enabled=true', f'aot_dir={l1}',
+             f'compilation_cache_dir={root / "build_f"}']
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'video_features_torch', 'serve', *args],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        endpoint_s = time.perf_counter() - t0
+        if not line.startswith('serving on '):
+            proc.kill()
+            fail(f'{where}: no endpoint line: {line!r} {proc.stderr.read()[-2000:]}')
+        client = ServeClient(port=int(line.split()[2].rsplit(':', 1)[1]))
+        m0 = client.metrics()
+        st, first_wall = serve_request(client, clip, str(root / 'f_out'))
+        m1 = client.metrics()
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    pool, aot = m0['warm_pool'], m0['aot']
+    got = (pool['builds_loaded'], pool['builds_compiled'], aot['programs_loaded'],
+           aot['programs_compiled'], aot['hits'], aot['misses'], aot['puts'])
+    if got != (1, 0, 2, 0, 2, 0, 0):
+        fail(f'{where}: after the boot builds_loaded, builds_compiled, '
+             f'programs_loaded, programs_compiled, store hits, misses, puts '
+             f'{got}, want (1, 0, 2, 0, 2, 0, 0): a compile-free boot')
+    if st['state'] != 'done' or m1['warm_pool']['builds_compiled'] != 0:
+        fail(f'{where}: the request ended {st}, warm pool {m1["warm_pool"]}')
+    if proc.returncode != 0 or 'serve: drained, exiting' not in stdout:
+        fail(f'{where}: exit {proc.returncode}, stderr {stderr[-2000:]}')
+    ref = ', '.join(f'{k} {v:.3f} s' for k, v in sorted(SERVE_ENDPOINT_S.items()))
+    print(f'{where} [{card}]: serve_prewarm=i3d over the store in a fresh '
+          f'build directory: endpoint line {endpoint_s:.3f} s after the start '
+          f'(phase 23 (d), the libraries built in place: {ref or "not run"}); '
+          'programs_loaded 2, programs_compiled 0, builds_loaded 1, store hits '
+          f'2, misses 0, puts 0 (no nvcc); first request {first_wall:.3f} s '
+          'wall; exit 0 on SIGTERM', flush=True)
+
+
+def aot_phase(np, check_counts, card: str) -> None:
+    """Phase 27: the executable store, one fused I3D ``extract_frames``
+    per process over L1 and L2 stores and private build directories."""
+    import hashlib
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix='vft_aot_'))
+    d = {k: str(root / k) for k in ('l1a', 'l2', 'l1c', 'l1d', 'l1e', 'l1g')}
+
+    def spec(step, l1, build, l2=None):
+        return {'l1': d[l1], 'l2': d[l2] if l2 else None,
+                'build': str(root / build), 'out': str(root / f'out_{step}')}
+
+    try:
+        a = finish_aot_step(start_aot_step(spec('a', 'l1a', 'build_a', 'l2')),
+                            'phase 27 (a)')
+        check_aot_step(a, 'phase 27 (a)', check_counts, 0, 2, True)
+        if (a['store']['puts'], a['store']['published'],
+                a['store']['l2']['puts']) != (2, 2, 2):
+            fail(f'phase 27 (a): store {a["store"]}: want 2 puts in each tier')
+        nvcc_s = sum(r['total_s'] for r in a['builds'].values())
+        print(f'phase 27 (a) [{card}]: empty L1, L2 and build directory: '
+              'compiled 2, nvcc '
+              + ', '.join(f'{k} {r["count"]} build in {r["total_s"]:.1f} s'
+                          for k, r in sorted(a['builds'].items()))
+              + f', 2 puts in each tier; extract_frames {a["extract_s"]:.3f} s, '
+              f'process {a["process_s"]:.3f} s', flush=True)
+
+        b = finish_aot_step(start_aot_step(spec('b', 'l1a', 'build_b')),
+                            'phase 27 (b)')
+        check_aot_step(b, 'phase 27 (b)', check_counts, 2, 0, False, a)
+        if b['files'] != a['files']:
+            fail('phase 27 (b): the loaded libraries are not (a)\'s bytes')
+        print(f'phase 27 (b) [{card}]: a fresh build directory over (a)\'s L1: '
+              f'loaded 2, build_record {{}}, outputs byte-equal to (a); '
+              f'extract_frames {b["extract_s"]:.3f} s against (a)\'s '
+              f'{a["extract_s"]:.3f} s ({a["extract_s"] - b["extract_s"]:.3f} s '
+              f'saved; nvcc {nvcc_s:.1f} s in (a)); process {b["process_s"]:.3f} s '
+              f'against {a["process_s"]:.3f} s', flush=True)
+
+        # (c), (d) and (e) side by side: each its own L1 and build
+        # directory ((c) and (d) read (a)'s L2, a fetch appending one touch
+        # line); (d) flips bytes in a copy of (a)'s L1, (e) re-keys one
+        # entry of another copy to another card
+        shutil.copytree(d['l1a'], d['l1d'])
+        payload = aot_payload(d['l1d'], 'corr_lookup')
+        good = payload.read_bytes()
+        bad = bytearray(good)
+        for i in range(4096, len(bad), 4099):
+            bad[i] ^= 0xFF
+        payload.write_bytes(bytes(bad))
+        flipped = sum(x != y for x, y in zip(good, bad))
+        bad_sha = hashlib.sha256(bytes(bad)).hexdigest()
+        shutil.copytree(d['l1a'], d['l1e'])
+        drift_entry(d['l1e'], 'corr_lookup')
+        runs = [start_aot_step(spec('c', 'l1c', 'build_c', 'l2')),
+                start_aot_step(spec('d', 'l1d', 'build_d', 'l2')),
+                start_aot_step(spec('e', 'l1e', 'build_a'))]
+        c, dd, e = [finish_aot_step(r, f'phase 27 ({k})')
+                    for r, k in zip(runs, 'cde')]
+        check_aot_step(c, 'phase 27 (c)', check_counts, 2, 0, False, a)
+        if c['store']['pulled'] != 2:
+            fail(f'phase 27 (c): store {c["store"]}: want 2 pulls from L2')
+        print(f'phase 27 (c) [{card}]: a fresh build directory and L1 over '
+              f'(a)\'s L2: pulled 2, compiled 0, outputs byte-equal to (a)',
+              flush=True)
+        check_aot_step(dd, 'phase 27 (d)', check_counts, 2, 0, False, a)
+        warned = [ev for ev in dd['events'] if ev['msg'].startswith(
+            'stored executable failed its sha256 check')]
+        if (dd['store']['corrupt_evicted'], dd['store']['pulled']) != (1, 1) \
+                or not warned or bad_sha in dd['dlopened'] \
+                or dd['files'] != a['files']:
+            fail(f'phase 27 (d): store {dd["store"]}, events {dd["events"]}, '
+                 f'flipped payload dlopened {bad_sha in dd["dlopened"]}: want '
+                 'it evicted from L1 before any dlopen and pulled again')
+        print(f'phase 27 (d) [{card}]: {flipped} bytes flipped in '
+              f'corr_lookup\'s L1 payload ({len(good)} bytes): evicted as '
+              'corrupt by the sha256 check, never dlopened, pulled again from '
+              'L2; loaded 2, outputs byte-equal to (a)', flush=True)
+        check_aot_step(e, 'phase 27 (e)', check_counts, 1, 1, False, a)
+        drift = [ev for ev in e['events'] if ev['msg'].startswith(
+            'executable present under a different runtime environment')]
+        if not drift or 'device_kind' not in drift[0]['fields']['drift'] \
+                or AOT_DRIFT_KIND not in drift[0]['fields']['drift'] \
+                or e['resident'] != {'corr_lookup': 'compiled',
+                                     'gru_direction': 'loaded'}:
+            fail(f'phase 27 (e): events {e["events"]}, libraries {e["resident"]}: '
+                 'want the drift event naming device_kind and corr_lookup '
+                 'found built')
+        print(f'phase 27 (e) [{card}]: corr_lookup stored under device_kind '
+              f'{AOT_DRIFT_KIND!r}: the drift event names '
+              f'{drift[0]["fields"]["drift"]}; found built in (a)\'s build '
+              'directory, no nvcc; gru_direction loaded; outputs byte-equal',
+              flush=True)
+
+        aot_serve(np, root, d['l1a'], card)
+
+        shutil.copytree(d['l1a'], d['l1g'])
+        rc0, rep0 = aot_gc(d['l1g'])
+        victim = aot_payload(d['l1g'], 'gru_direction')
+        victim.write_bytes(victim.read_bytes()[:-4096])
+        rc1, rep1 = aot_gc(d['l1g'])
+        if (rc0, rep0['corrupt_evicted'], rc1, rep1['corrupt_evicted'],
+                rep1['entries_after']) != (0, 0, 1, 1, rep0['entries_after'] - 1):
+            fail(f'phase 27 (g): aot-gc --verify exited {rc0} {rep0}, then '
+                 f'{rc1} {rep1} after a truncation: want 0, then 1')
+        print(f'phase 27 (g) [{card}]: aot-gc --verify exit 0 on the clean '
+              f'store ({rep0["entries_after"]} entries, {rep0["bytes_after"]} '
+              'bytes), exit 1 after one payload was truncated (1 corrupt '
+              'evicted)', flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f'phase 27 [{card}]: {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
 def main() -> int:
@@ -4930,9 +5306,15 @@ def main() -> int:
     t = phase('fleet: two serve daemons behind the fleet router')
     print(card, flush=True)
     fleet_phase(np, index_out, corpus, card)
+    print(f'fleet phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('executable store: the fused I3D path over L1 and L2 stores, '
+              'one process per step; a pre-warmed daemon; aot-gc')
+    print(card, flush=True)
+    aot_phase(np, check_counts, card)
     for key in launches:
         rec[key]['launches'] = launches[key]
-    print(f'fleet phase {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'executable store phase {time.perf_counter() - t:.1f} s', flush=True)
 
     kernels = []
     for key, name, source, replaces in (
@@ -4964,4 +5346,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--aot-step']:       # one step of phase 27
+        sys.exit(aot_step(json.loads(sys.argv[2])))
     sys.exit(main())

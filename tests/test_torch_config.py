@@ -125,9 +125,13 @@ def test_output_and_tmp_paths_must_differ(clip, tmp_path):
 @pytest.mark.parametrize('ft', ['i3d', 'r21d', 's3d', 'resnet', 'clip'])
 @pytest.mark.parametrize('key,value', [('aot_enabled', True)])
 def test_unported_keys_raise_naming_themselves(clip, ft, key, value):
-    with pytest.raises(NotImplementedError, match=key):
-        load_config(ft, overrides={'video_paths': clip, 'device': 'cpu',
-                                   key: value})
+    """The executable store's knobs are ported (the test keeps its name):
+    ``aot_enabled`` loads, and without an ``aot_dir`` raises the JAX
+    package's ``ValueError`` naming itself."""
+    overrides = {'video_paths': clip, 'device': 'cpu', key: value}
+    assert load_config(ft, overrides=dict(overrides))[key] == value
+    with pytest.raises(ValueError, match=key):
+        load_config(ft, overrides=dict(overrides, aot_dir=None))
 
 
 VIDEO_FAMILIES = ('i3d', 'r21d', 's3d', 'raft', 'resnet', 'clip', 'timm')
@@ -242,12 +246,13 @@ def test_frame_wise_extractors_refuse_compute_dtype_without_load_config(tmp_path
 @pytest.mark.parametrize('key,value', [('index_enabled', True),
                                        ('aot_enabled', True)])
 def test_timm_unported_keys_raise_naming_themselves(clip, key, value):
-    """``aot_enabled`` is refused as not ported; ``index_enabled`` is
-    ported (the test keeps its name) and, without the cache, raises the
-    JAX package's ``ValueError`` naming itself."""
-    error = ValueError if key.startswith('index_') else NotImplementedError
-    with pytest.raises(error, match=key):
-        load_config('timm', overrides=_family_overrides(clip, 'timm', **{key: value}))
+    """``index_enabled`` and ``aot_enabled`` are ported (the test keeps
+    its name): without the cache, or without an ``aot_dir``, each raises
+    the JAX package's ``ValueError`` naming itself."""
+    extra = {'aot_dir': None} if key == 'aot_enabled' else {}
+    with pytest.raises(ValueError, match=key):
+        load_config('timm', overrides=_family_overrides(
+            clip, 'timm', **{key: value}, **extra))
 
 
 def test_timm_without_a_gpu_is_an_error(clip, tmp_path):
@@ -364,8 +369,8 @@ def _jax_knobs():
     return knobs
 
 
-# what the port implements of them (compilation_cache_dir: its default or
-# null, the port keeping no XLA cache)
+# what the port implements of them (compilation_cache_dir: where the
+# kernel libraries are built)
 PORT_IMPLEMENTS = {'video_paths', 'file_with_video_paths', 'output_path',
                    'tmp_path', 'keep_tmp_files', 'device', 'show_pred',
                    'allow_random_weights', 'compute_dtype', 'inflight',
@@ -379,7 +384,8 @@ PORT_IMPLEMENTS = {'video_paths', 'file_with_video_paths', 'output_path',
                    'data_parallel', 'watchdog_stall_s', 'slo_latency_p99_s',
                    'slo_availability', 'timeout_s', 'config', 'index_enabled',
                    'index_dir', 'index_shard_rows', 'index_poll_s',
-                   'index_query_block', 'index_k_max'}
+                   'index_query_block', 'index_k_max', 'aot_enabled',
+                   'aot_dir', 'aot_max_bytes', 'aot_l2_dir'}
 # the keys that left the refused table when several processes and devices
 # were ported (sequence_parallel is a key of the JAX timm YAML, not a
 # classified knob)
@@ -389,39 +395,32 @@ PARALLEL_KEYS = {'mesh_devices', 'device_ids', 'multihost',
 
 
 def test_every_jax_knob_is_ported_or_refused_at_the_jax_default():
-    """The port's table of refused knobs is the JAX package's knobs less
-    what the port implements, each at the JAX package's default; a knob
-    the JAX package adds fails this test until the port takes a side."""
-    from video_features_torch.config import UNPORTED_DEFAULTS
+    """Every knob the JAX package injects is one the port implements (none
+    is refused any more); a knob the JAX package adds fails this test
+    until the port takes it."""
     knobs = _jax_knobs()
-    assert set(knobs) - PORT_IMPLEMENTS == set(UNPORTED_DEFAULTS)
-    assert not PARALLEL_KEYS & set(UNPORTED_DEFAULTS)
+    assert set(knobs) <= PORT_IMPLEMENTS, sorted(set(knobs) - PORT_IMPLEMENTS)
     assert PARALLEL_KEYS - {'sequence_parallel'} <= set(knobs)
-    for key, default in UNPORTED_DEFAULTS.items():
-        # a knob the JAX package injects no default for is off when absent
-        assert knobs.get(key) in ((default, None) if not default else (default,)), key
-
-
-def _other_value(default):
-    if isinstance(default, bool):
-        return not default
-    if default is None:
-        return 'x'
-    if isinstance(default, (int, float)):
-        return default + 1
-    return default + '_elsewhere'
 
 
 def _refused():
-    from video_features_torch.config import UNPORTED_DEFAULTS
-    return [(k, _other_value(v)) for k, v in sorted(UNPORTED_DEFAULTS.items())] + [
-        ('compilation_cache_dir', '/tmp/xla')]
+    """The values of the ported executable-store knobs the JAX package
+    refuses (with what it needs beside them)."""
+    return [
+        ('aot_enabled', True, {'aot_dir': None}, ValueError),
+        ('aot_dir', '', {'aot_enabled': True}, ValueError),
+        ('aot_max_bytes', -1, {}, ValueError),
+        ('aot_l2_dir', '/tmp/l2', {}, ValueError)]
 
 
-@pytest.mark.parametrize('key,value', _refused())
-def test_every_unported_jax_key_raises_naming_itself(clip, key, value):
-    with pytest.raises(NotImplementedError, match=key):
-        load_config('resnet', overrides=_family_overrides(clip, 'resnet', **{key: value}))
+@pytest.mark.parametrize('key,value,extra,error', _refused())
+def test_every_unported_jax_key_raises_naming_itself(clip, key, value, extra,
+                                                      error):
+    """A ported knob the JAX package refuses at a value raises its
+    ``ValueError`` naming itself."""
+    with pytest.raises(error, match=key):
+        load_config('resnet', overrides=_family_overrides(
+            clip, 'resnet', **{key: value}, **extra))
 
 
 @pytest.mark.parametrize('ft', PORTED)

@@ -97,8 +97,10 @@ def _overrides(paths, out, **kw):
 def test_load_fused_configs_matches_jax(worklist, tmp_path):
     """Each family's merged config equals the JAX package's on every key
     they share, scoped keys and output paths included; the default
-    ``cache_dir`` is the port's own store (its keys carry a backend tag,
-    so the JAX package's directory would serve no hit either)."""
+    ``cache_dir`` and ``aot_dir`` are the port's own stores (the cache's
+    keys carry a backend tag and the executable store's keys the torch
+    version, so the JAX package's directories would serve no hit
+    either)."""
     from video_features_tpu.config import load_fused_configs as jax_load
     overrides = _overrides(worklist, tmp_path, features=FAMILIES)
     ours = load_fused_configs(FAMILIES, overrides)
@@ -108,7 +110,8 @@ def test_load_fused_configs_matches_jax(worklist, tmp_path):
         shared = set(ours[fam]) & set(theirs[fam])
         assert {'model_name', 'output_path', 'batch_size', 'decode_workers'} <= shared
         assert ours[fam]['cache_dir'] == '~/.cache/video_features_torch/features'
-        shared.discard('cache_dir')
+        assert ours[fam]['aot_dir'] == '~/.cache/video_features_torch/executables'
+        shared -= {'cache_dir', 'aot_dir'}
         assert {k: ours[fam][k] for k in shared} == {k: theirs[fam][k] for k in shared}
         assert 'features' not in ours[fam]
     assert ours['resnet']['model_name'] == 'resnet18'

@@ -12,7 +12,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'video_features_tpu', 'timm')
 # loop's and the packed loop's modules, the decode farm's, the precision
 # lanes', the feature cache's, the mesh and multihost layer's, the serve
 # daemon's and the HF re-keying's, the network front door's, and the
-# feature index's and the fleet router's, by name
+# feature index's and the fleet router's, and the executable store's, by
+# name
 REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'io.native', 'io.audio', 'ops.audio', 'models.vggish', 'extract.vggish',
     'parallel', 'parallel.packing', 'extract.streaming', 'utils.tracing',
@@ -27,7 +28,8 @@ REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'ingress.auth', 'ingress.quota', 'ingress.live', 'ingress.gateway',
     'index', 'index.shards', 'index.search', 'index.service', 'index.cli',
     'index.gc', 'fleet.ring', 'fleet.aggregate', 'fleet.router',
-    'fleet.status'))
+    'fleet.status', 'aot', 'aot.store', 'aot.runtime', 'aot.gc',
+    'fleet.artifacts'))
 
 IMPORT_ALL = r'''
 import importlib, pkgutil, sys
@@ -128,6 +130,25 @@ def test_index_tools_and_fleet_modules_import_neither_torch_nor_jax():
     code = ('import sys\n'
             + ''.join(f'import video_features_torch.{m}\n'
                       for m in INDEX_FLEET_MODULES)
+            + 'print(sorted(m for m in ("torch", "jax", "video_features_tpu", '
+              '"timm") if m in sys.modules))')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == '[]'
+
+
+# the executable store: its GC runs on hosts without a card, and a daemon
+# imports the store before any extractor
+AOT_MODULES = ('aot', 'aot.store', 'aot.runtime', 'aot.gc', 'fleet.artifacts')
+
+
+def test_aot_modules_import_neither_torch_nor_jax():
+    """``aot/`` (the store, the runtime, the GC) and the fleet's artifact
+    tier import no torch (the runtime imports it inside the functions
+    that read the device), no jax, no JAX package and no timm."""
+    code = ('import sys\n'
+            + ''.join(f'import video_features_torch.{m}\n' for m in AOT_MODULES)
             + 'print(sorted(m for m in ("torch", "jax", "video_features_tpu", '
               '"timm") if m in sys.modules))')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,

@@ -420,6 +420,8 @@ def test_manifest_compile_counts_nvcc_builds_not_loads(tmp_path, monkeypatch):
         return subprocess.CompletedProcess(cmd, 0, 'ptxas info', '')
     monkeypatch.setattr(_kernels, 'BUILD_DIR', tmp_path)
     monkeypatch.setattr(_kernels, '_nvcc', lambda: 'nvcc')
+    monkeypatch.setattr(_kernels, 'nvcc_release',
+                        lambda: 'Cuda compilation tools, release 12.4')
     monkeypatch.setattr(_kernels.subprocess, 'run', fake_nvcc)
     man = RunManifest({'feature_type': 'i3d'})
     assert man.document()['compile'] == {}

@@ -334,3 +334,48 @@ def test_a_live_flush_never_overtakes_its_window():
     got = [next(stream), next(stream)]
     stream.close()
     assert got[0] is item and got[1] is FLUSH
+
+
+# -- the kernel libraries' build key -----------------------------------------
+
+
+def test_a_library_is_named_by_its_source_flags_and_nvcc_release(tmp_path,
+                                                                 monkeypatch):
+    """Another ``NVCC_FLAGS`` or another nvcc release gives another library
+    file (no build runs: nvcc is faked); the same ones find the library
+    built. A ``compilation_cache_dir`` other than the JAX default or null
+    names the build directory, ``<dir>/gpu``."""
+    import subprocess
+    from pathlib import Path
+
+    from video_features_torch.ops import _kernels
+    nvcc = {'path': '/opt/cuda-12.4/bin/nvcc', 'release': '12.4, V12.4.131'}
+
+    def fake_run(cmd, **kw):
+        if '--version' in cmd:
+            return subprocess.CompletedProcess(
+                cmd, 0, 'nvcc: NVIDIA (R) Cuda compiler\nCuda '
+                f'compilation tools, release {nvcc["release"]}\n', '')
+        Path(cmd[cmd.index('-o') + 1]).write_bytes(b'elf')
+        return subprocess.CompletedProcess(cmd, 0, 'ptxas info', '')
+    monkeypatch.setattr(_kernels, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(_kernels, '_nvcc', lambda: nvcc['path'])
+    monkeypatch.setattr(_kernels.subprocess, 'run', fake_run)
+    base = _kernels.build('corr_lookup')[0]
+    flags = _kernels.NVCC_FLAGS
+    monkeypatch.setattr(_kernels, 'NVCC_FLAGS', flags + ('-lineinfo',))
+    other_flags = _kernels.build('corr_lookup')[0]
+    monkeypatch.setattr(_kernels, 'NVCC_FLAGS', flags)
+    assert _kernels.build('corr_lookup') == (base, '')
+    nvcc.update(path='/opt/cuda-12.6/bin/nvcc', release='12.6, V12.6.20')
+    other_release = _kernels.build('corr_lookup')[0]
+    assert len({base, other_flags, other_release}) == 3
+    assert {p.parent for p in (base, other_flags, other_release)} == {
+        tmp_path / 'build'}
+    assert _kernels.library_identity('corr_lookup')['nvcc'] == (
+        'Cuda compilation tools, release 12.6, V12.6.20')
+    monkeypatch.setattr(_kernels, '_build_dir', None)
+    assert _kernels.configure_build_dir(str(tmp_path / 'cc')) == tmp_path / 'cc' / 'gpu'
+    assert _kernels.build('corr_lookup')[0].parent == tmp_path / 'cc' / 'gpu'
+    for default in ('~/.cache/video_features_tpu/xla', None):
+        assert _kernels.configure_build_dir(default) == tmp_path / 'build'

@@ -286,7 +286,7 @@ def test_show_pred_warns_then_raises(wav, tmp_path):
 @pytest.mark.parametrize('key,value,match', [
     ('audio_backend', 'sox', 'audio_backend must be one of'),
     ('post_process', True, 'pca_params_path'),
-    ('aot_enabled', True, 'aot_enabled'),
+    ('aot_max_bytes', -1, 'aot_max_bytes'),
     ('compute_dtype', 'int8', 'compute_dtype'),
 ])
 def test_bad_keys_raise_before_the_weights_load(wav, tmp_path, monkeypatch,

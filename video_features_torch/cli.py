@@ -5,7 +5,9 @@ vggish), or ``features=[f1,f2,...] key=val ...`` for a fused worklist;
 (``serve/server.py::serve_main``), ``python -m video_features_torch index
 ...`` runs the offline feature index (``index/cli.py::index_main``) and
 ``python -m video_features_torch fleet ...`` the fleet router over serve
-daemons (``fleet/router.py::fleet_main``; it imports no torch).
+daemons (``fleet/router.py::fleet_main``; it imports no torch) and
+``python -m video_features_torch aot-gc ...`` the executable store's
+offline GC (``aot/gc.py::main``; no torch either).
 
 Load the family's YAML, merge the dotlist (CLI wins), sanity-check,
 build the extractor, shuffle the video list and run ``_extract`` per
@@ -123,6 +125,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         # daemons, torch-free, so the router process never touches a card
         from video_features_torch.fleet.router import fleet_main
         return fleet_main(argv[1:])
+    if argv and argv[0] == 'aot-gc':
+        # the executable store's offline GC (aot/): verify, bound, compact
+        from video_features_torch.aot.gc import main as aot_gc_main
+        return aot_gc_main(argv[1:])
     cli_args = parse_dotlist(argv)
     if 'feature_type' not in cli_args and 'features' not in cli_args:
         print('Usage: python -m video_features_torch '
@@ -134,7 +140,9 @@ def main(argv: Optional[List[str]] = None) -> int:
               '       python -m video_features_torch index --cache-dir DIR '
               '[--ingest] [--query vec.npy --family f] [--device cuda|cpu]\n'
               '       python -m video_features_torch fleet '
-              'fleet_hosts=[h1:p1,h2:p2] [fleet_port=N ...]')
+              'fleet_hosts=[h1:p1,h2:p2] [fleet_port=N ...]\n'
+              '       python -m video_features_torch aot-gc --aot-dir DIR '
+              '[--target-bytes N] [--verify] [--no-compact]')
         return 2
     multihost = start_multihost(cli_args)
     if 'features' in cli_args:

@@ -2,11 +2,9 @@
 CLI overrides, then ``sanity_check`` (the i3d, r21d, s3d, raft, resnet,
 clip, timm and vggish subset of ``video_features_tpu/config.py``).
 
-Every knob of the JAX package that the port does not implement is
-refused by name when it is set away from the JAX package's default
-(:func:`check_unported_keys`), so a JAX YAML of defaults loads and a
-request for an executable store never passes silently. The serve
-daemon's own knobs are :data:`SERVE_DEFAULTS`
+Every knob of the JAX package is implemented, so a JAX YAML loads;
+:func:`check_common_keys` holds the rules every extractor checks.
+The serve daemon's own knobs are :data:`SERVE_DEFAULTS`
 (:func:`split_serve_config`), the fleet router's :data:`FLEET_DEFAULTS`
 (:func:`split_fleet_config`).
 Which knobs can change the extracted bytes is one table,
@@ -71,7 +69,7 @@ def load_config(feature_type: Optional[str] = None,
             f'Known: {", ".join(EXTRACTORS)}')
     with open(path) as f:
         args = dict(yaml.safe_load(f) or {})
-    for table in (CACHE_DEFAULTS, INDEX_DEFAULTS, OBS_DEFAULTS,
+    for table in (CACHE_DEFAULTS, AOT_DEFAULTS, INDEX_DEFAULTS, OBS_DEFAULTS,
                   PIPELINE_DEFAULTS):
         for key, value in table.items():
             args.setdefault(key, value)
@@ -214,16 +212,16 @@ INDEX_DEFAULTS: Dict[str, Any] = {
     'index_k_max': 10,           # the largest k a query answers
 }
 
-# the JAX package's knobs the port does not implement, with the JAX
-# package's default: any other value raises NotImplementedError naming
-# the key (its executable store)
-UNPORTED_DEFAULTS: Dict[str, Any] = {
-    'aot_enabled': False, 'aot_dir': '~/.cache/video_features_tpu/executables',
-    'aot_max_bytes': None, 'aot_l2_dir': None,
+# the executable store (aot/), injected into every merged config with the
+# JAX package's defaults but the port's own directory; off by default. A
+# stored executable is one kernel library (aot/runtime.py), byte-equal to
+# a fresh build, so the knobs stay out of the run fingerprint.
+AOT_DEFAULTS: Dict[str, Any] = {
+    'aot_enabled': False,        # load kernel libraries from the store
+    'aot_dir': '~/.cache/video_features_torch/executables',
+    'aot_max_bytes': None,       # LRU bound in bytes; null = unbounded
+    'aot_l2_dir': None,          # the fleet's shared tier (fleet/artifacts.py)
 }
-# the JAX default, and null (off), which is what the port does: it keeps
-# no compilation cache
-COMPILATION_CACHE_DIRS = ('~/.cache/video_features_tpu/xla', None)
 
 # Which knobs can change what a run computes (a copy of the JAX package's
 # table, classes unchanged, so both packages leave the same keys out of
@@ -278,7 +276,7 @@ KNOB_CLASSIFICATION: Dict[str, str] = {
     'cache_dir': 'pool_only',
     'cache_max_bytes': 'pool_only',
     'cache_l2_dir': 'pool_only',
-    # the executable store (not ported) and the feature index
+    # the executable store and the feature index
     'aot_enabled': 'pool_only',
     'aot_dir': 'pool_only',
     'aot_max_bytes': 'pool_only',
@@ -329,20 +327,11 @@ def check_pipeline_keys(args: Mapping[str, Any]) -> Tuple[int, int, int]:
             values['decode_farm_ring_mb'])
 
 
-def check_unported_keys(args: Mapping[str, Any]) -> None:
-    """Keys of the JAX package's configs that the port does not implement
-    raise ``NotImplementedError`` naming the key when set away from the
-    JAX package's default."""
-    for key, default in UNPORTED_DEFAULTS.items():
-        if args.get(key, default) != default:
-            raise NotImplementedError(
-                f'{key}={args[key]!r} is not ported yet (the JAX package\'s '
-                f'default is {default!r}); see the README\'s port section')
-    if args.get('compilation_cache_dir') not in COMPILATION_CACHE_DIRS:
-        raise NotImplementedError(
-            f'compilation_cache_dir={args["compilation_cache_dir"]!r} is not '
-            'ported yet: the port keeps no compilation cache; run with '
-            'compilation_cache_dir=null')
+def check_common_keys(args: Mapping[str, Any]) -> None:
+    """The rules every extractor checks on its config: the executable
+    store's knobs (:func:`check_aot_keys`), ``decode_backend``, the
+    pipeline depths and the lanes."""
+    check_aot_keys(args)
     backend = args.get('decode_backend') or 'auto'
     if backend not in DECODE_BACKENDS:
         raise ValueError(f'decode_backend must be one of {DECODE_BACKENDS}; '
@@ -398,6 +387,31 @@ def check_cache_keys(args: Dict[str, Any]) -> None:
         args['cache_l2_dir'] = str(args['cache_l2_dir'])
         if not args.get('cache_enabled'):
             raise ValueError('cache_l2_dir requires cache_enabled=true '
+                             '(see docs/fleet.md)')
+
+
+def check_aot_keys(args: Dict[str, Any]) -> None:
+    """The executable store's rules, as the JAX package's ``sanity_check``
+    has them (the same messages): ``aot_enabled`` needs ``aot_dir``, which
+    coerces to str; ``aot_max_bytes`` is an int >= 0 or null;
+    ``aot_l2_dir`` coerces to str and needs ``aot_enabled``.
+    ``compilation_cache_dir`` is any directory (``ops/_kernels.py::
+    configure_build_dir``)."""
+    if args.get('aot_enabled'):
+        if not args.get('aot_dir'):
+            raise ValueError('aot_enabled=true requires aot_dir '
+                             '(see docs/serving.md "Zero cold start")')
+    if args.get('aot_dir') is not None:
+        args['aot_dir'] = str(args['aot_dir'])
+    if args.get('aot_max_bytes') is not None:
+        args['aot_max_bytes'] = int(args['aot_max_bytes'])
+        if args['aot_max_bytes'] < 0:
+            raise ValueError('aot_max_bytes must be >= 0 or null; '
+                             f'got {args["aot_max_bytes"]}')
+    if args.get('aot_l2_dir') is not None:
+        args['aot_l2_dir'] = str(args['aot_l2_dir'])
+        if not args.get('aot_enabled'):
+            raise ValueError('aot_l2_dir requires aot_enabled=true '
                              '(see docs/fleet.md)')
 
 
@@ -515,7 +529,7 @@ def gate_packing(args: Dict[str, Any]) -> None:
 
 def check_raft_args(args: Dict[str, Any]) -> None:
     """The raft family's rules."""
-    check_unported_keys(args)
+    check_common_keys(args)
     if args.get('finetuned_on', 'sintel') not in RAFT_FINETUNED_ON:
         raise ValueError(f'finetuned_on must be one of {RAFT_FINETUNED_ON}; '
                          f'got {args.get("finetuned_on")!r}')
@@ -532,7 +546,7 @@ def check_vggish_args(args: Dict[str, Any]) -> None:
     """The vggish family's rules, checked before any weights load.
     ``show_pred`` is refused by the extractor (:mod:`~video_features_torch.
     extract.vggish`), after :func:`sanity_check` has warned."""
-    check_unported_keys(args)
+    check_common_keys(args)
     backend = args.get('audio_backend') or 'auto'
     if backend not in AUDIO_BACKENDS:
         raise ValueError(f'audio_backend must be one of {AUDIO_BACKENDS}; '
@@ -570,7 +584,7 @@ def sanity_check(args: Dict[str, Any]) -> None:
             warnings.warn('Showing class predictions is not implemented '
                           'for VGGish')
     else:
-        check_unported_keys(args)
+        check_common_keys(args)
     if ft == 'r21d':
         from video_features_torch.extract.r21d import model_def
         model_def(args.get('model_name'))

@@ -42,7 +42,16 @@ output (a slim port of ``video_features_tpu/extract/base.py``).
     manifest (``manifest_out``) and a black box (``postmortem_dir``);
     ``_extract`` records a ``video`` span per video under the run's
     trace id, and :meth:`~BaseExtractor.finish_obs` writes the trace and
-    the manifest at the end of the run.
+    the manifest at the end of the run;
+  * the executable store (``aot_enabled``): :meth:`~BaseExtractor.
+    configure_aot` attaches it to the kernel loader
+    (``ops/_kernels.py::attach_store``), the first step on the card
+    reaches each kernel library of :meth:`~BaseExtractor.kernel_libraries`
+    (loaded from the store or built and published), ``aot_stats`` counts
+    them, :meth:`~BaseExtractor.aot_warm` reaches them ahead of any step
+    and :meth:`~BaseExtractor.aot_snapshot` is the manifest's and the
+    daemon's view. A family that reaches no hand kernel, or any run on
+    the CPU, has nothing to store: 0 loaded, 0 compiled.
 
 On the card, ``put_input`` copies from pinned host memory on a copy
 stream of its own and records an event; the consumer's stream waits on
@@ -62,6 +71,7 @@ errors end the run instead of "Continuing...".
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -195,6 +205,12 @@ class BaseExtractor:
         # the feature cache, attached by configure_cache
         self.run_fingerprint = None
         self.cache = None
+        # the executable store, attached by configure_aot; the kernel
+        # libraries this extractor's steps reached (name → how each was
+        # loaded), shared with its mesh replicas, and their count by path
+        self._aot_store = None
+        self._aot_reached: Dict[str, Dict[str, Any]] = {}
+        self.aot_stats = {'loaded': 0, 'compiled': 0}
         # inflight: dispatched steps whose readback is deferred (1 =
         # synchronous); decode_workers: threads of the per-frame host
         # transform in the per-video loop, and the decode farm's worker
@@ -266,6 +282,9 @@ class BaseExtractor:
         device. Call it in ``torch.inference_mode`` on the consumer
         thread. A sharded batch launches each shard on its replica (one
         ``Readback`` each)."""
+        if self._aot_store is not None \
+                and len(self._aot_reached) < len(self.kernel_libraries()):
+            self._aot_reach()
         if isinstance(batch, ShardedBatch):
             return [rep.dispatch(b) for rep, b in zip(self._replicas, batch.shards)]
         if self.device.type != 'cuda':
@@ -579,6 +598,88 @@ class BaseExtractor:
         except Exception:
             log_cache_error(f'publish for {video_path}')
 
+    # -- the executable store (aot/) ----------------------------------------
+
+    def configure_aot(self, args: Mapping[str, Any]) -> None:
+        """With ``aot_enabled``, attach the process-wide store of ``aot_dir``
+        (with ``aot_l2_dir``, the fleet's two-tier store) and send the
+        kernel loader through it: a library a previous process published
+        loads with no ``nvcc`` run. ``registry.create_extractor`` calls it;
+        a store that cannot open is reported and the kernels build as
+        without one."""
+        if not args.get('aot_enabled'):
+            return
+        from video_features_torch.aot import ExecStore, log_aot_error
+        from video_features_torch.ops import _kernels
+        try:
+            l2 = args.get('aot_l2_dir')
+            if l2:
+                from video_features_torch.fleet.artifacts import TieredExecStore
+                self._aot_store = TieredExecStore.get_pair(
+                    args['aot_dir'], l2, args.get('aot_max_bytes'))
+            else:
+                self._aot_store = ExecStore.get(args['aot_dir'],
+                                                args.get('aot_max_bytes'))
+        except Exception:
+            log_aot_error(f'open ({args.get("aot_dir")})')
+            self._aot_store = None
+            return
+        _kernels.attach_store(self._aot_store, self.feature_type)
+
+    def kernel_libraries(self) -> tuple:
+        """The kernel libraries (``csrc/<name>.cu``) this extractor's steps
+        launch on its device: none, unless a family says otherwise."""
+        return ()
+
+    def _aot_reach(self) -> None:
+        """Load each of :meth:`kernel_libraries` not reached yet (through
+        the attached store) and count how it was loaded; a library another
+        extractor of the process loaded first keeps its provenance, and one
+        loaded before any store was attached counts as compiled."""
+        from video_features_torch.ops import _kernels
+        for name in self.kernel_libraries():
+            if name in self._aot_reached:
+                continue
+            with (torch.cuda.device(self.device) if self.device.type == 'cuda'
+                  else contextlib.nullcontext()):
+                _kernels.load(name)
+            rec = _kernels.resident(name)
+            if rec['path'] != 'loaded':
+                rec['path'] = 'compiled'
+            self._aot_reached[name] = rec
+            self.aot_stats[rec['path']] += 1
+
+    def aot_warm(self) -> Dict[str, int]:
+        """Reach every kernel library of this extractor's device ahead of
+        its first step (the serve daemon's boot, after placement); returns
+        the ``{'loaded': n, 'compiled': n}`` delta. Never raises: a library
+        that will not load is reported here and raises at the first step.
+        All zeros without a store."""
+        before = dict(self.aot_stats)
+        if self._aot_store is not None:
+            try:
+                self._aot_reach()
+            except Exception:
+                from video_features_torch.aot import log_aot_error
+                log_aot_error(f'warm {self.feature_type}')
+        return {k: self.aot_stats[k] - before[k] for k in ('loaded', 'compiled')}
+
+    def aot_snapshot(self) -> Dict[str, Any]:
+        """The run manifest's and the daemon's view of this extractor's
+        store: how many libraries took each path and, per library
+        (``<library>@<program sha12>``), its path and identity."""
+        doc: Dict[str, Any] = {'enabled': self._aot_store is not None,
+                               'loaded': self.aot_stats['loaded'],
+                               'compiled': self.aot_stats['compiled']}
+        if self._aot_store is not None:
+            doc['dir'] = self._aot_store.aot_dir
+            doc['programs'] = {
+                f'{name}@{rec["program_sha"][:12]}':
+                    {'path': rec['path'], 'program_sha': rec['program_sha'],
+                     'identity': rec['identity']}
+                for name, rec in self._aot_reached.items()}
+        return doc
+
     # -- the flight recorder (obs/) -----------------------------------------
 
     def configure_obs(self, args: Mapping[str, Any]) -> None:
@@ -637,6 +738,9 @@ class BaseExtractor:
             try:
                 # what was recorded since the loops' last fold
                 self.manifest.fold_stages(self.tracer.report())
+                if self._aot_store is not None:
+                    # how each kernel library was reached: loaded or compiled
+                    self.manifest.note_aot(self.aot_snapshot())
                 self.manifest.write(self.manifest_out)
             except Exception:
                 event(logging.WARNING, 'run-manifest write failed',

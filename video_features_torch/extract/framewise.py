@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from video_features_torch.cache.key import run_fingerprint
-from video_features_torch.config import check_unported_keys
+from video_features_torch.config import check_common_keys
 from video_features_torch.extract.base import BaseExtractor
 from video_features_torch.extract.streaming import (
     framewise_segment_windows, segment_frame_range,
@@ -42,7 +42,7 @@ class BaseFrameWiseExtractor(BaseExtractor):
 
     def __init__(self, args, feat_dim: int) -> None:
         super().__init__(args)
-        check_unported_keys(args)
+        check_common_keys(args)
         self.batch_size = int(args.get('batch_size') or 1)
         self.extraction_fps = args.get('extraction_fps')
         self.extraction_total = args.get('extraction_total')

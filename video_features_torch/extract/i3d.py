@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from video_features_torch.cache.key import run_fingerprint
-from video_features_torch.config import check_unported_keys
+from video_features_torch.config import check_common_keys
 from video_features_torch.extract.base import BaseExtractor
 from video_features_torch.extract.streaming import (
     iter_batched_windows, segment_frame_range, stream_windows,
@@ -115,7 +115,7 @@ class ExtractI3D(BaseExtractor):
                 raise ValueError(f"unknown stream {s!r}: use 'rgb' or 'flow'")
         if args.get('flow_type', 'raft') != 'raft':
             raise NotImplementedError('only flow_type=raft is supported')
-        check_unported_keys(args)
+        check_common_keys(args)
         stack, step = args.get('stack_size'), args.get('step_size')
         self.stack_size = 64 if stack is None else int(stack)
         self.step_size = 64 if step is None else int(step)
@@ -150,6 +150,12 @@ class ExtractI3D(BaseExtractor):
                 args, 'raft_checkpoint_path', raft_model.init_state_dict,
                 feature_type='i3d', what='i3d flow stream (raft)')
         return params
+
+    def kernel_libraries(self) -> tuple:
+        """The flow stream's RAFT launches the lookup and GRU kernels on
+        the card."""
+        return (raft_model.KERNEL_LIBRARIES if 'flow' in self.streams
+                and self.device.type == 'cuda' else ())
 
     def host_transform_spec(self):
         """Short side to 256 on the host (PIL bilinear), unless

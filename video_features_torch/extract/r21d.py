@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from video_features_torch.cache.key import run_fingerprint
-from video_features_torch.config import check_unported_keys
+from video_features_torch.config import check_common_keys
 from video_features_torch.extract.base import BaseExtractor, StackPackingMixin
 from video_features_torch.extract.streaming import (
     iter_batched_windows, stream_windows,
@@ -75,7 +75,7 @@ class ExtractR21D(StackPackingMixin, BaseExtractor):
 
     def __init__(self, args) -> None:
         super().__init__(args)
-        check_unported_keys(args)
+        check_common_keys(args)
         self.model_def = model_def(args.get('model_name',
                                             'r2plus1d_18_16_kinetics'))
         self.stack_size = args.get('stack_size') or self.model_def['stack_size']

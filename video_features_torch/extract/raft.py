@@ -61,6 +61,10 @@ class ExtractRAFT(BaseExtractor):
             self._ensure_mesh('batch_size')
             self._put_batch = self._halo_shards
 
+    def kernel_libraries(self) -> tuple:
+        """RAFT launches the lookup and GRU kernels on the card."""
+        return raft_model.KERNEL_LIBRARIES if self.device.type == 'cuda' else ()
+
     def _halo_shards(self, frames: np.ndarray) -> List[np.ndarray]:
         """``(B + 1, ...)`` consecutive frames → one run of ``k + 1`` per
         data shard (k = B / shards): shard d holds frames ``[d·k, d·k +

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from video_features_torch.cache.key import run_fingerprint
-from video_features_torch.config import check_unported_keys
+from video_features_torch.config import check_common_keys
 from video_features_torch.extract.base import BaseExtractor, StackPackingMixin
 from video_features_torch.extract.streaming import (
     iter_batched_windows, stream_windows,
@@ -62,7 +62,7 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
 
     def __init__(self, args) -> None:
         super().__init__(args)
-        check_unported_keys(args)
+        check_common_keys(args)
         self.stack_size = int(args.get('stack_size') or 64)
         self.step_size = int(args.get('step_size') or 64)
         self.extraction_fps = args.get('extraction_fps')

@@ -2,9 +2,9 @@
 (:mod:`.tier`, ``cache_l2_dir``), the consistent-hash ring (:mod:`.ring`),
 the router over serve daemons (:mod:`.router`, ``python -m
 video_features_torch fleet``), its Prometheus aggregation
-(:mod:`.aggregate`) and the health table (:mod:`.status`). No module
-here imports torch. The JAX package's AOT artifact tier
-(``fleet/artifacts.py``) waits for an executable store in the port.
+(:mod:`.aggregate`), the health table (:mod:`.status`) and the shared
+tier of the executable store (:mod:`.artifacts`, ``aot_l2_dir``). No
+module here imports torch.
 """
 from video_features_torch.fleet.ring import HashRing
 

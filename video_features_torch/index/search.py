@@ -23,10 +23,12 @@ device. Two points keep its answers the JAX package's:
 Geometries are quantized as in the JAX package: every shard is padded to
 ``shard_rows`` rows (mask 0 on padding) and queries to ``query_block``,
 each shard yields its top ``k_run = min(k_max, rows_pad)``, and the hits
-merge on the host in shard order with a stable sort by score. The port
-has no executable store, so ``programs_loaded`` and
-``programs_compiled`` stay 0 and :meth:`QueryEngine.prewarm` answers
-``'jit'``, as the JAX package does without one.
+merge on the host in shard order with a stable sort by score. The
+queries reach no compiled code of the port's (``torch.topk`` and a
+matmul, precompiled), so there is nothing for the executable store to
+hold: ``programs_loaded`` and ``programs_compiled`` stay 0 and
+:meth:`QueryEngine.prewarm` answers ``'jit'``, as the JAX package does
+without a store, even with ``aot_enabled``.
 
 torch is imported inside the functions that run a query: ``index.shards``,
 the offline GC tool and the CLI's other actions import without it.

@@ -169,8 +169,9 @@ class IndexService:
         else:
             self.cache = FeatureCache.get(overrides.get('cache_dir'),
                                           overrides.get('cache_max_bytes'))
-        # no executable store in the port (aot_* is refused): the queries
-        # run on the server's device, as its extractors do
+        # the queries reach no kernel library, so the executable store has
+        # nothing to give them; they run on the server's device, as its
+        # extractors do
         self.engine = QueryEngine(
             self.store, device=overrides.get('device', 'cuda'),
             query_block=int(overrides.get('index_query_block', 8)),

@@ -39,6 +39,9 @@ Params = Dict[str, Any]
 HIDDEN_DIM = 128
 CONTEXT_DIM = 128
 ITERS = 20
+# the kernel libraries (csrc/<name>.cu) a forward launches on the card:
+# the correlation lookup and the GRU direction
+KERNEL_LIBRARIES = ('corr_lookup', 'gru_direction')
 
 
 def resolve_iters(value) -> int:

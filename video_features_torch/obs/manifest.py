@@ -24,12 +24,16 @@ One document with the JAX package's key set:
   * **index**: the feature index's view (``note_index``, from the
     offline ``index`` CLI): rows, shards, ingest counters; ``{}``
     otherwise;
-  * ``ingress``, ``programs_lock``, ``aot`` and ``slo`` stay ``{}``: the
-    port writes none of those sections yet.
+  * **aot**: the executable store's view (``note_aot``, from
+    ``BaseExtractor.aot_snapshot``): how many kernel libraries were
+    loaded from the store and how many compiled, and per library its
+    path and identity; ``{}`` without ``aot_enabled``;
+  * ``ingress``, ``programs_lock`` and ``slo`` stay ``{}``: the port
+    writes none of those sections yet.
 
 The loops push (``video_done``, ``fold_stages``, ``note_executable``,
-``note_farm``, ``note_mesh``, ``note_index``); :meth:`RunManifest.write`
-publishes atomically.
+``note_farm``, ``note_mesh``, ``note_index``, ``note_aot``);
+:meth:`RunManifest.write` publishes atomically.
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ class RunManifest:
         self.farm: Dict[str, Any] = {}
         self.mesh: Dict[str, Any] = {}
         self.index: Dict[str, Any] = {}
+        self.aot: Dict[str, Any] = {}
         self._compile0 = _compile_snapshot()
 
     @staticmethod
@@ -134,6 +139,16 @@ class RunManifest:
         with self._lock:
             self.index.update({k: _jsonable(v) for k, v in info.items()})
 
+    def note_aot(self, info: Dict[str, Any]) -> None:
+        """Record the executable store's view of a run
+        (``BaseExtractor.aot_snapshot``): which path each kernel library
+        took, 'loaded' from the store or 'compiled', with its identity, so
+        the manifest shows whether the run's start was compile-free. The
+        section stays ``{}`` without ``aot_enabled``. Later notes merge
+        over earlier ones."""
+        with self._lock:
+            self.aot.update({k: _jsonable(v) for k, v in info.items()})
+
     # -- publication ---------------------------------------------------------
 
     def document(self) -> Dict[str, Any]:
@@ -152,6 +167,7 @@ class RunManifest:
             farm = dict(self.farm)
             mesh = dict(self.mesh)
             index = dict(self.index)
+            aot = dict(self.aot)
         outcomes: Dict[str, int] = {}
         for v in videos.values():
             outcomes[v['outcome']] = outcomes.get(v['outcome'], 0) + 1
@@ -173,8 +189,10 @@ class RunManifest:
             'mesh': mesh,
             # the feature index's view: {} unless a run noted one
             'index': index,
+            # which path each kernel library took: {} without aot_enabled
+            'aot': aot,
             # sections the port writes nothing into yet
-            'ingress': {}, 'programs_lock': {}, 'aot': {}, 'slo': {},
+            'ingress': {}, 'programs_lock': {}, 'slo': {},
         }
 
     def write(self, path: str) -> str:

@@ -1,7 +1,8 @@
-"""Extractor registry with lazy imports: :func:`create_extractor` builds
-a family's extractor from its merged config, resolves its
-``mesh_devices`` and attaches the feature cache and the flight recorder
-the config asks for."""
+"""Extractor registry with lazy imports: :func:`create_extractor` points
+the kernel builds at the config's ``compilation_cache_dir``, builds a
+family's extractor from its merged config, resolves its ``mesh_devices``
+and attaches the feature cache, the executable store and the flight
+recorder the config asks for."""
 from __future__ import annotations
 
 import importlib
@@ -71,8 +72,11 @@ def create_extractor(args):
     except KeyError:
         raise NotImplementedError(f'Unknown feature_type {feature_type!r}. '
                                   f'Known: {", ".join(EXTRACTORS)}')
+    from video_features_torch.ops._kernels import configure_build_dir
+    configure_build_dir(args.get('compilation_cache_dir'))
     extractor = getattr(importlib.import_module(module_name), class_name)(args)
     extractor.configure_mesh(args)
     extractor.configure_cache(args)
+    extractor.configure_aot(args)
     extractor.configure_obs(args)
     return extractor

@@ -15,8 +15,9 @@ Two renderings of the same state:
     file mirror.
 
 Both are on the socket and, with ``serve_metrics_path``, in atomically
-rewritten files. The ``aot`` section is ``{}``: the port has no
-executable store (a divergence the README's port section records).
+rewritten files. The ``aot`` section merges the executable stores'
+counters (``aot.store.merge_exec_stats``) with the kernel libraries'
+paths, and renders as the ``vft_aot_*`` gauges.
 """
 from __future__ import annotations
 
@@ -106,6 +107,7 @@ def build_metrics(started_at: float,
                   ingress_stats: Optional[Dict[str, Any]] = None,
                   trace_stats: Optional[Dict[str, Any]] = None,
                   watchdog_stats: Optional[Dict[str, Any]] = None,
+                  aot_stats: Optional[Dict[str, Any]] = None,
                   index_stats: Optional[Dict[str, Any]] = None,
                   slo_stats: Optional[Dict[str, Any]] = None,
                   ) -> Dict[str, Any]:
@@ -137,8 +139,17 @@ def build_metrics(started_at: float,
         from video_features_torch.farm.farm import merge_farm_stats
         farm_stats = merge_farm_stats(())
     doc['farm'] = farm_stats
-    # the executable store's section: {} in the port, which has none
-    doc['aot'] = {}
+    # the executable store (aot/): the merged counters of every store the
+    # live workers were built against, and how many kernel libraries took
+    # each path (loaded from the store or compiled); always present,
+    # all-zero without aot_enabled, so scrapers see one schema;
+    # builds_compiled == 0 with programs_loaded > 0 is a compile-free boot
+    if aot_stats is None:
+        from video_features_torch.aot.store import merge_exec_stats
+        aot_stats = merge_exec_stats(())
+        aot_stats['programs_loaded'] = 0
+        aot_stats['programs_compiled'] = 0
+    doc['aot'] = aot_stats
     # the network front door's view: per-tenant request/shed counters,
     # live-session + connection gauges (ingress/gateway.stats()) —
     # always present, {'enabled': False} on a loopback-only server, so
@@ -234,6 +245,13 @@ def prometheus_text(doc: Dict[str, Any],
             g(f'vft_farm_{key}',
               'decode farm accounting (merged across warm workers)'
               ).set(value)
+    for key, value in (doc.get('aot') or {}).items():
+        if isinstance(value, (int, float)) and not isinstance(value, bool):
+            # vft_aot_programs_loaded vs vft_aot_programs_compiled is the
+            # compile-free boot's dashboard pair
+            g(f'vft_aot_{key}',
+              'persistent executable store accounting (merged across '
+              'warm workers)').set(value)
     for key, value in (doc.get('index') or {}).items():
         if isinstance(value, (int, float)) and not isinstance(value, bool):
             # point-in-time mirrors; the registered vft_index_*_total

@@ -38,9 +38,14 @@ each terminal request (the gateway releases its tenant's quota there).
 With ``index_enabled`` an :class:`~video_features_torch.index.service.
 IndexService` rides along: its ingest thread folds the feature cache
 into the index, and the ``search`` and ``index_status`` commands answer
-from it. The metrics document's ``aot`` section is ``{}`` (no executable
-store), and ``serve_prewarm`` warms an entry by one step on a zero batch
-(``BaseExtractor.warm_window``) where the JAX package loads executables.
+from it. With ``aot_enabled`` an entry's build reaches its kernel
+libraries through the executable store (``BaseExtractor.aot_warm``), an
+entry whose libraries all loaded counting as ``builds_loaded``; the
+metrics document's ``aot`` section merges the stores' counters with the
+libraries' paths. ``serve_prewarm`` builds each entry, warms it, and
+takes one step on a zero batch (``BaseExtractor.warm_window``); the
+index's queries reach no compiled code of the port's, so its
+``prewarm()`` answers ``'jit'``.
 """
 from __future__ import annotations
 
@@ -425,10 +430,12 @@ class ExtractionServer:
         # per-key build lock: N concurrent cold submits of one config
         # build once; the others adopt the winner's worker
         self._build_locks: Dict[tuple, threading.Lock] = {}
-        # entries built (the JAX package's builds_compiled; its
-        # builds_loaded, an entry whose executables all loaded from its
-        # store, is 0 in the port)
+        # entries built, split by which path their kernel libraries took:
+        # an entry whose libraries all loaded from its executable store is
+        # builds_loaded; anything that compiled, or reaches no library, or
+        # has no store, is builds_compiled (the JAX package's split)
         self._builds_compiled = 0
+        self._builds_loaded = 0
         self._caches: Dict[str, Any] = {}
         self._retired: List[_Worker] = []
         # one merged stage report of every retired or crashed entry
@@ -1099,11 +1106,18 @@ class ExtractionServer:
         worker = _Worker(self, key, label, extractor,
                          self.idle_flush_s, self.max_batch_wait_s)
         worker.devices = self._place_extractor(extractor)
+        # the executable store (aot/): reach the entry's kernel libraries
+        # at its placement; {'loaded': n, 'compiled': n} decides which
+        # builds_* counter the entry lands on (all zeros without a store)
+        warm = extractor.aot_warm()
         self._wire_watchdog(worker)
         worker.start()
         rec = getattr(extractor.tracer, 'recorder', None)
         with self._lock:
-            self._builds_compiled += 1
+            if warm['loaded'] > 0 and warm['compiled'] == 0:
+                self._builds_loaded += 1
+            else:
+                self._builds_compiled += 1
             if rec is not None:
                 self._trace_recorders.append(rec)
             self._retired.extend(self.pool.put(key, worker))
@@ -1153,7 +1167,10 @@ class ExtractionServer:
                                                      or existing.crashed):
                         continue
                     worker = self._spawn_worker(args, key)
-                report['programs_compiled'] += self._warm_step(worker.ex)
+                self._warm_step(worker.ex)
+                report['programs_loaded'] += worker.ex.aot_stats['loaded']
+                report['programs_compiled'] += \
+                    worker.ex.aot_stats['compiled']
                 report['entries'] += 1
             except Exception as e:
                 event(logging.WARNING,
@@ -1169,18 +1186,17 @@ class ExtractionServer:
         return report
 
     @staticmethod
-    def _warm_step(ex) -> int:
-        """One step of ``ex`` on a zero batch of its warm window; 1 if it
-        ran, 0 for a family without one."""
+    def _warm_step(ex) -> None:
+        """One step of ``ex`` on a zero batch of its warm window (none for
+        a family without one): cuDNN's plans are not stored."""
         import numpy as np
         import torch
         window = ex.warm_window()
         if window is None:
-            return 0
+            return
         batch = np.stack([window] * ex.packed_batch_size())
         with torch.inference_mode():
             ex.fetch_outputs(ex.dispatch(ex.put_input(batch)))
-        return 1
 
     def _place_extractor(self, extractor) -> Optional[List]:
         """Give a fresh entry's extractor its device(s): the least loaded
@@ -1282,6 +1298,7 @@ class ExtractionServer:
             depth = self._inflight_videos
             draining = self._draining
             builds_compiled = self._builds_compiled
+            builds_loaded = self._builds_loaded
             reports = {}
             placements = {}
             workers = self.pool.entries() + self._retired
@@ -1298,6 +1315,16 @@ class ExtractionServer:
                 int(getattr(w.ex, '_inflight_now', 0) or 0) for w in workers)
             farms = [w.ex._farm.stats() for w in workers
                      if getattr(w.ex, '_farm', None) is not None]
+            # the executable stores the workers were built against (one
+            # per directory) and the workers' library path counters
+            aot_stores: Dict[str, Any] = {}
+            aot_loaded = aot_compiled = 0
+            for w in workers:
+                store = getattr(w.ex, '_aot_store', None)
+                if store is not None:
+                    aot_stores[store.aot_dir] = store
+                aot_loaded += w.ex.aot_stats['loaded']
+                aot_compiled += w.ex.aot_stats['compiled']
         ingress_stats = None
         if self.ingress is not None:
             try:
@@ -1308,12 +1335,16 @@ class ExtractionServer:
                       subsystem='serve', exc_info=True)
         pool_stats = self.pool.stats()
         pool_stats['builds_compiled'] = builds_compiled
-        pool_stats['builds_loaded'] = 0
+        pool_stats['builds_loaded'] = builds_loaded
         pool_stats['placements'] = placements
         pool_stats['device_residents'] = self._placer.snapshot()
         pool_stats['device_resident_bytes'] = self._placer.snapshot_bytes()
+        from video_features_torch.aot.store import merge_exec_stats
         from video_features_torch.cache.store import merge_cache_stats
         from video_features_torch.farm.farm import merge_farm_stats
+        aot_stats = merge_exec_stats(s.stats() for s in aot_stores.values())
+        aot_stats['programs_loaded'] = aot_loaded
+        aot_stats['programs_compiled'] = aot_compiled
         recorders = self._all_recorders()
         trace_stats = {'recorders': len(recorders),
                        'events_dropped': sum(r.dropped for r in recorders)}
@@ -1327,6 +1358,7 @@ class ExtractionServer:
             trace_stats=trace_stats,
             watchdog_stats=(self.watchdog.snapshot()
                             if self.watchdog is not None else None),
+            aot_stats=aot_stats,
             index_stats=(self.index_service.stats()
                          if self.index_service is not None else None),
             slo_stats=(self.slo.stats() if self.slo is not None else None))
