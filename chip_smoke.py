@@ -108,7 +108,7 @@ package is not beside it. Phases:
    and ResNet-50 under timm's recipe) at batch 8 on 8 of them, each as
    in 13: counts reset just before and read just after every run (no
    kernel lies on these paths), card vs CPU ≤ 1e-4, ms per frame beside
-   the fp32 FMA bound, busy share;
+   the fp32 FMA bound, busy share (over 5 traced steps for these nine);
 15. timm long tokens: ViT-B/16 at ``image_size=768`` (48² + 1 = 2305
    tokens, past the 2048 at which attention runs blockwise) through
    ``extract_frames`` at batch 1 on 2 seeded 768×768 frames, counts
@@ -153,7 +153,7 @@ package is not beside it. Phases:
    decoder's build or load), failing if it imports torch or jax;
    (a) the I3D path of 17 from ``create_extractor(load_config('i3d',
    ...))`` with ``pack_across_videos=true`` at the YAML's
-   ``decode_workers`` 2, then at 4, against 1, through
+   ``decode_workers`` 2 against 1, through
    ``extract_packed`` on 17's four clips (11 windows, 2 steps) and on one
    240×320 clip of 337 frames (21 windows, 3 steps), after a warm-up:
    counts reset just before and read just after each run (a lookup and
@@ -386,13 +386,37 @@ package is not beside it. Phases:
    one nvcc build of each source in (a) and none after, its ``aot``
    section each library's path.
 
+28. the contract checkers: (a) ``python -m video_features_torch.analysis``
+   (vft-lint) and ``python -m video_features_torch.analysis.wire``
+   (vft-wire, against the repo-root ``WIRE.lock.json``) in subprocesses
+   over the port's tree: both exit 0 and neither process has jax or torch
+   in ``sys.modules``, each wall printed; (b) ``python -m
+   video_features_torch.analysis.programs`` over every family, mesh width
+   and lane against the committed ``analysis/PROGRAMS.lock.json``, on the
+   card's torch, in six processes by family started after the build
+   phase at the lowest CPU priority (they run beside phases 1–27): exit
+   0, the release and the graph hashes matched printed; (c) the fused
+   I3D step (batch 8 of 17 frames at 256×341, RAFT 20 iterations) and the
+   RAFT family's step (2 frames at 240×320) exported with
+   ``torch.export`` from real CUDA tensors and seeded weights at the
+   lock's geometry, under ``highest`` and ``tensorfloat32``, in a process
+   of their own started beside (b) (``chip_smoke.py --export-step``,
+   each program saved with ``torch.export.save``); in phase 28 each is
+   loaded: the ``vft::`` nodes the lock pins, then the exported program's
+   ``module()`` against the eager step on the same inputs (byte-equal
+   expected; held to rel L2 ≤ 1e-6), the kernels counted through the
+   exported program (reset just before, read just after): one lookup and
+   two GRU directions per iteration, in the lane's instantiation.
+
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10, 17–24, 25 (a) and 27 (a)–(e);
+sum over the path runs of phases 4, 5, 10, 17–24, 25 (a), 27 (a)–(e) and
+28 (c);
 the one-pass GRU instantiation is an entry of its own); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import atexit
 import functools
 import gc
 import json
@@ -469,6 +493,9 @@ TIMM_FAMILIES = ('deit_base_distilled_patch16_224', 'convnext_tiny',
                  'regnety_008', 'mobilenetv3_large_100',
                  'beit_base_patch16_224', 'mixer_b16_224', 'resnet50')
 TIMM_FAMILY_BATCH, TIMM_LONG_SIZE, TIMM_LONG_FRAMES = 8, 768, 2
+# the other archs' busy share over fewer traced steps: the script's time
+# limit
+TIMM_FAMILY_BUSY_STEPS = 5
 BLOCKWISE_REL_L2 = 1e-5     # the online softmax's reassociation
 # vggish: a seeded 31 s 16 kHz wav is exactly 32 examples of 0.96 s, one
 # step at the config's batch 32; the host DSP is also timed at 48 kHz
@@ -487,11 +514,12 @@ PACK_RESNET_CLIPS = ((40, 240, 320), (25, 240, 320), (50, 240, 320),
                      (17, 240, 320))
 PACK_RESNET_BATCH, PACK_RESNET_WORKERS = 32, (1, 4)
 # the decode farm: the fused I3D path packed at the i3d YAML's
-# decode_workers (2) and at 4, against 1, on phase 17's four clips and on
-# one 240×320 clip of 337 frames (21 windows, 3 steps at batch 8); then
+# decode_workers (2) against 1 (4 workers dropped for the script's time
+# limit), on phase 17's four clips and on one 240×320 clip of 337 frames
+# (21 windows, 3 steps at batch 8); then
 # resnet50, CLIP ViT-B/32 and ViT-B/16 at batch 32 on eight 240×320 clips
 # of ~100 frames, each packed alone and the three fused, at 1 and 4
-FARM_WORKERS = (1, 2, 4)
+FARM_WORKERS = (1, 2)
 FARM_SHORT_STEPS = 2
 FARM_LONG_CLIP = ((337, 240, 320),)
 FARM_LONG_WINDOWS, FARM_LONG_STEPS = 21, 3
@@ -1311,14 +1339,14 @@ def family_timing(torch, np, r21d_ex, r21d34_ex, s3d_ex) -> None:
 
 
 def framewise_runs(torch, np, name, ex, step, dim, frames, batches_of,
-                   corr_lookup, gru) -> None:
+                   corr_lookup, gru, busy_steps: int = BUSY_STEPS) -> None:
     """One frame-wise extractor: ``extract_frames`` over ``frames`` at
     each batch of ``batches_of`` (counts reset just before and read just
     after each run, none allowed), each run's rows against ``step`` on
     the CPU at the same batch, and per batch ms per frame (CUDA events
     over TIMED_FRAMES frames, at least 5 steps) beside the fp32 FMA bound
     of all its convolutions and matmuls, and the device's busy share over
-    BUSY_STEPS traced steps."""
+    ``busy_steps`` traced steps."""
     from video_features_torch.transplant import to_device
     n = len(frames)
     times = [i / FRAMEWISE_FPS * 1000 for i in range(n)]
@@ -1362,7 +1390,7 @@ def framewise_runs(torch, np, name, ex, step, dim, frames, batches_of,
         with torch.inference_mode():
             ms = cuda_ms(torch, lambda: step(ex.params, xb), reps=reps) / batch
             flops = counted_flops(torch, lambda: step(ex.params, xb)) / batch
-            busy = busy_ms(torch, lambda: step(ex.params, xb), BUSY_STEPS)
+            busy = busy_ms(torch, lambda: step(ex.params, xb), busy_steps)
         bound = flops / FP32_FLOP_PER_S * 1e3
         print(f'{name} step at batch {batch}: {ms:.4f} ms per frame over {reps} '
               f'steps; fp32 FMA bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP of '
@@ -1373,7 +1401,7 @@ def framewise_runs(torch, np, name, ex, step, dim, frames, batches_of,
                   '(the profiler recorded no device activity)', flush=True)
         else:
             print(f'{name} at batch {batch}: device busy {busy / batch:.4f} ms '
-                  f'per frame over {BUSY_STEPS} traced steps, '
+                  f'per frame over {busy_steps} traced steps, '
                   f'{busy / batch / ms:.1%} of the untraced step time',
                   flush=True)
 
@@ -1447,7 +1475,7 @@ def timm_phase(torch, np, corr_lookup, gru) -> None:
         framewise_runs(torch, np, f'timm {name} ({ex.family})', ex,
                        timm_step_of(ex), ex.feat_dim,
                        frames[:TIMM_FAMILY_BATCH], (TIMM_FAMILY_BATCH,),
-                       corr_lookup, gru)
+                       corr_lookup, gru, busy_steps=TIMM_FAMILY_BUSY_STEPS)
         del ex
         torch.cuda.empty_cache()
 
@@ -1948,13 +1976,14 @@ def farm_ring_mb() -> int:
         fail('phase 18: there is no /dev/shm for the decode farm\'s rings')
     usage = shutil.disk_usage('/dev/shm')
     free_mb = usage.free >> 20
-    ring_mb = min(64, free_mb * 3 // 4 // max(FARM_WORKERS))
+    most = max(FARM_WORKERS + FARM_FRAME_WORKERS)
+    ring_mb = min(64, free_mb * 3 // 4 // most)
     print(f'phase 18: /dev/shm {usage.total >> 20} MiB, {free_mb} MiB free; '
           f'os.cpu_count() {os.cpu_count()}; decode_farm_ring_mb {ring_mb} '
-          f'for up to {max(FARM_WORKERS)} workers', flush=True)
+          f'for up to {most} workers', flush=True)
     if ring_mb < FARM_MIN_RING_MB:
         fail(f'phase 18: /dev/shm has {free_mb} MiB free, too little for '
-             f'{max(FARM_WORKERS)} rings of {FARM_MIN_RING_MB} MiB')
+             f'{most} rings of {FARM_MIN_RING_MB} MiB')
     return ring_mb
 
 
@@ -1983,7 +2012,7 @@ def farm_i3d_phase(torch, np, root: Path, ring_mb: int, corr_lookup, gru,
                    check_counts) -> None:
     """(a) The fused I3D path at full width, packed, from
     ``create_extractor(load_config('i3d', ...))`` at the YAML's
-    decode_workers, then at 4, against 1, on phase 17's clips and on one
+    decode_workers against 1, on phase 17's clips and on one
     long clip: the same bytes, every window through the farm, the launch
     counts, wall, the device's busy share and the workers' decode."""
     from video_features_torch.config import load_config
@@ -5099,6 +5128,266 @@ def aot_phase(np, check_counts, card: str) -> None:
     print(f'phase 27 [{card}]: {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
+# phase 28 (b): the program lock checked by family, one process each
+# group (each builds its families' extractors on the CPU and traces on
+# fake CUDA tensors); started after the build phase at the lowest CPU
+# priority and one thread each, so they run on the cores the card's
+# phases leave idle, and read in phase 28
+PROGRAM_GROUPS = (('i3d',), ('raft', 'index'), ('r21d',), ('s3d', 'vggish'),
+                  ('resnet',), ('clip', 'timm'))
+# phase 28 (c): exported against eager
+EXPORT_REL_L2 = 1e-6
+
+_ANALYZER_PROBE = '''
+import runpy, sys
+sys.argv = [MODULE]
+rc = 0
+try:
+    runpy.run_module(MODULE, run_name='__main__')
+except SystemExit as e:
+    rc = e.code or 0
+heavy = sorted(m for m in ('jax', 'torch') if m in sys.modules)
+print('analyzer-modules ' + ','.join(heavy), file=sys.stderr)
+sys.exit(rc)
+'''
+
+
+def analyzer_run(module: str, card: str) -> float:
+    """Run one pure-AST analyzer (``python -m <module>``) over the port's
+    tree in a subprocess: exit 0, and no jax or torch in its
+    ``sys.modules`` when it ends. Returns its wall."""
+    code = _ANALYZER_PROBE.replace('MODULE', repr(module))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    heavy = [line.split(' ', 1)[1] if ' ' in line else ''
+             for line in proc.stderr.splitlines()
+             if line.startswith('analyzer-modules')]
+    summary = [line for line in proc.stderr.splitlines()
+               if line.startswith(('vft-lint:', 'vft-wire:'))]
+    print(f'phase 28 (a) {module}: exit {proc.returncode}, {wall:.2f} s wall, '
+          f'{" ".join(summary)} ({card})', flush=True)
+    if proc.returncode != 0:
+        fail(f'phase 28 (a): {module} exited {proc.returncode}:\n'
+             f'{proc.stdout[-2000:]}{proc.stderr[-2000:]}')
+    if not heavy or heavy[0]:
+        fail(f'phase 28 (a): {module} ended with {heavy} in sys.modules '
+             f'(want neither jax nor torch)')
+    return wall
+
+
+def start_programs_diff() -> tuple:
+    """Start phase 28 (b): ``python -m video_features_torch.analysis.
+    programs --families <group>`` for each of :data:`PROGRAM_GROUPS`, at
+    nice 19 with one thread; :func:`finish_programs_diff` reads them."""
+    env = dict(os.environ, OMP_NUM_THREADS='1', MKL_NUM_THREADS='1')
+    procs = [(group, subprocess.Popen(
+        [sys.executable, '-m', 'video_features_torch.analysis.programs',
+         '--families', ','.join(group)], cwd=str(ROOT), env=env,
+        preexec_fn=lambda: os.nice(19), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for group in PROGRAM_GROUPS]
+    # a run that fails before phase 28 stops them on its way out
+    atexit.register(lambda: [proc.kill() for _, proc in procs
+                             if proc.poll() is None])
+    return time.perf_counter(), procs
+
+
+def finish_programs_diff(started, card: str) -> None:
+    """Phase 28 (b): every family, width and lane against the program
+    lock; each group's process exits 0."""
+    t0, procs = started
+    matched = total = 0
+    release = None
+    for group, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            for _, other in procs:
+                other.kill()
+            fail(f'phase 28 (b): vft-programs {group} did not finish in 900 s')
+        summary = [line for line in err.splitlines()
+                   if line.startswith('vft-programs:')]
+        notes = sum(1 for line in err.splitlines() if line.startswith('note:'))
+        print(f'phase 28 (b) {",".join(group)}: exit {proc.returncode}; '
+              f'{summary[-1] if summary else "(no summary)"}; {notes} '
+              f'release note(s)', flush=True)
+        if proc.returncode != 0:
+            fail(f'phase 28 (b): vft-programs --families {",".join(group)} '
+                 f'exited {proc.returncode}:\n{out[-3000:]}{err[-3000:]}')
+        line = summary[-1]
+        release = line.split('torch ', 1)[1].split(';', 1)[0]
+        a, b = line.rsplit('matched ', 1)[1].split(';', 1)[0].split('/')
+        matched += int(a)
+        total += int(b)
+    print(f'phase 28 (b): every family, width and lane clean against the '
+          f'lock on torch {release}; graph hashes matched {matched}/{total}; '
+          f'read {time.perf_counter() - t0:.1f} s after the start ({card})',
+          flush=True)
+
+
+# phase 28 (c): (family, precision) of each program exported from CUDA
+# tensors, and the GRU instantiation the precision launches
+EXPORT_CASES = (('i3d', 'highest', 'gru'), ('raft', 'highest', 'gru'),
+                ('i3d', 'tensorfloat32', 'gru1'),
+                ('raft', 'tensorfloat32', 'gru1'))
+
+
+def export_extractor(family: str, precision: str):
+    """Phase 28 (c)'s extractor: seeded weights on the card, the lock's
+    geometry (the fused I3D step at batch 8, the RAFT family at 2
+    frames), under ``precision``."""
+    from video_features_torch.extract.i3d import ExtractI3D
+    from video_features_torch.extract.raft import ExtractRAFT
+    base = {'device': 'cuda', 'allow_random_weights': True,
+            'on_extraction': 'save_numpy', 'output_path': str(ROOT / 'output'),
+            'precision': precision}
+    if family == 'i3d':
+        return ExtractI3D(dict(base, feature_type='i3d', streams=None,
+                               flow_type='raft', stack_size=16, step_size=16,
+                               batch_size=8))
+    return ExtractRAFT(dict(base, feature_type='raft', batch_size=1,
+                            finetuned_on='sintel'))
+
+
+def export_inputs(torch, np) -> dict:
+    """Phase 28 (c)'s seeded batches on the card, by family."""
+    gen = np.random.default_rng(28)
+    return {'i3d': torch.from_numpy(gen.integers(
+                0, 256, (8, 17, 256, 341, 3), dtype=np.uint8)).cuda(),
+            'raft': torch.from_numpy(gen.integers(
+                0, 256, (2, 240, 320, 3), dtype=np.uint8)).cuda()}
+
+
+def export_step(out_dir: str) -> int:
+    """``python3 chip_smoke.py --export-step <dir>``: phase 28 (c)'s
+    exports, each from real CUDA tensors (the seeded weights and batch)
+    and saved with ``torch.export.save`` into ``dir``, with their walls in
+    ``exports.json``. Started after the build phase beside the card's
+    phases; phase 28 loads and runs what it saved."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    from video_features_torch.analysis.programs import export_program
+    inputs = export_inputs(torch, np)
+    walls = {}
+    for family, precision, _ in EXPORT_CASES:
+        ex = export_extractor(family, precision)
+        spec = ex.program_specs()[0]
+        t0 = time.perf_counter()
+        ep = export_program(spec.fn, (ex.params, inputs[family]), spec.kwargs)
+        walls[f'{family}:{precision}'] = time.perf_counter() - t0
+        torch.export.save(ep, os.path.join(out_dir, f'{family}_{precision}.pt2'))
+        del ex, ep
+    Path(out_dir, 'exports.json').write_text(json.dumps(walls))
+    return 0
+
+
+def start_exports() -> tuple:
+    """Start :func:`export_step` in a process at nice 19; phase 28 (c)
+    reads what it saved."""
+    out = tempfile.mkdtemp(prefix='vft_exports_')
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), '--export-step', out],
+        cwd=str(ROOT), preexec_fn=lambda: os.nice(19),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return out, proc
+
+
+def export_check(torch, ex, batch, ep, export_s: float, corr_lookup, gru,
+                 launches, pinned, steps_key: str, where: str,
+                 card: str) -> None:
+    """Phase 28 (c) for one extractor: ``ep``, its spec's step exported
+    from real CUDA tensors (``ex.params`` and ``batch``), saved and
+    loaded; the ``vft::`` nodes against the lock's ``pinned`` count, then
+    the exported program against the eager step, with the kernels counted
+    through the exported one."""
+    from video_features_torch.analysis.programs import kernel_nodes
+    spec = ex.program_specs()[0]
+    nodes = kernel_nodes(ep)
+    if nodes != pinned:
+        fail(f'{where}: {nodes} vft:: nodes in the exported graph, the lock '
+             f'pins {pinned}')
+    run = ep.module()
+    with torch.inference_mode(), ex.precision_scope():
+        eager = spec.fn(ex.params, batch, **spec.kwargs)
+        torch.cuda.synchronize()
+        reset_counts(corr_lookup, gru)
+        exported = run(ex.params, batch)
+        torch.cuda.synchronize()
+        counts = read_counts(corr_lookup, gru)
+    want = {'masked': SLICE_ITERS, 'padded': 0, 'gru': 0, 'gru1': 0}
+    want[steps_key] = 2 * SLICE_ITERS
+    if counts != want:
+        fail(f'{where}: the exported program launched {counts}, want {want} '
+             f'(one lookup and two GRU directions per RAFT iteration)')
+    for key in launches:
+        launches[key] += counts[key]
+    eager = eager if isinstance(eager, dict) else {'out': eager}
+    exported = exported if isinstance(exported, dict) else {'out': exported}
+    for key in sorted(eager):
+        a, b = eager[key].float(), exported[key].float()
+        same = torch.equal(eager[key], exported[key])
+        rel = float((a - b).norm() / a.norm().clamp_min(1e-30))
+        print(f'{where} {key}: exported in {export_s:.2f} s, saved and '
+              f'loaded, {nodes} vft:: nodes, {counts["masked"]} lookups and '
+              f'{counts[steps_key]} GRU directions through the exported '
+              f'program; against eager '
+              f'{"byte-equal" if same else "NOT byte-equal"}, rel L2 {rel:.3e}, '
+              f'max abs {float((a - b).abs().max()):.3e} ({card})', flush=True)
+        if not same and rel > EXPORT_REL_L2:
+            fail(f'{where} {key}: exported program against eager rel L2 '
+                 f'{rel:.3e} > {EXPORT_REL_L2}')
+
+
+def programs_phase(torch, np, corr_lookup, gru, launches, diff_started,
+                   exports_started, card: str) -> None:
+    """Phase 28: the contract checkers on the port (see the module
+    docstring); ``diff_started`` is :func:`start_programs_diff`'s and
+    ``exports_started`` :func:`start_exports`'s."""
+    for module in ('video_features_torch.analysis',
+                   'video_features_torch.analysis.wire'):
+        analyzer_run(module, card)
+    finish_programs_diff(diff_started, card)
+
+    from video_features_torch.analysis.programs import (
+        default_lock_path, load_lock,
+    )
+    out, proc = exports_started
+    t0 = time.perf_counter()
+    try:
+        _, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail('phase 28 (c): the exports did not finish in 600 s')
+    if proc.returncode != 0:
+        fail(f'phase 28 (c): the export process exited {proc.returncode}:\n'
+             f'{err[-3000:]}')
+    print(f'phase 28 (c): exports read {time.perf_counter() - t0:.1f} s after '
+          f'phase 28 asked ({card})', flush=True)
+    walls = json.loads(Path(out, 'exports.json').read_text())
+    # the ops the saved programs call, registered before they load
+    corr_lookup.export_ops()
+    gru.export_op()
+    lock = load_lock(default_lock_path())['families']
+    pinned = {'i3d': lock['i3d']['mesh1']['programs']['step']['kernels'],
+              'raft': lock['raft']['mesh1']['programs']['flow_step']['kernels']}
+    inputs = export_inputs(torch, np)
+    for family, precision, steps_key in EXPORT_CASES:
+        ex = export_extractor(family, precision)
+        ep = torch.export.load(os.path.join(out, f'{family}_{precision}.pt2'))
+        export_check(torch, ex, inputs[family], ep,
+                     walls[f'{family}:{precision}'], corr_lookup, gru,
+                     launches, pinned[family], steps_key,
+                     f'phase 28 (c) {family} {precision}', card)
+        del ex, ep
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / 'video_features_torch' / 'csrc').is_dir():
         fail(f'video_features_torch/ not found beside {__file__}: run from '
@@ -5153,6 +5442,9 @@ def main() -> int:
     if not hgmma:
         fail('the GRU kernel was built without tensor-core (HGMMA) instructions')
     print(f'build phase {time.perf_counter() - t:.1f} s', flush=True)
+    # phase 28 (b) and (c)'s exports run on the CPU beside the card's phases
+    diff_started = start_programs_diff()
+    exports_started = start_exports()
 
     t = phase('kernels')
     rec = kernel_phase(torch, F, corr_lookup)
@@ -5312,9 +5604,18 @@ def main() -> int:
               'one process per step; a pre-warmed daemon; aot-gc')
     print(card, flush=True)
     aot_phase(np, check_counts, card)
+    print(f'executable store phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('contract checkers: vft-lint and vft-wire over the port, the '
+              'program lock on the card\'s torch, the fused I3D and RAFT '
+              'steps exported from CUDA tensors')
+    print(card, flush=True)
+    programs_phase(torch, np, corr_lookup, gru, launches, diff_started,
+                   exports_started, card)
     for key in launches:
         rec[key]['launches'] = launches[key]
-    print(f'executable store phase {time.perf_counter() - t:.1f} s', flush=True)
+    print(f'contract checkers phase {time.perf_counter() - t:.1f} s',
+          flush=True)
 
     kernels = []
     for key, name, source, replaces in (
@@ -5348,4 +5649,6 @@ def main() -> int:
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--aot-step']:       # one step of phase 27
         sys.exit(aot_step(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ['--export-step']:    # phase 28 (c)'s exports
+        sys.exit(export_step(sys.argv[2]))
     sys.exit(main())

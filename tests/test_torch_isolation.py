@@ -12,8 +12,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'video_features_tpu', 'timm')
 # loop's and the packed loop's modules, the decode farm's, the precision
 # lanes', the feature cache's, the mesh and multihost layer's, the serve
 # daemon's and the HF re-keying's, the network front door's, and the
-# feature index's and the fleet router's, and the executable store's, by
-# name
+# feature index's and the fleet router's, the executable store's, and the
+# contract checkers' and the slicing helpers', by name
 REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'io.native', 'io.audio', 'ops.audio', 'models.vggish', 'extract.vggish',
     'parallel', 'parallel.packing', 'extract.streaming', 'utils.tracing',
@@ -29,7 +29,9 @@ REQUIRED = tuple(f'video_features_torch.{m}' for m in (
     'index', 'index.shards', 'index.search', 'index.service', 'index.cli',
     'index.gc', 'fleet.ring', 'fleet.aggregate', 'fleet.router',
     'fleet.status', 'aot', 'aot.store', 'aot.runtime', 'aot.gc',
-    'fleet.artifacts'))
+    'fleet.artifacts', 'analysis', 'analysis.core', 'analysis.imports',
+    'analysis.checks', 'analysis.wire', 'analysis.programs',
+    'analysis.__main__', 'utils.slicing'))
 
 IMPORT_ALL = r'''
 import importlib, pkgutil, sys

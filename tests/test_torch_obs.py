@@ -104,8 +104,15 @@ def test_manifest_document_has_the_jax_key_set():
     assert doc['schema'] == 'video_features_torch.run_manifest/1'
     assert doc['compile'] == {} and doc['farm'] == {}
     assert set(doc['fingerprints']) == set(jax_doc['fingerprints'])
-    for key in ('mesh', 'ingress', 'programs_lock', 'aot', 'index', 'slo'):
+    for key in ('mesh', 'ingress', 'aot', 'index', 'slo'):
         assert doc[key] == {}
+    # programs_lock: {} until a family's pinned programs are noted
+    # (configure_obs notes them from analysis/PROGRAMS.lock.json)
+    assert doc['programs_lock'] == {}
+    noted = RunManifest({'feature_type': 'resnet'})
+    noted.note_programs_lock({'resnet': {'mesh1': {'step': 'ab' * 32}}})
+    assert noted.document()['programs_lock'] == \
+        {'resnet': {'mesh1': {'step': 'ab' * 32}}}
 
 
 def test_null_tracer_never_records():

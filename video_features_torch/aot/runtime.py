@@ -160,6 +160,7 @@ def _report_environment_miss(store: ExecStore, program_sha: str,
                              for k, (a, b) in drift.items()})
                 return
     except Exception:
+        # vft-lint: ok=swallowed-exception — best-effort diagnostics
         # best-effort diagnostics on the build path; the miss itself is
         # already being handled
         pass

@@ -67,6 +67,8 @@ def main(argv=None) -> int:
                       compact=not ns.no_compact)
     report['cache_dir'] = cache_dir
     report['verified'] = bool(ns.verify)
+    # vft-lint: ok=stdout-purity — the command's one JSON report
+    # line (the JAX package's tools/cache_gc.py prints it alike)
     print(json.dumps(report, sort_keys=True))
     return 1 if report['corrupt_evicted'] else 0
 

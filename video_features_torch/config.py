@@ -70,7 +70,7 @@ def load_config(feature_type: Optional[str] = None,
     with open(path) as f:
         args = dict(yaml.safe_load(f) or {})
     for table in (CACHE_DEFAULTS, AOT_DEFAULTS, INDEX_DEFAULTS, OBS_DEFAULTS,
-                  PIPELINE_DEFAULTS):
+                  PIPELINE_DEFAULTS, PROFILE_DEFAULTS):
         for key, value in table.items():
             args.setdefault(key, value)
     args.update(overrides)
@@ -186,9 +186,14 @@ PIPELINE_DEFAULTS: Dict[str, Any] = {
     'decode_workers': 1,         # per-video loop: transform threads; packed loop: > 1 = the decode farm's processes
     'pack_across_videos': False,  # the batch-major corpus loop (parallel/packing.py)
     'pack_decode_ahead': 2,      # packed decode lookahead, in device batches of windows
-    'profile': False,            # stage table on stderr after each video or packed run
     'decode_farm_ring_mb': 64,   # shared-memory ring of each decode farm worker, MiB
 }
+
+# the stage table on stderr after each video or packed run; the JAX
+# package injects no default for it
+# vft-lint: ok=knob-classification — read as a truth value
+# (extract/base.py), as the JAX package reads its key: every value is valid
+PROFILE_DEFAULTS: Dict[str, Any] = {'profile': False}
 
 # the flight recorder (obs/), injected into every merged config with the
 # JAX package's defaults; profile_dir (a torch.profiler trace) is off

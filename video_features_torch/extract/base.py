@@ -571,6 +571,10 @@ class BaseExtractor:
             log_cache_error(f'lookup for {video_path}')
             return False
         if hit:
+            # reference-parity progress line; stdout-safe by construction:
+            # the cache is warn-and-disabled under on_extraction=print
+            # (config.py::check_cache_keys), so this never interleaves with features
+            # vft-lint: ok=stdout-purity — save-mode-only progress line
             print(f'Features for {video_path} served from cache into '
                   f'{Path(out_root).absolute()}/ - skipping extraction..')
         return hit
@@ -722,6 +726,15 @@ class BaseExtractor:
             from video_features_torch.obs.manifest import RunManifest
             self.manifest_out = str(manifest_out)
             self.manifest = RunManifest(args)
+            # which pinned programs this family maps to
+            # (analysis/PROGRAMS.lock.json): a trace then names the
+            # contract-checked program that ran; {} when unpinned
+            from video_features_torch.analysis.programs import (
+                family_lock_hashes,
+            )
+            hashes = family_lock_hashes(self.feature_type)
+            if hashes:
+                self.manifest.note_programs_lock({self.feature_type: hashes})
             if self._replicas:              # data_parallel's mesh
                 self.manifest.note_mesh(self.mesh_record(int(self.batch_size)))
 
@@ -803,6 +816,53 @@ class BaseExtractor:
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         raise NotImplementedError
+
+    # -- program specs (analysis/programs.py: vft-programs) ----------------
+    #
+    # The program checker exports each family's step at the JAX lock's
+    # geometry and pins its signature in analysis/PROGRAMS.lock.json.
+    # Families override program_specs; the helpers build the abstract
+    # (meta) inputs.
+
+    # the canonical raw decode geometry (H, W) the program lock pins, the
+    # JAX package's
+    PROGRAM_DECODE_HW = (240, 320)
+
+    def program_specs(self, mesh=None) -> list:
+        """The specs (``analysis/programs.py::ProgramSpec``) of the steps
+        the hot paths dispatch, with abstract inputs at the family's lock
+        geometry; a width-n ``mesh`` runs the step on n shards of the
+        global batch (:meth:`_program_batch_slots` rows). An empty list
+        reads as "not covered", itself a checker finding."""
+        return []
+
+    def _program_batch_slots(self, mesh=None) -> int:
+        """Global batch rows at the lock geometry: the family's
+        per-device capacity × the mesh's data-axis size, the
+        ``plan_device_batch`` arithmetic the packed loop runs."""
+        if self.supports_packing:
+            capacity = self.packed_batch_size()
+        else:
+            capacity = int(getattr(self, 'batch_size', 1) or 1)
+        if mesh is None:
+            return capacity
+        from video_features_torch.parallel.mesh import plan_device_batch
+        return plan_device_batch(capacity, mesh)
+
+    def _program_spec(self, name: str, fn, batch_shape, batch_dtype,
+                      mesh=None, params=None, kwargs=None):
+        """``fn(params, batch, **kwargs)`` as a spec: ``params`` (this
+        extractor's by default) and a ``batch_shape`` batch as meta
+        tensors, run on the mesh's shards."""
+        from video_features_torch.analysis.programs import (
+            ProgramSpec, abstract,
+        )
+        batch = torch.empty(tuple(batch_shape), dtype=batch_dtype,
+                            device='meta')
+        return ProgramSpec(
+            name, fn, (abstract(self.params if params is None else params),
+                       batch), kwargs,
+            partitions=1 if mesh is None else mesh.shape['data'])
 
     # -- packed corpus mode (pack_across_videos=true) -----------------------
     #
@@ -962,6 +1022,10 @@ class BaseExtractor:
                           'under a different config/checkpoint — '
                           're-extracting instead of reusing them')
             return False
+        # reference-parity resume line; save-mode only —
+        # is_already_exist returns False up top for on_extraction=print,
+        # so this never touches the stream
+        # vft-lint: ok=stdout-purity — save-mode-only progress line
         print(f'Features for {video_path} already exist in '
               f'{Path(out_root).absolute()}/ - skipping..')
         return True

@@ -59,9 +59,27 @@ class BaseFrameWiseExtractor(BaseExtractor):
         workers and fused worklists all run it."""
         raise NotImplementedError
 
+    def step_program(self):
+        """``(fn, kwargs)``: the family's module-level step, called as
+        ``fn(self.params, frames, **kwargs)`` by :meth:`device_step`."""
+        raise NotImplementedError
+
     def device_step(self, frames: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 on the device → (B, D) float32 features."""
-        raise NotImplementedError
+        fn, kwargs = self.step_program()
+        return fn(self.params, frames, **kwargs)
+
+    def program_specs(self, mesh=None):
+        """The step's program, shared by every frame-wise family: the
+        family's own ``host_transform`` of a zero frame at the canonical
+        decode geometry gives the batch's geometry, so the spec follows
+        the preprocessing that feeds the step."""
+        h, w = self.PROGRAM_DECODE_HW
+        ch, cw = self.host_transform(np.zeros((h, w, 3), np.uint8)).shape[:2]
+        fn, kwargs = self.step_program()
+        return [self._program_spec(
+            'step', fn, (self._program_batch_slots(mesh), ch, cw, 3),
+            torch.uint8, mesh, kwargs=kwargs)]
 
     def maybe_show_pred(self, feats: np.ndarray) -> None:
         pass

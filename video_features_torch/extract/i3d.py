@@ -226,6 +226,23 @@ class ExtractI3D(BaseExtractor):
                                      resize_to=resize_to,
                                      gru_passes=self.gru_passes)
 
+    def program_specs(self, mesh=None):
+        """The fused two-stream program (RAFT flow, quantization and
+        both I3D towers) at the canonical decode geometry, resized on the
+        host to short side 256 unless ``device_resize`` moved the resize
+        into the step: what the hot path feeds :meth:`packed_step`."""
+        h, w = self.PROGRAM_DECODE_HW
+        if not self.device_resize:
+            h, w = pil_edge_resize_geometry(h, w, MIN_SIDE_SIZE) or (h, w)
+        resize_to, pads = self.geometry(h, w)
+        return [self._program_spec(
+            'step', fused_two_stream_step,
+            (self._program_batch_slots(mesh), self.stack_size + 1, h, w, 3),
+            torch.uint8, mesh,
+            kwargs=dict(pads=pads, streams=tuple(self.streams),
+                        raft_iters=self.raft_iters, resize_to=resize_to,
+                        gru_passes=self.gru_passes))]
+
     def step(self, stacks: np.ndarray) -> Dict[str, np.ndarray]:
         """One (batch, S+1, H, W, 3) uint8 stack batch → {stream: (batch,
         1024)}, synchronously (``tools/profile_torch_i3d.py``)."""
@@ -285,6 +302,7 @@ class ExtractI3D(BaseExtractor):
                                             gru_passes=self.gru_passes)
                 _, logits = i3d_model.forward(self.params[stream], inp,
                                               features=False)
+                # vft-lint: ok=stdout-purity — show_pred narration surface
                 print(f'At stack {stack_counter} ({stream} stream)')
                 show_predictions_on_dataset(logits.cpu().numpy(), 'kinetics')
             if 'flow' not in self.streams:

@@ -131,6 +131,16 @@ class ExtractR21D(StackPackingMixin, BaseExtractor):
                                              self.model_def['arch'],
                                              self.act_dtype)}
 
+    def program_specs(self, mesh=None):
+        """The packed step's program: raw uint8 decode-geometry stacks
+        through the in-graph resize, normalize, crop and R(2+1)D."""
+        h, w = self.PROGRAM_DECODE_HW
+        return [self._program_spec(
+            'step', r21d_step,
+            (self._program_batch_slots(mesh), self.stack_size, h, w, 3),
+            torch.uint8, mesh,
+            kwargs=dict(arch=self.model_def['arch'], dtype=self.act_dtype))]
+
     def step(self, stacks: np.ndarray) -> np.ndarray:
         """One (batch, stack, H, W, 3) uint8 batch → (batch, 512)."""
         return self.run_step(stacks)[self.feature_type]
@@ -141,5 +151,6 @@ class ExtractR21D(StackPackingMixin, BaseExtractor):
         with torch.inference_mode(), self.precision_scope():
             logits = linear(torch.from_numpy(feats).to(self.device),
                             float32_params(self.params['fc'])).cpu().numpy()
+        # vft-lint: ok=stdout-purity — show_pred narration surface
         print(f'At frames ({start}, {end})')
         show_predictions_on_dataset(logits, self.model_def['dataset'])

@@ -39,6 +39,19 @@ from video_features_torch.models import raft as raft_model
 from video_features_torch.transplant import to_device
 
 
+def flow_step(params, frames: torch.Tensor, mode: str = 'sintel',
+              multiple: int = 8, iters: int = raft_model.ITERS,
+              gru_passes: int = 3) -> torch.Tensor:
+    """(B+1, H, W, 3) uint8 consecutive frames → (B, H, W, 2) flows:
+    replicate-padded to ``multiple`` (``mode`` 'sintel' centers the pad,
+    'kitti' pads the bottom), RAFT on the pairs, then unpadded."""
+    padded, pads = raft_model.pad_to_multiple(frames, mode=mode,
+                                              multiple=multiple)
+    flow = raft_model.forward_consecutive(params, padded, iters=iters,
+                                          gru_passes=gru_passes)
+    return raft_model.unpad(flow, pads)
+
+
 class ExtractRAFT(BaseExtractor):
 
     def __init__(self, args) -> None:
@@ -140,16 +153,33 @@ class ExtractRAFT(BaseExtractor):
         return {self.feature_type: features, 'fps': np.array(fps),
                 'timestamps_ms': np.array(timestamps)}
 
+    def _step_kwargs(self) -> dict:
+        return dict(mode=self.finetuned_on, multiple=self.bucket_multiple,
+                    iters=self.raft_iters, gru_passes=self.gru_passes)
+
     def packed_step(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B+1, H, W, 3) uint8 consecutive frames on the device → {'raft':
-        (B, H, W, 2)} flows: padded to ``bucket_multiple``, then unpadded.
-        The step ``dispatch`` runs (RAFT has no packed loop)."""
-        padded, pads = raft_model.pad_to_multiple(
-            frames, mode=self.finetuned_on, multiple=self.bucket_multiple)
-        flow = raft_model.forward_consecutive(self.params, padded,
-                                              iters=self.raft_iters,
-                                              gru_passes=self.gru_passes)
-        return {self.feature_type: raft_model.unpad(flow, pads)}
+        (B, H, W, 2)} flows (:func:`flow_step`). The step ``dispatch``
+        runs (RAFT has no packed loop)."""
+        return {self.feature_type: flow_step(self.params, frames,
+                                             **self._step_kwargs())}
+
+    def program_specs(self, mesh=None):
+        """The consecutive-pair flow step over ``batch_size + 1`` frames
+        at the canonical decode geometry (already /8-aligned); on a mesh
+        ``flow_step_dp``: each device's run of k + 1 frames (the shard
+        boundary frame copied into both runs, :meth:`_halo_shards`), k =
+        ``batch_size`` flows per device."""
+        h, w = self.PROGRAM_DECODE_HW
+        k = max(int(self.batch_size), 1)
+        if mesh is None:
+            return [self._program_spec('flow_step', flow_step,
+                                       (k + 1, h, w, 3), torch.uint8,
+                                       kwargs=self._step_kwargs())]
+        n = mesh.shape['data']
+        return [self._program_spec('flow_step_dp', flow_step,
+                                   (n * (k + 1), h, w, 3), torch.uint8,
+                                   mesh, kwargs=self._step_kwargs())]
 
     def maybe_show_pred(self, flows: np.ndarray) -> None:
         """Render the step's first flow with the Middlebury wheel and write
@@ -158,6 +188,7 @@ class ExtractRAFT(BaseExtractor):
         is a warning event (``flow viz PNG write skipped``), never raised."""
         from video_features_torch.utils.flow_viz import flow_to_image
         img = flow_to_image(flows[0])
+        # vft-lint: ok=stdout-purity — show_pred narration surface
         print(f'[flow viz] frame rendered: shape={img.shape}, '
               f'mean_mag={np.linalg.norm(flows[0], axis=-1).mean():.3f}')
         try:

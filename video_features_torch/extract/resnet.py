@@ -61,8 +61,8 @@ class ExtractResNet(BaseFrameWiseExtractor):
                 RESIZE_OVERRIDES.get(self.model_name, RESIZE_SIZE), CROP_SIZE,
                 'bilinear')
 
-    def device_step(self, frames: torch.Tensor) -> torch.Tensor:
-        return resnet_step(self.params, frames, self.model_name, self.act_dtype)
+    def step_program(self):
+        return resnet_step, dict(arch=self.model_name, dtype=self.act_dtype)
 
     def maybe_show_pred(self, feats: np.ndarray) -> None:
         """Each frame's ImageNet-1k top-5 from ``fc`` on its features."""

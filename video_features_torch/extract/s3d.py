@@ -113,6 +113,14 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
         return {self.feature_type: s3d_step(self.params, stacks,
                                             dtype=self.act_dtype)}
 
+    def program_specs(self, mesh=None):
+        """The packed step's program at the lock geometry."""
+        h, w = self.PROGRAM_DECODE_HW
+        return [self._program_spec(
+            'step', s3d_step,
+            (self._program_batch_slots(mesh), self.stack_size, h, w, 3),
+            torch.uint8, mesh, kwargs=dict(dtype=self.act_dtype))]
+
     def step(self, stacks: np.ndarray, features: bool = True) -> np.ndarray:
         """One (batch, stack, H, W, 3) uint8 batch → (batch, 1024), or
         (batch, 400) logits."""
@@ -127,5 +135,6 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
         """The window's top-5, recomputed through the classifier head."""
         from video_features_torch.utils.preds import show_predictions_on_dataset
         logits = self.step(stacks, features=False)
+        # vft-lint: ok=stdout-purity — show_pred narration surface
         print(f'At frames ({start}, {end})')
         show_predictions_on_dataset(logits, 'kinetics')

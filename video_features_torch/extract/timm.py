@@ -252,9 +252,12 @@ class ExtractTIMM(BaseFrameWiseExtractor):
             return vit_model.forward_sequence_parallel(
                 self.params, x, self._mesh, arch=self.arch,
                 replicas=self._seq_replicas)
-        return timm_step(self.params, frames, self.family, self.arch,
-                         self.data_cfg['mean'], self.data_cfg['std'],
-                         self.act_dtype)
+        return super().device_step(frames)
+
+    def step_program(self):
+        return timm_step, dict(family=self.family, arch=self.arch,
+                               mean=self.data_cfg['mean'],
+                               std=self.data_cfg['std'], dtype=self.act_dtype)
 
     def classifier(self):
         """The family's classifier params, or None: ``head`` (ViT, BEiT,
@@ -273,6 +276,7 @@ class ExtractTIMM(BaseFrameWiseExtractor):
         nothing when the checkpoint has none. Distilled DeiT prints why it
         skips: its logits need the separate cls and dist tokens."""
         if 'dist_token' in self.params:
+            # vft-lint: ok=stdout-purity — show_pred narration surface
             print('show_pred: distilled DeiT logits need the separate '
                   'cls/dist tokens (timm deit.py); skipping the top-5 '
                   'table for pooled features')

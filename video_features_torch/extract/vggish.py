@@ -36,6 +36,14 @@ from video_features_torch.transplant import flatten
 BATCH = 32      # examples per device step (a 30 s clip is ~31 examples)
 
 
+def vggish_program(params, examples: torch.Tensor, model, dtype):
+    """:meth:`ExtractVGGish.packed_step` with ``model``'s state
+    ``params`` passed in: ``(B, 1, 96, 64)`` examples → (B, 128)
+    float32."""
+    return features_to_f32(torch.func.functional_call(
+        model, params, (examples.to(dtype),)))
+
+
 class ExtractVGGish(BaseExtractor):
 
     _device_state_attrs = ('model', '_pca_eig', '_pca_means')
@@ -159,3 +167,19 @@ class ExtractVGGish(BaseExtractor):
         (B, 128)} float32, the VGG run in the lane's dtype."""
         return {self.feature_type: features_to_f32(
             self.model(examples.to(self.act_dtype)))}
+
+    def program_specs(self, mesh=None):
+        """The step's program: one batch of ``batch_size`` examples
+        (rounded up to the mesh's data axis, the global batch
+        ``data_parallel`` steps at) through :meth:`packed_step`'s VGG,
+        its state passed in (``torch.func.functional_call``)."""
+        b = self.batch_size
+        if mesh is not None:
+            from video_features_torch.parallel.mesh import (
+                round_batch_to_data_axis,
+            )
+            b = round_batch_to_data_axis(b, mesh)
+        return [self._program_spec(
+            'step', vggish_program, (b, 1, 96, 64), torch.float32, mesh,
+            params=dict(self.model.state_dict()),
+            kwargs=dict(model=self.model, dtype=self.act_dtype))]

@@ -166,6 +166,9 @@ def worker_main(widx: int, epoch: int, recipe, ring_name: str,
                 out_q.put(('end', widx, epoch, seq, n))
             except _Abort:
                 out_q.put(('end', widx, epoch, seq, n))
+            # vft-lint: ok=swallowed-exception — the 'err' message IS
+            # the report: it carries the full traceback to the parent,
+            # whose drain loop routes it through obs.events
             except Exception:
                 # the per-video contract: the traceback goes to the
                 # parent, which reports it; the worker stays up

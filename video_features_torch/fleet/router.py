@@ -889,15 +889,18 @@ def fleet_main(argv: List[str]) -> int:
     signal.signal(signal.SIGINT, _graceful)
     # machine-greppable endpoint line (tests and tooling scrape it,
     # same contract as the serve daemon's startup line)
+    # vft-lint: ok=stdout-purity — documented startup line (fleet)
     print(f'fleet router on {router.host}:{router.port} '
           f'(pid {os.getpid()}; backends={",".join(router.ring.hosts)}, '
           f'eligible={len(router.eligible())})', flush=True)
     if router.http is not None:
+            # vft-lint: ok=stdout-purity — documented startup line (fleet)
             print(f'fleet ingress on {router.http.host}:{router.http.port}',
               flush=True)
     # in slices, so a signal that lands on another thread still runs its
     # handler on the main thread (an untimed wait would never return)
     while not done.wait(0.5):
         pass
+    # vft-lint: ok=stdout-purity — shutdown line of the same contract
     print('fleet: stopped, exiting', flush=True)
     return 0

@@ -68,9 +68,12 @@ def main(argv=None) -> int:
         return 2
 
     if ns.json:
+        # vft-lint: ok=stdout-purity — the status command's report (the
+        # JAX package's tools/fleet_status.py prints it alike)
         print(json.dumps(fleet, sort_keys=True))
     else:
         routed = fleet.get('routed') or {}
+        # vft-lint: ok=stdout-purity — the status table, the same report
         print(f"fleet router {ns.host}:{ns.port}  "
               f"uptime={fleet.get('uptime_s')}s  "
               f"draining={fleet.get('draining')}  "
@@ -80,9 +83,11 @@ def main(argv=None) -> int:
                   f"{'drain':>5} {'queue':>5} {'hit%':>6} "
                   f"{'compiled':>8} {'loaded':>6} {'routed':>7}  "
                   f"last_error")
+        # vft-lint: ok=stdout-purity — status table header
         print(header)
         for addr, row in sorted((fleet.get('backends') or {}).items()):
             hit = row.get('cache_hit_rate')
+            # vft-lint: ok=stdout-purity — status table row
             print(f"{addr:24} "
                   f"{'healthy' if row.get('healthy') else 'DOWN':>9} "
                   f"{_fmt(row.get('probe_age_s'), 6)} "

@@ -77,6 +77,8 @@ def main(argv=None) -> int:
     if not ns.no_compact:
         report['compact'] = store.compact()
     report.update(store.stats())
+    # vft-lint: ok=stdout-purity — the command's one JSON report
+    # line (the JAX package's tools/index_gc.py prints it alike)
     print(json.dumps(report, sort_keys=True))
     return 1 if report['orphans_dropped'] else 0
 

@@ -66,6 +66,30 @@ def topk(shard, queries, row_mask, k: int):
     return values[:, :k], rows[:, :k]
 
 
+class IndexPrograms:
+    """The index's query program as the program checker's provider
+    (``analysis/programs.py``): :func:`topk` at the canonical geometry,
+    the shard as its first input. The service runs one device, so the
+    program is the same at every mesh width (one partition)."""
+
+    def __init__(self, rows: int = INDEX_ROWS, dim: int = INDEX_DIM,
+                 queries: int = INDEX_QUERIES, k: int = INDEX_K) -> None:
+        self.rows, self.dim = int(rows), int(dim)
+        self.queries, self.k = int(queries), int(k)
+
+    def program_specs(self, mesh=None) -> List[Any]:
+        import torch
+
+        from video_features_torch.analysis.programs import ProgramSpec
+
+        def meta(*shape):
+            return torch.empty(shape, dtype=torch.float32, device='meta')
+        return [ProgramSpec('topk', topk, (meta(self.rows, self.dim),
+                                           meta(self.queries, self.dim),
+                                           meta(self.rows)),
+                            kwargs=dict(k=self.k), batch_argnum=0)]
+
+
 class QueryEngine:
     """Runtime dispatch: pad to the quantized geometry, run :func:`topk`
     on ``device``, merge per-query hits across shards on the host."""

@@ -53,6 +53,9 @@ INTERNAL_ERROR = 500
 SERVICE_UNAVAILABLE = 503
 
 # HTTP status → reason phrases we actually emit (write-once)
+# thread-discipline declaration (vft-lint): write-once constants need
+# no lock — nothing mutates them after import
+_LOCKED_BY = {'_REASONS': 'immutable'}
 _REASONS = {OK: 'OK', BAD_REQUEST: 'Bad Request',
             UNAUTHORIZED: 'Unauthorized',
             FORBIDDEN: 'Forbidden', NOT_FOUND: 'Not Found',
@@ -426,6 +429,9 @@ class HttpServer:
                         pass
                 except (OSError, ValueError, ConnectionError):
                     pass                   # client went away
+                # vft-lint: ok=swallowed-exception — reported to the
+                # CLIENT as a structured 500 carrying the error; the
+                # connection loop must survive one handler's crash
                 except Exception as e:
                     # reported to the client as a structured 500; the
                     # connection loop survives one handler's crash

@@ -404,6 +404,8 @@ def prefetch(iterable: Iterable, depth: int = 2) -> Iterator:
                 if not put(item):
                     return
             put(end)
+        # vft-lint: ok=swallowed-exception — shipped, not swallowed:
+        # the consumer re-raises whatever the producer thread posts
         except BaseException as e:      # shipped to the consumer, raised there
             put(e)
 

@@ -86,6 +86,8 @@ class BlackBox:
                 event(logging.ERROR, 'black-box dump failed',
                       subsystem='obs', exc_info=True, reason=reason)
             except Exception:
+                # vft-lint: ok=swallowed-exception — even the reporter
+                # failed; the process is likely dying, nothing to do
                 pass
             return None
 
@@ -162,6 +164,8 @@ class BlackBox:
             self._write_json(os.path.join(bundle, 'spans.json'), doc)
             return True
         except Exception:
+            # vft-lint: ok=swallowed-exception — best-effort section:
+            # a broken recorder must not lose the events/metrics dumps
             return False
 
     def _write_events(self, bundle: str) -> bool:
@@ -175,6 +179,7 @@ class BlackBox:
                          lambda f: f.write(payload.encode('utf-8')))
             return bool(tail)
         except Exception:
+            # vft-lint: ok=swallowed-exception — best-effort section
             return False
 
     def _write_metrics(self, bundle: str) -> bool:
@@ -185,6 +190,7 @@ class BlackBox:
                                  self._metrics_fn())
                 wrote = True
             except Exception:
+                # vft-lint: ok=swallowed-exception — best-effort section
                 pass
         if self._prom_fn is not None:
             try:
@@ -194,6 +200,7 @@ class BlackBox:
                              lambda f: f.write(text.encode('utf-8')))
                 wrote = True
             except Exception:
+                # vft-lint: ok=swallowed-exception — best-effort section
                 pass
         return wrote
 
@@ -207,6 +214,7 @@ class BlackBox:
             self._write_json(os.path.join(bundle, 'manifest.json'), doc)
             return True
         except Exception:
+            # vft-lint: ok=swallowed-exception — best-effort section
             return False
 
     # -- retention -----------------------------------------------------------

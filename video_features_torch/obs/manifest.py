@@ -28,11 +28,15 @@ One document with the JAX package's key set:
     ``BaseExtractor.aot_snapshot``): how many kernel libraries were
     loaded from the store and how many compiled, and per library its
     path and identity; ``{}`` without ``aot_enabled``;
-  * ``ingress``, ``programs_lock`` and ``slo`` stay ``{}``: the port
-    writes none of those sections yet.
+  * **programs_lock**: which pinned programs the run's family maps to
+    (``note_programs_lock``, from ``analysis/PROGRAMS.lock.json``):
+    ``{family: {mesh<n>[@lane]: {program: graph_sha256}}}``; ``{}`` when
+    the lock is absent or the family unpinned;
+  * ``ingress`` and ``slo`` stay ``{}``: the port writes neither yet.
 
 The loops push (``video_done``, ``fold_stages``, ``note_executable``,
-``note_farm``, ``note_mesh``, ``note_index``, ``note_aot``);
+``note_farm``, ``note_mesh``, ``note_index``, ``note_aot``,
+``note_programs_lock``);
 :meth:`RunManifest.write` publishes atomically.
 """
 from __future__ import annotations
@@ -71,6 +75,7 @@ class RunManifest:
         self.mesh: Dict[str, Any] = {}
         self.index: Dict[str, Any] = {}
         self.aot: Dict[str, Any] = {}
+        self.programs_lock: Dict[str, Any] = {}
         self._compile0 = _compile_snapshot()
 
     @staticmethod
@@ -89,6 +94,9 @@ class RunManifest:
             try:
                 out[name] = fn(args)
             except Exception:
+                # vft-lint: ok=swallowed-exception — best-effort identity:
+                # an unreadable checkpoint fails the BUILD with its own
+                # error; the manifest records null rather than masking it
                 pass
         return out
 
@@ -149,6 +157,17 @@ class RunManifest:
         with self._lock:
             self.aot.update({k: _jsonable(v) for k, v in info.items()})
 
+    def note_programs_lock(self, info: Dict[str, Any]) -> None:
+        """Record which PINNED programs this run's families map to:
+        ``{family: {mesh<n>: {program: graph_sha256}}}`` from the
+        committed ``analysis/PROGRAMS.lock.json`` (``analysis/
+        programs.py``), so a trace names which contract-checked program
+        ran. ``{}`` when the lock is absent or the family unpinned.
+        Later notes merge over earlier ones."""
+        with self._lock:
+            self.programs_lock.update(
+                {k: _jsonable(v) for k, v in info.items()})
+
     # -- publication ---------------------------------------------------------
 
     def document(self) -> Dict[str, Any]:
@@ -168,6 +187,7 @@ class RunManifest:
             mesh = dict(self.mesh)
             index = dict(self.index)
             aot = dict(self.aot)
+            programs_lock = dict(self.programs_lock)
         outcomes: Dict[str, int] = {}
         for v in videos.values():
             outcomes[v['outcome']] = outcomes.get(v['outcome'], 0) + 1
@@ -191,8 +211,10 @@ class RunManifest:
             'index': index,
             # which path each kernel library took: {} without aot_enabled
             'aot': aot,
+            # the pinned programs of the run's family: {} when unpinned
+            'programs_lock': programs_lock,
             # sections the port writes nothing into yet
-            'ingress': {}, 'programs_lock': {}, 'slo': {},
+            'ingress': {}, 'slo': {},
         }
 
     def write(self, path: str) -> str:

@@ -150,7 +150,10 @@ class StallWatchdog:
                     'watchdog_stall_s without a stage advance',
                     labels={'stage': info['stage']}).inc()
             except Exception:
-                pass    # the event above reported the stall already
+                # vft-lint: ok=swallowed-exception — the stall is
+                # already reported through the event above; a metrics
+                # bump must not break the monitor thread
+                pass
         if self.on_stall is not None:
             try:
                 self.on_stall(info)
@@ -196,4 +199,7 @@ class StallWatchdog:
             try:
                 self.check()
             except Exception:
-                pass    # one broken pass must not end monitoring
+                # vft-lint: ok=swallowed-exception — one broken pass
+                # must not end liveness monitoring for the daemon's
+                # lifetime; the next tick retries
+                pass

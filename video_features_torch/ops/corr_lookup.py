@@ -40,7 +40,13 @@ of 16 bytes), and tensor cores have nothing to do at 9 flops per output.
 
 Each kernel's wrapper launches it on a CUDA tensor (or raises) and
 takes its plain version only for a CPU tensor; ``launches`` on the
-wrapper counts the kernel launches.
+wrapper counts the kernel launches. While ``torch.export`` traces a
+program on CUDA tensors, the wrappers call the kernels through the
+``torch.library`` ops ``vft::corr_lookup_lanes`` and ``vft::corr_lookup``
+instead (:func:`export_ops`), so each lookup is one node of the exported
+graph (``analysis/programs.py`` counts them) and the exported program
+launches the same kernel, counted alike. The eager path calls the
+kernels directly and pays no dispatcher cost.
 
 The pyramid itself (all-pairs GEMM / √D, then three valid 2×2 average
 pools) is a batched ``torch.matmul`` and plain pooling, as the JAX
@@ -241,19 +247,44 @@ def _launch(name: str, levels: Sequence[torch.Tensor], coords: torch.Tensor,
     return out
 
 
+def _launch_masked(levels: Sequence[torch.Tensor],
+                   coords: torch.Tensor) -> torch.Tensor:
+    out = _launch('vft_corr_lookup_masked', levels, coords, pad=0)
+    lookup_corr_lanes.launches += 1
+    return out
+
+
+def _launch_padded(padded: Sequence[torch.Tensor],
+                   coords: torch.Tensor) -> torch.Tensor:
+    out = _launch('vft_corr_lookup_padded', padded, coords,
+                  pad=_pad(CORR_RADIUS))
+    lookup_corr.launches += 1
+    return out
+
+
+def _contiguous(levels: Sequence[torch.Tensor], coords: torch.Tensor):
+    """A trace's inputs to a lookup op, contiguous as the kernels take
+    them: a trace's layouts are its tracer's (a no-op where they are)."""
+    return [level.contiguous() for level in levels], coords.contiguous()
+
+
 def lookup_corr_lanes(levels: Sequence[torch.Tensor], coords: torch.Tensor,
                       radius: int = CORR_RADIUS) -> torch.Tensor:
     """Masked lookup over (N, h, w) levels → (B, H, W, 4·(2r+1)²).
 
-    CUDA tensors launch ``vft_corr_lookup_masked``; CPU tensors run
+    CUDA tensors launch ``vft_corr_lookup_masked`` (through
+    ``vft::corr_lookup_lanes`` while exporting); CPU tensors run
     :func:`lookup_corr_lanes_plain`.
     """
+    exporting = torch.compiler.is_exporting()
+    if exporting:
+        levels, coords = _contiguous(levels, coords)
     _check(levels, coords, radius, pad=0)
     if coords.device.type == 'cpu':
         return lookup_corr_lanes_plain(levels, coords, radius)
-    out = _launch('vft_corr_lookup_masked', levels, coords, pad=0)
-    lookup_corr_lanes.launches += 1
-    return out
+    if exporting:
+        return export_ops().corr_lookup_lanes(levels, coords, radius)
+    return _launch_masked(levels, coords)
 
 
 lookup_corr_lanes.launches = 0
@@ -263,19 +294,57 @@ def lookup_corr(padded: Sequence[torch.Tensor], coords: torch.Tensor,
                 radius: int = CORR_RADIUS) -> torch.Tensor:
     """Lookup over :func:`pad_pyramid` levels → (B, H, W, 4·(2r+1)²).
 
-    CUDA tensors launch ``vft_corr_lookup_padded``; CPU tensors run
+    CUDA tensors launch ``vft_corr_lookup_padded`` (through
+    ``vft::corr_lookup`` while exporting); CPU tensors run
     :func:`lookup_corr_plain`.
     """
+    exporting = torch.compiler.is_exporting()
+    if exporting:
+        padded, coords = _contiguous(padded, coords)
     _check(padded, coords, radius, pad=_pad(radius))
     if coords.device.type == 'cpu':
         return lookup_corr_plain(padded, coords, radius)
-    out = _launch('vft_corr_lookup_padded', padded, coords,
-                  pad=_pad(radius))
-    lookup_corr.launches += 1
-    return out
+    if exporting:
+        return export_ops().corr_lookup(padded, coords, radius)
+    return _launch_padded(padded, coords)
 
 
 lookup_corr.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def export_ops():
+    """The lookups as ``torch.library`` ops, registered on first use:
+    ``vft::corr_lookup_lanes`` and ``vft::corr_lookup``. Their CUDA
+    implementations launch the kernels (counted in ``launches``); their
+    fake implementations give the output's shape, so ``torch.export``
+    traces them as single nodes on fake or real CUDA tensors."""
+    import types
+
+    def out_like(coords, radius):
+        B, H, W, _ = coords.shape
+        return coords.new_empty((B, H, W, CORR_LEVELS * (2 * radius + 1) ** 2))
+
+    @torch.library.custom_op('vft::corr_lookup_lanes', mutates_args=(),
+                             device_types='cuda')
+    def corr_lookup_lanes(levels: List[torch.Tensor], coords: torch.Tensor,
+                          radius: int) -> torch.Tensor:
+        _check(levels, coords, radius, pad=0)
+        return _launch_masked(levels, coords)
+
+    @torch.library.custom_op('vft::corr_lookup', mutates_args=(),
+                             device_types='cuda')
+    def corr_lookup(padded: List[torch.Tensor], coords: torch.Tensor,
+                    radius: int) -> torch.Tensor:
+        _check(padded, coords, radius, pad=_pad(radius))
+        return _launch_padded(padded, coords)
+
+    corr_lookup_lanes.register_fake(
+        lambda levels, coords, radius: out_like(coords, radius))
+    corr_lookup.register_fake(
+        lambda padded, coords, radius: out_like(coords, radius))
+    return types.SimpleNamespace(corr_lookup_lanes=corr_lookup_lanes,
+                                 corr_lookup=corr_lookup)
 
 
 # -- dispatch --------------------------------------------------------------------

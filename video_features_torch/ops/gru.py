@@ -225,13 +225,28 @@ def gru_direction(h: torch.Tensor, motion: torch.Tensor, w_zr: torch.Tensor,
     """One GRU direction → the new h (B, H, W, 128), in ``passes`` TF32
     products per fp32 product (3: 3xTF32; 1: one pass).
 
-    CUDA tensors launch ``vft_gru_direction_passes``; CPU tensors run
-    :func:`gru_direction_plain`.
+    CUDA tensors launch ``vft_gru_direction_passes`` (through
+    ``vft::gru_direction`` while ``torch.export`` traces, so the
+    direction is one node of the exported graph: :func:`export_op`);
+    CPU tensors run :func:`gru_direction_plain`.
     """
+    exporting = torch.compiler.is_exporting()
+    if exporting:
+        # a trace's layouts are its tracer's: the op takes its inputs
+        # contiguous, as the kernel does (a no-op where they are)
+        h, motion, w_zr, w_q, zr_term, q_term = (
+            t.contiguous() for t in (h, motion, w_zr, w_q, zr_term, q_term))
     _check(h, motion, w_zr, w_q, zr_term, q_term, axis, passes)
     if h.device.type == 'cpu':
         return gru_direction_plain(h, motion, w_zr, w_q, zr_term, q_term,
                                    axis, passes)
+    if exporting:          # a CUDA tensor: the op that launches the kernel
+        return export_op()(h, motion, w_zr, w_q, zr_term, q_term, axis,
+                           passes)
+    return _launch(h, motion, w_zr, w_q, zr_term, q_term, axis, passes)
+
+
+def _launch(h, motion, w_zr, w_q, zr_term, q_term, axis, passes):
     out = torch.empty_like(h)
     z = torch.empty_like(h)          # scratch: the z gate
     rh = torch.empty_like(h)         # scratch: r·h, the q GEMM's input
@@ -253,3 +268,24 @@ def gru_direction(h: torch.Tensor, motion: torch.Tensor, w_zr: torch.Tensor,
 
 gru_direction.launches = 0
 gru_direction.launches_by_passes = {p: 0 for p in PASSES}
+
+
+@functools.lru_cache(maxsize=None)
+def export_op():
+    """The direction as the ``torch.library`` op ``vft::gru_direction``,
+    registered on first use, for both instantiations (``passes`` 3 and
+    1): its CUDA implementation launches the kernel (counted in
+    ``launches``), its fake implementation gives the new h's shape."""
+    @torch.library.custom_op('vft::gru_direction', mutates_args=(),
+                             device_types='cuda')
+    def gru_direction_op(h: torch.Tensor, motion: torch.Tensor,
+                         w_zr: torch.Tensor, w_q: torch.Tensor,
+                         zr_term: torch.Tensor, q_term: torch.Tensor,
+                         axis: str, passes: int) -> torch.Tensor:
+        _check(h, motion, w_zr, w_q, zr_term, q_term, axis, passes)
+        return _launch(h, motion, w_zr, w_q, zr_term, q_term, axis, passes)
+
+    gru_direction_op.register_fake(
+        lambda h, motion, w_zr, w_q, zr_term, q_term, axis, passes:
+        torch.empty_like(h))
+    return gru_direction_op

@@ -39,6 +39,9 @@ LATENCY_WINDOW = 1024
 
 # counter key → (Prometheus family, labels): request-level outcomes and
 # video-level outcomes are separate families
+# thread-discipline declaration (vft-lint): write-once constant — every
+# RequestStats reads it, nothing mutates it after import
+_LOCKED_BY = {'_COUNTER_SERIES': 'immutable'}
 _COUNTER_SERIES = {
     'submitted': ('vft_serve_requests_total', {'outcome': 'submitted'}),
     'completed': ('vft_serve_requests_total', {'outcome': 'completed'}),

@@ -1561,6 +1561,7 @@ def serve_main(argv: List[str]) -> int:
         from video_features_torch.obs.blackbox import install_signal_dump
         install_signal_dump(server.blackbox)
     # the endpoint line clients scrape host:port from
+    # vft-lint: ok=stdout-purity — the daemon's documented startup line
     print(f'serving on {server.host}:{server.port} '
           f'(pid {os.getpid()}; queue_depth='
           f'{serve_cfg["serve_queue_depth"]}, warm_pool='
@@ -1579,9 +1580,11 @@ def serve_main(argv: List[str]) -> int:
             max_connections=serve_cfg['serve_ingress_max_connections'],
         ).start()
         # the second endpoint line, scraped alike
+        # vft-lint: ok=stdout-purity — documented startup line (ingress)
         print(f'ingress on {gateway.host}:{gateway.port} '
               f'(tenants={gateway.n_tenants})', flush=True)
     server.serve_forever()
+    # vft-lint: ok=stdout-purity — shutdown line of the same contract
     print('serve: drained, exiting', flush=True)
     sys.stdout.flush()
     sys.stderr.flush()

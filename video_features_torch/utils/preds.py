@@ -53,8 +53,12 @@ def show_predictions_on_dataset(logits: np.ndarray,
     probs = softmax(logits)
     top_idx = np.argsort(-probs, axis=-1)[:, :k]
     for b in range(logits.shape[0]):
+        # vft-lint: ok=stdout-purity — show_pred's top-k table IS the
+        # deliberate stdout surface of this debug mode (reference parity)
         print('  Logits | Prob. | Label ')
         for idx in top_idx[b]:
             label = classes[idx] if classes and idx < len(classes) else f'class_{idx}'
+            # vft-lint: ok=stdout-purity — show_pred table row
             print(f'{logits[b, idx]:8.3f} | {probs[b, idx]:.3f} | {label}')
+        # vft-lint: ok=stdout-purity — show_pred table spacer
         print()

@@ -140,7 +140,9 @@ class Tracer:
             try:
                 progress(name, attrs.get('worker'))
             except Exception:
-                pass    # a broken liveness hook must not fail the loop
+                # vft-lint: ok=swallowed-exception — a broken liveness
+                # hook must not fail the loop
+                pass
         with self._lock:
             self._stat(name).add(dt)
 
@@ -193,7 +195,7 @@ class Tracer:
             yield item
 
     @staticmethod
-    def _record(s: _StageStat) -> Dict[str, float]:
+    def _stat_record(s: _StageStat) -> Dict[str, float]:
         rec = {'count': s.count, 'total_s': s.total_s,
                'mean_s': s.total_s / max(s.count, 1), 'max_s': s.max_s,
                'first_s': s.first_s}
@@ -203,8 +205,9 @@ class Tracer:
         occ = s.occupancy()
         if occ is not None:
             # the raw counts ride along so reports stay mergeable
-            rec.update(occupancy=occ, occ_valid=s.occ_valid,
-                       occ_capacity=s.occ_capacity)
+            rec['occupancy'] = occ
+            rec['occ_valid'] = s.occ_valid
+            rec['occ_capacity'] = s.occ_capacity
         if s.occ_device:
             rec['occ_device'] = {
                 dev: {'occ_valid': v, 'occ_capacity': c,
@@ -214,14 +217,14 @@ class Tracer:
 
     def report(self) -> Dict[str, Dict[str, float]]:
         with self._lock:
-            return {name: self._record(s) for name, s in self._stats.items()}
+            return {name: self._stat_record(s) for name, s in self._stats.items()}
 
     def summary(self) -> str:
         """The stage table in order of first occurrence: count, total,
         mean, share of the summed stage time, ``occ%`` and ``ramp``."""
         with self._lock:
             order = list(self._order)
-            rep = {name: self._record(s) for name, s in self._stats.items()}
+            rep = {name: self._stat_record(s) for name, s in self._stats.items()}
         if not rep:
             return '(no stages recorded)'
         total = sum(r['total_s'] for r in rep.values())
