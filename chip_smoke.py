@@ -14,10 +14,12 @@ phase that fails, and at once when no CUDA device is present or the
 package is not beside it. Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile the CUDA kernels from ``video_features_torch/csrc``,
-   one nvcc per source, all started together, with ptxas's register and
-   spill lines, and the count of tensor-core (HGMMA) instructions in the
-   GRU kernel's SASS (``cuobjdump -sass``), which must not be 0; beside
+2. build: compile the CUDA kernels from ``video_features_torch/csrc``
+   (the lookups, the GRU direction and the 3xTF32 convolution), one nvcc
+   per source, all started together, with ptxas's register and spill
+   lines, the count of tensor-core (HGMMA) instructions in the GRU
+   kernel's SASS (``cuobjdump -sass``), which must not be 0, and the
+   convolution's HMMA count per instantiation (none may be 0); beside
    them ``tools/gru_tf32x3_variants.py``'s ``pr14_one_pass`` (the one-pass
    design before the cluster kernel, phase 19 (a)'s yardstick);
 3. kernels: each correlation-lookup kernel at the main path's shapes
@@ -59,7 +61,21 @@ package is not beside it. Phases:
 6. kernel vs plain on the slices: the fused I3D step and a RAFT-family
    step with the kernels and with their plain versions (3 RAFT
    iterations), rel L2 ≤ 1e-3 per I3D stream and on the flow; then the
-   fused step at batch 8 (20 iterations) timed both ways, in turns;
+   fused step at batch 8 (20 iterations) timed both ways, in turns; then
+   the 3xTF32 convolution (``ops/conv_tf32x3.py``, the three-pass lane
+   of i3d and raft under ``precision=high`` and ``mixed``): the fused
+   I3D step at batch 8 (RAFT over 136 frames at 256×344, both towers)
+   and the RAFT family at 8 pairs run once with their plain versions,
+   and on the first call of each distinct convolution geometry (80 and
+   30) the kernel runs on the same tensors and is held to the plain
+   version (rel L2 ≤ 1e-5); RAFT's seven per-iteration convolutions at
+   the fused size and the three heaviest I3D ones timed (CUDA events)
+   with their plain version, cuDNN in fp32 (``library_ms``) and in TF32,
+   beside their 3xTF32 operations bound and fp32 FMA bound; then the
+   lane end to end, in its scope: the fused step at batch 8 and a
+   RAFT-family step at 8 pairs (3 iterations) with the kernels against
+   their plain versions (rel L2 ≤ 1e-3), one convolution launch per
+   convolution (the code's count) and no cuDNN convolution;
 7. device resize: ``pil_resize_bilinear_device`` on the card byte-equal
    to the same function on the CPU, on seeded uint8 frames at six
    geometries (up, down, mixed, identity, 1080×1920 → 256×455), and its
@@ -186,14 +202,18 @@ package is not beside it. Phases:
    3xTF32's); (b) the fused I3D
    path at the YAML's batch 8 (129 seeded frames, 8 windows, one step)
    and the RAFT family at batch 8 pairs, each from ``load_config`` and
-   ``create_extractor`` under ``highest``, ``high`` (mixed's arithmetic:
-   TF32 libraries, the GRU in 3xTF32) and ``tensorfloat32`` (the one-pass
-   GRU), driven through ``extract_frames`` with the counts reset just
-   before and read just after (one lookup and two GRU launches of the
-   lane's pass count per iteration), ms per window or pair, peak memory,
-   rel L2 against ``highest`` per I3D stream and per flow field; under
-   ``tensorfloat32`` the RAFT step with the kernels against their plain
-   versions (rel L2 ≤ 1e-3) and one traced fused step by kernel group;
+   ``create_extractor`` under ``highest``, ``high`` and ``mixed`` (the
+   three-pass lane: every convolution in 3xTF32, 292 per fused step and
+   178 per RAFT step, the libraries in fp32, the GRU in 3xTF32) and
+   ``tensorfloat32`` (the one-pass GRU), driven through
+   ``extract_frames`` with the counts reset just before and read just
+   after (one lookup and two GRU launches of the lane's pass count per
+   iteration, and the convolution launches held to the code's count), ms
+   per window or pair, peak memory, rel L2 against ``highest`` per I3D
+   stream and per flow field; under ``tensorfloat32`` the RAFT step with
+   the kernels against their plain versions (rel L2 ≤ 1e-3); one traced
+   fused step by kernel group under ``mixed`` (no cuDNN convolution, the
+   3xTF32 one present) and under ``tensorfloat32``;
    (c) resnet50, CLIP ViT-B/32, ViT-B/16 (at batch 1 and 32),
    r2plus1d_18 (batch 4), S3D (one 64-frame stack) and vggish (batch 32)
    under ``highest``, ``high`` and ``compute_dtype=bfloat16``, and (d)
@@ -406,13 +426,16 @@ package is not beside it. Phases:
    ``module()`` against the eager step on the same inputs (byte-equal
    expected; held to rel L2 ≤ 1e-6), the kernels counted through the
    exported program (reset just before, read just after): one lookup and
-   two GRU directions per iteration, in the lane's instantiation.
+   two GRU directions per iteration, in the lane's instantiation; the
+   same steps under ``mixed`` too, with one ``vft::conv_tf32x3`` node and
+   launch per convolution (292 and 178) beside the lock's nodes.
 
 The line before the last is the kernels' JSON record (``launches``: the
-sum over the path runs of phases 4, 5, 10, 17–24, 25 (a), 27 (a)–(e) and
-28 (c);
-the one-pass GRU instantiation is an entry of its own); the last line is
-``{"ok": true, "device": {...}}``.
+sum over the path runs of phases 4, 5, 10, 17–24, 19 (b), 25 (a), 27
+(a)–(e) and 28 (c); the one-pass GRU instantiation is an entry of its
+own; the 3xTF32 convolution's launches are phase 19 (b)'s and 28 (c)'s,
+its times one RAFT iteration's seven convolutions at the fused batch-8
+size); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -467,6 +490,11 @@ LOOKUP_EDGE_CASES = ((3, 13, 9, 'mixed'), (1, 31, 41, 'mixed'),
                      (2, H8, W8, 'far'), (2, H8, W8, 'edges'),
                      (3, 13, 9, 'edges'))
 KERNELS = ('corr_lookup', 'gru_direction')
+# the 3xTF32 convolution: built beside them, on the path of i3d and raft
+# under precision=high and mixed (a highest run builds only KERNELS)
+CONV_KERNEL = 'conv_tf32x3'
+CONV_REL_L2 = 1e-5      # 3xTF32 against cuDNN's fp32 (TF32 off)
+I3D_TOWER_CONVS = 57    # 3 stem units and 9 Mixed blocks of 6 convolutions
 # device resize: the JAX package's test geometries plus a 1080p frame,
 # and the timed batch (raw 480×640 frames of 8 windows of 17)
 RESIZE_GEOMETRIES = ((240, 320, 256, 341), (360, 480, 256, 341),
@@ -530,13 +558,16 @@ FARM_FAMILIES = {'resnet': 'resnet50', 'clip': 'ViT-B/32',
 # an i3d window (17 × 256 × 341 × 3 uint8, 4.45 MB) must take the ring,
 # which ships windows of up to half its size
 FARM_MIN_RING_MB = 10
-# the precision lanes: highest (the reference), high (mixed's arithmetic:
-# TF32 in cuDNN and cuBLAS, the GRU kernel in 3xTF32; mixed itself is
-# refused outside registry.MIXED_FEATURES) and tensorfloat32 (the one-pass
-# GRU kernel); the fused I3D step at the YAML's batch 8 (129 frames: 8
+# the precision lanes: highest (the reference), high and mixed (for i3d
+# and raft the three-pass lane: every convolution in 3xTF32, the libraries
+# in fp32; elsewhere mixed's arithmetic is high's: TF32 in cuDNN and
+# cuBLAS, the GRU kernel in 3xTF32) and tensorfloat32 (the one-pass GRU
+# kernel); the fused I3D step at the YAML's batch 8 (129 frames: 8
 # windows, one step) and the RAFT family at batch 8 pairs; mixed is
 # admitted for a family whose drift against highest is at most MIXED_BAR
-LANE_PRECISIONS = ('highest', 'high', 'tensorfloat32')
+LANE_PRECISIONS = ('highest', 'high', 'mixed', 'tensorfloat32')
+# the lanes on which i3d and raft run every convolution in 3xTF32
+THREE_PASS_LANES = ('high', 'mixed')
 LANE_BATCH, LANE_I3D_FRAMES, LANE_RAFT_BATCH = 8, 8 * STACK + 1, 8
 MIXED_BAR = 1e-3
 # the bf16 families at their config batch (the frame-wise ones at 32 too):
@@ -951,6 +982,249 @@ def gru_phase(torch, gru):
     return rec
 
 
+# -- the 3xTF32 convolution (ops/conv_tf32x3.py) ------------------------------
+
+
+def raft_conv_count(iters: int) -> int:
+    """The code's count of convolutions in one RAFT forward: 16 per
+    encoder call (fnet once over the unique frames, cnet once), the 4
+    context terms, 7 per iteration (motion encoder 5, flow head 2) and
+    the mask head's 2."""
+    return 16 * 2 + 4 + 7 * iters + 2
+
+
+def conv_bounds(x_shape, w_shape, out_shape) -> dict:
+    """Least times in ms of one convolution: 'tf32x3' (3 TF32 tensor-core
+    products per fp32 product of its 2·M·O·K flops), 'fp32' (the flops at
+    the fp32 FMA rate) and 'bytes' (input, weights, bias and output
+    moved once), with 'flops'."""
+    m = math.prod(out_shape[:-1])
+    flops = 2 * m * w_shape[0] * math.prod(w_shape[1:])
+    nbytes = 4 * (math.prod(x_shape) + math.prod(w_shape) + w_shape[0]
+                  + math.prod(out_shape))
+    return {'flops': flops, 'tf32x3': 3 * flops / TF32_FLOP_PER_S * 1e3,
+            'fp32': flops / FP32_FLOP_PER_S * 1e3,
+            'bytes': nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+class ConvShapes:
+    """Stands in for ``conv_tf32x3_plain`` while a step runs with its plain
+    versions: each call returns the plain result, and on the first call of
+    each distinct geometry the kernel's wrapper runs on the same tensors
+    (the path's own activations and weights) and is held to it. Weights
+    are named from ``params`` (``fuse_gru_params``' context slices are
+    'gru context term')."""
+
+    def __init__(self, torch, k, params: dict, prefix: str) -> None:
+        from video_features_torch.transplant import flatten
+        self.torch, self.k, self.plain = torch, k, k.conv_tf32x3_plain
+        self.names = {id(t): f'{prefix}{name[:-len(".weight")]}'
+                      for name, t in flatten(params).items()
+                      if name.endswith('weight')}
+        self.records = {}
+
+    def __call__(self, x, weight, stride=1, padding=0, bias=None):
+        out = self.plain(x, weight, stride, padding, bias)
+        key = (tuple(x.shape), tuple(weight.shape), repr(stride), repr(padding))
+        if key not in self.records:
+            got = self.k.conv_tf32x3(x, weight, stride, padding, bias)
+            self.records[key] = {
+                'name': self.names.get(id(weight), 'gru context term'),
+                'x': tuple(x.shape), 'w': tuple(weight.shape),
+                'out': tuple(out.shape), 'rel': rel_l2(got, out),
+                'err': (got - out).abs().max().item(),
+                'args': (x, weight, stride, padding, bias)}
+        return out
+
+
+def conv_shape_records(torch, k, step, params: dict, prefix: str) -> dict:
+    """Run ``step()`` (a step with its plain versions under the
+    three-pass route) with :class:`ConvShapes` in place of the plain
+    convolution: its records by geometry."""
+    shapes = ConvShapes(torch, k, params, prefix)
+    k.conv_tf32x3_plain = shapes
+    try:
+        with torch.inference_mode():
+            step()
+        torch.cuda.synchronize()
+    finally:
+        k.conv_tf32x3_plain = shapes.plain
+    return shapes.records
+
+
+def conv_times(torch, k, args, reps: int) -> dict:
+    """ms of one convolution: the kernel, its plain version (cuDNN with
+    TF32 off, after the asymmetric pad copy where there is one), cuDNN in
+    fp32 (``library_conv``: the same PyTorch call) and in TF32."""
+    from video_features_torch.ops.nn import library_conv
+    from video_features_torch.utils.device import set_precision
+    with torch.inference_mode():
+        out = {'ms': cuda_ms(torch, lambda: k.conv_tf32x3(*args), reps),
+               'plain_ms': cuda_ms(torch, lambda: k.conv_tf32x3_plain(*args),
+                                   reps),
+               'library_ms': cuda_ms(torch, lambda: library_conv(*args), reps)}
+        set_precision('tensorfloat32')
+        try:
+            out['library_tf32_ms'] = cuda_ms(torch, lambda: library_conv(*args),
+                                             reps)
+        finally:
+            set_precision('highest')
+    return out
+
+
+def conv_phase(torch, np, k, fused_params: dict, raft_params: dict,
+               card: str) -> dict:
+    """The 3xTF32 convolution against its plain version on every distinct
+    geometry of the fused I3D step at batch 8 (both towers, RAFT over 136
+    frames at 256×344) and of the RAFT family at 8 pairs (256×336), on
+    the paths' own tensors (one RAFT iteration: the others repeat its
+    shapes), rel L2 ≤ CONV_REL_L2; RAFT's seven per-iteration
+    convolutions at the fused size and the three heaviest I3D ones timed
+    against cuDNN in fp32 and in TF32, beside their bounds."""
+    from video_features_torch.extract.i3d import fused_two_stream_step
+    from video_features_torch.models import raft as raft_model
+    from video_features_torch.models.raft import pad_amounts
+    x = torch.from_numpy(rand_frames(np, 21, (8, STACK + 1, *FRAME_HW, 3))).cuda()
+    pads = pad_amounts(*FRAME_HW)
+    fused = conv_shape_records(torch, k, lambda: fused_two_stream_step(
+        fused_params, x, pads, ('rgb', 'flow'), raft_iters=1,
+        plain_kernels=True, three_pass_convs=True), fused_params, '')
+    frames = torch.from_numpy(raft_frames(np)[:RAFT_BATCH + 1]).cuda()
+    padded, _ = raft_model.pad_to_multiple(frames)
+    family = conv_shape_records(torch, k, lambda: raft_model.forward_consecutive(
+        raft_params, padded, iters=1, plain_kernels=True,
+        three_pass_convs=True), raft_params, 'raft.')
+    del x, frames, padded
+    rec = {'err': 0.0, 'rel': 0.0}
+    for path, records in (('fused I3D step at batch 8', fused),
+                          (f'RAFT family at {RAFT_BATCH} pairs', family)):
+        for r in records.values():
+            b = conv_bounds(r['x'], r['w'], r['out'])
+            print(f'conv_tf32x3 [{path}] {r["name"]} x {r["x"]} w {r["w"]}: '
+                  f'rel L2 {r["rel"]:.3e}, max abs err {r["err"]:.3e}, '
+                  f'{b["flops"] / 1e9:.2f} GFLOP ({card})', flush=True)
+            rec['err'] = max(rec['err'], r['err'])
+            rec['rel'] = max(rec['rel'], r['rel'])
+            if not r['rel'] <= CONV_REL_L2:
+                fail(f'conv_tf32x3 disagrees with its plain version on '
+                     f'{r["name"]} {r["x"]} x {r["w"]}: rel L2 {r["rel"]}')
+        print(f'conv_tf32x3 [{path}]: {len(records)} distinct geometries held '
+              f'to the plain version, rel L2 at most '
+              f'{max(r["rel"] for r in records.values()):.3e}, max abs err '
+              f'{max(r["err"] for r in records.values()):.3e} ({card})',
+              flush=True)
+    iteration = [r for r in fused.values()
+                 if r['name'].startswith('raft.update_block.encoder.')
+                 or r['name'].startswith('raft.update_block.flow_head.')]
+    if len(iteration) != 7:
+        fail(f'{len(iteration)} per-iteration convolutions found, want 7')
+    towers = sorted((r for r in fused.values()
+                     if r['name'].startswith(('rgb.', 'flow.'))),
+                    key=lambda r: -conv_bounds(r['x'], r['w'], r['out'])['flops'])
+    total = {key: 0.0 for key in ('ms', 'plain_ms', 'library_ms',
+                                  'library_tf32_ms', 'tf32x3', 'fp32', 'bytes',
+                                  'bound')}
+    for r in iteration + towers[:3]:
+        t = conv_times(torch, k, r['args'], 5)
+        b = conv_bounds(r['x'], r['w'], r['out'])
+        bound = max(b['tf32x3'], b['bytes'])
+        print(f'conv_tf32x3 {r["name"]} x {r["x"]} w {r["w"]}: {t["ms"]:.4f} ms, '
+              f'plain {t["plain_ms"]:.4f} ms, cuDNN fp32 {t["library_ms"]:.4f} '
+              f'ms, cuDNN TF32 {t["library_tf32_ms"]:.4f} ms; bound '
+              f'{bound:.4f} ms ({"operations" if b["tf32x3"] >= b["bytes"] else "bytes"}, '
+              f'3xTF32 at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s), '
+              f'{bound / t["ms"]:.1%} of it; fp32 FMA bound {b["fp32"]:.4f} ms; '
+              f'bytes {b["bytes"]:.4f} ms ({card})', flush=True)
+        if r in iteration:
+            for key in ('ms', 'plain_ms', 'library_ms', 'library_tf32_ms'):
+                total[key] += t[key]
+            for key in ('tf32x3', 'fp32', 'bytes'):
+                total[key] += b[key]
+            total['bound'] += bound
+    print(f'conv_tf32x3: one RAFT iteration\'s 7 convolutions at the fused '
+          f'batch-8 size (M = {iteration[0]["out"][0] * H8 * W8}): '
+          f'{total["ms"]:.4f} ms, plain {total["plain_ms"]:.4f} ms, cuDNN fp32 '
+          f'{total["library_ms"]:.4f} ms, cuDNN TF32 {total["library_tf32_ms"]:.4f} '
+          f'ms; bound {total["bound"]:.4f} ms ({total["bound"] / total["ms"]:.1%} '
+          f'of it), fp32 FMA bound {total["fp32"]:.4f} ms ({card})', flush=True)
+    del fused, family, iteration, towers
+    torch.cuda.empty_cache()
+    rec.update(ms=total['ms'], plain_ms=total['plain_ms'],
+               library_ms=total['library_ms'],
+               library_tf32_ms=total['library_tf32_ms'],
+               bound_ms=total['bound'],
+               bound_by='operations' if total['tf32x3'] >= total['bytes']
+               else 'bytes', fp32_bound_ms=total['fp32'])
+    return rec
+
+
+class LibraryConvs:
+    """Counts ``ops/nn.py::library_conv`` calls (cuDNN's convolutions on
+    the card) while it is entered."""
+
+    def __enter__(self):
+        from video_features_torch.ops import nn
+        self.nn, self.orig, self.calls = nn, nn.library_conv, 0
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.orig(*args, **kwargs)
+        nn.library_conv = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.nn.library_conv = self.orig
+
+
+def three_pass_plain_phase(torch, np, k, fused_params, raft_params,
+                           card: str) -> None:
+    """The three-pass lane end to end: the fused I3D step at batch 8 and a
+    RAFT-family step at 8 pairs (CHECK_ITERS iterations), with the kernels
+    and with their plain versions, in the lane's scope: one kernel launch
+    per convolution (the code's count), no cuDNN convolution, rel L2 ≤
+    SLICE_REL_L2 per stream and on the flow."""
+    from video_features_torch.extract.i3d import fused_two_stream_step
+    from video_features_torch.models import raft as raft_model
+    from video_features_torch.models.raft import pad_amounts
+    from video_features_torch.utils.device import precision_scope
+    x = torch.from_numpy(rand_frames(np, 22, (8, STACK + 1, *FRAME_HW, 3))).cuda()
+    frames = torch.from_numpy(raft_frames(np)[:RAFT_BATCH + 1]).cuda()
+    padded, _ = raft_model.pad_to_multiple(frames)
+    pads = pad_amounts(*FRAME_HW)
+    cases = (
+        ('i3d', 'fused I3D step at batch 8', raft_conv_count(CHECK_ITERS)
+         + 2 * I3D_TOWER_CONVS, lambda plain: fused_two_stream_step(
+             fused_params, x, pads, ('rgb', 'flow'), raft_iters=CHECK_ITERS,
+             plain_kernels=plain, three_pass_convs=True)),
+        ('raft', f'RAFT family at {RAFT_BATCH} pairs', raft_conv_count(
+            CHECK_ITERS), lambda plain: {'flow': raft_model.forward_consecutive(
+                raft_params, padded, iters=CHECK_ITERS, plain_kernels=plain,
+                three_pass_convs=True)}))
+    for family, where, want, step in cases:
+        with torch.inference_mode(), precision_scope('mixed', family):
+            before = k.conv_tf32x3.launches
+            with LibraryConvs() as library:
+                got = step(False)
+                torch.cuda.synchronize()
+            launched = k.conv_tf32x3.launches - before
+            plain = step(True)
+        if launched != want or library.calls:
+            fail(f'three-pass lane, {where}: {launched} conv_tf32x3 launches '
+                 f'(want {want}, one per convolution) and {library.calls} '
+                 f'cuDNN convolutions (want 0)')
+        for s in got:
+            rel = rel_l2(got[s], plain[s])
+            print(f'three-pass lane, {where}, {s}: kernels vs plain rel L2 '
+                  f'{rel:.3e} ({CHECK_ITERS} RAFT iterations; {launched} '
+                  f'conv_tf32x3 launches, 0 cuDNN convolutions) ({card})',
+                  flush=True)
+            if not rel <= SLICE_REL_L2:
+                fail(f'three-pass lane, {where}, {s}: kernels vs plain rel L2 '
+                     f'{rel} > {SLICE_REL_L2}')
+    del x, frames, padded
+    torch.cuda.empty_cache()
+
+
 def sass_counts(path: Path, opcode: str) -> dict:
     """Instructions whose opcode starts with ``opcode``, per function of
     the built library's SASS (``cuobjdump -sass``)."""
@@ -983,20 +1257,24 @@ def slice_frames(np):
 
 
 def reset_counts(corr_lookup, gru) -> None:
+    from video_features_torch.ops import conv_tf32x3
     corr_lookup.lookup_corr_lanes.launches = 0
     corr_lookup.lookup_corr.launches = 0
     gru.gru_direction.launches = 0
     for passes in gru.gru_direction.launches_by_passes:
         gru.gru_direction.launches_by_passes[passes] = 0
+    conv_tf32x3.conv_tf32x3.launches = 0
 
 
 def read_counts(corr_lookup, gru) -> dict:
     """Launches by kernel: 'gru' the GRU kernel in 3xTF32, 'gru1' its
-    one-pass instantiation."""
+    one-pass instantiation, 'conv' the 3xTF32 convolution."""
+    from video_features_torch.ops import conv_tf32x3
     by_passes = gru.gru_direction.launches_by_passes
     return {'masked': corr_lookup.lookup_corr_lanes.launches,
             'padded': corr_lookup.lookup_corr.launches,
-            'gru': by_passes[3], 'gru1': by_passes[1]}
+            'gru': by_passes[3], 'gru1': by_passes[1],
+            'conv': conv_tf32x3.conv_tf32x3.launches}
 
 
 def slice_phase(torch, np, ex, corr_lookup, gru, lookup_env: str):
@@ -2402,7 +2680,7 @@ def step_breakdown(torch, ex, batch) -> None:
     if not spans:
         print(f'{ex.feature_type} precision={ex.precision}: breakdown not '
               'measured (the profiler recorded no device activity)', flush=True)
-        return
+        return None
     total = sum(by_name.values())
     groups = defaultdict(float)
     for name, ms in by_name.items():
@@ -2414,6 +2692,7 @@ def step_breakdown(torch, ex, batch) -> None:
               sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f'  {ms:9.2f} ms  {name[:90]}', flush=True)
+    return groups
 
 
 def lane_extractor(feature_type: str, precision: str, compute_dtype: str,
@@ -2436,7 +2715,8 @@ def timed_step(torch, ex, batch, reps: int):
     out = ex.run_step(batch)
     x = torch.from_numpy(batch).cuda()
     with torch.inference_mode(), ex.precision_scope():
-        ms = cuda_ms(torch, lambda: ex.packed_step(x), reps)
+        # run_step warmed the step up; one more launch before the timing
+        ms = cuda_ms(torch, lambda: ex.packed_step(x), reps, warmup=1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ex.packed_step(x)
@@ -2445,42 +2725,53 @@ def timed_step(torch, ex, batch, reps: int):
 
 
 def raft_lane_counts(corr_lookup, gru, passes: int, pairs_steps: int,
-                     iters: int, where: str) -> int:
+                     iters: int, where: str, convs: int = 0) -> int:
     """The launches of a RAFT-bearing run on a lane: a lookup and two GRU
-    directions (of the lane's pass count) per iteration and step."""
+    directions (of the lane's pass count) per iteration and step, and
+    ``convs`` 3xTF32 convolutions (one per convolution of the steps on the
+    three-pass lane, else 0)."""
     counts = read_counts(corr_lookup, gru)
     key = 'gru' if passes == 3 else 'gru1'
     want = {'masked': pairs_steps * iters, key: 2 * pairs_steps * iters,
-            'gru1' if passes == 3 else 'gru': 0, 'padded': 0}
+            'gru1' if passes == 3 else 'gru': 0, 'padded': 0, 'conv': convs}
     if counts != want:
         fail(f'{where}: launches {counts}, want {want}')
     return counts
 
 
-def lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift) -> None:
+def lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift,
+                     card: str) -> None:
     """(b): the fused I3D step at batch 8 and the RAFT family at batch 8
-    pairs under highest, high (mixed's arithmetic: TF32 libraries, the GRU
-    kernel in 3xTF32) and tensorfloat32 (the one-pass kernel), each driven
-    through ``extract_frames`` with the counts reset just before and read
-    just after, rel L2 against highest per stream and per flow field, and
-    ms per window or pair; under tensorfloat32 the RAFT step with the
-    kernels against their plain versions."""
+    pairs under highest, high and mixed (the three-pass lane: every
+    convolution in 3xTF32, the libraries in fp32, the GRU kernel in
+    3xTF32) and tensorfloat32 (the one-pass kernel), each driven through
+    ``extract_frames`` with the counts reset just before and read just
+    after (on the three-pass lane one convolution launch per convolution
+    of the step, the code's count), rel L2 against highest per stream and
+    per flow field, and ms per window or pair; a traced step under mixed
+    (no cuDNN convolution) and tensorfloat32; under tensorfloat32 the
+    RAFT step with the kernels against their plain versions."""
     from video_features_torch.models import raft as raft_model
     frames = rand_frames(np, 60, (LANE_I3D_FRAMES, *FRAME_HW, 3))
     rframes = raft_frames(np)[:LANE_RAFT_BATCH + 1]
     feats, rflows = {}, {}
     for prec in LANE_PRECISIONS:
         passes = 1 if prec == 'tensorfloat32' else 3
+        three = prec in THREE_PASS_LANES
         ex = lane_extractor('i3d', prec, 'float32', stack_size=STACK,
                             step_size=STACK, raft_iters=SLICE_ITERS,
                             batch_size=LANE_BATCH, concat_rgb_flow=False)
+        if ex.three_pass_convs != three:
+            fail(f'i3d precision={prec}: three_pass_convs {ex.three_pass_convs}')
         ex.extract_frames(frame_batches(frames[:STACK + 1]))      # warm-up
         torch.cuda.synchronize()
         reset_counts(corr_lookup, gru)
         feats[prec] = ex.extract_frames(frame_batches(frames))
         torch.cuda.synchronize()
-        counts = raft_lane_counts(corr_lookup, gru, passes, 1, SLICE_ITERS,
-                                  f'I3D at batch {LANE_BATCH}, precision={prec}')
+        counts = raft_lane_counts(
+            corr_lookup, gru, passes, 1, SLICE_ITERS,
+            f'I3D at batch {LANE_BATCH}, precision={prec}',
+            raft_conv_count(SLICE_ITERS) + 2 * I3D_TOWER_CONVS if three else 0)
         for key in launches:
             launches[key] += counts[key]
         stacks = np.stack([frames[i * STACK:i * STACK + STACK + 1]
@@ -2488,9 +2779,13 @@ def lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift) -> None:
         _, ms, peak = timed_step(torch, ex, stacks, 2)
         print(f'i3d precision={prec}: {ms / LANE_BATCH:.2f} ms per window at '
               f'batch {LANE_BATCH} ({SLICE_ITERS} RAFT iterations), peak '
-              f'{peak / 2**30:.2f} GiB, launches {counts}', flush=True)
-        if prec == LANE_PRECISIONS[-1]:
-            step_breakdown(torch, ex, stacks)
+              f'{peak / 2**30:.2f} GiB, launches {counts} ({card})', flush=True)
+        if prec in ('mixed', 'tensorfloat32'):
+            groups = step_breakdown(torch, ex, stacks)
+            if prec == 'mixed' and groups and (groups.get('conv', 0)
+                                               or not groups.get(CONV_KERNEL)):
+                fail(f'i3d precision=mixed: the traced step ran cuDNN '
+                     f'convolutions or no 3xTF32 one: {dict(groups)}')
         del ex
         rex = lane_extractor('raft', prec, 'float32', batch_size=LANE_RAFT_BATCH,
                              raft_iters=SLICE_ITERS)
@@ -2502,13 +2797,15 @@ def lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift) -> None:
         torch.cuda.synchronize()
         counts = raft_lane_counts(corr_lookup, gru, passes, 1, SLICE_ITERS,
                                   f'RAFT family at batch {LANE_RAFT_BATCH}, '
-                                  f'precision={prec}')
+                                  f'precision={prec}',
+                                  raft_conv_count(SLICE_ITERS) if three else 0)
         for key in launches:
             launches[key] += counts[key]
         rflows[prec] = out['raft']
         _, ms, _ = timed_step(torch, rex, rframes, 2)
         print(f'raft precision={prec}: {ms / LANE_RAFT_BATCH:.2f} ms per pair '
-              f'at batch {LANE_RAFT_BATCH} ({SLICE_ITERS} iterations)', flush=True)
+              f'at batch {LANE_RAFT_BATCH} ({SLICE_ITERS} iterations), launches '
+              f'{counts} ({card})', flush=True)
         if prec == 'tensorfloat32':
             x = torch.from_numpy(rframes).cuda()
             padded, _ = raft_model.pad_to_multiple(x)
@@ -2528,18 +2825,19 @@ def lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift) -> None:
             got, ref = feats[prec][s], feats['highest'][s]
             rel = rel_l2(torch.from_numpy(got), torch.from_numpy(ref))
             print(f'i3d {s} stream, precision={prec} vs highest: rel L2 '
-                  f'{rel:.3e} ({len(ref)} windows)', flush=True)
+                  f'{rel:.3e} ({len(ref)} windows) ({card})', flush=True)
             if not np.isfinite(got).all():
                 fail(f'i3d {s} stream under precision={prec} not finite')
-            if prec == 'high':
+            if prec in THREE_PASS_LANES:
                 drift['i3d'] = max(drift.get('i3d', 0.0), rel)
         fields = [rel_l2(torch.from_numpy(a), torch.from_numpy(b))
                   for a, b in zip(rflows[prec], rflows['highest'])]
         print(f'raft flow, precision={prec} vs highest: rel L2 per flow field '
-              f'max {max(fields):.3e}, median {sorted(fields)[len(fields) // 2]:.3e} '
-              f'({len(fields)} fields)', flush=True)
-        if prec == 'high':
-            drift['raft'] = max(fields)
+              + ', '.join(f'{f:.3e}' for f in fields)
+              + f' (max {max(fields):.3e}, {len(fields)} fields) ({card})',
+              flush=True)
+        if prec in THREE_PASS_LANES:
+            drift['raft'] = max(drift.get('raft', 0.0), max(fields))
     torch.cuda.empty_cache()
 
 
@@ -2632,7 +2930,7 @@ def lanes_resize_phase(torch, np, transforms) -> None:
 
 
 def lanes_phase(torch, np, corr_lookup, gru, transforms, launches, pr14,
-                build_log: str, lib_path: Path) -> dict:
+                build_log: str, lib_path: Path, card: str) -> dict:
     """Phase 19: (a) the one-pass GRU kernel, (b) the flow families, (c)
     and (d) the bf16 and int8 lanes, (e) the resize under TF32; then
     ``registry.MIXED_FEATURES`` against the measured drifts of mixed."""
@@ -2640,13 +2938,13 @@ def lanes_phase(torch, np, corr_lookup, gru, transforms, launches, pr14,
     from video_features_torch.registry import EXTRACTORS, MIXED_FEATURES
     rec = gru_one_pass_phase(torch, gru, pr14, build_log, lib_path)
     drift = {}
-    lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift)
+    lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift, card)
     lanes_dtype_phase(torch, np, corr_lookup, gru, drift)
     lanes_resize_phase(torch, np, transforms)
     print('precision=mixed drift (rel L2 against highest, max over streams '
           'and flow fields): ' + json.dumps(
-              {k: float(f'{v:.3e}') for k, v in sorted(drift.items())}),
-          flush=True)
+              {k: float(f'{v:.3e}') for k, v in sorted(drift.items())})
+          + f' ({card})', flush=True)
     for ft in EXTRACTORS:
         if ft not in drift:
             fail(f'no mixed drift measured for {ft}')
@@ -5227,10 +5525,12 @@ def finish_programs_diff(started, card: str) -> None:
 
 
 # phase 28 (c): (family, precision) of each program exported from CUDA
-# tensors, and the GRU instantiation the precision launches
+# tensors, and the GRU instantiation the precision launches; under mixed
+# every convolution is a vft::conv_tf32x3 node too
 EXPORT_CASES = (('i3d', 'highest', 'gru'), ('raft', 'highest', 'gru'),
                 ('i3d', 'tensorfloat32', 'gru1'),
-                ('raft', 'tensorfloat32', 'gru1'))
+                ('raft', 'tensorfloat32', 'gru1'),
+                ('i3d', 'mixed', 'gru'), ('raft', 'mixed', 'gru'))
 
 
 def export_extractor(family: str, precision: str):
@@ -5304,12 +5604,18 @@ def export_check(torch, ex, batch, ep, export_s: float, corr_lookup, gru,
     loaded; the ``vft::`` nodes against the lock's ``pinned`` count, then
     the exported program against the eager step, with the kernels counted
     through the exported one."""
-    from video_features_torch.analysis.programs import kernel_nodes
+    from video_features_torch.analysis.programs import kernel_nodes, ops_census
     spec = ex.program_specs()[0]
     nodes = kernel_nodes(ep)
-    if nodes != pinned:
-        fail(f'{where}: {nodes} vft:: nodes in the exported graph, the lock '
-             f'pins {pinned}')
+    convs = (raft_conv_count(SLICE_ITERS)
+             + (2 * I3D_TOWER_CONVS if ex.feature_type == 'i3d' else 0)
+             if ex.three_pass_convs else 0)
+    conv_nodes = sum(c for name, c in ops_census(ep).items()
+                     if name.startswith('vft.conv_tf32x3'))
+    if nodes != pinned + convs or conv_nodes != convs:
+        fail(f'{where}: {nodes} vft:: nodes in the exported graph, '
+             f'{conv_nodes} of them vft::conv_tf32x3; the lock pins {pinned} '
+             f'and the lane adds one per convolution, {convs}')
     run = ep.module()
     with torch.inference_mode(), ex.precision_scope():
         eager = spec.fn(ex.params, batch, **spec.kwargs)
@@ -5318,7 +5624,8 @@ def export_check(torch, ex, batch, ep, export_s: float, corr_lookup, gru,
         exported = run(ex.params, batch)
         torch.cuda.synchronize()
         counts = read_counts(corr_lookup, gru)
-    want = {'masked': SLICE_ITERS, 'padded': 0, 'gru': 0, 'gru1': 0}
+    want = {'masked': SLICE_ITERS, 'padded': 0, 'gru': 0, 'gru1': 0,
+            'conv': convs}
     want[steps_key] = 2 * SLICE_ITERS
     if counts != want:
         fail(f'{where}: the exported program launched {counts}, want {want} '
@@ -5332,8 +5639,9 @@ def export_check(torch, ex, batch, ep, export_s: float, corr_lookup, gru,
         same = torch.equal(eager[key], exported[key])
         rel = float((a - b).norm() / a.norm().clamp_min(1e-30))
         print(f'{where} {key}: exported in {export_s:.2f} s, saved and '
-              f'loaded, {nodes} vft:: nodes, {counts["masked"]} lookups and '
-              f'{counts[steps_key]} GRU directions through the exported '
+              f'loaded, {nodes} vft:: nodes, {counts["masked"]} lookups, '
+              f'{counts[steps_key]} GRU directions and {counts["conv"]} '
+              f'3xTF32 convolutions through the exported '
               f'program; against eager '
               f'{"byte-equal" if same else "NOT byte-equal"}, rel L2 {rel:.3e}, '
               f'max abs {float((a - b).abs().max()):.3e} ({card})', flush=True)
@@ -5369,8 +5677,10 @@ def programs_phase(torch, np, corr_lookup, gru, launches, diff_started,
           f'phase 28 asked ({card})', flush=True)
     walls = json.loads(Path(out, 'exports.json').read_text())
     # the ops the saved programs call, registered before they load
+    from video_features_torch.ops import conv_tf32x3
     corr_lookup.export_ops()
     gru.export_op()
+    conv_tf32x3.export_op()
     lock = load_lock(default_lock_path())['families']
     pinned = {'i3d': lock['i3d']['mesh1']['programs']['step']['kernels'],
               'raft': lock['raft']['mesh1']['programs']['flow_step']['kernels']}
@@ -5427,12 +5737,12 @@ def main() -> int:
 
     t = phase('build')
     from tools import gru_tf32x3_variants as variants
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 2) as pool:
         # the one-pass yardstick of phase 19 (a), built beside the kernels
         pr14_job = pool.submit(variants.build, 'pr14_one_pass')
-        built = list(pool.map(_kernels.build, KERNELS))
+        built = list(pool.map(_kernels.build, KERNELS + (CONV_KERNEL,)))
         pr14 = pr14_job.result()[0]
-    for name, (path, log) in zip(KERNELS, built):
+    for name, (path, log) in zip(KERNELS + (CONV_KERNEL,), built):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line or 'entry function' in line:
                 print(f'  ptxas {name}:', line.strip())
@@ -5441,6 +5751,11 @@ def main() -> int:
     print(f'gru_direction SASS: {hgmma} HGMMA instructions', flush=True)
     if not hgmma:
         fail('the GRU kernel was built without tensor-core (HGMMA) instructions')
+    hmma = sass_counts(built[-1][0], 'HMMA')
+    print(f'{CONV_KERNEL} SASS: HMMA instructions by function {hmma}', flush=True)
+    if len(hmma) < 6 or not all(hmma.values()):
+        fail(f'{CONV_KERNEL} has a function without tensor-core (HMMA) '
+             f'instructions: {hmma}')
     print(f'build phase {time.perf_counter() - t:.1f} s', flush=True)
     # phase 28 (b) and (c)'s exports run on the CPU beside the card's phases
     diff_started = start_programs_diff()
@@ -5461,10 +5776,12 @@ def main() -> int:
     })
     windows = (FRAMES - (STACK + 1)) // STACK + 1
     steps = math.ceil(windows / SLICE_BATCH)
-    launches = {'masked': 0, 'padded': 0, 'gru': 0, 'gru1': 0}
+    launches = {'masked': 0, 'padded': 0, 'gru': 0, 'gru1': 0, 'conv': 0}
 
     def check_counts(counts, lookup_key, steps, where):
-        want = {lookup_key: steps * SLICE_ITERS, 'gru': 2 * steps * SLICE_ITERS}
+        # these paths run under highest: no 3xTF32 convolution
+        want = {lookup_key: steps * SLICE_ITERS, 'gru': 2 * steps * SLICE_ITERS,
+                'conv': 0}
         for key, n in want.items():
             if counts[key] != n:
                 fail(f'{where}: kernel {key} launched {counts[key]} times on '
@@ -5498,6 +5815,15 @@ def main() -> int:
     raft_plain_phase(torch, np, rex, raft_model)
     step_timing(torch, np, ex, fused_two_stream_step, pad_amounts)
     print(f'plain phase {time.perf_counter() - t:.1f} s', flush=True)
+
+    t = phase('the 3xTF32 convolution: every geometry of the fused I3D step '
+              'and the RAFT family against its plain version, timed beside '
+              'cuDNN; the three-pass lane end to end')
+    from video_features_torch.ops import conv_tf32x3
+    rec['conv'] = conv_phase(torch, np, conv_tf32x3, ex.params, rex.params,
+                             card)
+    three_pass_plain_phase(torch, np, conv_tf32x3, ex.params, rex.params, card)
+    print(f'conv phase {time.perf_counter() - t:.1f} s ({card})', flush=True)
 
     t = phase('device resize')
     resize_phase(torch, np, transforms)
@@ -5551,11 +5877,11 @@ def main() -> int:
     print(f'farm phase {time.perf_counter() - t:.1f} s', flush=True)
 
     t = phase('precision lanes (the one-pass GRU kernel; I3D and RAFT under '
-              'highest, high and tensorfloat32; the bf16 and int8 lanes; the '
-              'device resize under TF32)')
+              'highest, high, mixed and tensorfloat32; the bf16 and int8 '
+              'lanes; the device resize under TF32)')
     gru_built = built[KERNELS.index('gru_direction')]
     rec['gru1'] = lanes_phase(torch, np, corr_lookup, gru, transforms, launches,
-                              pr14, gru_built[1], gru_built[0])
+                              pr14, gru_built[1], gru_built[0], card)
     print(f'lanes phase {time.perf_counter() - t:.1f} s', flush=True)
 
     t = phase('feature cache (I3D at batch 8 per video, packed through the '
@@ -5626,7 +5952,11 @@ def main() -> int:
             ('gru', 'gru_direction', 'gru_direction.cu',
              'tools/gru_kernel_experiment.py:154'),
             ('gru1', 'gru_direction_1xtf32', 'gru_direction.cu',
-             'tools/gru_kernel_experiment.py:154')):
+             'tools/gru_kernel_experiment.py:154'),
+            # no Pallas kernel: XLA's convolutions under the ambient 'high'
+            # (three passes) of precision=mixed and high
+            ('conv', 'conv_tf32x3', 'conv_tf32x3.cu',
+             'video_features_tpu/extract/base.py:177')):
         r = rec[key]
         kernels.append({
             'name': name, 'route': 'cuda',
@@ -5640,6 +5970,10 @@ def main() -> int:
     # the one-pass row's same-call yardstick: the design before the cluster
     # kernel
     kernels[3]['pr14_one_pass_ms'] = rec['gru1']['pr14_one_pass_ms']
+    # the convolution's row: one RAFT iteration's 7 convolutions at the
+    # fused batch-8 size; its fp32 FMA bound and cuDNN's TF32 time beside
+    kernels[4]['fp32_bound_ms'] = rec['conv']['fp32_bound_ms']
+    kernels[4]['library_tf32_ms'] = rec['conv']['library_tf32_ms']
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

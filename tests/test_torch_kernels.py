@@ -238,3 +238,72 @@ def test_forward_consecutive_runs_the_kernels_every_iteration():
     assert flow.shape == (2, 64, 88, 2)
     rel = ((flow - plain).norm() / plain.norm()).item()
     assert rel <= 1e-3
+
+
+# -- the 3xTF32 convolution (ops/conv_tf32x3.py) -------------------------------
+
+# conv geometries of the i3d and raft paths, several blocks of 128 output
+# pixels each, ragged tails included: (x shape, weight shape, stride,
+# padding); I3D's TF-SAME pads for a 7x7x7 stride 2 are (2, 3) per axis
+CONV_GEOMETRIES = [
+    ((2, 8, 30, 30, 3), (64, 3, 7, 7, 7), 2, [(2, 3)] * 3),      # rgb conv1
+    ((2, 8, 30, 30, 2), (64, 2, 7, 7, 7), 2, [(2, 3)] * 3),      # flow conv1
+    ((1, 4, 14, 14, 96), (128, 96, 3, 3, 3), 1, [(1, 1)] * 3),   # 3x3x3
+    ((1, 2, 7, 7, 832), (384, 832, 1, 1, 1), 1, 0),              # 1x1x1
+    ((2, 64, 88, 3), (64, 3, 7, 7), 2, 3),                       # encoder conv1
+    ((1, 32, 44, 64), (96, 64, 3, 3), 2, 1),                     # stride 2
+    ((2, 16, 22, 324), (256, 324, 1, 1), 1, 0),                  # convc1
+    ((2, 16, 22, 2), (128, 2, 7, 7), 1, 3),                      # convf1
+    ((2, 16, 22, 256), (126, 256, 3, 3), 1, 1),                  # encoder conv
+    ((2, 16, 22, 256), (2, 256, 3, 3), 1, 1),                    # flow head
+    ((2, 16, 22, 256), (576, 256, 1, 1), 1, 0),                  # mask head
+    ((2, 16, 22, 128), (256, 128, 1, 5), 1, [(0, 0), (2, 2)]),   # GRU term
+]
+CONV_REL_L2 = 1e-5      # 3xTF32 against cuDNN's fp32 (TF32 off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('xs,ws,stride,padding', CONV_GEOMETRIES)
+def test_conv_kernel_matches_plain_on_the_card(xs, ws, stride, padding):
+    from video_features_torch.ops import conv_tf32x3 as k
+    dev = _cuda()
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(*xs).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(*ws) * 0.05).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(ws[0]).astype(np.float32)).to(dev)
+    before = k.conv_tf32x3.launches
+    got = k.conv_tf32x3(x, w, stride, padding, b)
+    want = k.conv_tf32x3_plain(x, w, stride, padding, b)
+    torch.cuda.synchronize()
+    assert k.conv_tf32x3.launches == before + 1
+    assert got.shape == want.shape
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= CONV_REL_L2
+    # and the bias-free form
+    got = k.conv_tf32x3(x, w, stride, padding)
+    want = k.conv_tf32x3_plain(x, w, stride, padding)
+    assert ((got - want).norm() / want.norm()).item() <= CONV_REL_L2
+
+
+@pytest.mark.cuda
+def test_raft_three_pass_runs_the_conv_kernel_per_convolution():
+    from video_features_torch.ops import conv_tf32x3 as k
+    dev = _cuda()
+    params = _params(dev)
+    rng = np.random.RandomState(12)
+    frames = torch.from_numpy(rng.randint(0, 256, (1, 3, 64, 80, 3)).astype(
+        np.uint8)).to(dev)
+    before = k.conv_tf32x3.launches
+    with torch.inference_mode():
+        flow = raft.forward_stack_pairs(params, frames, iters=2,
+                                        three_pass_convs=True)
+        torch.cuda.synchronize()
+        launched = k.conv_tf32x3.launches - before
+        plain = raft.forward_stack_pairs(params, frames, iters=2,
+                                         plain_kernels=True,
+                                         three_pass_convs=True)
+    # 16 per encoder call (two), 4 context terms, 7 per iteration, 2
+    assert launched == 32 + 4 + 7 * 2 + 2
+    assert k.conv_tf32x3.launches - before == launched
+    rel = ((flow - plain).norm() / plain.norm()).item()
+    assert rel <= 1e-3

@@ -2,15 +2,17 @@
 """Where the time goes in the port's fused I3D two-stream step, on one GPU.
 
     python3 tools/profile_torch_i3d.py [--batch 8] [--iters 20] [--steps 3]
+        [--precision highest]
 
 Runs ``video_features_torch``'s ``ExtractI3D.step`` (both streams, stack
 16, RAFT at 20 iterations, the config's batch 8) on seeded 256×340 uint8
-frames with random weights. After one warm-up step it times ``--steps``
-steps with CUDA events, times each part of the step (rgb tower, RAFT +
-quantization, flow tower) the same way, then traces one step with
-``torch.profiler`` and prints the device time per kernel group (the
-correlation lookup kernels, the GRU direction kernel, matrix products,
-convolutions, the rest),
+frames with random weights, under ``--precision`` (printed on the first
+line). After one warm-up step it times ``--steps`` steps with CUDA
+events, times each part of the step (rgb tower, RAFT + quantization,
+flow tower) the same way inside the extractor's precision scope, then
+traces one step with ``torch.profiler`` and prints the device time per
+kernel group (the correlation lookup kernels, the GRU direction kernel,
+the 3xTF32 convolution, matrix products, convolutions, the rest),
 the top kernels, and the share of the step's wall time in which the
 device was busy (the union of kernel intervals). The last line is
 one JSON object with the same numbers.
@@ -29,6 +31,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 GROUPS = (('corr_lookup', ('masked_kernel', 'padded_kernel')),
           ('gru_direction', ('gru_tf32x3', 'gru_tf32_onepass')),
+          # before 'conv', which would take any name with 'conv' in it
+          ('conv_tf32x3', ('conv_tf32x3',)),
           ('gemm', ('gemm', 'cutlass', 'sm90_xmma', 'cublas')),
           ('conv', ('conv', 'cudnn', 'implicit', 'winograd', 'fft')),
           ('pool', ('pool',)))
@@ -55,38 +59,45 @@ def union_ms(spans) -> float:
     return total / 1e3
 
 
-def layer_ms(torch, ex, stacks, reps: int) -> dict:
-    """CUDA-event time per step of each part of the fused step: the rgb
-    tower, the flow stream's input (RAFT + quantization), the flow tower."""
+def event_ms(torch, fn, reps: int) -> float:
+    """CUDA-event ms per call of ``fn`` over ``reps`` calls, after one."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def layer_ms(torch, ex, stacks, reps: int, timer=event_ms) -> dict:
+    """Time per step of each part of the fused step (``timer``, CUDA
+    events by default): the rgb tower, the flow stream's input (RAFT +
+    quantization), the flow tower, each in the extractor's precision
+    scope and with its lane's kernels, as ``ex.step`` runs them."""
     from video_features_torch.extract.i3d import (
         CROP_SIZE, flow_stream_input, rgb_stream_input,
     )
     from video_features_torch.models import i3d
     from video_features_torch.models.raft import pad_amounts
-    x = torch.from_numpy(stacks).cuda()
+    x = torch.from_numpy(stacks).to(ex.device)
     pads = pad_amounts(*stacks.shape[2:4])
-    with torch.inference_mode():
+    lane = dict(three_pass_convs=ex.three_pass_convs)
+    raft_lane = dict(lane, raft_iters=ex.raft_iters, gru_passes=ex.gru_passes)
+    with torch.inference_mode(), ex.precision_scope():
         flow_in = flow_stream_input(ex.params['raft'], x, pads, CROP_SIZE,
-                                    raft_iters=ex.raft_iters)
+                                    **raft_lane)
         parts = {
-            'i3d_rgb': lambda: i3d.forward(ex.params['rgb'],
-                                           rgb_stream_input(x, CROP_SIZE)),
+            'i3d_rgb': lambda: i3d.forward(
+                ex.params['rgb'], rgb_stream_input(x, CROP_SIZE), **lane),
             'raft_flow_input': lambda: flow_stream_input(
-                ex.params['raft'], x, pads, CROP_SIZE, raft_iters=ex.raft_iters),
-            'i3d_flow': lambda: i3d.forward(ex.params['flow'], flow_in),
+                ex.params['raft'], x, pads, CROP_SIZE, **raft_lane),
+            'i3d_flow': lambda: i3d.forward(ex.params['flow'], flow_in,
+                                            **lane),
         }
-        out = {}
-        for name, fn in parts.items():
-            fn()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            out[name] = start.elapsed_time(end) / reps
-    return out
+        return {name: timer(torch, fn, reps) for name, fn in parts.items()}
 
 
 def main() -> int:
@@ -94,6 +105,8 @@ def main() -> int:
     ap.add_argument('--batch', type=int, default=8)
     ap.add_argument('--iters', type=int, default=20)
     ap.add_argument('--steps', type=int, default=3)
+    ap.add_argument('--precision', default='highest',
+                    help="the extractor's precision lane (default highest)")
     a = ap.parse_args()
 
     sys.path.insert(0, str(ROOT))
@@ -109,12 +122,13 @@ def main() -> int:
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(smi)
+    print(f'precision={a.precision} ({smi})')
     ex = ExtractI3D({
         'feature_type': 'i3d', 'stack_size': 16, 'step_size': 16,
         'raft_iters': a.iters, 'batch_size': a.batch, 'device': 'cuda',
         'allow_random_weights': True, 'on_extraction': 'print',
-        'output_path': str(ROOT / 'output'), 'concat_rgb_flow': True})
+        'output_path': str(ROOT / 'output'), 'concat_rgb_flow': True,
+        'precision': a.precision})
     rng = np.random.RandomState(0)
     stacks = rng.randint(0, 256, (a.batch, 17, 256, 340, 3)).astype(np.uint8)
 
@@ -165,7 +179,8 @@ def main() -> int:
     for name, ms in top:
         print(f'  {ms:9.2f} ms  {name[:100]}')
     print(json.dumps({
-        'device': smi, 'batch': a.batch, 'raft_iters': a.iters,
+        'device': smi, 'precision': a.precision, 'batch': a.batch,
+        'raft_iters': a.iters,
         'step_ms': event_ms, 'step_wall_ms': wall_ms,
         'window_ms': event_ms / a.batch, 'layers_ms': layers,
         'traced_wall_ms': traced_wall_ms, 'traced_kernel_ms': device_ms,

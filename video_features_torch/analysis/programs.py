@@ -87,7 +87,7 @@ DEVICE = 'cuda'
 # into the graph is megabytes
 CONST_BUDGET = 1 << 20
 
-# the hand kernels' ops (ops/corr_lookup.py, ops/gru.py)
+# the hand kernels' ops (ops/corr_lookup.py, ops/gru.py, ops/conv_tf32x3.py)
 KERNEL_NAMESPACE = 'vft'
 
 # ops whose output needs the data on the host (a readback mid-step)

@@ -33,6 +33,9 @@ import os
 from typing import Any, Dict, Mapping
 
 from video_features_torch.config import knob_exclude
+from video_features_torch.registry import (
+    THREE_PASS_CONV_FEATURES, THREE_PASS_PRECISIONS,
+)
 from video_features_torch.utils.fingerprint import (
     CLIP_CUSTOM_CHECKPOINT, hash_file, hash_file_stats, is_file_key,
     reset_hash_file_stats,
@@ -52,13 +55,25 @@ def _canonical(obj: Any) -> str:
     return json.dumps(obj, sort_keys=True, default=repr)
 
 
+# the arithmetic token of the three-pass lane: i3d and raft under high
+# and mixed run every convolution in 3xTF32 (utils/device.py::
+# three_pass_convs), other bytes than their earlier TF32 lane, so an
+# output written before it never answers
+THREE_PASS_TOKEN = 'conv_tf32x3'
+
+
 def config_fingerprint(args: Mapping[str, Any]) -> str:
     """SHA-256 over the keys of a merged config that can change the
-    outputs. An absent or null ``compute_dtype`` is the float32 lane."""
+    outputs. An absent or null ``compute_dtype`` is the float32 lane; the
+    three-pass lane adds ``lane_arithmetic`` (:data:`THREE_PASS_TOKEN`),
+    and no other key of any other family or lane moves."""
     relevant = {k: v for k, v in args.items()
                 if k not in CONFIG_KEY_EXCLUDE and not is_file_key(k)}
     if relevant.get('compute_dtype') is None:
         relevant['compute_dtype'] = 'float32'
+    if args.get('precision') in THREE_PASS_PRECISIONS \
+            and args.get('feature_type') in THREE_PASS_CONV_FEATURES:
+        relevant['lane_arithmetic'] = THREE_PASS_TOKEN
     return hashlib.sha256(_canonical(relevant).encode()).hexdigest()
 
 

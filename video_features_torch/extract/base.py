@@ -88,7 +88,7 @@ from video_features_torch.extract.streaming import (
 )
 from video_features_torch.ops.precision import activation_dtype
 from video_features_torch.utils.device import (
-    gru_passes, precision_scope, resolve_device,
+    gru_passes, precision_scope, resolve_device, three_pass_convs,
 )
 from video_features_torch.utils.output import (
     ACTION_TO_EXT, ACTION_TO_LOAD, ACTION_TO_SAVE, CorruptOutputError,
@@ -191,11 +191,14 @@ class BaseExtractor:
         self.on_extraction = on_extraction
         self.output_path = args['output_path']
         self.device = resolve_device(args.get('device', 'cuda'))
-        # the lanes: the TF32 flags and the GRU kernel's pass count of
-        # ``precision`` (utils/device.py), and the stored and activation
-        # dtypes of ``compute_dtype`` (ops/precision.py)
+        # the lanes: the TF32 flags, the GRU kernel's pass count and the
+        # 3xTF32 convolutions of ``precision`` (utils/device.py), and the
+        # stored and activation dtypes of ``compute_dtype``
+        # (ops/precision.py)
         self.precision, self.compute_dtype = check_lanes(args)
         self.gru_passes = gru_passes(self.precision)
+        self.three_pass_convs = three_pass_convs(self.precision,
+                                                 self.feature_type)
         self.act_dtype = activation_dtype(self.compute_dtype)
         self.concat_rgb_flow = bool(args.get('concat_rgb_flow', False))
         self.tmp_path = str(args.get('tmp_path', './tmp'))
@@ -246,9 +249,10 @@ class BaseExtractor:
             self._d2h_stream = torch.cuda.Stream(self.device)
 
     def precision_scope(self):
-        """The TF32 flags of this extractor's ``precision``, restored on
-        exit: every step of this extractor runs inside it."""
-        return precision_scope(self.precision)
+        """The TF32 flags of this extractor's ``precision`` in its family
+        (off where its convolutions run in 3xTF32), restored on exit:
+        every step of this extractor runs inside it."""
+        return precision_scope(self.precision, self.feature_type)
 
     def lane_label(self) -> str:
         """This extractor's lanes, for the stage tables' titles."""

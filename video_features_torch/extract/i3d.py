@@ -63,13 +63,15 @@ def rgb_stream_input(stacks: torch.Tensor, crop_size: int) -> torch.Tensor:
 def flow_stream_input(raft_params, stacks: torch.Tensor, pads, crop_size: int,
                       raft_iters: int = raft_model.ITERS,
                       plain_kernels: bool = False,
-                      gru_passes: int = 3) -> torch.Tensor:
+                      gru_passes: int = 3,
+                      three_pass_convs: bool = False) -> torch.Tensor:
     """(B, S+1, H, W, 3) frames → quantized flow I3D input (B, S, c, c, 2)."""
     padded = raft_model.edge_pad(stacks, pads, h_axis=2)
     flow = raft_model.forward_stack_pairs(raft_params, padded,
                                           iters=raft_iters,
                                           plain_kernels=plain_kernels,
-                                          gru_passes=gru_passes)
+                                          gru_passes=gru_passes,
+                                          three_pass_convs=three_pass_convs)
     flow = center_crop(flow, crop_size)
     return scale_to_pm1(flow_to_uint8_levels(flow, 20.0))
 
@@ -79,26 +81,35 @@ def fused_two_stream_step(params, stacks: torch.Tensor, pads,
                           raft_iters: int = raft_model.ITERS,
                           plain_kernels: bool = False,
                           resize_to: Optional[Tuple[int, int]] = None,
-                          gru_passes: int = 3) -> Dict[str, torch.Tensor]:
+                          gru_passes: int = 3,
+                          three_pass_convs: bool = False
+                          ) -> Dict[str, torch.Tensor]:
     """(B, stack+1, H, W, 3) frames → {stream: (B, 1024)}: RAFT flow,
     quantization and both I3D towers. ``resize_to=(H', W')`` first
     resizes the uint8 frames on the device (``device_resize``; ``pads``
     are then those of H'×W'). ``plain_kernels`` runs RAFT's lookup and
-    GRU direction through their plain versions instead of the kernels (a
-    test seam); ``gru_passes`` is the GRU kernel's TF32 products per fp32
-    product (the run's ``precision``)."""
+    GRU direction (and, under ``three_pass_convs``, every convolution)
+    through their plain versions instead of the kernels (a test seam);
+    ``gru_passes`` is the GRU kernel's TF32 products per fp32 product and
+    ``three_pass_convs`` sends every convolution of RAFT and both towers
+    to the 3xTF32 convolution (the run's ``precision``)."""
     if resize_to is not None:
         stacks = pil_resize_bilinear_device(stacks, resize_to)
     out = {}
     if 'rgb' in streams:
         out['rgb'] = i3d_model.forward(params['rgb'],
-                                       rgb_stream_input(stacks, crop_size))
+                                       rgb_stream_input(stacks, crop_size),
+                                       three_pass_convs=three_pass_convs,
+                                       plain_kernels=plain_kernels)
     if 'flow' in streams:
         flow = flow_stream_input(params['raft'], stacks, pads, crop_size,
                                  raft_iters=raft_iters,
                                  plain_kernels=plain_kernels,
-                                 gru_passes=gru_passes)
-        out['flow'] = i3d_model.forward(params['flow'], flow)
+                                 gru_passes=gru_passes,
+                                 three_pass_convs=three_pass_convs)
+        out['flow'] = i3d_model.forward(params['flow'], flow,
+                                        three_pass_convs=three_pass_convs,
+                                        plain_kernels=plain_kernels)
     return out
 
 
@@ -153,9 +164,14 @@ class ExtractI3D(BaseExtractor):
 
     def kernel_libraries(self) -> tuple:
         """The flow stream's RAFT launches the lookup and GRU kernels on
-        the card."""
-        return (raft_model.KERNEL_LIBRARIES if 'flow' in self.streams
-                and self.device.type == 'cuda' else ())
+        the card, and under ``high`` and ``mixed`` both streams the 3xTF32
+        convolution."""
+        if self.device.type != 'cuda':
+            return ()
+        return ((raft_model.KERNEL_LIBRARIES if 'flow' in self.streams
+                 else ())
+                + ((raft_model.CONV_LIBRARY,) if self.three_pass_convs
+                   else ()))
 
     def host_transform_spec(self):
         """Short side to 256 on the host (PIL bilinear), unless
@@ -224,7 +240,8 @@ class ExtractI3D(BaseExtractor):
         return fused_two_stream_step(self.params, stacks, pads, self.streams,
                                      raft_iters=self.raft_iters,
                                      resize_to=resize_to,
-                                     gru_passes=self.gru_passes)
+                                     gru_passes=self.gru_passes,
+                                     three_pass_convs=self.three_pass_convs)
 
     def program_specs(self, mesh=None):
         """The fused two-stream program (RAFT flow, quantization and
@@ -241,7 +258,8 @@ class ExtractI3D(BaseExtractor):
             torch.uint8, mesh,
             kwargs=dict(pads=pads, streams=tuple(self.streams),
                         raft_iters=self.raft_iters, resize_to=resize_to,
-                        gru_passes=self.gru_passes))]
+                        gru_passes=self.gru_passes,
+                        three_pass_convs=self.three_pass_convs))]
 
     def step(self, stacks: np.ndarray) -> Dict[str, np.ndarray]:
         """One (batch, S+1, H, W, 3) uint8 stack batch → {stream: (batch,
@@ -297,20 +315,23 @@ class ExtractI3D(BaseExtractor):
                 if stream == 'rgb':
                     inp = rgb_stream_input(x, crop)
                 else:
-                    inp = flow_stream_input(self.params['raft'], x, pads, crop,
-                                            raft_iters=self.raft_iters,
-                                            gru_passes=self.gru_passes)
-                _, logits = i3d_model.forward(self.params[stream], inp,
-                                              features=False)
+                    inp = flow_stream_input(
+                        self.params['raft'], x, pads, crop,
+                        raft_iters=self.raft_iters, gru_passes=self.gru_passes,
+                        three_pass_convs=self.three_pass_convs)
+                _, logits = i3d_model.forward(
+                    self.params[stream], inp, features=False,
+                    three_pass_convs=self.three_pass_convs)
                 # vft-lint: ok=stdout-purity — show_pred narration surface
                 print(f'At stack {stack_counter} ({stream} stream)')
                 show_predictions_on_dataset(logits.cpu().numpy(), 'kinetics')
             if 'flow' not in self.streams:
                 return
             pair = raft_model.edge_pad(x[:1, :2], pads, h_axis=2)
-            flow = raft_model.forward_stack_pairs(self.params['raft'], pair,
-                                                  iters=self.raft_iters,
-                                                  gru_passes=self.gru_passes)
+            flow = raft_model.forward_stack_pairs(
+                self.params['raft'], pair, iters=self.raft_iters,
+                gru_passes=self.gru_passes,
+                three_pass_convs=self.three_pass_convs)
             flow = center_crop(flow, crop)[0, 0].cpu().numpy()
         img = flow_to_image(flow)
         try:

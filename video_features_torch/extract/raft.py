@@ -41,14 +41,18 @@ from video_features_torch.transplant import to_device
 
 def flow_step(params, frames: torch.Tensor, mode: str = 'sintel',
               multiple: int = 8, iters: int = raft_model.ITERS,
-              gru_passes: int = 3) -> torch.Tensor:
+              gru_passes: int = 3, three_pass_convs: bool = False
+              ) -> torch.Tensor:
     """(B+1, H, W, 3) uint8 consecutive frames → (B, H, W, 2) flows:
     replicate-padded to ``multiple`` (``mode`` 'sintel' centers the pad,
-    'kitti' pads the bottom), RAFT on the pairs, then unpadded."""
+    'kitti' pads the bottom), RAFT on the pairs, then unpadded.
+    ``gru_passes`` and ``three_pass_convs`` are the run's ``precision``
+    (``models/raft.py``)."""
     padded, pads = raft_model.pad_to_multiple(frames, mode=mode,
                                               multiple=multiple)
     flow = raft_model.forward_consecutive(params, padded, iters=iters,
-                                          gru_passes=gru_passes)
+                                          gru_passes=gru_passes,
+                                          three_pass_convs=three_pass_convs)
     return raft_model.unpad(flow, pads)
 
 
@@ -75,8 +79,12 @@ class ExtractRAFT(BaseExtractor):
             self._put_batch = self._halo_shards
 
     def kernel_libraries(self) -> tuple:
-        """RAFT launches the lookup and GRU kernels on the card."""
-        return raft_model.KERNEL_LIBRARIES if self.device.type == 'cuda' else ()
+        """RAFT launches the lookup and GRU kernels on the card, and under
+        ``high`` and ``mixed`` the 3xTF32 convolution."""
+        if self.device.type != 'cuda':
+            return ()
+        return raft_model.KERNEL_LIBRARIES + (
+            (raft_model.CONV_LIBRARY,) if self.three_pass_convs else ())
 
     def _halo_shards(self, frames: np.ndarray) -> List[np.ndarray]:
         """``(B + 1, ...)`` consecutive frames → one run of ``k + 1`` per
@@ -155,7 +163,8 @@ class ExtractRAFT(BaseExtractor):
 
     def _step_kwargs(self) -> dict:
         return dict(mode=self.finetuned_on, multiple=self.bucket_multiple,
-                    iters=self.raft_iters, gru_passes=self.gru_passes)
+                    iters=self.raft_iters, gru_passes=self.gru_passes,
+                    three_pass_convs=self.three_pass_convs)
 
     def packed_step(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B+1, H, W, 3) uint8 consecutive frames on the device → {'raft':

@@ -12,7 +12,11 @@ in [-1, 1], flow (B, T, 224, 224, 2).
     high-side ``-inf`` pad);
   * 9 inception Mixed blocks, a (2, 7, 7) stride-1 average pool, and a
     ``features=True`` head that means over time to 1024-d; the
-    classifier is a 1×1×1 conv with bias.
+    classifier is a 1×1×1 conv with bias;
+  * ``three_pass_convs`` sends every convolution (57 with
+    ``features=True``) to the 3xTF32 convolution (``ops/conv_tf32x3.py``;
+    its plain version with ``plain_kernels``), under ``precision=high``
+    and ``mixed``.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from video_features_torch.ops.nn import (
     avg_pool, batch_norm, ceil_mode_padding, conv, max_pool, pad_spatial, relu,
+    three_pass_route,
 )
 
 Params = Dict[str, Any]
@@ -88,8 +93,14 @@ def mixed(p: Params, x: torch.Tensor) -> torch.Tensor:
     return torch.cat([b0, b1, b2, b3], dim=-1)
 
 
-def forward(params: Params, x: torch.Tensor, features: bool = True):
+def forward(params: Params, x: torch.Tensor, features: bool = True,
+            three_pass_convs: bool = False, plain_kernels: bool = False):
     """(B, T, 224, 224, C) → (B, 1024) features, or (softmax, logits)."""
+    with three_pass_route(three_pass_convs, plain_kernels):
+        return _forward(params, x, features)
+
+
+def _forward(params: Params, x: torch.Tensor, features: bool):
     x = unit3d(params['conv3d_1a_7x7'], x, (7, 7, 7), (2, 2, 2))
     x = max_pool_tf(x, (1, 3, 3), (1, 2, 2))
     x = unit3d(params['conv3d_2b_1x1'], x, (1, 1, 1))

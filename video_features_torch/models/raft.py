@@ -18,7 +18,13 @@ kernels: the correlation-window lookup selected by ``VFT_RAFT_LOOKUP``
 (ops/gru.py, twice: the 1×5 pass, then the 5×1 pass). On the CPU both
 run their plain versions. ``gru_passes`` is the GRU kernel's TF32
 products per fp32 product: 3 (3xTF32) or 1, as the run's ``precision``
-sets it (``utils/device.py::LANES``).
+sets it (``utils/device.py::LANES``). ``three_pass_convs`` sends every
+convolution of the forward (the encoders, the context terms, the motion
+encoder, the flow and mask heads: 16 per encoder call, 4, 7 per
+iteration and 2) to the 3xTF32 convolution (``ops/conv_tf32x3.py``,
+through ``ops/nn.py::three_pass_route``), under ``precision=high`` and
+``mixed`` (``utils/device.py::three_pass_convs``); with
+``plain_kernels`` to its plain version.
 """
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ from video_features_torch.ops import corr_lookup, gru as gru_op
 from video_features_torch.ops.corr_lookup import (
     CORR_LEVELS, CORR_RADIUS, build_corr_pyramid,
 )
-from video_features_torch.ops.nn import batch_norm, conv, instance_norm, relu
+from video_features_torch.ops.nn import (
+    batch_norm, conv, instance_norm, relu, three_pass_route,
+)
 
 Params = Dict[str, Any]
 
@@ -40,8 +48,10 @@ HIDDEN_DIM = 128
 CONTEXT_DIM = 128
 ITERS = 20
 # the kernel libraries (csrc/<name>.cu) a forward launches on the card:
-# the correlation lookup and the GRU direction
+# the correlation lookup and the GRU direction, and the 3xTF32
+# convolution under three_pass_convs
 KERNEL_LIBRARIES = ('corr_lookup', 'gru_direction')
+CONV_LIBRARY = 'conv_tf32x3'
 
 
 def resolve_iters(value) -> int:
@@ -200,33 +210,44 @@ def _normalize_frames(img: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Params, image1: torch.Tensor, image2: torch.Tensor,
             iters: int = ITERS, plain_kernels: bool = False,
-            gru_passes: int = 3) -> torch.Tensor:
+            gru_passes: int = 3, three_pass_convs: bool = False
+            ) -> torch.Tensor:
     """Two (B, H, W, 3) frames (values 0..255) → (B, H, W, 2) flow."""
-    image1 = _normalize_frames(image1)
-    image2 = _normalize_frames(image2)
-    fmap1 = basic_encoder(params['fnet'], image1, 'instance')
-    fmap2 = basic_encoder(params['fnet'], image2, 'instance')
-    cnet = basic_encoder(params['cnet'], image1, 'batch')
-    return _refine(params, fmap1, fmap2, cnet, iters, plain_kernels,
-                   gru_passes)
+    with three_pass_route(three_pass_convs, plain_kernels):
+        image1 = _normalize_frames(image1)
+        image2 = _normalize_frames(image2)
+        fmap1 = basic_encoder(params['fnet'], image1, 'instance')
+        fmap2 = basic_encoder(params['fnet'], image2, 'instance')
+        cnet = basic_encoder(params['cnet'], image1, 'batch')
+        return _refine(params, fmap1, fmap2, cnet, iters, plain_kernels,
+                       gru_passes)
 
 
 def forward_consecutive(params: Params, frames: torch.Tensor,
                         iters: int = ITERS, plain_kernels: bool = False,
-                        gru_passes: int = 3) -> torch.Tensor:
+                        gru_passes: int = 3, three_pass_convs: bool = False
+                        ) -> torch.Tensor:
     """(N, H, W, 3) consecutive frames → (N-1, H, W, 2) pairwise flows:
     :func:`forward` on ``(frames[:-1], frames[1:])``, with every frame
     fnet-encoded once."""
     return forward_stack_pairs(params, frames[None], iters,
                                plain_kernels=plain_kernels,
-                               gru_passes=gru_passes)[0]
+                               gru_passes=gru_passes,
+                               three_pass_convs=three_pass_convs)[0]
 
 
 def forward_stack_pairs(params: Params, stacks: torch.Tensor,
                         iters: int = ITERS, plain_kernels: bool = False,
-                        gru_passes: int = 3) -> torch.Tensor:
+                        gru_passes: int = 3, three_pass_convs: bool = False
+                        ) -> torch.Tensor:
     """(B, S+1, H, W, 3) frame stacks → (B, S, H, W, 2) within-stack
     flows; fnet runs once on each of the B·(S+1) unique frames."""
+    with three_pass_route(three_pass_convs, plain_kernels):
+        return _stack_pairs(params, stacks, iters, plain_kernels, gru_passes)
+
+
+def _stack_pairs(params: Params, stacks: torch.Tensor, iters: int,
+                 plain_kernels: bool, gru_passes: int) -> torch.Tensor:
     B, S1, H, W, C = stacks.shape
     S = S1 - 1
     flat = _normalize_frames(stacks.reshape(B * S1, H, W, C))

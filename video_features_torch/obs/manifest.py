@@ -32,11 +32,15 @@ One document with the JAX package's key set:
     (``note_programs_lock``, from ``analysis/PROGRAMS.lock.json``):
     ``{family: {mesh<n>[@lane]: {program: graph_sha256}}}``; ``{}`` when
     the lock is absent or the family unpinned;
-  * ``ingress`` and ``slo`` stay ``{}``: the port writes neither yet.
+  * **ingress**: the front door's view of a run (``note_ingress``:
+    per-tenant request and shed counts, live sessions), written by
+    tooling that drives a run through the gateway; ``{}`` otherwise;
+  * **slo**: the SLO evaluation (``note_slo``, ``SloEvaluator.stats()``);
+    ``{}`` otherwise.
 
 The loops push (``video_done``, ``fold_stages``, ``note_executable``,
 ``note_farm``, ``note_mesh``, ``note_index``, ``note_aot``,
-``note_programs_lock``);
+``note_programs_lock``, ``note_ingress``, ``note_slo``);
 :meth:`RunManifest.write` publishes atomically.
 """
 from __future__ import annotations
@@ -76,6 +80,8 @@ class RunManifest:
         self.index: Dict[str, Any] = {}
         self.aot: Dict[str, Any] = {}
         self.programs_lock: Dict[str, Any] = {}
+        self.ingress: Dict[str, Any] = {}
+        self.slo: Dict[str, Any] = {}
         self._compile0 = _compile_snapshot()
 
     @staticmethod
@@ -128,6 +134,24 @@ class RunManifest:
         over earlier ones."""
         with self._lock:
             self.farm.update({k: _jsonable(v) for k, v in info.items()})
+
+    def note_ingress(self, info: Dict[str, Any]) -> None:
+        """Record the ingress view of a run (per-tenant request/shed
+        counts, live sessions) — written by tooling that drives a run
+        THROUGH the front door (the ingress smoke/bench); the section
+        stays ``{}`` on loopback/CLI runs. Later notes merge over
+        earlier ones."""
+        with self._lock:
+            self.ingress.update({k: _jsonable(v) for k, v in info.items()})
+
+    def note_slo(self, info: Dict[str, Any]) -> None:
+        """Record the SLO evaluation view (``SloEvaluator.stats()``:
+        objectives, per-window burn rates, alert states) — written by
+        servers running with ``slo_latency_p99_s=`` /
+        ``slo_availability=``; the section stays ``{}`` otherwise.
+        Later notes merge over earlier ones."""
+        with self._lock:
+            self.slo.update({k: _jsonable(v) for k, v in info.items()})
 
     def note_mesh(self, info: Dict[str, Any]) -> None:
         """Record the device mesh a mesh-sharded packed run executed on
@@ -188,6 +212,8 @@ class RunManifest:
             index = dict(self.index)
             aot = dict(self.aot)
             programs_lock = dict(self.programs_lock)
+            ingress = dict(self.ingress)
+            slo = dict(self.slo)
         outcomes: Dict[str, int] = {}
         for v in videos.values():
             outcomes[v['outcome']] = outcomes.get(v['outcome'], 0) + 1
@@ -213,8 +239,9 @@ class RunManifest:
             'aot': aot,
             # the pinned programs of the run's family: {} when unpinned
             'programs_lock': programs_lock,
-            # sections the port writes nothing into yet
-            'ingress': {}, 'slo': {},
+            # the front door's and the SLO evaluator's views: {} unless a
+            # run noted one
+            'ingress': ingress, 'slo': slo,
         }
 
     def write(self, path: str) -> str:

@@ -52,7 +52,7 @@ from typing import Tuple
 
 import torch
 
-from video_features_torch.ops.nn import conv
+from video_features_torch.ops.nn import library_conv as conv
 
 HIDDEN = 128
 TAPS = 5
@@ -143,8 +143,9 @@ def gru_direction_convs(h: torch.Tensor, motion: torch.Tensor,
                         conv_zr: torch.Tensor, conv_q: torch.Tensor,
                         zr_term: torch.Tensor, q_term: torch.Tensor,
                         axis: str, passes: int = 3) -> torch.Tensor:
-    """The direction through ``ops.nn.conv`` from conv weights (O, I, kh,
-    kw): the JAX package's ``sep_conv_gru`` direction body
+    """The direction through ``ops.nn.library_conv`` (never routed to the
+    3xTF32 convolution: this is the GRU kernel's own plain version) from
+    conv weights (O, I, kh, kw): the JAX package's ``sep_conv_gru`` direction body
     (``video_features_tpu/models/raft.py::sep_conv_gru``). ``passes=1``
     convolves the TF32-rounded inputs and weights (in the inputs' dtype)
     with the same epilogues."""

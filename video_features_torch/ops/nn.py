@@ -9,7 +9,11 @@ takes as its channels-last memory format without a copy.
 
 Numerics follow the JAX functions:
   * conv: torch symmetric int padding, or explicit per-edge (lo, hi)
-    pairs (TF-SAME for I3D), applied as a zero pad before the call;
+    pairs (TF-SAME for I3D), applied as a zero pad before the call
+    (:func:`library_conv`); inside :func:`conv_route` every
+    :func:`conv` goes to the hand 3xTF32 kernel instead
+    (``ops/conv_tf32x3.py``, the i3d and raft families under
+    ``precision=high`` and ``mixed``), or to its plain version;
   * batch norm is inference-only with running statistics, computed as
     ``(x - mean) * rsqrt(var + eps) * weight + bias``;
   * max pool pads with ``-inf`` (ceil mode and TF-SAME become explicit
@@ -26,7 +30,9 @@ here: no ported model uses it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from contextlib import contextmanager, nullcontext
+from contextvars import ContextVar
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -68,11 +74,63 @@ def pad_spatial(x: torch.Tensor, pairs, value: float = 0.0) -> torch.Tensor:
     return F.pad(x, spec, value=value)
 
 
+# where conv() goes in this context: None (torch.nn.functional, cuDNN on
+# the card), 'kernel' (ops/conv_tf32x3.py::conv_tf32x3) or 'plain' (its
+# plain version); per thread and per task, so two serve workers on two
+# lanes route apart
+_CONV_ROUTE: ContextVar[Optional[str]] = ContextVar('vft_conv_route',
+                                                    default=None)
+CONV_ROUTES = ('kernel', 'plain')
+
+
+@contextmanager
+def conv_route(route: Optional[str]) -> Iterator[None]:
+    """Send every :func:`conv` in the body to the 3xTF32 convolution
+    (``'kernel'``), to its plain version (``'plain'``), or to
+    :func:`library_conv` (None), restoring the route found on exit."""
+    if route is not None and route not in CONV_ROUTES:
+        raise ValueError(f'route must be one of {CONV_ROUTES} or None; got '
+                         f'{route!r}')
+    token = _CONV_ROUTE.set(route)
+    try:
+        yield
+    finally:
+        _CONV_ROUTE.reset(token)
+
+
+def three_pass_route(enabled: bool, plain: bool = False):
+    """A model forward's route: :func:`conv_route` to the 3xTF32
+    convolution (its plain version when ``plain``) when ``enabled`` (the
+    lane's ``three_pass_convs``), else the route found."""
+    if not enabled:
+        return nullcontext()
+    return conv_route('plain' if plain else 'kernel')
+
+
 def conv(x: torch.Tensor, weight: torch.Tensor, stride: IntOrTuple = 1,
          padding: Padding = 0, bias: Optional[torch.Tensor] = None,
          groups: int = 1) -> torch.Tensor:
     """N-D convolution, channels-last. weight: (O, I // groups, *spatial);
-    ``groups`` > 1 is a grouped convolution (ResNeXt's 3×3)."""
+    ``groups`` > 1 is a grouped convolution (ResNeXt's 3×3). Inside a
+    :func:`conv_route` it runs ``ops/conv_tf32x3.py`` (groups = 1 only),
+    else :func:`library_conv`."""
+    route = _CONV_ROUTE.get()
+    if route is None:
+        return library_conv(x, weight, stride, padding, bias, groups)
+    if groups != 1:
+        raise ValueError(f'the 3xTF32 convolution takes groups=1; got {groups}')
+    from video_features_torch.ops import conv_tf32x3 as k
+    fn = k.conv_tf32x3 if route == 'kernel' else k.conv_tf32x3_plain
+    return fn(x.contiguous(), weight.contiguous(), stride, padding,
+              None if bias is None else bias.contiguous())
+
+
+def library_conv(x: torch.Tensor, weight: torch.Tensor,
+                 stride: IntOrTuple = 1, padding: Padding = 0,
+                 bias: Optional[torch.Tensor] = None,
+                 groups: int = 1) -> torch.Tensor:
+    """:func:`conv` through ``torch.nn.functional`` (cuDNN on the card),
+    whatever the route."""
     n = weight.ndim - 2
     pairs = _pad_pairs(padding, n)
     if all(lo == hi for lo, hi in pairs):

@@ -40,11 +40,20 @@ INT8_FEATURES = frozenset({'resnet', 'clip', 'timm'})
 # daemon refuses the session up front
 LIVE_FEATURES = frozenset({'i3d', 'r21d', 's3d', 'resnet', 'clip', 'timm'})
 
+# the families whose every convolution runs in the hand 3xTF32 convolution
+# (ops/conv_tf32x3.py) under precision=high and mixed, the JAX package's
+# three passes (utils/device.py::three_pass_convs), and the precision
+# values that run them
+THREE_PASS_CONV_FEATURES = frozenset({'i3d', 'raft'})
+THREE_PASS_PRECISIONS = ('high', 'mixed')
+
 # the families that accept precision=mixed: those whose feature rel L2
-# under mixed (TF32 in cuDNN and cuBLAS, the GRU kernel in 3xTF32) against
-# highest the card measured at <= 1e-3, on seeded weights and the
-# chip_smoke.py inputs (its 'precision lanes' phase); the others refuse it
-# with the figure (MIXED_REFUSALS)
+# under mixed against highest the card measured at <= 1e-3, on seeded
+# weights and the chip_smoke.py inputs (its 'precision lanes' phase):
+# TF32 in cuDNN and cuBLAS and the GRU kernel in 3xTF32, or, for
+# THREE_PASS_CONV_FEATURES, every convolution in 3xTF32 with the libraries
+# in fp32; the others refuse it with the figure (MIXED_REFUSALS, empty
+# since every family measured under the bar)
 MIXED_FEATURES = frozenset({
     'resnet',   # resnet50: 3.736e-04 at batch 1, 3.683e-04 at batch 32
     'clip',     # ViT-B/32: 3.928e-04 at batch 1, 4.799e-04 at batch 32
@@ -52,17 +61,10 @@ MIXED_FEATURES = frozenset({
     'r21d',     # r2plus1d_18 at batch 4: 4.840e-04
     's3d',      # one 64-frame stack: 3.908e-04
     'vggish',   # batch 32: 7.003e-04
+    'i3d',      # the fused step at batch 8: flow 6.831e-05, rgb 3.271e-06
+    'raft',     # 8 pairs, 20 iterations: 2.672e-04 (max over flow fields)
 })  # NVIDIA H100 80GB HBM3, 700.00 W
-MIXED_REFUSALS = {
-    'i3d': ('the card measured its flow stream at 6.714e-03 rel L2 against '
-            'highest under mixed (rgb 5.185e-04; the fused step at batch 8, '
-            'RAFT 20 iterations, then the flow\'s uint8 quantization), over '
-            'the 1e-3 bar (NVIDIA H100 80GB HBM3, 700.00 W)'),
-    'raft': ('the card measured its raw flow at up to 3.794e-02 rel L2 per '
-             'flow field against highest under mixed (8 pairs, 20 '
-             'iterations), over the 1e-3 bar (NVIDIA H100 80GB HBM3, '
-             '700.00 W)'),
-}
+MIXED_REFUSALS: Dict[str, str] = {}
 
 
 def create_extractor(args):

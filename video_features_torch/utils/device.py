@@ -5,19 +5,26 @@ request for a GPU on a machine without one raises; the port never falls
 back to the CPU.
 
 Precision: ``precision`` takes the JAX package's seven values
-(:data:`PRECISIONS`). On the card a value decides two things
-(:data:`LANES`): whether cuDNN and cuBLAS may run float32 convolutions
-and matmuls in TF32 (about three decimal digits), and how many TF32
-products the GRU direction kernel (``csrc/gru_direction.cu``) issues per
-fp32 one: 3 (3xTF32, fp32-class) or 1.
+(:data:`PRECISIONS`). On the card a value decides three things
+(:data:`LANES`, :func:`three_pass_convs`): whether cuDNN and cuBLAS may
+run float32 convolutions and matmuls in TF32 (about three decimal
+digits), how many TF32 products the GRU direction kernel
+(``csrc/gru_direction.cu``) issues per fp32 one: 3 (3xTF32, fp32-class)
+or 1, and, for the i3d and raft families, whether every convolution of
+the step runs in the hand 3xTF32 convolution (``csrc/conv_tf32x3.cu``).
 
-  * ``highest``, ``float32``: TF32 off, the kernel in 3xTF32. ``float32``
-    is the JAX package's name for ``highest``: the same bytes.
-  * ``high``, ``mixed``: TF32 on, the kernel in 3xTF32. ``mixed`` is the
-    JAX package's ambient ``high`` with no pins; the libraries have no
-    three-pass mode, so only the hand kernel keeps JAX's three passes.
-  * ``default``, ``tensorfloat32``, ``bfloat16``: TF32 on, the kernel in
-    1xTF32 (one-pass modes in JAX).
+  * ``highest``, ``float32``: TF32 off, the GRU kernel in 3xTF32.
+    ``float32`` is the JAX package's name for ``highest``: the same bytes.
+  * ``high``, ``mixed``: the JAX package's three passes (``mixed`` is its
+    ambient ``high`` with no pins). cuDNN and cuBLAS have no three-pass
+    mode, so in i3d and raft (``registry.THREE_PASS_CONV_FEATURES``)
+    every convolution goes to the 3xTF32 convolution and the libraries
+    keep TF32 off for the rest (the correlation volume, the upsample's
+    einsum: true fp32); the GRU kernel in 3xTF32. The other families run
+    these two values with TF32 on in the libraries (one pass; README's
+    port section records the divergence).
+  * ``default``, ``tensorfloat32``, ``bfloat16``: TF32 on, the GRU
+    kernel in 1xTF32 (one-pass modes in JAX).
 
 The two library flags are process-wide torch settings, read when a
 kernel is launched on the host, so :func:`precision_scope` sets them
@@ -105,6 +112,26 @@ def gru_passes(precision: str) -> int:
     return lane(precision)[1]
 
 
+def three_pass_convs(precision: str, feature_type: Optional[str]) -> bool:
+    """Whether every convolution of ``feature_type``'s step runs in the
+    hand 3xTF32 convolution under ``precision`` (and the libraries with
+    TF32 off): ``high`` and ``mixed`` in
+    ``registry.THREE_PASS_CONV_FEATURES``."""
+    from video_features_torch.registry import (
+        THREE_PASS_CONV_FEATURES, THREE_PASS_PRECISIONS,
+    )
+    lane(precision)
+    return (precision in THREE_PASS_PRECISIONS
+            and feature_type in THREE_PASS_CONV_FEATURES)
+
+
+def library_tf32(precision: str, feature_type: Optional[str] = None) -> bool:
+    """Whether cuDNN and cuBLAS may run TF32 for ``feature_type``'s step
+    under ``precision`` (:data:`LANES`, off where :func:`three_pass_convs`
+    holds; ``feature_type`` None: the value's own lane)."""
+    return lane(precision)[0] and not three_pass_convs(precision, feature_type)
+
+
 def set_precision(precision: str = 'highest') -> None:
     """Set cuDNN's and cuBLAS's TF32 flags for ``precision`` for the whole
     process, with no restore: for scripts that call the models and
@@ -158,9 +185,11 @@ def scope_wait_stats(reset: bool = False) -> Dict[str, float]:
 
 
 @contextmanager
-def precision_scope(precision: str) -> Iterator[None]:
-    """Set cuDNN's and cuBLAS's TF32 flags for ``precision`` (see
-    :data:`LANES`) and restore both on exit, also when the body raises.
+def precision_scope(precision: str,
+                    feature_type: Optional[str] = None) -> Iterator[None]:
+    """Set cuDNN's and cuBLAS's TF32 flags for ``precision`` in
+    ``feature_type``'s step (:func:`library_tf32`) and restore both on
+    exit, also when the body raises.
 
     One TF32 setting is in force in the process at a time. A scope whose
     setting is the one in force enters at once, from any thread, unless a
@@ -172,7 +201,7 @@ def precision_scope(precision: str) -> Iterator[None]:
     setting and raises ``RuntimeError`` with the other one (waiting there
     would wait for itself)."""
     global _held, _open, _saved, _turn
-    tf32 = lane(precision)[0]
+    tf32 = library_tf32(precision, feature_type)
     want = (tf32, tf32)
     stack = getattr(_scope_local, 'stack', None)
     if stack is None:
