@@ -19,7 +19,8 @@ package is not beside it. Phases:
    per source, all started together, with ptxas's register and spill
    lines, the count of tensor-core (HGMMA) instructions in the GRU
    kernel's SASS (``cuobjdump -sass``), which must not be 0, and the
-   convolution's HMMA count per instantiation (none may be 0); beside
+   convolution's per instantiation (HGMMA in the ``wgmma`` kernel's 24,
+   HMMA in its ``mma.sync`` yardstick's 6; none may be 0); beside
    them ``tools/gru_tf32x3_variants.py``'s ``pr14_one_pass`` (the one-pass
    design before the cluster kernel, phase 19 (a)'s yardstick);
 3. kernels: each correlation-lookup kernel at the main path's shapes
@@ -69,13 +70,19 @@ package is not beside it. Phases:
    and on the first call of each distinct convolution geometry (80 and
    30) the kernel runs on the same tensors and is held to the plain
    version (rel L2 ≤ 1e-5); RAFT's seven per-iteration convolutions at
-   the fused size and the three heaviest I3D ones timed (CUDA events)
-   with their plain version, cuDNN in fp32 (``library_ms``) and in TF32,
-   beside their 3xTF32 operations bound and fp32 FMA bound; then the
-   lane end to end, in its scope: the fused step at batch 8 and a
-   RAFT-family step at 8 pairs (3 iterations) with the kernels against
-   their plain versions (rel L2 ≤ 1e-3), one convolution launch per
-   convolution (the code's count) and no cuDNN convolution;
+   the fused size and the three heaviest I3D ones, and the seven at the
+   RAFT family's size, timed (CUDA events, weights packed ahead) in
+   turns against the ``mma.sync`` yardstick (``conv_tf32x3_mma``: new,
+   old, old, new), with their plain version, cuDNN in fp32
+   (``library_ms``) and in TF32, beside their 3xTF32 operations bound and
+   fp32 FMA bound; the run fails if the kernel is slower than the
+   yardstick on the seven's sum or on any of the three; each
+   instantiation's registers and spills (ptxas); then the lane end to
+   end, in its scope: the fused step at batch 8 and a RAFT-family step at
+   8 pairs (3 iterations) with the kernels against their plain versions
+   (rel L2 ≤ 1e-3), one convolution launch per convolution (the code's
+   count) and no cuDNN convolution, and the time of the fused step's
+   weight packs;
 7. device resize: ``pil_resize_bilinear_device`` on the card byte-equal
    to the same function on the CPU, on seeded uint8 frames at six
    geometries (up, down, mixed, identity, 1080×1920 → 256×455), and its
@@ -446,6 +453,7 @@ import json
 import math
 import os
 import queue
+import re
 import shutil
 import subprocess
 import sys
@@ -494,6 +502,11 @@ KERNELS = ('corr_lookup', 'gru_direction')
 # under precision=high and mixed (a highest run builds only KERNELS)
 CONV_KERNEL = 'conv_tf32x3'
 CONV_REL_L2 = 1e-5      # 3xTF32 against cuDNN's fp32 (TF32 off)
+# the wgmma kernel may not be slower than the mma.sync yardstick (the mean
+# of its two turns against the mean of the yardstick's two, in one call)
+# on the seven per-iteration convolutions' sum or on any of the three I3D
+# geometries
+CONV_SLOWER = 1.0
 I3D_TOWER_CONVS = 57    # 3 stem units and 9 Mixed blocks of 6 convolutions
 # device resize: the JAX package's test geometries plus a 1080p frame,
 # and the timed batch (raw 480×640 frames of 8 windows of 17)
@@ -1053,13 +1066,23 @@ def conv_shape_records(torch, k, step, params: dict, prefix: str) -> dict:
 
 
 def conv_times(torch, k, args, reps: int) -> dict:
-    """ms of one convolution: the kernel, its plain version (cuDNN with
+    """ms of one convolution, its weight packed ahead: the kernel and the
+    ``mma.sync`` yardstick in turns (new, old, old, new; 'ms' and
+    'mma_ms' the means of each one's two), its plain version (cuDNN with
     TF32 off, after the asymmetric pad copy where there is one), cuDNN in
     fp32 (``library_conv``: the same PyTorch call) and in TF32."""
     from video_features_torch.ops.nn import library_conv
     from video_features_torch.utils.device import set_precision
+    x, weight, stride, padding, bias = args
+    packed, mma = k.prepack(weight), k.pack_weight_mma(weight)
+    calls = {'new': lambda: k.conv_tf32x3(x, packed, stride, padding, bias),
+             'old': lambda: k.conv_tf32x3_mma(x, weight, stride, padding,
+                                              bias, packed=mma)}
     with torch.inference_mode():
-        out = {'ms': cuda_ms(torch, lambda: k.conv_tf32x3(*args), reps),
+        turns = [cuda_ms(torch, calls[which], reps)
+                 for which in ('new', 'old', 'old', 'new')]
+        out = {'ms': (turns[0] + turns[3]) / 2,
+               'mma_ms': (turns[1] + turns[2]) / 2, 'turns': turns,
                'plain_ms': cuda_ms(torch, lambda: k.conv_tf32x3_plain(*args),
                                    reps),
                'library_ms': cuda_ms(torch, lambda: library_conv(*args), reps)}
@@ -1072,18 +1095,80 @@ def conv_times(torch, k, args, reps: int) -> dict:
     return out
 
 
+def conv_group_times(torch, k, records, card: str) -> dict:
+    """:func:`conv_times` of each record, printed beside its bounds, and
+    the group's sums: the times, 'tf32x3', 'fp32', 'bytes' and 'bound'
+    (each convolution's larger of 3xTF32 operations and bytes)."""
+    total = {key: 0.0 for key in ('ms', 'mma_ms', 'plain_ms', 'library_ms',
+                                  'library_tf32_ms', 'tf32x3', 'fp32', 'bytes',
+                                  'bound')}
+    for r in records:
+        t = conv_times(torch, k, r['args'], 5)
+        b = conv_bounds(r['x'], r['w'], r['out'])
+        bound = max(b['tf32x3'], b['bytes'])
+        r['times'], r['bound'] = t, bound
+        print(f'conv_tf32x3 {r["name"]} x {r["x"]} w {r["w"]}: {t["ms"]:.4f} ms '
+              f'(turns new/old/old/new {" / ".join(f"{v:.4f}" for v in t["turns"])}'
+              f'), mma.sync yardstick {t["mma_ms"]:.4f} ms '
+              f'({t["mma_ms"] / t["ms"]:.2f}x), plain {t["plain_ms"]:.4f} ms, '
+              f'cuDNN fp32 {t["library_ms"]:.4f} ms, cuDNN TF32 '
+              f'{t["library_tf32_ms"]:.4f} ms; bound {bound:.4f} ms '
+              f'({"operations" if b["tf32x3"] >= b["bytes"] else "bytes"}, '
+              f'3xTF32 at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s), '
+              f'{bound / t["ms"]:.1%} of it; fp32 FMA bound {b["fp32"]:.4f} ms; '
+              f'bytes {b["bytes"]:.4f} ms ({card})', flush=True)
+        for key in ('ms', 'mma_ms', 'plain_ms', 'library_ms', 'library_tf32_ms'):
+            total[key] += t[key]
+        for key in ('tf32x3', 'fp32', 'bytes'):
+            total[key] += b[key]
+        total['bound'] += bound
+    return total
+
+
+def ptxas_registers(log: str, key: str) -> dict:
+    """Registers and spill-store bytes per instantiation (its template
+    arguments, as mangled) of the entry functions whose name holds
+    ``key``, from an ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if 'Compiling entry function' in line:
+            name = None
+            if key in line:
+                args = re.findall(r'L[ib](\d+)E', line.split(key, 1)[1])
+                name = '<' + ', '.join(args) + '>'
+                out[name] = {'registers': 0, 'spill_bytes': 0}
+        elif name and 'spill stores' in line:
+            out[name]['spill_bytes'] = int(re.search(
+                r'(\d+) bytes spill stores', line).group(1))
+        elif name and 'Used' in line and 'registers' in line:
+            out[name]['registers'] = int(re.search(
+                r'Used (\d+) registers', line).group(1))
+    return out
+
+
 def conv_phase(torch, np, k, fused_params: dict, raft_params: dict,
-               card: str) -> dict:
+               card: str, build_log: str) -> dict:
     """The 3xTF32 convolution against its plain version on every distinct
     geometry of the fused I3D step at batch 8 (both towers, RAFT over 136
     frames at 256×344) and of the RAFT family at 8 pairs (256×336), on
     the paths' own tensors (one RAFT iteration: the others repeat its
     shapes), rel L2 ≤ CONV_REL_L2; RAFT's seven per-iteration
-    convolutions at the fused size and the three heaviest I3D ones timed
-    against cuDNN in fp32 and in TF32, beside their bounds."""
+    convolutions at both sizes and the three heaviest I3D ones timed in
+    turns against the ``mma.sync`` yardstick and beside cuDNN in fp32 and
+    in TF32 and their bounds (slower than the yardstick on the fused
+    seven's sum or on one of the three fails); each ``wgmma``
+    instantiation's registers and spills."""
     from video_features_torch.extract.i3d import fused_two_stream_step
     from video_features_torch.models import raft as raft_model
     from video_features_torch.models.raft import pad_amounts
+    regs = ptxas_registers(build_log, 'conv_tf32x3_wgmma')
+    print(f'conv_tf32x3_wgmma<WGS, BN> registers and spill-store bytes per '
+          f'instantiation (ptxas): '
+          + ', '.join(f'{n} {v["registers"]}/{v["spill_bytes"]}'
+                      for n, v in regs.items()), flush=True)
+    if len(regs) != 24:
+        fail(f'ptxas reported {len(regs)} conv_tf32x3_wgmma instantiations, '
+             f'want 24')
     x = torch.from_numpy(rand_frames(np, 21, (8, STACK + 1, *FRAME_HW, 3))).cuda()
     pads = pad_amounts(*FRAME_HW)
     fused = conv_shape_records(torch, k, lambda: fused_two_stream_step(
@@ -1113,48 +1198,57 @@ def conv_phase(torch, np, k, fused_params: dict, raft_params: dict,
               f'{max(r["rel"] for r in records.values()):.3e}, max abs err '
               f'{max(r["err"] for r in records.values()):.3e} ({card})',
               flush=True)
-    iteration = [r for r in fused.values()
-                 if r['name'].startswith('raft.update_block.encoder.')
-                 or r['name'].startswith('raft.update_block.flow_head.')]
-    if len(iteration) != 7:
-        fail(f'{len(iteration)} per-iteration convolutions found, want 7')
+
+    def per_iteration(records, prefix):
+        seven = [r for r in records.values()
+                 if r['name'].startswith((f'{prefix}update_block.encoder.',
+                                          f'{prefix}update_block.flow_head.'))]
+        if len(seven) != 7:
+            fail(f'{len(seven)} per-iteration convolutions found, want 7')
+        return seven
+    iteration = per_iteration(fused, 'raft.')
+    family_seven = per_iteration(family, 'raft.')
     towers = sorted((r for r in fused.values()
                      if r['name'].startswith(('rgb.', 'flow.'))),
                     key=lambda r: -conv_bounds(r['x'], r['w'], r['out'])['flops'])
-    total = {key: 0.0 for key in ('ms', 'plain_ms', 'library_ms',
-                                  'library_tf32_ms', 'tf32x3', 'fp32', 'bytes',
-                                  'bound')}
-    for r in iteration + towers[:3]:
-        t = conv_times(torch, k, r['args'], 5)
-        b = conv_bounds(r['x'], r['w'], r['out'])
-        bound = max(b['tf32x3'], b['bytes'])
-        print(f'conv_tf32x3 {r["name"]} x {r["x"]} w {r["w"]}: {t["ms"]:.4f} ms, '
-              f'plain {t["plain_ms"]:.4f} ms, cuDNN fp32 {t["library_ms"]:.4f} '
-              f'ms, cuDNN TF32 {t["library_tf32_ms"]:.4f} ms; bound '
-              f'{bound:.4f} ms ({"operations" if b["tf32x3"] >= b["bytes"] else "bytes"}, '
-              f'3xTF32 at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s), '
-              f'{bound / t["ms"]:.1%} of it; fp32 FMA bound {b["fp32"]:.4f} ms; '
-              f'bytes {b["bytes"]:.4f} ms ({card})', flush=True)
-        if r in iteration:
-            for key in ('ms', 'plain_ms', 'library_ms', 'library_tf32_ms'):
-                total[key] += t[key]
-            for key in ('tf32x3', 'fp32', 'bytes'):
-                total[key] += b[key]
-            total['bound'] += bound
-    print(f'conv_tf32x3: one RAFT iteration\'s 7 convolutions at the fused '
-          f'batch-8 size (M = {iteration[0]["out"][0] * H8 * W8}): '
-          f'{total["ms"]:.4f} ms, plain {total["plain_ms"]:.4f} ms, cuDNN fp32 '
-          f'{total["library_ms"]:.4f} ms, cuDNN TF32 {total["library_tf32_ms"]:.4f} '
-          f'ms; bound {total["bound"]:.4f} ms ({total["bound"] / total["ms"]:.1%} '
-          f'of it), fp32 FMA bound {total["fp32"]:.4f} ms ({card})', flush=True)
-    del fused, family, iteration, towers
-    torch.cuda.empty_cache()
+    total = conv_group_times(torch, k, iteration, card)
+    three = conv_group_times(torch, k, towers[:3], card)
+    small = conv_group_times(torch, k, family_seven, card)
+    for label, t, m in (('the fused batch-8 size', total,
+                         iteration[0]['out'][0] * H8 * W8),
+                        (f'the RAFT family\'s {RAFT_BATCH} pairs', small,
+                         math.prod(family_seven[0]['out'][:-1]))):
+        print(f'conv_tf32x3: one RAFT iteration\'s 7 convolutions at {label} '
+              f'(M = {m}): {t["ms"]:.4f} ms, mma.sync yardstick '
+              f'{t["mma_ms"]:.4f} ms ({t["mma_ms"] / t["ms"]:.2f}x), plain '
+              f'{t["plain_ms"]:.4f} ms, cuDNN fp32 {t["library_ms"]:.4f} ms, '
+              f'cuDNN TF32 {t["library_tf32_ms"]:.4f} ms; bound '
+              f'{t["bound"]:.4f} ms ({t["bound"] / t["ms"]:.1%} of it), fp32 '
+              f'FMA bound {t["fp32"]:.4f} ms ({card})', flush=True)
+    slower = [r['name'] for r in towers[:3]
+              if r['times']['ms'] > r['times']['mma_ms'] * CONV_SLOWER]
+    if total['ms'] > total['mma_ms'] * CONV_SLOWER or slower:
+        fail(f'the wgmma convolution is slower than the mma.sync yardstick: '
+             f'the seven {total["ms"]:.4f} against {total["mma_ms"]:.4f} ms; '
+             f'I3D geometries {slower}')
     rec.update(ms=total['ms'], plain_ms=total['plain_ms'],
                library_ms=total['library_ms'],
                library_tf32_ms=total['library_tf32_ms'],
                bound_ms=total['bound'],
                bound_by='operations' if total['tf32x3'] >= total['bytes']
-               else 'bytes', fp32_bound_ms=total['fp32'])
+               else 'bytes', fp32_bound_ms=total['fp32'],
+               mma_ms=total['mma_ms'], family_seven_ms=small['ms'],
+               family_seven_mma_ms=small['mma_ms'],
+               family_seven_bound_ms=small['bound'],
+               i3d_three={r['name']: {'ms': r['times']['ms'],
+                                      'mma_ms': r['times']['mma_ms'],
+                                      'bound_ms': r['bound'],
+                                      'library_ms': r['times']['library_ms']}
+                          for r in towers[:3]},
+               registers=max(v['registers'] for v in regs.values()),
+               spill_bytes=max(v['spill_bytes'] for v in regs.values()))
+    del fused, family, iteration, family_seven, towers
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1177,12 +1271,13 @@ class LibraryConvs:
 
 
 def three_pass_plain_phase(torch, np, k, fused_params, raft_params,
-                           card: str) -> None:
+                           card: str) -> float:
     """The three-pass lane end to end: the fused I3D step at batch 8 and a
     RAFT-family step at 8 pairs (CHECK_ITERS iterations), with the kernels
     and with their plain versions, in the lane's scope: one kernel launch
     per convolution (the code's count), no cuDNN convolution, rel L2 ≤
-    SLICE_REL_L2 per stream and on the flow."""
+    SLICE_REL_L2 per stream and on the flow; each weight packed once per
+    step. Returns the ms of the fused step's packs."""
     from video_features_torch.extract.i3d import fused_two_stream_step
     from video_features_torch.models import raft as raft_model
     from video_features_torch.models.raft import pad_amounts
@@ -1200,14 +1295,27 @@ def three_pass_plain_phase(torch, np, k, fused_params, raft_params,
             CHECK_ITERS), lambda plain: {'flow': raft_model.forward_consecutive(
                 raft_params, padded, iters=CHECK_ITERS, plain_kernels=plain,
                 three_pass_convs=True)}))
+    pack = k.pack_weight
+    packed = {}                # the weights each step packs, by family
+
+    def recording(weight):
+        packed[family].append(weight)
+        return pack(weight)
     for family, where, want, step in cases:
+        packed[family] = []
         with torch.inference_mode(), precision_scope('mixed', family):
             before = k.conv_tf32x3.launches
-            with LibraryConvs() as library:
-                got = step(False)
-                torch.cuda.synchronize()
+            k.pack_weight = recording
+            try:
+                with LibraryConvs() as library:
+                    got = step(False)
+                    torch.cuda.synchronize()
+            finally:
+                k.pack_weight = pack
             launched = k.conv_tf32x3.launches - before
             plain = step(True)
+        if family == 'i3d':
+            launched_i3d = launched
         if launched != want or library.calls:
             fail(f'three-pass lane, {where}: {launched} conv_tf32x3 launches '
                  f'(want {want}, one per convolution) and {library.calls} '
@@ -1221,8 +1329,21 @@ def three_pass_plain_phase(torch, np, k, fused_params, raft_params,
             if not rel <= SLICE_REL_L2:
                 fail(f'three-pass lane, {where}, {s}: kernels vs plain rel L2 '
                      f'{rel} > {SLICE_REL_L2}')
-    del x, frames, padded
+    # every convolution's weight is packed once per step: RAFT's seven
+    # per-iteration ones once per forward, not once per iteration
+    weights = packed['i3d']
+    with torch.inference_mode():
+        pack_ms = cuda_ms(torch, lambda: [pack(w) for w in weights], 3)
+    print(f'three-pass lane, fused I3D step at batch 8: {len(weights)} weight '
+          f'packs ({launched_i3d} convolutions), {pack_ms:.4f} ms for all of '
+          f'them ({card})', flush=True)
+    if len(weights) != launched_i3d - 7 * (CHECK_ITERS - 1):
+        fail(f'the fused step packed {len(weights)} weights for '
+             f'{launched_i3d} convolutions at {CHECK_ITERS} RAFT iterations: '
+             f'the seven per-iteration weights should pack once')
+    del x, frames, padded, weights, packed
     torch.cuda.empty_cache()
+    return pack_ms
 
 
 def sass_counts(path: Path, opcode: str) -> dict:
@@ -5751,11 +5872,18 @@ def main() -> int:
     print(f'gru_direction SASS: {hgmma} HGMMA instructions', flush=True)
     if not hgmma:
         fail('the GRU kernel was built without tensor-core (HGMMA) instructions')
-    hmma = sass_counts(built[-1][0], 'HMMA')
-    print(f'{CONV_KERNEL} SASS: HMMA instructions by function {hmma}', flush=True)
-    if len(hmma) < 6 or not all(hmma.values()):
-        fail(f'{CONV_KERNEL} has a function without tensor-core (HMMA) '
-             f'instructions: {hmma}')
+    conv_lib = built[-1][0]
+    hgmma = {f: n for f, n in sass_counts(conv_lib, 'HGMMA').items()
+             if 'conv_tf32x3_wgmma' in f}
+    hmma = {f: n for f, n in sass_counts(conv_lib, 'HMMA').items()
+            if 'conv_tf32x3_mma' in f}
+    print(f'{CONV_KERNEL} SASS: HGMMA instructions by wgmma instantiation '
+          f'{hgmma}; HMMA by mma.sync yardstick instantiation {hmma}',
+          flush=True)
+    if len(hgmma) < 24 or not all(hgmma.values()) or len(hmma) < 6 \
+            or not all(hmma.values()):
+        fail(f'{CONV_KERNEL} has a function without tensor-core (HGMMA, '
+             f'HMMA) instructions: {hgmma} {hmma}')
     print(f'build phase {time.perf_counter() - t:.1f} s', flush=True)
     # phase 28 (b) and (c)'s exports run on the CPU beside the card's phases
     diff_started = start_programs_diff()
@@ -5821,8 +5949,9 @@ def main() -> int:
               'cuDNN; the three-pass lane end to end')
     from video_features_torch.ops import conv_tf32x3
     rec['conv'] = conv_phase(torch, np, conv_tf32x3, ex.params, rex.params,
-                             card)
-    three_pass_plain_phase(torch, np, conv_tf32x3, ex.params, rex.params, card)
+                             card, built[-1][1])
+    rec['conv']['pack_ms'] = three_pass_plain_phase(
+        torch, np, conv_tf32x3, ex.params, rex.params, card)
     print(f'conv phase {time.perf_counter() - t:.1f} s ({card})', flush=True)
 
     t = phase('device resize')
@@ -5974,6 +6103,13 @@ def main() -> int:
     # fused batch-8 size; its fp32 FMA bound and cuDNN's TF32 time beside
     kernels[4]['fp32_bound_ms'] = rec['conv']['fp32_bound_ms']
     kernels[4]['library_tf32_ms'] = rec['conv']['library_tf32_ms']
+    # the same call's mma.sync yardstick, the seven at the RAFT family's
+    # size, the three heaviest I3D geometries, the fused step's weight
+    # packs, and the instantiations' most registers and spill bytes
+    for key in ('mma_ms', 'family_seven_ms', 'family_seven_mma_ms',
+                'family_seven_bound_ms', 'i3d_three', 'pack_ms', 'registers',
+                'spill_bytes'):
+        kernels[4][key] = rec['conv'][key]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

@@ -34,7 +34,7 @@ from video_features_torch.models.i3d import tf_same_pads
 from video_features_torch.obs.manifest import RunManifest
 from video_features_torch.ops import conv_tf32x3 as k
 from video_features_torch.ops import nn
-from video_features_torch.ops.gru import tf32_split
+from video_features_torch.ops.gru import K_ORDER, tf32_split
 from video_features_torch.registry import create_extractor
 from video_features_torch.transplant import params_from_jax, params_from_torch
 from video_features_torch.utils import device
@@ -93,10 +93,12 @@ def _inputs(name, seed=0):
 
 def kernel_gemm(x, weight, stride, padding, bias):
     """The kernel's implicit GEMM written out on the CPU, in float64: rows
-    are output pixels, K the packed matrix's (taps row-major, channels
-    inside each tap, padded to 32 per tap where C % 4 == 0), times
-    :func:`pack_weight`'s matrix: the contract between the pack and the
-    kernel's K order."""
+    are output pixels, K the kernel's order (taps row-major, each tap's
+    channels padded to 4, a 2- or 3-channel input padded to 4 as the
+    wrapper pads it, the whole K padded to the chunks' 32, so a chunk may
+    span taps), times the matrix the packed operand holds
+    (:func:`unpack_matrix`, which :func:`unpack_weight` reads): the
+    contract between the pack and the kernel's K order."""
     n = weight.ndim - 2
     x5 = x if n == 3 else x[:, None]
     w5 = weight if n == 3 else weight[:, :, None]
@@ -104,10 +106,12 @@ def kernel_gemm(x, weight, stride, padding, bias):
     pairs = [(0, 0)] * (3 - n) + nn._pad_pairs(padding, n)
     N, T, H, W, C = x5.shape
     O, _, KT, KH, KW = w5.shape
+    c4 = -(-C // k.C_GROUP) * k.C_GROUP
     out = [(s + lo + hi - kk) // st + 1 for s, (lo, hi), kk, st in
            zip((T, H, W), pairs, (KT, KH, KW), strides)]
-    xp = nn.pad_spatial(x5.double(), pairs)
-    packed, c_pad = k.pack_weight(weight)
+    xp = torch.nn.functional.pad(nn.pad_spatial(x5.double(), pairs),
+                                 (0, c4 - C))
+    packed = k.pack_weight(weight)
     cols = []
     for dt in range(KT):
         for dh in range(KH):
@@ -115,11 +119,12 @@ def kernel_gemm(x, weight, stride, padding, bias):
                 patch = xp[:, dt:dt + strides[0] * (out[0] - 1) + 1:strides[0],
                            dh:dh + strides[1] * (out[1] - 1) + 1:strides[1],
                            dw:dw + strides[2] * (out[2] - 1) + 1:strides[2]]
-                cols.append(torch.nn.functional.pad(
-                    patch.reshape(-1, C), (0, c_pad - C)))
+                cols.append(patch.reshape(-1, c4))
     a = torch.cat(cols, dim=1)
-    a = torch.nn.functional.pad(a, (0, packed.shape[0] - a.shape[1]))
-    y = a @ packed.double()[:, :O] + bias.double()
+    b = k.unpack_matrix(packed).double()
+    assert b.shape[0] == packed.shape[1] * k.K_CHUNK >= a.shape[1]
+    a = torch.nn.functional.pad(a, (0, b.shape[0] - a.shape[1]))
+    y = a @ b[:, :O] + bias.double()
     return y.reshape(N, *out[3 - n:], O)
 
 
@@ -156,24 +161,123 @@ def test_three_pass_arithmetic_holds_fp32(name):
     assert rel_l2(gemm, plain) <= EMULATED_REL_L2
 
 
+def _packed_at(packed, n, k_index):
+    """The packed operand's (hi, lo) for output channel n at K index
+    k_index: the channel's tile and row, the K chunk, the row's position
+    in the fragment order (``ops/gru.py::K_ORDER``) and the 128-byte
+    swizzle (16-byte chunk j of row r at j ^ (r % 8))."""
+    tile, row = divmod(n, packed.shape[3])
+    chunk, r = divmod(k_index, k.K_CHUNK)
+    pos = K_ORDER.index(r)
+    col = ((pos // 4) ^ (row % 8)) * 4 + pos % 4
+    return packed[tile, chunk, 0, row, col], packed[tile, chunk, 1, row, col]
+
+
 def test_pack_weight_layout():
-    """(O, I, *k) → (K_pad, O_pad): channels padded to 32 per tap where
-    I % 4 == 0, K to 32, O to 128; zeros in every pad."""
-    w = torch.randn(130, 36, 3, 3)
-    packed, c_pad = k.pack_weight(w)
-    assert c_pad == 64 and packed.shape == (9 * 64, 256)
-    taps = w.reshape(130, 36, 9)
-    for tap in (0, 4, 8):
-        rows = packed[tap * 64:tap * 64 + 36, :130]
-        assert torch.equal(rows, taps[:, :, tap].T)
-        assert not packed[tap * 64 + 36:(tap + 1) * 64].any()
-    assert not packed[:, 130:].any()
+    """(O, I, *k) → (tiles, chunks, 2, bn, 32): K over the taps, each
+    tap's channels padded to 4 (a chunk spans taps), O in equal tiles,
+    TF32 hi and lo parts in the fragment order and the swizzle; zeros in
+    every pad."""
+    w = torch.randn(192, 6, 3, 3)           # 8 channels a tap: 72 K
+    packed = k.pack_weight(w)
+    assert packed.shape == (2, 3, 2, 96, 32)
+    hi, lo = tf32_split(w.reshape(192, 6, 9))
+    for n, tap, c in ((0, 0, 0), (101, 4, 5), (191, 8, 3), (57, 3, 2),
+                      (95, 7, 0), (96, 5, 1)):
+        # tap 3's channels 0..5 are K 24..29, chunk 0; tap 4's are chunk 1
+        got = _packed_at(packed, n, tap * 8 + c)
+        assert (got[0].item(), got[1].item()) == (hi[n, c, tap].item(),
+                                                  lo[n, c, tap].item())
+    m = k.unpack_matrix(packed)
+    assert m.shape == (96, 192)
+    for tap in range(9):
+        assert not m[tap * 8 + 6:tap * 8 + 8].any()     # channels 6, 7
+    assert not m[72:].any()                             # past K
+    assert torch.equal(m[:6], (hi + lo)[:, :, 0].T)
+    # the flow head: one tile of 8 for 2 output channels
+    w = torch.randn(2, 256, 3, 3)
+    packed = k.pack_weight(w)
+    assert packed.shape == (1, 72, 2, 8, 32)
+    assert not k.unpack_matrix(packed)[:, 2:].any()
+    # a 3-channel stem: 4 K per tap, 8 taps a chunk, 343 taps in 43 chunks
     w = torch.randn(8, 3, 7, 7, 7)
-    packed, c_pad = k.pack_weight(w)
-    assert c_pad == 3 and packed.shape == (1056, 128)      # 1029 → 1056
-    assert torch.equal(packed[:1029, :8], w.reshape(8, 3, 343).permute(
-        2, 1, 0).reshape(1029, 8))
-    assert not packed[1029:].any()
+    packed = k.pack_weight(w)
+    assert packed.shape == (1, 43, 2, 8, 32)
+    m = k.unpack_matrix(packed)
+    assert not m[3:1372:4].any() and not m[1372:].any()
+    hi, lo = tf32_split(w.reshape(8, 3, 343))
+    assert torch.equal(m[4 * 100:4 * 100 + 3, :8], (hi + lo)[:, :, 100].T)
+
+
+# the path's weight shapes (I3D, RAFT): O = 2, 126, 192, 576 among them
+PATH_WEIGHTS = [(64, 3, 7, 7, 7), (64, 2, 7, 7, 7), (192, 64, 3, 3, 3),
+                (32, 16, 3, 3, 3), (64, 24, 3, 3, 3), (128, 48, 3, 3, 3),
+                (288, 144, 3, 3, 3), (320, 160, 3, 3, 3), (24, 512, 1, 1, 1),
+                (64, 3, 7, 7), (96, 64, 3, 3), (256, 324, 1, 1),
+                (192, 256, 3, 3), (128, 2, 7, 7), (126, 256, 3, 3),
+                (2, 256, 3, 3), (576, 256, 1, 1), (256, 128, 1, 5)]
+
+
+@pytest.mark.parametrize('shape', PATH_WEIGHTS)
+def test_pack_round_trip(shape):
+    """``unpack_weight(pack_weight(w))`` is w's TF32 parts summed, hi +
+    lo, exactly; the packed shape is ``packed_shape``'s."""
+    w = torch.from_numpy(np.random.RandomState(3).randn(*shape).astype(
+        np.float32))
+    packed = k.pack_weight(w)
+    assert tuple(packed.shape) == k.packed_shape(shape)
+    hi, lo = tf32_split(w)
+    assert torch.equal(k.unpack_weight(packed, shape), hi + lo)
+
+
+def test_conv_plan():
+    """Equal output tiles of a template width with the least padding,
+    128-pixel blocks unless that leaves SMs without one."""
+    assert k.channel_tiles(2) == (8, 1)
+    assert k.channel_tiles(192) == (96, 2)
+    assert k.channel_tiles(576) == (96, 6)
+    assert k.channel_tiles(126) == (128, 1)
+    assert k.channel_tiles(320) == (80, 4)
+    # the RAFT family's per-iteration convolutions (M = 8 x 32 x 42)
+    assert k.conv_plan(10752, 128) == k.Plan(64, 128, 1)
+    assert k.conv_plan(10752, 2) == k.Plan(64, 8, 1)
+    assert k.conv_plan(10752, 256) == k.Plan(128, 128, 2)
+    assert k.conv_plan(176128, 192) == k.Plan(128, 96, 2)
+    for o in range(1, 1025):
+        bn, tiles = k.channel_tiles(o)
+        assert bn in k.TILE_WIDTHS and bn % 8 == 0 and bn <= 128
+        assert (tiles - 1) * bn < o <= tiles * bn
+        assert tiles in (-(-o // 128), -(-o // 128) + 1)
+    with pytest.raises(ValueError, match='output channels'):
+        k.channel_tiles(0)
+
+
+@pytest.mark.parametrize('iters', [3, 20])
+def test_a_raft_forward_packs_each_per_iteration_weight_once(monkeypatch,
+                                                             iters):
+    """On the kernel's route a RAFT forward packs each of its seven
+    per-iteration weights (the motion encoder's five, the flow head's two)
+    once, whatever the iterations, and gives the plain route's flow."""
+    params = params_from_torch(raft_model.init_state_dict(2))
+    packs = []
+    pack = k.pack_weight
+    monkeypatch.setattr(k, 'pack_weight',
+                        lambda w: packs.append(w) or pack(w))
+    frames = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 256, (2, 64, 64, 3)).astype(np.uint8))
+    with torch.inference_mode():
+        flow = raft_model.forward_consecutive(params, frames, iters=iters,
+                                              three_pass_convs=True)
+        plain = raft_model.forward_consecutive(params, frames, iters=iters,
+                                               plain_kernels=True,
+                                               three_pass_convs=True)
+    up = params['update_block']
+    weights = ([up['encoder'][n]['weight']
+                for n in ('convc1', 'convc2', 'convf1', 'convf2', 'conv')]
+               + [up['flow_head'][n]['weight'] for n in ('conv1', 'conv2')])
+    assert [sum(p is w for p in packs) for w in weights] == [1] * 7
+    assert len(packs) == 7      # the CPU packs nothing else: plain versions
+    assert torch.equal(flow, plain)
 
 
 @pytest.mark.parametrize('case,match', [
@@ -530,8 +634,10 @@ def _old_fingerprint(args):
 @pytest.mark.parametrize('ft', sorted(registry.EXTRACTORS))
 def test_the_fingerprint_separates_the_three_pass_lane(tmp_path, ft):
     """i3d and raft under high and mixed key apart from every key they had
-    before (a cached or resumed high output of the TF32 lane never
-    answers); every other family and lane keeps its key."""
+    before (a cached or resumed high output of the TF32 lane, or of the
+    three-pass lane's earlier mma.sync kernel, never answers); every other
+    family and lane keeps its key."""
+    assert key.THREE_PASS_TOKEN == 'conv_tf32x3.wgmma'
     for precision in device.PRECISIONS:
         overrides = _args(tmp_path, ft, precision)
         if ft == 'timm':
@@ -542,6 +648,9 @@ def test_the_fingerprint_separates_the_three_pass_lane(tmp_path, ft):
             assert new != old
             assert new == _old_fingerprint(dict(
                 args, lane_arithmetic=key.THREE_PASS_TOKEN))
+            # nor does an output of the mma.sync kernel, whose bytes differ
+            assert new != _old_fingerprint(dict(
+                args, lane_arithmetic='conv_tf32x3'))
         else:
             assert new == old, (ft, precision)
 
@@ -579,8 +688,11 @@ def test_profiler_layer_ms_runs_in_the_extractors_scope(tmp_path, spies,
     assert timed == [True] * 3 and entered == [True, False]
     # the flow input once, then each part once, all through the lane
     assert len(spies['kernel']) == 2 * raft_convs(1) + 2 * I3D_TOWER_CONVS
-    assert profile_torch_i3d.group_of('void conv_tf32x3_kernel<128, true>') \
-        == 'conv_tf32x3'
+    for name in ('void (anonymous namespace)::conv_tf32x3_wgmma<2, 96>'
+                 '((anonymous namespace)::Conv)',
+                 'void (anonymous namespace)::mma::conv_tf32x3_mma<128, true>'
+                 '((anonymous namespace)::mma::Geometry)'):
+        assert profile_torch_i3d.group_of(name) == 'conv_tf32x3'
 
 
 def test_manifest_notes_ingress_and_slo_as_the_jax_manifest():

@@ -1,5 +1,5 @@
 """The CUDA kernels' wrappers (video_features_torch/ops/corr_lookup.py,
-ops/gru.py). This file imports no JAX, so its ``cuda``-marked tests run
+ops/gru.py, ops/conv_tf32x3.py). This file imports no JAX, so its ``cuda``-marked tests run
 on a machine with the card and without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -258,6 +258,23 @@ CONV_GEOMETRIES = [
     ((2, 16, 22, 256), (2, 256, 3, 3), 1, 1),                    # flow head
     ((2, 16, 22, 256), (576, 256, 1, 1), 1, 0),                  # mask head
     ((2, 16, 22, 128), (256, 128, 1, 5), 1, [(0, 0), (2, 2)]),   # GRU term
+    # I3D's narrow inputs: K spans taps (channels padded to 4, not 32)
+    ((1, 4, 14, 14, 16), (32, 16, 3, 3, 3), 1, [(1, 1)] * 3),    # 16 -> 32
+    ((1, 4, 14, 14, 24), (64, 24, 3, 3, 3), 1, [(1, 1)] * 3),    # 24 -> 64
+    ((1, 2, 7, 7, 48), (128, 48, 3, 3, 3), 1, [(1, 1)] * 3),     # 48 -> 128
+    # output tiles of 96: O = 192 (convc2, two), 96, 576 (six)
+    ((2, 16, 22, 256), (192, 256, 3, 3), 1, 1),                  # convc2
+    ((1, 4, 14, 14, 192), (96, 192, 1, 1, 1), 1, 0),             # 1x1x1 -> 96
+    ((1, 16, 22, 256), (576, 256, 1, 1), 1, 0),                  # mask head
+    # the RAFT family at 8 pairs (M = 10,752): 64-pixel tiles
+    ((8, 32, 42, 2), (128, 2, 7, 7), 1, 3),                      # convf1
+    ((8, 32, 42, 256), (2, 256, 3, 3), 1, 1),                    # flow head
+    # 128-pixel blocks (two warpgroups): images of 10.75 blocks, the 1x5
+    # taps, images smaller than a block
+    ((16, 32, 43, 256), (192, 256, 3, 3), 1, 1),                 # convc2
+    ((16, 32, 43, 128), (2, 128, 3, 3), 1, 1),                   # flow head
+    ((16, 32, 43, 128), (256, 128, 1, 5), 1, [(0, 0), (2, 2)]),  # GRU term
+    ((300, 7, 9, 64), (64, 64, 3, 3), 1, 1),                     # tiny images
 ]
 CONV_REL_L2 = 1e-5      # 3xTF32 against cuDNN's fp32 (TF32 off)
 
@@ -282,6 +299,46 @@ def test_conv_kernel_matches_plain_on_the_card(xs, ws, stride, padding):
     # and the bias-free form
     got = k.conv_tf32x3(x, w, stride, padding)
     want = k.conv_tf32x3_plain(x, w, stride, padding)
+    assert ((got - want).norm() / want.norm()).item() <= CONV_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('xs,ws,stride,padding', CONV_GEOMETRIES[::4])
+def test_conv_kernel_is_deterministic_and_takes_a_packed_weight(
+        xs, ws, stride, padding):
+    """Two launches give the same bytes (no split-K, no atomics), and a
+    weight packed ahead (``prepack``) gives the same bytes as a bare one."""
+    from video_features_torch.ops import conv_tf32x3 as k
+    dev = _cuda()
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(rng.randn(*xs).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(*ws) * 0.05).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(ws[0]).astype(np.float32)).to(dev)
+    first = k.conv_tf32x3(x, w, stride, padding, b)
+    again = k.conv_tf32x3(x, w, stride, padding, b)
+    packed = k.conv_tf32x3(x, k.prepack(w), stride, padding, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('xs,ws,stride,padding',
+                         [CONV_GEOMETRIES[0], CONV_GEOMETRIES[2]])
+def test_the_mma_yardstick_still_matches_plain(xs, ws, stride, padding):
+    """The earlier mma.sync design, kept beside the kernel as a yardstick,
+    still holds the plain version (gather mode on the 3-channel stem,
+    vector mode on the 3x3x3)."""
+    from video_features_torch.ops import conv_tf32x3 as k
+    dev = _cuda()
+    rng = np.random.RandomState(14)
+    x = torch.from_numpy(rng.randn(*xs).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(*ws) * 0.05).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(ws[0]).astype(np.float32)).to(dev)
+    before = k.conv_tf32x3.launches
+    got = k.conv_tf32x3_mma(x, w, stride, padding, b)
+    want = k.conv_tf32x3_plain(x, w, stride, padding, b)
+    torch.cuda.synchronize()
+    assert k.conv_tf32x3.launches == before       # not the path's kernel
     assert ((got - want).norm() / want.norm()).item() <= CONV_REL_L2
 
 

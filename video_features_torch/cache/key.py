@@ -58,8 +58,10 @@ def _canonical(obj: Any) -> str:
 # the arithmetic token of the three-pass lane: i3d and raft under high
 # and mixed run every convolution in 3xTF32 (utils/device.py::
 # three_pass_convs), other bytes than their earlier TF32 lane, so an
-# output written before it never answers
-THREE_PASS_TOKEN = 'conv_tf32x3'
+# output written before it never answers; it names the kernel's design
+# (csrc/conv_tf32x3.cu on wgmma), whose summation order differs from the
+# mma.sync design's that keyed 'conv_tf32x3' before it
+THREE_PASS_TOKEN = 'conv_tf32x3.wgmma'
 
 
 def config_fingerprint(args: Mapping[str, Any]) -> str:

@@ -24,7 +24,9 @@ encoder, the flow and mask heads: 16 per encoder call, 4, 7 per
 iteration and 2) to the 3xTF32 convolution (``ops/conv_tf32x3.py``,
 through ``ops/nn.py::three_pass_route``), under ``precision=high`` and
 ``mixed`` (``utils/device.py::three_pass_convs``); with
-``plain_kernels`` to its plain version.
+``plain_kernels`` to its plain version. The seven per-iteration weights
+are packed for that kernel once per forward (:func:`route_weights`),
+not once per iteration.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from video_features_torch.ops.corr_lookup import (
     CORR_LEVELS, CORR_RADIUS, build_corr_pyramid,
 )
 from video_features_torch.ops.nn import (
-    batch_norm, conv, instance_norm, relu, three_pass_route,
+    batch_norm, conv, instance_norm, relu, route_weight, three_pass_route,
 )
 
 Params = Dict[str, Any]
@@ -263,6 +265,14 @@ def _stack_pairs(params: Params, stacks: torch.Tensor, iters: int,
     return flow.reshape(B, S, flow.shape[1], flow.shape[2], 2)
 
 
+def route_weights(p: Params) -> Params:
+    """Conv params ``{name: {'weight', 'bias'}}`` with each weight as
+    ``ops/nn.py::route_weight`` gives it: packed once for the 3xTF32
+    kernel on its route, else as they are."""
+    return {name: dict(q, weight=route_weight(q['weight']))
+            for name, q in p.items()}
+
+
 def _refine(params: Params, fmap1: torch.Tensor, fmap2: torch.Tensor,
             cnet: torch.Tensor, iters: int, plain_kernels: bool = False,
             gru_passes: int = 3) -> torch.Tensor:
@@ -285,7 +295,10 @@ def _refine(params: Params, fmap1: torch.Tensor, fmap2: torch.Tensor,
     prep, lookup = corr_lookup.select_lookup(
         corr_lookup.lookup_impl_from_env(), fmap1.device, plain=plain_kernels)
     levels = prep(build_corr_pyramid(fmap1, fmap2, CORR_LEVELS))
-    fh, mk = up['flow_head'], up['mask']
+    # the per-iteration convolutions' weights, packed once per forward for
+    # the 3xTF32 kernel where that is the route
+    enc, fh = (route_weights(up[name]) for name in ('encoder', 'flow_head'))
+    mk = up['mask']
     gru = fuse_gru_params(up['gru'])
     gru_terms = gru_inp_terms(gru, inp)
 
@@ -293,7 +306,7 @@ def _refine(params: Params, fmap1: torch.Tensor, fmap2: torch.Tensor,
     for _ in range(iters):
         corr = lookup(levels, coords1)
         flow = coords1 - coords0
-        motion = motion_encoder(up['encoder'], flow, corr)
+        motion = motion_encoder(enc, flow, corr)
         net = sep_conv_gru(gru, gru_terms, net, motion, plain=plain_kernels,
                            passes=gru_passes)
         t = relu(_conv_b(fh['conv1'], net, padding=1))

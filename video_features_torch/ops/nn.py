@@ -13,7 +13,9 @@ Numerics follow the JAX functions:
     (:func:`library_conv`); inside :func:`conv_route` every
     :func:`conv` goes to the hand 3xTF32 kernel instead
     (``ops/conv_tf32x3.py``, the i3d and raft families under
-    ``precision=high`` and ``mixed``), or to its plain version;
+    ``precision=high`` and ``mixed``), or to its plain version; a weight
+    used by several calls is packed for the kernel once
+    (:func:`route_weight`);
   * batch norm is inference-only with running statistics, computed as
     ``(x - mean) * rsqrt(var + eps) * weight + bias``;
   * max pool pads with ``-inf`` (ceil mode and TF-SAME become explicit
@@ -107,21 +109,39 @@ def three_pass_route(enabled: bool, plain: bool = False):
     return conv_route('plain' if plain else 'kernel')
 
 
-def conv(x: torch.Tensor, weight: torch.Tensor, stride: IntOrTuple = 1,
+def route_weight(weight: torch.Tensor):
+    """``weight`` as this context's :func:`conv` should take it when it is
+    used by several calls: packed once for the 3xTF32 kernel
+    (``ops/conv_tf32x3.py::prepack``) on the ``'kernel'`` route, else as
+    it is."""
+    if _CONV_ROUTE.get() != 'kernel':
+        return weight
+    from video_features_torch.ops import conv_tf32x3 as k
+    return k.prepack(weight.contiguous())
+
+
+def conv(x: torch.Tensor, weight, stride: IntOrTuple = 1,
          padding: Padding = 0, bias: Optional[torch.Tensor] = None,
          groups: int = 1) -> torch.Tensor:
-    """N-D convolution, channels-last. weight: (O, I // groups, *spatial);
-    ``groups`` > 1 is a grouped convolution (ResNeXt's 3×3). Inside a
-    :func:`conv_route` it runs ``ops/conv_tf32x3.py`` (groups = 1 only),
-    else :func:`library_conv`."""
+    """N-D convolution, channels-last. weight: (O, I // groups, *spatial),
+    or :func:`route_weight`'s packed form of it; ``groups`` > 1 is a
+    grouped convolution (ResNeXt's 3×3). Inside a :func:`conv_route` it
+    runs ``ops/conv_tf32x3.py`` (groups = 1 only), else
+    :func:`library_conv`."""
     route = _CONV_ROUTE.get()
+    plain = weight if isinstance(weight, torch.Tensor) else weight.weight
     if route is None:
-        return library_conv(x, weight, stride, padding, bias, groups)
+        return library_conv(x, plain, stride, padding, bias, groups)
     if groups != 1:
         raise ValueError(f'the 3xTF32 convolution takes groups=1; got {groups}')
     from video_features_torch.ops import conv_tf32x3 as k
-    fn = k.conv_tf32x3 if route == 'kernel' else k.conv_tf32x3_plain
-    return fn(x.contiguous(), weight.contiguous(), stride, padding,
+    if route == 'plain':
+        fn, weight = k.conv_tf32x3_plain, plain.contiguous()
+    else:
+        fn = k.conv_tf32x3
+        if weight is plain:
+            weight = plain.contiguous()
+    return fn(x.contiguous(), weight, stride, padding,
               None if bias is None else bias.contiguous())
 
 
