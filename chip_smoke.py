@@ -82,7 +82,16 @@ package is not beside it. Phases:
    8 pairs (3 iterations) with the kernels against their plain versions
    (rel L2 ≤ 1e-3), one convolution launch per convolution (the code's
    count) and no cuDNN convolution, and the time of the fused step's
-   weight packs;
+   weight packs; then the families the lane took on next at their chip
+   sizes (resnet50 and resnext50_32x4d at batch 32, r2plus1d_18 at batch
+   4, S3D on one 64-frame stack, VGGish at batch 32), each step run once
+   under ``mixed`` with the kernel held to its plain version on the first
+   call of every distinct geometry, ResNeXt's grouped 3×3 among them (rel
+   L2 ≤ 1e-6), the convolutions counted against the reckoned number; the
+   heaviest convolution of each family and the heaviest grouped one
+   timed in turns against cuDNN in fp32 and in TF32 beside their 3xTF32
+   bound; the channel-pad copies of narrow inputs per step (r2plus1d_18's
+   3, 45, 230 and 921 channels) and their time;
 7. device resize: ``pil_resize_bilinear_device`` on the card byte-equal
    to the same function on the CPU, on seeded uint8 frames at six
    geometries (up, down, mixed, identity, 1080×1920 → 256×455), and its
@@ -223,13 +232,20 @@ package is not beside it. Phases:
    3xTF32 one present) and under ``tensorfloat32``;
    (c) resnet50, CLIP ViT-B/32, ViT-B/16 (at batch 1 and 32),
    r2plus1d_18 (batch 4), S3D (one 64-frame stack) and vggish (batch 32)
-   under ``highest``, ``high`` and ``compute_dtype=bfloat16``, and (d)
-   the first three under ``compute_dtype=int8``: rel L2 against the fp32
-   lane (bf16 and int8 held to the JAX package's bounds), ms per item,
-   peak memory, resident param bytes, no launches; (e)
+   under ``highest``, ``mixed`` (on resnet, r2plus1d_18, S3D and vggish
+   the three-pass lane: ``conv_tf32x3`` launches per step equal to the
+   reckoned count, 53, 37, 77 and 6, no lookup or GRU launch; one pass
+   of TF32 on CLIP and ViT-B/16), ``tensorfloat32`` and
+   ``compute_dtype=bfloat16``, resnext50_32x4d (batch 32) under the
+   three fp32 lanes (53 launches, 16 of them grouped), and (d) the first
+   three under ``compute_dtype=int8``: rel L2 against the fp32 lane (bf16
+   and int8 held to the JAX package's bounds), peak memory, resident
+   param bytes; ms per item of the three fp32 lanes in turns (highest,
+   mixed, tensorfloat32, then back), one traced ``mixed`` step of each
+   three-pass family with no cuDNN convolution; (e)
    ``pil_resize_bilinear_device`` under ``tensorfloat32`` byte-equal to
    PIL; then ``registry.MIXED_FEATURES`` must be exactly the families
-   whose drift under ``high`` is ≤ 1e-3, which load ``precision=mixed``,
+   whose drift under ``mixed`` is ≤ 1e-3, which load ``precision=mixed``,
    while the others refuse it naming ``precision``;
 20. feature cache: phase 17's four clips and a byte copy of the first
    under another name, the I3D path of 17 from ``create_extractor(
@@ -440,9 +456,12 @@ package is not beside it. Phases:
 The line before the last is the kernels' JSON record (``launches``: the
 sum over the path runs of phases 4, 5, 10, 17–24, 19 (b), 25 (a), 27
 (a)–(e) and 28 (c); the one-pass GRU instantiation is an entry of its
-own; the 3xTF32 convolution's launches are phase 19 (b)'s and 28 (c)'s,
-its times one RAFT iteration's seven convolutions at the fused batch-8
-size); the last line is ``{"ok": true, "device": {...}}``.
+own; the 3xTF32 convolution's launches are phase 19 (b)'s, 19 (c)'s and
+28 (c)'s, its times one RAFT iteration's seven convolutions at the fused
+batch-8 size; its grouped instantiations are an entry of their own, with
+resnext50_32x4d's grouped launches in 19 (c) and its heaviest grouped
+3×3 timed in phase 6); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -508,6 +527,28 @@ CONV_REL_L2 = 1e-5      # 3xTF32 against cuDNN's fp32 (TF32 off)
 # geometries
 CONV_SLOWER = 1.0
 I3D_TOWER_CONVS = 57    # 3 stem units and 9 Mixed blocks of 6 convolutions
+# the families the three-pass lane took on after i3d and raft, at their
+# chip sizes: (family, label, overrides, batch, seeded input of the step,
+# convolutions per step as reckoned from the arch: resnet50 and
+# resnext50_32x4d a stem, 16 bottlenecks of 3 and 4 downsamples, of them
+# 16 grouped in ResNeXt; r2plus1d_18 a stem pair, 8 blocks of 4 and 3
+# downsamples; S3D two separable stem units, a 1x1x1 and 9 Mixed blocks
+# of 8; VGGish 6)
+LANE_CONV_FAMILIES = (
+    ('resnet', 'resnet50', {'model_name': 'resnet50'}, 32,
+     lambda np, b: rand_frames(np, 80, (b, 224, 224, 3)), 53, 0),
+    ('resnet', 'resnext50_32x4d', {'model_name': 'resnext50_32x4d'}, 32,
+     lambda np, b: rand_frames(np, 84, (b, 224, 224, 3)), 53, 16),
+    ('r21d', 'r2plus1d_18', {}, 4,
+     lambda np, b: rand_frames(np, 81, (b, 16, 240, 320, 3)), 37, 0),
+    ('s3d', 's3d', {}, 1,
+     lambda np, b: rand_frames(np, 82, (b, 64, 256, 340, 3)), 77, 0),
+    ('vggish', 'vggish', {}, 32,
+     lambda np, b: (np.random.RandomState(83).rand(b, 1, 96, 64) * 7
+                    - 4.6).astype(np.float32), 6, 0),
+)
+# the kernel against its plain version on those families' geometries
+FAMILY_CONV_REL_L2 = 1e-6
 # device resize: the JAX package's test geometries plus a 1080p frame,
 # and the timed batch (raw 480×640 frames of 8 windows of 17)
 RESIZE_GEOMETRIES = ((240, 320, 256, 341), (360, 480, 256, 341),
@@ -571,11 +612,11 @@ FARM_FAMILIES = {'resnet': 'resnet50', 'clip': 'ViT-B/32',
 # an i3d window (17 × 256 × 341 × 3 uint8, 4.45 MB) must take the ring,
 # which ships windows of up to half its size
 FARM_MIN_RING_MB = 10
-# the precision lanes: highest (the reference), high and mixed (for i3d
-# and raft the three-pass lane: every convolution in 3xTF32, the libraries
-# in fp32; elsewhere mixed's arithmetic is high's: TF32 in cuDNN and
-# cuBLAS, the GRU kernel in 3xTF32) and tensorfloat32 (the one-pass GRU
-# kernel); the fused I3D step at the YAML's batch 8 (129 frames: 8
+# the precision lanes: highest (the reference), high and mixed (for i3d,
+# raft, r21d, s3d, resnet and vggish the three-pass lane: every
+# convolution in 3xTF32, the libraries in fp32; for clip and timm TF32 in
+# cuDNN and cuBLAS) and tensorfloat32 (the one-pass GRU kernel); the fused
+# I3D step at the YAML's batch 8 (129 frames: 8
 # windows, one step) and the RAFT family at batch 8 pairs; mixed is
 # admitted for a family whose drift against highest is at most MIXED_BAR
 LANE_PRECISIONS = ('highest', 'high', 'mixed', 'tensorfloat32')
@@ -1036,11 +1077,11 @@ class ConvShapes:
                       if name.endswith('weight')}
         self.records = {}
 
-    def __call__(self, x, weight, stride=1, padding=0, bias=None):
-        out = self.plain(x, weight, stride, padding, bias)
+    def __call__(self, x, weight, stride=1, padding=0, bias=None, groups=1):
+        out = self.plain(x, weight, stride, padding, bias, groups)
         key = (tuple(x.shape), tuple(weight.shape), repr(stride), repr(padding))
         if key not in self.records:
-            got = self.k.conv_tf32x3(x, weight, stride, padding, bias)
+            got = self.k.conv_tf32x3(x, weight, stride, padding, bias, groups)
             self.records[key] = {
                 'name': self.names.get(id(weight), 'gru context term'),
                 'x': tuple(x.shape), 'w': tuple(weight.shape),
@@ -1298,9 +1339,9 @@ def three_pass_plain_phase(torch, np, k, fused_params, raft_params,
     pack = k.pack_weight
     packed = {}                # the weights each step packs, by family
 
-    def recording(weight):
+    def recording(weight, groups=1):
         packed[family].append(weight)
-        return pack(weight)
+        return pack(weight, groups)
     for family, where, want, step in cases:
         packed[family] = []
         with torch.inference_mode(), precision_scope('mixed', family):
@@ -1346,6 +1387,179 @@ def three_pass_plain_phase(torch, np, k, fused_params, raft_params,
     return pack_ms
 
 
+class LaneShapes:
+    """Stands in for ``ops/conv_tf32x3.py::_launch`` while a family's step
+    runs on the three-pass lane: each call launches the kernel, and on the
+    first call of each distinct geometry its plain version runs on the
+    same tensors (the path's own activations and weights) and the kernel
+    is held to it. Weights are named from ``params``."""
+
+    def __init__(self, torch, k, params: dict, prefix: str) -> None:
+        from video_features_torch.transplant import flatten
+        self.torch, self.k, self.launch = torch, k, k._launch
+        self.names = {id(t): f'{prefix}{name[:-len(".weight")]}'
+                      for name, t in flatten(params).items()
+                      if name.endswith('weight')}
+        self.records = {}
+
+    def __call__(self, x, weight, packed, bias, strides, pads, groups=1):
+        out = self.launch(x, weight, packed, bias, strides, pads, groups)
+        key = (tuple(x.shape), tuple(weight.shape), tuple(strides),
+               tuple(pads), groups)
+        if key not in self.records:
+            pairs = list(zip(pads[0::2], pads[1::2]))
+            want = self.k.conv_tf32x3_plain(x, weight, strides, pairs, bias,
+                                            groups)
+            self.records[key] = {
+                'name': self.names.get(id(weight), '?'), 'x': tuple(x.shape),
+                'w': tuple(weight.shape), 'groups': groups,
+                'out': tuple(out.shape), 'rel': rel_l2(out, want),
+                'err': (out - want).abs().max().item(),
+                'args': (x, weight, list(strides), pairs, bias), 'calls': 0}
+        self.records[key]['calls'] += 1
+        return out
+
+
+def lane_conv_times(torch, k, args, groups: int, reps: int) -> dict:
+    """ms of one convolution in turns (kernel, cuDNN fp32, cuDNN TF32,
+    then the other way round; each the mean of its two turns), the weight
+    packed ahead: the kernel, ``library_conv`` with TF32 off and with it
+    on."""
+    from video_features_torch.ops.nn import library_conv
+    from video_features_torch.utils.device import set_precision
+    x, weight, stride, padding, bias = args
+    packed = k.PackedWeight(weight, k.pack_weight(weight, groups))
+    calls = {'ms': lambda: k.conv_tf32x3(x, packed, stride, padding, bias,
+                                         groups),
+             'library_ms': lambda: library_conv(x, weight, stride, padding,
+                                                bias, groups),
+             'library_tf32_ms': lambda: library_conv(x, weight, stride,
+                                                     padding, bias, groups)}
+    out = {key: 0.0 for key in calls}
+    with torch.inference_mode():
+        for key in (*calls, *reversed(tuple(calls))):
+            set_precision('tensorfloat32' if key == 'library_tf32_ms'
+                          else 'highest')
+            try:
+                out[key] += cuda_ms(torch, calls[key], reps) / 2
+            finally:
+                set_precision('highest')
+    return out
+
+
+def family_conv_phase(torch, np, k, card: str) -> dict:
+    """The 3xTF32 convolution on every distinct geometry of the lane's
+    newer families at their chip sizes (resnet50 and resnext50_32x4d at
+    batch 32, r2plus1d_18 at batch 4, S3D on one 64-frame stack, VGGish at
+    batch 32), each step run once on the lane in its scope, the kernel
+    held to its plain version on the path's own tensors (rel L2 ≤
+    FAMILY_CONV_REL_L2); the heaviest convolution of each family and the
+    heaviest grouped one timed in turns against cuDNN in fp32 and in TF32,
+    beside their 3xTF32 bound; the narrow inputs' channel-pad copies per
+    step and their time. Returns the grouped row of the kernels line."""
+    import torch.nn.functional as F
+    grouped = {'err': 0.0, 'rel': 0.0, 'instantiations': set()}
+    heaviest = []
+    for ft, label, overrides, batch, make, convs, _ in LANE_CONV_FAMILIES:
+        ex = lane_extractor(ft, 'mixed', 'float32', batch_size=batch,
+                            **overrides)
+        if not ex.three_pass_convs:
+            fail(f'{label} precision=mixed: three_pass_convs is off')
+        params = (dict(ex.model.named_parameters()) if ft == 'vggish'
+                  else ex.params)
+        shapes = LaneShapes(torch, k, params, '')
+        x = torch.from_numpy(make(np, batch)).cuda()
+        k._launch = shapes
+        try:
+            with torch.inference_mode(), ex.precision_scope():
+                ex.packed_step(x)
+            torch.cuda.synchronize()
+        finally:
+            k._launch = shapes.launch
+        records = list(shapes.records.values())
+        calls = sum(r['calls'] for r in records)
+        if calls != convs:
+            fail(f'{label}: {calls} convolutions on the lane, want {convs}')
+        for r in records:
+            b = conv_bounds(r['x'], r['w'], r['out'])
+            print(f'conv_tf32x3 [{label} at batch {batch}] {r["name"]} x '
+                  f'{r["x"]} w {r["w"]} groups {r["groups"]}: rel L2 '
+                  f'{r["rel"]:.3e}, max abs err {r["err"]:.3e}, '
+                  f'{b["flops"] / 1e9:.2f} GFLOP ({card})', flush=True)
+            if not r['rel'] <= FAMILY_CONV_REL_L2:
+                fail(f'conv_tf32x3 disagrees with its plain version on '
+                     f'{label} {r["name"]} {r["x"]} x {r["w"]} groups '
+                     f'{r["groups"]}: rel L2 {r["rel"]}')
+            if r['groups'] > 1:
+                grouped['err'] = max(grouped['err'], r['err'])
+                grouped['rel'] = max(grouped['rel'], r['rel'])
+                plan = k.conv_plan(math.prod(r['out'][:-1]), r['w'][0],
+                                   k._sms(0), r['groups'], r['w'][1])
+                grouped['instantiations'].add(
+                    f'conv_tf32x3_wgmma<{plan.bm // 64}, {plan.bn}>')
+        print(f'conv_tf32x3 [{label} at batch {batch}]: {len(records)} '
+              f'distinct geometries of {calls} convolutions held to the '
+              f'plain version, rel L2 at most '
+              f'{max(r["rel"] for r in records):.3e} ({card})', flush=True)
+        by_flops = sorted(records, key=lambda r: -conv_bounds(
+            r['x'], r['w'], r['out'])['flops'])
+        heaviest.append((label, by_flops[0]))
+        group_records = [r for r in by_flops if r['groups'] > 1]
+        if group_records:
+            heaviest.append((f'{label} grouped', group_records[0]))
+        # the narrow inputs' channel pads: one copy per such convolution
+        narrow = [r for r in records if r['x'][-1] % k.C_GROUP]
+        if narrow:
+            pads = [(r['args'][0], k.C_GROUP - r['x'][-1] % k.C_GROUP,
+                     r['calls']) for r in narrow]
+            with torch.inference_mode():
+                pad_ms = sum(n * cuda_ms(torch, lambda x=x, p=p: F.pad(
+                    x, (0, p)), 5) for x, p, n in pads)
+            print(f'conv_tf32x3 [{label} at batch {batch}]: '
+                  f'{sum(n for *_, n in pads)} channel-pad copies per step '
+                  f'(inputs of ' + ', '.join(sorted({str(r['x'][-1])
+                                                      for r in narrow}))
+                  + f' channels), {pad_ms:.4f} ms for all of them ({card})',
+                  flush=True)
+        del ex, x, shapes, records, by_flops, group_records, narrow
+    for label, r in heaviest:
+        t = lane_conv_times(torch, k, r['args'], r['groups'], 5)
+        b = conv_bounds(r['x'], r['w'], r['out'])
+        bound = max(b['tf32x3'], b['bytes'])
+        print(f'conv_tf32x3 heaviest [{label}] {r["name"]} x {r["x"]} w '
+              f'{r["w"]} groups {r["groups"]}: {t["ms"]:.4f} ms, cuDNN fp32 '
+              f'{t["library_ms"]:.4f} ms, cuDNN TF32 '
+              f'{t["library_tf32_ms"]:.4f} ms (in turns); bound '
+              f'{bound:.4f} ms ({"operations" if b["tf32x3"] >= b["bytes"] else "bytes"}, '
+              f'3xTF32 at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s), '
+              f'{bound / t["ms"]:.1%} of it; fp32 FMA bound {b["fp32"]:.4f} '
+              f'ms ({card})', flush=True)
+        if r['groups'] > 1 and 'ms' not in grouped:
+            with torch.inference_mode():
+                plain_ms = cuda_ms(torch, lambda: k.conv_tf32x3_plain(
+                    *r['args'], groups=r['groups']), 5)
+            grouped.update(
+                t, plain_ms=plain_ms, bound_ms=bound,
+                bound_by='operations' if b['tf32x3'] >= b['bytes'] else 'bytes',
+                fp32_bound_ms=b['fp32'], geometry={
+                    'x': r['x'], 'w': r['w'], 'groups': r['groups']})
+    print('conv_tf32x3: the grouped convolutions ran '
+          + ', '.join(sorted(grouped['instantiations'])) + f' ({card})',
+          flush=True)
+    del heaviest
+    torch.cuda.empty_cache()
+    return grouped
+
+
+def timed_build(name: str):
+    """``ops/_kernels.py::build(name)`` and its seconds (nvcc's, where the
+    library was not built yet)."""
+    from video_features_torch.ops import _kernels
+    t0 = time.perf_counter()
+    out = _kernels.build(name)
+    return out, time.perf_counter() - t0
+
+
 def sass_counts(path: Path, opcode: str) -> dict:
     """Instructions whose opcode starts with ``opcode``, per function of
     the built library's SASS (``cuobjdump -sass``)."""
@@ -1385,6 +1599,7 @@ def reset_counts(corr_lookup, gru) -> None:
     for passes in gru.gru_direction.launches_by_passes:
         gru.gru_direction.launches_by_passes[passes] = 0
     conv_tf32x3.conv_tf32x3.launches = 0
+    conv_tf32x3.conv_tf32x3.grouped_launches = 0
 
 
 def read_counts(corr_lookup, gru) -> dict:
@@ -2962,54 +3177,85 @@ def lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift,
     torch.cuda.empty_cache()
 
 
-def lanes_dtype_phase(torch, np, corr_lookup, gru, drift) -> None:
+def lane_step(torch, ex, ft: str, data):
+    """One step of a lane's extractor on ``data`` (VGGish through
+    ``_run_batched``, the others through ``run_step``): its output, the
+    param bytes resident and a callable that runs the step on the device
+    for the timing."""
+    if ft == 'vggish':
+        x = torch.from_numpy(data).to(ex.act_dtype).cuda()
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in ex.model.parameters())
+        return ex._run_batched(data), nbytes, lambda: ex.packed_step(x)
+    x = torch.from_numpy(data).cuda()
+    out = ex.run_step(data)[ft]
+    return out, params_nbytes(ex.params), lambda: ex.packed_step(x)
+
+
+def lanes_dtype_phase(torch, np, corr_lookup, gru, launches, drift,
+                      card: str) -> dict:
     """(c) and (d): each bf16 family at its config batch (the frame-wise
     ones at batch 32 too) under highest (the fp32 lane, the reference),
-    high (mixed's arithmetic), compute_dtype=bfloat16 and, for resnet50,
-    CLIP ViT-B/32 and ViT-B/16, compute_dtype=int8: rel L2 against the
-    fp32 lane (held to the JAX package's bounds), ms per frame, window or
-    example, peak device memory and resident param bytes; no kernel
-    launches."""
+    mixed (on r21d, s3d, resnet and vggish the three-pass lane: every
+    convolution in 3xTF32, the counts held to the reckoned number per
+    step; on clip and timm one pass of TF32), tensorfloat32,
+    compute_dtype=bfloat16 and, for resnet50, CLIP ViT-B/32 and ViT-B/16,
+    compute_dtype=int8, and resnext50_32x4d at batch 32 under the three
+    fp32 lanes: rel L2 against the fp32 lane (held to the JAX package's
+    bounds), peak device memory and resident param bytes, no lookup or GRU
+    launch; then the fp32 lanes' ms per item timed in turns (highest,
+    mixed, tensorfloat32, then back) and one traced mixed step of each
+    three-pass family with no cuDNN convolution. Returns the grouped
+    convolution's launches on resnext50_32x4d's mixed step."""
+    from video_features_torch.ops import conv_tf32x3
     from video_features_torch.ops import precision as lanes
     from video_features_torch.registry import BF16_FEATURES, INT8_FEATURES
-    for ft, model, overrides, batches, make in LANE_FAMILIES:
+    families = list(LANE_FAMILIES)
+    resnext = next(f for f in LANE_CONV_FAMILIES if f[1] == 'resnext50_32x4d')
+    families.insert(1, resnext[:3] + ((resnext[3],), resnext[4]))
+    reckoned = {f[1]: (f[5], f[6]) for f in LANE_CONV_FAMILIES}
+    grouped_launches = 0
+    for ft, model, overrides, batches, make in families:
         if ft not in BF16_FEATURES:
             fail(f'{ft} is not in registry.BF16_FEATURES')
-        runs = [('highest', 'float32'), ('high', 'float32'),
-                ('highest', 'bfloat16')]
-        if ft in INT8_FEATURES:
-            runs.append(('highest', 'int8'))
+        fp32 = ('highest', 'mixed', 'tensorfloat32')
+        runs = [(prec, 'float32') for prec in fp32]
+        if model != 'resnext50_32x4d':
+            runs.append(('highest', 'bfloat16'))
+            if ft in INT8_FEATURES:
+                runs.append(('highest', 'int8'))
         data = {batch: make(np, batch) for batch in batches}
-        ref = {}
+        ref, timed = {}, {}
         for prec, dtype in runs:
             ex = lane_extractor(ft, prec, dtype, batch_size=batches[0],
                                 **overrides)
             for batch in batches:
                 reset_counts(corr_lookup, gru)
-                if ft == 'vggish':
-                    out = ex._run_batched(data[batch])
-                    x = torch.from_numpy(data[batch]).to(ex.act_dtype).cuda()
-                    with torch.inference_mode(), ex.precision_scope():
-                        ms = cuda_ms(torch, lambda: ex.model(x), 5)
-                        torch.cuda.synchronize()
-                        torch.cuda.reset_peak_memory_stats()
-                        ex.model(x)
-                        torch.cuda.synchronize()
-                    peak = torch.cuda.max_memory_allocated()
-                    nbytes = sum(p.numel() * p.element_size()
-                                 for p in ex.model.parameters())
+                with torch.inference_mode():
+                    torch.cuda.reset_peak_memory_stats()
+                    out, nbytes, step = lane_step(torch, ex, ft, data[batch])
+                    torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                counts = read_counts(corr_lookup, gru)
+                grouped = conv_tf32x3.conv_tf32x3.grouped_launches
+                where = f'{model} batch {batch} ({prec}, {dtype})'
+                if ex.three_pass_convs:
+                    convs, groups = reckoned[model]
+                    if counts['conv'] != convs or grouped != groups or any(
+                            v for key, v in counts.items() if key != 'conv'):
+                        fail(f'{where}: launches {counts}, grouped {grouped}; '
+                             f'want {convs} conv_tf32x3 launches ({groups} '
+                             f'grouped) and no other kernel')
+                    launches['conv'] += counts['conv']
+                    grouped_launches += grouped
                 else:
-                    out, ms, peak = timed_step(torch, ex, data[batch], 5)
-                    out = out[ft]
-                    nbytes = params_nbytes(ex.params)
-                check_no_launches(read_counts(corr_lookup, gru),
-                                  f'{model} lane ({prec}, {dtype})')
+                    check_no_launches(counts, where)
                 if out.dtype != np.float32 or not np.isfinite(out).all():
                     fail(f'{model} ({prec}, {dtype}): output {out.dtype}, '
                          f'finite {np.isfinite(out).all()}')
                 line = (f'{model} batch {batch} precision={prec} '
-                        f'compute_dtype={dtype}: {ms / batch:.4f} ms per item, '
-                        f'peak {peak / 2**20:.1f} MiB, params '
+                        f'compute_dtype={dtype}: launches {counts} (grouped '
+                        f'{grouped}), peak {peak / 2**20:.1f} MiB, params '
                         f'{nbytes / 2**20:.1f} MiB')
                 if batch not in ref:
                     ref[batch] = out
@@ -3023,11 +3269,38 @@ def lanes_dtype_phase(torch, np, corr_lookup, gru, drift) -> None:
                         if not 0 < rel <= bound:
                             fail(f'{model} {dtype} lane rel L2 {rel} not in '
                                  f'(0, {bound}]')
-                    else:
+                    elif prec == 'mixed':
                         drift[ft] = max(drift.get(ft, 0.0), rel)
-                print(line, flush=True)
-            del ex
+                print(line + f' ({card})', flush=True)
+                if dtype == 'float32':
+                    timed[(prec, batch)] = (step, ex.precision_scope)
+                else:
+                    with torch.inference_mode(), ex.precision_scope():
+                        ms = cuda_ms(torch, step, 5)
+                    print(f'{model} batch {batch} compute_dtype={dtype}: '
+                          f'{ms / batch:.4f} ms per item ({card})', flush=True)
+            if dtype == 'float32' and prec == 'mixed' and ex.three_pass_convs:
+                groups = step_breakdown(torch, ex, data[batches[-1]])
+                if groups and (groups.get('conv', 0)
+                               or not groups.get(CONV_KERNEL)):
+                    fail(f'{model} precision=mixed: the traced step ran cuDNN '
+                         f'convolutions or no 3xTF32 one: {dict(groups)}')
+            ex = None
+        # the fp32 lanes' steps in turns: highest, mixed, tensorfloat32,
+        # tensorfloat32, mixed, highest, each the mean of its two turns
+        for batch in batches:
+            ms = {prec: 0.0 for prec in fp32}
+            for prec in (*fp32, *reversed(fp32)):
+                step, scope = timed[(prec, batch)]
+                with torch.inference_mode(), scope():
+                    ms[prec] += cuda_ms(torch, step, 5) / 2
+            print(f'{model} batch {batch}: ms per item in turns, highest '
+                  f'{ms["highest"] / batch:.4f}, mixed '
+                  f'{ms["mixed"] / batch:.4f}, tensorfloat32 '
+                  f'{ms["tensorfloat32"] / batch:.4f} ({card})', flush=True)
+        del timed
         torch.cuda.empty_cache()
+    return grouped_launches
 
 
 def lanes_resize_phase(torch, np, transforms) -> None:
@@ -3060,7 +3333,8 @@ def lanes_phase(torch, np, corr_lookup, gru, transforms, launches, pr14,
     rec = gru_one_pass_phase(torch, gru, pr14, build_log, lib_path)
     drift = {}
     lanes_flow_phase(torch, np, corr_lookup, gru, launches, drift, card)
-    lanes_dtype_phase(torch, np, corr_lookup, gru, drift)
+    rec['grouped_launches'] = lanes_dtype_phase(torch, np, corr_lookup, gru,
+                                                launches, drift, card)
     lanes_resize_phase(torch, np, transforms)
     print('precision=mixed drift (rel L2 against highest, max over streams '
           'and flow fields): ' + json.dumps(
@@ -5861,13 +6135,15 @@ def main() -> int:
     with ThreadPoolExecutor(len(KERNELS) + 2) as pool:
         # the one-pass yardstick of phase 19 (a), built beside the kernels
         pr14_job = pool.submit(variants.build, 'pr14_one_pass')
-        built = list(pool.map(_kernels.build, KERNELS + (CONV_KERNEL,)))
+        timed_builds = list(pool.map(timed_build, KERNELS + (CONV_KERNEL,)))
         pr14 = pr14_job.result()[0]
-    for name, (path, log) in zip(KERNELS + (CONV_KERNEL,), built):
+    built = [b for b, _ in timed_builds]
+    for name, ((path, log), secs) in zip(KERNELS + (CONV_KERNEL,),
+                                         timed_builds):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line or 'entry function' in line:
                 print(f'  ptxas {name}:', line.strip())
-        print(f'built {path.name}', flush=True)
+        print(f'built {path.name} in {secs:.1f} s', flush=True)
     hgmma = sass_count(built[KERNELS.index('gru_direction')][0], 'HGMMA')
     print(f'gru_direction SASS: {hgmma} HGMMA instructions', flush=True)
     if not hgmma:
@@ -5944,14 +6220,16 @@ def main() -> int:
     step_timing(torch, np, ex, fused_two_stream_step, pad_amounts)
     print(f'plain phase {time.perf_counter() - t:.1f} s', flush=True)
 
-    t = phase('the 3xTF32 convolution: every geometry of the fused I3D step '
-              'and the RAFT family against its plain version, timed beside '
-              'cuDNN; the three-pass lane end to end')
+    t = phase('the 3xTF32 convolution: every geometry of the fused I3D step, '
+              'the RAFT family, resnet50, resnext50_32x4d, r2plus1d_18, S3D '
+              'and VGGish against its plain version, timed beside cuDNN; the '
+              'three-pass lane end to end')
     from video_features_torch.ops import conv_tf32x3
     rec['conv'] = conv_phase(torch, np, conv_tf32x3, ex.params, rex.params,
                              card, built[-1][1])
     rec['conv']['pack_ms'] = three_pass_plain_phase(
         torch, np, conv_tf32x3, ex.params, rex.params, card)
+    rec['conv_grouped'] = family_conv_phase(torch, np, conv_tf32x3, card)
     print(f'conv phase {time.perf_counter() - t:.1f} s ({card})', flush=True)
 
     t = phase('device resize')
@@ -6006,11 +6284,13 @@ def main() -> int:
     print(f'farm phase {time.perf_counter() - t:.1f} s', flush=True)
 
     t = phase('precision lanes (the one-pass GRU kernel; I3D and RAFT under '
-              'highest, high, mixed and tensorfloat32; the bf16 and int8 '
-              'lanes; the device resize under TF32)')
+              'highest, high, mixed and tensorfloat32; the frame-wise, r21d, '
+              's3d and vggish families under highest, mixed, tensorfloat32, '
+              'bf16 and int8; the device resize under TF32)')
     gru_built = built[KERNELS.index('gru_direction')]
     rec['gru1'] = lanes_phase(torch, np, corr_lookup, gru, transforms, launches,
                               pr14, gru_built[1], gru_built[0], card)
+    rec['conv_grouped']['launches'] = rec['gru1'].pop('grouped_launches')
     print(f'lanes phase {time.perf_counter() - t:.1f} s', flush=True)
 
     t = phase('feature cache (I3D at batch 8 per video, packed through the '
@@ -6110,6 +6390,20 @@ def main() -> int:
                 'family_seven_bound_ms', 'i3d_three', 'pack_ms', 'registers',
                 'spill_bytes'):
         kernels[4][key] = rec['conv'][key]
+    # the grouped convolutions (tiles over whole groups, on the
+    # conv_tf32x3_wgmma instantiations listed): resnext50_32x4d's mixed
+    # step's grouped launches, its heaviest grouped 3x3 timed
+    g = rec['conv_grouped']
+    kernels.append({
+        'name': 'conv_tf32x3_grouped', 'route': 'cuda',
+        'source': 'video_features_torch/csrc/conv_tf32x3.cu',
+        'replaces': 'video_features_tpu/models/resnet.py:65',
+        'launches': g['launches'], 'max_abs_err': g['err'], 'ms': g['ms'],
+        'plain_ms': g['plain_ms'], 'bound_ms': g['bound_ms'],
+        'bound_by': g['bound_by'], 'library_ms': g['library_ms'],
+        'library_tf32_ms': g['library_tf32_ms'],
+        'fp32_bound_ms': g['fp32_bound_ms'], 'geometry': g['geometry'],
+        'instantiations': sorted(g['instantiations'])})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

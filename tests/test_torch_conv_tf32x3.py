@@ -326,7 +326,13 @@ def test_conv_route_values_and_restore():
         with nn.three_pass_route(True):
             seen.append(nn._CONV_ROUTE.get())
         seen.append(nn._CONV_ROUTE.get())
-        with pytest.raises(ValueError, match='groups=1'):
+        # a grouped convolution takes the route too (the plain version
+        # here); one the kernel cannot tile raises on the kernel's route
+        # rather than falling back to the library
+        assert torch.equal(nn.conv(x, w[:, :1], stride, padding, b, groups=2),
+                           nn.library_conv(x, w[:, :1], stride, padding, b, 2))
+        with nn.conv_route('kernel'), pytest.raises(ValueError,
+                                                    match='no tile'):
             nn.conv(x, w[:, :1], stride, padding, b, groups=2)
     assert seen == ['plain', 'kernel', 'plain'] and nn._CONV_ROUTE.get() is None
 
@@ -465,10 +471,13 @@ def test_the_mixed_raft_program_has_one_conv_node_per_convolution():
 # -- the lane's flags ---------------------------------------------------------
 
 
+THREE_PASS_FAMILIES = ('i3d', 'raft', 'r21d', 's3d', 'resnet', 'vggish')
+
+
 def test_lane_table():
     for ft in registry.EXTRACTORS:
         for precision in device.PRECISIONS:
-            three = ft in ('i3d', 'raft') and precision in ('high', 'mixed')
+            three = ft in THREE_PASS_FAMILIES and precision in ('high', 'mixed')
             assert device.three_pass_convs(precision, ft) == three
             assert device.library_tf32(precision, ft) == (
                 device.LANES[precision][0] and not three)
@@ -477,21 +486,21 @@ def test_lane_table():
         device.three_pass_convs('bogus', 'i3d')
 
 
-def test_i3d_and_resnet_mixed_on_two_threads_see_their_own_flags(
+def test_i3d_and_clip_mixed_on_two_threads_see_their_own_flags(
         tmp_path, spies):
     """An i3d-mixed extractor (every conv through the 3xTF32 op, TF32 off)
-    and a resnet-mixed one (cuDNN under TF32) stepping at once on two
-    threads: each sees its own flags and route, and the flags found are
-    restored."""
+    and a clip-mixed one (one pass: the libraries under TF32) stepping at
+    once on two threads: each sees its own flags and route, and the flags
+    found are restored."""
     i3d_ex = create_extractor(load_config('i3d', _args(
         tmp_path, 'i3d', 'mixed', streams='rgb', stack_size=10,
         step_size=10, batch_size=1)))
-    res_ex = create_extractor(load_config('resnet', _args(
-        tmp_path, 'resnet', 'mixed', model_name='resnet18')))
+    clip_ex = create_extractor(load_config('clip', _args(
+        tmp_path, 'clip', 'mixed')))
     stacks = np.random.RandomState(5).randint(
         0, 256, (1, 11, 64, 64, 3)).astype(np.uint8)
-    frames = np.random.RandomState(6).randint(
-        0, 256, (1, 64, 64, 3)).astype(np.uint8)
+    frames = np.random.RandomState(6).randint(      # ViT-B/32's own size
+        0, 256, (1, 224, 224, 3)).astype(np.uint8)
     outside = (torch.backends.cuda.matmul.allow_tf32,
                torch.backends.cudnn.allow_tf32)
     start = threading.Barrier(2)
@@ -505,7 +514,7 @@ def test_i3d_and_resnet_mixed_on_two_threads_see_their_own_flags(
         except BaseException as e:          # noqa: BLE001 — reported below
             errors.append(e)
     threads = [threading.Thread(target=run, args=a, name=n) for n, a in
-               (('i3d', (i3d_ex, stacks)), ('resnet', (res_ex, frames)))]
+               (('i3d', (i3d_ex, stacks)), ('clip', (clip_ex, frames)))]
     for t in threads:
         t.start()
     for t in threads:
@@ -513,7 +522,7 @@ def test_i3d_and_resnet_mixed_on_two_threads_see_their_own_flags(
     assert not errors
     assert {c for c in spies['kernel']} == {(False, False, 'i3d')}
     assert len(spies['kernel']) == 2 * I3D_TOWER_CONVS
-    assert {c for c in spies['library']} == {(True, True, 'resnet')}
+    assert {c for c in spies['library']} == {(True, True, 'clip')}
     assert (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32) == outside
 
@@ -633,10 +642,10 @@ def _old_fingerprint(args):
 
 @pytest.mark.parametrize('ft', sorted(registry.EXTRACTORS))
 def test_the_fingerprint_separates_the_three_pass_lane(tmp_path, ft):
-    """i3d and raft under high and mixed key apart from every key they had
-    before (a cached or resumed high output of the TF32 lane, or of the
-    three-pass lane's earlier mma.sync kernel, never answers); every other
-    family and lane keeps its key."""
+    """i3d, raft, r21d, s3d, resnet and vggish under high and mixed key
+    apart from every key they had before (a cached or resumed high output
+    of the TF32 lane, or of the three-pass lane's earlier mma.sync kernel,
+    never answers); every other family and lane keeps its key."""
     assert key.THREE_PASS_TOKEN == 'conv_tf32x3.wgmma'
     for precision in device.PRECISIONS:
         overrides = _args(tmp_path, ft, precision)
@@ -644,7 +653,7 @@ def test_the_fingerprint_separates_the_three_pass_lane(tmp_path, ft):
             overrides['model_name'] = 'vit_tiny_patch16_224'
         args = load_config(ft, overrides)
         new, old = key.config_fingerprint(args), _old_fingerprint(args)
-        if ft in ('i3d', 'raft') and precision in ('high', 'mixed'):
+        if ft in THREE_PASS_FAMILIES and precision in ('high', 'mixed'):
             assert new != old
             assert new == _old_fingerprint(dict(
                 args, lane_arithmetic=key.THREE_PASS_TOKEN))

@@ -275,8 +275,34 @@ CONV_GEOMETRIES = [
     ((16, 32, 43, 128), (2, 128, 3, 3), 1, 1),                   # flow head
     ((16, 32, 43, 128), (256, 128, 1, 5), 1, [(0, 0), (2, 2)]),  # GRU term
     ((300, 7, 9, 64), (64, 64, 3, 3), 1, 1),                     # tiny images
+    # a path geometry or two of each family the lane took on next:
+    # resnet's stem and 1x1 stride-2 downsample, r21d's (1, 7, 7) stem on 3
+    # channels (O = 45) and a temporal stride-2 conv on 230 (padded to
+    # 232), s3d's spatial (1, 3, 3) and its bias-carrying fc, vggish's
+    # 1-channel first conv and its 512 -> 512
+    ((2, 56, 56, 3), (64, 3, 7, 7), 2, 3),                       # resnet stem
+    ((2, 28, 28, 256), (512, 256, 1, 1), 2, 0),                  # downsample
+    ((1, 4, 28, 28, 3), (45, 3, 1, 7, 7), (1, 2, 2), [(0, 0), (3, 3), (3, 3)]),
+    ((1, 8, 14, 14, 230), (128, 230, 3, 1, 1), (2, 1, 1), [(1, 1), (0, 0), (0, 0)]),
+    ((1, 4, 14, 14, 96), (128, 96, 1, 3, 3), 1, [(0, 0), (1, 1), (1, 1)]),
+    ((1, 3, 1, 1, 1024), (400, 1024, 1, 1, 1), 1, 0),            # s3d fc
+    ((4, 96, 64, 1), (64, 1, 3, 3), 1, 1),                       # vggish conv1
+    ((4, 12, 8, 512), (512, 512, 3, 3), 1, 1),                   # vggish conv6
 ]
 CONV_REL_L2 = 1e-5      # 3xTF32 against cuDNN's fp32 (TF32 off)
+
+# ResNeXt's grouped 3x3 at each width (resnext50_32x4d's 128..1024 in
+# groups of 4..32 channels, resnext101_32x8d's 2048 in groups of 64,
+# resnext101_64x4d's 256 in 64 groups of 4), one strided: (x shape, weight
+# shape, groups, stride)
+GROUPED_CONV_GEOMETRIES = [
+    ((2, 28, 28, 128), (128, 4, 3, 3), 32, 1),
+    ((2, 28, 28, 256), (256, 8, 3, 3), 32, 2),
+    ((2, 14, 14, 512), (512, 16, 3, 3), 32, 1),
+    ((2, 7, 7, 1024), (1024, 32, 3, 3), 32, 1),
+    ((2, 7, 7, 2048), (2048, 64, 3, 3), 32, 1),
+    ((2, 28, 28, 256), (256, 4, 3, 3), 64, 1),
+]
 
 
 @pytest.mark.cuda
@@ -300,6 +326,32 @@ def test_conv_kernel_matches_plain_on_the_card(xs, ws, stride, padding):
     got = k.conv_tf32x3(x, w, stride, padding)
     want = k.conv_tf32x3_plain(x, w, stride, padding)
     assert ((got - want).norm() / want.norm()).item() <= CONV_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('xs,ws,groups,stride', GROUPED_CONV_GEOMETRIES)
+def test_grouped_conv_kernel_matches_plain_on_the_card(xs, ws, groups,
+                                                       stride):
+    """A grouped convolution in one launch, each tile reading only its
+    groups' channels, against cuDNN's fp32 grouped convolution; two
+    launches byte-equal, and a weight packed ahead byte-equal too."""
+    from video_features_torch.ops import conv_tf32x3 as k
+    dev = _cuda()
+    rng = np.random.RandomState(15)
+    x = torch.from_numpy(rng.randn(*xs).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(*ws) * 0.05).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(ws[0]).astype(np.float32)).to(dev)
+    before = k.conv_tf32x3.launches
+    got = k.conv_tf32x3(x, w, stride, 1, b, groups)
+    want = k.conv_tf32x3_plain(x, w, stride, 1, b, groups)
+    again = k.conv_tf32x3(x, w, stride, 1, b, groups)
+    packed = k.conv_tf32x3(x, k.PackedWeight(w, k.pack_weight(w, groups)),
+                           stride, 1, b, groups)
+    torch.cuda.synchronize()
+    assert k.conv_tf32x3.launches == before + 3
+    assert got.shape == want.shape
+    assert ((got - want).norm() / want.norm()).item() <= CONV_REL_L2
+    assert torch.equal(got, again) and torch.equal(got, packed)
 
 
 @pytest.mark.cuda

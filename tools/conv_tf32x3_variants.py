@@ -116,7 +116,7 @@ def build(name: str):
     if proc.returncode:
         raise SystemExit(f'{name}: nvcc failed\n{proc.stderr}')
     dll = ctypes.CDLL(str(lib))
-    dll.vft_conv_tf32x3.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 22
+    dll.vft_conv_tf32x3.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 25
                                     + [ctypes.c_void_p])
     dll.vft_conv_tf32x3.restype = ctypes.c_int
     return dll
@@ -183,8 +183,8 @@ def main(argv=None) -> int:
         def call(lib):
             rc = lib.vft_conv_tf32x3(
                 x4.data_ptr(), packed.data_ptr(), None, y.data_ptr(), xs[0], t,
-                h, wd, c4, *geo, plan.bm, plan.bn, plan.tiles, packed.shape[1],
-                torch.cuda.current_stream().cuda_stream)
+                h, wd, c4, *geo, c4, c4, ws[0], plan.bm, plan.bn, plan.tiles,
+                packed.shape[1], torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f'{name}: launch failed, CUDA error {rc}')
         times = {v: [] for v in names}

@@ -55,12 +55,12 @@ def _canonical(obj: Any) -> str:
     return json.dumps(obj, sort_keys=True, default=repr)
 
 
-# the arithmetic token of the three-pass lane: i3d and raft under high
-# and mixed run every convolution in 3xTF32 (utils/device.py::
-# three_pass_convs), other bytes than their earlier TF32 lane, so an
-# output written before it never answers; it names the kernel's design
-# (csrc/conv_tf32x3.cu on wgmma), whose summation order differs from the
-# mma.sync design's that keyed 'conv_tf32x3' before it
+# the arithmetic token of the three-pass lane: i3d, raft, r21d, s3d,
+# resnet and vggish under high and mixed run every convolution in 3xTF32
+# (utils/device.py::three_pass_convs), other bytes than their earlier
+# TF32 lane, so an output written before it never answers; it names the
+# kernel's design (csrc/conv_tf32x3.cu on wgmma), whose summation order
+# differs from the mma.sync design's that keyed 'conv_tf32x3' before it
 THREE_PASS_TOKEN = 'conv_tf32x3.wgmma'
 
 
@@ -73,8 +73,10 @@ def config_fingerprint(args: Mapping[str, Any]) -> str:
                 if k not in CONFIG_KEY_EXCLUDE and not is_file_key(k)}
     if relevant.get('compute_dtype') is None:
         relevant['compute_dtype'] = 'float32'
+    # utils/device.py::three_pass_convs's rule (that module imports torch)
     if args.get('precision') in THREE_PASS_PRECISIONS \
-            and args.get('feature_type') in THREE_PASS_CONV_FEATURES:
+            and args.get('feature_type') in THREE_PASS_CONV_FEATURES \
+            and args.get('compute_dtype') != 'bfloat16':
         relevant['lane_arithmetic'] = THREE_PASS_TOKEN
     return hashlib.sha256(_canonical(relevant).encode()).hexdigest()
 

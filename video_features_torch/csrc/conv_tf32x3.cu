@@ -7,8 +7,8 @@
 // 'high': three bf16 products per fp32 product
 // (video_features_tpu/extract/base.py:177, ops/precision.py:34-44). cuDNN and
 // cuBLAS have no three-pass mode, so on the card those lanes get this kernel
-// for every convolution of the i3d and raft families
-// (ops/conv_tf32x3.py, ops/nn.py::conv_route). It is the Hopper form of the
+// for every convolution of the i3d, raft, r21d, s3d, resnet and vggish
+// families (ops/conv_tf32x3.py, ops/nn.py::conv_route). It is the Hopper form of the
 // TPU's three passes, with the arithmetic of csrc/gru_direction.cu: each
 // operand x splits into hi = tf32(x) and lo = tf32(x - hi), both rounded to
 // nearest (cvt.rna.tf32.f32), and every 32-K chunk accumulates lo*hi +
@@ -17,8 +17,19 @@
 // What it computes: y = conv(x, w) + bias with x (N, T, H, W, C) and y (N,
 // OT, OH, OW, O) channels-last (2-D convolutions are T = KT = 1), each
 // spatial axis with its own stride and its own zero padding per edge (I3D's
-// TF-SAME pads are asymmetric), groups = 1, fp32 in and out. C is a
-// multiple of 4: the wrapper pads a 2- or 3-channel input to 4, one copy.
+// TF-SAME pads are asymmetric), groups G >= 1 (ResNeXt's 3x3), fp32 in and
+// out. C is a multiple of 4: the wrapper pads an input of 2, 3, 45 or 921
+// channels to the next multiple of 4, one copy.
+//
+// Grouped convolutions (G > 1, IG = C / G input and OG = O / G output
+// channels per group): an output tile covers whole groups (BN a multiple of
+// OG) or lies inside one (OG a multiple of BN), and its K loop reads only
+// the CIN input channels of the groups it covers, from channel
+// (tile * BN / OG) * IG on. Its packed weight is that tile's block
+// diagonal, zeros off the blocks: ResNeXt's 4 channels per group at the
+// narrowest tile of 8 do 2x the products, 8 to 64 channels per group none
+// wasted. Never one dense (O, C) weight across the groups (G times the
+// products).
 //
 // What bounds it on the H100: operations, at the path's shapes. The
 // heaviest convolution of RAFT's refinement iteration at the fused batch-8
@@ -32,8 +43,9 @@
 // computes BM = 64 * WGS output pixels x BN output channels with WGS
 // warpgroups; M = pixels, N = output channels, K = taps x channels.
 //
-//   * K order: taps (kt, kh, kw row-major) and, in each tap, the input
-//     channels, C4 = C padded to 4. A 32-K chunk is eight 4-channel groups,
+//   * K order: taps (kt, kh, kw row-major) and, in each tap, the tile's CIN
+//     input channels (C padded to 4 where G = 1). A 32-K chunk is eight
+//     4-channel groups,
 //     each inside one tap, and may span taps: one rule for every C, where
 //     the mma.sync design below copied narrow inputs 4 bytes at a time and
 //     padded wide ones to 32 per tap (up to 2x wasted products at I3D's C =
@@ -181,7 +193,9 @@ struct Conv {
   int kt, kh, kw;      // taps per axis
   int st, sh, sw;      // strides
   int pt, ph, pw;      // low-side zero padding
-  int groups;          // 4-channel groups of K that hold data: taps * C / 4
+  int cin;             // input channels a tile reads per tap, a multiple of 4
+  int ig, og;          // input and output channels per convolution group
+  int quads;           // 4-channel groups of K that hold data: taps * CIN / 4
   int chunks;          // 32-K chunks
   int stages;          // ring depth, 2..kMaxStages
 };
@@ -535,8 +549,11 @@ conv_tf32x3_wgmma(const Conv g) {
   // zero-filled outside the input and past K; every thread arrives on
   // full[s] once its copies have landed.
   const int j = tid % 8;
-  const int cg = g.c / 4;                // groups per tap
+  const int cg = g.cin / 4;              // 4-channel groups per tap
   const int khw = g.kh * g.kw;
+  // the tile's first input channel: its first convolution group's (0 for
+  // G = 1, where every tile starts below OG = O)
+  const int cbase = (int)((long long)tile * BN / g.og) * g.ig;
   const float* wsrc = g.w + (size_t)tile * g.chunks * (T::kWBytes / 4);
   const uint32_t adst = smem_addr(astage) + (tid / 8) * kLda * 4 + 16 * j;
   auto stage_chunk = [&](int q, int s) {
@@ -545,11 +562,12 @@ conv_tf32x3_wgmma(const Conv g) {
       bulk_load(wstage + s * T::kWBytes, wsrc + (size_t)q * (T::kWBytes / 4),
                 T::kWBytes, bar);
     const int grp = q * 8 + j;
-    const bool kin = grp < g.groups;
+    const bool kin = grp < g.quads;
     const int tap = kin ? grp / cg : 0;
     const int dt = tap / khw, rem = tap - dt * khw;
     const int dh = rem / g.kw, dw = rem - dh * g.kw;
-    const int off = ((dt * g.h + dh) * g.w_ + dw) * g.c + (grp - tap * cg) * 4;
+    const int off = ((dt * g.h + dh) * g.w_ + dw) * g.c + cbase
+                    + (grp - tap * cg) * 4;
     const uint32_t dst = adst + s * T::kABytes;
 #pragma unroll
     for (int i = 0; i < T::kCopies; ++i) {
@@ -1025,23 +1043,35 @@ extern "C" {
 // w: ops/conv_tf32x3.py::pack_weight's (tiles, chunks, 2, bn, 32); bias: (o)
 // or null; y: (n, ot, oh, ow, o), which the caller allocates. Strides and
 // low-side pads per axis; the high-side pads are implied by the output
-// extent. A 2-D convolution passes t = ot = kt = st = 1 and pt = 0. bm, bn
-// and tiles: ops/conv_tf32x3.py::conv_plan's tile. Returns a CUDA error
-// code.
+// extent. A 2-D convolution passes t = ot = kt = st = 1 and pt = 0. ig and
+// og: the input and output channels per convolution group (c and o for
+// groups = 1, c padded); cin: the input channels a tile reads per tap (c for
+// groups = 1; the channels of the groups a tile covers for groups > 1). bm,
+// bn, tiles and cin: ops/conv_tf32x3.py::conv_plan's tile. Returns a CUDA
+// error code.
 int vft_conv_tf32x3(const void* x, const void* w, const void* bias, void* y,
                     int n, int t, int h, int width, int c, int ot, int oh,
                     int ow, int o, int kt, int kh, int kw, int st, int sh,
-                    int sw, int pt, int ph, int pw, int bm, int bn, int tiles,
-                    int chunks, void* stream) {
+                    int sw, int pt, int ph, int pw, int cin, int ig, int og,
+                    int bm, int bn, int tiles, int chunks, void* stream) {
   if (n < 0 || t < 1 || h < 1 || width < 1 || c < 4 || c % 4 != 0 || ot < 0
       || oh < 0 || ow < 0 || o < 1 || kt < 1 || kh < 1 || kw < 1 || st < 1
       || sh < 1 || sw < 1 || pt < 0 || ph < 0 || pw < 0
-      || (bm != 64 && bm != 128) || bn < 8 || bn % 8 != 0 || tiles < 1)
+      || (bm != 64 && bm != 128) || bn < 8 || bn % 8 != 0 || tiles < 1
+      || cin < 4 || cin % 4 != 0 || ig < 1 || og < 1 || c % ig != 0
+      || o % og != 0 || c / ig != o / og)
     return (int)cudaErrorInvalidValue;
-  const long long groups = (long long)kt * kh * kw * (c / 4);
-  if ((long long)n * t * h * width * c >= (1LL << 31)
-      || groups * 4 >= (1LL << 31) || chunks != (groups + 7) / 8
-      || (long long)tiles * bn < o || (long long)(tiles - 1) * bn >= o)
+  // a tile covers whole groups, or lies inside one, and reads the input
+  // channels of exactly those groups; one group: every channel
+  const int groups = c / ig;
+  const bool tiled = groups == 1
+      ? (ig == c && og == o && cin == c)
+      : ((bn % og == 0 && cin == bn / og * ig) || (og % bn == 0 && cin == ig));
+  const long long quads = (long long)kt * kh * kw * (cin / 4);
+  if (!tiled || (long long)n * t * h * width * c >= (1LL << 31)
+      || quads * 4 >= (1LL << 31) || chunks != (quads + 7) / 8
+      || (long long)tiles * bn < o || (long long)(tiles - 1) * bn >= o
+      || ((long long)(tiles - 1) * bn / og) * ig + cin > c)
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(w) % 16 != 0
       || reinterpret_cast<uintptr_t>(x) % 16 != 0)
@@ -1051,7 +1081,7 @@ int vft_conv_tf32x3(const void* x, const void* w, const void* bias, void* y,
   Conv g{static_cast<const float*>(x), static_cast<const float*>(w),
          static_cast<const float*>(bias), static_cast<float*>(y), m,
          t, h, width, c, ot, oh, ow, o, kt, kh, kw, st, sh, sw, pt, ph, pw,
-         (int)groups, chunks, 0};
+         cin, ig, og, (int)quads, chunks, 0};
   int device = 0, optin = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)

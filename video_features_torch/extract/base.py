@@ -197,8 +197,8 @@ class BaseExtractor:
         # (ops/precision.py)
         self.precision, self.compute_dtype = check_lanes(args)
         self.gru_passes = gru_passes(self.precision)
-        self.three_pass_convs = three_pass_convs(self.precision,
-                                                 self.feature_type)
+        self.three_pass_convs = three_pass_convs(
+            self.precision, self.feature_type, self.compute_dtype)
         self.act_dtype = activation_dtype(self.compute_dtype)
         self.concat_rgb_flow = bool(args.get('concat_rgb_flow', False))
         self.tmp_path = str(args.get('tmp_path', './tmp'))
@@ -252,7 +252,8 @@ class BaseExtractor:
         """The TF32 flags of this extractor's ``precision`` in its family
         (off where its convolutions run in 3xTF32), restored on exit:
         every step of this extractor runs inside it."""
-        return precision_scope(self.precision, self.feature_type)
+        return precision_scope(self.precision, self.feature_type,
+                               self.compute_dtype)
 
     def lane_label(self) -> str:
         """This extractor's lanes, for the stage tables' titles."""
@@ -636,7 +637,12 @@ class BaseExtractor:
 
     def kernel_libraries(self) -> tuple:
         """The kernel libraries (``csrc/<name>.cu``) this extractor's steps
-        launch on its device: none, unless a family says otherwise."""
+        launch on its device: on the card under ``high`` and ``mixed`` the
+        3xTF32 convolution's where :attr:`three_pass_convs` holds (r21d,
+        s3d, resnet, vggish), else none, unless a family says
+        otherwise."""
+        if self.device.type == 'cuda' and self.three_pass_convs:
+            return ('conv_tf32x3',)
         return ()
 
     def _aot_reach(self) -> None:

@@ -59,14 +59,17 @@ def model_def(model_name: str) -> dict:
 
 
 def r21d_step(params, stacks: torch.Tensor, arch: str,
-              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              dtype: torch.dtype = torch.float32,
+              three_pass_convs: bool = False) -> torch.Tensor:
     """(B, stack, H, W, 3) uint8 → (B, 512) float32 features: [0, 1] in
     ``dtype`` (the lane's activations) → resize to 128×171 → normalize →
-    crop 112 → R(2+1)D."""
+    crop 112 → R(2+1)D, every convolution in 3xTF32 under
+    ``three_pass_convs``."""
     x = resize_bilinear(to_float_zero_one(stacks, dtype), (128, 171))
     x = center_crop(normalize(x, r21d_model.MEAN, r21d_model.STD), 112)
-    return features_to_f32(r21d_model.forward(params, x, arch=arch,
-                                              features=True))
+    return features_to_f32(r21d_model.forward(
+        params, x, arch=arch, features=True,
+        three_pass_convs=three_pass_convs))
 
 
 class ExtractR21D(StackPackingMixin, BaseExtractor):
@@ -129,7 +132,8 @@ class ExtractR21D(StackPackingMixin, BaseExtractor):
         (batch, 512)}."""
         return {self.feature_type: r21d_step(self.params, stacks,
                                              self.model_def['arch'],
-                                             self.act_dtype)}
+                                             self.act_dtype,
+                                             self.three_pass_convs)}
 
     def program_specs(self, mesh=None):
         """The packed step's program: raw uint8 decode-geometry stacks
@@ -139,7 +143,8 @@ class ExtractR21D(StackPackingMixin, BaseExtractor):
             'step', r21d_step,
             (self._program_batch_slots(mesh), self.stack_size, h, w, 3),
             torch.uint8, mesh,
-            kwargs=dict(arch=self.model_def['arch'], dtype=self.act_dtype))]
+            kwargs=dict(arch=self.model_def['arch'], dtype=self.act_dtype,
+                        three_pass_convs=self.three_pass_convs))]
 
     def step(self, stacks: np.ndarray) -> np.ndarray:
         """One (batch, stack, H, W, 3) uint8 batch → (batch, 512)."""

@@ -28,14 +28,17 @@ RESIZE_OVERRIDES = {'resnext101_64x4d': 232}
 
 
 def resnet_step(params, frames: torch.Tensor, arch: str,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32,
+                three_pass_convs: bool = False) -> torch.Tensor:
     """(B, H, W, 3) uint8 → (B, feat_dim) float32: [0, 1] in ``dtype``
-    (the lane's activations) → normalize → ResNet; int8 weights are
-    dequantized first."""
+    (the lane's activations) → normalize → ResNet, every convolution in
+    3xTF32 under ``three_pass_convs``; int8 weights are dequantized
+    first."""
     x = normalize(to_float_zero_one(frames, dtype), resnet_model.MEAN,
                   resnet_model.STD)
     return features_to_f32(resnet_model.forward(
-        dequantize_tree(params), x, arch=arch, features=True))
+        dequantize_tree(params), x, arch=arch, features=True,
+        three_pass_convs=three_pass_convs))
 
 
 class ExtractResNet(BaseFrameWiseExtractor):
@@ -62,7 +65,8 @@ class ExtractResNet(BaseFrameWiseExtractor):
                 'bilinear')
 
     def step_program(self):
-        return resnet_step, dict(arch=self.model_name, dtype=self.act_dtype)
+        return resnet_step, dict(arch=self.model_name, dtype=self.act_dtype,
+                                 three_pass_convs=self.three_pass_convs)
 
     def maybe_show_pred(self, feats: np.ndarray) -> None:
         """Each frame's ImageNet-1k top-5 from ``fc`` on its features."""

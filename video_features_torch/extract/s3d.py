@@ -46,14 +46,17 @@ def resize_geometry(h: int, w: int) -> Tuple[Tuple[int, int], float]:
 
 
 def s3d_step(params, stacks: torch.Tensor, features: bool = True,
-             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+             dtype: torch.dtype = torch.float32,
+             three_pass_convs: bool = False) -> torch.Tensor:
     """(B, stack, H, W, 3) uint8 → (B, 1024) float32 features (or (B,
     400) logits): [0, 1] in ``dtype`` (the lane's activations) → resize
-    at the given scale (in ``dtype``) → crop 224 → S3D."""
+    at the given scale (in ``dtype``) → crop 224 → S3D, every
+    convolution in 3xTF32 under ``three_pass_convs``."""
     size, scale = resize_geometry(*stacks.shape[2:4])
     x = resize_bilinear_scale(to_float_zero_one(stacks, dtype), size, scale)
-    return features_to_f32(s3d_model.forward(params, center_crop(x, SIZE),
-                                             features=features))
+    return features_to_f32(s3d_model.forward(
+        params, center_crop(x, SIZE), features=features,
+        three_pass_convs=three_pass_convs))
 
 
 class ExtractS3D(StackPackingMixin, BaseExtractor):
@@ -110,8 +113,9 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
     def packed_step(self, stacks: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One (batch, stack, H, W, 3) uint8 device batch → {'s3d':
         (batch, 1024)}."""
-        return {self.feature_type: s3d_step(self.params, stacks,
-                                            dtype=self.act_dtype)}
+        return {self.feature_type: s3d_step(
+            self.params, stacks, dtype=self.act_dtype,
+            three_pass_convs=self.three_pass_convs)}
 
     def program_specs(self, mesh=None):
         """The packed step's program at the lock geometry."""
@@ -119,7 +123,9 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
         return [self._program_spec(
             'step', s3d_step,
             (self._program_batch_slots(mesh), self.stack_size, h, w, 3),
-            torch.uint8, mesh, kwargs=dict(dtype=self.act_dtype))]
+            torch.uint8, mesh,
+            kwargs=dict(dtype=self.act_dtype,
+                        three_pass_convs=self.three_pass_convs))]
 
     def step(self, stacks: np.ndarray, features: bool = True) -> np.ndarray:
         """One (batch, stack, H, W, 3) uint8 batch → (batch, 1024), or
@@ -129,7 +135,9 @@ class ExtractS3D(StackPackingMixin, BaseExtractor):
         x = torch.from_numpy(stacks).to(self.device)
         with torch.inference_mode(), self.precision_scope():
             return s3d_step(self.params, x, features=False,
-                            dtype=self.act_dtype).cpu().numpy()
+                            dtype=self.act_dtype,
+                            three_pass_convs=self.three_pass_convs
+                            ).cpu().numpy()
 
     def maybe_show_pred(self, stacks: np.ndarray, start: int, end: int) -> None:
         """The window's top-5, recomputed through the classifier head."""

@@ -29,19 +29,22 @@ from video_features_torch.cache.key import run_fingerprint
 from video_features_torch.config import check_vggish_args
 from video_features_torch.extract.base import BaseExtractor
 from video_features_torch.models import vggish as vggish_model
-from video_features_torch.ops.precision import features_to_f32
 from video_features_torch.ops.audio import SAMPLE_RATE, waveform_to_examples
+from video_features_torch.ops.nn import three_pass_route
+from video_features_torch.ops.precision import features_to_f32
 from video_features_torch.transplant import flatten
 
 BATCH = 32      # examples per device step (a 30 s clip is ~31 examples)
 
 
-def vggish_program(params, examples: torch.Tensor, model, dtype):
+def vggish_program(params, examples: torch.Tensor, model, dtype,
+                   three_pass_convs: bool = False):
     """:meth:`ExtractVGGish.packed_step` with ``model``'s state
     ``params`` passed in: ``(B, 1, 96, 64)`` examples → (B, 128)
-    float32."""
-    return features_to_f32(torch.func.functional_call(
-        model, params, (examples.to(dtype),)))
+    float32, every convolution in 3xTF32 under ``three_pass_convs``."""
+    with three_pass_route(three_pass_convs):
+        return features_to_f32(torch.func.functional_call(
+            model, params, (examples.to(dtype),)))
 
 
 class ExtractVGGish(BaseExtractor):
@@ -164,9 +167,11 @@ class ExtractVGGish(BaseExtractor):
 
     def packed_step(self, examples: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``(B, 1, 96, 64)`` float32 examples on the device → {'vggish':
-        (B, 128)} float32, the VGG run in the lane's dtype."""
-        return {self.feature_type: features_to_f32(
-            self.model(examples.to(self.act_dtype)))}
+        (B, 128)} float32, the VGG run in the lane's dtype (its six
+        convolutions in 3xTF32 under ``high`` and ``mixed``)."""
+        with three_pass_route(self.three_pass_convs):
+            return {self.feature_type: features_to_f32(
+                self.model(examples.to(self.act_dtype)))}
 
     def program_specs(self, mesh=None):
         """The step's program: one batch of ``batch_size`` examples
@@ -182,4 +187,5 @@ class ExtractVGGish(BaseExtractor):
         return [self._program_spec(
             'step', vggish_program, (b, 1, 96, 64), torch.float32, mesh,
             params=dict(self.model.state_dict()),
-            kwargs=dict(model=self.model, dtype=self.act_dtype))]
+            kwargs=dict(model=self.model, dtype=self.act_dtype,
+                        three_pass_convs=self.three_pass_convs))]

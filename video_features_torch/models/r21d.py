@@ -12,7 +12,12 @@ kt, kh, kw) layout. Layout NDHWC: input (B, T, 112, 112, 3), normalized.
     count that matches a full 3-D conv's parameter budget;
   * the first block of layers 2-4 strides 2 in time and space, its
     shortcut a 1×1×1 conv at stride (2, 2, 2) → BN;
-  * global average pool → 512-d features, or ``fc`` logits.
+  * global average pool → 512-d features, or ``fc`` logits;
+  * ``three_pass_convs`` sends every convolution (the stem's two, four
+    per basic block, three downsamples: 37 in r2plus1d_18, 69 in
+    r2plus1d_34) to the 3xTF32 convolution (``ops/conv_tf32x3.py``),
+    under ``precision=high`` and ``mixed``; an input of 3, 45, 230 or 921 channels is padded to a
+    multiple of 4 there, one copy each; ``fc`` stays in cuBLAS.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 
 from video_features_torch.ops.nn import (
-    adaptive_avg_pool, batch_norm, conv, linear, relu,
+    adaptive_avg_pool, batch_norm, conv, linear, relu, three_pass_route,
 )
 
 Params = Dict[str, Any]
@@ -68,9 +73,16 @@ def _stem(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, x: torch.Tensor, arch: str = 'r2plus1d_18',
-            features: bool = True) -> torch.Tensor:
+            features: bool = True,
+            three_pass_convs: bool = False) -> torch.Tensor:
     """(B, T, H, W, 3) normalized video → (B, 512) features or (B, 400)
     logits."""
+    with three_pass_route(three_pass_convs):
+        return _forward(params, x, arch, features)
+
+
+def _forward(params: Params, x: torch.Tensor, arch: str,
+             features: bool) -> torch.Tensor:
     x = _stem(params['stem'], x)
     for layer_idx, num_blocks in enumerate(ARCHS[arch]['blocks'], start=1):
         layer = params[f'layer{layer_idx}']

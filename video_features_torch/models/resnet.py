@@ -11,7 +11,12 @@ kw) layout. Layout NHWC: input (B, H, W, 3), normalized.
     3×3 is grouped for ResNeXt; the first block of layers 2-4 strides 2
     on its 3×3 (torchvision's V1.5), its shortcut a strided 1×1 conv →
     BN;
-  * global average pool → features, or ``fc`` logits.
+  * global average pool → features, or ``fc`` logits;
+  * ``three_pass_convs`` sends every convolution (the stem, each block's
+    convs, ResNeXt's grouped 3×3 among them, and the downsamples: 20 in
+    resnet18, 53 in resnet50) to the 3xTF32 convolution
+    (``ops/conv_tf32x3.py``), under ``precision=high`` and ``mixed``;
+    ``fc`` stays in cuBLAS.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 
 from video_features_torch.ops.nn import (
     adaptive_avg_pool, batch_norm, conv, linear, max_pool, relu,
+    three_pass_route,
 )
 
 Params = Dict[str, Any]
@@ -83,9 +89,16 @@ def _bottleneck(p: Params, x: torch.Tensor, stride: int,
 
 
 def forward(params: Params, x: torch.Tensor, arch: str = 'resnet50',
-            features: bool = True) -> torch.Tensor:
+            features: bool = True,
+            three_pass_convs: bool = False) -> torch.Tensor:
     """(B, H, W, 3) normalized image → (B, feat_dim) features, or (B,
     num_classes) logits."""
+    with three_pass_route(three_pass_convs):
+        return _forward(params, x, arch, features)
+
+
+def _forward(params: Params, x: torch.Tensor, arch: str,
+             features: bool) -> torch.Tensor:
     cfg = arch_def(arch)
     if cfg['block'] == 'basic':
         block_fn = _basic_block

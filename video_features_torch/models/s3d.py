@@ -11,7 +11,12 @@ layout. Layout NDHWC: input (B, T, 224, 224, 3) in [0, 1].
   * inception blocks Mixed_3b … Mixed_5c, whose branch 3 max-pools
     3×3×3 at stride 1 with a ``-inf`` pad of 1;
   * head: average pool over (2, H, W) at stride 1, the 1×1×1 ``fc``
-    conv (logits only), then the mean over the T - 1 positions.
+    conv (logits only), then the mean over the T - 1 positions;
+  * ``three_pass_convs`` sends every convolution (the separable ones'
+    spatial and temporal halves, the 1×1×1 ones, and the bias-carrying
+    ``fc`` with ``features=False``: 77 for features) to the 3xTF32
+    convolution (``ops/conv_tf32x3.py``), under ``precision=high`` and
+    ``mixed``.
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from video_features_torch.ops.nn import avg_pool, batch_norm, conv, max_pool, relu
+from video_features_torch.ops.nn import (
+    avg_pool, batch_norm, conv, max_pool, relu, three_pass_route,
+)
 
 Params = Dict[str, Any]
 
@@ -79,9 +86,15 @@ def _mixed(p: Params, x: torch.Tensor) -> torch.Tensor:
     return torch.cat([b0, b1, b2, b3], dim=-1)
 
 
-def forward(params: Params, x: torch.Tensor, features: bool = True) -> torch.Tensor:
+def forward(params: Params, x: torch.Tensor, features: bool = True,
+            three_pass_convs: bool = False) -> torch.Tensor:
     """(B, T, H, W, 3) float in [0, 1] → (B, 1024) features or (B, 400)
     logits."""
+    with three_pass_route(three_pass_convs):
+        return _forward(params, x, features)
+
+
+def _forward(params: Params, x: torch.Tensor, features: bool) -> torch.Tensor:
     base = params['base']
     for idx, (kind, spec) in enumerate(BASE_LAYOUT):
         p = base.get(str(idx))

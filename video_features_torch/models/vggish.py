@@ -12,6 +12,14 @@ torchvggish flattens its (B, 512, 6, 4) map channels-last (two
 transposes); :meth:`VGGish.forward` does the same with a permute. A plain
 ``flatten(1)`` has the same width and computes something else.
 
+Inside an ``ops/nn.py::conv_route`` (``precision=high`` and ``mixed``,
+the three-pass lane) the forward runs channels-last instead, its six
+convolutions with their biases through ``ops/nn.py::conv`` (the 3xTF32
+convolution; the 1-channel input padded to 4 there, one copy), the pools
+through ``ops/nn.py::max_pool``, and the (B, 6, 4, 512) map flattens as it
+lies, which is torchvggish's order; the linears stay in cuBLAS. Outside a
+route the module's own layers run, as before.
+
 :func:`postprocess` is the AudioSet release's PCA-whiten + 8-bit
 quantization, which the reference's default path bypasses.
 """
@@ -22,6 +30,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 import torch.nn as nn
+
+from video_features_torch.ops import nn as nn_ops
 
 FEAT_DIM = 128
 # torch make_layers(): ints are 3x3 convs + ReLU, 'M' a 2x2 max pool
@@ -50,9 +60,23 @@ class VGGish(nn.Module):
         self.embeddings = nn.Sequential(*embeddings)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if nn_ops.conv_route_active():
+            return self.embeddings(self._routed_features(x))
         x = self.features(x)                      # (B, 512, 6, 4)
         x = x.permute(0, 2, 3, 1).flatten(1)      # torchvggish's flatten
         return self.embeddings(x)
+
+    def _routed_features(self, x: torch.Tensor) -> torch.Tensor:
+        """``features`` channels-last through ``ops/nn.py``'s conv route,
+        flattened in torchvggish's order: (B, 1, 96, 64) → (B, 12288)."""
+        x = x.permute(0, 2, 3, 1)                 # (B, 96, 64, 1)
+        for layer in self.features:
+            if isinstance(layer, nn.Conv2d):
+                x = nn_ops.relu(nn_ops.conv(x, layer.weight, padding=1,
+                                            bias=layer.bias))
+            elif isinstance(layer, nn.MaxPool2d):
+                x = nn_ops.max_pool(x, 2)
+        return x.flatten(1)                       # (B, 6, 4, 512) as it lies
 
 
 def build(state_dict: Mapping[str, torch.Tensor], device) -> VGGish:

@@ -1,12 +1,12 @@
 """A convolution in 3xTF32 on the tensor cores: a CUDA kernel, its plain
 PyTorch version, the weight pack and the tile plan between them.
 
-On the TPU the JAX package runs every convolution of the fused RAFT →
-I3D step and of the RAFT step with the ambient matmul precision of its
-lane, and ``precision=mixed`` and ``high`` mean three bf16 products per
-fp32 product there (``video_features_tpu/extract/base.py:177``).
-cuDNN and cuBLAS have no three-pass mode, so under those two lanes the
-i3d and raft families send every convolution here instead
+On the TPU the JAX package runs every convolution of every family with
+the ambient matmul precision of its lane, and ``precision=mixed`` and
+``high`` mean three bf16 products per fp32 product there
+(``video_features_tpu/extract/base.py:177``). cuDNN and cuBLAS have no
+three-pass mode, so under those two lanes the i3d, raft, r21d, s3d,
+resnet and vggish families send every convolution here instead
 (``utils/device.py::three_pass_convs``, ``ops/nn.py::conv_route``),
 with the libraries' TF32 off for what stays in them.
 
@@ -14,9 +14,10 @@ Kernel (``csrc/conv_tf32x3.cu``, CUDA C++ for sm_90a,
 ``conv_tf32x3_wgmma<WGS, BN>``): an implicit-GEMM convolution,
 channels-last, 2-D ``(N, H, W, C)`` or 3-D ``(N, T, H, W, C)``, a stride
 and a zero padding per edge for each spatial axis (I3D's TF-SAME pads are
-asymmetric, so no ``pad_spatial`` copy is made), groups = 1, an optional
-bias, fp32 in and out. Each operand splits into hi = tf32(x) and lo =
-tf32(x - hi) (:func:`~video_features_torch.ops.gru.tf32_split`,
+asymmetric, so no ``pad_spatial`` copy is made), ``groups`` ≥ 1
+(ResNeXt's grouped 3×3), an optional bias, fp32 in and out. Each operand
+splits into hi = tf32(x) and lo = tf32(x - hi)
+(:func:`~video_features_torch.ops.gru.tf32_split`,
 ``cvt.rna.tf32.f32``) and every 32-K chunk accumulates lo·hi + hi·lo +
 hi·hi on ``wgmma`` into a fresh accumulator that is then added to the
 running sum in fp32: fp32-class results. It replaces no Pallas kernel:
@@ -26,9 +27,21 @@ shapes (the source's note gives the design).
 K order: the taps (row-major over ``*k``) and, inside each tap, the
 input channels padded to a multiple of :data:`C_GROUP` (4), so every
 16-byte copy of an input row is 4 channels of one tap and a 32-K chunk
-may span taps. An input of 2 or 3 channels (the I3D stems, the RAFT
-encoders' frames, RAFT's flow input) is padded to 4 channels by the
-wrapper, one copy. :func:`pack_weight` turns torch's ``(O, I, *k)`` into
+may span taps. An input whose channels are not a multiple of 4 (2 or 3:
+the stems and RAFT's flow input; 45, 230 and 921: R(2+1)D's midplanes; 1:
+VGGish's log-mel) is padded by the wrapper, one copy.
+
+Groups (``groups`` = G > 1, the weight ``(O, I/G, *k)``): an output tile
+covers whole groups, or lies inside one (:func:`channel_tiles`), and its
+K reads only the input channels of the groups it covers
+(:func:`tile_inputs`, from the tile's first group on); its packed weight
+is the tile's block diagonal, zeros off the blocks. The products wasted
+are the tile's groups, ``bn / (O/G)``: 2× at ResNeXt's 4 channels per
+group on the narrowest tile of 8, none from 8 on. A grouped geometry
+no tile fits (one whose tile would read a channel count that is not a
+multiple of 4) raises.
+
+:func:`pack_weight` turns torch's ``(O, I, *k)`` into
 the kernel's operand, hi and lo already split, K-major in the 128-byte
 swizzle ``wgmma`` reads; :func:`conv_plan` picks the tile (pixels ×
 output channels) for a call. A weight used by many calls (RAFT's seven
@@ -38,7 +51,8 @@ packed at the call.
 
 The wrapper launches the kernel on a CUDA tensor (or raises) and takes
 the plain version only for a CPU tensor; ``conv_tf32x3.launches``
-counts one per launch. :func:`conv_tf32x3_mma` launches the kernel's
+counts one per launch, and ``grouped_launches`` those with ``groups`` >
+1. :func:`conv_tf32x3_mma` launches the kernel's
 earlier ``mma.sync`` design (``vft_conv_tf32x3_mma``, its own pack
 :func:`pack_weight_mma`): a yardstick that ``chip_smoke.py`` and the
 card's tests time and hold beside the kernel, on no path.
@@ -77,28 +91,63 @@ class Plan(NamedTuple):
     tiles: int
 
 
-def channel_tiles(o: int) -> Tuple[int, int]:
+def channel_tiles(o: int, groups: int = 1,
+                  ig: Optional[int] = None) -> Tuple[int, int]:
     """``(bn, tiles)``: ``o`` output channels as equal tiles of a
-    :data:`TILE_WIDTHS` width, the fewest tiles that can hold them or one
-    more, whichever pads fewer channels (ties to fewer tiles): 2 → one of
-    8, 192 → 2 × 96, 576 → 6 × 96, 126 → one of 128."""
+    :data:`TILE_WIDTHS` width. One group: the fewest tiles that can hold
+    them or one more, whichever pads fewer channels (ties to fewer tiles):
+    2 → one of 8, 192 → 2 × 96, 576 → 6 × 96, 126 → one of 128.
+    ``groups`` > 1 (``ig`` input channels per group): tiles that cover
+    whole groups, or lie inside one, with no pad and a 4-aligned input
+    span (:func:`tile_inputs`), the fewest wasted products first (a tile
+    over k groups does k times a group's), then the widest: 4 channels
+    per group → 8, 8 → 8, 16 → 16, 64 → 64, 256 → 128."""
     if o < 1:
         raise ValueError(f'output channels must be >= 1; got {o}')
-    first = -(-o // TILE_WIDTHS[-1])
-    best = None
-    for tiles in (first, first + 1):
-        bn = next(w for w in TILE_WIDTHS if w >= -(-o // tiles))
-        if best is None or tiles * bn < best[0] * best[1]:
-            best = (bn, tiles)
-    return best
+    if groups == 1:
+        first = -(-o // TILE_WIDTHS[-1])
+        best = None
+        for tiles in (first, first + 1):
+            bn = next(w for w in TILE_WIDTHS if w >= -(-o // tiles))
+            if best is None or tiles * bn < best[0] * best[1]:
+                best = (bn, tiles)
+        return best
+    og = o // groups
+    fits = []
+    for bn in TILE_WIDTHS:
+        span = bn // og if bn % og == 0 else 1
+        if (bn % og == 0 and groups % span == 0) or og % bn == 0:
+            if tile_inputs(ig, o, groups, bn) % C_GROUP == 0:
+                fits.append((span, -bn))
+    if not fits:
+        raise ValueError(
+            f'no tile of the 3xTF32 convolution fits groups={groups} with '
+            f'{ig} input and {og} output channels per group: a tile covers '
+            f'whole groups or lies inside one, and reads a multiple of '
+            f'{C_GROUP} input channels')
+    bn = -min(fits)[1]
+    return bn, o // bn
 
 
-def conv_plan(m: int, o: int, sms: int = SMS) -> Plan:
+def tile_inputs(ig: int, o: int, groups: int, bn: int) -> int:
+    """The input channels one output tile of width ``bn`` reads per tap:
+    every channel, padded to :data:`C_GROUP`, for one group; those of the
+    groups the tile covers (one group's where it lies inside one) for
+    ``groups`` > 1."""
+    if groups == 1:
+        return _round_up(ig, C_GROUP)
+    og = o // groups
+    return ig * (bn // og if bn % og == 0 else 1)
+
+
+def conv_plan(m: int, o: int, sms: int = SMS, groups: int = 1,
+              ig: Optional[int] = None) -> Plan:
     """The tile of a call with ``m`` output pixels and ``o`` output
-    channels: :func:`channel_tiles` along the channels; 128 pixels per
-    block, or 64 where 128 would leave fewer blocks than the card has
-    SMs (RAFT's per-iteration convolutions at 8 pairs, M = 10,752)."""
-    bn, tiles = channel_tiles(o)
+    channels (``groups`` of ``ig`` input channels each):
+    :func:`channel_tiles` along the channels; 128 pixels per block, or 64
+    where 128 would leave fewer blocks than the card has SMs (RAFT's
+    per-iteration convolutions at 8 pairs, M = 10,752)."""
+    bn, tiles = channel_tiles(o, groups, ig)
     bm = 128 if -(-m // 128) * tiles >= sms else 64
     return Plan(bm, bn, tiles)
 
@@ -109,30 +158,48 @@ def k_chunks(channels: int, taps: int) -> int:
     return -(-taps * _round_up(channels, C_GROUP) // K_CHUNK)
 
 
-def packed_shape(weight_shape: Sequence[int]) -> Tuple[int, ...]:
-    """:func:`pack_weight`'s shape for an ``(O, I, *k)`` weight: (tiles,
-    chunks, 2 (hi, lo), bn, 32)."""
-    O, I = weight_shape[:2]
-    bn, tiles = channel_tiles(O)
-    return (tiles, k_chunks(I, math.prod(weight_shape[2:])), 2, bn, K_CHUNK)
+def packed_shape(weight_shape: Sequence[int],
+                 groups: int = 1) -> Tuple[int, ...]:
+    """:func:`pack_weight`'s shape for an ``(O, I/groups, *k)`` weight:
+    (tiles, chunks, 2 (hi, lo), bn, 32)."""
+    O, ig = weight_shape[:2]
+    bn, tiles = channel_tiles(O, groups, ig)
+    cin = tile_inputs(ig, O, groups, bn)
+    return (tiles, k_chunks(cin, math.prod(weight_shape[2:])), 2, bn,
+            K_CHUNK)
 
 
-def pack_weight(weight: torch.Tensor) -> torch.Tensor:
-    """``(O, I, *k)`` → the kernel's operand ``(tiles, chunks, 2, bn,
-    32)``: the GEMM's B matrix (K = taps × channels padded to 4 per tap,
-    then to a multiple of 32; O padded to ``tiles × bn``, zeros in every
-    pad) cut into one (bn × 32) tile per output tile and K chunk, split
-    into TF32 hi and lo parts (:func:`~video_features_torch.ops.gru.
-    tf32_split`), each row's 32 K values in the kernel's fragment order
-    (``ops/gru.py::K_ORDER``) and stored in the 128-byte swizzle
-    (``ops/gru.py::_swizzle``). A tile's hi and lo parts are contiguous,
-    one bulk copy per ring stage."""
-    O, I = weight.shape[:2]
+def _group_slots(o: int, ig: int, groups: int,
+                 bn: int) -> Tuple[int, torch.Tensor]:
+    """``(span, slot)``: the groups a tile's K covers, and for each output
+    channel the position of its group among them (0 for one group)."""
+    span = tile_inputs(ig, o, groups, bn) // ig if groups > 1 else 1
+    return span, (torch.arange(o) // (o // groups)) % span
+
+
+def pack_weight(weight: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """``(O, I/groups, *k)`` → the kernel's operand ``(tiles, chunks, 2,
+    bn, 32)``: the GEMM's B matrix (K = taps × the tile's input channels,
+    padded to 4 per tap, then to a multiple of 32; O padded to ``tiles ×
+    bn``, zeros in every pad; for ``groups`` > 1 each tile's block
+    diagonal, an output channel's weights at its group's channels and
+    zeros at the other groups' of the tile) cut into one (bn × 32) tile
+    per output tile and K chunk, split into TF32 hi and lo parts
+    (:func:`~video_features_torch.ops.gru.tf32_split`), each row's 32 K
+    values in the kernel's fragment order (``ops/gru.py::K_ORDER``) and
+    stored in the 128-byte swizzle (``ops/gru.py::_swizzle``). A tile's
+    hi and lo parts are contiguous, one bulk copy per ring stage."""
+    O, ig = weight.shape[:2]
     taps = math.prod(weight.shape[2:])
-    c4 = _round_up(I, C_GROUP)
-    tiles, chunks, _, bn, _ = packed_shape(weight.shape)
-    w = weight.reshape(O, I, taps).transpose(1, 2)               # (O, taps, I)
-    w = F.pad(w, (0, c4 - I)).reshape(O, taps * c4)
+    tiles, chunks, _, bn, _ = packed_shape(weight.shape, groups)
+    c4 = tile_inputs(ig, O, groups, bn)
+    w = weight.reshape(O, ig, taps).transpose(1, 2)              # (O, taps, I/G)
+    if groups > 1:
+        span, slot = _group_slots(O, ig, groups, bn)
+        own = (slot[:, None] == torch.arange(span)).to(w.device)
+        w = torch.where(own[:, None, :, None], w[:, :, None, :],
+                        w.new_zeros(())).reshape(O, taps, span * ig)
+    w = F.pad(w, (0, c4 - w.shape[-1])).reshape(O, taps * c4)
     w = F.pad(w, (0, chunks * K_CHUNK - taps * c4, 0, tiles * bn - O))
     w = w.reshape(tiles, bn, chunks, K_CHUNK).transpose(1, 2).contiguous()
     parts = torch.stack(tf32_split(w), dim=2)                    # (t, q, 2, bn, 32)
@@ -171,15 +238,20 @@ def unpack_matrix(packed: torch.Tensor) -> torch.Tensor:
     return w.permute(1, 3, 0, 2).reshape(chunks * K_CHUNK, tiles * bn)
 
 
-def unpack_weight(packed: torch.Tensor,
-                  weight_shape: Sequence[int]) -> torch.Tensor:
-    """The inverse of :func:`pack_weight`: the ``(O, I, *k)`` weight its
-    parts hold, hi + lo."""
-    O, I = weight_shape[:2]
+def unpack_weight(packed: torch.Tensor, weight_shape: Sequence[int],
+                  groups: int = 1) -> torch.Tensor:
+    """The inverse of :func:`pack_weight`: the ``(O, I/groups, *k)``
+    weight its parts hold, hi + lo (each output channel's from its
+    group's block)."""
+    O, ig = weight_shape[:2]
     taps = math.prod(weight_shape[2:])
-    c4 = _round_up(I, C_GROUP)
+    bn = packed.shape[3]
+    c4 = tile_inputs(ig, O, groups, bn)
+    span, slot = _group_slots(O, ig, groups, bn)
     m = unpack_matrix(packed)[:taps * c4, :O].reshape(taps, c4, O)
-    return m[:, :I].permute(2, 1, 0).reshape(tuple(weight_shape))
+    m = m[:, :span * ig].reshape(taps, span, ig, O)
+    m = m[:, slot.to(m.device), :, torch.arange(O, device=m.device)]
+    return m.permute(0, 2, 1).reshape(tuple(weight_shape))   # (O, I/G, taps)
 
 
 class PackedWeight(NamedTuple):
@@ -205,18 +277,19 @@ def _out_extent(x: torch.Tensor, weight: torch.Tensor, stride,
 
 def conv_tf32x3_plain(x: torch.Tensor, weight: torch.Tensor,
                       stride: IntOrTuple = 1, padding: Padding = 0,
-                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      bias: Optional[torch.Tensor] = None,
+                      groups: int = 1) -> torch.Tensor:
     """Plain version of :func:`conv_tf32x3`: ``ops/nn.py::library_conv``
     in fp32 (true fp32 on the card where the caller's scope keeps cuDNN's
     TF32 off, as the three-pass lane's does)."""
-    return library_conv(x, weight, stride, padding, bias)
+    return library_conv(x, weight, stride, padding, bias, groups)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     from video_features_torch.ops import _kernels
     lib = _kernels.load('conv_tf32x3')
-    lib.vft_conv_tf32x3.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 22
+    lib.vft_conv_tf32x3.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 25
                                     + [ctypes.c_void_p])
     lib.vft_conv_tf32x3.restype = ctypes.c_int
     lib.vft_conv_tf32x3_mma.argtypes = ([ctypes.c_void_p] * 4
@@ -231,7 +304,8 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check(x, weight, stride, padding, bias, packed=None) -> None:
+def _check(x, weight, stride, padding, bias, packed=None,
+           groups: int = 1) -> None:
     """Raise on anything the kernel does not take."""
     if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'unsupported device {x.device}')
@@ -240,9 +314,13 @@ def _check(x, weight, stride, padding, bias, packed=None) -> None:
                          f'with an (O, I, *k) weight of as many spatial '
                          f'axes; got x {tuple(x.shape)}, weight '
                          f'{tuple(weight.shape)}')
-    if x.shape[-1] != weight.shape[1]:
-        raise ValueError(f'groups=1 only: the input has {x.shape[-1]} '
-                         f'channels, the weight takes {weight.shape[1]}')
+    if not isinstance(groups, int) or groups < 1 or weight.shape[0] % groups \
+            or x.shape[-1] != weight.shape[1] * groups:
+        raise ValueError(f'groups={groups} must divide the input\'s and the '
+                         f'output\'s channels: the input has {x.shape[-1]} '
+                         f'channels, the weight {weight.shape[0]} outputs and '
+                         f'{weight.shape[1]} inputs per group')
+    channel_tiles(weight.shape[0], groups, weight.shape[1])
     tensors = {'x': x, 'weight': weight}
     if bias is not None:
         if tuple(bias.shape) != (weight.shape[0],):
@@ -250,7 +328,7 @@ def _check(x, weight, stride, padding, bias, packed=None) -> None:
                              f'{tuple(bias.shape)}')
         tensors['bias'] = bias
     if packed is not None:
-        want = packed_shape(weight.shape)
+        want = packed_shape(weight.shape, groups)
         if tuple(packed.shape) != want:
             raise ValueError(f'packed weight must be {want} for weight '
                              f'{tuple(weight.shape)}; got '
@@ -276,11 +354,11 @@ def _check(x, weight, stride, padding, bias, packed=None) -> None:
 
 
 def conv_tf32x3(x: torch.Tensor, weight, stride: IntOrTuple = 1,
-                padding: Padding = 0,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The convolution of channels-last ``x`` with ``weight`` ``(O, I,
-    *k)`` or a :class:`PackedWeight` of it (``ops/nn.py::conv``'s
-    arguments, groups = 1) in 3xTF32.
+                padding: Padding = 0, bias: Optional[torch.Tensor] = None,
+                groups: int = 1) -> torch.Tensor:
+    """The convolution of channels-last ``x`` with ``weight`` ``(O,
+    I/groups, *k)`` or a :class:`PackedWeight` of it (``ops/nn.py::conv``'s
+    arguments) in 3xTF32.
 
     CUDA tensors launch ``vft_conv_tf32x3`` (through ``vft::conv_tf32x3``
     while ``torch.export`` traces, one node per convolution:
@@ -297,15 +375,15 @@ def conv_tf32x3(x: torch.Tensor, weight, stride: IntOrTuple = 1,
         x, weight = x.contiguous(), weight.contiguous()
         bias = None if bias is None else bias.contiguous()
         packed = None if packed is None else packed.contiguous()
-    _check(x, weight, stride, padding, bias, packed)
+    _check(x, weight, stride, padding, bias, packed, groups)
     if x.device.type == 'cpu':
-        return conv_tf32x3_plain(x, weight, stride, padding, bias)
+        return conv_tf32x3_plain(x, weight, stride, padding, bias, groups)
     n = weight.ndim - 2
     strides = list(_tuple(stride, n))
     pads = [p for pair in _pad_pairs(padding, n) for p in pair]
     if exporting:          # a CUDA tensor: the op that launches the kernel
-        return export_op()(x, weight, packed, bias, strides, pads)
-    return _launch(x, weight, packed, bias, strides, pads)
+        return export_op()(x, weight, packed, bias, strides, pads, groups)
+    return _launch(x, weight, packed, bias, strides, pads, groups)
 
 
 def _geometry(x, weight, strides: Sequence[int], pads: Sequence[int]):
@@ -327,30 +405,40 @@ def _geometry(x, weight, strides: Sequence[int], pads: Sequence[int]):
 
 
 def _launch(x, weight, packed, bias, strides: Sequence[int],
-            pads: Sequence[int]):
+            pads: Sequence[int], groups: int = 1):
     out, (t, h, w), geo = _geometry(x, weight, strides, pads)
-    o, c = weight.shape[0], x.shape[-1]
+    o, ig = weight.shape[:2]
     if packed is None:
-        packed = pack_weight(weight)
-    c4 = _round_up(c, C_GROUP)
-    if c4 != c:            # 16-byte input rows: one copy of a narrow input
-        x = F.pad(x, (0, c4 - c))
-    plan = conv_plan(x.shape[0] * math.prod(out), o, _sms(x.device.index))
+        packed = pack_weight(weight, groups)
+    c4 = _round_up(x.shape[-1], C_GROUP)
+    if c4 != x.shape[-1]:  # 16-byte input rows: one copy of a narrow input
+        x = F.pad(x, (0, c4 - x.shape[-1]))
+    plan = conv_plan(x.shape[0] * math.prod(out), o, _sms(x.device.index),
+                     groups, ig)
+    cin = tile_inputs(ig, o, groups, plan.bn)
+    if groups == 1:        # one group: every (padded) channel
+        ig, og = c4, o
+    else:
+        og = o // groups
     y = torch.empty((x.shape[0], *out, o), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().vft_conv_tf32x3(
             x.data_ptr(), packed.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
-            x.shape[0], t, h, w, c4, *geo, plan.bm, plan.bn, plan.tiles,
-            packed.shape[1], stream)
+            x.shape[0], t, h, w, c4, *geo, cin, ig, og, plan.bm, plan.bn,
+            plan.tiles, packed.shape[1], stream)
     if rc != 0:
         raise RuntimeError(f'vft_conv_tf32x3 failed to launch: CUDA error {rc}')
     conv_tf32x3.launches += 1
+    if groups > 1:
+        conv_tf32x3.grouped_launches += 1
     return y
 
 
 conv_tf32x3.launches = 0
+# of them, the grouped convolutions'
+conv_tf32x3.grouped_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -365,12 +453,12 @@ def export_op():
     def conv_tf32x3_op(x: torch.Tensor, weight: torch.Tensor,
                        packed: Optional[torch.Tensor],
                        bias: Optional[torch.Tensor], stride: List[int],
-                       padding: List[int]) -> torch.Tensor:
+                       padding: List[int], groups: int = 1) -> torch.Tensor:
         pairs = list(zip(padding[0::2], padding[1::2]))
-        _check(x, weight, stride, pairs, bias, packed)
-        return _launch(x, weight, packed, bias, stride, padding)
+        _check(x, weight, stride, pairs, bias, packed, groups)
+        return _launch(x, weight, packed, bias, stride, padding, groups)
 
-    def fake(x, weight, packed, bias, stride, padding):
+    def fake(x, weight, packed, bias, stride, padding, groups=1):
         pairs = list(zip(padding[0::2], padding[1::2]))
         out = _out_extent(x, weight, stride, pairs)
         return x.new_empty((x.shape[0], *out, weight.shape[0]))

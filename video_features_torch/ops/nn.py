@@ -11,11 +11,11 @@ Numerics follow the JAX functions:
   * conv: torch symmetric int padding, or explicit per-edge (lo, hi)
     pairs (TF-SAME for I3D), applied as a zero pad before the call
     (:func:`library_conv`); inside :func:`conv_route` every
-    :func:`conv` goes to the hand 3xTF32 kernel instead
-    (``ops/conv_tf32x3.py``, the i3d and raft families under
-    ``precision=high`` and ``mixed``), or to its plain version; a weight
-    used by several calls is packed for the kernel once
-    (:func:`route_weight`);
+    :func:`conv`, grouped ones included, goes to the hand 3xTF32 kernel
+    instead (``ops/conv_tf32x3.py``, the i3d, raft, r21d, s3d, resnet and
+    vggish families under ``precision=high`` and ``mixed``), or to its
+    plain version; a weight used by several calls is packed for the
+    kernel once (:func:`route_weight`);
   * batch norm is inference-only with running statistics, computed as
     ``(x - mean) * rsqrt(var + eps) * weight + bias``;
   * max pool pads with ``-inf`` (ceil mode and TF-SAME become explicit
@@ -100,6 +100,12 @@ def conv_route(route: Optional[str]) -> Iterator[None]:
         _CONV_ROUTE.reset(token)
 
 
+def conv_route_active() -> bool:
+    """Whether :func:`conv` is routed to the 3xTF32 convolution (or its
+    plain version) in this context."""
+    return _CONV_ROUTE.get() is not None
+
+
 def three_pass_route(enabled: bool, plain: bool = False):
     """A model forward's route: :func:`conv_route` to the 3xTF32
     convolution (its plain version when ``plain``) when ``enabled`` (the
@@ -126,14 +132,12 @@ def conv(x: torch.Tensor, weight, stride: IntOrTuple = 1,
     """N-D convolution, channels-last. weight: (O, I // groups, *spatial),
     or :func:`route_weight`'s packed form of it; ``groups`` > 1 is a
     grouped convolution (ResNeXt's 3×3). Inside a :func:`conv_route` it
-    runs ``ops/conv_tf32x3.py`` (groups = 1 only), else
-    :func:`library_conv`."""
+    runs ``ops/conv_tf32x3.py`` (a geometry the kernel cannot take raises
+    there, never falls back), else :func:`library_conv`."""
     route = _CONV_ROUTE.get()
     plain = weight if isinstance(weight, torch.Tensor) else weight.weight
     if route is None:
         return library_conv(x, plain, stride, padding, bias, groups)
-    if groups != 1:
-        raise ValueError(f'the 3xTF32 convolution takes groups=1; got {groups}')
     from video_features_torch.ops import conv_tf32x3 as k
     if route == 'plain':
         fn, weight = k.conv_tf32x3_plain, plain.contiguous()
@@ -142,7 +146,7 @@ def conv(x: torch.Tensor, weight, stride: IntOrTuple = 1,
         if weight is plain:
             weight = plain.contiguous()
     return fn(x.contiguous(), weight, stride, padding,
-              None if bias is None else bias.contiguous())
+              None if bias is None else bias.contiguous(), groups)
 
 
 def library_conv(x: torch.Tensor, weight: torch.Tensor,

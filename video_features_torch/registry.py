@@ -44,7 +44,8 @@ LIVE_FEATURES = frozenset({'i3d', 'r21d', 's3d', 'resnet', 'clip', 'timm'})
 # (ops/conv_tf32x3.py) under precision=high and mixed, the JAX package's
 # three passes (utils/device.py::three_pass_convs), and the precision
 # values that run them
-THREE_PASS_CONV_FEATURES = frozenset({'i3d', 'raft'})
+THREE_PASS_CONV_FEATURES = frozenset(
+    {'i3d', 'raft', 'r21d', 's3d', 'resnet', 'vggish'})
 THREE_PASS_PRECISIONS = ('high', 'mixed')
 
 # the families that accept precision=mixed: those whose feature rel L2
@@ -55,14 +56,15 @@ THREE_PASS_PRECISIONS = ('high', 'mixed')
 # in fp32; the others refuse it with the figure (MIXED_REFUSALS, empty
 # since every family measured under the bar)
 MIXED_FEATURES = frozenset({
-    'resnet',   # resnet50: 3.736e-04 at batch 1, 3.683e-04 at batch 32
+    'resnet',   # resnet50: 1.126e-06 at batch 1, 1.123e-06 at batch 32;
+                # resnext50_32x4d at batch 32: 4.138e-07 (three passes)
     'clip',     # ViT-B/32: 3.928e-04 at batch 1, 4.799e-04 at batch 32
     'timm',     # vit_base_patch16_224: 8.668e-04 at batch 1, 8.308e-04 at 32
-    'r21d',     # r2plus1d_18 at batch 4: 4.840e-04
-    's3d',      # one 64-frame stack: 3.908e-04
-    'vggish',   # batch 32: 7.003e-04
-    'i3d',      # the fused step at batch 8: flow 6.831e-05, rgb 3.271e-06
-    'raft',     # 8 pairs, 20 iterations: 2.672e-04 (max over flow fields)
+    'r21d',     # r2plus1d_18 at batch 4: 4.650e-06 (three passes)
+    's3d',      # one 64-frame stack: 2.014e-06 (three passes)
+    'vggish',   # batch 32: 1.875e-06 (three passes)
+    'i3d',      # the fused step at batch 8: flow 6.773e-05, rgb 3.154e-06
+    'raft',     # 8 pairs, 20 iterations: 2.763e-04 (max over flow fields)
 })  # NVIDIA H100 80GB HBM3, 700.00 W
 MIXED_REFUSALS: Dict[str, str] = {}
 

@@ -10,19 +10,24 @@ Precision: ``precision`` takes the JAX package's seven values
 run float32 convolutions and matmuls in TF32 (about three decimal
 digits), how many TF32 products the GRU direction kernel
 (``csrc/gru_direction.cu``) issues per fp32 one: 3 (3xTF32, fp32-class)
-or 1, and, for the i3d and raft families, whether every convolution of
-the step runs in the hand 3xTF32 convolution (``csrc/conv_tf32x3.cu``).
+or 1, and, for the i3d, raft, r21d, s3d, resnet and vggish families,
+whether every convolution of the step runs in the hand 3xTF32
+convolution (``csrc/conv_tf32x3.cu``).
 
   * ``highest``, ``float32``: TF32 off, the GRU kernel in 3xTF32.
     ``float32`` is the JAX package's name for ``highest``: the same bytes.
   * ``high``, ``mixed``: the JAX package's three passes (``mixed`` is its
     ambient ``high`` with no pins). cuDNN and cuBLAS have no three-pass
-    mode, so in i3d and raft (``registry.THREE_PASS_CONV_FEATURES``)
-    every convolution goes to the 3xTF32 convolution and the libraries
-    keep TF32 off for the rest (the correlation volume, the upsample's
-    einsum: true fp32); the GRU kernel in 3xTF32. The other families run
-    these two values with TF32 on in the libraries (one pass; README's
-    port section records the divergence).
+    mode, so in i3d, raft, r21d, s3d, resnet (ResNeXt's grouped 3×3
+    included) and vggish (``registry.THREE_PASS_CONV_FEATURES``) every
+    convolution goes to the 3xTF32 convolution and the libraries keep
+    TF32 off for the rest (the correlation volume, the upsample's einsum,
+    the linear heads, vggish's 12288 → 4096 → 4096 → 128 stack: true
+    fp32); the GRU kernel in 3xTF32. On the bf16 lane
+    (``compute_dtype=bfloat16``) the convolutions stay in the libraries
+    (bf16 operands have no low part to add). clip and timm run these two
+    values with TF32 on in the libraries (one pass; README's port
+    section records the divergence).
   * ``default``, ``tensorfloat32``, ``bfloat16``: TF32 on, the GRU
     kernel in 1xTF32 (one-pass modes in JAX).
 
@@ -53,7 +58,8 @@ PRECISIONS = ('default', 'high', 'highest', 'mixed', 'bfloat16',
               'tensorfloat32', 'float32')
 
 # precision → (TF32 in cuDNN and cuBLAS, TF32 products per fp32 product
-# in the GRU direction kernel)
+# in the GRU direction kernel); where three_pass_convs holds (high and
+# mixed on the six convolutional families) the libraries' TF32 is off
 LANES: Dict[str, Tuple[bool, int]] = {
     'highest': (False, 3), 'float32': (False, 3),
     'high': (True, 3), 'mixed': (True, 3),
@@ -112,24 +118,29 @@ def gru_passes(precision: str) -> int:
     return lane(precision)[1]
 
 
-def three_pass_convs(precision: str, feature_type: Optional[str]) -> bool:
+def three_pass_convs(precision: str, feature_type: Optional[str],
+                     compute_dtype: Optional[str] = None) -> bool:
     """Whether every convolution of ``feature_type``'s step runs in the
     hand 3xTF32 convolution under ``precision`` (and the libraries with
     TF32 off): ``high`` and ``mixed`` in
-    ``registry.THREE_PASS_CONV_FEATURES``."""
+    ``registry.THREE_PASS_CONV_FEATURES``, on float32 activations (not
+    ``compute_dtype=bfloat16``)."""
     from video_features_torch.registry import (
         THREE_PASS_CONV_FEATURES, THREE_PASS_PRECISIONS,
     )
     lane(precision)
     return (precision in THREE_PASS_PRECISIONS
-            and feature_type in THREE_PASS_CONV_FEATURES)
+            and feature_type in THREE_PASS_CONV_FEATURES
+            and compute_dtype != 'bfloat16')
 
 
-def library_tf32(precision: str, feature_type: Optional[str] = None) -> bool:
+def library_tf32(precision: str, feature_type: Optional[str] = None,
+                 compute_dtype: Optional[str] = None) -> bool:
     """Whether cuDNN and cuBLAS may run TF32 for ``feature_type``'s step
     under ``precision`` (:data:`LANES`, off where :func:`three_pass_convs`
     holds; ``feature_type`` None: the value's own lane)."""
-    return lane(precision)[0] and not three_pass_convs(precision, feature_type)
+    return lane(precision)[0] and not three_pass_convs(
+        precision, feature_type, compute_dtype)
 
 
 def set_precision(precision: str = 'highest') -> None:
@@ -185,8 +196,8 @@ def scope_wait_stats(reset: bool = False) -> Dict[str, float]:
 
 
 @contextmanager
-def precision_scope(precision: str,
-                    feature_type: Optional[str] = None) -> Iterator[None]:
+def precision_scope(precision: str, feature_type: Optional[str] = None,
+                    compute_dtype: Optional[str] = None) -> Iterator[None]:
     """Set cuDNN's and cuBLAS's TF32 flags for ``precision`` in
     ``feature_type``'s step (:func:`library_tf32`) and restore both on
     exit, also when the body raises.
@@ -201,7 +212,7 @@ def precision_scope(precision: str,
     setting and raises ``RuntimeError`` with the other one (waiting there
     would wait for itself)."""
     global _held, _open, _saved, _turn
-    tf32 = library_tf32(precision, feature_type)
+    tf32 = library_tf32(precision, feature_type, compute_dtype)
     want = (tf32, tf32)
     stack = getattr(_scope_local, 'stack', None)
     if stack is None:
