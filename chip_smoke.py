@@ -127,20 +127,18 @@ package is not beside it. Phases:
    vocabulary (the BPE vocab is not on the card's host); each run's rows
    and the text tower on the card against the same functions on the CPU
    at the same batch, rel L2 ≤ 1e-4 (TF32 off); ms per frame at batch 1
-   and 32 (CUDA events, 2 warm-ups, then steps covering 320 frames, at
+   and 32 (CUDA events, 2 warm-ups, then steps covering 160 frames, at
    least 5) beside the fp32 FMA bound of all its convolutions and
    matmuls (``FlopCounterMode``, over 67 TFLOP/s), and the device's busy
-   time per frame (the union of its activity intervals over 20 steps
+   time per frame (the union of its activity intervals over 5 steps
    traced by ``torch.profiler``) as a share of that step time;
 14. timm: ``ExtractTIMM.extract_frames`` with ViT-B/16 at full width
    (``vit_base_patch16_224``, 12 × 768, 197 tokens, random weights) on
-   the same 32 frames at batch 1 and 32, then one full-width arch of
-   every other family (distilled DeiT-B, ConvNeXt-T, Swin-T,
-   EfficientNet-B0, RegNetY-800MF, MobileNetV3-L, BEiT-B, Mixer-B/16,
-   and ResNet-50 under timm's recipe) at batch 8 on 8 of them, each as
-   in 13: counts reset just before and read just after every run (no
-   kernel lies on these paths), card vs CPU ≤ 1e-4, ms per frame beside
-   the fp32 FMA bound, busy share (over 5 traced steps for these nine);
+   the same 32 frames at batch 1 and 32, as in 13: counts reset just
+   before and read just after every run (no kernel lies on this path),
+   card vs CPU ≤ 1e-4, ms per frame beside the fp32 FMA bound (its
+   traced steps are 19 (f)'s); one full-width arch of every other
+   family runs the same under ``highest`` in 19 (f);
 15. timm long tokens: ViT-B/16 at ``image_size=768`` (48² + 1 = 2305
    tokens, past the 2048 at which attention runs blockwise) through
    ``extract_frames`` at batch 1 on 2 seeded 768×768 frames, counts
@@ -197,7 +195,7 @@ package is not beside it. Phases:
    time, the copy out of shared memory, the rings' fill); outputs
    byte-equal across worker counts; (b) resnet50 and (c) CLIP ViT-B/32
    and ViT-B/16, all at batch 32, built by ``load_fused_configs`` and
-   ``create_extractor``, on eight 240×320 clips of 96–103 frames, each
+   ``create_extractor``, on eight 240×320 clips of 48–55 frames, each
    packed alone and the three through ``run_packed_fused``, at
    ``decode_workers`` 1 and 4: frames/s, 0 launches, decode passes (8
    fused against 24 alone), the fused wall against the sum of the solo
@@ -230,12 +228,12 @@ package is not beside it. Phases:
    the kernels against their plain versions (rel L2 ≤ 1e-3); one traced
    fused step by kernel group under ``mixed`` (no cuDNN convolution, the
    3xTF32 one present) and under ``tensorfloat32``;
-   (c) resnet50, CLIP ViT-B/32, ViT-B/16 (at batch 1 and 32),
-   r2plus1d_18 (batch 4), S3D (one 64-frame stack) and vggish (batch 32)
-   under ``highest``, ``mixed`` (on resnet, r2plus1d_18, S3D and vggish
-   the three-pass lane: ``conv_tf32x3`` launches per step equal to the
-   reckoned count, 53, 37, 77 and 6, no lookup or GRU launch; one pass
-   of TF32 on CLIP and ViT-B/16), ``tensorfloat32`` and
+   (c) resnet50 (at batch 1 and 32), CLIP ViT-B/32, ViT-B/16 (at batch
+   8 and 32), r2plus1d_18 (batch 4), S3D (one 64-frame stack) and vggish
+   (batch 32) under ``highest``, ``mixed`` (on resnet, r2plus1d_18, S3D
+   and vggish the three-pass lane: ``conv_tf32x3`` launches per step
+   equal to the reckoned count, 53, 37, 77 and 6, no lookup or GRU
+   launch; CLIP's and ViT-B/16's in (f)), ``tensorfloat32`` and
    ``compute_dtype=bfloat16``, resnext50_32x4d (batch 32) under the
    three fp32 lanes (53 launches, 16 of them grouped), and (d) the first
    three under ``compute_dtype=int8``: rel L2 against the fp32 lane (bf16
@@ -244,7 +242,26 @@ package is not beside it. Phases:
    mixed, tensorfloat32, then back), one traced ``mixed`` step of each
    three-pass family with no cuDNN convolution; (e)
    ``pil_resize_bilinear_device`` under ``tensorfloat32`` byte-equal to
-   PIL; then ``registry.MIXED_FEATURES`` must be exactly the families
+   PIL; (f) CLIP ViT-B/32 and ViT-B/16 (at batch 8 and 32), CLIP RN50 (a
+   seeded OpenAI-layout visual tower saved as a checkpoint) and the
+   nine archs of 14 (at batch 8), each from ``load_config`` and
+   ``create_extractor`` under ``highest`` (the nine and RN50 as in 13,
+   card vs CPU included), ``mixed`` (every convolution in
+   ``conv_tf32x3``, every depthwise one in ``dwconv_f32``, every linear
+   and attention product in ``gemm_tf32x3``, the libraries in fp32) and
+   ``tensorfloat32``: ``extract_frames`` with the counts reset just
+   before and read just after (on ``mixed`` each kernel's launches equal
+   to the count reckoned from the weights, RegNet's grouped 3×3s and
+   Mixer's transposed-input copies apart; none on the other two), rel L2
+   against ``highest``, one ``mixed`` step with every distinct GEMM,
+   depthwise and convolution geometry held to its plain version (rel L2
+   ≤ 1e-6) and each GEMM's tile and occupancy printed, ms per item of
+   the three lanes in turns, one traced ``mixed`` step with no cuBLAS
+   GEMM and no cuDNN convolution; every distinct GEMM geometry of
+   ViT-B/16's batch-32 step and every depthwise one of ConvNeXt-T's
+   batch-8 step timed in turns against its plain version and the
+   library's call in fp32 and TF32, beside its bound, and the two
+   kernels' registers and spills; then ``registry.MIXED_FEATURES`` must be exactly the families
    whose drift under ``mixed`` is ≤ 1e-3, which load ``precision=mixed``,
    while the others refuse it naming ``precision``;
 20. feature cache: phase 17's four clips and a byte copy of the first
@@ -322,13 +339,13 @@ package is not beside it. Phases:
    extractor build, requests 1 and 2 byte-equal, the missing path
    failed alone; the per-video loop on the same clips and weights
    against them (rel L2 ≤ 1e-6); (b) the cold and the warm request's
-   wall; a sustained stream: 24 seeded clips (phase 17's four shapes six
-   times over, 66 windows) sent as 24 one-clip requests at once, then
+   wall; a sustained stream: 12 seeded clips (phase 17's four shapes
+   three times over, 33 windows) sent as 12 one-clip requests at once, then
    the per-video loop on the same corpus, each round's launches counted
    from 0 and its windows/s over the whole round; the requests'
    latencies; the outputs of the server round and the loop round against
-   each other (rel L2 ≤ 1e-6); the device's busy share over a second,
-   traced server round;
+   each other (rel L2 ≤ 1e-6) (no second, traced server round for the
+   busy share: the script's time limit);
    each line with the card's name and power limit; (c) with
    ``watchdog_stall_s=30``, ``slo_latency_p99_s=60`` and
    ``slo_availability=0.99``: no stall, a filled ``slo`` section, and
@@ -451,7 +468,10 @@ package is not beside it. Phases:
    exported program (reset just before, read just after): one lookup and
    two GRU directions per iteration, in the lane's instantiation; the
    same steps under ``mixed`` too, with one ``vft::conv_tf32x3`` node and
-   launch per convolution (292 and 178) beside the lock's nodes.
+   launch per convolution (292 and 178) beside the lock's nodes; CLIP
+   ViT-B/32's step under ``mixed`` at batch 8 the same way, with one
+   ``vft::gemm_tf32x3`` node and launch per linear and product (73) and
+   one ``vft::conv_tf32x3`` (the patch embedding).
 
 The line before the last is the kernels' JSON record (``launches``: the
 sum over the path runs of phases 4, 5, 10, 17–24, 19 (b), 25 (a), 27
@@ -459,9 +479,11 @@ sum over the path runs of phases 4, 5, 10, 17–24, 19 (b), 25 (a), 27
 own; the 3xTF32 convolution's launches are phase 19 (b)'s, 19 (c)'s and
 28 (c)'s, its times one RAFT iteration's seven convolutions at the fused
 batch-8 size; its grouped instantiations are an entry of their own, with
-resnext50_32x4d's grouped launches in 19 (c) and its heaviest grouped
-3×3 timed in phase 6); the last line is ``{"ok": true, "device":
-{...}}``.
+resnext50_32x4d's grouped launches in 19 (c) and RegNet's in 19 (f),
+its heaviest grouped 3×3 timed in phase 6; the 3xTF32 GEMM's and the
+depthwise kernel's launches are 19 (f)'s and 28 (c)'s, their times one
+mixed step's of ViT-B/16 at batch 32 and of ConvNeXt-T at batch 8); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -520,6 +542,12 @@ KERNELS = ('corr_lookup', 'gru_direction')
 # the 3xTF32 convolution: built beside them, on the path of i3d and raft
 # under precision=high and mixed (a highest run builds only KERNELS)
 CONV_KERNEL = 'conv_tf32x3'
+# the clip and timm families' kernels on the same lane: the 3xTF32 GEMM of
+# every linear and product, the fp32 depthwise convolution; built beside
+# them, held to their plain versions on every geometry of phase 19 (f)'s
+# mixed steps at rel L2 <= PRODUCT_REL_L2
+PRODUCT_KERNELS = ('gemm_tf32x3', 'dwconv_f32')
+PRODUCT_REL_L2 = 1e-6
 CONV_REL_L2 = 1e-5      # 3xTF32 against cuDNN's fp32 (TF32 off)
 # the wgmma kernel may not be slower than the mma.sync yardstick (the mean
 # of its two turns against the mean of the yardstick's two, in one call)
@@ -562,9 +590,12 @@ R21D_HW, R21D_WINDOWS, R21D_BATCH = (240, 320), 5, 4
 S3D_HW, S3D_STACK, S3D_STACKS = (256, 340), 64, 2
 # the frame-wise families: 32 host-transformed frames at the config's
 # batch 1 and at batch 32, on the card and on the CPU; each step time
-# covers TIMED_FRAMES frames, the device's busy share BUSY_STEPS steps
+# covers TIMED_FRAMES frames, the device's busy share FRAMEWISE_BUSY_STEPS
+# steps (vggish's BUSY_STEPS; fewer here since phase 19 (f) came, for
+# the script's time limit)
 FRAMEWISE_FRAMES, FRAMEWISE_HW, FRAMEWISE_BATCHES = 32, 224, (1, 32)
-FRAMEWISE_FPS, TEXT_ROWS, TIMED_FRAMES, BUSY_STEPS = 25.0, 8, 320, 20
+FRAMEWISE_FPS, TEXT_ROWS, TIMED_FRAMES, BUSY_STEPS = 25.0, 8, 160, 20
+FRAMEWISE_BUSY_STEPS = 5
 # the timm slice: ViT-B/16 at full width on those frames at batch 1 and
 # 32; one full-width arch of every other family at batch 8 on 8 of them;
 # ViT-B/16 at image_size 768 (48² + 1 = 2305 tokens: blockwise attention)
@@ -575,9 +606,6 @@ TIMM_FAMILIES = ('deit_base_distilled_patch16_224', 'convnext_tiny',
                  'regnety_008', 'mobilenetv3_large_100',
                  'beit_base_patch16_224', 'mixer_b16_224', 'resnet50')
 TIMM_FAMILY_BATCH, TIMM_LONG_SIZE, TIMM_LONG_FRAMES = 8, 768, 2
-# the other archs' busy share over fewer traced steps: the script's time
-# limit
-TIMM_FAMILY_BUSY_STEPS = 5
 BLOCKWISE_REL_L2 = 1e-5     # the online softmax's reassociation
 # vggish: a seeded 31 s 16 kHz wav is exactly 32 examples of 0.96 s, one
 # step at the config's batch 32; the host DSP is also timed at 48 kHz
@@ -600,22 +628,24 @@ PACK_RESNET_BATCH, PACK_RESNET_WORKERS = 32, (1, 4)
 # limit), on phase 17's four clips and on one 240×320 clip of 337 frames
 # (21 windows, 3 steps at batch 8); then
 # resnet50, CLIP ViT-B/32 and ViT-B/16 at batch 32 on eight 240×320 clips
-# of ~100 frames, each packed alone and the three fused, at 1 and 4
+# of ~50 frames (~100 before phase 19 (f) came: the script's time limit),
+# each packed alone and the three fused, at 1 and 4
 FARM_WORKERS = (1, 2)
 FARM_SHORT_STEPS = 2
 FARM_LONG_CLIP = ((337, 240, 320),)
 FARM_LONG_WINDOWS, FARM_LONG_STEPS = 21, 3
-FARM_FRAME_CLIPS = tuple((96 + i, 240, 320) for i in range(8))
+FARM_FRAME_CLIPS = tuple((48 + i, 240, 320) for i in range(8))
 FARM_FRAME_WORKERS = (1, 4)
 FARM_FAMILIES = {'resnet': 'resnet50', 'clip': 'ViT-B/32',
                  'timm': 'vit_base_patch16_224'}
 # an i3d window (17 × 256 × 341 × 3 uint8, 4.45 MB) must take the ring,
 # which ships windows of up to half its size
 FARM_MIN_RING_MB = 10
-# the precision lanes: highest (the reference), high and mixed (for i3d,
-# raft, r21d, s3d, resnet and vggish the three-pass lane: every
-# convolution in 3xTF32, the libraries in fp32; for clip and timm TF32 in
-# cuDNN and cuBLAS) and tensorfloat32 (the one-pass GRU kernel); the fused
+# the precision lanes: highest (the reference), high and mixed (the
+# three-pass lane: every convolution in 3xTF32, for clip and timm every
+# linear and product in the 3xTF32 GEMM and every depthwise convolution in
+# fp32 FMAs too, the libraries in fp32) and tensorfloat32 (the one-pass GRU
+# kernel); the fused
 # I3D step at the YAML's batch 8 (129 frames: 8
 # windows, one step) and the RAFT family at batch 8 pairs; mixed is
 # admitted for a family whose drift against highest is at most MIXED_BAR
@@ -625,13 +655,14 @@ THREE_PASS_LANES = ('high', 'mixed')
 LANE_BATCH, LANE_I3D_FRAMES, LANE_RAFT_BATCH = 8, 8 * STACK + 1, 8
 MIXED_BAR = 1e-3
 # the bf16 families at their config batch (the frame-wise ones at 32 too):
-# (family, label, overrides, batches, seeded input of a batch)
+# (family, label, overrides, batches, seeded input of a batch); clip and
+# timm take their fp32 lanes in (f)
 LANE_FAMILIES = (
     ('resnet', 'resnet50', {'model_name': 'resnet50'}, (1, 32),
      lambda np, b: rand_frames(np, 80, (b, 224, 224, 3))),
-    ('clip', 'CLIP ViT-B/32', {'model_name': 'ViT-B/32'}, (1, 32),
+    ('clip', 'CLIP ViT-B/32', {'model_name': 'ViT-B/32'}, (8, 32),
      lambda np, b: rand_frames(np, 80, (b, 224, 224, 3))),
-    ('timm', 'ViT-B/16', {'model_name': 'vit_base_patch16_224'}, (1, 32),
+    ('timm', 'ViT-B/16', {'model_name': 'vit_base_patch16_224'}, (8, 32),
      lambda np, b: rand_frames(np, 80, (b, 224, 224, 3))),
     ('r21d', 'r2plus1d_18', {}, (4,),
      lambda np, b: rand_frames(np, 81, (b, 16, 240, 320, 3))),
@@ -641,6 +672,20 @@ LANE_FAMILIES = (
      lambda np, b: (np.random.RandomState(83).rand(b, 1, 96, 64) * 7
                     - 4.6).astype(np.float32)),
 )
+
+# phase 19 (f): clip and timm under highest, mixed and tensorfloat32:
+# (family, label, model_name, batches), each model's first batch its
+# extract_frames and card-vs-CPU batch; every timm family's arch of the
+# timm phase at TIMM_FAMILY_BATCH (their highest runs moved here)
+LANE_TRANSFORMERS = (
+    ('clip', 'CLIP ViT-B/32', 'ViT-B/32', (8, 32)),
+    ('clip', 'CLIP RN50', 'RN50', (8,)),
+    ('timm', 'ViT-B/16', TIMM_VIT, (8, 32)),
+    *(('timm', name, name, (TIMM_FAMILY_BATCH,)) for name in TIMM_FAMILIES),
+)
+# the models whose mixed steps give the kernels line's GEMM and depthwise
+# rows: every distinct geometry timed, summed with its launches per step
+GEMM_ROW_MODEL, DW_ROW_MODEL = 'ViT-B/16', 'convnext_tiny'
 
 
 def fail(msg: str) -> None:
@@ -1600,6 +1645,10 @@ def reset_counts(corr_lookup, gru) -> None:
         gru.gru_direction.launches_by_passes[passes] = 0
     conv_tf32x3.conv_tf32x3.launches = 0
     conv_tf32x3.conv_tf32x3.grouped_launches = 0
+    from video_features_torch.ops import dwconv, gemm_tf32x3, nn
+    gemm_tf32x3.gemm_tf32x3.launches = 0
+    dwconv.dwconv_f32.launches = 0
+    nn.matmul.copies = 0
 
 
 def read_counts(corr_lookup, gru) -> dict:
@@ -1775,8 +1824,14 @@ def resize_phase(torch, np, transforms) -> None:
 
 
 def check_no_launches(counts, where: str) -> None:
-    if any(counts.values()):
-        fail(f'{where}: kernels launched on a path that has none: {counts}')
+    """``counts`` (``read_counts``) and the GEMM's and the depthwise
+    kernel's counters all 0 since the last ``reset_counts``."""
+    from video_features_torch.ops import dwconv, gemm_tf32x3
+    products = {'gemm': gemm_tf32x3.gemm_tf32x3.launches,
+                'dw': dwconv.dwconv_f32.launches}
+    if any(counts.values()) or any(products.values()):
+        fail(f'{where}: kernels launched on a path that has none: {counts} '
+             f'{products}')
 
 
 def r21d_phase(torch, np, ExtractR21D, corr_lookup, gru):
@@ -1953,7 +2008,8 @@ def family_timing(torch, np, r21d_ex, r21d34_ex, s3d_ex) -> None:
 
 
 def framewise_runs(torch, np, name, ex, step, dim, frames, batches_of,
-                   corr_lookup, gru, busy_steps: int = BUSY_STEPS) -> None:
+                   corr_lookup, gru,
+                   busy_steps: int = FRAMEWISE_BUSY_STEPS) -> None:
     """One frame-wise extractor: ``extract_frames`` over ``frames`` at
     each batch of ``batches_of`` (counts reset just before and read just
     after each run, none allowed), each run's rows against ``step`` on
@@ -2004,12 +2060,15 @@ def framewise_runs(torch, np, name, ex, step, dim, frames, batches_of,
         with torch.inference_mode():
             ms = cuda_ms(torch, lambda: step(ex.params, xb), reps=reps) / batch
             flops = counted_flops(torch, lambda: step(ex.params, xb)) / batch
-            busy = busy_ms(torch, lambda: step(ex.params, xb), busy_steps)
+            busy = (busy_ms(torch, lambda: step(ex.params, xb), busy_steps)
+                    if busy_steps else None)
         bound = flops / FP32_FLOP_PER_S * 1e3
         print(f'{name} step at batch {batch}: {ms:.4f} ms per frame over {reps} '
               f'steps; fp32 FMA bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP of '
               f'convolutions and matmuls per frame), {bound / ms:.1%} of it',
               flush=True)
+        if not busy_steps:
+            continue
         if busy is None:
             print(f'{name} at batch {batch}: device busy share not measured '
                   '(the profiler recorded no device activity)', flush=True)
@@ -2077,21 +2136,15 @@ def timm_step_of(ex):
 
 def timm_phase(torch, np, corr_lookup, gru) -> None:
     """ViT-B/16 at full width on the frame-wise phase's 32 frames at batch
-    1 and 32, then one full-width arch of every other timm family at
-    batch TIMM_FAMILY_BATCH on the first 8 of them (``framewise_runs``)."""
+    1 and 32 (``framewise_runs``); one full-width arch of every other timm
+    family runs the same under highest in phase 19 (f), beside its
+    three-pass lane."""
     frames = rand_frames(np, 30, (FRAMEWISE_FRAMES, FRAMEWISE_HW, FRAMEWISE_HW, 3))
     ex = timm_extractor(TIMM_VIT)
     framewise_runs(torch, np, f'timm {TIMM_VIT}', ex, timm_step_of(ex), ex.feat_dim,
-                   frames, FRAMEWISE_BATCHES, corr_lookup, gru)
+                   frames, FRAMEWISE_BATCHES, corr_lookup, gru, busy_steps=0)
     del ex
-    for name in TIMM_FAMILIES:
-        ex = timm_extractor(name)
-        framewise_runs(torch, np, f'timm {name} ({ex.family})', ex,
-                       timm_step_of(ex), ex.feat_dim,
-                       frames[:TIMM_FAMILY_BATCH], (TIMM_FAMILY_BATCH,),
-                       corr_lookup, gru, busy_steps=TIMM_FAMILY_BUSY_STEPS)
-        del ex
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
 
 
 def attention_qkv(torch, tokens: int, seed: int):
@@ -3198,7 +3251,7 @@ def lanes_dtype_phase(torch, np, corr_lookup, gru, launches, drift,
     ones at batch 32 too) under highest (the fp32 lane, the reference),
     mixed (on r21d, s3d, resnet and vggish the three-pass lane: every
     convolution in 3xTF32, the counts held to the reckoned number per
-    step; on clip and timm one pass of TF32), tensorfloat32,
+    step), tensorfloat32 (clip and timm take these two in (f)),
     compute_dtype=bfloat16 and, for resnet50, CLIP ViT-B/32 and ViT-B/16,
     compute_dtype=int8, and resnext50_32x4d at batch 32 under the three
     fp32 lanes: rel L2 against the fp32 lane (held to the JAX package's
@@ -3209,7 +3262,9 @@ def lanes_dtype_phase(torch, np, corr_lookup, gru, launches, drift,
     convolution's launches on resnext50_32x4d's mixed step."""
     from video_features_torch.ops import conv_tf32x3
     from video_features_torch.ops import precision as lanes
-    from video_features_torch.registry import BF16_FEATURES, INT8_FEATURES
+    from video_features_torch.registry import (
+        BF16_FEATURES, INT8_FEATURES, THREE_PASS_PRODUCT_FEATURES,
+    )
     families = list(LANE_FAMILIES)
     resnext = next(f for f in LANE_CONV_FAMILIES if f[1] == 'resnext50_32x4d')
     families.insert(1, resnext[:3] + ((resnext[3],), resnext[4]))
@@ -3218,7 +3273,8 @@ def lanes_dtype_phase(torch, np, corr_lookup, gru, launches, drift,
     for ft, model, overrides, batches, make in families:
         if ft not in BF16_FEATURES:
             fail(f'{ft} is not in registry.BF16_FEATURES')
-        fp32 = ('highest', 'mixed', 'tensorfloat32')
+        fp32 = (('highest',) if ft in THREE_PASS_PRODUCT_FEATURES
+                else ('highest', 'mixed', 'tensorfloat32'))
         runs = [(prec, 'float32') for prec in fp32]
         if model != 'resnext50_32x4d':
             runs.append(('highest', 'bfloat16'))
@@ -3274,11 +3330,6 @@ def lanes_dtype_phase(torch, np, corr_lookup, gru, launches, drift,
                 print(line + f' ({card})', flush=True)
                 if dtype == 'float32':
                     timed[(prec, batch)] = (step, ex.precision_scope)
-                else:
-                    with torch.inference_mode(), ex.precision_scope():
-                        ms = cuda_ms(torch, step, 5)
-                    print(f'{model} batch {batch} compute_dtype={dtype}: '
-                          f'{ms / batch:.4f} ms per item ({card})', flush=True)
             if dtype == 'float32' and prec == 'mixed' and ex.three_pass_convs:
                 groups = step_breakdown(torch, ex, data[batches[-1]])
                 if groups and (groups.get('conv', 0)
@@ -3288,7 +3339,7 @@ def lanes_dtype_phase(torch, np, corr_lookup, gru, launches, drift,
             ex = None
         # the fp32 lanes' steps in turns: highest, mixed, tensorfloat32,
         # tensorfloat32, mixed, highest, each the mean of its two turns
-        for batch in batches:
+        for batch in (batches if len(fp32) > 1 else ()):
             ms = {prec: 0.0 for prec in fp32}
             for prec in (*fp32, *reversed(fp32)):
                 step, scope = timed[(prec, batch)]
@@ -3323,11 +3374,491 @@ def lanes_resize_phase(torch, np, transforms) -> None:
             fail(f'device resize under TF32 differs from PIL at {h}x{w}')
 
 
+# -- phase 19 (f): clip and timm on the three-pass lane -----------------------
+
+
+class ProductShapes:
+    """Stands in for ``ops/gemm_tf32x3.py::_launch`` or
+    ``ops/dwconv.py::_launch`` while a clip or timm step runs on the
+    three-pass lane: each call launches the kernel, and on the first call
+    of each distinct geometry its plain version runs on the same tensors
+    (the path's own activations and weights) and the kernel is held to
+    it."""
+
+    def __init__(self, mod, kind: str) -> None:
+        self.mod, self.kind, self.launch = mod, kind, mod._launch
+        self.records = {}
+
+    def __call__(self, *args):
+        out = self.launch(*args)
+        if self.kind == 'gemm':
+            a, b, bias, b_kn, alpha = args
+            key = (tuple(a.shape), a.stride(), tuple(b.shape), b.stride(),
+                   b_kn, alpha, bias is None)
+        else:
+            x, weight, bias, strides, pads = args
+            key = (tuple(x.shape), tuple(weight.shape), tuple(strides),
+                   tuple(pads), bias is None)
+        if key not in self.records:
+            if self.kind == 'gemm':
+                want = self.mod.gemm_tf32x3_plain(a, b, b_kn, alpha, bias)
+            else:
+                pairs = list(zip(pads[0::2], pads[1::2]))
+                want = self.mod.dwconv_f32_plain(x, weight, strides, pairs,
+                                                 bias)
+            self.records[key] = {'args': args, 'out': tuple(out.shape),
+                                 'rel': rel_l2(out, want),
+                                 'err': (out - want).abs().max().item(),
+                                 'calls': 0}
+        self.records[key]['calls'] += 1
+        return out
+
+
+def gemm_geometry(args) -> dict:
+    """A GEMM call's shape, work and bound: batch, M, N, K, flops, the
+    bytes its operands and output move once, and the least time of each
+    (3xTF32 at the tensor cores' rate, bytes at HBM's)."""
+    a, b, bias, b_kn, _ = args
+    m, k = a.shape[-2:]
+    n = b.shape[-1] if b_kn else b.shape[-2]
+    batch = math.prod(a.shape[:-2])
+    flops = 2 * batch * m * n * k
+    nbytes = 4 * (a.numel() + b.numel() + batch * m * n
+                  + (0 if bias is None else n))
+    return {'batch': batch, 'm': m, 'n': n, 'k': k, 'flops': flops,
+            'ops_ms': 3 * flops / TF32_FLOP_PER_S * 1e3,
+            'fp32_ms': flops / FP32_FLOP_PER_S * 1e3,
+            'bytes_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def dw_geometry(args, out_shape) -> dict:
+    """A depthwise call's work and bound: flops (a multiply and an add per
+    tap and output) and the bytes its input, weight, bias and output move
+    once."""
+    x, weight, bias, _, _ = args
+    flops = 2 * math.prod(out_shape) * weight.shape[2] * weight.shape[3]
+    nbytes = 4 * (x.numel() + weight.numel() + math.prod(out_shape)
+                  + (0 if bias is None else weight.shape[0]))
+    return {'flops': flops, 'ops_ms': flops / FP32_FLOP_PER_S * 1e3,
+            'fp32_ms': flops / FP32_FLOP_PER_S * 1e3,
+            'bytes_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def product_times(torch, kind: str, args, reps: int) -> dict:
+    """Device ms of one GEMM or depthwise call, from a CUDA graph of
+    ``reps`` calls, in turns (the kernel, its plain version, the library's
+    one call in fp32 and in TF32, then the other way round; each the mean
+    of its two turns). The library call: a
+    linear's ``F.linear``, a product's ``torch.matmul`` (alpha not
+    applied), a depthwise convolution's cuDNN grouped convolution."""
+    import torch.nn.functional as F
+    from video_features_torch.ops import dwconv
+    from video_features_torch.ops import gemm_tf32x3 as g
+    from video_features_torch.utils.device import set_precision
+    if kind == 'gemm':
+        a, b, bias, b_kn, alpha = args
+        if b_kn:
+            library = lambda: torch.matmul(a, b)                 # noqa: E731
+        elif b.ndim == 2:
+            library = lambda: F.linear(a, b, bias)               # noqa: E731
+        else:
+            library = lambda: torch.matmul(a, b.transpose(-1, -2))  # noqa: E731
+        calls = {'ms': lambda: g.gemm_tf32x3(a, b, b_kn, alpha, bias),
+                 'plain_ms': lambda: g.gemm_tf32x3_plain(a, b, b_kn, alpha,
+                                                         bias),
+                 'library_ms': library, 'library_tf32_ms': library}
+    else:
+        x, weight, bias, strides, pads = args
+        pairs = list(zip(pads[0::2], pads[1::2]))
+        library = lambda: dwconv.dwconv_f32_plain(                # noqa: E731
+            x, weight, strides, pairs, bias)
+        calls = {'ms': lambda: dwconv.dwconv_f32(x, weight, strides, pairs,
+                                                 bias),
+                 'plain_ms': library, 'library_ms': library,
+                 'library_tf32_ms': library}
+    out = {key: 0.0 for key in calls}
+    with torch.inference_mode():
+        for key in (*calls, *reversed(tuple(calls))):
+            set_precision('tensorfloat32' if key == 'library_tf32_ms'
+                          else 'highest')
+            try:
+                # from a CUDA graph: the wrappers' host cost (checks,
+                # ctypes) exceeds a small depthwise launch's device time
+                out[key] += graph_ms(torch, [calls[key]], reps) / 2
+            finally:
+                set_precision('highest')
+    return out
+
+
+def rn50_checkpoint(torch, np) -> str:
+    """A seeded OpenAI-layout CLIP RN50 visual tower (ModifiedResNet:
+    width 64, layers 3-4-6-3, 32 heads, output 1024; AttentionPool2d's
+    positional embedding for 7×7 + 1 tokens at 224 px), saved as a
+    ``.pt`` state_dict for ``checkpoint_path``: the port has no random
+    init for the ResNet CLIPs."""
+    path = ROOT / 'output' / 'clip_rn50_seeded.pt'
+    if path.exists():
+        return str(path)
+    rng = np.random.RandomState(85)
+    sd = {}
+
+    def conv_w(name, o, i, k):
+        sd[name] = (rng.randn(o, i, k, k) * np.sqrt(1.0 / (i * k * k))
+                    ).astype(np.float32)
+
+    def bn(name, c):
+        sd[f'{name}.weight'] = (rng.rand(c) * 0.5 + 0.5).astype(np.float32)
+        sd[f'{name}.bias'] = (rng.randn(c) * 0.1).astype(np.float32)
+        sd[f'{name}.running_mean'] = (rng.randn(c) * 0.1).astype(np.float32)
+        sd[f'{name}.running_var'] = (rng.rand(c) + 0.5).astype(np.float32)
+
+    width, embed, out_dim, grid = 64, 2048, 1024, 7
+    conv_w('visual.conv1.weight', width // 2, 3, 3)
+    bn('visual.bn1', width // 2)
+    conv_w('visual.conv2.weight', width // 2, width // 2, 3)
+    bn('visual.bn2', width // 2)
+    conv_w('visual.conv3.weight', width, width // 2, 3)
+    bn('visual.bn3', width)
+    inplanes = width
+    for li, (nb, planes) in enumerate(zip((3, 4, 6, 3), (width, 2 * width,
+                                                         4 * width, 8 * width)), 1):
+        for bi in range(nb):
+            base = f'visual.layer{li}.{bi}'
+            conv_w(f'{base}.conv1.weight', planes, inplanes, 1)
+            bn(f'{base}.bn1', planes)
+            conv_w(f'{base}.conv2.weight', planes, planes, 3)
+            bn(f'{base}.bn2', planes)
+            conv_w(f'{base}.conv3.weight', planes * 4, planes, 1)
+            bn(f'{base}.bn3', planes * 4)
+            if bi == 0:
+                conv_w(f'{base}.downsample.0.weight', planes * 4, inplanes, 1)
+                bn(f'{base}.downsample.1', planes * 4)
+            inplanes = planes * 4
+    sd['visual.attnpool.positional_embedding'] = (
+        rng.randn(grid * grid + 1, embed) / embed ** 0.5).astype(np.float32)
+    for name, o in (('q_proj', embed), ('k_proj', embed), ('v_proj', embed),
+                    ('c_proj', out_dim)):
+        sd[f'visual.attnpool.{name}.weight'] = (
+            rng.randn(o, embed) / embed ** 0.5).astype(np.float32)
+        sd[f'visual.attnpool.{name}.bias'] = (rng.randn(o) * 0.02
+                                              ).astype(np.float32)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    return str(path)
+
+
+def reckon_products(params) -> dict:
+    """A clip or timm model's hand-kernel launches per step on the
+    three-pass lane, reckoned from its weights: every 4-D weight is a
+    convolution (a depthwise one where it has one input channel per
+    output, a grouped one where RegNet's conv2 has fewer inputs than
+    outputs), every other 2-D weight a linear, each attention block two
+    products (QKᵀ, PV), each of Mixer's token mixes one copy of its
+    transposed input; the heads and CLIP's text tower are off the path."""
+    from video_features_torch.transplant import flatten
+    flat = {k: v for k, v in flatten(params).items()
+            if k.split('.')[0] not in ('head', 'head_dist', 'classifier', 'fc')}
+    if any(k.startswith('visual.') for k in flat):
+        flat = {k: v for k, v in flat.items() if k.startswith('visual.')}
+    convs = [k for k, v in flat.items() if v.ndim == 4 and k.endswith('weight')]
+    dw = [k for k in convs if flat[k].shape[1] == 1 and 'dw' in k]
+    grouped = [k for k in convs if k.endswith('conv2.conv.weight')
+               and flat[k].shape[0] > flat[k].shape[1]]
+    linears = [k for k, v in flat.items() if v.ndim == 2
+               and (k.endswith('weight') or k == 'visual.proj')
+               and 'embedding' not in k]
+    blocks = {k.rsplit('.attn.', 1)[0] for k in flat if '.attn.' in k}
+    blocks |= {'.'.join(k.split('.')[:4]) for k in flat
+               if k.startswith('visual.transformer.resblocks.')}
+    blocks |= {'attnpool' for k in flat if k.startswith('visual.attnpool.')}
+    return {'conv': len(convs) - len(dw), 'grouped': len(grouped),
+            'dw': len(dw), 'gemm': len(linears) + 2 * len(blocks),
+            'copies': sum(k.endswith('mlp_tokens.fc1.weight') for k in flat)}
+
+
+def product_counts() -> dict:
+    """The hand kernels' launches since :func:`reset_counts`: the 3xTF32
+    convolution's (and of them grouped), the GEMM's, the depthwise
+    kernel's, and the GEMM's operand copies."""
+    from video_features_torch.ops import conv_tf32x3, dwconv, gemm_tf32x3, nn
+    return {'conv': conv_tf32x3.conv_tf32x3.launches,
+            'grouped': conv_tf32x3.conv_tf32x3.grouped_launches,
+            'dw': dwconv.dwconv_f32.launches,
+            'gemm': gemm_tf32x3.gemm_tf32x3.launches,
+            'copies': nn.matmul.copies}
+
+
+class seeded_init_once:
+    """Within the body, a clip or timm model's seeded random init runs once
+    and is reused by every extractor built from its config (each lane's),
+    so phase 19 (f) spends its time on the card."""
+
+    def __init__(self, module) -> None:
+        self.module, self.init, self.cache = module, module.init_state_dict, {}
+
+    def __enter__(self):
+        def once(*args, **kwargs):
+            key = (args, tuple(sorted(kwargs.items())))
+            if key not in self.cache:
+                self.cache[key] = self.init(*args, **kwargs)
+            return dict(self.cache[key])
+        self.module.init_state_dict = once
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.module.init_state_dict = self.init
+        self.cache.clear()
+
+
+def transformer_lane_model(torch, np, corr_lookup, gru, ft, label, model,
+                           batches, frames, launches, drift, card,
+                           recorded) -> dict:
+    """(f) for one model: under highest, mixed and tensorfloat32,
+    ``extract_frames`` at the first batch with the counts reset just
+    before and read just after (on mixed the hand kernels' launches held
+    to :func:`reckon_products`, none on the other two), the other batches
+    through ``run_step``; drift against highest per batch; the highest
+    rows against the CPU where the frame-wise and timm phases do not hold
+    them; one mixed step with every GEMM, depthwise and convolution
+    geometry held to its plain version; ms per item in turns beside the
+    fp32 FMA bound; a traced mixed step with no cuBLAS GEMM and no cuDNN
+    convolution. Returns the mixed step's recorders."""
+    from video_features_torch.extract.clip import clip_step
+    from video_features_torch.extract import timm as timm_ex
+    from video_features_torch.models import clip as clip_model
+    from video_features_torch.ops import conv_tf32x3, dwconv, gemm_tf32x3
+    from video_features_torch.transplant import to_device
+    t0 = time.perf_counter()
+    overrides = {'model_name': model}
+    if model == 'RN50':
+        overrides['checkpoint_path'] = rn50_checkpoint(torch, np)
+    module = (clip_model if ft == 'clip'
+              else timm_ex.MODEL_MODULES[timm_ex.resolve_model_name(model)['family']])
+    exs = {}
+    with seeded_init_once(module):
+        for prec in ('highest', 'mixed', 'tensorfloat32'):
+            exs[prec] = lane_extractor(ft, prec, 'float32',
+                                       batch_size=batches[0], **overrides)
+            if exs[prec].three_pass_convs != (prec == 'mixed'):
+                fail(f'{label} precision={prec}: three_pass_convs '
+                     f'{exs[prec].three_pass_convs}')
+    want = reckon_products(exs['mixed'].params)
+    first = batches[0]
+    times = [i / FRAMEWISE_FPS * 1000 for i in range(first)]
+    feats, timed = {}, {}
+    for prec, ex in exs.items():
+        where = f'{label} at batch {first}, precision={prec}'
+        reset_counts(corr_lookup, gru)
+        out = ex.extract_frames([(list(frames[:first]), times, None)],
+                                FRAMEWISE_FPS)[ft]
+        torch.cuda.synchronize()
+        counts = product_counts()
+        flow = read_counts(corr_lookup, gru)
+        if any(flow[key] for key in ('masked', 'padded', 'gru', 'gru1')):
+            fail(f'{where}: a lookup or GRU kernel launched: {flow}')
+        if prec == 'mixed':
+            if counts != want:
+                fail(f'{where}: launches {counts}, want {want} (reckoned '
+                     f'from the weights)')
+            for key in launches:
+                launches[key] += counts[key]
+        elif any(counts.values()):
+            fail(f'{where}: hand kernels launched off the lane: {counts}')
+        feats[(prec, first)] = out
+        for batch in batches[1:]:
+            feats[(prec, batch)] = ex.run_step(frames[:batch])[ft]
+        for batch in batches:
+            out = feats[(prec, batch)]
+            if out.shape != (batch, ex.feat_dim) or not np.isfinite(out).all():
+                fail(f'{label} at batch {batch}, precision={prec}: output '
+                     f'{out.shape}, want ({batch}, {ex.feat_dim}), finite')
+            x = torch.from_numpy(frames[:batch]).cuda()
+            timed[(prec, batch)] = (
+                lambda ex=ex, x=x: ex.packed_step(x), ex.precision_scope)
+            line = (f'{label} at batch {batch}, precision={prec}: features '
+                    f'{out.shape}' + (f', launches {counts}' if batch == first
+                                      else ''))
+            if prec != 'highest':
+                rel = rel_l2(torch.from_numpy(out),
+                             torch.from_numpy(feats[('highest', batch)]))
+                line += f', rel L2 vs highest {rel:.3e}'
+                if prec == 'mixed':
+                    drift[ft] = max(drift.get(ft, 0.0), rel)
+            print(line + f' ({card})', flush=True)
+    ex = exs['highest']
+    step = (functools.partial(clip_step, arch=ex.arch) if ft == 'clip'
+            else timm_step_of(ex))
+    if model not in ('ViT-B/32', TIMM_VIT):   # the earlier phases hold those
+        host_params = to_device(ex.params, 'cpu')
+        with torch.inference_mode():
+            host = step(host_params, torch.from_numpy(frames[:first]))
+        rel = rel_l2(torch.from_numpy(feats[('highest', first)]), host)
+        print(f'{label} at batch {first}, highest, card vs CPU: rel L2 '
+              f'{rel:.3e}', flush=True)
+        if not rel <= CARD_CPU_REL_L2:
+            fail(f'{label} at batch {first}: card vs CPU rel L2 {rel} > '
+                 f'{CARD_CPU_REL_L2} (TF32 on?)')
+        del host_params, host
+    with torch.inference_mode():
+        xb = torch.from_numpy(frames[:first]).cuda()
+        flops = counted_flops(torch, lambda: step(ex.params, xb)) / first
+    # the mixed step's geometries against their plain versions
+    ex = exs['mixed']
+    shapes = {'gemm': ProductShapes(gemm_tf32x3, 'gemm'),
+              'dw': ProductShapes(dwconv, 'dw'),
+              'conv': LaneShapes(torch, conv_tf32x3, ex.params, '')}
+    x = torch.from_numpy(frames[:max(batches)]).cuda()
+    gemm_tf32x3._launch, dwconv._launch = shapes['gemm'], shapes['dw']
+    conv_tf32x3._launch = shapes['conv']
+    try:
+        with torch.inference_mode(), ex.precision_scope():
+            ex.packed_step(x)
+        torch.cuda.synchronize()
+    finally:
+        gemm_tf32x3._launch = shapes['gemm'].launch
+        dwconv._launch = shapes['dw'].launch
+        conv_tf32x3._launch = shapes['conv'].launch
+    for kind, rec in shapes.items():
+        records = list(rec.records.values())
+        if not records:
+            continue
+        worst = max(r['rel'] for r in records)
+        # the 3xTF32 convolution's own bar against cuDNN fp32: the patch
+        # embeddings sum K = 4096 terms (3 channels padded to 4, times
+        # 32 × 32 taps), more than any of the four families' geometries
+        bar = CONV_REL_L2 if kind == 'conv' else PRODUCT_REL_L2
+        print(f'{label} at batch {max(batches)}, mixed: {len(records)} '
+              f'distinct {kind} geometries of {sum(r["calls"] for r in records)} '
+              f'launches held to their plain versions, rel L2 at most '
+              f'{worst:.3e}, max abs err {max(r["err"] for r in records):.3e} '
+              f'({card})', flush=True)
+        if not worst <= bar:
+            fail(f'{label}: a {kind} geometry disagrees with its plain '
+                 f'version: rel L2 {worst} > {bar}')
+    for r in shapes['gemm'].records.values():
+        geo = gemm_geometry(r['args'])
+        plan = gemm_tf32x3.gemm_plan(geo['batch'], geo['m'], geo['n'])
+        print(f'  gemm {geo["batch"]} x {geo["m"]}x{geo["n"]}x{geo["k"]} '
+              f'({"K, N" if r["args"][3] else "N, K"}) x{r["calls"]}: tile '
+              f'{plan.bm}x{plan.bn} x {plan.tiles}, occupancy '
+              f'{gemm_tf32x3.occupancy(geo["m"], geo["n"], plan):.1%}, rel L2 '
+              f'{r["rel"]:.3e}', flush=True)
+    recorded[label] = (max(batches), shapes)
+    # the three lanes in turns at each batch
+    for batch in batches:
+        ms = {prec: 0.0 for prec in exs}
+        for prec in (*exs, *reversed(tuple(exs))):
+            step, scope = timed[(prec, batch)]
+            with torch.inference_mode(), scope():
+                ms[prec] += cuda_ms(torch, step, 5) / 2
+        bound = flops / FP32_FLOP_PER_S * 1e3
+        print(f'{label} batch {batch}: ms per item in turns, highest '
+              f'{ms["highest"] / batch:.4f}, mixed {ms["mixed"] / batch:.4f}, '
+              f'tensorfloat32 {ms["tensorfloat32"] / batch:.4f}; fp32 FMA '
+              f'bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP of convolutions '
+              f'and matmuls per item) ({card})', flush=True)
+    groups = step_breakdown(torch, exs['mixed'], frames[:max(batches)])
+    # the kernel doing most of the step's products must show (a short
+    # kernel can fall outside the profiler's window)
+    main = 'gemm_tf32x3' if want['gemm'] else 'conv_tf32x3'
+    if groups and (groups.get('gemm', 0) or groups.get('conv', 0)
+                   or not groups.get(main)):
+        fail(f'{label} precision=mixed: the traced step ran a cuBLAS GEMM or '
+             f'a cuDNN convolution, or no {main}: {dict(groups)}')
+    del exs, timed, ex, x
+    torch.cuda.empty_cache()
+    print(f'{label}: (f) took {time.perf_counter() - t0:.1f} s', flush=True)
+    return shapes
+
+
+def product_row(torch, kind: str, recorded: dict, label: str,
+                card: str) -> dict:
+    """The kernels line's row of the GEMM or the depthwise kernel: every
+    distinct geometry of ``label``'s recorded mixed step timed in turns,
+    summed with each geometry's launches per step (ms, plain, cuBLAS or
+    cuDNN in fp32 and TF32, the bound per geometry); the error the
+    largest over every recorded model's geometries."""
+    batch, shapes = recorded[label]
+    row = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
+           'library_tf32_ms': 0.0, 'bound_ms': 0.0, 'ops_bound_ms': 0.0,
+           'bytes_bound_ms': 0.0, 'fp32_bound_ms': 0.0, 'launches_per_step': 0}
+    for r in shapes[kind].records.values():
+        t = product_times(torch, kind, r['args'], 10)
+        geo = (gemm_geometry(r['args']) if kind == 'gemm'
+               else dw_geometry(r['args'], r['out']))
+        bound = max(geo['ops_ms'], geo['bytes_ms'])
+        n = r['calls']
+        for key in ('ms', 'plain_ms', 'library_ms', 'library_tf32_ms'):
+            row[key] += n * t[key]
+        row['bound_ms'] += n * bound
+        row['ops_bound_ms'] += n * geo['ops_ms']
+        row['bytes_bound_ms'] += n * geo['bytes_ms']
+        row['fp32_bound_ms'] += n * geo['fp32_ms']
+        row['launches_per_step'] += n
+        shape = (f'{tuple(r["args"][0].shape)} x {tuple(r["args"][1].shape)}'
+                 + (f' {"(K, N)" if r["args"][3] else "(N, K)"}'
+                    if kind == 'gemm' else f' stride {r["args"][3]}'))
+        print(f'{kind} [{label} at batch {batch}] {shape} x{n}: '
+              f'{t["ms"]:.4f} ms, plain {t["plain_ms"]:.4f}, library fp32 '
+              f'{t["library_ms"]:.4f}, TF32 {t["library_tf32_ms"]:.4f} (in '
+              f'turns); bound {bound:.4f} ms ('
+              f'{"operations" if geo["ops_ms"] >= geo["bytes_ms"] else "bytes"}'
+              f'), {bound / t["ms"]:.1%} of it ({card})', flush=True)
+    row['bound_by'] = ('operations' if row['ops_bound_ms'] >= row['bytes_bound_ms']
+                       else 'bytes')
+    row['err'] = max(r['err'] for _, sh in recorded.values()
+                     for r in sh[kind].records.values())
+    row['geometry'] = f'{label} at batch {batch}, one step'
+    print(f'{kind} [{label} at batch {batch}, the step\'s '
+          f'{row["launches_per_step"]} launches]: {row["ms"]:.4f} ms, bound '
+          f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
+          f'{row["bound_ms"] / row["ms"]:.1%} of it; plain '
+          f'{row["plain_ms"]:.4f}, library fp32 {row["library_ms"]:.4f}, TF32 '
+          f'{row["library_tf32_ms"]:.4f} ({card})', flush=True)
+    return row
+
+
+def lanes_transformer_phase(torch, np, corr_lookup, gru, drift, card: str,
+                            build_logs: dict) -> tuple:
+    """(f): clip and timm on the three-pass lane (every convolution in the
+    3xTF32 convolution, every depthwise one in the fp32 kernel, every
+    linear and product in the 3xTF32 GEMM): each model of
+    LANE_TRANSFORMERS through :func:`transformer_lane_model`, then the
+    GEMM's and the depthwise kernel's rows of the kernels line, with
+    their instantiations' registers and spills. Returns the two rows and
+    the launches of every hand kernel on the mixed paths (the 3xTF32
+    convolution's, grouped ones apart)."""
+    frames = rand_frames(np, 30, (FRAMEWISE_FRAMES, FRAMEWISE_HW,
+                                  FRAMEWISE_HW, 3))
+    launches = {'conv': 0, 'grouped': 0, 'dw': 0, 'gemm': 0}
+    recorded = {}
+    for ft, label, model, batches in LANE_TRANSFORMERS:
+        transformer_lane_model(torch, np, corr_lookup, gru, ft, label, model,
+                               batches, frames, launches, drift, card,
+                               recorded)
+    rows = {'gemm': product_row(torch, 'gemm', recorded, GEMM_ROW_MODEL, card),
+            'dw': product_row(torch, 'dw', recorded, DW_ROW_MODEL, card)}
+    for kind, name, key in (('gemm', 'gemm_tf32x3', 'gemm_tf32x3_wgmma'),
+                            ('dw', 'dwconv_f32', 'dwconv_f32_kernel')):
+        regs = ptxas_registers(build_logs[name], key)
+        print(f'{name}: registers and spill bytes by instantiation {regs}',
+              flush=True)
+        rows[kind]['registers'] = max(r['registers'] for r in regs.values())
+        rows[kind]['spill_bytes'] = max(r['spill_bytes'] for r in regs.values())
+    for kind in ('gemm', 'dw'):
+        rows[kind]['launches'] = launches[kind]
+    del recorded
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
 def lanes_phase(torch, np, corr_lookup, gru, transforms, launches, pr14,
-                build_log: str, lib_path: Path, card: str) -> dict:
+                build_log: str, lib_path: Path, card: str,
+                build_logs: dict) -> dict:
     """Phase 19: (a) the one-pass GRU kernel, (b) the flow families, (c)
-    and (d) the bf16 and int8 lanes, (e) the resize under TF32; then
-    ``registry.MIXED_FEATURES`` against the measured drifts of mixed."""
+    and (d) the bf16 and int8 lanes, (e) the resize under TF32, (f) clip
+    and timm on the three-pass lane; then ``registry.MIXED_FEATURES``
+    against the measured drifts of mixed."""
     from video_features_torch.config import load_config
     from video_features_torch.registry import EXTRACTORS, MIXED_FEATURES
     rec = gru_one_pass_phase(torch, gru, pr14, build_log, lib_path)
@@ -3336,6 +3867,10 @@ def lanes_phase(torch, np, corr_lookup, gru, transforms, launches, pr14,
     rec['grouped_launches'] = lanes_dtype_phase(torch, np, corr_lookup, gru,
                                                 launches, drift, card)
     lanes_resize_phase(torch, np, transforms)
+    rec['products'], product_launches = lanes_transformer_phase(
+        torch, np, corr_lookup, gru, drift, card, build_logs)
+    launches['conv'] += product_launches['conv']
+    rec['grouped_launches'] += product_launches['grouped']
     print('precision=mixed drift (rel L2 against highest, max over streams '
           'and flow fields): ' + json.dumps(
               {k: float(f'{v:.3e}') for k, v in sorted(drift.items())})
@@ -4156,6 +4691,10 @@ SERVE_OBS = {'watchdog_stall_s': 30, 'slo_latency_p99_s': 60,
 # over (24 clips, 66 windows), each clip a request of its own
 STREAM_CLIPS = PACK_CLIPS * 6
 STREAM_WINDOWS = PACK_WINDOWS * 6
+# phase 23 (b)'s stream rounds take the first half of it (12 clips, 33
+# windows): the script's time limit
+SERVE_STREAM_CLIPS = STREAM_CLIPS[:12]
+SERVE_STREAM_WINDOWS = STREAM_WINDOWS[:12]
 
 
 def serve_base(root: Path) -> dict:
@@ -4313,7 +4852,7 @@ def serve_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     paths = write_clips(np, root, SERVE_CLIPS, seed=23)
-    stream_paths = write_clips(np, root, STREAM_CLIPS, seed=231)
+    stream_paths = write_clips(np, root, SERVE_STREAM_CLIPS, seed=231)
     missing = str(root / 'missing.avi')
     shm_before = set(os.listdir('/dev/shm'))
     steps = [0]
@@ -4411,7 +4950,7 @@ def serve_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
-        corpus = sum(STREAM_WINDOWS)
+        corpus = sum(SERVE_STREAM_WINDOWS)
         rates = {'server': [], 'loop': []}
         latencies = []
         for i, kind in enumerate(('server', 'loop')):
@@ -4431,7 +4970,7 @@ def serve_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
                   f'{corpus / wall:.3f} windows/s', flush=True)
         streams = {i: tree_arrays(np, str(root / f'stream{i}_{kind}'))
                    for i, kind in ((0, 'server'), (1, 'loop'))}
-        check_shapes(streams[0], stream_paths, STREAM_WINDOWS,
+        check_shapes(streams[0], stream_paths, SERVE_STREAM_WINDOWS,
                      'phase 23 (b) stream')
         worst = compare_trees(np, streams[1], streams[0],
                               'phase 23 (b) loop vs server')
@@ -4452,13 +4991,6 @@ def serve_phase(torch, np, corr_lookup, gru, check_counts, card: str) -> None:
               f'{max(latencies):.4f} s', flush=True)
         del ex, streams
         torch.cuda.empty_cache()
-        busy, n_steps = counted('phase 23 (b) traced stream round', lambda: busy_share(
-            torch, lambda: serve_stream(client, stream_paths,
-                                        str(root / 'stream_traced'))))
-        print(f'phase 23 (b) [{card}]: device busy '
-              + ('not measured (the profiler recorded no device activity)'
-                 if busy is None else f'{busy:.1%} of a traced stream '
-                 f'round\'s wall ({n_steps} fused steps)'), flush=True)
 
         # (c) the watchdog and the SLOs
         m = client.metrics()
@@ -5945,13 +6477,28 @@ def export_extractor(family: str, precision: str):
                             finetuned_on='sintel'))
 
 
+def export_clip_extractor():
+    """Phase 28 (c)'s clip case: CLIP ViT-B/32 under mixed at batch 8,
+    seeded weights on the card (every linear and product a
+    ``vft::gemm_tf32x3`` node, the patch embedding a
+    ``vft::conv_tf32x3`` one)."""
+    from video_features_torch.extract.clip import ExtractCLIP
+    return ExtractCLIP({'feature_type': 'clip', 'model_name': 'ViT-B/32',
+                        'batch_size': 8, 'device': 'cuda', 'precision': 'mixed',
+                        'allow_random_weights': True,
+                        'on_extraction': 'save_numpy',
+                        'output_path': str(ROOT / 'output')})
+
+
 def export_inputs(torch, np) -> dict:
     """Phase 28 (c)'s seeded batches on the card, by family."""
     gen = np.random.default_rng(28)
     return {'i3d': torch.from_numpy(gen.integers(
                 0, 256, (8, 17, 256, 341, 3), dtype=np.uint8)).cuda(),
             'raft': torch.from_numpy(gen.integers(
-                0, 256, (2, 240, 320, 3), dtype=np.uint8)).cuda()}
+                0, 256, (2, 240, 320, 3), dtype=np.uint8)).cuda(),
+            'clip': torch.from_numpy(gen.integers(
+                0, 256, (8, 224, 224, 3), dtype=np.uint8)).cuda()}
 
 
 def export_step(out_dir: str) -> int:
@@ -5975,6 +6522,12 @@ def export_step(out_dir: str) -> int:
         walls[f'{family}:{precision}'] = time.perf_counter() - t0
         torch.export.save(ep, os.path.join(out_dir, f'{family}_{precision}.pt2'))
         del ex, ep
+    ex = export_clip_extractor()
+    spec = ex.program_specs()[0]
+    t0 = time.perf_counter()
+    ep = export_program(spec.fn, (ex.params, inputs['clip']), spec.kwargs)
+    walls['clip:mixed'] = time.perf_counter() - t0
+    torch.export.save(ep, os.path.join(out_dir, 'clip_mixed.pt2'))
     Path(out_dir, 'exports.json').write_text(json.dumps(walls))
     return 0
 
@@ -6045,11 +6598,56 @@ def export_check(torch, ex, batch, ep, export_s: float, corr_lookup, gru,
                  f'{rel:.3e} > {EXPORT_REL_L2}')
 
 
+def export_clip_check(torch, batch, ep, export_s: float, corr_lookup, gru,
+                      card: str) -> dict:
+    """Phase 28 (c)'s clip case: ``ep``, CLIP ViT-B/32's mixed step
+    exported from real CUDA tensors, saved and loaded; one
+    ``vft::gemm_tf32x3`` node per linear and product and one
+    ``vft::conv_tf32x3`` node (the patch embedding), as reckoned from the
+    weights, then the exported program against the eager step with the
+    hand kernels counted through the exported one. Returns the counts."""
+    from video_features_torch.analysis.programs import kernel_nodes, ops_census
+    ex = export_clip_extractor()
+    spec = ex.program_specs()[0]
+    want = reckon_products(ex.params)
+    census = ops_census(ep)
+    nodes = {name: sum(c for op, c in census.items()
+                       if op.startswith(f'vft.{name}'))
+             for name in ('conv_tf32x3', 'gemm_tf32x3', 'dwconv_f32')}
+    if nodes != {'conv_tf32x3': want['conv'], 'gemm_tf32x3': want['gemm'],
+                 'dwconv_f32': want['dw']} or kernel_nodes(ep) != sum(nodes.values()):
+        fail(f'phase 28 (c) clip mixed: vft:: nodes {nodes}, want one per '
+             f'convolution and product as reckoned: {want}')
+    run = ep.module()
+    with torch.inference_mode(), ex.precision_scope():
+        eager = spec.fn(ex.params, batch, **spec.kwargs)
+        torch.cuda.synchronize()
+        reset_counts(corr_lookup, gru)
+        exported = run(ex.params, batch)
+        torch.cuda.synchronize()
+        counts = product_counts()
+    if counts != want:
+        fail(f'phase 28 (c) clip mixed: the exported program launched '
+             f'{counts}, want {want}')
+    same = torch.equal(eager, exported)
+    rel = float((eager - exported).norm() / eager.norm().clamp_min(1e-30))
+    print(f'phase 28 (c) clip mixed out: exported in {export_s:.2f} s, saved '
+          f'and loaded, vft:: nodes {nodes}; launches through the exported '
+          f'program {counts}; against eager '
+          f'{"byte-equal" if same else "NOT byte-equal"}, rel L2 {rel:.3e} '
+          f'({card})', flush=True)
+    if not same and rel > EXPORT_REL_L2:
+        fail(f'phase 28 (c) clip mixed: exported program against eager rel L2 '
+             f'{rel:.3e} > {EXPORT_REL_L2}')
+    return counts
+
+
 def programs_phase(torch, np, corr_lookup, gru, launches, diff_started,
-                   exports_started, card: str) -> None:
+                   exports_started, card: str) -> dict:
     """Phase 28: the contract checkers on the port (see the module
     docstring); ``diff_started`` is :func:`start_programs_diff`'s and
-    ``exports_started`` :func:`start_exports`'s."""
+    ``exports_started`` :func:`start_exports`'s. Returns the hand
+    kernels' launches through the exported clip program."""
     for module in ('video_features_torch.analysis',
                    'video_features_torch.analysis.wire'):
         analyzer_run(module, card)
@@ -6072,10 +6670,12 @@ def programs_phase(torch, np, corr_lookup, gru, launches, diff_started,
           f'phase 28 asked ({card})', flush=True)
     walls = json.loads(Path(out, 'exports.json').read_text())
     # the ops the saved programs call, registered before they load
-    from video_features_torch.ops import conv_tf32x3
+    from video_features_torch.ops import conv_tf32x3, dwconv, gemm_tf32x3
     corr_lookup.export_ops()
     gru.export_op()
     conv_tf32x3.export_op()
+    gemm_tf32x3.export_op()
+    dwconv.export_op()
     lock = load_lock(default_lock_path())['families']
     pinned = {'i3d': lock['i3d']['mesh1']['programs']['step']['kernels'],
               'raft': lock['raft']['mesh1']['programs']['flow_step']['kernels']}
@@ -6090,7 +6690,11 @@ def programs_phase(torch, np, corr_lookup, gru, launches, diff_started,
         del ex, ep
         gc.collect()
         torch.cuda.empty_cache()
+    counts = export_clip_check(torch, inputs['clip'], torch.export.load(
+        os.path.join(out, 'clip_mixed.pt2')), walls['clip:mixed'],
+        corr_lookup, gru, card)
     shutil.rmtree(out, ignore_errors=True)
+    return counts
 
 
 def main() -> int:
@@ -6132,23 +6736,29 @@ def main() -> int:
 
     t = phase('build')
     from tools import gru_tf32x3_variants as variants
-    with ThreadPoolExecutor(len(KERNELS) + 2) as pool:
+    sources = KERNELS + (CONV_KERNEL,) + PRODUCT_KERNELS
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
         # the one-pass yardstick of phase 19 (a), built beside the kernels
         pr14_job = pool.submit(variants.build, 'pr14_one_pass')
-        timed_builds = list(pool.map(timed_build, KERNELS + (CONV_KERNEL,)))
+        timed_builds = list(pool.map(timed_build, sources))
         pr14 = pr14_job.result()[0]
-    built = [b for b, _ in timed_builds]
-    for name, ((path, log), secs) in zip(KERNELS + (CONV_KERNEL,),
-                                         timed_builds):
+    built = {name: b for name, (b, _) in zip(sources, timed_builds)}
+    for name, ((path, log), secs) in zip(sources, timed_builds):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line or 'entry function' in line:
                 print(f'  ptxas {name}:', line.strip())
         print(f'built {path.name} in {secs:.1f} s', flush=True)
-    hgmma = sass_count(built[KERNELS.index('gru_direction')][0], 'HGMMA')
+    hgmma = sass_count(built['gru_direction'][0], 'HGMMA')
     print(f'gru_direction SASS: {hgmma} HGMMA instructions', flush=True)
     if not hgmma:
         fail('the GRU kernel was built without tensor-core (HGMMA) instructions')
-    conv_lib = built[-1][0]
+    gemm_hgmma = sass_counts(built['gemm_tf32x3'][0], 'HGMMA')
+    print(f'gemm_tf32x3 SASS: HGMMA instructions by instantiation '
+          f'{gemm_hgmma}', flush=True)
+    if len(gemm_hgmma) < 8 or not all(gemm_hgmma.values()):
+        fail(f'gemm_tf32x3 has a function without tensor-core (HGMMA) '
+             f'instructions: {gemm_hgmma}')
+    conv_lib = built[CONV_KERNEL][0]
     hgmma = {f: n for f, n in sass_counts(conv_lib, 'HGMMA').items()
              if 'conv_tf32x3_wgmma' in f}
     hmma = {f: n for f, n in sass_counts(conv_lib, 'HMMA').items()
@@ -6226,7 +6836,7 @@ def main() -> int:
               'three-pass lane end to end')
     from video_features_torch.ops import conv_tf32x3
     rec['conv'] = conv_phase(torch, np, conv_tf32x3, ex.params, rex.params,
-                             card, built[-1][1])
+                             card, built[CONV_KERNEL][1])
     rec['conv']['pack_ms'] = three_pass_plain_phase(
         torch, np, conv_tf32x3, ex.params, rex.params, card)
     rec['conv_grouped'] = family_conv_phase(torch, np, conv_tf32x3, card)
@@ -6286,10 +6896,15 @@ def main() -> int:
     t = phase('precision lanes (the one-pass GRU kernel; I3D and RAFT under '
               'highest, high, mixed and tensorfloat32; the frame-wise, r21d, '
               's3d and vggish families under highest, mixed, tensorfloat32, '
-              'bf16 and int8; the device resize under TF32)')
-    gru_built = built[KERNELS.index('gru_direction')]
+              'bf16 and int8; the device resize under TF32; CLIP ViT-B/32, '
+              'CLIP RN50 and one arch of every timm family under highest, '
+              'mixed and tensorfloat32 with the 3xTF32 GEMM and the fp32 '
+              'depthwise kernel)')
+    gru_built = built['gru_direction']
     rec['gru1'] = lanes_phase(torch, np, corr_lookup, gru, transforms, launches,
-                              pr14, gru_built[1], gru_built[0], card)
+                              pr14, gru_built[1], gru_built[0], card,
+                              {name: log for name, (_, log) in built.items()})
+    rec['products'] = rec['gru1'].pop('products')
     rec['conv_grouped']['launches'] = rec['gru1'].pop('grouped_launches')
     print(f'lanes phase {time.perf_counter() - t:.1f} s', flush=True)
 
@@ -6345,8 +6960,11 @@ def main() -> int:
               'program lock on the card\'s torch, the fused I3D and RAFT '
               'steps exported from CUDA tensors')
     print(card, flush=True)
-    programs_phase(torch, np, corr_lookup, gru, launches, diff_started,
-                   exports_started, card)
+    exported = programs_phase(torch, np, corr_lookup, gru, launches,
+                              diff_started, exports_started, card)
+    launches['conv'] += exported['conv']
+    for key in ('gemm', 'dw'):
+        rec['products'][key]['launches'] += exported[key]
     for key in launches:
         rec[key]['launches'] = launches[key]
     print(f'contract checkers phase {time.perf_counter() - t:.1f} s',
@@ -6404,6 +7022,28 @@ def main() -> int:
         'library_tf32_ms': g['library_tf32_ms'],
         'fp32_bound_ms': g['fp32_bound_ms'], 'geometry': g['geometry'],
         'instantiations': sorted(g['instantiations'])})
+    # no Pallas kernel: XLA's dot_general (the linears, the attention
+    # products) and its feature_group_count=C convolutions under the
+    # ambient 'high' of precision=mixed and high; each row one mixed step
+    # of its model (GEMM_ROW_MODEL, DW_ROW_MODEL), every distinct geometry
+    # timed and summed with its launches per step
+    for key, name, source, replaces in (
+            ('gemm', 'gemm_tf32x3', 'gemm_tf32x3.cu',
+             'video_features_tpu/ops/nn.py:147'),
+            ('dw', 'dwconv_f32', 'dwconv_f32.cu',
+             'video_features_tpu/ops/nn.py:71')):
+        r = rec['products'][key]
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': f'video_features_torch/csrc/{source}',
+            'replaces': replaces, 'launches': r['launches'],
+            'max_abs_err': r['err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
+            'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
+            'library_ms': r['library_ms'],
+            'library_tf32_ms': r['library_tf32_ms'],
+            'fp32_bound_ms': r['fp32_bound_ms'], 'geometry': r['geometry'],
+            'launches_per_step': r['launches_per_step'],
+            'registers': r['registers'], 'spill_bytes': r['spill_bytes']})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

@@ -471,7 +471,8 @@ def test_the_mixed_raft_program_has_one_conv_node_per_convolution():
 # -- the lane's flags ---------------------------------------------------------
 
 
-THREE_PASS_FAMILIES = ('i3d', 'raft', 'r21d', 's3d', 'resnet', 'vggish')
+THREE_PASS_FAMILIES = ('i3d', 'raft', 'r21d', 's3d', 'resnet', 'vggish',
+                       'clip', 'timm')
 
 
 def test_lane_table():
@@ -487,11 +488,18 @@ def test_lane_table():
 
 
 def test_i3d_and_clip_mixed_on_two_threads_see_their_own_flags(
-        tmp_path, spies):
-    """An i3d-mixed extractor (every conv through the 3xTF32 op, TF32 off)
-    and a clip-mixed one (one pass: the libraries under TF32) stepping at
-    once on two threads: each sees its own flags and route, and the flags
-    found are restored."""
+        tmp_path, spies, monkeypatch):
+    """An i3d-mixed extractor (every conv through the 3xTF32 op, TF32 off,
+    its products left to the libraries) and a clip-mixed one (its patch
+    conv through the 3xTF32 op and every linear and product through the
+    3xTF32 GEMM, TF32 off) stepping at once on two threads: each sees its
+    own flags and route, and the flags found are restored."""
+    from video_features_torch.ops import gemm_tf32x3
+    gemms = []
+    gemm = gemm_tf32x3.gemm_tf32x3
+    monkeypatch.setattr(gemm_tf32x3, 'gemm_tf32x3', lambda *a: gemms.append((
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+        threading.current_thread().name)) or gemm(*a))
     i3d_ex = create_extractor(load_config('i3d', _args(
         tmp_path, 'i3d', 'mixed', streams='rgb', stack_size=10,
         step_size=10, batch_size=1)))
@@ -520,9 +528,13 @@ def test_i3d_and_clip_mixed_on_two_threads_see_their_own_flags(
     for t in threads:
         t.join()
     assert not errors
-    assert {c for c in spies['kernel']} == {(False, False, 'i3d')}
-    assert len(spies['kernel']) == 2 * I3D_TOWER_CONVS
-    assert {c for c in spies['library']} == {(True, True, 'clip')}
+    assert {c for c in spies['kernel']} == {(False, False, 'i3d'),
+                                             (False, False, 'clip')}
+    assert [c[2] for c in spies['kernel']].count('i3d') == 2 * I3D_TOWER_CONVS
+    assert [c[2] for c in spies['kernel']].count('clip') == 2    # the patch conv
+    assert set(gemms) == {(False, False, 'clip')}
+    assert len(gemms) == 2 * (12 * 6 + 1)     # 12 blocks of 6, the projection
+    assert not spies['library']
     assert (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32) == outside
 
@@ -642,10 +654,11 @@ def _old_fingerprint(args):
 
 @pytest.mark.parametrize('ft', sorted(registry.EXTRACTORS))
 def test_the_fingerprint_separates_the_three_pass_lane(tmp_path, ft):
-    """i3d, raft, r21d, s3d, resnet and vggish under high and mixed key
-    apart from every key they had before (a cached or resumed high output
-    of the TF32 lane, or of the three-pass lane's earlier mma.sync kernel,
-    never answers); every other family and lane keeps its key."""
+    """Every family under high and mixed keys apart from every key it had
+    before (a cached or resumed high output of the TF32 lane, or of the
+    three-pass lane's earlier mma.sync kernel, never answers), clip and
+    timm on the token that names their GEMM and depthwise kernel too;
+    every other lane keeps its key."""
     assert key.THREE_PASS_TOKEN == 'conv_tf32x3.wgmma'
     for precision in device.PRECISIONS:
         overrides = _args(tmp_path, ft, precision)
@@ -655,8 +668,9 @@ def test_the_fingerprint_separates_the_three_pass_lane(tmp_path, ft):
         new, old = key.config_fingerprint(args), _old_fingerprint(args)
         if ft in THREE_PASS_FAMILIES and precision in ('high', 'mixed'):
             assert new != old
-            assert new == _old_fingerprint(dict(
-                args, lane_arithmetic=key.THREE_PASS_TOKEN))
+            token = (key.THREE_PASS_PRODUCTS_TOKEN if ft in ('clip', 'timm')
+                     else key.THREE_PASS_TOKEN)
+            assert new == _old_fingerprint(dict(args, lane_arithmetic=token))
             # nor does an output of the mma.sync kernel, whose bytes differ
             assert new != _old_fingerprint(dict(
                 args, lane_arithmetic='conv_tf32x3'))

@@ -1,5 +1,5 @@
 """The CUDA kernels' wrappers (video_features_torch/ops/corr_lookup.py,
-ops/gru.py, ops/conv_tf32x3.py). This file imports no JAX, so its ``cuda``-marked tests run
+ops/gru.py, ops/conv_tf32x3.py, ops/gemm_tf32x3.py, ops/dwconv.py). This file imports no JAX, so its ``cuda``-marked tests run
 on a machine with the card and without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -416,3 +416,124 @@ def test_raft_three_pass_runs_the_conv_kernel_per_convolution():
     assert k.conv_tf32x3.launches - before == launched
     rel = ((flow - plain).norm() / plain.norm()).item()
     assert rel <= 1e-3
+
+
+# -- the 3xTF32 GEMM and the fp32 depthwise convolution (clip and timm) --------
+
+# the GEMM's path geometries, narrowed in batch: (name, A shape, B shape,
+# B is (K, N), alpha, bias); 'qkv' operands are the head views of a
+# (B, N, 3, H, D) projection, as the attention code reads them
+GEMM_GEOMETRIES = [
+    ('vit_b16 qkv', (394, 768), (2304, 768), False, 1.0, True),
+    ('vit_b16 proj', (394, 768), (768, 768), False, 1.0, True),
+    ('vit_b16 fc1', (394, 768), (3072, 768), False, 1.0, True),
+    ('vit_b16 fc2', (394, 3072), (768, 3072), False, 1.0, True),
+    ('vit_b16 qk', 'qkv', (2, 197, 12, 64), False, 0.125, False),
+    ('vit_b16 pv', 'pv', (2, 197, 12, 64), True, 1.0, False),
+    ('clip_b32 qk', 'qkv', (4, 50, 12, 64), False, 0.125, False),
+    ('clip_b32 pv', 'pv', (4, 50, 12, 64), True, 1.0, False),
+    ('clip proj', (4, 768), (768, 512), True, 1.0, False),
+    ('clip rn50 attnpool q', (4, 1, 2048), (2048, 2048), False, 1.0, True),
+    ('swin_t window qk', (96, 3, 49, 32), (96, 3, 49, 32), False, 1.0, False),
+    ('swin_t window pv', (96, 3, 49, 49), (96, 3, 49, 32), True, 1.0, False),
+    ('mixer token fc1', (1536, 196), (384, 196), False, 1.0, True),
+    ('vit 768px blockwise pv', (1, 12, 2305, 512), (1, 12, 512, 64), True,
+     1.0, False),
+    ('vit_l16 fc2', (394, 4096), (1024, 4096), False, 1.0, True),
+    ('head', (8, 768), (1000, 768), False, 1.0, True),
+    ('ragged', (3, 37, 13), (3, 29, 13), False, 0.5, True),
+]
+GEMM_REL_L2 = 1e-6      # 3xTF32 against fp32 (TF32 off): ~2.5e-7 and fp32's own
+
+# the depthwise convolutions of the timm CNNs, narrowed in batch: (x
+# shape, kernel, stride, padding)
+DWCONV_GEOMETRIES = [
+    ((2, 56, 56, 96), 7, 1, 3), ((2, 28, 28, 192), 7, 1, 3),     # convnext_tiny
+    ((2, 14, 14, 384), 7, 1, 3), ((2, 7, 7, 768), 7, 1, 3),
+    ((2, 112, 112, 32), 3, 1, 1), ((2, 112, 112, 96), 3, 2, 1),  # efficientnet_b0
+    ((2, 56, 56, 144), 5, 2, 2), ((2, 28, 28, 240), 3, 2, 1),
+    ((2, 14, 14, 672), 5, 2, 2), ((2, 7, 7, 1152), 3, 1, 1),
+    ((2, 112, 112, 16), 3, 1, 1), ((2, 56, 56, 72), 5, 2, 2),    # mobilenetv3
+    ((2, 14, 14, 184), 3, 1, 1), ((2, 7, 7, 960), 5, 1, 2),
+    ((2, 13, 11, 6), 3, 2, [(1, 0), (0, 2)]),                    # C % 4 != 0
+]
+DWCONV_REL_L2 = 1e-6    # fp32 FMAs against cuDNN's fp32
+
+
+def _gemm_operands(dev, a_shape, b_shape, seed):
+    rng = np.random.RandomState(seed)
+
+    def t(shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    if a_shape == 'qkv':                # q and k views of one projection
+        b, n, h, d = b_shape
+        qkv = t((b, n, 3, h, d))
+        return qkv[:, :, 0].transpose(1, 2), qkv[:, :, 1].transpose(1, 2)
+    if a_shape == 'pv':
+        b, n, h, d = b_shape
+        p = torch.softmax(t((b, h, n, n)), -1)
+        return p, t((b, n, 3, h, d))[:, :, 2].transpose(1, 2)
+    return t(a_shape), t(b_shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,a_shape,b_shape,kn,alpha,bias',
+                         GEMM_GEOMETRIES, ids=[g[0] for g in GEMM_GEOMETRIES])
+def test_gemm_kernel_matches_plain_on_the_card(name, a_shape, b_shape, kn,
+                                               alpha, bias):
+    """One launch per call against ``torch.matmul`` in fp32 at rel L2 <=
+    1e-6 (and float64 beside it), the head views read in place; two
+    launches byte-equal."""
+    from video_features_torch.ops import gemm_tf32x3 as g
+    dev = _cuda()
+    a, b = _gemm_operands(dev, a_shape, b_shape, 21)
+    n = b.shape[-1] if kn else b.shape[-2]
+    c = (torch.from_numpy(np.random.RandomState(22).randn(n).astype(
+        np.float32)).to(dev) if bias else None)
+    before = g.gemm_tf32x3.launches
+    got = g.gemm_tf32x3(a, b, kn, alpha, c)
+    again = g.gemm_tf32x3(a, b, kn, alpha, c)
+    want = g.gemm_tf32x3_plain(a, b, kn, alpha, c)
+    exact = g.gemm_tf32x3_plain(a.double(), b.double(), kn, alpha,
+                                None if c is None else c.double())
+    torch.cuda.synchronize()
+    assert g.gemm_tf32x3.launches == before + 2
+    assert got.shape == want.shape and got.is_contiguous()
+    assert ((got - want).norm() / want.norm()).item() <= GEMM_REL_L2
+    assert ((got.double() - exact).norm() / exact.norm()).item() <= GEMM_REL_L2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_gemm_kernel_raises_on_what_it_does_not_take():
+    from video_features_torch.ops import gemm_tf32x3 as g
+    dev = _cuda()
+    a = torch.randn(4, 8, 16, device=dev)
+    with pytest.raises(ValueError, match='contiguous along its last axis'):
+        g.gemm_tf32x3(a.transpose(-1, -2), torch.randn(8, 8, device=dev))
+    with pytest.raises(ValueError, match='float32'):
+        g.gemm_tf32x3(a.half(), torch.randn(8, 16, device=dev).half())
+    with pytest.raises(ValueError, match='agree on K'):
+        g.gemm_tf32x3(a, torch.randn(8, 15, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('xs,k,stride,padding', DWCONV_GEOMETRIES)
+def test_dwconv_kernel_matches_plain_on_the_card(xs, k, stride, padding):
+    """One launch per call against cuDNN's fp32 depthwise convolution at
+    rel L2 <= 1e-6, with and without a bias."""
+    from video_features_torch.ops import dwconv
+    dev = _cuda()
+    rng = np.random.RandomState(23)
+    x = torch.from_numpy(rng.randn(*xs).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(xs[-1], 1, k, k) * 0.1).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(xs[-1]).astype(np.float32)).to(dev)
+    before = dwconv.dwconv_f32.launches
+    for bias in (b, None):
+        got = dwconv.dwconv_f32(x, w, stride, padding, bias)
+        want = dwconv.dwconv_f32_plain(x, w, stride, padding, bias)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert ((got - want).norm() / want.norm()).item() <= DWCONV_REL_L2
+    assert dwconv.dwconv_f32.launches == before + 2

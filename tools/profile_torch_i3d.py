@@ -31,8 +31,11 @@ ROOT = Path(__file__).resolve().parent.parent
 
 GROUPS = (('corr_lookup', ('masked_kernel', 'padded_kernel')),
           ('gru_direction', ('gru_tf32x3', 'gru_tf32_onepass')),
-          # before 'conv', which would take any name with 'conv' in it
+          # the hand kernels before 'gemm' and 'conv', which would take
+          # any name with 'gemm' or 'conv' in it
           ('conv_tf32x3', ('conv_tf32x3',)),
+          ('gemm_tf32x3', ('gemm_tf32x3',)),
+          ('dwconv_f32', ('dwconv_f32',)),
           ('gemm', ('gemm', 'cutlass', 'sm90_xmma', 'cublas')),
           ('conv', ('conv', 'cudnn', 'implicit', 'winograd', 'fft')),
           ('pool', ('pool',)))

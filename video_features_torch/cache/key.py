@@ -34,7 +34,7 @@ from typing import Any, Dict, Mapping
 
 from video_features_torch.config import knob_exclude
 from video_features_torch.registry import (
-    THREE_PASS_CONV_FEATURES, THREE_PASS_PRECISIONS,
+    THREE_PASS_FEATURES, THREE_PASS_PRECISIONS, THREE_PASS_PRODUCT_FEATURES,
 )
 from video_features_torch.utils.fingerprint import (
     CLIP_CUSTOM_CHECKPOINT, hash_file, hash_file_stats, is_file_key,
@@ -62,22 +62,30 @@ def _canonical(obj: Any) -> str:
 # kernel's design (csrc/conv_tf32x3.cu on wgmma), whose summation order
 # differs from the mma.sync design's that keyed 'conv_tf32x3' before it
 THREE_PASS_TOKEN = 'conv_tf32x3.wgmma'
+# clip and timm on the lane also run every linear and product in the 3xTF32
+# GEMM and every depthwise convolution in the fp32 one: other bytes than
+# their one-pass TF32 lane of before, so an output it wrote never answers
+THREE_PASS_PRODUCTS_TOKEN = 'conv_tf32x3.wgmma+gemm_tf32x3.wgmma+dwconv_f32'
 
 
 def config_fingerprint(args: Mapping[str, Any]) -> str:
     """SHA-256 over the keys of a merged config that can change the
     outputs. An absent or null ``compute_dtype`` is the float32 lane; the
-    three-pass lane adds ``lane_arithmetic`` (:data:`THREE_PASS_TOKEN`),
-    and no other key of any other family or lane moves."""
+    three-pass lane adds ``lane_arithmetic`` (:data:`THREE_PASS_TOKEN`, for
+    clip and timm :data:`THREE_PASS_PRODUCTS_TOKEN`), and no other key of
+    any other family or lane moves."""
     relevant = {k: v for k, v in args.items()
                 if k not in CONFIG_KEY_EXCLUDE and not is_file_key(k)}
     if relevant.get('compute_dtype') is None:
         relevant['compute_dtype'] = 'float32'
     # utils/device.py::three_pass_convs's rule (that module imports torch)
     if args.get('precision') in THREE_PASS_PRECISIONS \
-            and args.get('feature_type') in THREE_PASS_CONV_FEATURES \
+            and args.get('feature_type') in THREE_PASS_FEATURES \
             and args.get('compute_dtype') != 'bfloat16':
-        relevant['lane_arithmetic'] = THREE_PASS_TOKEN
+        relevant['lane_arithmetic'] = (
+            THREE_PASS_PRODUCTS_TOKEN
+            if args['feature_type'] in THREE_PASS_PRODUCT_FEATURES
+            else THREE_PASS_TOKEN)
     return hashlib.sha256(_canonical(relevant).encode()).hexdigest()
 
 

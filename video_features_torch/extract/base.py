@@ -639,9 +639,13 @@ class BaseExtractor:
         """The kernel libraries (``csrc/<name>.cu``) this extractor's steps
         launch on its device: on the card under ``high`` and ``mixed`` the
         3xTF32 convolution's where :attr:`three_pass_convs` holds (r21d,
-        s3d, resnet, vggish), else none, unless a family says
+        s3d, resnet, vggish), and for clip and timm the 3xTF32 GEMM's and
+        the depthwise convolution's too, else none, unless a family says
         otherwise."""
+        from video_features_torch.registry import THREE_PASS_PRODUCT_FEATURES
         if self.device.type == 'cuda' and self.three_pass_convs:
+            if self.feature_type in THREE_PASS_PRODUCT_FEATURES:
+                return ('conv_tf32x3', 'gemm_tf32x3', 'dwconv_f32')
             return ('conv_tf32x3',)
         return ()
 

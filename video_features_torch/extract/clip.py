@@ -27,6 +27,7 @@ import torch
 from video_features_torch.config import check_lanes
 from video_features_torch.extract.framewise import BaseFrameWiseExtractor
 from video_features_torch.models import clip as clip_model
+from video_features_torch.ops.nn import three_pass_route
 from video_features_torch.ops.precision import features_to_f32
 from video_features_torch.ops.quant import dequantize_tree
 from video_features_torch.ops.transforms import normalize, to_float_zero_one
@@ -38,14 +39,17 @@ from video_features_torch.utils.fingerprint import CLIP_CUSTOM_CHECKPOINT
 
 
 def clip_step(params, frames: torch.Tensor, arch: str,
-              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              dtype: torch.dtype = torch.float32,
+              three_pass_convs: bool = False) -> torch.Tensor:
     """(B, H, W, 3) uint8 → (B, embed_dim) float32: [0, 1] in ``dtype``
-    (the lane's activations) → normalize → ``encode_image``; int8
-    weights are dequantized first."""
+    (the lane's activations) → normalize → ``encode_image``, every
+    convolution, linear and product in the hand kernels under
+    ``three_pass_convs``; int8 weights are dequantized first."""
     x = normalize(to_float_zero_one(frames, dtype), clip_model.MEAN,
                   clip_model.STD)
-    return features_to_f32(clip_model.encode_image(dequantize_tree(params),
-                                                   x, arch))
+    with three_pass_route(three_pass_convs, products=True):
+        return features_to_f32(clip_model.encode_image(
+            dequantize_tree(params), x, arch))
 
 
 def load_params(args, compute_dtype: str = 'float32') -> Tuple[Params, str]:
@@ -93,7 +97,8 @@ class ExtractCLIP(BaseFrameWiseExtractor):
         return ('edge_resize_crop', n_px, n_px, 'bicubic')
 
     def step_program(self):
-        return clip_step, dict(arch=self.arch, dtype=self.act_dtype)
+        return clip_step, dict(arch=self.arch, dtype=self.act_dtype,
+                               three_pass_convs=self.three_pass_convs)
 
     def text_features(self) -> Tuple[Optional[torch.Tensor], List[str]]:
         """(text features, class texts) of the zero-shot prompts, computed
@@ -111,7 +116,8 @@ class ExtractCLIP(BaseFrameWiseExtractor):
                     return None, []
                 classes = [f'a photo of {label}' for label in labels]
             tokens = torch.from_numpy(tokenize(classes)).to(self.device)
-            with torch.inference_mode(), self.precision_scope():
+            with torch.inference_mode(), self.precision_scope(), \
+                    three_pass_route(self.three_pass_convs, products=True):
                 self._text = (clip_model.encode_text(
                     float32_params(self.params), tokens), classes)
         return self._text
@@ -127,7 +133,8 @@ class ExtractCLIP(BaseFrameWiseExtractor):
             return
         if text_feats is None:
             return
-        with torch.inference_mode(), self.precision_scope():
+        with torch.inference_mode(), self.precision_scope(), \
+                three_pass_route(self.three_pass_convs, products=True):
             logits = clip_model.zero_shot_logits(
                 float32_params(self.params),
                 torch.from_numpy(feats).to(self.device), text_feats)

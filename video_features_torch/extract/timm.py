@@ -42,7 +42,7 @@ from video_features_torch.models import regnet as regnet_model
 from video_features_torch.models import resnet as resnet_model
 from video_features_torch.models import swin as swin_model
 from video_features_torch.models import vit as vit_model
-from video_features_torch.ops.nn import linear
+from video_features_torch.ops.nn import linear, three_pass_route
 from video_features_torch.ops.precision import features_to_f32
 from video_features_torch.ops.quant import dequantize_tree
 from video_features_torch.ops.transforms import normalize, to_float_zero_one
@@ -160,13 +160,17 @@ def resolve_model_name(model_name: str) -> Dict[str, Any]:
 
 def timm_step(params, frames: torch.Tensor, family: str, arch: str,
               mean: Sequence[float], std: Sequence[float],
-              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              dtype: torch.dtype = torch.float32,
+              three_pass_convs: bool = False) -> torch.Tensor:
     """(B, H, W, 3) uint8 → (B, feat_dim) float32: [0, 1] in ``dtype``
     (the lane's activations) → normalize → the family's
-    ``forward(features=True)``; int8 weights are dequantized first."""
+    ``forward(features=True)``, every convolution, linear and product in
+    the hand kernels under ``three_pass_convs``; int8 weights are
+    dequantized first."""
     x = normalize(to_float_zero_one(frames, dtype), mean, std)
-    return features_to_f32(MODEL_MODULES[family].forward(
-        dequantize_tree(params), x, arch=arch, features=True))
+    with three_pass_route(three_pass_convs, products=True):
+        return features_to_f32(MODEL_MODULES[family].forward(
+            dequantize_tree(params), x, arch=arch, features=True))
 
 
 class ExtractTIMM(BaseFrameWiseExtractor):
@@ -249,15 +253,17 @@ class ExtractTIMM(BaseFrameWiseExtractor):
         if self._seq_replicas is not None:
             x = normalize(to_float_zero_one(frames), self.data_cfg['mean'],
                           self.data_cfg['std'])
-            return vit_model.forward_sequence_parallel(
-                self.params, x, self._mesh, arch=self.arch,
-                replicas=self._seq_replicas)
+            with three_pass_route(self.three_pass_convs, products=True):
+                return vit_model.forward_sequence_parallel(
+                    self.params, x, self._mesh, arch=self.arch,
+                    replicas=self._seq_replicas)
         return super().device_step(frames)
 
     def step_program(self):
         return timm_step, dict(family=self.family, arch=self.arch,
                                mean=self.data_cfg['mean'],
-                               std=self.data_cfg['std'], dtype=self.act_dtype)
+                               std=self.data_cfg['std'], dtype=self.act_dtype,
+                               three_pass_convs=self.three_pass_convs)
 
     def classifier(self):
         """The family's classifier params, or None: ``head`` (ViT, BEiT,
@@ -285,7 +291,8 @@ class ExtractTIMM(BaseFrameWiseExtractor):
         if not head:
             return
         from video_features_torch.utils.preds import show_predictions_on_dataset
-        with torch.inference_mode(), self.precision_scope():
+        with torch.inference_mode(), self.precision_scope(), \
+                three_pass_route(self.three_pass_convs, products=True):
             logits = linear(torch.from_numpy(feats).to(self.device),
                             float32_params(head))
         show_predictions_on_dataset(logits.cpu().numpy(), 'imagenet1k')

@@ -15,7 +15,6 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from video_features_torch.models.vit import layer_norm, mlp
 from video_features_torch.ops import nn
@@ -75,12 +74,14 @@ def _attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     B, N, D = x.shape
     hd = D // num_heads
     bias = torch.cat([p['q_bias'], torch.zeros_like(p['q_bias']), p['v_bias']])
-    qkv = F.linear(x, p['qkv']['weight'], bias).reshape(B, N, 3, num_heads, hd)
+    qkv = nn.linear(x, {'weight': p['qkv']['weight'], 'bias': bias}
+                    ).reshape(B, N, 3, num_heads, hd)
     q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)         # (B, H, N, hd)
-    scores = (q * hd ** -0.5) @ k.transpose(-1, -2)
+    scores = nn.matmul(q * hd ** -0.5, k.transpose(-1, -2))
     scores = scores + _rel_pos_bias(p, num_heads)[None]
-    out = (nn.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(B, N, D)
-    return F.linear(out, p['proj']['weight'], p['proj']['bias'])
+    out = nn.matmul(nn.softmax(scores, dim=-1), v).transpose(1, 2).reshape(
+        B, N, D)
+    return nn.linear(out, p['proj'])
 
 
 def _block(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -109,7 +110,7 @@ def forward(params: Params, x: torch.Tensor,
     feats = layer_norm(x[:, 1:].mean(dim=1), params['fc_norm'])
     if features:
         return feats
-    return F.linear(feats, params['head']['weight'], params['head']['bias'])
+    return nn.linear(feats, params['head'])
 
 
 def feat_dim(arch: str) -> int:

@@ -6,14 +6,15 @@ checkpoint's state_dict, in torch's layout:
 
   * conv weights (O, I, kh, kw); ``attn.in_proj_weight`` (3D, D),
     ``out_proj``, ``c_fc``, ``c_proj`` and AttentionPool2d's
-    ``q/k/v/c_proj`` weights (O, I), all used as ``F.linear`` weights;
+    ``q/k/v/c_proj`` weights (O, I), all used as linear weights;
   * ``visual.proj`` and ``text_projection`` are raw matmul operands,
     ``x @ W``;
   * ``token_embedding.weight`` (vocab, D) is a gather table.
 
 Attention is plain matmuls and a softmax: q·kᵀ·scale, an additive mask,
-softmax, ·v. Layout NHWC for the image towers: input (B, H, W, 3),
-normalized.
+softmax, ·v. Every linear and product goes through ``ops/nn.py::linear``
+and ``::matmul`` (the 3xTF32 GEMM on the three-pass lane). Layout NHWC for
+the image towers: input (B, H, W, 3), normalized.
 """
 from __future__ import annotations
 
@@ -21,10 +22,11 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from video_features_torch.ops import nn
-from video_features_torch.ops.nn import avg_pool, batch_norm, conv, linear, relu
+from video_features_torch.ops.nn import (
+    avg_pool, batch_norm, conv, linear, matmul, relu,
+)
 
 Params = Dict[str, Any]
 
@@ -85,12 +87,13 @@ def multi_head_attention(p: Params, x: torch.Tensor, num_heads: int,
 
     def heads(t):
         return t.reshape(b, n, num_heads, head_dim).transpose(1, 2)
-    q, k, v = F.linear(x, p['in_proj_weight'], p['in_proj_bias']).chunk(3, dim=-1)
+    q, k, v = linear(x, {'weight': p['in_proj_weight'],
+                         'bias': p['in_proj_bias']}).chunk(3, dim=-1)
     q, k, v = heads(q), heads(k), heads(v)
-    attn = (q @ k.transpose(-2, -1)) * (head_dim ** -0.5)
+    attn = matmul(q, k.transpose(-2, -1), alpha=head_dim ** -0.5)
     if mask is not None:
         attn = attn + mask
-    out = (nn.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(b, n, d)
+    out = matmul(nn.softmax(attn, dim=-1), v).transpose(1, 2).reshape(b, n, d)
     return linear(out, p['out_proj'])
 
 
@@ -124,7 +127,7 @@ def encode_image_vit(params: Params, x: torch.Tensor,
     x = torch.cat([cls, x], dim=1) + p['positional_embedding']
     x = layer_norm(x, p['ln_pre'])
     x = transformer(p['transformer'], x, cfg['heads'])
-    return layer_norm(x[:, 0, :], p['ln_post']) @ p['proj']
+    return matmul(layer_norm(x[:, 0, :], p['ln_post']), p['proj'])
 
 
 # -- ModifiedResNet visual tower ---------------------------------------------
@@ -159,8 +162,9 @@ def _attention_pool(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     k = linear(x, p['k_proj']).reshape(b, n, num_heads, head_dim)
     v = linear(x, p['v_proj']).reshape(b, n, num_heads, head_dim)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    attn = nn.softmax((q @ k.transpose(-2, -1)) * (head_dim ** -0.5), dim=-1)
-    return linear((attn @ v).transpose(1, 2).reshape(b, c), p['c_proj'])
+    attn = nn.softmax(matmul(q, k.transpose(-2, -1), alpha=head_dim ** -0.5),
+                      dim=-1)
+    return linear(matmul(attn, v).transpose(1, 2).reshape(b, c), p['c_proj'])
 
 
 def encode_image_resnet(params: Params, x: torch.Tensor,
@@ -201,7 +205,7 @@ def encode_text(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     x = transformer(params['transformer'], x, x.shape[-1] // 64, mask)
     x = layer_norm(x, params['ln_final'])
     x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
-    return x @ params['text_projection']
+    return matmul(x, params['text_projection'])
 
 
 def zero_shot_logits(params: Params, image_feats: torch.Tensor,
@@ -209,7 +213,7 @@ def zero_shot_logits(params: Params, image_feats: torch.Tensor,
     """Cosine-similarity logits scaled by the learned temperature."""
     img = image_feats / image_feats.norm(dim=-1, keepdim=True)
     txt = text_feats / text_feats.norm(dim=-1, keepdim=True)
-    return params['logit_scale'].exp() * img @ txt.T
+    return matmul(params['logit_scale'].exp() * img, txt.T)
 
 
 # -- architecture inference (model_name=custom) ------------------------------

@@ -14,9 +14,9 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from video_features_torch.models.vit import layer_norm, mlp
+from video_features_torch.ops import nn
 from video_features_torch.ops.nn import conv
 
 Params = Dict[str, Any]
@@ -58,7 +58,7 @@ def forward(params: Params, x: torch.Tensor, arch: str = 'mixer_b16_224',
     feats = layer_norm(x, params['norm']).mean(dim=1)
     if features:
         return feats
-    return F.linear(feats, params['head']['weight'], params['head']['bias'])
+    return nn.linear(feats, params['head'])
 
 
 def init_state_dict(arch: str = 'mixer_b16_224', seed: int = 0,

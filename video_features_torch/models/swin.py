@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from video_features_torch.models.vit import mlp
 from video_features_torch.ops import nn
-from video_features_torch.ops.nn import conv, linear
+from video_features_torch.ops.nn import conv, linear, matmul
 
 Params = Dict[str, Any]
 
@@ -135,14 +135,16 @@ def _window_attention(p: Params, x: torch.Tensor, num_heads: int,
     hd = C // num_heads
     qkv = linear(x, p['qkv']).reshape(Bn, N, 3, num_heads, hd)
     q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)          # (Bn, H, N, hd)
-    scores = (q * hd ** -0.5) @ k.transpose(-1, -2)         # (Bn, H, N, N)
+    scores = matmul(q * hd ** -0.5, k.transpose(-1, -2))   # (Bn, H, N, N)
     bias = p['relative_position_bias_table'][_device_index(wh, ww, x.device)]
     scores = scores + bias.reshape(N, N, num_heads).permute(2, 0, 1)
-    if mask is not None:
+    if mask is not None:       # in scores' dtype, as the JAX package's
         nw = mask.shape[0]
         scores = (scores.reshape(Bn // nw, nw, num_heads, N, N)
-                  + mask[None, :, None]).reshape(Bn, num_heads, N, N)
-    out = (nn.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(Bn, N, C)
+                  + mask[None, :, None].to(scores.dtype)
+                  ).reshape(Bn, num_heads, N, N)
+    out = matmul(nn.softmax(scores, dim=-1), v).transpose(1, 2).reshape(
+        Bn, N, C)
     return linear(out, p['proj'])
 
 

@@ -15,7 +15,10 @@ weights in torch's layout. Input (B, H, W, 3), normalized.
     bicubic is a = -0.75 and gives other numbers;
   * features are the cls token after the final norm; a distilled DeiT
     checkpoint (``dist_token``) gives the mean of the cls and dist
-    tokens, and its logits the mean of ``head`` and ``head_dist``.
+    tokens, and its logits the mean of ``head`` and ``head_dist``;
+  * every linear goes through ``ops/nn.py::linear`` (the 3xTF32 GEMM on
+    the three-pass lane), the attention products through
+    ``ops/attention.py``.
 """
 from __future__ import annotations
 
@@ -59,19 +62,18 @@ def _attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """timm ``Attention``: fused qkv linear, per-head scaled dot product,
     dense or blockwise by token count."""
     B, N, D = x.shape
-    qkv = F.linear(x, p['qkv']['weight'], p['qkv']['bias'])
+    qkv = nn.linear(x, p['qkv'])
     q, k, v = qkv.reshape(B, N, 3, num_heads, D // num_heads).unbind(2)
     if N >= BLOCKWISE_THRESHOLD:
         out = attention.blockwise_attention(q, k, v, block_size=_BLOCK)
     else:
         out = attention.dense_attention(q, k, v)
-    return F.linear(out.reshape(B, N, D), p['proj']['weight'], p['proj']['bias'])
+    return nn.linear(out.reshape(B, N, D), p['proj'])
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """fc1 → exact-erf GELU → fc2."""
-    h = F.gelu(F.linear(x, p['fc1']['weight'], p['fc1']['bias']))
-    return F.linear(h, p['fc2']['weight'], p['fc2']['bias'])
+    return nn.linear(F.gelu(nn.linear(x, p['fc1'])), p['fc2'])
 
 
 def _block(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -167,12 +169,11 @@ def _pool(params: Params, x: torch.Tensor, features: bool) -> torch.Tensor:
     if 'dist_token' in params:
         if features:
             return (x[:, 0] + x[:, 1]) / 2
-        return (F.linear(x[:, 0], params['head']['weight'], params['head']['bias'])
-                + F.linear(x[:, 1], params['head_dist']['weight'],
-                           params['head_dist']['bias'])) / 2
+        return (nn.linear(x[:, 0], params['head'])
+                + nn.linear(x[:, 1], params['head_dist'])) / 2
     if features:
         return x[:, 0]
-    return F.linear(x[:, 0], params['head']['weight'], params['head']['bias'])
+    return nn.linear(x[:, 0], params['head'])
 
 
 def forward_sequence_parallel(params: Params, x: torch.Tensor, mesh,
@@ -210,13 +211,11 @@ def forward_sequence_parallel(params: Params, x: torch.Tensor, mesh,
         ps = [r['blocks'][str(layer)] for r in replicas]
         qkv = []
         for p, t in zip(ps, xs):
-            a = p['attn']['qkv']
-            h = F.linear(layer_norm(t, p['norm1']), a['weight'], a['bias'])
+            h = nn.linear(layer_norm(t, p['norm1']), p['attn']['qkv'])
             qkv.append(h.reshape(B, s, 3, heads, width // heads).unbind(2))
         outs = ring_attention([t[0] for t in qkv], [t[1] for t in qkv],
                               [t[2] for t in qkv], kv_valid=masks)
-        xs = [t + F.linear(o.reshape(B, s, width), p['attn']['proj']['weight'],
-                           p['attn']['proj']['bias'])
+        xs = [t + nn.linear(o.reshape(B, s, width), p['attn']['proj'])
               for p, t, o in zip(ps, xs, outs)]
         xs = [t + mlp(p['mlp'], layer_norm(t, p['norm2']))
               for p, t in zip(ps, xs)]

@@ -10,14 +10,19 @@
     holding one shard of the queries, the key/value shards moving one hop
     around the ring per step.
 
-All are plain batched matmuls and ``torch.softmax``/``torch.exp`` left
-to cuBLAS and torch's elementwise kernels.
+The products go through ``ops/nn.py::matmul``: cuBLAS, or inside a
+products route (clip and timm under ``precision=high`` and ``mixed``) the
+hand 3xTF32 GEMM (``ops/gemm_tf32x3.py``) on the head views in place;
+``torch.softmax``/``torch.exp`` stay in torch's elementwise kernels, in
+fp32.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from video_features_torch.ops import nn
 
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -30,9 +35,9 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """softmax(QKᵀ·scale)V over (B, S, H, D) tensors."""
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))     # (B, H, S, D)
-    s = (qh @ kh.transpose(-1, -2)) * _scale(q, scale)
+    s = nn.matmul(qh, kh.transpose(-1, -2), alpha=_scale(q, scale))
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
-    return (p @ vh).transpose(1, 2)
+    return nn.matmul(p, vh).transpose(1, 2)
 
 
 def _online_block(q: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
@@ -45,7 +50,7 @@ def _online_block(q: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     D). ``valid`` (block,) bool masks padded keys out (scores → -inf, so
     p → 0); a block with no valid key leaves the carry as it was.
     """
-    s = (q @ kb.transpose(-1, -2)).float() * scale
+    s = nn.matmul(q, kb.transpose(-1, -2)).float() * scale
     if valid is not None:
         s = s.masked_fill(~valid, float('-inf'))
     m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -56,7 +61,7 @@ def _online_block(q: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     p = torch.exp(s - m_safe)
     alpha = torch.exp(m - m_safe)
     l_new = l * alpha + p.sum(dim=-1, keepdim=True)
-    o_new = o * alpha + p @ vb.float()
+    o_new = o * alpha + nn.matmul(p, vb.float())
     return m_new, l_new, o_new
 
 

@@ -12,10 +12,17 @@ Numerics follow the JAX functions:
     pairs (TF-SAME for I3D), applied as a zero pad before the call
     (:func:`library_conv`); inside :func:`conv_route` every
     :func:`conv`, grouped ones included, goes to the hand 3xTF32 kernel
-    instead (``ops/conv_tf32x3.py``, the i3d, raft, r21d, s3d, resnet and
-    vggish families under ``precision=high`` and ``mixed``), or to its
-    plain version; a weight used by several calls is packed for the
-    kernel once (:func:`route_weight`);
+    instead (``ops/conv_tf32x3.py``, every family under
+    ``precision=high`` and ``mixed``), a depthwise one (one input and one
+    output channel per group) to the hand fp32 kernel
+    (``ops/dwconv.py``), or to their plain versions; a weight used by
+    several calls is packed for the 3xTF32 kernel once
+    (:func:`route_weight`);
+  * linear and matmul: ``F.linear`` and ``@``; inside a
+    :func:`conv_route` with ``products`` (the clip and timm families on
+    that lane) they go to the hand 3xTF32 GEMM (``ops/gemm_tf32x3.py``)
+    or to its plain version, operands read in place where their last
+    axis is contiguous (``matmul.copies`` counts those copied);
   * batch norm is inference-only with running statistics, computed as
     ``(x - mean) * rsqrt(var + eps) * weight + bias``;
   * max pool pads with ``-inf`` (ceil mode and TF-SAME become explicit
@@ -77,26 +84,35 @@ def pad_spatial(x: torch.Tensor, pairs, value: float = 0.0) -> torch.Tensor:
 
 
 # where conv() goes in this context: None (torch.nn.functional, cuDNN on
-# the card), 'kernel' (ops/conv_tf32x3.py::conv_tf32x3) or 'plain' (its
-# plain version); per thread and per task, so two serve workers on two
-# lanes route apart
+# the card), 'kernel' (ops/conv_tf32x3.py::conv_tf32x3, a depthwise one
+# ops/dwconv.py::dwconv_f32) or 'plain' (their plain versions); and where
+# linear() and matmul() go: None (torch, cuBLAS on the card), 'kernel'
+# (ops/gemm_tf32x3.py::gemm_tf32x3) or 'plain'; per thread and per task,
+# so two serve workers on two lanes route apart
 _CONV_ROUTE: ContextVar[Optional[str]] = ContextVar('vft_conv_route',
                                                     default=None)
+_PRODUCT_ROUTE: ContextVar[Optional[str]] = ContextVar('vft_product_route',
+                                                       default=None)
 CONV_ROUTES = ('kernel', 'plain')
 
 
 @contextmanager
-def conv_route(route: Optional[str]) -> Iterator[None]:
-    """Send every :func:`conv` in the body to the 3xTF32 convolution
-    (``'kernel'``), to its plain version (``'plain'``), or to
-    :func:`library_conv` (None), restoring the route found on exit."""
+def conv_route(route: Optional[str], products: bool = False) -> Iterator[None]:
+    """Send every :func:`conv` in the body to the 3xTF32 convolution or,
+    depthwise, the fp32 one (``'kernel'``), to their plain versions
+    (``'plain'``), or to :func:`library_conv` (None); with ``products``
+    every :func:`linear` and :func:`matmul` too, to the 3xTF32 GEMM or its
+    plain version (without, they stay in torch). Restores the routes found
+    on exit."""
     if route is not None and route not in CONV_ROUTES:
         raise ValueError(f'route must be one of {CONV_ROUTES} or None; got '
                          f'{route!r}')
     token = _CONV_ROUTE.set(route)
+    products_token = _PRODUCT_ROUTE.set(route if products else None)
     try:
         yield
     finally:
+        _PRODUCT_ROUTE.reset(products_token)
         _CONV_ROUTE.reset(token)
 
 
@@ -106,13 +122,15 @@ def conv_route_active() -> bool:
     return _CONV_ROUTE.get() is not None
 
 
-def three_pass_route(enabled: bool, plain: bool = False):
-    """A model forward's route: :func:`conv_route` to the 3xTF32
-    convolution (its plain version when ``plain``) when ``enabled`` (the
-    lane's ``three_pass_convs``), else the route found."""
+def three_pass_route(enabled: bool, plain: bool = False,
+                     products: bool = False):
+    """A model forward's route: :func:`conv_route` to the hand kernels
+    (their plain versions when ``plain``), the products too with
+    ``products`` (clip and timm), when ``enabled`` (the lane's
+    ``three_pass_convs``), else the route found."""
     if not enabled:
         return nullcontext()
-    return conv_route('plain' if plain else 'kernel')
+    return conv_route('plain' if plain else 'kernel', products)
 
 
 def route_weight(weight: torch.Tensor):
@@ -132,12 +150,18 @@ def conv(x: torch.Tensor, weight, stride: IntOrTuple = 1,
     """N-D convolution, channels-last. weight: (O, I // groups, *spatial),
     or :func:`route_weight`'s packed form of it; ``groups`` > 1 is a
     grouped convolution (ResNeXt's 3×3). Inside a :func:`conv_route` it
-    runs ``ops/conv_tf32x3.py`` (a geometry the kernel cannot take raises
+    runs ``ops/conv_tf32x3.py``, or ``ops/dwconv.py`` for one input and
+    one output channel per group (a geometry a kernel cannot take raises
     there, never falls back), else :func:`library_conv`."""
     route = _CONV_ROUTE.get()
     plain = weight if isinstance(weight, torch.Tensor) else weight.weight
     if route is None:
         return library_conv(x, plain, stride, padding, bias, groups)
+    from video_features_torch.ops import dwconv
+    if dwconv.is_depthwise(x, plain, groups):
+        fn = dwconv.dwconv_f32 if route == 'kernel' else dwconv.dwconv_f32_plain
+        return fn(x.contiguous(), plain.contiguous(), stride, padding,
+                  None if bias is None else bias.contiguous())
     from video_features_torch.ops import conv_tf32x3 as k
     if route == 'plain':
         fn, weight = k.conv_tf32x3_plain, plain.contiguous()
@@ -212,8 +236,64 @@ def layer_norm(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
 
 def linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Dense layer over the trailing axis; ``p['weight']`` is (O, I)."""
-    return F.linear(x, p['weight'], p.get('bias'))
+    """Dense layer over the trailing axis; ``p['weight']`` is (O, I).
+    Inside a products route: the 3xTF32 GEMM on ``x`` flattened to rows
+    (copied where its rows do not flatten in place) and the (O, I) weight,
+    bias in its epilogue."""
+    route = _PRODUCT_ROUTE.get()
+    if route is None:
+        return F.linear(x, p['weight'], p.get('bias'))
+    lead = x.shape[:-1]
+    if x.shape[-1] > 1 and x.stride(-1) != 1:
+        x = _copied(x)
+    try:
+        rows = x.view(-1, x.shape[-1])
+    except RuntimeError:                 # rows not flattenable in place
+        rows = _copied(x).view(-1, x.shape[-1])
+    out = _gemm(route, rows, p['weight'], False, 1.0, p.get('bias'))
+    return out.view(*lead, out.shape[-1])
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           alpha: Optional[float] = None) -> torch.Tensor:
+    """``a @ b``, times ``alpha`` where given. Inside a products route:
+    the 3xTF32 GEMM with alpha in its epilogue, ``b`` read in its own
+    layout, ``(K, N)`` where its last axis is contiguous and ``(N, K)``
+    where it is a transposed view (``k.transpose(-1, -2)``: no copy), a
+    batch of up to two axes; other operands are copied once
+    (``matmul.copies``)."""
+    route = _PRODUCT_ROUTE.get()
+    if route is None:
+        out = a @ b
+        return out if alpha is None else out * alpha
+    if a.shape[-1] > 1 and a.stride(-1) != 1:
+        a = _copied(a)
+    if b.ndim > 2 and tuple(b.shape[:-2]) != tuple(a.shape[:-2]):
+        b = b.expand(*a.shape[:-2], *b.shape[-2:])
+    if b.shape[-1] == 1 or b.stride(-1) == 1:
+        kn, operand = True, b
+    elif b.stride(-2) == 1:
+        kn, operand = False, b.transpose(-1, -2)
+    else:
+        kn, operand = True, _copied(b)
+    return _gemm(route, a, operand, kn, 1.0 if alpha is None else alpha, None)
+
+
+# copies made for the GEMM's operands on the products route (an operand
+# not contiguous along its last axis: Mixer's token mix reads a transposed
+# activation)
+matmul.copies = 0
+
+
+def _copied(t: torch.Tensor) -> torch.Tensor:
+    matmul.copies += 1
+    return t.contiguous()
+
+
+def _gemm(route: str, a, b, b_kn: bool, alpha: float, bias):
+    from video_features_torch.ops import gemm_tf32x3 as g
+    fn = g.gemm_tf32x3 if route == 'kernel' else g.gemm_tf32x3_plain
+    return fn(a, b, b_kn, alpha, bias)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

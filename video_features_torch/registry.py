@@ -43,23 +43,29 @@ LIVE_FEATURES = frozenset({'i3d', 'r21d', 's3d', 'resnet', 'clip', 'timm'})
 # the families whose every convolution runs in the hand 3xTF32 convolution
 # (ops/conv_tf32x3.py) under precision=high and mixed, the JAX package's
 # three passes (utils/device.py::three_pass_convs), and the precision
-# values that run them
-THREE_PASS_CONV_FEATURES = frozenset(
-    {'i3d', 'raft', 'r21d', 's3d', 'resnet', 'vggish'})
+# values that run them; of them, the families whose every linear, attention
+# product and raw matmul runs in the hand 3xTF32 GEMM (ops/gemm_tf32x3.py)
+# and every depthwise convolution in the fp32 one (ops/dwconv.py) too
+THREE_PASS_FEATURES = frozenset(
+    {'i3d', 'raft', 'r21d', 's3d', 'resnet', 'vggish', 'clip', 'timm'})
+THREE_PASS_PRODUCT_FEATURES = frozenset({'clip', 'timm'})
 THREE_PASS_PRECISIONS = ('high', 'mixed')
 
 # the families that accept precision=mixed: those whose feature rel L2
 # under mixed against highest the card measured at <= 1e-3, on seeded
 # weights and the chip_smoke.py inputs (its 'precision lanes' phase):
-# TF32 in cuDNN and cuBLAS and the GRU kernel in 3xTF32, or, for
-# THREE_PASS_CONV_FEATURES, every convolution in 3xTF32 with the libraries
-# in fp32; the others refuse it with the figure (MIXED_REFUSALS, empty
-# since every family measured under the bar)
+# every convolution in 3xTF32 (for THREE_PASS_PRODUCT_FEATURES every
+# product too) with the libraries in fp32; the others refuse it with the
+# figure (MIXED_REFUSALS, empty since every family measured under the bar)
 MIXED_FEATURES = frozenset({
     'resnet',   # resnet50: 1.126e-06 at batch 1, 1.123e-06 at batch 32;
                 # resnext50_32x4d at batch 32: 4.138e-07 (three passes)
-    'clip',     # ViT-B/32: 3.928e-04 at batch 1, 4.799e-04 at batch 32
-    'timm',     # vit_base_patch16_224: 8.668e-04 at batch 1, 8.308e-04 at 32
+    'clip',     # ViT-B/32: 1.213e-06 at batch 8, 1.208e-06 at batch 32;
+                # RN50 at batch 8: 9.451e-07 (three passes)
+    'timm',     # vit_base_patch16_224: 2.189e-06 at batch 8, 2.141e-06 at
+                # 32; one arch of every other family at batch 8:
+                # 3.977e-07 (mixer_b16_224) to 1.605e-06 (deit_base_distilled)
+                # (three passes)
     'r21d',     # r2plus1d_18 at batch 4: 4.650e-06 (three passes)
     's3d',      # one 64-frame stack: 2.014e-06 (three passes)
     'vggish',   # batch 32: 1.875e-06 (three passes)

@@ -10,24 +10,26 @@ Precision: ``precision`` takes the JAX package's seven values
 run float32 convolutions and matmuls in TF32 (about three decimal
 digits), how many TF32 products the GRU direction kernel
 (``csrc/gru_direction.cu``) issues per fp32 one: 3 (3xTF32, fp32-class)
-or 1, and, for the i3d, raft, r21d, s3d, resnet and vggish families,
-whether every convolution of the step runs in the hand 3xTF32
-convolution (``csrc/conv_tf32x3.cu``).
+or 1, and whether every convolution of the step runs in the hand 3xTF32
+convolution (``csrc/conv_tf32x3.cu``), and for clip and timm every
+linear and product in the hand 3xTF32 GEMM (``csrc/gemm_tf32x3.cu``) and
+every depthwise convolution in the fp32 one (``csrc/dwconv_f32.cu``).
 
   * ``highest``, ``float32``: TF32 off, the GRU kernel in 3xTF32.
     ``float32`` is the JAX package's name for ``highest``: the same bytes.
   * ``high``, ``mixed``: the JAX package's three passes (``mixed`` is its
     ambient ``high`` with no pins). cuDNN and cuBLAS have no three-pass
-    mode, so in i3d, raft, r21d, s3d, resnet (ResNeXt's grouped 3×3
-    included) and vggish (``registry.THREE_PASS_CONV_FEATURES``) every
-    convolution goes to the 3xTF32 convolution and the libraries keep
-    TF32 off for the rest (the correlation volume, the upsample's einsum,
-    the linear heads, vggish's 12288 → 4096 → 4096 → 128 stack: true
-    fp32); the GRU kernel in 3xTF32. On the bf16 lane
-    (``compute_dtype=bfloat16``) the convolutions stay in the libraries
-    (bf16 operands have no low part to add). clip and timm run these two
-    values with TF32 on in the libraries (one pass; README's port
-    section records the divergence).
+    mode, so in every family (``registry.THREE_PASS_FEATURES``) every
+    convolution goes to the 3xTF32 convolution (ResNeXt's and RegNet's
+    grouped 3×3 included), in clip and timm
+    (``registry.THREE_PASS_PRODUCT_FEATURES``) every linear, attention
+    product and raw matmul to the 3xTF32 GEMM and every depthwise
+    convolution to the fp32 one, and the libraries keep TF32 off for the
+    rest (the six convolutional families' correlation volume, upsample
+    einsum, linear heads and vggish's 12288 → 4096 → 4096 → 128 stack,
+    the softmaxes and norms: true fp32); the GRU kernel in 3xTF32. On the
+    bf16 lane (``compute_dtype=bfloat16``) everything stays in the
+    libraries (bf16 operands have no low part to add).
   * ``default``, ``tensorfloat32``, ``bfloat16``: TF32 on, the GRU
     kernel in 1xTF32 (one-pass modes in JAX).
 
@@ -59,7 +61,7 @@ PRECISIONS = ('default', 'high', 'highest', 'mixed', 'bfloat16',
 
 # precision → (TF32 in cuDNN and cuBLAS, TF32 products per fp32 product
 # in the GRU direction kernel); where three_pass_convs holds (high and
-# mixed on the six convolutional families) the libraries' TF32 is off
+# mixed on every family's float32 activations) the libraries' TF32 is off
 LANES: Dict[str, Tuple[bool, int]] = {
     'highest': (False, 3), 'float32': (False, 3),
     'high': (True, 3), 'mixed': (True, 3),
@@ -120,17 +122,17 @@ def gru_passes(precision: str) -> int:
 
 def three_pass_convs(precision: str, feature_type: Optional[str],
                      compute_dtype: Optional[str] = None) -> bool:
-    """Whether every convolution of ``feature_type``'s step runs in the
-    hand 3xTF32 convolution under ``precision`` (and the libraries with
-    TF32 off): ``high`` and ``mixed`` in
-    ``registry.THREE_PASS_CONV_FEATURES``, on float32 activations (not
-    ``compute_dtype=bfloat16``)."""
+    """Whether every convolution of ``feature_type``'s step (and for clip
+    and timm every linear and product) runs in the hand kernels under
+    ``precision`` (and the libraries with TF32 off): ``high`` and
+    ``mixed`` in ``registry.THREE_PASS_FEATURES``, on float32 activations
+    (not ``compute_dtype=bfloat16``)."""
     from video_features_torch.registry import (
-        THREE_PASS_CONV_FEATURES, THREE_PASS_PRECISIONS,
+        THREE_PASS_FEATURES, THREE_PASS_PRECISIONS,
     )
     lane(precision)
     return (precision in THREE_PASS_PRECISIONS
-            and feature_type in THREE_PASS_CONV_FEATURES
+            and feature_type in THREE_PASS_FEATURES
             and compute_dtype != 'bfloat16')
 
 
