@@ -547,6 +547,9 @@ CONV_KERNEL = 'conv_tf32x3'
 # them, held to their plain versions on every geometry of phase 19 (f)'s
 # mixed steps at rel L2 <= PRODUCT_REL_L2
 PRODUCT_KERNELS = ('gemm_tf32x3', 'dwconv_f32')
+# their earlier designs, on no path: phase 19 (f) times them in turns with
+# the kernels and holds the kernels' bytes to theirs on every geometry
+YARDSTICK_KERNELS = ('gemm_tf32x3_lockstep', 'dwconv_f32_staged')
 PRODUCT_REL_L2 = 1e-6
 CONV_REL_L2 = 1e-5      # 3xTF32 against cuDNN's fp32 (TF32 off)
 # the wgmma kernel may not be slower than the mma.sync yardstick (the mean
@@ -554,6 +557,10 @@ CONV_REL_L2 = 1e-5      # 3xTF32 against cuDNN's fp32 (TF32 off)
 # on the seven per-iteration convolutions' sum or on any of the three I3D
 # geometries
 CONV_SLOWER = 1.0
+# the GEMM and the depthwise kernel may not be slower than their earlier
+# designs over their rows' steps (ViT-B/16's GEMMs at batch 32,
+# ConvNeXt-T's depthwise convolutions at batch 8), in turns in one call
+PRODUCT_SLOWER = 1.0
 I3D_TOWER_CONVS = 57    # 3 stem units and 9 Mixed blocks of 6 convolutions
 # the families the three-pass lane took on after i3d and raft, at their
 # chip sizes: (family, label, overrides, batch, seeded input of the step,
@@ -686,6 +693,10 @@ LANE_TRANSFORMERS = (
 # the models whose mixed steps give the kernels line's GEMM and depthwise
 # rows: every distinct geometry timed, summed with its launches per step
 GEMM_ROW_MODEL, DW_ROW_MODEL = 'ViT-B/16', 'convnext_tiny'
+# the other models whose every GEMM or depthwise geometry is timed and
+# printed beside the earlier design, the plain version and the libraries
+GEMM_PRINT_MODELS = ('CLIP ViT-B/32',)
+DW_PRINT_MODELS = ('efficientnet_b0', 'mobilenetv3_large_100')
 
 
 def fail(msg: str) -> None:
@@ -3391,6 +3402,7 @@ class ProductShapes:
 
     def __call__(self, *args):
         out = self.launch(*args)
+        args = args[:5]                  # the GEMM's checked geometry aside
         if self.kind == 'gemm':
             a, b, bias, b_kn, alpha = args
             key = (tuple(a.shape), a.stride(), tuple(b.shape), b.stride(),
@@ -3400,15 +3412,20 @@ class ProductShapes:
             key = (tuple(x.shape), tuple(weight.shape), tuple(strides),
                    tuple(pads), bias is None)
         if key not in self.records:
+            # the plain version, and the earlier design's bytes
             if self.kind == 'gemm':
                 want = self.mod.gemm_tf32x3_plain(a, b, b_kn, alpha, bias)
+                old = self.mod.gemm_tf32x3_lockstep(a, b, b_kn, alpha, bias)
             else:
                 pairs = list(zip(pads[0::2], pads[1::2]))
                 want = self.mod.dwconv_f32_plain(x, weight, strides, pairs,
                                                  bias)
+                old = self.mod.dwconv_f32_staged(x, weight, strides, pairs,
+                                                 bias)
             self.records[key] = {'args': args, 'out': tuple(out.shape),
                                  'rel': rel_l2(out, want),
                                  'err': (out - want).abs().max().item(),
+                                 'same': out.equal(old),
                                  'calls': 0}
         self.records[key]['calls'] += 1
         return out
@@ -3446,9 +3463,9 @@ def dw_geometry(args, out_shape) -> dict:
 
 def product_times(torch, kind: str, args, reps: int) -> dict:
     """Device ms of one GEMM or depthwise call, from a CUDA graph of
-    ``reps`` calls, in turns (the kernel, its plain version, the library's
-    one call in fp32 and in TF32, then the other way round; each the mean
-    of its two turns). The library call: a
+    ``reps`` calls, in turns (the kernel, its earlier design, its plain
+    version, the library's one call in fp32 and in TF32, then the other
+    way round; each the mean of its two turns). The library call: a
     linear's ``F.linear``, a product's ``torch.matmul`` (alpha not
     applied), a depthwise convolution's cuDNN grouped convolution."""
     import torch.nn.functional as F
@@ -3464,6 +3481,8 @@ def product_times(torch, kind: str, args, reps: int) -> dict:
         else:
             library = lambda: torch.matmul(a, b.transpose(-1, -2))  # noqa: E731
         calls = {'ms': lambda: g.gemm_tf32x3(a, b, b_kn, alpha, bias),
+                 'yardstick_ms': lambda: g.gemm_tf32x3_lockstep(
+                     a, b, b_kn, alpha, bias),
                  'plain_ms': lambda: g.gemm_tf32x3_plain(a, b, b_kn, alpha,
                                                          bias),
                  'library_ms': library, 'library_tf32_ms': library}
@@ -3474,6 +3493,8 @@ def product_times(torch, kind: str, args, reps: int) -> dict:
             x, weight, strides, pairs, bias)
         calls = {'ms': lambda: dwconv.dwconv_f32(x, weight, strides, pairs,
                                                  bias),
+                 'yardstick_ms': lambda: dwconv.dwconv_f32_staged(
+                     x, weight, strides, pairs, bias),
                  'plain_ms': library, 'library_ms': library,
                  'library_tf32_ms': library}
     out = {key: 0.0 for key in calls}
@@ -3547,6 +3568,25 @@ def rn50_checkpoint(torch, np) -> str:
     return str(path)
 
 
+def path_weights(params) -> dict:
+    """A clip or timm model's weights on the feature path, flattened: the
+    heads and CLIP's text tower are off it."""
+    from video_features_torch.transplant import flatten
+    flat = {k: v for k, v in flatten(params).items()
+            if k.split('.')[0] not in ('head', 'head_dist', 'classifier', 'fc')}
+    if any(k.startswith('visual.') for k in flat):
+        flat = {k: v for k, v in flat.items() if k.startswith('visual.')}
+    return flat
+
+
+def linear_weights(flat: dict) -> list:
+    """The 2-D weights of a model's linears (and CLIP's projection): each
+    is one GEMM a step, and one weight pack for its life."""
+    return [k for k, v in flat.items() if v.ndim == 2
+            and (k.endswith('weight') or k == 'visual.proj')
+            and 'embedding' not in k]
+
+
 def reckon_products(params) -> dict:
     """A clip or timm model's hand-kernel launches per step on the
     three-pass lane, reckoned from its weights: every 4-D weight is a
@@ -3555,18 +3595,12 @@ def reckon_products(params) -> dict:
     outputs), every other 2-D weight a linear, each attention block two
     products (QKᵀ, PV), each of Mixer's token mixes one copy of its
     transposed input; the heads and CLIP's text tower are off the path."""
-    from video_features_torch.transplant import flatten
-    flat = {k: v for k, v in flatten(params).items()
-            if k.split('.')[0] not in ('head', 'head_dist', 'classifier', 'fc')}
-    if any(k.startswith('visual.') for k in flat):
-        flat = {k: v for k, v in flat.items() if k.startswith('visual.')}
+    flat = path_weights(params)
     convs = [k for k, v in flat.items() if v.ndim == 4 and k.endswith('weight')]
     dw = [k for k in convs if flat[k].shape[1] == 1 and 'dw' in k]
     grouped = [k for k in convs if k.endswith('conv2.conv.weight')
                and flat[k].shape[0] > flat[k].shape[1]]
-    linears = [k for k, v in flat.items() if v.ndim == 2
-               and (k.endswith('weight') or k == 'visual.proj')
-               and 'embedding' not in k]
+    linears = linear_weights(flat)
     blocks = {k.rsplit('.attn.', 1)[0] for k in flat if '.attn.' in k}
     blocks |= {'.'.join(k.split('.')[:4]) for k in flat
                if k.startswith('visual.transformer.resblocks.')}
@@ -3646,12 +3680,29 @@ def transformer_lane_model(torch, np, corr_lookup, gru, ft, label, model,
     first = batches[0]
     times = [i / FRAMEWISE_FPS * 1000 for i in range(first)]
     feats, timed = {}, {}
+    # one pack per linear weight for its life: the first mixed step makes
+    # them, no later step makes one
+    want_packs = len(linear_weights(path_weights(exs['mixed'].params)))
     for prec, ex in exs.items():
         where = f'{label} at batch {first}, precision={prec}'
         reset_counts(corr_lookup, gru)
+        packs = gemm_tf32x3.gemm_tf32x3.packs
+        torch.cuda.reset_peak_memory_stats()
         out = ex.extract_frames([(list(frames[:first]), times, None)],
                                 FRAMEWISE_FPS)[ft]
         torch.cuda.synchronize()
+        made = gemm_tf32x3.gemm_tf32x3.packs - packs
+        if made != (want_packs if prec == 'mixed' else 0):
+            fail(f'{where}: {made} weight packs made, want '
+                 f'{want_packs if prec == "mixed" else 0} (one per linear '
+                 f'weight, on the mixed lane only)')
+        if prec == 'mixed':
+            from video_features_torch.ops import weight_packs
+            print(f'{where}: {made} weight packs made (one per linear '
+                  f'weight), {weight_packs.device_bytes() / 2**20:.2f} MiB of '
+                  f'packs held, peak memory '
+                  f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB '
+                  f'({card})', flush=True)
         counts = product_counts()
         flow = read_counts(corr_lookup, gru)
         if any(flow[key] for key in ('masked', 'padded', 'gru', 'gru1')):
@@ -3710,6 +3761,7 @@ def transformer_lane_model(torch, np, corr_lookup, gru, ft, label, model,
     x = torch.from_numpy(frames[:max(batches)]).cuda()
     gemm_tf32x3._launch, dwconv._launch = shapes['gemm'], shapes['dw']
     conv_tf32x3._launch = shapes['conv']
+    packs = gemm_tf32x3.gemm_tf32x3.packs
     try:
         with torch.inference_mode(), ex.precision_scope():
             ex.packed_step(x)
@@ -3718,6 +3770,9 @@ def transformer_lane_model(torch, np, corr_lookup, gru, ft, label, model,
         gemm_tf32x3._launch = shapes['gemm'].launch
         dwconv._launch = shapes['dw'].launch
         conv_tf32x3._launch = shapes['conv'].launch
+    if gemm_tf32x3.gemm_tf32x3.packs != packs:
+        fail(f'{label}: a later mixed step made '
+             f'{gemm_tf32x3.gemm_tf32x3.packs - packs} weight packs, want 0')
     for kind, rec in shapes.items():
         records = list(rec.records.values())
         if not records:
@@ -3735,6 +3790,16 @@ def transformer_lane_model(torch, np, corr_lookup, gru, ft, label, model,
         if not worst <= bar:
             fail(f'{label}: a {kind} geometry disagrees with its plain '
                  f'version: rel L2 {worst} > {bar}')
+        if kind in ('gemm', 'dw'):
+            # the cache's fingerprint keeps its token while the bytes are
+            # the earlier design's (cache/key.py)
+            differ = [r['args'][0].shape for r in records if not r['same']]
+            print(f'{label}: {len(records) - len(differ)} of {len(records)} '
+                  f'{kind} geometries byte-equal to the earlier design '
+                  f'({card})', flush=True)
+            if differ:
+                fail(f'{label}: {kind} geometries whose bytes differ from '
+                     f'the earlier design\'s: {differ}')
     for r in shapes['gemm'].records.values():
         geo = gemm_geometry(r['args'])
         plan = gemm_tf32x3.gemm_plan(geo['batch'], geo['m'], geo['n'])
@@ -3779,7 +3844,7 @@ def product_row(torch, kind: str, recorded: dict, label: str,
     cuDNN in fp32 and TF32, the bound per geometry); the error the
     largest over every recorded model's geometries."""
     batch, shapes = recorded[label]
-    row = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
+    row = {'ms': 0.0, 'yardstick_ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
            'library_tf32_ms': 0.0, 'bound_ms': 0.0, 'ops_bound_ms': 0.0,
            'bytes_bound_ms': 0.0, 'fp32_bound_ms': 0.0, 'launches_per_step': 0}
     for r in shapes[kind].records.values():
@@ -3788,7 +3853,8 @@ def product_row(torch, kind: str, recorded: dict, label: str,
                else dw_geometry(r['args'], r['out']))
         bound = max(geo['ops_ms'], geo['bytes_ms'])
         n = r['calls']
-        for key in ('ms', 'plain_ms', 'library_ms', 'library_tf32_ms'):
+        for key in ('ms', 'yardstick_ms', 'plain_ms', 'library_ms',
+                    'library_tf32_ms'):
             row[key] += n * t[key]
         row['bound_ms'] += n * bound
         row['ops_bound_ms'] += n * geo['ops_ms']
@@ -3799,7 +3865,8 @@ def product_row(torch, kind: str, recorded: dict, label: str,
                  + (f' {"(K, N)" if r["args"][3] else "(N, K)"}'
                     if kind == 'gemm' else f' stride {r["args"][3]}'))
         print(f'{kind} [{label} at batch {batch}] {shape} x{n}: '
-              f'{t["ms"]:.4f} ms, plain {t["plain_ms"]:.4f}, library fp32 '
+              f'{t["ms"]:.4f} ms, earlier design {t["yardstick_ms"]:.4f}, '
+              f'plain {t["plain_ms"]:.4f}, library fp32 '
               f'{t["library_ms"]:.4f}, TF32 {t["library_tf32_ms"]:.4f} (in '
               f'turns); bound {bound:.4f} ms ('
               f'{"operations" if geo["ops_ms"] >= geo["bytes_ms"] else "bytes"}'
@@ -3812,7 +3879,8 @@ def product_row(torch, kind: str, recorded: dict, label: str,
     print(f'{kind} [{label} at batch {batch}, the step\'s '
           f'{row["launches_per_step"]} launches]: {row["ms"]:.4f} ms, bound '
           f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
-          f'{row["bound_ms"] / row["ms"]:.1%} of it; plain '
+          f'{row["bound_ms"] / row["ms"]:.1%} of it; earlier design '
+          f'{row["yardstick_ms"]:.4f}, plain '
           f'{row["plain_ms"]:.4f}, library fp32 {row["library_ms"]:.4f}, TF32 '
           f'{row["library_tf32_ms"]:.4f} ({card})', flush=True)
     return row
@@ -3838,7 +3906,32 @@ def lanes_transformer_phase(torch, np, corr_lookup, gru, drift, card: str,
                                recorded)
     rows = {'gemm': product_row(torch, 'gemm', recorded, GEMM_ROW_MODEL, card),
             'dw': product_row(torch, 'dw', recorded, DW_ROW_MODEL, card)}
-    for kind, name, key in (('gemm', 'gemm_tf32x3', 'gemm_tf32x3_wgmma'),
+    for kind, row in rows.items():
+        if row['ms'] > row['yardstick_ms'] * PRODUCT_SLOWER:
+            fail(f'{kind}: {row["ms"]:.4f} ms over {row["geometry"]}, slower '
+                 f'than its earlier design\'s {row["yardstick_ms"]:.4f}')
+    for kind, labels in (('gemm', GEMM_PRINT_MODELS), ('dw', DW_PRINT_MODELS)):
+        for label in labels:
+            product_row(torch, kind, recorded, label, card)
+    # the GEMM wrapper's host cost per launch over CLIP ViT-B/32's batch-8
+    # step (its 73 launches), in turns with the earlier design's wrapper
+    # (the host path before its trim)
+    from tools.gemm_tf32x3_variants import host_us_per_launch
+    from video_features_torch.ops import gemm_tf32x3, weight_packs
+    host = {'new': [], 'earlier': []}
+    for key in ('new', 'earlier', 'earlier', 'new'):
+        host[key].append(host_us_per_launch(
+            torch, gemm_tf32x3.gemm_tf32x3 if key == 'new'
+            else gemm_tf32x3.gemm_tf32x3_lockstep))
+    rows['gemm']['host_us_per_launch'] = min(host['new'])
+    rows['gemm']['yardstick_host_us_per_launch'] = min(host['earlier'])
+    rows['gemm']['packs'] = gemm_tf32x3.gemm_tf32x3.packs
+    print(f'gemm_tf32x3: host us per launch over CLIP ViT-B/32\'s batch-8 '
+          f'step {min(host["new"]):.2f} (runs {host["new"]}), the earlier '
+          f'wrapper {min(host["earlier"]):.2f} (runs {host["earlier"]}); '
+          f'{gemm_tf32x3.gemm_tf32x3.packs} weight packs made so far, '
+          f'{weight_packs.live()} held ({card})', flush=True)
+    for kind, name, key in (('gemm', 'gemm_tf32x3', 'gemm_tf32x3_ws'),
                             ('dw', 'dwconv_f32', 'dwconv_f32_kernel')):
         regs = ptxas_registers(build_logs[name], key)
         print(f'{name}: registers and spill bytes by instantiation {regs}',
@@ -6736,7 +6829,7 @@ def main() -> int:
 
     t = phase('build')
     from tools import gru_tf32x3_variants as variants
-    sources = KERNELS + (CONV_KERNEL,) + PRODUCT_KERNELS
+    sources = KERNELS + (CONV_KERNEL,) + PRODUCT_KERNELS + YARDSTICK_KERNELS
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         # the one-pass yardstick of phase 19 (a), built beside the kernels
         pr14_job = pool.submit(variants.build, 'pr14_one_pass')
@@ -6755,7 +6848,8 @@ def main() -> int:
     gemm_hgmma = sass_counts(built['gemm_tf32x3'][0], 'HGMMA')
     print(f'gemm_tf32x3 SASS: HGMMA instructions by instantiation '
           f'{gemm_hgmma}', flush=True)
-    if len(gemm_hgmma) < 8 or not all(gemm_hgmma.values()):
+    # 2 row tiles x 4 widths x a weight's pack or an activation
+    if len(gemm_hgmma) < 16 or not all(gemm_hgmma.values()):
         fail(f'gemm_tf32x3 has a function without tensor-core (HGMMA) '
              f'instructions: {gemm_hgmma}')
     conv_lib = built[CONV_KERNEL][0]
@@ -7043,7 +7137,12 @@ def main() -> int:
             'library_tf32_ms': r['library_tf32_ms'],
             'fp32_bound_ms': r['fp32_bound_ms'], 'geometry': r['geometry'],
             'launches_per_step': r['launches_per_step'],
+            'yardstick_ms': r['yardstick_ms'],
             'registers': r['registers'], 'spill_bytes': r['spill_bytes']})
+        if key == 'gemm':
+            for extra in ('host_us_per_launch', 'yardstick_host_us_per_launch',
+                          'packs'):
+                kernels[-1][extra] = r[extra]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

@@ -101,6 +101,77 @@ def test_the_split_tile_layout_is_the_conv_packs():
                            torch.arange(g.K_CHUNK).expand(bn, g.K_CHUNK))
 
 
+@pytest.mark.parametrize('b_kn', [False, True])
+def test_a_weight_pack_is_the_conv_pack_at_the_gemms_width(b_kn):
+    """A shared B's pack (``weight_pack``) is ``conv_tf32x3.pack_weight``
+    of its (N, K) form at the call's tile width: tile t, chunk q holds
+    rows t·bn … of N, each row's K value q·32 + kk at ``split_positions``,
+    hi then lo; padded rows and K are zeros. A (K, N) weight (CLIP's
+    projections) is packed transposed."""
+    rng = np.random.RandomState(9)
+    n, k = 70, 100
+    w = _t(rng, k, n) if b_kn else _t(rng, n, k)
+    nk = w.t() if b_kn else w
+    bn = g.gemm_plan(1, 500, n).bn
+    pack = g.weight_pack(w, b_kn, bn)
+    assert tuple(pack.shape) == (-(-n // bn), -(-k // 32), 2, bn, 32)
+    assert torch.equal(pack, conv_tf32x3.pack_weight(nk.contiguous(), bn=bn))
+    hi, lo = tf32_split(nk)
+    pos = g.split_positions(bn)
+    for t in range(pack.shape[0]):
+        for q in range(pack.shape[1]):
+            for r in range(bn):
+                row, cols = t * bn + r, slice(q * 32, q * 32 + 32)
+                got_hi = pack[t, q, 0, r][pos[r]]
+                got_lo = pack[t, q, 1, r][pos[r]]
+                if row >= n:
+                    assert not got_hi.any() and not got_lo.any()
+                    continue
+                want_hi = torch.zeros(32)
+                want_lo = torch.zeros(32)
+                width = min(32, k - q * 32)
+                want_hi[:width] = hi[row, cols]
+                want_lo[:width] = lo[row, cols]
+                assert torch.equal(got_hi, want_hi)
+                assert torch.equal(got_lo, want_lo)
+
+
+def test_the_pack_cache_holds_a_pack_for_its_weights_life():
+    """One pack per weight: a hit on the second call, a fresh pack after
+    an in-place update (its version moves), one per tile width, freed
+    with its weight; an inference tensor (no version counter) is packed at
+    every call and never held."""
+    import gc
+    import weakref
+    from video_features_torch.ops import weight_packs
+    rng = np.random.RandomState(10)
+    w = _t(rng, 48, 64)
+    packs, live = g.gemm_tf32x3.packs, weight_packs.live()
+    first = g.weight_pack(w, False, 64)
+    assert g.weight_pack(w, False, 64) is first
+    assert g.gemm_tf32x3.packs == packs + 1
+    assert weight_packs.live() == live + 1
+    assert weight_packs.device_bytes('cpu') >= first.numel() * 4
+    w.add_(1.0)
+    second = g.weight_pack(w, False, 64)
+    assert second is not first and g.gemm_tf32x3.packs == packs + 2
+    assert torch.equal(second, conv_tf32x3.pack_weight(w, bn=64))
+    assert g.weight_pack(w, False, 32) is not second      # another width
+    assert weight_packs.live() == live + 2
+    ref = weakref.ref(second)
+    del w, first, second
+    gc.collect()
+    assert ref() is None and weight_packs.live() == live
+    with torch.inference_mode():
+        frozen = _t(rng, 16, 32)
+    assert frozen.is_inference()
+    before = g.gemm_tf32x3.packs
+    a, b = g.weight_pack(frozen, False, 16), g.weight_pack(frozen, False, 16)
+    assert a is not b and torch.equal(a, b)
+    assert g.gemm_tf32x3.packs == before + 2
+    assert weight_packs.live() == live
+
+
 @pytest.mark.parametrize('batch,m,n,want', [
     (1, 6304, 2304, (128, 128, 18)),     # ViT-B/16 qkv at batch 32
     (1, 6304, 768, (128, 128, 6)),
@@ -109,8 +180,10 @@ def test_the_split_tile_layout_is_the_conv_packs():
     (384, 50, 50, (64, 64, 1)),          # CLIP ViT-B/32's 50 tokens
     (1536, 49, 49, (64, 64, 1)),         # swin_tiny's windows at batch 8
     (1536, 49, 32, (64, 32, 1)),
-    (1, 8, 1000, (64, 128, 8)),          # a classifier head
+    (1, 8, 1000, (64, 16, 63)),          # a classifier head: narrow tiles
     (1, 1000, 10, (64, 16, 1)),          # few blocks: 64-row tiles
+    (1, 32, 512, (64, 16, 32)),          # CLIP's projection at batch 32
+    (8, 50, 2048, (64, 64, 32)),         # RN50's attention pool at batch 8
 ])
 def test_the_tile_plan(batch, m, n, want):
     plan = g.gemm_plan(batch, m, n)
@@ -178,13 +251,72 @@ def test_the_depthwise_plain_version_is_the_grouped_library_conv(name):
     assert rel_l2(want, exact) <= EMULATED_REL_L2
 
 
+# the timm CNNs' depthwise outputs at batch 8, (n, oh, ow, c), kernel and
+# strides, and the plan: (channel groups, rows) per block
+DW_PLANS = {
+    'convnext 56': ((8, 56, 56, 96), (7, 7, 1, 1), (8, 4)),
+    'convnext 28': ((8, 28, 28, 192), (7, 7, 1, 1), (8, 4)),
+    'convnext 14': ((8, 14, 14, 384), (7, 7, 1, 1), (2, 14)),
+    'convnext 7': ((8, 7, 7, 768), (7, 7, 1, 1), (4, 7)),
+    'effnet 112': ((8, 112, 112, 32), (3, 3, 1, 1), (8, 2)),
+    'effnet 56 s2': ((8, 56, 56, 96), (3, 3, 2, 2), (8, 2)),   # the patch's budget
+    'effnet 7 s1': ((8, 7, 7, 1152), (3, 3, 1, 1), (8, 7)),
+    'batch 64 at 7': ((64, 7, 7, 768), (7, 7, 1, 1), (32, 7)),
+    'odd channels': ((2, 7, 6, 6), (3, 3, 2, 2), (1, 7)),
+}
+
+
+@pytest.mark.parametrize('name', sorted(DW_PLANS))
+def test_the_depthwise_tile_plan(name):
+    """Small maps take the whole map a block and halve their channel
+    groups, wide ones up to 8 groups and halve their rows, until the
+    blocks are at least twice the SMs; the staged patch fits the budget;
+    every block fits the kernel's 256 threads and covers its rows' every
+    column; its shared memory is the kernel's patch and taps."""
+    (n, oh, ow, c), (kh, kw, sh, sw), want = DW_PLANS[name]
+    plan = dwconv.dw_plan(n, oh, ow, c, kh, kw, sh, sw)
+    assert (plan.cg, plan.rows) == want
+    assert plan.cg * plan.rows * plan.strips <= dwconv.THREADS
+    assert plan.strips * dwconv.STRIP >= ow > (plan.strips - 1) * dwconv.STRIP
+    assert plan.blocks == n * -(-oh // plan.rows) * -(-(-(-c // 4)) // plan.cg)
+    assert plan.blocks >= 2 * dwconv.SMS or plan.rows == 1 or plan.cg == 1
+    if oh <= 14:
+        assert plan.rows == oh
+    pr, pc = (plan.rows - 1) * sh + kh, (plan.strips * 7 - 1) * sw + kw
+    assert plan.smem == (pr * pc + kh * kw) * plan.cg * 16 <= dwconv.SMEM_BUDGET
+
+
+@pytest.mark.parametrize('c', [6, 16])
+def test_the_depthwise_taps_are_packed_tap_major(c):
+    """``pack_taps``: tap t of channel ch at (t, ch), channels padded to a
+    multiple of 4 with zeros, so one 16-byte load is a tap of 4
+    channels."""
+    rng = np.random.RandomState(11)
+    w = _t(rng, c, 1, 3, 5)
+    taps = dwconv.pack_taps(w)
+    assert tuple(taps.shape) == (15, -(-c // 4) * 4) and taps.is_contiguous()
+    for ch in range(c):
+        for dh in range(3):
+            for dw in range(5):
+                assert taps[dh * 5 + dw, ch] == w[ch, 0, dh, dw]
+    assert not taps[:, c:].any()
+
+
+@pytest.mark.parametrize('k,stride', [(3, 1), (3, 2), (5, 1), (5, 2), (7, 1)])
+def test_the_staged_yardstick_fits_the_paths_kernels(k, stride):
+    """The staged yardstick's patch and taps (``smem_bytes``) fit a block
+    at every kernel size and stride of the timm CNNs' path."""
+    assert dwconv.smem_bytes(k, k, stride, stride) <= dwconv.SMEM_OPTIN
+
+
 @pytest.mark.parametrize('case,match', [
     ('not_depthwise', 'depthwise'), ('dtype', 'float32'),
     ('contiguous', 'contiguous'), ('bias', 'bias must be'),
-    ('empty', 'empty output')])
+    ('empty', 'empty output'), ('wide', 'at most 7 taps'),
+    ('stride', 'stride of 1 or 2')])
 def test_the_depthwise_kernel_refuses_what_it_does_not_take(case, match):
     rng = np.random.RandomState(5)
-    x, w, b = _t(rng, 1, 8, 8, 12), _t(rng, 12, 1, 3, 3), None
+    x, w, b, stride = _t(rng, 1, 8, 8, 12), _t(rng, 12, 1, 3, 3), None, 1
     if case == 'not_depthwise':
         w = _t(rng, 12, 2, 3, 3)
     elif case == 'dtype':
@@ -195,8 +327,12 @@ def test_the_depthwise_kernel_refuses_what_it_does_not_take(case, match):
         b = _t(rng, 6)
     elif case == 'empty':
         w = _t(rng, 12, 1, 9, 9)
+    elif case == 'wide':
+        w = _t(rng, 12, 1, 1, 8)
+    elif case == 'stride':
+        w, stride = _t(rng, 12, 1, 3, 3), (1, 3)
     with pytest.raises(ValueError, match=match):
-        dwconv.dwconv_f32(x, w, 1, 0, b)
+        dwconv.dwconv_f32(x, w, stride, 0, b)
 
 
 # -- the routes of ops/nn.py -------------------------------------------------------

@@ -442,6 +442,11 @@ GEMM_GEOMETRIES = [
     ('vit_l16 fc2', (394, 4096), (1024, 4096), False, 1.0, True),
     ('head', (8, 768), (1000, 768), False, 1.0, True),
     ('ragged', (3, 37, 13), (3, 29, 13), False, 0.5, True),
+    # P's rows of 257 floats (ViT-B/32 at 288 px), not 16-byte aligned
+    ('vit_b32 288px pv', 'pv', (2, 257, 12, 64), True, 1.0, False),
+    # ragged M under both consumer warpgroups, a weight and an activation B
+    ('ragged m weight', (300, 256), (192, 256), False, 1.0, True),
+    ('ragged m activation', (2, 300, 96), (2, 200, 96), False, 1.0, False),
 ]
 GEMM_REL_L2 = 1e-6      # 3xTF32 against fp32 (TF32 off): ~2.5e-7 and fp32's own
 
@@ -456,6 +461,8 @@ DWCONV_GEOMETRIES = [
     ((2, 112, 112, 16), 3, 1, 1), ((2, 56, 56, 72), 5, 2, 2),    # mobilenetv3
     ((2, 14, 14, 184), 3, 1, 1), ((2, 7, 7, 960), 5, 1, 2),
     ((2, 13, 11, 6), 3, 2, [(1, 0), (0, 2)]),                    # C % 4 != 0
+    ((3, 7, 7, 36), 7, 1, 3), ((2, 14, 14, 20), 5, 2, 2),       # C % 32 != 0
+    ((2, 9, 23, 10), 7, 2, 3),                                   # C % 4, ragged strips
 ]
 DWCONV_REL_L2 = 1e-6    # fp32 FMAs against cuDNN's fp32
 
@@ -505,6 +512,88 @@ def test_gemm_kernel_matches_plain_on_the_card(name, a_shape, b_shape, kn,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('name,a_shape,b_shape,kn,alpha,bias',
+                         GEMM_GEOMETRIES, ids=[g[0] for g in GEMM_GEOMETRIES])
+def test_gemm_kernel_is_byte_equal_to_the_lockstep_design(name, a_shape,
+                                                          b_shape, kn, alpha,
+                                                          bias):
+    """The warp-specialised kernel (a weight pre-split on the host, an
+    activation split in the kernel) and the lockstep yardstick (every B
+    split by its consumers) do the same products in the same order: the
+    same bytes, so cached outputs of either answer for both."""
+    from video_features_torch.ops import gemm_tf32x3 as g
+    dev = _cuda()
+    a, b = _gemm_operands(dev, a_shape, b_shape, 24)
+    n = b.shape[-1] if kn else b.shape[-2]
+    c = (torch.from_numpy(np.random.RandomState(25).randn(n).astype(
+        np.float32)).to(dev) if bias else None)
+    before = g.gemm_tf32x3_lockstep.launches
+    got = g.gemm_tf32x3(a, b, kn, alpha, c)
+    old = g.gemm_tf32x3_lockstep(a, b, kn, alpha, c)
+    torch.cuda.synchronize()
+    assert g.gemm_tf32x3_lockstep.launches == before + 1
+    assert torch.equal(got, old)
+
+
+@pytest.mark.cuda
+def test_gemm_takes_aligned_rows_by_tma_and_unaligned_ones_as_supersets():
+    """Every linear's rows and the (B, H, S, D) head views go by the
+    tensor map; P's rows of 50, 197 and 257 floats as 16-byte-aligned
+    supersets, with nothing past the tensor read: the last row of a
+    tensor that ends at its allocation's end, at every offset."""
+    from video_features_torch.ops import gemm_tf32x3 as g
+    dev = _cuda()
+    q, _ = _gemm_operands(dev, 'qkv', (2, 197, 12, 64), 26)
+    assert g.a_by_tma(q) and g.a_by_tma(torch.randn(394, 768, device=dev))
+    for tokens in (50, 197, 257):
+        p, v = _gemm_operands(dev, 'pv', (2, tokens, 12, 64), 27)
+        assert not g.a_by_tma(p)
+        # P at each float offset from a 16-byte boundary, its last row the
+        # allocation's last floats
+        for offset in range(4):
+            store = torch.empty(offset + p.numel(), device=dev)
+            shifted = store[offset:].view(p.shape).copy_(p)
+            got = g.gemm_tf32x3(shifted, v, True)
+            want = g.gemm_tf32x3_plain(p, v, True)
+            torch.cuda.synchronize()
+            assert ((got - want).norm() / want.norm()).item() <= GEMM_REL_L2
+
+
+@pytest.mark.cuda
+def test_gemm_weight_packs_live_as_long_as_their_weight():
+    """A shared B is packed once (``gemm_tf32x3.packs``): a second call
+    reuses it, an in-place update packs anew (and the result follows the
+    update), a ``(K, N)`` weight is packed transposed, and the pack dies
+    with its weight."""
+    import gc
+    from video_features_torch.ops import gemm_tf32x3 as g, weight_packs
+    dev = _cuda()
+    rng = np.random.RandomState(28)
+    a = torch.from_numpy(rng.randn(3, 70, 96).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.randn(40, 96).astype(np.float32)).to(dev)
+    proj = torch.from_numpy(rng.randn(96, 24).astype(np.float32)).to(dev)
+    packs, held = g.gemm_tf32x3.packs, weight_packs.device_bytes()
+    first = g.gemm_tf32x3(a, w)
+    second = g.gemm_tf32x3(a, w)
+    assert g.gemm_tf32x3.packs == packs + 1 and torch.equal(first, second)
+    assert weight_packs.device_bytes() > held
+    w.mul_(2.0)
+    third = g.gemm_tf32x3(a, w)
+    assert g.gemm_tf32x3.packs == packs + 2
+    torch.cuda.synchronize()
+    assert torch.equal(third, 2.0 * first)          # exact: a power of two
+    got = g.gemm_tf32x3(a, proj, True)
+    want = g.gemm_tf32x3_plain(a, proj, True)
+    assert g.gemm_tf32x3.packs == packs + 3
+    torch.cuda.synchronize()
+    assert ((got - want).norm() / want.norm()).item() <= GEMM_REL_L2
+    live = weight_packs.live()
+    del w, proj
+    gc.collect()
+    assert weight_packs.live() == live - 2
+
+
+@pytest.mark.cuda
 def test_gemm_kernel_raises_on_what_it_does_not_take():
     from video_features_torch.ops import gemm_tf32x3 as g
     dev = _cuda()
@@ -537,3 +626,26 @@ def test_dwconv_kernel_matches_plain_on_the_card(xs, k, stride, padding):
         assert got.shape == want.shape
         assert ((got - want).norm() / want.norm()).item() <= DWCONV_REL_L2
     assert dwconv.dwconv_f32.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('xs,k,stride,padding', DWCONV_GEOMETRIES)
+def test_dwconv_kernel_is_byte_equal_to_the_staged_design(xs, k, stride,
+                                                          padding):
+    """The register-blocked kernel sums each output's taps in the staged
+    design's order (``fmaf`` from 0, row-major), so its bytes are the
+    staged yardstick's, with and without a bias, on every map size,
+    stride and channel count."""
+    from video_features_torch.ops import dwconv
+    dev = _cuda()
+    rng = np.random.RandomState(29)
+    x = torch.from_numpy(rng.randn(*xs).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.randn(xs[-1], 1, k, k).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(xs[-1]).astype(np.float32)).to(dev)
+    before = dwconv.dwconv_f32_staged.launches
+    for bias in (b, None):
+        got = dwconv.dwconv_f32(x, w, stride, padding, bias)
+        old = dwconv.dwconv_f32_staged(x, w, stride, padding, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(got, old)
+    assert dwconv.dwconv_f32_staged.launches == before + 2

@@ -172,6 +172,23 @@ def resident(name: str) -> Optional[Dict[str, Any]]:
 
 
 @functools.lru_cache(maxsize=None)
+def sms(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``, read once."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def current_stream(index: int) -> int:
+    """The raw pointer of CUDA device ``index``'s current stream, for a
+    kernel's entry point (without making a ``torch.cuda.Stream`` where
+    torch offers the raw call)."""
+    import torch
+    raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    return raw(index) if raw is not None else \
+        torch.cuda.current_stream(index).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library ``name``, loaded once per process: through the
     attached executable store, else built (or found built) here."""

@@ -158,12 +158,18 @@ def k_chunks(channels: int, taps: int) -> int:
     return -(-taps * _round_up(channels, C_GROUP) // K_CHUNK)
 
 
-def packed_shape(weight_shape: Sequence[int],
-                 groups: int = 1) -> Tuple[int, ...]:
+def packed_shape(weight_shape: Sequence[int], groups: int = 1,
+                 bn: Optional[int] = None) -> Tuple[int, ...]:
     """:func:`pack_weight`'s shape for an ``(O, I/groups, *k)`` weight:
-    (tiles, chunks, 2 (hi, lo), bn, 32)."""
+    (tiles, chunks, 2 (hi, lo), bn, 32); ``bn`` a given tile width (one
+    group: the 3xTF32 GEMM's weights) or :func:`channel_tiles`'."""
     O, ig = weight_shape[:2]
-    bn, tiles = channel_tiles(O, groups, ig)
+    if bn is None:
+        bn, tiles = channel_tiles(O, groups, ig)
+    elif groups != 1:
+        raise ValueError(f'a given tile width takes one group; got {groups}')
+    else:
+        tiles = -(-O // bn)
     cin = tile_inputs(ig, O, groups, bn)
     return (tiles, k_chunks(cin, math.prod(weight_shape[2:])), 2, bn,
             K_CHUNK)
@@ -177,7 +183,8 @@ def _group_slots(o: int, ig: int, groups: int,
     return span, (torch.arange(o) // (o // groups)) % span
 
 
-def pack_weight(weight: torch.Tensor, groups: int = 1) -> torch.Tensor:
+def pack_weight(weight: torch.Tensor, groups: int = 1,
+                bn: Optional[int] = None) -> torch.Tensor:
     """``(O, I/groups, *k)`` → the kernel's operand ``(tiles, chunks, 2,
     bn, 32)``: the GEMM's B matrix (K = taps × the tile's input channels,
     padded to 4 per tap, then to a multiple of 32; O padded to ``tiles ×
@@ -188,10 +195,11 @@ def pack_weight(weight: torch.Tensor, groups: int = 1) -> torch.Tensor:
     (:func:`~video_features_torch.ops.gru.tf32_split`), each row's 32 K
     values in the kernel's fragment order (``ops/gru.py::K_ORDER``) and
     stored in the 128-byte swizzle (``ops/gru.py::_swizzle``). A tile's
-    hi and lo parts are contiguous, one bulk copy per ring stage."""
+    hi and lo parts are contiguous, one bulk copy per ring stage. ``bn``:
+    a given tile width (:func:`packed_shape`)."""
     O, ig = weight.shape[:2]
     taps = math.prod(weight.shape[2:])
-    tiles, chunks, _, bn, _ = packed_shape(weight.shape, groups)
+    tiles, chunks, _, bn, _ = packed_shape(weight.shape, groups, bn)
     c4 = tile_inputs(ig, O, groups, bn)
     w = weight.reshape(O, ig, taps).transpose(1, 2)              # (O, taps, I/G)
     if groups > 1:
