@@ -1,0 +1,7 @@
+"""The program's decode+preprocess stage (Tracer) in the window, ms per
+window delivered."""
+from portbench.harness import readings
+
+
+def read(run):
+    return readings.host_ms(run, 'windows')

@@ -1,0 +1,7 @@
+"""RAFT's refinement (models/raft.py::_refine): counted FLOPs over its
+kernels' device time, as a share of the peak, %."""
+from portbench.harness import readings
+
+
+def read(run):
+    return readings.roofline(run, 'frames', 'portbench.raft_update')
